@@ -6,20 +6,38 @@
 Phases, in order (any failure raises and the script exits non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off;
   2. build: nvcc compiles vmap_tpu_torch/kernels/csrc/*.cu for sm_90a;
-  3. kernel against plain on the card, at the object shape (104 slots,
-     100 active, h=32, 120 rays x 10 samples) and the background shape
-     (1 slot, h=128, 1200 rays x 14 samples): each kernel alone (one
-     iteration's gradient, one AdamW step), then whole frames at
+  3. train-frame kernels against plain on the card, at the object shape
+     (104 slots, 100 active, h=32, 120 rays x 10 samples) and the
+     background shape (1 slot, h=128, 1200 rays x 14 samples): each kernel
+     alone (one iteration's gradient, one AdamW step), then whole frames at
      n_iter=1 (losses / parameters / moments within rtol 2e-3) and at
      n_iter=20 (finite; final summed loss within rtol 0.25); inactive
      slots bit-identical;
-  4. end to end: ``vmap_tpu_torch.train.main`` for 8 frames of
+  4. end to end: ``vmap_tpu_torch.train.main`` for 12 frames of
      configs/Replica/room0_vmap.json with dataset.format Synthetic
-     (1200x680 analytic frames); finite losses, 2 x n_iter x 2 kernel
-     launches per frame, sphere / box / background slots active;
+     (1200x680 analytic frames) and --save_ckpt: finite losses, 2 x n_iter
+     x 2 train-kernel launches per frame, the last frame's meshes of the
+     background, sphere and box (field kernel launched, sphere vertices
+     within 0.15 m median of the analytic sphere), the export's host
+     seconds per stage, then --resume from the checkpoint for 2 more
+     frames with finite losses;
   5. full-width frame: the bench-shaped workload (104 slots, 100 active,
      a random 16-slot 1200x680 pool, px_block_bg 4), 3 frames through the
-     kernel path and the plain path, timed with CUDA events.
+     kernel path and the plain path, timed with CUDA events;
+  6. field kernels against plain: K2 (alpha atol 3e-4, colour atol 2e-5)
+     and K3 (every weight gradient within rtol 2e-3, atol 2e-3 x
+     max(1, |g|max)) at 8 objects x 65,573 points (h=32) and 1 object x
+     131,072 points (h=128), timed with CUDA events;
+  7. meshing at full width: a 100-object h=32 bank over 128^3 grid points
+     per object and one h=128 background over 256^3, per-chunk and
+     whole-grid times of the kernel and the plain query, and the
+     occupancy's max abs difference between them; grid_volumes (chunks in
+     flight) equal to its chunks, and its time and peak device memory with
+     every object at 256^3;
+  8. the field-kernel training path: object- and background-shape frames
+     through the plain frame with StepStatics.use_pallas_train, held to
+     the tiers of phase 3; field_bwd and one iteration's gradient timed
+     at each shape's own backward tile against their plain versions.
 
 Prints a JSON line of per-kernel results, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Without CUDA it exits non-zero
@@ -32,6 +50,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -43,6 +62,10 @@ RTOL_SEM, RTOL_FULL = 2e-3, 0.25
 # (name, cap, n_active, hidden, rays per iteration, samples, scale)
 SHAPES = (("obj", 104, 100, 32, 120, 10, 2.0),
           ("bg", 1, 1, 128, 1200, 14, 5.0))
+# field kernels: (name, objects, hidden, points per object, scale); the
+# object shape's M leaves a ragged tail
+FIELD_SHAPES = (("obj", 8, 32, 65536 + 37, 2.0),
+                ("bg", 1, 128, 131072, 5.0))
 
 
 def log(msg: str) -> None:
@@ -178,57 +201,155 @@ def check_kernels(dev, stats: dict, shapes=SHAPES) -> None:
             f"{stats['train_adamw'][name]['plain_ms']:.4f}")
 
         # whole frames, two tiers
-        for n_iter in (1, 20):
-            batch = random_batch(cap, n_iter * n_per, S, 2, dev)
-            rb, rl = K.fused_frame_reference(bank, batch, n_iter, n_per, LR,
-                                             WD, CS, OSC)
-            kb, kl = K.fused_frame(bank, batch, n_iter, n_per, LR, WD, CS,
-                                   OSC)
-            torch.cuda.synchronize()
-            for t in (kb.flat, kb.m, kb.v, kl):
-                assert bool(torch.isfinite(t).all()), f"{name}: non-finite"
+        frame_tiers("3", name, bank, S, n_per, dev,
+                    lambda bank, batch, n_iter: K.fused_frame(
+                        bank, batch, n_iter, n_per, LR, WD, CS, OSC))
+
+
+def frame_tiers(phase, name, bank, S, n_per, dev, kernel_frame) -> None:
+    """A frame through ``kernel_frame(bank, batch, n_iter)`` against the
+    plain autograd frame: n_iter=1 losses / parameters / moments within
+    rtol 2e-3, n_iter=20 finite with the final summed loss within rtol
+    0.25; inactive slots bit-identical."""
+    import torch
+    from vmap_tpu_torch.kernels import train_step as K
+    inact = ~bank.active
+    cap = bank.flat.shape[0]
+    for n_iter in (1, 20):
+        batch = random_batch(cap, n_iter * n_per, S, 2, dev)
+        rb, rl = K.fused_frame_reference(bank, batch, n_iter, n_per, LR, WD,
+                                         CS, OSC)
+        kb, kl = kernel_frame(bank, batch, n_iter)
+        torch.cuda.synchronize()
+        for t in (kb.flat, kb.m, kb.v, kl):
+            assert bool(torch.isfinite(t).all()), f"{name}: non-finite"
+        for f in ("flat", "m", "v"):
+            assert torch.equal(getattr(kb, f)[inact],
+                               getattr(bank, f)[inact]), \
+                f"{name}: inactive {f} not bit-identical"
+        assert torch.equal(kb.step, rb.step)
+        if n_iter == 1:
+            rel_close(kl, rl, RTOL_SEM, 1e-6, f"{name} losses n_iter=1")
+            # atol: 1e-3 of each tensor's scale. A ReLU pre-activation
+            # within rounding of 0 can fall on either side in the two
+            # paths (FMA contraction, summation order), moving one
+            # point's term in or out of a gradient: one element of m
+            # (b_mid2) differed by 2e-4 of m's scale on the H100
             for f in ("flat", "m", "v"):
-                assert torch.equal(getattr(kb, f)[inact],
-                                   getattr(bank, f)[inact]), \
-                    f"{name}: inactive {f} not bit-identical"
-            assert torch.equal(kb.step, rb.step)
-            if n_iter == 1:
-                rel_close(kl, rl, RTOL_SEM, 1e-6, f"{name} losses n_iter=1")
-                # atol: 1e-3 of each tensor's scale. A ReLU pre-activation
-                # within rounding of 0 can fall on either side in the two
-                # paths (FMA contraction, summation order), moving one
-                # point's term in or out of a gradient: one element of m
-                # (b_mid2) differed by 2e-4 of m's scale on the H100
-                for f in ("flat", "m", "v"):
-                    want = getattr(rb, f)
-                    err = rel_close(getattr(kb, f), want, RTOL_SEM,
-                                    1e-3 * float(want.abs().max()),
-                                    f"{name} {f}")
-                    col = int(((getattr(kb, f) - want).abs().max(0)
-                               .values.argmax()))
-                    worst = next(nm for _, nm, _, off, size in bank.spec.names
-                                 if off <= col < off + size)
-                    log(f"[3] {name} n_iter=1 {f}: max abs err {err:.3e} "
-                        f"(scale {float(want.abs().max()):.3e}, worst in "
-                        f"{worst})")
-                detail = float(((kl - rl).abs()
-                                / rl.abs().clamp_min(1e-9)).max())
-            else:
-                a, b = float(kl[:, -1].sum()), float(rl[:, -1].sum())
-                detail = abs(a - b) / max(abs(b), 1e-9)
-                if not detail < RTOL_FULL:
-                    raise AssertionError(f"{name} n_iter=20 final loss "
-                                         f"{a} vs plain {b}")
-            log(f"[3] {name} frame n_iter={n_iter}: loss rel diff "
-                f"{detail:.3e} (kernel {float(kl[:, -1].sum()):.6f}, "
-                f"plain {float(rl[:, -1].sum()):.6f}) ok")
+                want = getattr(rb, f)
+                err = rel_close(getattr(kb, f), want, RTOL_SEM,
+                                1e-3 * float(want.abs().max()),
+                                f"{name} {f}")
+                col = int(((getattr(kb, f) - want).abs().max(0)
+                           .values.argmax()))
+                worst = next(nm for _, nm, _, off, size in bank.spec.names
+                             if off <= col < off + size)
+                log(f"[{phase}] {name} n_iter=1 {f}: max abs err {err:.3e} "
+                    f"(scale {float(want.abs().max()):.3e}, worst in "
+                    f"{worst})")
+            detail = float(((kl - rl).abs()
+                            / rl.abs().clamp_min(1e-9)).max())
+        else:
+            a, b = float(kl[:, -1].sum()), float(rl[:, -1].sum())
+            detail = abs(a - b) / max(abs(b), 1e-9)
+            if not detail < RTOL_FULL:
+                raise AssertionError(f"{name} n_iter=20 final loss "
+                                     f"{a} vs plain {b}")
+        log(f"[{phase}] {name} frame n_iter={n_iter}: loss rel diff "
+            f"{detail:.3e} (kernel {float(kl[:, -1].sum()):.6f}, "
+            f"plain {float(rl[:, -1].sum()):.6f}) ok")
+
+
+# ---------------------------------------------------------------- phase 6
+def field_operands(O, hidden, M, scale, seed, dev):
+    """Prepared params of O freshly initialised fields (weights x0.5 so the
+    occupancy is not saturated), points in [-scale, scale]^3 and random
+    cotangents."""
+    import torch
+    from vmap_tpu_torch.core import bank as B
+    from vmap_tpu_torch.kernels import ensemble as E
+    gen = torch.Generator().manual_seed(seed)
+    bank = B.init_bank(gen, O, hidden, default_scale=scale)
+    pe, mlp_p = bank.spec.unflatten(bank.flat * 0.5)
+    scales = scale + 0.05 * torch.arange(O, dtype=torch.float32)
+    prepared = {k: v.to(dev) for k, v in
+                E.prepare_params(pe, mlp_p, scales, hidden).items()}
+    pts = ((torch.rand(O, M, 3, generator=gen) * 2 - 1) * scale).to(dev)
+    g_a = torch.randn(O, M, generator=gen).to(dev)
+    g_c = torch.randn(O, M, 3, generator=gen).to(dev)
+    return prepared, pts, g_a, g_c
+
+
+def check_field_kernels(dev, stats: dict, shapes=FIELD_SHAPES) -> None:
+    """K2 and K3 against their plain versions (JAX bar,
+    tests/test_pallas_kernel.py:55-56 and :103-108)."""
+    import torch
+    from vmap_tpu_torch.kernels import ensemble as E
+    for name, O, h, M, scale in shapes:
+        prepared, pts, g_a, g_c = field_operands(O, h, M, scale, 3, dev)
+        a_k, c_k = E.field_eval(prepared, pts)
+        a_r, c_r = E.field_eval_reference(prepared, pts)
+        torch.cuda.synchronize()
+        err_a = rel_close(a_k, a_r, 0.0, 3e-4, f"{name} field_fwd alpha")
+        err_c = rel_close(c_k, c_r, 0.0, 2e-5, f"{name} field_fwd colour")
+        g_k = E.field_grad(prepared, pts, g_a, g_c)
+        g_r = E.field_grad_reference(prepared, pts, g_a, g_c)
+        torch.cuda.synchronize()
+        err_g, worst = 0.0, ""
+        for n in E.W_NAMES:
+            gmax = float(g_r[n].abs().max())
+            e = rel_close(g_k[n], g_r[n], 2e-3, 2e-3 * max(1.0, gmax),
+                          f"{name} field_bwd d{n}")
+            if e / max(1.0, gmax) >= err_g:
+                err_g, worst = e / max(1.0, gmax), n
+        fwd = stats.setdefault("field_fwd", {})[name] = {
+            "max_abs_err": max(err_a, err_c),
+            "ms": time_cuda(lambda: E.field_eval(prepared, pts), 10),
+            "plain_ms": time_cuda(
+                lambda: E.field_eval_reference(prepared, pts), 10)}
+        bwd = stats.setdefault("field_bwd", {})[name] = {
+            "max_abs_err": err_g,
+            "ms": time_cuda(lambda: E.field_grad(prepared, pts, g_a, g_c), 3),
+            "plain_ms": time_cuda(
+                lambda: E.field_grad_reference(prepared, pts, g_a, g_c), 3)}
+        log(f"[6] {name} ({O} x {M} points, h={h}): field_fwd alpha err "
+            f"{err_a:.3e} colour err {err_c:.3e}, ms kernel/plain "
+            f"{fwd['ms']:.4f}/{fwd['plain_ms']:.4f}; field_bwd worst "
+            f"err/scale {err_g:.3e} (d{worst}), ms kernel/plain "
+            f"{bwd['ms']:.4f}/{bwd['plain_ms']:.4f}")
 
 
 # ---------------------------------------------------------------- phase 4
-def run_trainer(n_frames: int) -> dict:
+def reset_counts() -> None:
+    from vmap_tpu_torch.kernels import ensemble as E
+    from vmap_tpu_torch.kernels import train_step as K
+    for counts in (K.LAUNCHES, E.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_counts() -> dict:
+    from vmap_tpu_torch.kernels import ensemble as E
+    from vmap_tpu_torch.kernels import train_step as K
+    return {**K.LAUNCHES, **E.LAUNCHES}
+
+
+def sphere_error(obj_path: str, scene) -> float:
+    """Median distance of the mesh's vertices from the analytic sphere of
+    the synthetic scene the trainer rendered its frames from."""
+    import numpy as np
+    from vmap_tpu_torch.core.meshing import read_obj_vertices
+    v = read_obj_vertices(obj_path)
+    d = np.linalg.norm(v - scene.sphere_center, axis=1)
+    return float(np.median(np.abs(d - scene.sphere_radius)))
+
+
+def run_trainer(n_frames: int, n_resume: int = 2) -> dict:
+    """room0 through the CLI for ``n_frames`` (the last one takes the mesh
+    and checkpoint branch), then ``--resume`` for ``n_resume`` more."""
     import numpy as np
     from vmap_tpu_torch import train
-    from vmap_tpu_torch.kernels import train_step as K
+    from vmap_tpu_torch.core import meshing
 
     with open(os.path.join(REPO, "configs", "Replica",
                            "room0_vmap.json")) as f:
@@ -238,35 +359,64 @@ def run_trainer(n_frames: int) -> dict:
     with open(cfg_path, "w") as f:
         json.dump(raw, f, indent=1)
     logdir = os.path.join(OUT, "train_room0_synthetic")
+    if os.path.isdir(logdir):
+        shutil.rmtree(logdir)
     log_path = os.path.join(logdir, "train_log.jsonl")
-    if os.path.exists(log_path):
-        os.remove(log_path)
     n_iter = raw["render"]["iters_per_frame"]
 
-    for k in K.LAUNCHES:
-        K.LAUNCHES[k] = 0
+    reset_counts()
     t0 = time.perf_counter()
-    mapper = train.main(["--config", cfg_path, "--logdir", logdir,
-                         "--max_frames", str(n_frames), "--device", "cuda"])
+    mapper, dataset = train.run(["--config", cfg_path, "--logdir", logdir,
+                                 "--max_frames", str(n_frames), "--device",
+                                 "cuda", "--save_ckpt"])
     wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    launches = read_counts()
+    stages = dict(meshing.STAGE_S)
 
     rows = [json.loads(line) for line in open(log_path)]
     assert len(rows) == n_frames, rows
     losses = [r["loss"] for r in rows]
     assert all(np.isfinite(losses)), losses
-    for k, count in launches.items():
-        if count != 2 * n_iter * n_frames:
-            raise AssertionError(f"{k}: {count} launches for {n_frames} "
-                                 f"frames; expected 2 x {n_iter} per frame")
+    for k in ("train_grad", "train_adamw"):
+        if launches[k] != 2 * n_iter * n_frames:
+            raise AssertionError(f"{k}: {launches[k]} launches for "
+                                 f"{n_frames} frames; expected 2 x {n_iter} "
+                                 "per frame")
+    if not launches["field_fwd"] > 0:
+        raise AssertionError("mesh export launched no field_fwd kernel")
     for obj_id in (0, 1, 2):     # background, sphere, box
         rec = mapper.registry[obj_id]
         bank = mapper.bank_bg if rec.is_bg else mapper.bank_obj
         assert bool(bank.active[rec.slot]), f"object {obj_id} inactive"
+        path = os.path.join(logdir, "scene_mesh",
+                            f"frame_{n_frames - 1}_obj{obj_id}.obj")
+        if not os.path.getsize(path) > 0:
+            raise AssertionError(f"{path} is empty")
+    sphere_err = sphere_error(os.path.join(
+        logdir, "scene_mesh", f"frame_{n_frames - 1}_obj1.obj"),
+        dataset.scene)
+    if not sphere_err < 0.15:    # the bar of tests/test_meshing.py
+        raise AssertionError(f"sphere mesh median error {sphere_err} m")
+    state = os.path.join(logdir, "ckpt", "state")
     log(f"[4] trainer: {n_frames} frames in {wall:.1f} s, losses "
         f"{[round(x, 4) for x in losses]}, launches {launches}, objects "
-        f"{sorted(mapper.registry)}")
-    return launches
+        f"{sorted(mapper.registry)}; sphere mesh median error "
+        f"{sphere_err:.4f} m; checkpoint {sorted(os.listdir(state))}")
+    log(f"[4] frame {n_frames - 1} mesh export, host s per stage: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in
+                    sorted(stages.items(), key=lambda kv: -kv[1])))
+
+    reset_counts()
+    train.main(["--config", cfg_path, "--logdir", logdir, "--max_frames",
+                str(n_frames + n_resume), "--device", "cuda", "--resume",
+                state])
+    rows = [json.loads(line) for line in open(log_path)][n_frames:]
+    assert [r["frame"] for r in rows] == list(
+        range(n_frames, n_frames + n_resume)), rows
+    assert all(np.isfinite([r["loss"] for r in rows])), rows
+    log(f"[4] resumed for {n_resume} frames: losses "
+        f"{[round(r['loss'], 4) for r in rows]}, launches {read_counts()}")
+    return launches, stages
 
 
 # ---------------------------------------------------------------- phase 5
@@ -388,10 +538,204 @@ def full_width(dev, gpu: str, frames: int = 3) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 7
+def time_grid(chunk_fn, n_chunks: int, ref_fn=None) -> dict:
+    """ms of one chunk and of the whole grid (CUDA events), for
+    ``chunk_fn(i)`` -> occupancy; with ``ref_fn``, the max abs difference
+    of the occupancy of every chunk against it."""
+    import torch
+    res = {"chunk_ms": time_cuda(lambda: chunk_fn(0), 5),
+           "grid_ms": time_cuda(
+               lambda: [chunk_fn(i) for i in range(n_chunks)], 1)}
+    if ref_fn is not None:
+        diff = torch.zeros((), device="cuda")
+        for i in range(n_chunks):
+            diff = torch.maximum(diff, (chunk_fn(i) - ref_fn(i)).abs().max())
+        res["occ_max_abs_diff"] = float(diff)
+    return res
+
+
+def mesh_full_width(dev, gpu: str) -> dict:
+    """Meshing queries at full width, kernel against plain: a 100-object
+    h=32 bank over a 128^3 grid per object (the bank padded to 128
+    objects, as mesh_all_objects pads it) and one h=128 background over
+    the 256^3 grid of room0_vmap.json."""
+    import numpy as np
+    import torch
+    from types import SimpleNamespace
+    from vmap_tpu_torch.core import bank as B
+    from vmap_tpu_torch.core import meshing as MS
+    from vmap_tpu_torch.kernels import ensemble as E
+    from vmap_tpu_torch.ops.render import make_3d_grid
+
+    rng = np.random.default_rng(7)
+    gen = torch.Generator().manual_seed(7)
+    res = {}
+    with torch.no_grad():
+        # objects: one [128, 65536] query per chunk, 32 chunks
+        n_obj, gd, chunk = 100, 128, MS.MESH_CHUNK
+        bank = B.init_bank(gen, n_obj, 32, 2.0)
+        bank = bank.replace(flat=bank.flat.to(dev), scale=bank.scale.to(dev))
+        work = [(o + 1, MS.oriented_box(
+                    rng.uniform(-2, 2, 3),
+                    np.linalg.qr(rng.normal(size=(3, 3)))[0],
+                    rng.uniform(0.2, 1.5, 3)), gd)
+                for o in range(n_obj)]
+        fake = SimpleNamespace(device=dev, bank_obj=bank, registry={
+            o + 1: SimpleNamespace(slot=o) for o in range(n_obj)})
+        prepared = MS.bank_prepared(fake, work)
+        frames = MS.grid_frames(work, prepared["dirs"].shape[0], dev)
+        n_chunks = -(-gd ** 3 // chunk)
+
+        def obj_chunk(fn):
+            def run(i):
+                MS.field_eval = fn
+                try:
+                    return MS._bank_grid_chunk(prepared, *frames, i * chunk,
+                                               chunk)[0]
+                finally:
+                    MS.field_eval = E.field_eval
+            return run
+
+        res["obj_plain"] = time_grid(obj_chunk(E.field_eval_reference),
+                                     n_chunks)
+        res["obj_kernel"] = time_grid(obj_chunk(E.field_eval), n_chunks,
+                                      obj_chunk(E.field_eval_reference))
+        res["obj_points"] = n_obj * gd ** 3
+        res["obj_points_queried"] = (prepared["dirs"].shape[0] * n_chunks
+                                     * chunk)
+
+        # grid_volumes (chunks in flight, pinned copies) gives exactly the
+        # chunks' occupancy
+        vols = MS.grid_volumes(fake, work, prepared)
+        direct = torch.cat([obj_chunk(E.field_eval)(i)
+                            for i in range(n_chunks)], dim=1)
+        direct = direct[:n_obj, :gd ** 3].cpu().numpy()
+        res["grid_volumes_vs_chunks_max_abs_diff"] = max(
+            float(np.abs(v.ravel() - direct[o]).max())
+            for o, v in enumerate(vols))
+        diff = res["grid_volumes_vs_chunks_max_abs_diff"]
+        if diff != 0.0:
+            raise AssertionError(f"grid_volumes differs from its chunks by "
+                                 f"{diff}")
+        del vols, direct
+
+        # grid_volumes, as mesh_all_objects runs it, at room0's largest
+        # grid (every object at grid_dim 256): wall time, peak device
+        # memory above what was allocated before, host bytes of the volumes
+        work256 = [(oid, b, 256) for oid, b, _ in work]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        vols = MS.grid_volumes(fake, work256, prepared)
+        res["obj256_grid_volumes_s"] = time.perf_counter() - t0
+        res["obj256_device_peak_bytes"] = (torch.cuda.max_memory_allocated()
+                                           - base)
+        res["obj256_host_volume_bytes"] = sum(v.nbytes for v in vols)
+        assert all(v.shape == (256,) * 3 and np.isfinite(v).all()
+                   for v in vols[:2])
+        del vols
+
+        # background: 256^3 points of one h=128 field, EVAL_CHUNK per query
+        bg = B.init_bank(gen, 1, 128, 5.0)
+        pe, mlp_p = bg.spec.unflatten(bg.flat.to(dev))
+        prep_bg = E.prepare_params(pe, mlp_p, bg.scale.to(dev), 128)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+        grid = make_3d_grid((-1.0, 1.0), 256, transform=T,
+                            scale=np.array([4.0, 1.5, 4.0]),
+                            device=dev).reshape(1, -1, 3)
+        bchunk = MS.EVAL_CHUNK
+        n_bchunks = grid.shape[1] // bchunk
+
+        def bg_chunk(fn):
+            return lambda i: torch.sigmoid(
+                fn(prep_bg, grid[:, i * bchunk:(i + 1) * bchunk])[0])
+
+        res["bg_plain"] = time_grid(bg_chunk(E.field_eval_reference),
+                                    n_bchunks)
+        res["bg_kernel"] = time_grid(bg_chunk(E.field_eval), n_bchunks,
+                                     bg_chunk(E.field_eval_reference))
+        res["bg_points"] = grid.shape[1]
+    for k in ("obj", "bg"):
+        kern, plain = res[f"{k}_kernel"], res[f"{k}_plain"]
+        log(f"[7] {k} meshing grid on {gpu}: {res[f'{k}_points']} points; "
+            f"kernel {kern['chunk_ms']:.4f} ms/chunk, "
+            f"{kern['grid_ms']:.3f} ms/grid; plain "
+            f"{plain['chunk_ms']:.4f} ms/chunk, {plain['grid_ms']:.3f} "
+            f"ms/grid; occupancy max abs diff {kern['occ_max_abs_diff']:.3e}")
+        if not kern["occ_max_abs_diff"] < 1e-4:
+            raise AssertionError(f"{k} occupancy differs from plain by "
+                                 f"{kern['occ_max_abs_diff']}")
+    log(f"[7] grid_volumes of {n_obj} objects at 256^3 on {gpu}: "
+        f"{res['obj256_grid_volumes_s']:.3f} s, device peak "
+        f"{res['obj256_device_peak_bytes'] / 2**20:.1f} MiB above the "
+        f"bank, host volumes {res['obj256_host_volume_bytes'] / 2**20:.1f} "
+        "MiB")
+    return res
+
+
+# ---------------------------------------------------------------- phase 8
+def check_field_train_path(dev) -> dict:
+    """One object-shape and one background-shape bank frame through the
+    plain frame with StepStatics.use_pallas_train (field through K2 / K3),
+    against the autograd frame, in the two tiers of phase 3. Then, at
+    each shape's own backward tile (the JAX tile rule), field_bwd against
+    its plain version and one iteration's gradient through the field
+    kernels against the autograd one (CUDA events). Returns (the launch
+    counts of the frames, the times)."""
+    import dataclasses
+    from vmap_tpu_torch.core import step as ST
+    from vmap_tpu_torch.kernels import ensemble as E
+    from vmap_tpu_torch.kernels import train_step as K
+    st = ST.StepStatics(lr=LR, wd=WD, color_scaling=CS, opacity_scaling=OSC,
+                        use_pallas_train=True)
+    counts: dict = {}
+    times: dict = {}
+    for name, cap, n_act, h, n_per, S, scale in SHAPES:
+        bank = conditioned_bank(cap, n_act, h, scale, 0, dev)
+        reset_counts()
+        frame_tiers("8", name, bank, S, n_per, dev,
+                    lambda bank, batch, n_iter: ST._train_bank(
+                        bank, batch, n_per,
+                        dataclasses.replace(st, n_iter=n_iter)))
+        for k, v in read_counts().items():
+            counts[k] = counts.get(k, 0) + v
+
+        m = n_per * S
+        tile = K.field_tile(m)
+        prepared, pts, g_a, g_c = field_operands(cap, h, m, scale, 4, dev)
+        sl = random_batch(cap, n_per, S, 5, dev)
+        t = times[name] = {
+            "objects": cap, "points": m, "tile_m": tile,
+            "blocks": cap * -(-m // tile),
+            "field_bwd_ms": time_cuda(
+                lambda: E.field_grad(prepared, pts, g_a, g_c, tile), 10),
+            "field_bwd_plain_ms": time_cuda(
+                lambda: E.field_grad_reference(prepared, pts, g_a, g_c), 10),
+            "iteration_field_kernels_ms": time_cuda(
+                lambda: K.iteration_loss_grad(bank, sl, CS, OSC,
+                                              field_kernel=True), 10),
+            "iteration_autograd_ms": time_cuda(
+                lambda: K.iteration_loss_grad(bank, sl, CS, OSC), 10)}
+        log(f"[8] {name}: {cap} x {m} points, tile_m {tile} "
+            f"({t['blocks']} field_bwd blocks); field_bwd "
+            f"{t['field_bwd_ms']:.4f} ms, plain {t['field_bwd_plain_ms']:.4f}"
+            f" ms; one iteration's gradient through the field kernels "
+            f"{t['iteration_field_kernels_ms']:.4f} ms, autograd "
+            f"{t['iteration_autograd_ms']:.4f} ms")
+    for k in ("field_fwd", "field_bwd"):
+        if not counts[k] > 0:
+            raise AssertionError(f"use_pallas_train frames launched no {k}")
+    log(f"[8] use_pallas_train frames: launches {counts}")
+    return counts, times
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="12345",
-                    help="phases to run (default all: 12345)")
+    ap.add_argument("--phases", default="12345678",
+                    help="phases to run (default all: 12345678)")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(REPO, "vmap_tpu_torch", "kernels",
                                       "csrc")):
@@ -423,42 +767,61 @@ def main(argv=None) -> int:
     log(f"[2] built {os.path.relpath(lib_path, REPO)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for line in build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[2] ptxas: {line.strip()}")
 
     stats: dict = {}
+    paths = {}     # main-path launch counts: {path: {kernel: count}}
     if "3" in args.phases:
         check_kernels(dev, stats)
-    launches = {}
+    path_tiles = {}
     if "4" in args.phases:
-        launches = run_trainer(8)
+        paths["trainer"], stages = run_trainer(12)
+        with open(os.path.join(OUT, "mesh_export_stages.json"), "w") as f:
+            json.dump({"gpu": gpu, "host_s": stages}, f, indent=1)
     if "5" in args.phases:
         res = full_width(dev, gpu)
         with open(os.path.join(OUT, "full_width.json"), "w") as f:
             json.dump({"gpu": gpu, **res}, f, indent=1)
+    if "6" in args.phases:
+        check_field_kernels(dev, stats)
+    if "7" in args.phases:
+        res = mesh_full_width(dev, gpu)
+        with open(os.path.join(OUT, "mesh_full_width.json"), "w") as f:
+            json.dump({"gpu": gpu, **res}, f, indent=1)
+    if "8" in args.phases:
+        paths["use_pallas_train"], path_tiles = check_field_train_path(dev)
 
-    src = "vmap_tpu_torch/kernels/csrc/train_step.cu"
     kernels = []
-    for name in ("train_grad", "train_adamw"):
+    for name, src, replaces in (
+            ("train_grad", "train_step.cu", "train_step.py:458"),
+            ("train_adamw", "train_step.cu", "train_step.py:458"),
+            ("field_fwd", "ensemble.cu", "ensemble.py:97"),
+            ("field_bwd", "ensemble.cu", "ensemble.py:215")):
         per = stats.get(name, {})
+        by_path = {p: c[name] for p, c in paths.items()}
+        launches = max(by_path.values(), default=0)
+        if {"4", "8"} <= set(args.phases) and not launches:
+            raise AssertionError(f"{name}: no launch on the main paths")
         kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": "vmap_tpu/kernels/train_step.py:458",
-            "launches": launches.get(name, 0),
+            "name": name, "route": "cuda",
+            "source": f"vmap_tpu_torch/kernels/csrc/{src}",
+            "replaces": f"vmap_tpu/kernels/{replaces}",
+            "launches": launches,
             "max_abs_err": max((v["max_abs_err"] for v in per.values()),
                                default=None),
-            # one iteration at the object shape plus the background shape
+            # summed over the object shape and the background shape
             "ms": sum(v["ms"] for v in per.values()) if per else None,
             "plain_ms": (sum(v["plain_ms"] for v in per.values())
                          if per else None),
-            "by_shape": per})
+            "by_shape": per, "launches_by_path": by_path})
+    kernels[3]["at_use_pallas_train_tiles"] = path_tiles
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

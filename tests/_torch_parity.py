@@ -17,6 +17,26 @@ from vmap_tpu_torch.core.step import Draws
 from vmap_tpu_torch.interop import FIELDS, bank_from_numpy
 
 
+def small_synthetic_config(path) -> str:
+    """``configs/synthetic_vmap.json`` cut for the CPU (hidden 8 / 16, 24
+    object rays, 2 iterations, grid_dim 24, 80x60 frames), written to
+    ``path``; returns its path as a string."""
+    import json
+    import os
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "configs", "synthetic_vmap.json")) as f:
+        raw = json.load(f)
+    raw["model"].update(hidden_feature_size=8, hidden_feature_size_bg=16)
+    raw["render"].update(iters_per_frame=2, n_per_optim=24,
+                         n_per_optim_bg=48)
+    raw["vis"].update(grid_dim=24, live_voxel_size=0.05)
+    raw["camera"].update(w=80, h=60, fx=60.0, fy=60.0, cx=39.5, cy=29.5)
+    raw["tpu"]["frame_pool_size"] = 16
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return str(path)
+
+
 def t(a, dtype=None) -> torch.Tensor:
     """JAX / numpy array -> CPU torch tensor (a copy)."""
     return torch.tensor(np.asarray(a), dtype=dtype)

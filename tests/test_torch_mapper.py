@@ -17,7 +17,7 @@ from vmap_tpu.data.replica import ReplicaDataset
 from vmap_tpu_torch.core import mapper as tmapper
 from vmap_tpu_torch.interop import FIELDS, bank_from_numpy
 
-from _torch_parity import jax_frame_draw_source
+from _torch_parity import jax_frame_draw_source, small_synthetic_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "Replica", "fixture_room_vmap.json")
@@ -122,16 +122,38 @@ def test_kernel_path_refuses_widths_without_a_kernel(monkeypatch):
         tmapper.Mapper(_cfg(), device="cuda")
 
 
-def test_train_cli_refuses_later_slices(tmp_path):
+def test_train_cli_meshes_checkpoints_and_resumes(tmp_path):
+    """``--max_frames 11 --save_ckpt``: the last frame (10) takes the
+    mesh-and-checkpoint branch; ``--resume`` then trains frames 11 and 12
+    and meshes again on its last frame."""
     from vmap_tpu_torch import train
-    for flag in (["--save_ckpt"], ["--resume", "x.pkl"]):
-        with pytest.raises(NotImplementedError):
-            train.main(["--config", CONFIG, "--logdir", str(tmp_path)] + flag)
+    cfg = small_synthetic_config(tmp_path / "cfg.json")
+    logdir = tmp_path / "logs"
+    base = ["--config", cfg, "--logdir", str(logdir)]
+    train.main(base + ["--max_frames", "11", "--save_ckpt"])
+    meshes = sorted(os.listdir(logdir / "scene_mesh"))
+    assert [f"frame_10_obj{i}.obj" for i in (0, 1, 2)] == \
+        [m for m in meshes if m.endswith(".obj")]
+    assert "viewer.html" in meshes
+    for i in (0, 1, 2):
+        assert os.listdir(logdir / "ckpt" / str(i)) == \
+            [f"obj_{i}_frame_10.npz"]
+    state = logdir / "ckpt" / "state"
+    assert sorted(os.listdir(state)) == [
+        "latest.json", "state_frame_10.json", "state_frame_10.pt"]
+
+    mapper = train.main(base + ["--max_frames", "13", "--resume",
+                                str(state)])
+    rows = [json.loads(line) for line in open(logdir / "train_log.jsonl")]
+    assert [r["frame"] for r in rows] == list(range(13))
+    assert all(np.isfinite(r["loss"]) for r in rows)
+    assert mapper.frames_ingested == 13
+    assert os.path.getsize(logdir / "scene_mesh" / "frame_12_obj1.obj") > 0
 
 
 def test_import_and_cpu_frame_stay_jax_free(tmp_path):
-    """``import vmap_tpu_torch`` and a CPU run of the port's trainer on the
-    fixture never import jax."""
+    """``import vmap_tpu_torch``, a CPU run of the port's trainer on the
+    fixture, mesh export and a full-state checkpoint never import jax."""
     cfg = str(tmp_path / "cfg.json")
     logdir = str(tmp_path / "logs")
     raw = json.load(open(CONFIG))
@@ -142,12 +164,16 @@ def test_import_and_cpu_frame_stay_jax_free(tmp_path):
         "import vmap_tpu_torch\n"
         "import vmap_tpu_torch.core.mapper, vmap_tpu_torch.interop\n"
         "import vmap_tpu_torch.kernels._build\n"
+        "from vmap_tpu_torch.core import checkpoint, meshing\n"
         "from vmap_tpu_torch import train\n"
-        f"train.main(['--config', {cfg!r}, '--logdir', {logdir!r},"
+        f"m = train.main(['--config', {cfg!r}, '--logdir', {logdir!r},"
         " '--max_frames', '1'])\n"
         f"rows = [json.loads(l) for l in open(os.path.join({logdir!r},"
         " 'train_log.jsonl'))]\n"
         "assert len(rows) == 1 and rows[0]['loss'] == rows[0]['loss'], rows\n"
+        f"assert m.export_meshes(os.path.join({logdir!r}, 'mesh'), 0)\n"
+        f"checkpoint.save_full_checkpoint(m, os.path.join({logdir!r},"
+        " 'ckpt'), 0)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or\n"
         "             k.startswith(('jax.', 'jaxlib', 'flax')))\n"
         "assert not bad, bad\n"

@@ -13,9 +13,11 @@ Differences from the JAX Mapper:
   * config features outside this slice raise ``NotImplementedError``
     (see ``check_supported``);
   * randomness: a CPU ``torch.Generator`` seeded from ``cfg.seed``
-    initialises activated slots, and the per-frame sampler draws come from
-    ``draw_source`` (by default a generator on the device seeded from
-    ``cfg.seed``; the parity tests inject JAX's draws through it).
+    (``init_gen``) initialises activated slots, and the per-frame sampler
+    draws come from ``draw_source`` (by default ``draw_gen``, a generator
+    on the device seeded from ``cfg.seed``; the parity tests inject JAX's
+    draws through it);
+  * one process, so mesh export has no primary-process check.
 """
 
 from __future__ import annotations
@@ -112,12 +114,14 @@ class Mapper:
         if self.use_fused and self.hidden <= 64:
             self.slots = -(-self.capacity // 8) * 8
 
+        # both generators' states go into the full-state checkpoint, so a
+        # resumed run continues the uninterrupted run's random stream
         self.init_gen = torch.Generator().manual_seed(cfg.seed)
+        self.draw_gen = torch.Generator(device=self.device)
+        self.draw_gen.manual_seed(cfg.seed)
         if draw_source is None:
-            draw_gen = torch.Generator(device=self.device)
-            draw_gen.manual_seed(cfg.seed)
             draw_source = lambda bank, shapes: torch_draws(  # noqa: E731
-                draw_gen, shapes, self.device)
+                self.draw_gen, shapes, self.device)
         self.draw_source = draw_source
 
         self.bank_obj = bank_lib.init_bank(
@@ -311,3 +315,52 @@ class Mapper:
         b = self.bank_bg if rec.is_bg else self.bank_obj
         pe, mlp_p = b.params_for(rec.slot)
         return pe, mlp_p, float(b.scale[rec.slot])
+
+    # ---- meshing / bounds ------------------------------------------------
+    def get_bound(self, obj_id: int, stride: int = 4):
+        from vmap_tpu_torch.core import meshing
+        return meshing.object_bound(self, obj_id, stride=stride)
+
+    def mesh_object(self, obj_id: int, bound=None,
+                    grid_dim: int | None = None):
+        """A coloured mesh of one object; None if its bound or level set
+        is degenerate."""
+        from vmap_tpu_torch.core import meshing
+        kind = meshing.object_kind(self, obj_id)
+        if bound is None:
+            with meshing.stage(f"{kind} bounds"):
+                bound = self.get_bound(obj_id)
+        if bound is None:
+            return None
+        if grid_dim is None:
+            grid_dim = meshing.adaptive_grid_dim(
+                bound, self.cfg.live_voxel_size, self.cfg.grid_dim)
+        return meshing.mesh_object(self, obj_id, bound, grid_dim=grid_dim)
+
+    def export_meshes(self, out_dir: str, frame_id: int) -> list[str]:
+        """Write every object's mesh as ``<out_dir>/frame_<f>_obj<id>.obj``
+        (and the HTML viewer snapshot when ``cfg.html_viewer``). Objects
+        mesh through the bank-vectorised path, the background alone.
+        ``meshing.STAGE_S`` gets the host seconds of each stage."""
+        import os
+        from vmap_tpu_torch.core import meshing
+        meshing.STAGE_S.clear()
+        meshes = meshing.mesh_all_objects(self)
+        for obj_id in sorted(self.registry):
+            if self.registry[obj_id].is_bg:
+                meshes[obj_id] = self.mesh_object(obj_id)
+        os.makedirs(out_dir, exist_ok=True)
+        paths = []
+        for obj_id in sorted(meshes):
+            if meshes[obj_id] is None:
+                continue
+            p = os.path.join(out_dir, f"frame_{frame_id}_obj{obj_id}.obj")
+            kind = meshing.object_kind(self, obj_id)
+            with meshing.stage(f"{kind} .obj write"):
+                meshes[obj_id].export(p)
+            paths.append(p)
+        if self.cfg.html_viewer and paths:
+            from vmap_tpu.utils.viewer import write_snapshot
+            with meshing.stage("HTML viewer snapshot"):
+                write_snapshot(out_dir, meshes, frame_id)
+        return paths

@@ -108,3 +108,21 @@ class FramePool:
 
     def arrays(self) -> tuple[torch.Tensor, torch.Tensor]:
         return self.packed, self.twc
+
+    # ---- unpacked host views (meshing) ------------------------------------
+    def unpack_depth_inst(self, slots) -> tuple[np.ndarray, np.ndarray]:
+        """Slots -> (depth in metres f32 [n, W, H], instance id i32
+        [n, W, H]) in one transfer: the JAX pool's unpack, the f32 depth
+        ``depth_mm * 1e-3`` taken in numpy as the JAX package takes it."""
+        idx = torch.as_tensor(list(slots), dtype=torch.long,
+                              device=self.device)
+        w1 = self.packed[idx, ..., 1].cpu().numpy()
+        depth = (w1 & 0xFFFF).astype(np.float32) * 1e-3
+        inst = ((w1 >> 16) & 0xFFFF).astype(np.int32) - INST_BIAS
+        return depth, inst
+
+    def slot_depth_m(self, slot: int) -> np.ndarray:
+        return self.unpack_depth_inst([slot])[0][0]
+
+    def slot_inst(self, slot: int) -> np.ndarray:
+        return self.unpack_depth_inst([slot])[1][0]

@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of this package.
 
 ``load()`` compiles every ``kernels/csrc/*.cu`` with ``nvcc`` for sm_90a
-into one shared library with a plain C interface, at first use, and loads
-it with ``ctypes``. The build lands in ``kernels/_build/<hash>/`` (listed in
+(one ``nvcc`` per source, all started together) and links them into one
+shared library with a plain C interface, at first use, and loads it with
+``ctypes``. The build lands in ``kernels/_build/<hash>/`` (listed in
 ``.gitignore``), keyed by a hash of the sources and flags, so a second call
 or process reuses it. Nothing is compiled when the package is imported.
 """
@@ -22,20 +23,22 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 # No --use_fast_math: the kernels rely on accurate sinpif / cospif / expf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libvmap_kernels.so"
 
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 
-# C signatures of kernels/csrc/train_step.cu
+# C signatures of kernels/csrc/train_step.cu and ensemble.cu
 SIGNATURES = {
     "vmap_train_grad": ((I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                          I, I, I, F, F, P), I),
     "vmap_train_adamw": ((P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, F, P),
                          I),
+    "vmap_field_fwd": ((I, P, P, I, P, P, I, I, P, P, P), I),
+    "vmap_field_bwd": ((I, P, P, I, P, P, P, P, I, I, I, P, P), I),
+    "vmap_field_bwd_subtile": ((I,), I),
     "vmap_cuda_error_string": ((I,), ctypes.c_char_p),
 }
 
@@ -74,16 +77,28 @@ def build() -> tuple[Path, str]:
     if lib.exists():
         return lib, ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    nvcc = _nvcc()
+
+    def run(cmds) -> list[str]:
+        """Run the commands together, wait for all; raise if one failed."""
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+        return logs
+
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        logs = run([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+                    for src, obj in zip(sources(), objs)])
+        so = os.path.join(tmp, LIB_NAME)
+        logs += run([[nvcc, "-shared", "-o", so, *objs]])
+        os.replace(so, lib)
+    return lib, "".join(logs)
 
 
 @lru_cache(maxsize=1)

@@ -42,17 +42,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int NDIR = 21;
-constexpr int NBAND = 6;
-constexpr int EMB = 3 + NDIR * NBAND;   // 129
-constexpr int EMB1 = 3 + NDIR * 4;      // 87: xs + bands 0..3 (trunk)
-constexpr int EMB2 = EMB - EMB1;        // 42: bands 4..5 (colour head)
 constexpr int NTHREADS = 256;
 constexpr int MAX_S = 32;
 constexpr int MAX_RT = 64;
-constexpr float PI_F = 3.14159265358979323846f;
 
 // Offsets of each tensor inside one slot's flat parameter vector (the
 // BankSpec order of the Python side).
@@ -60,10 +56,6 @@ struct Offsets {
   int dirs, w_in, b_in, w_mid1, b_mid1, w_cat, b_cat, w_mid2, b_mid2,
       w_alpha, b_alpha, w_col, b_col, w_col_out, b_col_out;
 };
-
-__device__ __forceinline__ float sigmoidf_(float x) {
-  return 1.f / (1.f + expf(-x));
-}
 
 __device__ __forceinline__ float sgnf(float x) {
   return (float)((x > 0.f) - (x < 0.f));

@@ -36,6 +36,7 @@ import torch
 from vmap_tpu_torch.core.bank import (BankState, adam_bias_corrections,
                                      apply_adamw)
 from vmap_tpu_torch.kernels import _build
+from vmap_tpu_torch.kernels import ensemble as E
 from vmap_tpu_torch.ops import losses as L
 from vmap_tpu_torch.ops.embedding import embed
 from vmap_tpu_torch.ops.mlp import mlp_apply
@@ -58,19 +59,38 @@ def _slice_iter(batch: dict, it: int, n_per: int) -> dict:
     return {k: batch[k][:, it * n_per:(it + 1) * n_per] for k in BATCH_KEYS}
 
 
+def field_tile(n_points: int) -> int:
+    """Points per backward chunk of the field kernel for one object's
+    iteration batch: the batch rounded up to 128, at most 1536 (the JAX
+    step's tile rule, vmap_tpu/core/step.py:351-352)."""
+    return min(max(-(-n_points // 128) * 128, 128), 1536)
+
+
 def iteration_loss_grad(bank: BankState, sl: dict, color_scaling: float,
-                        opacity_scaling: float
+                        opacity_scaling: float, field_kernel: bool = False
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain forward + autograd of one iteration's batch ``sl`` (rays of
-    that iteration only) -> (per-slot losses [cap], grad [cap, n_params])."""
+    that iteration only) -> (per-slot losses [cap], grad [cap, n_params]).
+    ``field_kernel``: the field goes through ``ensemble.FieldTrain`` on the
+    prepared parameters (K2 / K3 on CUDA); autograd carries its gradient
+    back through the pad and split to the flat buffer."""
     flat = bank.flat.detach().requires_grad_(True)
     pe, mlp_p = bank.spec.unflatten(flat)
     pts = (sl["origins"][:, :, None, :]
            + sl["dirs"][:, :, None, :] * sl["z"][..., None])
-    emb = embed(pe, pts, bank.scale)
-    alpha, color = mlp_apply(mlp_p, emb)
+    if field_kernel:
+        cap, n_rays, n_s, _ = pts.shape
+        m = n_rays * n_s
+        prepared = E.prepare_params(pe, mlp_p, bank.scale, bank.spec.hidden)
+        alpha, color = E.field_train(prepared, pts.reshape(cap, m, 3),
+                                     field_tile(m))
+        alpha = alpha.reshape(cap, n_rays, n_s)
+        color = color.reshape(cap, n_rays, n_s, 3)
+    else:
+        alpha, color = mlp_apply(mlp_p, embed(pe, pts, bank.scale))
+        alpha = alpha[..., 0]
     total, per = L.step_batch_loss(
-        alpha[..., 0], color, sl["depth"], sl["rgb"], sl["state"],
+        alpha, color, sl["depth"], sl["rgb"], sl["state"],
         sl["valid"], sl["z"], bank.active, color_scaling, opacity_scaling)
     (grad,) = torch.autograd.grad(total, flat)
     return per.detach(), grad
@@ -79,15 +99,18 @@ def iteration_loss_grad(bank: BankState, sl: dict, color_scaling: float,
 def fused_frame_reference(bank: BankState, batch: dict, n_iter: int,
                           n_per: int, lr: float, wd: float,
                           color_scaling: float = 5.0,
-                          opacity_scaling: float = 10.0):
+                          opacity_scaling: float = 10.0,
+                          field_kernel: bool = False):
     """Plain PyTorch frame of one bank: ``n_iter`` x (forward, autograd,
     ``apply_adamw``). ``batch`` is the sampler's ray-major output, rays
     iteration-major with ``n_per`` rays per iteration. Returns (new
-    BankState, per-slot per-iteration losses [cap, n_iter])."""
+    BankState, per-slot per-iteration losses [cap, n_iter]).
+    ``field_kernel``: see ``iteration_loss_grad``."""
     losses = []
     for it in range(n_iter):
         per, grad = iteration_loss_grad(bank, _slice_iter(batch, it, n_per),
-                                        color_scaling, opacity_scaling)
+                                        color_scaling, opacity_scaling,
+                                        field_kernel)
         bank = apply_adamw(bank, grad, lr, wd)
         losses.append(per)
     return bank, torch.stack(losses, dim=1)

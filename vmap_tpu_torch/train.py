@@ -5,9 +5,12 @@
 
 Per frame: ingest -> one training step over every object and the
 background; ``<logdir>/train_log.jsonl`` gets one line per frame, flushed
-every 25 frames. Mesh export, ``--save_ckpt`` and ``--resume`` belong to
-later slices of the port: the CLI says so once at start, and raises on
-``--save_ckpt`` / ``--resume`` rather than skipping them.
+every 25 frames. Every ``n_vis_iter`` frames and on the last frame (from
+frame 10 on): every object's mesh to ``<logdir>/scene_mesh`` and, with
+``--save_ckpt``, per-object and full-state checkpoints to
+``<logdir>/ckpt``. ``--resume`` takes a full-state checkpoint (a
+``state_frame_<N>.pt`` file or its directory) and continues after frame N.
+Each export prints its host seconds per stage (``meshing.STAGE_S``).
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ def parse_args(argv=None):
     p.add_argument("--config", default="configs/synthetic_vmap.json")
     p.add_argument("--logdir", default="./logs/debug")
     p.add_argument("--save_ckpt", action="store_true")
-    p.add_argument("--resume", default=None, help="full-state checkpoint file")
+    p.add_argument("--resume", default=None,
+                   help="full-state checkpoint (.pt file or its directory)")
     p.add_argument("--max_frames", type=int, default=None)
     p.add_argument("--device", default="cpu",
                    help="cpu, or cuda to train through the CUDA kernels")
@@ -35,16 +39,17 @@ def parse_args(argv=None):
 def main(argv=None, draw_source=None):
     """Run the loop; returns the Mapper. ``draw_source`` is handed to the
     Mapper (tests inject sampler draws through it)."""
+    return run(argv, draw_source)[0]
+
+
+def run(argv=None, draw_source=None):
+    """``main``, returning (Mapper, the dataset it was fed)."""
     args = parse_args(argv)
-    if args.save_ckpt or args.resume:
-        raise NotImplementedError(
-            "--save_ckpt / --resume are not ported yet (ROADMAP: "
-            "core/checkpoint.py)")
-    print("vmap_tpu_torch.train: mesh export, checkpoints and resume are "
-          "not part of this slice of the port; training only")
 
     from vmap_tpu.config import Config
     from vmap_tpu.data.loader import PrefetchIterator, make_dataset
+    from vmap_tpu_torch.core import checkpoint as ckpt_lib
+    from vmap_tpu_torch.core import meshing
     from vmap_tpu_torch.core.mapper import FrameSample, Mapper
 
     cfg = Config.from_json(args.config)
@@ -53,6 +58,10 @@ def main(argv=None, draw_source=None):
     n_frames = len(dataset)
     if args.max_frames is not None:
         n_frames = min(n_frames, args.max_frames)
+    start_frame = 0
+    if args.resume:
+        start_frame = ckpt_lib.load_full_checkpoint(mapper, args.resume) + 1
+        print(f"resumed at frame {start_frame}")
 
     os.makedirs(args.logdir, exist_ok=True)
     shutil.copy(args.config, args.logdir)
@@ -66,7 +75,7 @@ def main(argv=None, draw_source=None):
                 sample = next(it)
             except StopIteration:
                 break
-            if sample is None:
+            if sample is None or frame_idx < start_frame:
                 continue
             mapper.ingest_frame(FrameSample(
                 image=sample["image"], depth=sample["depth"],
@@ -90,14 +99,34 @@ def main(argv=None, draw_source=None):
                         "step_time_s": met.get("step_time_s"),
                     }) + "\n")
                 pending.clear()
-                fps = (frame_idx + 1) / max(time.time() - t_start, 1e-9)
+                fps = ((frame_idx + 1 - start_frame)
+                       / max(time.time() - t_start, 1e-9))
                 print(f"frame {frame_idx}/{n_frames} loss={loss:.3f} "
                       f"objs={mapper.n_objects} pool={mapper.pool.n_used} "
                       f"fps={fps:.2f}")
                 log_f.flush()
+            is_vis = ((frame_idx % cfg.n_vis_iter == 0
+                       or frame_idx == n_frames - 1) and frame_idx >= 10)
+            if is_vis:
+                mesh_dir = os.path.join(args.logdir, "scene_mesh")
+                t_export = time.perf_counter()
+                paths = mapper.export_meshes(mesh_dir, frame_idx)
+                stages = ", ".join(f"{k} {v:.3f}" for k, v in
+                                   meshing.STAGE_S.items())
+                print(f"frame {frame_idx}: exported {len(paths)} meshes "
+                      f"-> {mesh_dir} in "
+                      f"{time.perf_counter() - t_export:.3f} s ({stages})")
+                if args.save_ckpt:
+                    ckpt_dir = os.path.join(args.logdir, "ckpt")
+                    for obj_id in sorted(mapper.registry):
+                        ckpt_lib.save_object_checkpoint(
+                            mapper, obj_id,
+                            os.path.join(ckpt_dir, str(obj_id)), frame_idx)
+                    ckpt_lib.save_full_checkpoint(
+                        mapper, os.path.join(ckpt_dir, "state"), frame_idx)
     print(f"done: {mapper.n_objects} objects, {mapper.frames_ingested} "
           f"frames, {time.time() - t_start:.1f}s")
-    return mapper
+    return mapper, dataset
 
 
 if __name__ == "__main__":
