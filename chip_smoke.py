@@ -7,12 +7,14 @@ Phases, in order (any failure raises and the script exits non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off;
   2. build: nvcc compiles vmap_tpu_torch/kernels/csrc/*.cu for sm_90a;
   3. train-frame kernels against plain on the card, at the object shape
-     (104 slots, 100 active, h=32, 120 rays x 10 samples) and the
-     background shape (1 slot, h=128, 1200 rays x 14 samples): each kernel
-     alone (one iteration's gradient, one AdamW step), then whole frames at
-     n_iter=1 (losses / parameters / moments within rtol 2e-3) and at
-     n_iter=20 (finite; final summed loss within rtol 0.25); inactive
-     slots bit-identical;
+     (104 slots, 100 active, h=32, 120 rays x 10 samples), the
+     background shape (1 slot, h=128, 1200 rays x 14 samples) and the
+     iMAP shape (1 slot, h=256, 4800 rays x 14 samples; its scratch of
+     partial gradient rows is printed): each kernel alone (one
+     iteration's gradient, one AdamW step), then whole frames at n_iter=1
+     (losses / parameters / moments within rtol 2e-3) and at n_iter=20
+     (finite; final summed loss within rtol 0.25); inactive slots
+     bit-identical;
   4. end to end: ``vmap_tpu_torch.train.main`` for 12 frames of
      configs/Replica/room0_vmap.json with dataset.format Synthetic
      (1200x680 analytic frames) and --save_ckpt: finite losses, 2 x n_iter
@@ -21,15 +23,21 @@ Phases, in order (any failure raises and the script exits non-zero):
      within 0.15 m median of the analytic sphere), the export's host
      seconds per stage, then --resume from the checkpoint for 2 more
      frames with finite losses;
-  5. full-width frame: the bench-shaped workload (104 slots, 100 active,
-     a random 16-slot 1200x680 pool, px_block_bg 4), 3 frames through the
-     kernel path and the plain path, timed with CUDA events;
+  5. full-width frames: the bench-shaped vMAP workload (104 slots, 100
+     active, a random 16-slot 1200x680 pool, px_block_bg 4) and the iMAP
+     frame of configs/Replica/room0_imap.json (one h=256 field, 4800 rays
+     x 14 samples, the same pool), 3 frames each through the kernel path
+     and the plain path, timed with CUDA events; the iMAP frame's device
+     time split by torch.profiler into train_grad, train_adamw and the
+     rest;
   6. field kernels against plain: K2 (alpha atol 3e-4, colour atol 2e-5)
-     and K3 (every weight gradient within rtol 2e-3, atol 2e-3 x
-     max(1, |g|max)) at 8 objects x 65,573 points (h=32) and 1 object x
-     131,072 points (h=128), timed with CUDA events;
+     at 8 objects x 65,573 points (h=32), 1 object x 131,072 points
+     (h=128) and 1 x 131,072 (h=256), and K3 (every weight gradient
+     within rtol 2e-3, atol 2e-3 x max(1, |g|max)) at the first two (K3
+     has no h=256 instance), timed with CUDA events;
   7. meshing at full width: a 100-object h=32 bank over 128^3 grid points
-     per object and one h=128 background over 256^3, per-chunk and
+     per object, one h=128 background over 256^3 and one h=256 iMAP scene
+     field over 256^3 (mesh_all_objects' chunks of 65,536), per-chunk and
      whole-grid times of the kernel and the plain query, and the
      occupancy's max abs difference between them; grid_volumes (chunks in
      flight) equal to its chunks, and its time and peak device memory with
@@ -37,7 +45,16 @@ Phases, in order (any failure raises and the script exits non-zero):
   8. the field-kernel training path: object- and background-shape frames
      through the plain frame with StepStatics.use_pallas_train, held to
      the tiers of phase 3; field_bwd and one iteration's gradient timed
-     at each shape's own backward tile against their plain versions.
+     at each shape's own backward tile against their plain versions;
+  9. the iMAP trainer: ``vmap_tpu_torch.train`` on room0_imap.json with
+     dataset.format Synthetic and vis.html_viewer false for 11 frames with
+     --save_ckpt: finite losses, n_iter launches of each train-frame
+     kernel per frame (one bank; each train_grad launch is the 132 blocks
+     of frame_geometry), field_fwd launched, frame_10_obj0.obj written,
+     the learned occupancy on the analytic sphere's surface above that at
+     empty points, the export's host seconds per stage; then --resume for
+     1 frame. If the run nears the time limit, this phase is shortened
+     first.
 
 Prints a JSON line of per-kernel results, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Without CUDA it exits non-zero
@@ -61,11 +78,13 @@ LR, WD, CS, OSC = 1e-3, 0.013, 5.0, 10.0
 RTOL_SEM, RTOL_FULL = 2e-3, 0.25
 # (name, cap, n_active, hidden, rays per iteration, samples, scale)
 SHAPES = (("obj", 104, 100, 32, 120, 10, 2.0),
-          ("bg", 1, 1, 128, 1200, 14, 5.0))
+          ("bg", 1, 1, 128, 1200, 14, 5.0),
+          ("imap", 1, 1, 256, 4800, 14, 5.0))
 # field kernels: (name, objects, hidden, points per object, scale); the
 # object shape's M leaves a ragged tail
 FIELD_SHAPES = (("obj", 8, 32, 65536 + 37, 2.0),
-                ("bg", 1, 128, 131072, 5.0))
+                ("bg", 1, 128, 131072, 5.0),
+                ("imap", 1, 256, 131072, 5.0))
 
 
 def log(msg: str) -> None:
@@ -179,8 +198,16 @@ def check_kernels(dev, stats: dict, shapes=SHAPES) -> None:
                                             (m, ref.m, "m"),
                                             (v, ref.v, "v")))
         assert torch.equal(p[inact], bank.flat[inact]), "inactive p moved"
-        stats.setdefault("train_grad", {})[name] = {"max_abs_err": err_g}
+        geom = fl.geom
+        stats.setdefault("train_grad", {})[name] = {
+            "max_abs_err": err_g, "blocks_per_slot": geom.blocks,
+            "n_tiles": geom.n_tiles, "scratch_bytes": geom.scratch_bytes}
         stats.setdefault("train_adamw", {})[name] = {"max_abs_err": err_b}
+        log(f"[3] {name}: train_grad geometry {geom.rays_per_tile} rays per "
+            f"tile, {geom.n_tiles} tiles over {geom.blocks} blocks per "
+            f"slot; partial-gradient scratch {geom.rows} rows, "
+            f"{geom.scratch_bytes} bytes ({geom.scratch_bytes / 2**20:.1f} "
+            "MiB)")
 
         # per-kernel times at this shape, against the plain version
         sl = K._slice_iter(batch, 0, n_per)
@@ -282,8 +309,10 @@ def field_operands(O, hidden, M, scale, seed, dev):
 
 def check_field_kernels(dev, stats: dict, shapes=FIELD_SHAPES) -> None:
     """K2 and K3 against their plain versions (JAX bar,
-    tests/test_pallas_kernel.py:55-56 and :103-108)."""
+    tests/test_pallas_kernel.py:55-56 and :103-108); K3 at the widths it
+    is built for."""
     import torch
+    from vmap_tpu_torch.kernels import KERNEL_HIDDEN
     from vmap_tpu_torch.kernels import ensemble as E
     for name, O, h, M, scale in shapes:
         prepared, pts, g_a, g_c = field_operands(O, h, M, scale, 3, dev)
@@ -292,6 +321,17 @@ def check_field_kernels(dev, stats: dict, shapes=FIELD_SHAPES) -> None:
         torch.cuda.synchronize()
         err_a = rel_close(a_k, a_r, 0.0, 3e-4, f"{name} field_fwd alpha")
         err_c = rel_close(c_k, c_r, 0.0, 2e-5, f"{name} field_fwd colour")
+        fwd = stats.setdefault("field_fwd", {})[name] = {
+            "max_abs_err": max(err_a, err_c),
+            "ms": time_cuda(lambda: E.field_eval(prepared, pts), 10),
+            "plain_ms": time_cuda(
+                lambda: E.field_eval_reference(prepared, pts), 10)}
+        msg = (f"[6] {name} ({O} x {M} points, h={h}): field_fwd alpha err "
+               f"{err_a:.3e} colour err {err_c:.3e}, ms kernel/plain "
+               f"{fwd['ms']:.4f}/{fwd['plain_ms']:.4f}")
+        if h not in KERNEL_HIDDEN["field_bwd"]:
+            log(msg + f"; no field_bwd kernel at h={h}")
+            continue
         g_k = E.field_grad(prepared, pts, g_a, g_c)
         g_r = E.field_grad_reference(prepared, pts, g_a, g_c)
         torch.cuda.synchronize()
@@ -302,21 +342,13 @@ def check_field_kernels(dev, stats: dict, shapes=FIELD_SHAPES) -> None:
                           f"{name} field_bwd d{n}")
             if e / max(1.0, gmax) >= err_g:
                 err_g, worst = e / max(1.0, gmax), n
-        fwd = stats.setdefault("field_fwd", {})[name] = {
-            "max_abs_err": max(err_a, err_c),
-            "ms": time_cuda(lambda: E.field_eval(prepared, pts), 10),
-            "plain_ms": time_cuda(
-                lambda: E.field_eval_reference(prepared, pts), 10)}
         bwd = stats.setdefault("field_bwd", {})[name] = {
             "max_abs_err": err_g,
             "ms": time_cuda(lambda: E.field_grad(prepared, pts, g_a, g_c), 3),
             "plain_ms": time_cuda(
                 lambda: E.field_grad_reference(prepared, pts, g_a, g_c), 3)}
-        log(f"[6] {name} ({O} x {M} points, h={h}): field_fwd alpha err "
-            f"{err_a:.3e} colour err {err_c:.3e}, ms kernel/plain "
-            f"{fwd['ms']:.4f}/{fwd['plain_ms']:.4f}; field_bwd worst "
-            f"err/scale {err_g:.3e} (d{worst}), ms kernel/plain "
-            f"{bwd['ms']:.4f}/{bwd['plain_ms']:.4f}")
+        log(msg + f"; field_bwd worst err/scale {err_g:.3e} (d{worst}), "
+            f"ms kernel/plain {bwd['ms']:.4f}/{bwd['plain_ms']:.4f}")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -344,25 +376,30 @@ def sphere_error(obj_path: str, scene) -> float:
     return float(np.median(np.abs(d - scene.sphere_radius)))
 
 
-def run_trainer(n_frames: int, n_resume: int = 2) -> dict:
-    """room0 through the CLI for ``n_frames`` (the last one takes the mesh
-    and checkpoint branch), then ``--resume`` for ``n_resume`` more."""
+def drive_trainer(phase: str, config: str, tag: str, n_frames: int,
+                  n_resume: int, check, vis: dict | None = None) -> tuple:
+    """``configs/<config>`` with dataset.format Synthetic (and the ``vis``
+    entries) through the CLI on the card for ``n_frames`` frames with
+    --save_ckpt (the last frame takes the mesh-and-checkpoint branch),
+    then --resume for ``n_resume`` more; both runs' losses finite.
+    ``check(mapper, dataset, logdir, launches, n_iter)`` checks the first
+    run and returns a line of detail for the log. Returns (launch counts
+    of the first run, the export's host seconds per stage)."""
     import numpy as np
     from vmap_tpu_torch import train
     from vmap_tpu_torch.core import meshing
 
-    with open(os.path.join(REPO, "configs", "Replica",
-                           "room0_vmap.json")) as f:
+    with open(os.path.join(REPO, "configs", config)) as f:
         raw = json.load(f)
     raw["dataset"]["format"] = "Synthetic"
-    cfg_path = os.path.join(OUT, "room0_synthetic.json")
+    raw["vis"].update(vis or {})
+    cfg_path = os.path.join(OUT, f"{tag}.json")
     with open(cfg_path, "w") as f:
         json.dump(raw, f, indent=1)
-    logdir = os.path.join(OUT, "train_room0_synthetic")
+    logdir = os.path.join(OUT, f"train_{tag}")
     if os.path.isdir(logdir):
         shutil.rmtree(logdir)
     log_path = os.path.join(logdir, "train_log.jsonl")
-    n_iter = raw["render"]["iters_per_frame"]
 
     reset_counts()
     t0 = time.perf_counter()
@@ -372,51 +409,69 @@ def run_trainer(n_frames: int, n_resume: int = 2) -> dict:
     wall = time.perf_counter() - t0
     launches = read_counts()
     stages = dict(meshing.STAGE_S)
-
     rows = [json.loads(line) for line in open(log_path)]
     assert len(rows) == n_frames, rows
     losses = [r["loss"] for r in rows]
     assert all(np.isfinite(losses)), losses
-    for k in ("train_grad", "train_adamw"):
-        if launches[k] != 2 * n_iter * n_frames:
-            raise AssertionError(f"{k}: {launches[k]} launches for "
-                                 f"{n_frames} frames; expected 2 x {n_iter} "
-                                 "per frame")
-    if not launches["field_fwd"] > 0:
-        raise AssertionError("mesh export launched no field_fwd kernel")
-    for obj_id in (0, 1, 2):     # background, sphere, box
-        rec = mapper.registry[obj_id]
-        bank = mapper.bank_bg if rec.is_bg else mapper.bank_obj
-        assert bool(bank.active[rec.slot]), f"object {obj_id} inactive"
-        path = os.path.join(logdir, "scene_mesh",
-                            f"frame_{n_frames - 1}_obj{obj_id}.obj")
-        if not os.path.getsize(path) > 0:
-            raise AssertionError(f"{path} is empty")
-    sphere_err = sphere_error(os.path.join(
-        logdir, "scene_mesh", f"frame_{n_frames - 1}_obj1.obj"),
-        dataset.scene)
-    if not sphere_err < 0.15:    # the bar of tests/test_meshing.py
-        raise AssertionError(f"sphere mesh median error {sphere_err} m")
-    state = os.path.join(logdir, "ckpt", "state")
-    log(f"[4] trainer: {n_frames} frames in {wall:.1f} s, losses "
-        f"{[round(x, 4) for x in losses]}, launches {launches}, objects "
-        f"{sorted(mapper.registry)}; sphere mesh median error "
-        f"{sphere_err:.4f} m; checkpoint {sorted(os.listdir(state))}")
-    log(f"[4] frame {n_frames - 1} mesh export, host s per stage: "
+    detail = check(mapper, dataset, logdir, launches,
+                   raw["render"]["iters_per_frame"])
+    log(f"[{phase}] trainer: {n_frames} frames in {wall:.1f} s, losses "
+        f"{[round(x, 4) for x in losses]}, launches {launches}; {detail}")
+    log(f"[{phase}] frame {n_frames - 1} mesh export, host s per stage: "
         + ", ".join(f"{k} {v:.3f}" for k, v in
                     sorted(stages.items(), key=lambda kv: -kv[1])))
 
     reset_counts()
     train.main(["--config", cfg_path, "--logdir", logdir, "--max_frames",
                 str(n_frames + n_resume), "--device", "cuda", "--resume",
-                state])
+                os.path.join(logdir, "ckpt", "state")])
     rows = [json.loads(line) for line in open(log_path)][n_frames:]
     assert [r["frame"] for r in rows] == list(
         range(n_frames, n_frames + n_resume)), rows
     assert all(np.isfinite([r["loss"] for r in rows])), rows
-    log(f"[4] resumed for {n_resume} frames: losses "
+    log(f"[{phase}] resumed for {n_resume} frame(s): losses "
         f"{[round(r['loss'], 4) for r in rows]}, launches {read_counts()}")
     return launches, stages
+
+
+def check_launches(launches: dict, want: int, why: str) -> None:
+    """Each train-frame kernel launched ``want`` times, field_fwd at least
+    once (mesh export)."""
+    for k in ("train_grad", "train_adamw"):
+        if launches[k] != want:
+            raise AssertionError(f"{k}: {launches[k]} launches; expected "
+                                 f"{want} ({why})")
+    if not launches["field_fwd"] > 0:
+        raise AssertionError("mesh export launched no field_fwd kernel")
+
+
+def run_trainer(n_frames: int, n_resume: int = 2) -> tuple:
+    """room0_vmap: the object bank and the background, each one launch of
+    each train-frame kernel per iteration; the meshes of the background,
+    the sphere and the box, the sphere's against the analytic one."""
+
+    def check(mapper, dataset, logdir, launches, n_iter):
+        check_launches(launches, 2 * n_iter * n_frames,
+                       f"2 banks x {n_iter} per frame")
+        for obj_id in (0, 1, 2):     # background, sphere, box
+            rec = mapper.registry[obj_id]
+            bank = mapper.bank_bg if rec.is_bg else mapper.bank_obj
+            assert bool(bank.active[rec.slot]), f"object {obj_id} inactive"
+            path = os.path.join(logdir, "scene_mesh",
+                                f"frame_{n_frames - 1}_obj{obj_id}.obj")
+            if not os.path.getsize(path) > 0:
+                raise AssertionError(f"{path} is empty")
+        err = sphere_error(os.path.join(
+            logdir, "scene_mesh", f"frame_{n_frames - 1}_obj1.obj"),
+            dataset.scene)
+        if not err < 0.15:    # the bar of tests/test_meshing.py
+            raise AssertionError(f"sphere mesh median error {err} m")
+        state = os.path.join(logdir, "ckpt", "state")
+        return (f"objects {sorted(mapper.registry)}; sphere mesh median "
+                f"error {err:.4f} m; checkpoint {sorted(os.listdir(state))}")
+
+    return drive_trainer("4", "Replica/room0_vmap.json", "room0_synthetic",
+                         n_frames, n_resume, check)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -457,27 +512,22 @@ def bench_workload(dev):
     return st, bank_obj, bank_bg, pool, obj_tab, obj_ids, bg_tab
 
 
-def full_width(dev, gpu: str, frames: int = 3) -> dict:
+def frame_runs(st, bank_obj, bank_bg, pool, obj_tab, obj_ids, bg_tab,
+               draws, frames: int) -> tuple[dict, list]:
+    """``frames`` frames of ``ST.frame_step`` on the plain and the kernel
+    path in turns (plain, kernel, kernel, plain; each run warms up on one
+    more frame first), each timed with CUDA events around the frame and a
+    data-dependent readback of its loss. ``draws(f)`` -> (obj, bg) draws
+    of frame f. Returns ({"plain" / "kernel": {"frame_ms", "losses",
+    "median_frame_ms"}}, the loss rel diff per frame); raises when the
+    first frame's losses differ by more than RTOL_FULL."""
     import dataclasses
     import torch
     from vmap_tpu_torch.core import step as ST
-    from vmap_tpu_torch.kernels import train_step as K
-
-    st, bo0, bb0, pool, obj_tab, obj_ids, bg_tab = bench_workload(dev)
-    gen = torch.Generator(device=dev)
-
-    def draws(seed):
-        gen.manual_seed(seed)
-        d_o = ST.torch_draws(gen, ST.draw_shapes(
-            104, st.n_iter * st.win, st.n_px, st.n_b2s, st.n_bins, 1), dev)
-        d_b = ST.torch_draws(gen, ST.draw_shapes(
-            1, st.n_iter * st.win_bg, st.n_px_bg, st.n_b2s_bg, st.n_bins,
-            st.px_block_bg), dev)
-        return d_o, d_b
 
     def run(kernel: bool):
         s = dataclasses.replace(st, use_fused_frame=kernel)
-        bo, bb = bo0, bb0
+        bo, bb = bank_obj, bank_bg
         times, losses = [], []
         for f in range(frames + 1):              # frame 0 warms up
             d_o, d_b = draws(f)
@@ -501,10 +551,35 @@ def full_width(dev, gpu: str, frames: int = 3) -> dict:
         assert all(math.isfinite(x) for x in losses), losses
         res.setdefault(label, {"frame_ms": [], "losses": losses})
         res[label]["frame_ms"] += times
+    for label in ("kernel", "plain"):
+        ms = sorted(res[label]["frame_ms"])
+        res[label]["median_frame_ms"] = ms[len(ms) // 2]
     rel = [abs(a - b) / max(abs(b), 1e-9) for a, b in
            zip(res["kernel"]["losses"], res["plain"]["losses"])]
     if not rel[0] < RTOL_FULL:
-        raise AssertionError(f"full-width frame 0 loss rel diff {rel[0]}")
+        raise AssertionError(f"frame 0 loss rel diff {rel[0]}")
+    return res, rel
+
+
+def full_width(dev, gpu: str, frames: int = 3) -> dict:
+    import torch
+    from vmap_tpu_torch.core import step as ST
+    from vmap_tpu_torch.kernels import train_step as K
+
+    st, bo0, bb0, pool, obj_tab, obj_ids, bg_tab = bench_workload(dev)
+    gen = torch.Generator(device=dev)
+
+    def draws(seed):
+        gen.manual_seed(seed)
+        d_o = ST.torch_draws(gen, ST.draw_shapes(
+            104, st.n_iter * st.win, st.n_px, st.n_b2s, st.n_bins, 1), dev)
+        d_b = ST.torch_draws(gen, ST.draw_shapes(
+            1, st.n_iter * st.win_bg, st.n_px_bg, st.n_b2s_bg, st.n_bins,
+            st.px_block_bg), dev)
+        return d_o, d_b
+
+    res, rel = frame_runs(st, bo0, bb0, pool, obj_tab, obj_ids, bg_tab,
+                          draws, frames)
 
     # kernel-only: one bank's 20-iteration frame on a fixed batch
     d_o, d_b = draws(100)
@@ -522,9 +597,6 @@ def full_width(dev, gpu: str, frames: int = 3) -> dict:
             res[f"{bname}_bank_frame_{label}_ms"] = time_cuda(
                 lambda: fn(bank, batch, st.n_iter, n_per, LR, WD, CS, OSC),
                 3)
-    for label in ("kernel", "plain"):
-        ms = sorted(res[label]["frame_ms"])
-        res[label]["median_frame_ms"] = ms[len(ms) // 2]
     log(f"[5] full-width frame on {gpu}: kernel path median "
         f"{res['kernel']['median_frame_ms']:.3f} ms/frame "
         f"{[round(x, 3) for x in res['kernel']['frame_ms']]}, plain path "
@@ -535,6 +607,99 @@ def full_width(dev, gpu: str, frames: int = 3) -> dict:
         log(f"[5] {bname} bank 20-iteration frame on {gpu}: kernel "
             f"{res[f'{bname}_bank_frame_kernel_ms']:.3f} ms, plain "
             f"{res[f'{bname}_bank_frame_plain_ms']:.3f} ms")
+    return res
+
+
+def imap_workload(dev):
+    """The iMAP frame of configs/Replica/room0_imap.json on the port: its
+    StepStatics (one h=256 field, 4800 rays x 14 samples, 20 iterations,
+    no background), the field's slot active, and a random 16-slot
+    1200x680 pool in which every pixel belongs to the scene field (iMAP
+    ingests instance 0 everywhere), keyframes over the whole frame."""
+    import numpy as np
+    import torch
+    from vmap_tpu_torch.core import bank as B
+    from vmap_tpu_torch.core.mapper import Config, step_statics
+    cfg = Config.from_json(os.path.join(REPO, "configs", "Replica",
+                                        "room0_imap.json"))
+    st = step_statics(cfg, use_fused=True)
+    W, H, KF, POOL = cfg.W, cfg.H, 20, 16
+    gen = torch.Generator().manual_seed(0)
+    bank = B.init_bank(gen, 1, cfg.hidden_feature_size, cfg.obj_scale,
+                       device=dev)
+    B.activate_slot(bank, 0, gen, cfg.obj_scale)
+    rng = np.random.default_rng(0)
+    depth_mm = rng.integers(500, 7500, (POOL, W, H)).astype(np.uint32)
+    rgbw = rng.integers(0, 2 ** 24, (POOL, W, H)).astype(np.uint32)
+    packed = np.stack([rgbw, depth_mm | (1 << 16)], -1).view(np.int32)
+    pool = (torch.from_numpy(packed).to(dev),
+            torch.eye(4, device=dev).repeat(POOL, 1, 1))
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    tab = (t(rng.integers(0, POOL, (1, KF)).astype(np.int32)),
+           t(np.tile(np.array([0, W, 0, H], np.float32), (1, KF, 1))),
+           t(np.full(1, KF - 1, np.int32)),
+           t(np.array([[KF - 3, KF - 2]], np.int32)))
+    return st, bank, pool, tab, torch.zeros(1, dtype=torch.int32, device=dev)
+
+
+def device_split(fn) -> dict | None:
+    """Device ms of one call of ``fn()`` (after a warm-up call) by kernel:
+    train_grad, train_adamw and everything else, from torch.profiler's
+    CUDA activity; None when the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = {"train_grad": 0.0, "train_adamw": 0.0, "other": 0.0}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        k = ("train_grad" if "train_grad_kernel" in e.name else
+             "train_adamw" if "adamw_kernel" in e.name else "other")
+        split[k] += e.time_range.elapsed_us() / 1e3
+    split["total"] = sum(split.values())
+    return split if split["total"] > 0 else None
+
+
+def imap_full_width(dev, gpu: str, frames: int = 3) -> dict:
+    """The iMAP frame at full width: ``frames`` frames through the kernel
+    path and the plain path (CUDA events), and the kernel path's device
+    time per kernel (torch.profiler)."""
+    import dataclasses
+    import torch
+    from vmap_tpu_torch.core import step as ST
+    st, bank, pool, tab, obj_ids = imap_workload(dev)
+    gen = torch.Generator(device=dev)
+
+    def draws(seed):
+        gen.manual_seed(seed)
+        return ST.torch_draws(gen, ST.draw_shapes(
+            1, st.n_iter * st.win, st.n_px, st.n_b2s, st.n_bins,
+            st.px_block), dev), None
+
+    res, rel = frame_runs(st, bank, None, pool, tab, obj_ids, None, draws,
+                          frames)
+    kst = dataclasses.replace(st, use_fused_frame=True)
+    d_o, _ = draws(100)
+    res["device_ms"] = device_split(lambda: ST.frame_step(
+        kst, bank, None, *pool, tab, obj_ids, None, d_o, None))
+    res["rays_per_iteration"] = st.win * st.n_px
+    log(f"[5] iMAP frame on {gpu} ({st.win * st.n_px} rays x "
+        f"{st.n_b2s + st.n_bins} samples, h={bank.spec.hidden}, "
+        f"{st.n_iter} iterations): kernel path median "
+        f"{res['kernel']['median_frame_ms']:.3f} ms/frame "
+        f"{[round(x, 3) for x in res['kernel']['frame_ms']]}, plain path "
+        f"median {res['plain']['median_frame_ms']:.3f} ms/frame "
+        f"{[round(x, 3) for x in res['plain']['frame_ms']]}; loss rel diff "
+        f"per frame {[f'{x:.2e}' for x in rel]}")
+    split = res["device_ms"]
+    log("[5] iMAP frame device ms (torch.profiler): " + (
+        ", ".join(f"{k} {v:.3f}" for k, v in split.items()) if split
+        else "not measured (the profiler recorded no device time)"))
     return res
 
 
@@ -555,11 +720,29 @@ def time_grid(chunk_fn, n_chunks: int, ref_fn=None) -> dict:
     return res
 
 
+def grid_chunk_fn(prepared, frames, chunk: int, fn):
+    """i -> occupancy of grid chunk i of mesh_all_objects' bank query, with
+    ``fn`` as the field query (the kernel or its plain version)."""
+    from vmap_tpu_torch.core import meshing as MS
+    from vmap_tpu_torch.kernels import ensemble as E
+
+    def run(i):
+        MS.field_eval = fn
+        try:
+            return MS._bank_grid_chunk(prepared, *frames, i * chunk,
+                                       chunk)[0]
+        finally:
+            MS.field_eval = E.field_eval
+    return run
+
+
 def mesh_full_width(dev, gpu: str) -> dict:
     """Meshing queries at full width, kernel against plain: a 100-object
     h=32 bank over a 128^3 grid per object (the bank padded to 128
-    objects, as mesh_all_objects pads it) and one h=128 background over
-    the 256^3 grid of room0_vmap.json."""
+    objects, as mesh_all_objects pads it), one h=128 background over the
+    256^3 grid of room0_vmap.json, and the h=256 scene field of
+    room0_imap.json over 256^3 through mesh_all_objects' chunks (one
+    object, 65,536 points per query)."""
     import numpy as np
     import torch
     from types import SimpleNamespace
@@ -588,14 +771,7 @@ def mesh_full_width(dev, gpu: str) -> dict:
         n_chunks = -(-gd ** 3 // chunk)
 
         def obj_chunk(fn):
-            def run(i):
-                MS.field_eval = fn
-                try:
-                    return MS._bank_grid_chunk(prepared, *frames, i * chunk,
-                                               chunk)[0]
-                finally:
-                    MS.field_eval = E.field_eval
-            return run
+            return grid_chunk_fn(prepared, frames, chunk, fn)
 
         res["obj_plain"] = time_grid(obj_chunk(E.field_eval_reference),
                                      n_chunks)
@@ -658,7 +834,27 @@ def mesh_full_width(dev, gpu: str) -> dict:
         res["bg_kernel"] = time_grid(bg_chunk(E.field_eval), n_bchunks,
                                      bg_chunk(E.field_eval_reference))
         res["bg_points"] = grid.shape[1]
-    for k in ("obj", "bg"):
+
+        # iMAP: one h=256 scene field over a room-sized 256^3 grid, as
+        # mesh_all_objects queries it
+        scene = B.init_bank(gen, 1, 256, 5.0)
+        scene = scene.replace(flat=scene.flat.to(dev),
+                              scale=scene.scale.to(dev))
+        work1 = [(0, MS.oriented_box(np.zeros(3), T[:3, :3],
+                                     np.array([8.0, 3.0, 8.0])), 256)]
+        fake1 = SimpleNamespace(device=dev, bank_obj=scene,
+                                registry={0: SimpleNamespace(slot=0)})
+        prep1 = MS.bank_prepared(fake1, work1)
+        frames1 = MS.grid_frames(work1, 1, dev)
+        n_ichunks = 256 ** 3 // chunk
+        res["imap_plain"] = time_grid(
+            grid_chunk_fn(prep1, frames1, chunk, E.field_eval_reference),
+            n_ichunks)
+        res["imap_kernel"] = time_grid(
+            grid_chunk_fn(prep1, frames1, chunk, E.field_eval), n_ichunks,
+            grid_chunk_fn(prep1, frames1, chunk, E.field_eval_reference))
+        res["imap_points"] = 256 ** 3
+    for k in ("obj", "bg", "imap"):
         kern, plain = res[f"{k}_kernel"], res[f"{k}_plain"]
         log(f"[7] {k} meshing grid on {gpu}: {res[f'{k}_points']} points; "
             f"kernel {kern['chunk_ms']:.4f} ms/chunk, "
@@ -687,6 +883,7 @@ def check_field_train_path(dev) -> dict:
     counts of the frames, the times)."""
     import dataclasses
     from vmap_tpu_torch.core import step as ST
+    from vmap_tpu_torch.kernels import KERNEL_HIDDEN
     from vmap_tpu_torch.kernels import ensemble as E
     from vmap_tpu_torch.kernels import train_step as K
     st = ST.StepStatics(lr=LR, wd=WD, color_scaling=CS, opacity_scaling=OSC,
@@ -694,6 +891,8 @@ def check_field_train_path(dev) -> dict:
     counts: dict = {}
     times: dict = {}
     for name, cap, n_act, h, n_per, S, scale in SHAPES:
+        if h not in KERNEL_HIDDEN["field_bwd"]:
+            continue
         bank = conditioned_bank(cap, n_act, h, scale, 0, dev)
         reset_counts()
         frame_tiers("8", name, bank, S, n_per, dev,
@@ -732,16 +931,74 @@ def check_field_train_path(dev) -> dict:
     return counts, times
 
 
+# ---------------------------------------------------------------- phase 9
+def scene_occupancy(mapper, scene, frames) -> tuple:
+    """(occupancy on the analytic sphere's surface, occupancy at empty
+    points) of the iMAP scene field (object 0), through the port's field
+    query. For each frame f of ``frames``: the sphere's surface point
+    facing the camera, and the point halfway along the camera's ray to it
+    (free space the frame observed)."""
+    import numpy as np
+    from vmap_tpu_torch.core.meshing import eval_points
+    eyes = np.stack([scene.pose(f, 64)[:3, 3] for f in frames])
+    u = eyes - scene.sphere_center
+    surf = scene.sphere_center + scene.sphere_radius * (
+        u / np.linalg.norm(u, axis=1, keepdims=True))
+    empty = eyes + 0.5 * (surf - eyes)
+    params = mapper.object_params(0)
+    return eval_points(*params, surf)[0], eval_points(*params, empty)[0]
+
+
+def run_imap_trainer(n_frames: int = 11, n_resume: int = 1) -> tuple:
+    """room0_imap (no HTML viewer: phase 4 covers it): one bank, so one
+    launch of each train-frame kernel per iteration, each train_grad
+    launch the blocks of frame_geometry; the scene mesh, and the learned
+    occupancy on the sphere above that in empty space."""
+    from vmap_tpu_torch.core import meshing
+    from vmap_tpu_torch.kernels import train_step as K
+
+    def check(mapper, dataset, logdir, launches, n_iter):
+        assert mapper.bank_bg is None and mapper.n_objects == 1
+        st = mapper.statics
+        geom = K.frame_geometry(mapper.hidden, st.n_b2s + st.n_bins,
+                                st.win * st.n_px, mapper.slots)
+        check_launches(launches, n_iter * n_frames,
+                       f"1 bank x {n_iter} per frame, each train_grad "
+                       f"launch {geom.blocks} blocks x {mapper.slots} slot "
+                       f"over {geom.n_tiles} tiles of {geom.rays_per_tile} "
+                       "rays")
+        path = os.path.join(logdir, "scene_mesh",
+                            f"frame_{n_frames - 1}_obj0.obj")
+        if not os.path.getsize(path) > 0:
+            raise AssertionError(f"{path} is empty")
+        occ_s, occ_e = scene_occupancy(mapper, dataset.scene,
+                                       range(n_frames))
+        if not occ_s.mean() > occ_e.mean():
+            raise AssertionError(f"scene field: occupancy on the sphere "
+                                 f"{occ_s} not above empty space {occ_e}")
+        return (f"{n_iter} launches per frame of train_grad / train_adamw, "
+                f"each train_grad launch {geom.blocks} blocks over "
+                f"{geom.n_tiles} tiles of {geom.rays_per_tile} rays; scene "
+                f"mesh {len(meshing.read_obj_vertices(path))} vertices; "
+                f"occupancy on the sphere mean {occ_s.mean():.4f}, at empty "
+                f"points {occ_e.mean():.4f}")
+
+    return drive_trainer("9", "Replica/room0_imap.json",
+                         "room0_imap_synthetic", n_frames, n_resume, check,
+                         vis={"html_viewer": False})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="12345678",
-                    help="phases to run (default all: 12345678)")
+    ap.add_argument("--phases", default="123456789",
+                    help="phases to run (default all: 123456789)")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(REPO, "vmap_tpu_torch", "kernels",
                                       "csrc")):
         print("chip_smoke.py: the vmap_tpu_torch package is not beside "
               "this script", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; this "
@@ -781,8 +1038,9 @@ def main(argv=None) -> int:
             json.dump({"gpu": gpu, "host_s": stages}, f, indent=1)
     if "5" in args.phases:
         res = full_width(dev, gpu)
+        res_imap = imap_full_width(dev, gpu)
         with open(os.path.join(OUT, "full_width.json"), "w") as f:
-            json.dump({"gpu": gpu, **res}, f, indent=1)
+            json.dump({"gpu": gpu, **res, "imap": res_imap}, f, indent=1)
     if "6" in args.phases:
         check_field_kernels(dev, stats)
     if "7" in args.phases:
@@ -791,6 +1049,10 @@ def main(argv=None) -> int:
             json.dump({"gpu": gpu, **res}, f, indent=1)
     if "8" in args.phases:
         paths["use_pallas_train"], path_tiles = check_field_train_path(dev)
+    if "9" in args.phases:
+        paths["imap_trainer"], stages = run_imap_trainer()
+        with open(os.path.join(OUT, "imap_export_stages.json"), "w") as f:
+            json.dump({"gpu": gpu, "host_s": stages}, f, indent=1)
 
     kernels = []
     for name, src, replaces in (
@@ -810,12 +1072,15 @@ def main(argv=None) -> int:
             "launches": launches,
             "max_abs_err": max((v["max_abs_err"] for v in per.values()),
                                default=None),
-            # summed over the object shape and the background shape
+            # summed over the shapes of by_shape (vMAP object and
+            # background banks, the iMAP field)
             "ms": sum(v["ms"] for v in per.values()) if per else None,
             "plain_ms": (sum(v["plain_ms"] for v in per.values())
                          if per else None),
             "by_shape": per, "launches_by_path": by_path})
     kernels[3]["at_use_pallas_train_tiles"] = path_tiles
+    log(f"[done] phases {args.phases} in {time.perf_counter() - t_start:.1f}"
+        " s")
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,28 @@ def small_synthetic_config(path) -> str:
     return str(path)
 
 
+def small_imap_config(path) -> str:
+    """``configs/Replica/room0_imap.json`` at its full width (one scene
+    field of hidden 256, 5 + 9 = 14 samples per ray) cut for the CPU: the
+    analytic scene (dataset format Synthetic) at 80x60, 60 rays and 3
+    iterations per frame, grid_dim 24, a 16-frame pool, no HTML viewer;
+    written to ``path``, returns its path as a string."""
+    import json
+    import os
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "configs", "Replica",
+                           "room0_imap.json")) as f:
+        raw = json.load(f)
+    raw["dataset"].update(format="Synthetic", path="")
+    raw["render"].update(iters_per_frame=3, n_per_optim=60)
+    raw["vis"].update(grid_dim=24, live_voxel_size=0.05, html_viewer=False)
+    raw["camera"].update(w=80, h=60, fx=60.0, fy=60.0, cx=39.5, cy=29.5)
+    raw["tpu"]["frame_pool_size"] = 16
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return str(path)
+
+
 def t(a, dtype=None) -> torch.Tensor:
     """JAX / numpy array -> CPU torch tensor (a copy)."""
     return torch.tensor(np.asarray(a), dtype=dtype)

@@ -57,7 +57,7 @@ def test_prepare_params_matches_jax_layout():
             assert tuple(tp[k].shape[1:]) == shapes[k]
 
 
-@pytest.mark.parametrize("hidden", [32, 128])
+@pytest.mark.parametrize("hidden", [32, 128, 256])
 @pytest.mark.parametrize("m", [1, 127, 513])
 def test_field_eval_matches_pallas_interpret(hidden, m):
     pe, mlp = np_params(2, hidden, hidden + m)

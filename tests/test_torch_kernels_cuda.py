@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card, at
-the shapes of the port's main paths: the train-frame kernels
+the shapes of the port's main paths (the vMAP object and background banks,
+the iMAP scene field at hidden 256): the train-frame kernels
 (chip_smoke.py phase 3: each kernel alone, then whole frames at n_iter=1,
 rtol 2e-3, and n_iter=20, finite, rtol 0.25 on the final summed loss,
 inactive slots bit-identical), the field kernels K2 / K3 (phase 6: alpha
@@ -31,7 +32,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["obj", "bg"])
+@pytest.mark.parametrize("shape", ["obj", "bg", "imap"])
 def test_kernels_match_plain_on_card(cuda_device, shape):
     sys.path.insert(0, REPO)
     import chip_smoke
@@ -42,15 +43,18 @@ def test_kernels_match_plain_on_card(cuda_device, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["obj", "bg"])
+@pytest.mark.parametrize("shape", ["obj", "bg", "imap"])
 def test_field_kernels_match_plain_on_card(cuda_device, shape):
+    """K2 at each shape; K3 where it is built for the width (not h=256)."""
     sys.path.insert(0, REPO)
     import chip_smoke
+    from vmap_tpu_torch.kernels import KERNEL_HIDDEN
     shapes = [s for s in chip_smoke.FIELD_SHAPES if s[0] == shape]
     stats = {}
     chip_smoke.check_field_kernels(cuda_device, stats, shapes)
     assert stats["field_fwd"][shape]["ms"] > 0
-    assert stats["field_bwd"][shape]["ms"] > 0
+    if shapes[0][2] in KERNEL_HIDDEN["field_bwd"]:
+        assert stats["field_bwd"][shape]["ms"] > 0
 
 
 @pytest.mark.cuda

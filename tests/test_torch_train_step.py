@@ -61,6 +61,7 @@ def jax_batch(b):
     (8, 32, 120, 3, 10, 7),      # object-bank shape
     (2, 16, 200, 2, 5, 2),       # background-like
     (1, 256, 96, 2, 4, 1),       # iMAP single field (hidden 256)
+    (1, 256, 40, 2, 14, 1),      # iMAP: 5 + 9 = 14 samples per ray
 ])
 def test_reference_frame_matches_jax(rng, cap, h, n_per, n_iter, S,
                                      n_active):

@@ -36,7 +36,7 @@ from vmap_tpu_torch.core.pool import FramePool
 from vmap_tpu_torch.core.step import (Draws, StepStatics, draw_shapes,
                                       frame_step, torch_draws)
 from vmap_tpu_torch.device import kernel_path_enabled, resolve_device
-from vmap_tpu_torch.kernels.train_step import KERNEL_HIDDEN
+from vmap_tpu_torch.kernels import KERNEL_HIDDEN
 
 
 @dataclass
@@ -91,6 +91,61 @@ def check_supported(cfg: Config) -> None:
             "live mode is not ported (ROADMAP: core/live.py)")
 
 
+# the CUDA kernels the Mapper's path runs: each frame trains through K1,
+# every mesh export queries the fields through K2
+PATH_KERNELS = ("train_frame", "field_fwd")
+
+
+def check_kernel_widths(cfg: Config) -> None:
+    """Raise NotImplementedError, naming each kernel and width, when a bank
+    of ``cfg`` has a hidden width that a kernel of the path lacks (so a
+    run fails at start, not at its first mesh export)."""
+    widths = {"objects": cfg.hidden_feature_size}
+    if cfg.do_bg:
+        widths["background"] = cfg.hidden_feature_size_bg
+    missing = [f"{k} for the {bank} (hidden {h}; built for "
+               f"{KERNEL_HIDDEN[k]})"
+               for bank, h in widths.items() for k in PATH_KERNELS
+               if h not in KERNEL_HIDDEN[k]]
+    if missing:
+        raise NotImplementedError(
+            f"hidden sizes {'/'.join(str(h) for h in widths.values())}: no "
+            "CUDA kernel " + "; ".join(missing))
+
+
+def step_statics(cfg: Config, use_fused: bool) -> StepStatics:
+    """The frame step's static configuration of ``cfg``; ``use_fused``
+    runs each bank's frame through the CUDA train-frame kernel."""
+    px_block = cfg.px_block
+    if px_block > 1 and (cfg.H % px_block
+                         or cfg.n_samples_per_frame % px_block):
+        print(f"WARNING: tpu.px_block={px_block} incompatible with "
+              f"H={cfg.H} / object ray budget; falling back to 1")
+        px_block = 1
+    px_block_bg = cfg.px_block_bg
+    if px_block_bg > 1 and (cfg.H % px_block_bg
+                            or cfg.n_samples_per_frame_bg % px_block_bg):
+        print(f"WARNING: tpu.px_block_bg={px_block_bg} incompatible "
+              f"with H={cfg.H} / bg ray budget; falling back to 1")
+        px_block_bg = 1
+    return StepStatics(
+        n_iter=cfg.n_iter_per_frame,
+        win=cfg.win_size, n_px=cfg.n_samples_per_frame,
+        n_b2s=cfg.n_bins_cam2surface, n_bins=cfg.n_bins,
+        do_bg=cfg.do_bg, win_bg=cfg.win_size_bg,
+        n_px_bg=cfg.n_samples_per_frame_bg,
+        n_b2s_bg=cfg.n_bins_cam2surface_bg,
+        min_depth=cfg.min_depth, surface_eps=cfg.surface_eps,
+        stop_eps=cfg.stop_eps,
+        fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy,
+        lr=cfg.learning_rate, wd=cfg.weight_decay,
+        color_scaling=cfg.color_scaling,
+        opacity_scaling=cfg.opacity_scaling,
+        use_fused_frame=use_fused,
+        px_block=px_block, px_block_bg=px_block_bg,
+    )
+
+
 class Mapper:
     def __init__(self, cfg: Config, device: str | torch.device = "cpu",
                  draw_source: DrawSource | None = None):
@@ -101,11 +156,8 @@ class Mapper:
         self.hidden = cfg.hidden_feature_size
         self.hidden_bg = cfg.hidden_feature_size_bg
         self.use_fused = kernel_path_enabled(self.device)
-        if self.use_fused and not {self.hidden, self.hidden_bg} <= set(
-                KERNEL_HIDDEN):
-            raise NotImplementedError(
-                f"hidden sizes {self.hidden}/{self.hidden_bg}: the CUDA "
-                f"train-frame kernels are built for {KERNEL_HIDDEN}")
+        if self.use_fused:
+            check_kernel_widths(cfg)
         # bank SLOTS round up to a multiple of 8 on the kernel path when
         # h <= 64, as the JAX Mapper does on its fused path, so bank shapes
         # match; slots beyond `capacity` stay inactive (the "models full"
@@ -143,34 +195,7 @@ class Mapper:
         self.models_full_events = 0
         self.pool_force_released = 0
 
-        px_block = cfg.px_block
-        if px_block > 1 and (cfg.H % px_block
-                             or cfg.n_samples_per_frame % px_block):
-            print(f"WARNING: tpu.px_block={px_block} incompatible with "
-                  f"H={cfg.H} / object ray budget; falling back to 1")
-            px_block = 1
-        px_block_bg = cfg.px_block_bg
-        if px_block_bg > 1 and (cfg.H % px_block_bg
-                                or cfg.n_samples_per_frame_bg % px_block_bg):
-            print(f"WARNING: tpu.px_block_bg={px_block_bg} incompatible "
-                  f"with H={cfg.H} / bg ray budget; falling back to 1")
-            px_block_bg = 1
-        self.statics = StepStatics(
-            n_iter=cfg.n_iter_per_frame,
-            win=cfg.win_size, n_px=cfg.n_samples_per_frame,
-            n_b2s=cfg.n_bins_cam2surface, n_bins=cfg.n_bins,
-            do_bg=cfg.do_bg, win_bg=cfg.win_size_bg,
-            n_px_bg=cfg.n_samples_per_frame_bg,
-            n_b2s_bg=cfg.n_bins_cam2surface_bg,
-            min_depth=cfg.min_depth, surface_eps=cfg.surface_eps,
-            stop_eps=cfg.stop_eps,
-            fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy,
-            lr=cfg.learning_rate, wd=cfg.weight_decay,
-            color_scaling=cfg.color_scaling,
-            opacity_scaling=cfg.opacity_scaling,
-            use_fused_frame=self.use_fused,
-            px_block=px_block, px_block_bg=px_block_bg,
-        )
+        self.statics = step_statics(cfg, self.use_fused)
 
     # ------------------------------------------------------------------ #
     def _register_object(self, obj_id: int,

@@ -19,12 +19,13 @@
 //   colour = sigmoid(W_out c + b).
 //
 // field_fwd_kernel: grid (point tile, object). Meshing is large in points
-// and small in objects (one background object carries 256^3 points), so
-// the grid spreads over point tiles. Each thread computes an RI x PJ
-// register tile of a layer's outputs; the 32 lanes of a warp share their
-// output rows, so every weight load is one broadcast from L1 / L2 (the
+// and small in objects (one background object, or the iMAP scene field,
+// carries 256^3 points), so the grid spreads over point tiles. Each thread
+// computes an RI x PJ register tile of a layer's outputs; the 32 lanes of
+// a warp share their output rows, so every weight load is one broadcast from L1 / L2 (the
 // h=128 weights, ~450 KB, do not fit in shared memory and are not copied
-// there), and read consecutive points of the activation block.
+// there; neither are the h=256 ones, 1.3 MB), and read consecutive points
+// of the activation block. Built for h = 32, 128 and 256.
 //
 // field_bwd_kernel: grid (chunk of tile_m points, object). A block
 // recomputes the forward of each TP-point sub-tile of its chunk, runs the
@@ -475,13 +476,19 @@ int vmap_field_fwd(int hidden, const float* params, const int* offsets,
   if (hidden == 128)
     return launch_fwd<128, 64, 8, 2>(params, n_params, off, scale, pts, O, M,
                                      alpha, color, st);
+  // h=256: 64 points (165 KB of activations, one block per SM), 16 x 2
+  // register tile: twice the independent FMAs per weight load of h=128,
+  // to cover the load latency with 8 warps per SM
+  if (hidden == 256)
+    return launch_fwd<256, 64, 16, 2>(params, n_params, off, scale, pts, O,
+                                      M, alpha, color, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // K3: per-chunk partial weight gradients grad_part [O, ceil(M / tile_m),
 // n_params] of sum(g_alpha * alpha) + sum(g_color * colour), in the packed
-// prepared layout (padded columns stay 0). tile_m must be a multiple of
-// vmap_field_bwd_subtile(hidden).
+// prepared layout (padded columns stay 0); built for h = 32 and 128 only.
+// tile_m must be a multiple of vmap_field_bwd_subtile(hidden).
 int vmap_field_bwd(int hidden, const float* params, const int* offsets,
                    int n_params, const float* scale, const float* pts,
                    const float* g_alpha, const float* g_color, int O, int M,

@@ -1,5 +1,6 @@
 // Hand-written CUDA train-frame kernels for the vMAP object / background
-// banks (sm_90a, plain C interface, loaded with ctypes).
+// banks and the iMAP scene field (sm_90a, plain C interface, loaded with
+// ctypes).
 //
 // Replaces the TPU kernel vmap_tpu/kernels/train_step.py::_make_kernel
 // (launched by fused_frame_prepared). The contract is the math on flat
@@ -7,34 +8,44 @@
 // merges, no polynomial sin/cos or fast sigmoid.
 //
 // One optimisation iteration of one bank is two launches:
-//   train_grad_kernel   grid (ray tile, slot). A block takes RT whole rays
-//       with all S samples of each (the termination cumprod runs along the
-//       ray), builds the points, runs the PE and the 7-layer MLP forward in
-//       FP32 FMA loops (no tensor cores, so the f32 policy stays IEEE),
-//       renders depth / colour / opacity / detached variance, forms the
-//       normaliser-weighted masked L1 losses, and runs the hand-derived
+//   train_grad_kernel   grid (partial row, slot). A ray tile is RT whole
+//       rays with all S samples of each (the termination cumprod runs along
+//       the ray). A block takes the tiles row, row + n_rows, ... in order;
+//       for each it builds the points, runs the PE and the 7-layer MLP
+//       forward in FP32 FMA loops (no tensor cores, so the f32 policy stays
+//       IEEE), renders depth / colour / opacity / detached variance, forms
+//       the normaliser-weighted masked L1 losses, and runs the hand-derived
 //       backward (the dirs gradient through cos(pi 2^k proj) pi 2^k
 //       included). Activations live in shared memory and are overwritten in
-//       place by their gradients on the way back. The block writes its
-//       partial weight gradients to grad_part[slot, tile, :] and its loss
-//       partial to loss_part[slot, tile]: no atomics.
-//   adamw_kernel        grid (param chunk, slot). Sums a parameter's tile
+//       place by their gradients on the way back. The block's first tile
+//       writes its partial weight gradients to grad_part[slot, row, :] and
+//       its loss to loss_part[slot, row]; later tiles add to them in tile
+//       order: no atomics, deterministic. With n_rows == n_tiles (every
+//       width's geometry while the scratch is small) each block takes one
+//       tile; the iMAP field (h=256, 4800 rays x 14 samples, 2 rays per
+//       tile) takes a grid of one block per SM instead, so its scratch is
+//       132 rows and not 2400 (see kernels/train_step.py frame_geometry).
+//   adamw_kernel        grid (param chunk, slot). Sums a parameter's row
 //       partials in a fixed order (deterministic), then applies masked
 //       AdamW (torch semantics: p *= 1 - lr wd first, betas 0.9 / 0.999,
 //       eps 1e-8, per-slot bias corrections 1 - b^t precomputed on the
 //       host). Inactive slots are not touched, so they stay bit-identical.
 //
-// What bounds it on the card: FP32 FMA work. A 20-iteration frame of the
-// Replica vMAP configuration (100 objects at h=32, 120 rays x 10 samples;
-// background h=128, 1200 rays x 14 samples) is about 350 GFLOP of forward
-// and backward MLP work, against 67 TFLOP/s of FP32 FMA on an H100 SXM.
-// This first design keeps every matrix operand in shared memory with the
-// point index fastest (conflict-free reads, weights broadcast from L1/L2:
-// the h=128 background is 377 KB and stays in L2), gives each thread four
-// output rows in the forward products, and spreads the work over
-// (slot x ray tile) blocks so that the 100-slot bank fills all SMs. It is
-// shared-memory bandwidth bound rather than FMA bound; register tiling of
-// the products is the next step.
+// What bounds it on the card: FP32 FMA work and the loads that feed it. A
+// 20-iteration frame of the Replica vMAP configuration (100 objects at
+// h=32, 120 rays x 10 samples; background h=128, 1200 rays x 14 samples)
+// is about 350 GFLOP of forward and backward MLP work, the iMAP frame
+// (h=256, 4800 rays x 14 samples) about 2.6 TFLOP, against 67 TFLOP/s of
+// FP32 FMA on an H100 SXM. This first design keeps every matrix operand in
+// shared memory with the point index fastest (conflict-free reads, weights
+// broadcast from L1/L2: the h=128 background is 377 KB, the h=256 field
+// 1.28 MB, both L2-resident), gives each thread four output rows in the
+// forward products, and spreads the work over (partial row, slot) blocks.
+// At h=256 one point's activations take 5.8 KB, so a tile is 2 rays (28
+// points, 169 KB) and one block fits an SM: that instance runs 512
+// threads to keep 16 warps in flight. It is shared-memory and load-issue
+// bound rather than FMA bound; register tiling of the products is the
+// next step.
 //
 // sin / cos use sinpif / cospif (exact-argument sin(pi x)); the build does
 // not pass --use_fast_math: the band-5 argument reaches 32 pi |proj|.
@@ -46,7 +57,6 @@
 
 namespace {
 
-constexpr int NTHREADS = 256;
 constexpr int MAX_S = 32;
 constexpr int MAX_RT = 64;
 
@@ -63,13 +73,13 @@ __device__ __forceinline__ float sgnf(float x) {
 
 // out[i][p] = act(b[i] + sum_k w[i][k] ina[k][p] + sum_k w[i][na+k] inb[k][p])
 // for i < n_out (n_out % TI == 0), p < P. w is row-major [n_out, ldw].
-template <int TI>
+template <int TI, int NT>
 __device__ void dense(const float* __restrict__ w, const float* __restrict__ b,
                       int n_out, int ldw, const float* ina, int na,
                       const float* inb, int nb, float* out, int P, int LDP,
                       bool relu) {
   const int n_items = (n_out / TI) * P;
-  for (int idx = threadIdx.x; idx < n_items; idx += NTHREADS) {
+  for (int idx = threadIdx.x; idx < n_items; idx += NT) {
     const int i0 = (idx / P) * TI, p = idx % P;
     const float* wr = w + (size_t)i0 * ldw;
     float acc[TI];
@@ -92,28 +102,32 @@ __device__ void dense(const float* __restrict__ w, const float* __restrict__ b,
   }
 }
 
-// G[i * ldw + col0 + k] = sum_p dout[i][p] * in[k][p]   (i < n_out, k < n_in)
+// G[i * ldw + col0 + k] (+)= sum_p dout[i][p] * in[k][p]  (i < n_out,
+// k < n_in); add: accumulate onto the row (a block's later tiles)
+template <int NT>
 __device__ void wgrad(float* __restrict__ G, int ldw, int col0,
                       const float* dout, int n_out, const float* in, int n_in,
-                      int P, int LDP) {
-  for (int idx = threadIdx.x; idx < n_out * n_in; idx += NTHREADS) {
+                      int P, int LDP, bool add) {
+  for (int idx = threadIdx.x; idx < n_out * n_in; idx += NT) {
     const int i = idx / n_in, k = idx % n_in;
     const float* d = dout + i * LDP;
     const float* x = in + k * LDP;
     float acc = 0.f;
     for (int p = 0; p < P; ++p) acc = fmaf(d[p], x[p], acc);
-    G[(size_t)i * ldw + col0 + k] = acc;
+    float* g = G + (size_t)i * ldw + col0 + k;
+    *g = add ? *g + acc : acc;
   }
 }
 
-// G[i] = sum_p dout[i][p]   (bias gradients)
+// G[i] (+)= sum_p dout[i][p]   (bias gradients)
+template <int NT>
 __device__ void bgrad(float* __restrict__ G, const float* dout, int n_out,
-                      int P, int LDP) {
-  for (int i = threadIdx.x; i < n_out; i += NTHREADS) {
+                      int P, int LDP, bool add) {
+  for (int i = threadIdx.x; i < n_out; i += NT) {
     const float* d = dout + i * LDP;
     float acc = 0.f;
     for (int p = 0; p < P; ++p) acc += d[p];
-    G[i] = acc;
+    G[i] = add ? G[i] + acc : acc;
   }
 }
 
@@ -133,25 +147,25 @@ __device__ __forceinline__ float band_grad(float g, float proj, int b) {
   return g * cospif(proj * f) * (PI_F * f);
 }
 
-template <int H>
-__global__ void __launch_bounds__(NTHREADS)
-train_grad_kernel(const float* __restrict__ params,   // [cap, NP]
-                  const float* __restrict__ od,       // [cap, NR, 6]
-                  const float* __restrict__ zs,       // [cap, NR, S]
-                  const float* __restrict__ ray,      // [cap, NR, 8]
-                  const float* __restrict__ wmul,     // [cap, n_iter, 4]
-                  const float* __restrict__ scale,    // [cap]
-                  const int* __restrict__ active,     // [cap]
-                  float* __restrict__ grad_part,      // [cap, n_tiles, NP]
-                  float* __restrict__ loss_part,      // [cap, n_tiles]
-                  Offsets off, int n_params, int n_rays, int n_per,
-                  int n_iter, int it, int S, int RT, int LDP, float cs,
-                  float osc) {
-  const int tile = blockIdx.x, slot = blockIdx.y, n_tiles = gridDim.x;
-  if (!active[slot]) return;
+// One ray tile (rays ray0 .. ray0 + RT of this iteration, past n_per
+// padded) of one slot: points, forward, render, losses, backward. The
+// weight gradients go to the block's row G and the tile's loss to *loss;
+// with add, both are added onto what the block's earlier tiles left there.
+// Ends with the block synchronised, so the next tile may reuse sm. Not
+// inlined: inlined into the kernel's tile loop, its loop-invariant
+// addresses were hoisted and took 255 registers at h=32 / h=128 (63 / 48
+// in one tile per block), which cost h=32 its second block per SM.
+template <int H, int NT>
+__device__ __noinline__ void grad_tile(const float* __restrict__ W,
+                          const float* __restrict__ od,
+                          const float* __restrict__ zs,
+                          const float* __restrict__ ray,
+                          const float* __restrict__ wm, float sc,
+                          float* __restrict__ G, float* __restrict__ loss,
+                          Offsets off, size_t rbase, int ray0,
+                          int n_per, int S, int RT, int LDP, float cs,
+                          float osc, bool add, float* sm) {
   const int P = RT * S;
-
-  extern __shared__ float sm[];
   float* emb = sm;                      // [EMB][LDP]: xs rows 0..2, bands
   float* proj = emb + EMB * LDP;        // [NDIR][LDP]
   float* dproj = proj + NDIR * LDP;     // [NDIR][LDP]
@@ -166,14 +180,8 @@ train_grad_kernel(const float* __restrict__ params,   // [cap, NP]
   float* dy = dal + LDP;                // [3][LDP] dL / d colour-layer output
   float* rl = dy + 3 * LDP;             // [RT] per-ray loss
 
-  const float* W = params + (size_t)slot * n_params;
-  float* G = grad_part + ((size_t)slot * n_tiles + tile) * n_params;
-  const float sc = scale[slot];
-  const int ray0 = tile * RT;
-  const size_t rbase = (size_t)slot * n_rays + (size_t)it * n_per;
-
   // 1. points xs = (o + z d) / scale, projection, sin bands
-  for (int p = threadIdx.x; p < P; p += NTHREADS) {
+  for (int p = threadIdx.x; p < P; p += NT) {
     const int r = p / S, s = p % S;
     float x0 = 0.f, x1 = 0.f, x2 = 0.f;
     if (ray0 + r < n_per) {
@@ -189,7 +197,7 @@ train_grad_kernel(const float* __restrict__ params,   // [cap, NP]
     emb[2 * LDP + p] = x2;
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < NDIR * P; idx += NTHREADS) {
+  for (int idx = threadIdx.x; idx < NDIR * P; idx += NT) {
     const int j = idx / P, p = idx % P;
     const float* d = W + off.dirs + j * 3;
     const float pr = emb[p] * d[0] + emb[LDP + p] * d[1] + emb[2 * LDP + p] * d[2];
@@ -201,25 +209,25 @@ train_grad_kernel(const float* __restrict__ params,   // [cap, NP]
   __syncthreads();
 
   // 2. MLP forward
-  dense<4>(W + off.w_in, W + off.b_in, H, EMB1, emb, EMB1, nullptr, 0, h1,
-           P, LDP, true);
+  dense<4, NT>(W + off.w_in, W + off.b_in, H, EMB1, emb, EMB1, nullptr, 0,
+               h1, P, LDP, true);
   __syncthreads();
-  dense<4>(W + off.w_mid1, W + off.b_mid1, H, H, h1, H, nullptr, 0, h2, P,
-           LDP, true);
+  dense<4, NT>(W + off.w_mid1, W + off.b_mid1, H, H, h1, H, nullptr, 0, h2,
+               P, LDP, true);
   __syncthreads();
-  dense<4>(W + off.w_cat, W + off.b_cat, H, H + EMB1, h2, H, emb, EMB1, h3,
-           P, LDP, true);
+  dense<4, NT>(W + off.w_cat, W + off.b_cat, H, H + EMB1, h2, H, emb, EMB1,
+               h3, P, LDP, true);
   __syncthreads();
-  dense<4>(W + off.w_mid2, W + off.b_mid2, H, H, h3, H, nullptr, 0, h4, P,
-           LDP, true);
+  dense<4, NT>(W + off.w_mid2, W + off.b_mid2, H, H, h3, H, nullptr, 0, h4,
+               P, LDP, true);
   __syncthreads();
-  dense<1>(W + off.w_alpha, W + off.b_alpha, 1, H, h4, H, nullptr, 0, alp,
-           P, LDP, false);
-  dense<4>(W + off.w_col, W + off.b_col, H, H + EMB2, h4, H, emb + EMB1 * LDP,
-           EMB2, hc, P, LDP, true);
+  dense<1, NT>(W + off.w_alpha, W + off.b_alpha, 1, H, h4, H, nullptr, 0,
+               alp, P, LDP, false);
+  dense<4, NT>(W + off.w_col, W + off.b_col, H, H + EMB2, h4, H,
+               emb + EMB1 * LDP, EMB2, hc, P, LDP, true);
   __syncthreads();
-  dense<1>(W + off.w_col_out, W + off.b_col_out, 3, H, hc, H, nullptr, 0, col,
-           P, LDP, false);
+  dense<1, NT>(W + off.w_col_out, W + off.b_col_out, 3, H, hc, H, nullptr, 0,
+               col, P, LDP, false);
   __syncthreads();
 
   // 3. per ray: render, losses, render backward -> dal, dy
@@ -236,7 +244,6 @@ train_grad_kernel(const float* __restrict__ params,   // [cap, NP]
       const size_t gr = rbase + ray0 + r;
       const float* rp = ray + gr * 8;   // depth, r, g, b, m_obj, m_sem, m_do
       const float* z = zs + gr * S;
-      const float* wm = wmul + ((size_t)slot * n_iter + it) * 4;
       float occ[MAX_S], T[MAX_S], term[MAX_S], c[3][MAX_S];
       float Tc = 1.f, dep = 0.f, op = 0.f, rc[3] = {0.f, 0.f, 0.f};
       for (int s = 0; s < S; ++s) {
@@ -293,27 +300,28 @@ train_grad_kernel(const float* __restrict__ params,   // [cap, NP]
   if (threadIdx.x == 0) {
     float acc = 0.f;
     for (int r = 0; r < RT; ++r) acc += rl[r];
-    loss_part[(size_t)slot * n_tiles + tile] = acc;
+    *loss = add ? *loss + acc : acc;
   }
 
   // 4. MLP backward; each activation buffer becomes its pre-activation
   //    gradient once its own weight gradient has been taken.
-  wgrad(G + off.w_col_out, H, 0, dy, 3, hc, H, P, LDP);
-  bgrad(G + off.b_col_out, dy, 3, P, LDP);
-  wgrad(G + off.w_alpha, H, 0, dal, 1, h4, H, P, LDP);
-  bgrad(G + off.b_alpha, dal, 1, P, LDP);
+  wgrad<NT>(G + off.w_col_out, H, 0, dy, 3, hc, H, P, LDP, add);
+  bgrad<NT>(G + off.b_col_out, dy, 3, P, LDP, add);
+  wgrad<NT>(G + off.w_alpha, H, 0, dal, 1, h4, H, P, LDP, add);
+  bgrad<NT>(G + off.b_alpha, dal, 1, P, LDP, add);
   __syncthreads();
-  for (int idx = threadIdx.x; idx < H * P; idx += NTHREADS) {
+  for (int idx = threadIdx.x; idx < H * P; idx += NT) {
     const int k = idx / P, p = idx % P;
     const float g = dot_col(W + off.w_col_out, H, k, dy, 3, p, LDP);
     hc[k * LDP + p] = hc[k * LDP + p] > 0.f ? g : 0.f;
   }
   __syncthreads();
-  wgrad(G + off.w_col, H + EMB2, 0, hc, H, h4, H, P, LDP);
-  wgrad(G + off.w_col, H + EMB2, H, hc, H, emb + EMB1 * LDP, EMB2, P, LDP);
-  bgrad(G + off.b_col, hc, H, P, LDP);
+  wgrad<NT>(G + off.w_col, H + EMB2, 0, hc, H, h4, H, P, LDP, add);
+  wgrad<NT>(G + off.w_col, H + EMB2, H, hc, H, emb + EMB1 * LDP, EMB2, P,
+            LDP, add);
+  bgrad<NT>(G + off.b_col, hc, H, P, LDP, add);
   __syncthreads();
-  for (int idx = threadIdx.x; idx < (H + NDIR) * P; idx += NTHREADS) {
+  for (int idx = threadIdx.x; idx < (H + NDIR) * P; idx += NT) {
     const int k = idx / P, p = idx % P;
     if (k < H) {
       const float g = dot_col(W + off.w_col, H + EMB2, k, hc, H, p, LDP)
@@ -331,20 +339,20 @@ train_grad_kernel(const float* __restrict__ params,   // [cap, NP]
     }
   }
   __syncthreads();
-  wgrad(G + off.w_mid2, H, 0, h4, H, h3, H, P, LDP);
-  bgrad(G + off.b_mid2, h4, H, P, LDP);
+  wgrad<NT>(G + off.w_mid2, H, 0, h4, H, h3, H, P, LDP, add);
+  bgrad<NT>(G + off.b_mid2, h4, H, P, LDP, add);
   __syncthreads();
-  for (int idx = threadIdx.x; idx < H * P; idx += NTHREADS) {
+  for (int idx = threadIdx.x; idx < H * P; idx += NT) {
     const int k = idx / P, p = idx % P;
     const float g = dot_col(W + off.w_mid2, H, k, h4, H, p, LDP);
     h3[k * LDP + p] = h3[k * LDP + p] > 0.f ? g : 0.f;
   }
   __syncthreads();
-  wgrad(G + off.w_cat, H + EMB1, 0, h3, H, h2, H, P, LDP);
-  wgrad(G + off.w_cat, H + EMB1, H, h3, H, emb, EMB1, P, LDP);
-  bgrad(G + off.b_cat, h3, H, P, LDP);
+  wgrad<NT>(G + off.w_cat, H + EMB1, 0, h3, H, h2, H, P, LDP, add);
+  wgrad<NT>(G + off.w_cat, H + EMB1, H, h3, H, emb, EMB1, P, LDP, add);
+  bgrad<NT>(G + off.b_cat, h3, H, P, LDP, add);
   __syncthreads();
-  for (int idx = threadIdx.x; idx < (H + NDIR) * P; idx += NTHREADS) {
+  for (int idx = threadIdx.x; idx < (H + NDIR) * P; idx += NT) {
     const int k = idx / P, p = idx % P;
     if (k < H) {
       const float g = dot_col(W + off.w_cat, H + EMB1, k, h3, H, p, LDP);
@@ -361,18 +369,18 @@ train_grad_kernel(const float* __restrict__ params,   // [cap, NP]
     }
   }
   __syncthreads();
-  wgrad(G + off.w_mid1, H, 0, h2, H, h1, H, P, LDP);
-  bgrad(G + off.b_mid1, h2, H, P, LDP);
+  wgrad<NT>(G + off.w_mid1, H, 0, h2, H, h1, H, P, LDP, add);
+  bgrad<NT>(G + off.b_mid1, h2, H, P, LDP, add);
   __syncthreads();
-  for (int idx = threadIdx.x; idx < H * P; idx += NTHREADS) {
+  for (int idx = threadIdx.x; idx < H * P; idx += NT) {
     const int k = idx / P, p = idx % P;
     const float g = dot_col(W + off.w_mid1, H, k, h2, H, p, LDP);
     h1[k * LDP + p] = h1[k * LDP + p] > 0.f ? g : 0.f;
   }
   __syncthreads();
-  wgrad(G + off.w_in, EMB1, 0, h1, H, emb, EMB1, P, LDP);
-  bgrad(G + off.b_in, h1, H, P, LDP);
-  for (int idx = threadIdx.x; idx < NDIR * P; idx += NTHREADS) {
+  wgrad<NT>(G + off.w_in, EMB1, 0, h1, H, emb, EMB1, P, LDP, add);
+  bgrad<NT>(G + off.b_in, h1, H, P, LDP, add);
+  for (int idx = threadIdx.x; idx < NDIR * P; idx += NT) {
     const int j = idx / P, p = idx % P;
     float acc = dproj[j * LDP + p];
     for (int b = 0; b < 4; ++b) {
@@ -384,30 +392,59 @@ train_grad_kernel(const float* __restrict__ params,   // [cap, NP]
   }
   __syncthreads();
   // d dirs[j][k] = sum_p dproj[j][p] xs[k][p]
-  wgrad(G + off.dirs, 3, 0, dproj, NDIR, emb, 3, P, LDP);
+  wgrad<NT>(G + off.dirs, 3, 0, dproj, NDIR, emb, 3, P, LDP, add);
+  __syncthreads();
 }
 
-__global__ void __launch_bounds__(NTHREADS)
+template <int H, int NT>
+__global__ void __launch_bounds__(NT)
+train_grad_kernel(const float* __restrict__ params,   // [cap, NP]
+                  const float* __restrict__ od,       // [cap, NR, 6]
+                  const float* __restrict__ zs,       // [cap, NR, S]
+                  const float* __restrict__ ray,      // [cap, NR, 8]
+                  const float* __restrict__ wmul,     // [cap, n_iter, 4]
+                  const float* __restrict__ scale,    // [cap]
+                  const int* __restrict__ active,     // [cap]
+                  float* __restrict__ grad_part,      // [cap, n_rows, NP]
+                  float* __restrict__ loss_part,      // [cap, n_rows]
+                  Offsets off, int n_params, int n_rays, int n_per,
+                  int n_iter, int it, int S, int RT, int n_tiles, int LDP,
+                  float cs, float osc) {
+  const int row = blockIdx.x, slot = blockIdx.y, n_rows = gridDim.x;
+  if (!active[slot]) return;
+  extern __shared__ float sm[];
+  const size_t rbase = (size_t)slot * n_rays + (size_t)it * n_per;
+  for (int tile = row; tile < n_tiles; tile += n_rows)
+    grad_tile<H, NT>(params + (size_t)slot * n_params, od, zs, ray,
+                     wmul + ((size_t)slot * n_iter + it) * 4, scale[slot],
+                     grad_part + ((size_t)slot * n_rows + row) * n_params,
+                     loss_part + (size_t)slot * n_rows + row, off, rbase,
+                     tile * RT, n_per, S, RT, LDP, cs, osc, tile != row, sm);
+}
+
+constexpr int ADAM_THREADS = 256;
+
+__global__ void __launch_bounds__(ADAM_THREADS)
 adamw_kernel(float* __restrict__ p, float* __restrict__ m,
              float* __restrict__ v, const float* __restrict__ grad_part,
              const float* __restrict__ loss_part, float* __restrict__ losses,
              const int* __restrict__ active, const float* __restrict__ bc1,
-             const float* __restrict__ bc2, int n_params, int n_tiles,
+             const float* __restrict__ bc2, int n_params, int n_rows,
              int n_iter, int it, float lr, float decay) {
   const int slot = blockIdx.y;
-  const int j = blockIdx.x * NTHREADS + threadIdx.x;
+  const int j = blockIdx.x * ADAM_THREADS + threadIdx.x;
   const bool act = active[slot] != 0;
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     float acc = 0.f;
     if (act)
-      for (int t = 0; t < n_tiles; ++t)
-        acc += loss_part[(size_t)slot * n_tiles + t];
+      for (int t = 0; t < n_rows; ++t)
+        acc += loss_part[(size_t)slot * n_rows + t];
     losses[(size_t)slot * n_iter + it] = acc;
   }
   if (!act || j >= n_params) return;
-  const float* gp = grad_part + (size_t)slot * n_tiles * n_params + j;
+  const float* gp = grad_part + (size_t)slot * n_rows * n_params + j;
   float g = 0.f;
-  for (int t = 0; t < n_tiles; ++t) g += gp[(size_t)t * n_params];
+  for (int t = 0; t < n_rows; ++t) g += gp[(size_t)t * n_params];
   // betas as the f32 roundings of 0.9, 1 - 0.9, 0.999, 1 - 0.999 (the
   // constants the plain PyTorch and JAX updates multiply by)
   const float b1 = 0.9f, omb1 = (float)(1.0 - 0.9);
@@ -427,24 +464,27 @@ size_t grad_smem_bytes(int H, int LDP, int RT) {
          ((size_t)LDP * (EMB + 2 * NDIR + 5 * H + 8) + (size_t)RT);
 }
 
-template <int H>
+// NT: threads per block. h=32 / h=128 run 256; the h=256 block fills an
+// SM's shared memory alone, so it runs 512 to keep 16 warps in flight.
+template <int H, int NT>
 int launch_grad(const float* params, const float* od, const float* z,
                 const float* ray, const float* wmul, const float* scale,
                 const int* active, float* grad_part, float* loss_part,
                 const Offsets& off, int cap, int n_params, int n_rays,
                 int n_per, int n_iter, int it, int S, int RT, int n_tiles,
-                float cs, float osc, cudaStream_t stream) {
+                int n_rows, float cs, float osc, cudaStream_t stream) {
+  if (RT > NT) return (int)cudaErrorInvalidValue;
   const int P = RT * S;
   const int LDP = P | 1;   // odd row stride: conflict-free column reads
   const size_t smem = grad_smem_bytes(H, LDP, RT);
   cudaError_t err = cudaFuncSetAttribute(
-      train_grad_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      train_grad_kernel<H, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(n_tiles, cap);
-  train_grad_kernel<H><<<grid, NTHREADS, smem, stream>>>(
+  dim3 grid(n_rows, cap);
+  train_grad_kernel<H, NT><<<grid, NT, smem, stream>>>(
       params, od, z, ray, wmul, scale, active, grad_part, loss_part, off,
-      n_params, n_rays, n_per, n_iter, it, S, RT, LDP, cs, osc);
+      n_params, n_rays, n_per, n_iter, it, S, RT, n_tiles, LDP, cs, osc);
   return (int)cudaGetLastError();
 }
 
@@ -452,17 +492,21 @@ int launch_grad(const float* params, const float* od, const float* z,
 
 extern "C" {
 
-// One iteration's forward + backward of one bank. Returns a cudaError_t
+// One iteration's forward + backward of one bank: n_tiles ray tiles of RT
+// rays per slot, spread over n_rows blocks per slot (block `row` takes the
+// tiles row, row + n_rows, ...), each writing one partial row
+// grad_part[slot, row, :] and loss_part[slot, row]. Returns a cudaError_t
 // code (0 on success); invalid arguments give cudaErrorInvalidValue.
 int vmap_train_grad(int hidden, const float* params, const float* od,
                     const float* z, const float* ray, const float* wmul,
                     const float* scale, const int* active, float* grad_part,
                     float* loss_part, const int* offsets, int cap,
                     int n_params, int n_rays, int n_per, int n_iter, int it,
-                    int S, int RT, int n_tiles, float cs, float osc,
-                    void* stream) {
-  if (S < 1 || S > MAX_S || RT < 1 || RT > MAX_RT || RT > NTHREADS ||
-      n_tiles * RT < n_per || it < 0 || it >= n_iter || cap < 1)
+                    int S, int RT, int n_tiles, int n_rows, float cs,
+                    float osc, void* stream) {
+  if (S < 1 || S > MAX_S || RT < 1 || RT > MAX_RT ||
+      n_tiles * RT < n_per || n_rows < 1 || n_rows > n_tiles || it < 0 ||
+      it >= n_iter || cap < 1)
     return (int)cudaErrorInvalidValue;
   const Offsets off = {offsets[0],  offsets[1],  offsets[2],  offsets[3],
                        offsets[4],  offsets[5],  offsets[6],  offsets[7],
@@ -470,29 +514,36 @@ int vmap_train_grad(int hidden, const float* params, const float* od,
                        offsets[12], offsets[13], offsets[14]};
   cudaStream_t st = (cudaStream_t)stream;
   if (hidden == 32)
-    return launch_grad<32>(params, od, z, ray, wmul, scale, active, grad_part,
-                           loss_part, off, cap, n_params, n_rays, n_per,
-                           n_iter, it, S, RT, n_tiles, cs, osc, st);
+    return launch_grad<32, 256>(
+        params, od, z, ray, wmul, scale, active, grad_part, loss_part, off,
+        cap, n_params, n_rays, n_per, n_iter, it, S, RT, n_tiles, n_rows, cs,
+        osc, st);
   if (hidden == 128)
-    return launch_grad<128>(params, od, z, ray, wmul, scale, active,
-                            grad_part, loss_part, off, cap, n_params, n_rays,
-                            n_per, n_iter, it, S, RT, n_tiles, cs, osc, st);
+    return launch_grad<128, 256>(
+        params, od, z, ray, wmul, scale, active, grad_part, loss_part, off,
+        cap, n_params, n_rays, n_per, n_iter, it, S, RT, n_tiles, n_rows, cs,
+        osc, st);
+  if (hidden == 256)
+    return launch_grad<256, 512>(
+        params, od, z, ray, wmul, scale, active, grad_part, loss_part, off,
+        cap, n_params, n_rays, n_per, n_iter, it, S, RT, n_tiles, n_rows, cs,
+        osc, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// Tile-partial reduction + masked AdamW of one bank for iteration `it`;
+// Row-partial reduction + masked AdamW of one bank for iteration `it`;
 // also writes losses[slot, it].
 int vmap_train_adamw(float* p, float* m, float* v, const float* grad_part,
                      const float* loss_part, float* losses, const int* active,
                      const float* bc1, const float* bc2, int cap,
-                     int n_params, int n_tiles, int n_iter, int it, float lr,
+                     int n_params, int n_rows, int n_iter, int it, float lr,
                      float decay, void* stream) {
-  if (cap < 1 || n_params < 1 || n_tiles < 1 || it < 0 || it >= n_iter)
+  if (cap < 1 || n_params < 1 || n_rows < 1 || it < 0 || it >= n_iter)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((n_params + NTHREADS - 1) / NTHREADS, cap);
-  adamw_kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+  dim3 grid((n_params + ADAM_THREADS - 1) / ADAM_THREADS, cap);
+  adamw_kernel<<<grid, ADAM_THREADS, 0, (cudaStream_t)stream>>>(
       p, m, v, grad_part, loss_part, losses, active, bc1, bc2, n_params,
-      n_tiles, n_iter, it, lr, decay);
+      n_rows, n_iter, it, lr, decay);
   return (int)cudaGetLastError();
 }
 

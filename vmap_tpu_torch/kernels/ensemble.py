@@ -14,10 +14,11 @@ Per object and point (weights in the prepared layout of ``prepare_params``):
 Two versions of each function:
   * ``field_eval_reference`` / ``field_grad_reference``: plain PyTorch
     (``torch.matmul`` and autograd);
-  * ``field_eval`` (K2, ``csrc/ensemble.cu`` ``field_fwd_kernel``) and the
-    backward of ``FieldTrain`` (K3, ``field_bwd_kernel``): on CPU tensors
-    they run the plain version, on CUDA tensors they launch the kernel or
-    raise.
+  * ``field_eval`` (K2, ``csrc/ensemble.cu`` ``field_fwd_kernel``, hidden
+    32 / 128 / 256) and the backward of ``FieldTrain`` (K3,
+    ``field_bwd_kernel``, hidden 32 / 128): on CPU tensors they run the
+    plain version, on CUDA tensors they launch the kernel or raise
+    (``kernels.KERNEL_HIDDEN``).
 
 ``LAUNCHES`` counts successful kernel launches by kernel name; only
 ``_launch_fwd`` / ``_launch_bwd`` change it.
@@ -31,11 +32,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from vmap_tpu_torch.kernels import _build
+from vmap_tpu_torch.kernels import _build, check_width
 
 LAUNCHES = {"field_fwd": 0, "field_bwd": 0}
 
-KERNEL_HIDDEN = (32, 128)    # widths the CUDA field kernels are built for
 EMB_PAD = 128                # emb_a (87) and emb_b (42) pad to 128 columns
 EMB1, EMB2 = 87, 42
 TILE_M = 512                 # default points per backward chunk (JAX TILE_M)
@@ -163,16 +163,15 @@ def _packed(prepared: dict, hidden: int) -> torch.Tensor:
 
 
 class _Launch:
-    """Validated operands common to both kernels."""
+    """Validated operands common to both kernels; ``kernel`` names the one
+    about to launch (its widths are checked)."""
 
-    def __init__(self, prepared: dict, pts: torch.Tensor):
+    def __init__(self, prepared: dict, pts: torch.Tensor, kernel: str):
         dev = pts.device
         if dev.type != "cuda":
             raise ValueError(f"field kernels need CUDA tensors, got {dev}")
         h = prepared["w_mid1"].shape[-1]
-        if h not in KERNEL_HIDDEN:
-            raise ValueError(f"CUDA field kernels are built for hidden "
-                             f"{KERNEL_HIDDEN}, not {h}")
+        check_width(kernel, h)
         O = prepared["dirs"].shape[0]
         if pts.dim() != 3 or pts.shape[0] != O or pts.shape[2] != 3:
             raise ValueError(f"pts shape {tuple(pts.shape)}: expected "
@@ -202,7 +201,7 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def _launch_fwd(prepared: dict, pts: torch.Tensor):
     """K2 on CUDA tensors -> (alpha [O, M], colour [O, M, 3])."""
-    L = _Launch(prepared, pts)
+    L = _Launch(prepared, pts, "field_fwd")
     alpha = torch.empty((L.O, L.M), dtype=torch.float32, device=L.dev)
     color = torch.empty((L.O, L.M, 3), dtype=torch.float32, device=L.dev)
     code = L.lib.vmap_field_fwd(
@@ -220,7 +219,7 @@ def _launch_bwd(prepared: dict, pts: torch.Tensor, g_alpha: torch.Tensor,
     summed here, in a fixed order). ``tile_m`` must be a multiple of the
     kernel's sub-tile (``vmap_field_bwd_subtile``), which the launcher
     checks."""
-    L = _Launch(prepared, pts)
+    L = _Launch(prepared, pts, "field_bwd")
     ga = g_alpha.detach().float().contiguous()
     gc = g_color.detach().float().contiguous()
     if tuple(ga.shape) != (L.O, L.M) or tuple(gc.shape) != (L.O, L.M, 3) \

@@ -12,10 +12,11 @@ Two versions of one function:
   * ``fused_frame``: the wrapper of the hand-written CUDA kernels in
     ``csrc/train_step.cu`` (kernel A ``train_grad_kernel``: forward +
     render + hand-derived backward per (slot, ray tile), partial gradients
-    to a scratch buffer; kernel B ``adamw_kernel``: fixed-order partial sum
-    + masked AdamW). The loop over iterations runs on the host, two
-    launches per iteration. On CPU tensors it runs the plain version; on
-    CUDA tensors it launches the kernels or raises.
+    to one scratch row per block, ``frame_geometry``; kernel B
+    ``adamw_kernel``: fixed-order sum of the rows + masked AdamW), built
+    for hidden 32, 128 and 256. The loop over iterations runs on the host,
+    two launches per iteration. On CPU tensors it runs the plain version;
+    on CUDA tensors it launches the kernels or raises.
 
 Data-only factors are computed in plain torch before the loop, as the JAX
 package computes them outside its kernel (``_prepare_batch``): the
@@ -30,12 +31,13 @@ an empty mask) and the Adam bias corrections ``1 - b^t``.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
-from vmap_tpu_torch.core.bank import (BankState, adam_bias_corrections,
-                                     apply_adamw)
-from vmap_tpu_torch.kernels import _build
+from vmap_tpu_torch.core.bank import (BankSpec, BankState,
+                                     adam_bias_corrections, apply_adamw)
+from vmap_tpu_torch.kernels import _build, check_width
 from vmap_tpu_torch.kernels import ensemble as E
 from vmap_tpu_torch.ops import losses as L
 from vmap_tpu_torch.ops.embedding import embed
@@ -43,11 +45,20 @@ from vmap_tpu_torch.ops.mlp import mlp_apply
 
 LAUNCHES = {"train_grad": 0, "train_adamw": 0}
 
-KERNEL_HIDDEN = (32, 128)     # widths the CUDA kernels are built for
-# (rays per block) * samples may not exceed this, per hidden size: it sets
+# (rays per tile) * samples may not exceed this, per hidden size: it sets
 # the shared memory of one train_grad block (83 KB at h=32 / 120 rays x 10
-# samples, 187 KB at h=128 / 1200 rays x 14 samples)
-MAX_POINTS = {32: 64, 128: 56}
+# samples, 187 KB at h=128 / 1200 rays x 14 samples, 169 KB at h=256 /
+# 4800 rays x 14 samples; at most 227 KB)
+MAX_POINTS = {32: 64, 128: 56, 256: 38}
+# train_grad writes one partial gradient row per (slot, block). While one
+# block per ray tile keeps that scratch within SCRATCH_BUDGET bytes, each
+# block takes one tile; past it the grid is bounded to GRID_SMS blocks over
+# the bank (the SM count of the H100 SXM the kernels are built for), each
+# looping over its tiles. A constant, not the card's count: the geometry
+# fixes the order of the partial sums, so the result does not depend on
+# the card.
+SCRATCH_BUDGET = 256 << 20
+GRID_SMS = 132
 # offsets handed to the kernel, in the order of csrc/train_step.cu Offsets
 OFFSET_NAMES = ("dirs", "w_in", "b_in", "w_mid1", "b_mid1", "w_cat", "b_cat",
                 "w_mid2", "b_mid2", "w_alpha", "b_alpha", "w_col", "b_col",
@@ -144,8 +155,46 @@ def kernel_operands(batch: dict, active: torch.Tensor, n_iter: int,
 
 
 def tile_rays(hidden: int, n_samples: int) -> int:
-    """Whole rays per train_grad block."""
+    """Whole rays per train_grad tile."""
     return max(1, MAX_POINTS[hidden] // n_samples)
+
+
+@dataclass(frozen=True)
+class FrameGeometry:
+    """train_grad's launch geometry for one bank and iteration. Block b of
+    a slot takes the ray tiles b, b + blocks, b + 2 blocks, ... in order
+    and adds them into its partial row (csrc/train_step.cu)."""
+    rays_per_tile: int
+    n_tiles: int          # ray tiles per slot and iteration
+    blocks: int           # train_grad blocks per slot = partial rows per slot
+    rows: int             # partial rows of the bank: cap * blocks
+    scratch_bytes: int    # the f32 partial rows: rows * n_params * 4
+
+
+def frame_geometry(hidden: int, n_samples: int, n_per: int,
+                   cap: int) -> FrameGeometry:
+    """The geometry for ``cap`` slots at ``hidden`` with ``n_per`` rays of
+    ``n_samples`` samples per iteration.
+
+    Of three ways to bound the scratch (K3's fixed grid of blocks that
+    each loop over their own tiles; a thread-block cluster holding a
+    larger tile in distributed shared memory; activations in global
+    scratch so that a tile holds more rays), the fixed grid is taken: it
+    runs the tile body unchanged and bounds the rows by the SM count
+    (or by ``cap`` past 132 slots) whatever ``n_per``, where the other two
+    only make tiles larger and so divide the rows by a constant. One block
+    per tile stays where its scratch is small (every vMAP shape: 95 MB at
+    h=32, 113 MB at h=128), so those launches are unchanged; the iMAP
+    field (h=256, 4800 rays x 14 samples: 2400 tiles of 1.28 MB rows,
+    3.1 GB) gets 132 rows, 169 MB."""
+    rt = tile_rays(hidden, n_samples)
+    n_tiles = -(-n_per // rt)
+    row_bytes = 4 * BankSpec.create(hidden).n_params
+    blocks = n_tiles
+    if cap * n_tiles * row_bytes > SCRATCH_BUDGET:
+        blocks = max(1, min(n_tiles, GRID_SMS // cap))
+    return FrameGeometry(rt, n_tiles, blocks, cap * blocks,
+                         cap * blocks * row_bytes)
 
 
 class FrameLaunch:
@@ -158,9 +207,7 @@ class FrameLaunch:
         if dev.type != "cuda":
             raise ValueError(f"kernel path needs CUDA tensors, got {dev}")
         h = bank.spec.hidden
-        if h not in KERNEL_HIDDEN:
-            raise ValueError(f"CUDA train-frame kernel is built for hidden "
-                             f"{KERNEL_HIDDEN}, not {h}")
+        check_width("train_frame", h)
         cap, n_params = bank.flat.shape
         for name in ("flat", "m", "v"):
             t = getattr(bank, name)
@@ -185,8 +232,7 @@ class FrameLaunch:
         self.dev, self.h, self.cap, self.n_params = dev, h, cap, n_params
         self.n_iter, self.n_per, self.n_rays, self.S = n_iter, n_per, n_rays, S
         self.cs, self.osc = float(color_scaling), float(opacity_scaling)
-        self.rt = tile_rays(h, S)
-        self.n_tiles = -(-n_per // self.rt)
+        self.geom = frame_geometry(h, S, n_per, cap)
         ops = kernel_operands(batch, bank.active, n_iter, n_per)
         self.od, self.z, self.ray = ops["od"], ops["z"], ops["ray"]
         self.wmul = ops["wmul"]
@@ -196,9 +242,10 @@ class FrameLaunch:
         self.active = bank.active.to(torch.int32).contiguous()
         self.offsets = (ctypes.c_int * len(OFFSET_NAMES))(
             *[bank.spec.offset(n) for n in OFFSET_NAMES])
-        self.grad_part = torch.empty((cap, self.n_tiles, n_params),
+        g = self.geom
+        self.grad_part = torch.empty((cap, g.blocks, n_params),
                                      dtype=torch.float32, device=dev)
-        self.loss_part = torch.empty((cap, self.n_tiles), dtype=torch.float32,
+        self.loss_part = torch.empty((cap, g.blocks), dtype=torch.float32,
                                      device=dev)
 
     def _stream(self) -> int:
@@ -220,7 +267,8 @@ class FrameLaunch:
             p(self.wmul), p(self.scale), p(self.active), p(self.grad_part),
             p(self.loss_part), ctypes.cast(self.offsets, ctypes.c_void_p),
             self.cap, self.n_params, self.n_rays, self.n_per, self.n_iter,
-            it, self.S, self.rt, self.n_tiles, self.cs, self.osc,
+            it, self.S, self.geom.rays_per_tile, self.geom.n_tiles,
+            self.geom.blocks, self.cs, self.osc,
             ctypes.c_void_p(self._stream()))
         _build.check(self.lib, code, "train_grad kernel launch")
         LAUNCHES["train_grad"] += 1
@@ -236,7 +284,7 @@ class FrameLaunch:
         code = self.lib.vmap_train_adamw(
             p(params), p(m), p(v), p(self.grad_part), p(self.loss_part),
             p(losses), p(self.active), p(self.bc1), p(self.bc2), self.cap,
-            self.n_params, self.n_tiles, self.n_iter, it, float(lr),
+            self.n_params, self.geom.blocks, self.n_iter, it, float(lr),
             float(1 - lr * wd), ctypes.c_void_p(self._stream()))
         _build.check(self.lib, code, "train_adamw kernel launch")
         LAUNCHES["train_adamw"] += 1
