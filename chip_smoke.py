@@ -54,11 +54,30 @@ Phases, in order (any failure raises and the script exits non-zero):
      the learned occupancy on the analytic sphere's surface above that at
      empty points, the export's host seconds per stage; then --resume for
      1 frame. If the run nears the time limit, this phase is shortened
-     first.
+     first;
+ 10. the matmul policies and sample_reuse: train_grad under bwd_bf16 and
+     bfloat16 against its plain version at the shapes of phase 3 (n_iter=1:
+     each gradient tensor, read from the first moment, within 1e-2 of its
+     scale, and its error at least 10x smaller in norm than the policy's
+     effect, plain policy against plain f32; losses within rtol 2e-3;
+     n_iter=20: finite, final loss within rtol 0.25), each timed against
+     its plain version; the kernel frame under sample_reuse 4 (untiled
+     pixels) bit-identical to the kernel frame on the tiled batch; the
+     full-width vMAP frame of phase 5 under float32, float32 + reuse 4,
+     bwd_bf16 + reuse 4 and bfloat16 + reuse 4, timed with CUDA events;
+     then ``vmap_tpu_torch.train`` on room0_vmap.json (analytic scene)
+     with tpu.sample_reuse 4 and tpu.compute_dtype bwd_bf16 for 6 frames:
+     finite, falling losses, 2 x n_iter bwd_bf16 train_grad launches per
+     frame.
 
-Prints a JSON line of per-kernel results, the nvidia-smi line, and as the
-last line {"ok": true, "device": {...}}. Without CUDA it exits non-zero
-and prints no result. Scratch output goes to smoke_out/ (gitignored).
+Every kernel's entry in the JSON line carries its bound (the larger of
+its bytes over 3.35 TB/s and its products over the peak of their type:
+67 TFLOP/s FP32, 989 TFLOP/s bf16), computed from this run's shapes.
+Prints that JSON line of per-kernel results, the nvidia-smi line, and as
+the last line {"ok": true, "device": {...}}; before them it checks that
+neither jax nor any module of the JAX package ``vmap_tpu`` was imported.
+Without CUDA it exits non-zero and prints no result. Scratch output goes
+to smoke_out/ (gitignored).
 """
 
 from __future__ import annotations
@@ -76,6 +95,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(REPO, "smoke_out")
 LR, WD, CS, OSC = 1e-3, 0.013, 5.0, 10.0
 RTOL_SEM, RTOL_FULL = 2e-3, 0.25
+# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): FP32 outside the
+# tensor cores, bf16 in them, HBM3
+PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
+# the bf16 matmul policies of K1 (tpu.compute_dtype), beside "float32"
+POLICIES = ("bwd_bf16", "bfloat16")
 # (name, cap, n_active, hidden, rays per iteration, samples, scale)
 SHAPES = (("obj", 104, 100, 32, 120, 10, 2.0),
           ("bg", 1, 1, 128, 1200, 14, 5.0),
@@ -112,6 +136,52 @@ def time_cuda(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def mlp_macs(hidden: int) -> int:
+    """Multiply-adds of one point's forward products: the PE's dirs
+    projection (21 x 3) and the seven MLP layers (emb 87 / 42)."""
+    h = hidden
+    return (63 + 87 * h + h * h + (h + 87) * h + h * h + h + (h + 42) * h
+            + 3 * h)
+
+
+def bound(nbytes: float, fwd_flops: float = 0.0, bwd_flops: float = 0.0,
+          policy: str = "float32") -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the products over the peak of their operands' type
+    (``policy``: "bwd_bf16" runs the backward products on bf16 operands,
+    "bfloat16" the forward ones too)."""
+    fwd_rate = PEAK_BF16 if policy == "bfloat16" else PEAK_F32
+    bwd_rate = PEAK_F32 if policy == "float32" else PEAK_BF16
+    t_ops = fwd_flops / fwd_rate + bwd_flops / bwd_rate
+    t_mem = nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_mem) * 1e3,
+            "bound_by": "operations" if t_ops >= t_mem else "bytes",
+            "library_ms": None}
+
+
+def grad_bound(bank, n_per: int, S: int, policy: str = "float32") -> dict:
+    """train_grad's bound for one iteration (launch): the work of the
+    function, one gradient of the active slots, whatever the kernel's own
+    scratch. Products: the active slots' points through the forward and
+    the backward's two (weight and input gradients). Bytes: the active
+    slots' parameters, their rays (origin and direction 6, depth, colour
+    and masks 7, S z samples) and their loss normalisers and scale in,
+    one gradient row and a loss per active slot out."""
+    n_act = int(bank.active.sum())
+    n_params = bank.spec.n_params
+    fwd = 2.0 * mlp_macs(bank.spec.hidden) * n_act * n_per * S
+    nbytes = 4 * n_act * (2 * n_params + n_per * (6 + 7 + S) + 5)
+    return bound(nbytes, fwd, 2 * fwd, policy)
+
+
+def adamw_bound(bank) -> dict:
+    """train_adamw's bound: the active slots' parameters and moments read
+    and written, and one gradient row each read (the kernel's partial
+    rows are its own scratch, not the function's work)."""
+    n_act = int(bank.active.sum())
+    return bound(4 * n_act * bank.spec.n_params * 7)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -201,8 +271,10 @@ def check_kernels(dev, stats: dict, shapes=SHAPES) -> None:
         geom = fl.geom
         stats.setdefault("train_grad", {})[name] = {
             "max_abs_err": err_g, "blocks_per_slot": geom.blocks,
-            "n_tiles": geom.n_tiles, "scratch_bytes": geom.scratch_bytes}
-        stats.setdefault("train_adamw", {})[name] = {"max_abs_err": err_b}
+            "n_tiles": geom.n_tiles, "scratch_bytes": geom.scratch_bytes,
+            **grad_bound(bank, n_per, S)}
+        stats.setdefault("train_adamw", {})[name] = {
+            "max_abs_err": err_b, **adamw_bound(bank)}
         log(f"[3] {name}: train_grad geometry {geom.rays_per_tile} rays per "
             f"tile, {geom.n_tiles} tiles over {geom.blocks} blocks per "
             f"slot; partial-gradient scratch {geom.rows} rows, "
@@ -221,11 +293,13 @@ def check_kernels(dev, stats: dict, shapes=SHAPES) -> None:
             lambda: apply_adamw(bank, g_ref, LR, WD), 50)
         log(f"[3] {name}: train_grad max_abs_err {err_g:.3e} "
             f"(grad scale {gscale:.3e}), train_adamw max_abs_err "
-            f"{err_b:.3e}; ms kernel/plain: grad "
+            f"{err_b:.3e}; ms kernel/plain/bound: grad "
             f"{stats['train_grad'][name]['ms']:.4f}/"
-            f"{stats['train_grad'][name]['plain_ms']:.4f}, adamw "
+            f"{stats['train_grad'][name]['plain_ms']:.4f}/"
+            f"{stats['train_grad'][name]['bound_ms']:.4f}, adamw "
             f"{stats['train_adamw'][name]['ms']:.4f}/"
-            f"{stats['train_adamw'][name]['plain_ms']:.4f}")
+            f"{stats['train_adamw'][name]['plain_ms']:.4f}/"
+            f"{stats['train_adamw'][name]['bound_ms']:.4f}")
 
         # whole frames, two tiers
         frame_tiers("3", name, bank, S, n_per, dev,
@@ -321,8 +395,12 @@ def check_field_kernels(dev, stats: dict, shapes=FIELD_SHAPES) -> None:
         torch.cuda.synchronize()
         err_a = rel_close(a_k, a_r, 0.0, 3e-4, f"{name} field_fwd alpha")
         err_c = rel_close(c_k, c_r, 0.0, 2e-5, f"{name} field_fwd colour")
+        n_w = sum(v.numel() for v in prepared.values())
+        flops = 2.0 * mlp_macs(h) * O * M
         fwd = stats.setdefault("field_fwd", {})[name] = {
             "max_abs_err": max(err_a, err_c),
+            # points in, alpha + colour out, the prepared parameters
+            **bound(4 * (O * M * 7 + n_w), flops),
             "ms": time_cuda(lambda: E.field_eval(prepared, pts), 10),
             "plain_ms": time_cuda(
                 lambda: E.field_eval_reference(prepared, pts), 10)}
@@ -344,6 +422,9 @@ def check_field_kernels(dev, stats: dict, shapes=FIELD_SHAPES) -> None:
                 err_g, worst = e / max(1.0, gmax), n
         bwd = stats.setdefault("field_bwd", {})[name] = {
             "max_abs_err": err_g,
+            # points and cotangents in, the parameters in and their
+            # gradients out; the forward recomputed, then the backward
+            **bound(4 * (O * M * 7 + 2 * n_w), flops, 2 * flops),
             "ms": time_cuda(lambda: E.field_grad(prepared, pts, g_a, g_c), 3),
             "plain_ms": time_cuda(
                 lambda: E.field_grad_reference(prepared, pts, g_a, g_c), 3)}
@@ -377,14 +458,16 @@ def sphere_error(obj_path: str, scene) -> float:
 
 
 def drive_trainer(phase: str, config: str, tag: str, n_frames: int,
-                  n_resume: int, check, vis: dict | None = None) -> tuple:
+                  n_resume: int, check, vis: dict | None = None,
+                  tpu: dict | None = None) -> tuple:
     """``configs/<config>`` with dataset.format Synthetic (and the ``vis``
-    entries) through the CLI on the card for ``n_frames`` frames with
-    --save_ckpt (the last frame takes the mesh-and-checkpoint branch),
-    then --resume for ``n_resume`` more; both runs' losses finite.
-    ``check(mapper, dataset, logdir, launches, n_iter)`` checks the first
-    run and returns a line of detail for the log. Returns (launch counts
-    of the first run, the export's host seconds per stage)."""
+    and ``tpu`` entries) through the CLI on the card for ``n_frames``
+    frames with --save_ckpt (the last frame takes the mesh-and-checkpoint
+    branch from frame 10 on), then, if ``n_resume``, --resume for
+    ``n_resume`` more; both runs' losses finite. ``check(mapper, dataset,
+    logdir, launches, n_iter, losses)`` checks the first run and returns
+    a line of detail for the log. Returns (launch counts of the first
+    run, the export's host seconds per stage)."""
     import numpy as np
     from vmap_tpu_torch import train
     from vmap_tpu_torch.core import meshing
@@ -393,6 +476,7 @@ def drive_trainer(phase: str, config: str, tag: str, n_frames: int,
         raw = json.load(f)
     raw["dataset"]["format"] = "Synthetic"
     raw["vis"].update(vis or {})
+    raw["tpu"].update(tpu or {})
     cfg_path = os.path.join(OUT, f"{tag}.json")
     with open(cfg_path, "w") as f:
         json.dump(raw, f, indent=1)
@@ -402,6 +486,7 @@ def drive_trainer(phase: str, config: str, tag: str, n_frames: int,
     log_path = os.path.join(logdir, "train_log.jsonl")
 
     reset_counts()
+    meshing.STAGE_S.clear()    # a run under 11 frames exports nothing
     t0 = time.perf_counter()
     mapper, dataset = train.run(["--config", cfg_path, "--logdir", logdir,
                                  "--max_frames", str(n_frames), "--device",
@@ -414,13 +499,16 @@ def drive_trainer(phase: str, config: str, tag: str, n_frames: int,
     losses = [r["loss"] for r in rows]
     assert all(np.isfinite(losses)), losses
     detail = check(mapper, dataset, logdir, launches,
-                   raw["render"]["iters_per_frame"])
+                   raw["render"]["iters_per_frame"], losses)
     log(f"[{phase}] trainer: {n_frames} frames in {wall:.1f} s, losses "
         f"{[round(x, 4) for x in losses]}, launches {launches}; {detail}")
-    log(f"[{phase}] frame {n_frames - 1} mesh export, host s per stage: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in
-                    sorted(stages.items(), key=lambda kv: -kv[1])))
+    if stages:
+        log(f"[{phase}] frame {n_frames - 1} mesh export, host s per stage: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in
+                        sorted(stages.items(), key=lambda kv: -kv[1])))
 
+    if not n_resume:
+        return launches, stages
     reset_counts()
     train.main(["--config", cfg_path, "--logdir", logdir, "--max_frames",
                 str(n_frames + n_resume), "--device", "cuda", "--resume",
@@ -450,7 +538,7 @@ def run_trainer(n_frames: int, n_resume: int = 2) -> tuple:
     each train-frame kernel per iteration; the meshes of the background,
     the sphere and the box, the sphere's against the analytic one."""
 
-    def check(mapper, dataset, logdir, launches, n_iter):
+    def check(mapper, dataset, logdir, launches, n_iter, losses):
         check_launches(launches, 2 * n_iter * n_frames,
                        f"2 banks x {n_iter} per frame")
         for obj_id in (0, 1, 2):     # background, sphere, box
@@ -957,7 +1045,7 @@ def run_imap_trainer(n_frames: int = 11, n_resume: int = 1) -> tuple:
     from vmap_tpu_torch.core import meshing
     from vmap_tpu_torch.kernels import train_step as K
 
-    def check(mapper, dataset, logdir, launches, n_iter):
+    def check(mapper, dataset, logdir, launches, n_iter, losses):
         assert mapper.bank_bg is None and mapper.n_objects == 1
         st = mapper.statics
         geom = K.frame_geometry(mapper.hidden, st.n_b2s + st.n_bins,
@@ -988,11 +1076,295 @@ def run_imap_trainer(n_frames: int = 11, n_resume: int = 1) -> tuple:
                          vis={"html_viewer": False})
 
 
+# --------------------------------------------------------------- phase 10
+def grads_from_m(bank_new, m0):
+    """The gradient of a one-iteration frame, read from its first AdamW
+    moment m' = 0.9 m + 0.1 g."""
+    return (bank_new.m.double() - 0.9 * m0.double()) / 0.1
+
+
+def policy_errors(bank, got, want, ref_f32) -> dict:
+    """Per parameter tensor over the active slots: the largest error
+    |got - want|max over the tensor's scale |want|max, the error's norm
+    |got - want|_2, and the policy's effect |ref_f32 - want|_2 with the
+    norm of ``want`` for scale."""
+    act = bank.active
+    res = {}
+    for _, nm, _, off, size in bank.spec.names:
+        g, w, r = (x[act][:, off:off + size] for x in (got, want, ref_f32))
+        res[nm] = {"max_rel": float((g - w).abs().max())
+                   / max(float(w.abs().max()), 1e-30),
+                   "err": float((g - w).norm()),
+                   "effect": float((r - w).norm()),
+                   "norm": float(w.norm())}
+    return res
+
+
+def check_policy_tiers(name, bank, S, n_per, dev, policy,
+                       failures: list) -> dict:
+    """train_grad under ``policy`` against its plain version. n_iter=1, on
+    the gradients (read from the first moment): every tensor's largest
+    error within 1e-2 of its scale (a value within f32 noise of a bf16
+    rounding boundary rounds to neighbouring bf16 values in the two
+    summation orders: sparse steps of 2^-8 of a term); where the policy
+    moves a tensor (plain policy against plain f32, norm above 1e-3 of the
+    tensor's), the kernel's error at least 10x smaller in norm than the
+    policy's effect, and over all tensors together too; losses within
+    rtol 2e-3 (bf16: and at most a tenth of the policy's effect on them).
+    n_iter=20: finite, the final summed loss within rtol 0.25; inactive
+    slots bit-identical. Failures of the tiers are appended to
+    ``failures`` (the caller raises after every shape has run)."""
+    import torch
+    from vmap_tpu_torch.kernels import train_step as K
+    cap = bank.flat.shape[0]
+    inact = ~bank.active
+    batch = random_batch(cap, n_per, S, 2, dev)
+    f32_b, f32_l = K.fused_frame_reference(bank, batch, 1, n_per, LR, WD, CS,
+                                           OSC)
+    rb, rl = K.fused_frame_reference(bank, batch, 1, n_per, LR, WD, CS, OSC,
+                                     policy=policy)
+    kb, kl = K.fused_frame(bank, batch, 1, n_per, LR, WD, CS, OSC,
+                           policy=policy)
+    torch.cuda.synchronize()
+    errs = policy_errors(bank, grads_from_m(kb, bank.m),
+                         grads_from_m(rb, bank.m),
+                         grads_from_m(f32_b, bank.m))
+    tag = f"{name}/{policy}"
+    for nm, e in errs.items():
+        ratio = e["err"] / max(e["effect"], 1e-30)
+        log(f"[10] {tag} d{nm}: kernel-plain max {e['max_rel']:.3e} of "
+            f"scale, norm {e['err']:.3e}; policy effect norm "
+            f"{e['effect']:.3e} (tensor norm {e['norm']:.3e}); ratio "
+            f"{ratio:.3e}")
+        if not e["max_rel"] <= 1e-2:
+            failures.append(f"{tag} d{nm}: max error {e['max_rel']:.3e} of "
+                            "scale above 1e-2")
+        if e["effect"] > 1e-3 * e["norm"] and not ratio <= 0.1:
+            failures.append(f"{tag} d{nm}: error norm {ratio:.3e} of the "
+                            "policy's effect, above 0.1")
+    g_err = max(e["max_rel"] for e in errs.values())
+    ratio = (math.sqrt(sum(e["err"] ** 2 for e in errs.values()))
+             / math.sqrt(sum(e["effect"] ** 2 for e in errs.values())))
+    if not ratio <= 0.1:
+        failures.append(f"{tag}: error norm {ratio:.3e} of the policy's "
+                        "effect over all tensors, above 0.1")
+    l_err = float((kl - rl).abs().max())
+    l_effect = float((rl - f32_l).abs().max())
+    bad = (kl - rl).abs() > 1e-6 + RTOL_SEM * rl.abs()
+    if bool(bad.any()):
+        failures.append(f"{tag}: losses beyond rtol 2e-3 ({l_err:.3e})")
+    if policy == "bfloat16" and not l_err <= 0.1 * l_effect:
+        failures.append(f"{tag}: loss error {l_err:.3e} against the "
+                        f"policy's effect {l_effect:.3e}")
+    for f in ("flat", "m", "v"):
+        assert torch.equal(getattr(kb, f)[inact], getattr(bank, f)[inact])
+
+    batch20 = random_batch(cap, 20 * n_per, S, 2, dev)
+    rb, rl = K.fused_frame_reference(bank, batch20, 20, n_per, LR, WD, CS,
+                                     OSC, policy=policy)
+    kb, kl = K.fused_frame(bank, batch20, 20, n_per, LR, WD, CS, OSC,
+                           policy=policy)
+    torch.cuda.synchronize()
+    for t in (kb.flat, kb.m, kb.v, kl):
+        assert bool(torch.isfinite(t).all()), f"{tag}: non-finite"
+    a, b = float(kl[:, -1].sum()), float(rl[:, -1].sum())
+    if not abs(a - b) / max(abs(b), 1e-9) < RTOL_FULL:
+        failures.append(f"{tag} n_iter=20 final loss {a} vs plain {b}")
+    log(f"[10] {tag}: n_iter=1 gradient kernel-plain worst {g_err:.3e} of "
+        f"scale, error norm {ratio:.3e} of the policy's effect; loss "
+        f"kernel-plain {l_err:.3e}, policy effect {l_effect:.3e}; "
+        f"n_iter=20 final loss {a:.6f} vs plain {b:.6f}")
+    return {"max_abs_err": g_err, "err_over_policy_effect": ratio,
+            "loss_err": l_err, "loss_policy_effect": l_effect}
+
+
+def check_policies(dev, stats: dict, shapes=SHAPES) -> None:
+    """Phase 10, first part: each policy at each shape of phase 3, in its
+    tiers, then one iteration's train_grad timed against its plain
+    version (by_shape keys ``<shape>/<policy>``)."""
+    import torch
+    from vmap_tpu_torch.kernels import train_step as K
+    from vmap_tpu_torch.ops.mlp import bf16_round
+    failures: list = []
+    for name, cap, n_act, h, n_per, S, scale in shapes:
+        bank = conditioned_bank(cap, n_act, h, scale, 0, dev)
+        batch = random_batch(cap, n_per, S, 1, dev)
+        for policy in POLICIES:
+            res = check_policy_tiers(name, bank, S, n_per, dev, policy,
+                                     failures)
+            fl = K.FrameLaunch(bank, batch, 1, n_per, CS, OSC, policy)
+            res["ms"] = time_cuda(lambda: fl.grad(bank.flat, 0), 20)
+            res["plain_ms"] = time_cuda(
+                lambda: K.iteration_loss_grad(bank, batch, CS, OSC,
+                                              policy=policy), 20)
+            res.update(grad_bound(bank, n_per, S, policy))
+            stats.setdefault("train_grad", {})[f"{name}/{policy}"] = res
+            # train_adamw keeps the rounded weights that train_grad reads
+            # under the policy: after an update they are the updated
+            # parameters rounded to bf16
+            p, m, v = (t.clone() for t in (bank.flat, bank.m, bank.v))
+            fl.grad(p, 0)
+            fl.adamw(p, m, v, torch.empty(cap, 1, device=dev), 0, LR, WD)
+            if not (torch.equal(fl.wr, bf16_round(p))
+                    and not torch.equal(p, bank.flat)):
+                failures.append(f"{name}/{policy}: train_adamw's rounded "
+                                "copy is not the updated parameters'")
+            log(f"[10] {name}/{policy}: train_grad ms kernel/plain/bound "
+                f"{res['ms']:.4f}/{res['plain_ms']:.4f}/"
+                f"{res['bound_ms']:.4f} ({res['bound_by']})")
+    if failures:
+        raise AssertionError("policy tiers: " + "; ".join(failures))
+
+
+def check_reuse_bit_identity(dev) -> None:
+    """The kernel frame under sample_reuse 4 on the untiled batch (pixels
+    for 5 of 20 iterations, z for all 20) against the kernel frame on the
+    same batch tiled: losses, parameters and moments bit-identical, at
+    the object shape, f32 and bwd_bf16."""
+    import torch
+    from vmap_tpu_torch.kernels import train_step as K
+    name, cap, n_act, h, n_per, S, scale = SHAPES[0]
+    bank = conditioned_bank(cap, n_act, h, scale, 0, dev)
+    n_iter, R = 20, 4
+    full = random_batch(cap, n_iter * n_per, S, 6, dev)
+    n_eff = n_iter // R * n_per
+    untiled = {k: (v if k == "z" else v[:, :n_eff].contiguous())
+               for k, v in full.items()}
+    tiled = {k: (v if k == "z" else
+                 v.repeat(1, R, *([1] * (v.dim() - 2))))
+             for k, v in untiled.items()}
+    for policy in ("float32", "bwd_bf16"):
+        ub, ul = K.fused_frame(bank, untiled, n_iter, n_per, LR, WD, CS, OSC,
+                               policy=policy, reuse=R)
+        tb, tl = K.fused_frame(bank, tiled, n_iter, n_per, LR, WD, CS, OSC,
+                               policy=policy)
+        torch.cuda.synchronize()
+        for what, a, b in (("losses", ul, tl), ("flat", ub.flat, tb.flat),
+                           ("m", ub.m, tb.m), ("v", ub.v, tb.v)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"reuse {R} {policy}: {what} differ "
+                                     "from the tiled batch's")
+        log(f"[10] {name}/{policy}: sample_reuse {R} frame bit-identical "
+            f"to the tiled batch's ({n_iter} iterations, final loss "
+            f"{float(ul[:, -1].sum()):.6f})")
+
+
+def policy_full_width(dev, gpu: str, frames: int = 3) -> dict:
+    """Phase 5's vMAP frame through the kernel path under f32, f32 with
+    sample_reuse 4, and bwd_bf16 / bfloat16 with sample_reuse 4: ``frames``
+    frames of each after a warm-up frame, in turns (the list, then the
+    list reversed), timed with CUDA events around the frame and a
+    data-dependent readback of its loss. Returns {config: {"frame_ms",
+    "losses", "median_frame_ms"}} and the launch counts per policy."""
+    import dataclasses
+    import torch
+    from vmap_tpu_torch.core import step as ST
+    st0, bank_obj, bank_bg, pool, obj_tab, obj_ids, bg_tab = \
+        bench_workload(dev)
+    gen = torch.Generator(device=dev)
+    configs = (("float32", 1), ("float32", 4), ("bwd_bf16", 4),
+               ("bfloat16", 4))
+
+    def run(policy, reuse):
+        st = dataclasses.replace(st0, use_fused_frame=True,
+                                 compute_dtype=policy,
+                                 sample_reuse=reuse)
+        bo, bb = bank_obj, bank_bg
+        times, losses = [], []
+        for f in range(frames + 1):              # frame 0 warms up
+            gen.manual_seed(f)
+            d_o = ST.torch_draws(gen, ST.draw_shapes(
+                104, st.n_iter * st.win, st.n_px, st.n_b2s, st.n_bins, 1,
+                reuse), dev)
+            d_b = ST.torch_draws(gen, ST.draw_shapes(
+                1, st.n_iter * st.win_bg, st.n_px_bg, st.n_b2s_bg,
+                st.n_bins, st.px_block_bg), dev)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            bo, bb, met = ST.frame_step(st, bo, bb, *pool, obj_tab, obj_ids,
+                                        bg_tab, d_o, d_b)
+            loss = float(met["loss"])
+            t1.record()
+            torch.cuda.synchronize()
+            if f:
+                times.append(t0.elapsed_time(t1))
+            losses.append(loss)
+        return times, losses
+
+    reset_counts()
+    res = {}
+    for policy, reuse in configs + configs[::-1]:
+        times, losses = run(policy, reuse)
+        assert all(math.isfinite(x) for x in losses), losses
+        r = res.setdefault(f"{policy}/reuse{reuse}",
+                           {"frame_ms": [], "losses": losses})
+        r["frame_ms"] += times
+    counts = read_counts()
+    for r in res.values():
+        ms = sorted(r["frame_ms"])
+        r["median_frame_ms"] = ms[len(ms) // 2]
+    for (policy, reuse), key in zip(configs, res):
+        # time against f32 without reuse; losses against f32 with the same
+        # reuse (the same pixels and z): reuse itself changes what the
+        # last iteration's loss measures (a block trained 4 times)
+        r, base = res[key], res[f"float32/reuse{reuse}"]
+        r["vs_f32_reuse1"] = (r["median_frame_ms"]
+                              / res["float32/reuse1"]["median_frame_ms"]
+                              - 1.0)
+        rel = abs(r["losses"][0] - base["losses"][0]) / abs(base["losses"][0])
+        if not rel < RTOL_FULL:
+            raise AssertionError(f"{key}: first frame loss {r['losses'][0]}"
+                                 f" against {base['losses'][0]} under f32")
+        log(f"[10] vMAP frame on {gpu}, {key}: median "
+            f"{r['median_frame_ms']:.3f} ms/frame "
+            f"{[round(x, 3) for x in r['frame_ms']]} "
+            f"({100 * r['vs_f32_reuse1']:+.2f}% against f32 without "
+            f"reuse), first-frame loss {r['losses'][0]:.6f} (f32 with the "
+            f"same reuse {base['losses'][0]:.6f})")
+    for policy, reuse in configs[2:]:
+        if not counts[f"train_grad.{policy}"] > 0:
+            raise AssertionError(f"the {policy} frames launched no "
+                                 f"{policy} train_grad")
+    return res, counts
+
+
+def run_policy_trainer(n_frames: int = 6) -> dict:
+    """``vmap_tpu_torch.train`` on room0_vmap with tpu.sample_reuse 4 and
+    tpu.compute_dtype bwd_bf16: 2 x n_iter bwd_bf16 train_grad launches
+    per frame (both banks under the policy), none under another policy,
+    finite losses that fall."""
+
+    def check(mapper, dataset, logdir, launches, n_iter, losses):
+        st = mapper.statics
+        assert (st.sample_reuse, st.compute_dtype) == (4, "bwd_bf16"), st
+        want = 2 * n_iter * n_frames
+        got = {p: launches[f"train_grad.{p}"] for p in
+               ("float32",) + POLICIES}
+        if got != {"float32": 0, "bwd_bf16": want, "bfloat16": 0} or \
+                launches["train_adamw"] != want:
+            raise AssertionError(f"train_grad launches by policy {got}, "
+                                 f"train_adamw {launches['train_adamw']}; "
+                                 f"expected {want} bwd_bf16")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"losses do not fall: {losses}")
+        return (f"statics reuse {st.sample_reuse}, {st.compute_dtype}; "
+                f"train_grad launches by policy {got}")
+
+    launches, _ = drive_trainer("10", "Replica/room0_vmap.json",
+                                "room0_reuse4_bwd_bf16", n_frames, 0, check,
+                                tpu={"sample_reuse": 4,
+                                     "compute_dtype": "bwd_bf16"})
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="123456789",
-                    help="phases to run (default all: 123456789)")
+    ap.add_argument("--phases", nargs="+", type=int,
+                    default=list(range(1, 11)),
+                    help="phases to run (default all: 1 2 ... 10)")
     args = ap.parse_args(argv)
+    phases = set(args.phases)
     if not os.path.isdir(os.path.join(REPO, "vmap_tpu_torch", "kernels",
                                       "csrc")):
         print("chip_smoke.py: the vmap_tpu_torch package is not beside "
@@ -1029,30 +1401,37 @@ def main(argv=None) -> int:
 
     stats: dict = {}
     paths = {}     # main-path launch counts: {path: {kernel: count}}
-    if "3" in args.phases:
+    if 3 in phases:
         check_kernels(dev, stats)
     path_tiles = {}
-    if "4" in args.phases:
+    if 4 in phases:
         paths["trainer"], stages = run_trainer(12)
         with open(os.path.join(OUT, "mesh_export_stages.json"), "w") as f:
             json.dump({"gpu": gpu, "host_s": stages}, f, indent=1)
-    if "5" in args.phases:
+    if 5 in phases:
         res = full_width(dev, gpu)
         res_imap = imap_full_width(dev, gpu)
         with open(os.path.join(OUT, "full_width.json"), "w") as f:
             json.dump({"gpu": gpu, **res, "imap": res_imap}, f, indent=1)
-    if "6" in args.phases:
+    if 6 in phases:
         check_field_kernels(dev, stats)
-    if "7" in args.phases:
+    if 7 in phases:
         res = mesh_full_width(dev, gpu)
         with open(os.path.join(OUT, "mesh_full_width.json"), "w") as f:
             json.dump({"gpu": gpu, **res}, f, indent=1)
-    if "8" in args.phases:
+    if 8 in phases:
         paths["use_pallas_train"], path_tiles = check_field_train_path(dev)
-    if "9" in args.phases:
+    if 9 in phases:
         paths["imap_trainer"], stages = run_imap_trainer()
         with open(os.path.join(OUT, "imap_export_stages.json"), "w") as f:
             json.dump({"gpu": gpu, "host_s": stages}, f, indent=1)
+    if 10 in phases:
+        check_policies(dev, stats)
+        check_reuse_bit_identity(dev)
+        res, paths["policy_frames"] = policy_full_width(dev, gpu)
+        with open(os.path.join(OUT, "policy_full_width.json"), "w") as f:
+            json.dump({"gpu": gpu, **res}, f, indent=1)
+        paths["policy_trainer"] = run_policy_trainer()
 
     kernels = []
     for name, src, replaces in (
@@ -1063,8 +1442,13 @@ def main(argv=None) -> int:
         per = stats.get(name, {})
         by_path = {p: c[name] for p, c in paths.items()}
         launches = max(by_path.values(), default=0)
-        if {"4", "8"} <= set(args.phases) and not launches:
+        if {4, 8} <= phases and not launches:
             raise AssertionError(f"{name}: no launch on the main paths")
+        # the top-level numbers sum the f32 shapes of phases 3 and 6 (vMAP
+        # object and background banks, the iMAP field); the policy
+        # instances of phase 10 are the by_shape keys <shape>/<policy>
+        f32 = {k: v for k, v in per.items() if "/" not in k}
+        top = max(f32.values(), key=lambda v: v["bound_ms"], default={})
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"vmap_tpu_torch/kernels/csrc/{src}",
@@ -1072,21 +1456,36 @@ def main(argv=None) -> int:
             "launches": launches,
             "max_abs_err": max((v["max_abs_err"] for v in per.values()),
                                default=None),
-            # summed over the shapes of by_shape (vMAP object and
-            # background banks, the iMAP field)
-            "ms": sum(v["ms"] for v in per.values()) if per else None,
-            "plain_ms": (sum(v["plain_ms"] for v in per.values())
-                         if per else None),
+            "ms": sum(v["ms"] for v in f32.values()) if f32 else None,
+            "plain_ms": (sum(v["plain_ms"] for v in f32.values())
+                         if f32 else None),
+            "bound_ms": (sum(v["bound_ms"] for v in f32.values())
+                         if f32 else None),
+            "bound_by": top.get("bound_by"),
+            "library_ms": None,
             "by_shape": per, "launches_by_path": by_path})
+    kernels[0]["launches_by_policy"] = {
+        p: {pol: c[f"train_grad.{pol}"] for pol in ("float32",) + POLICIES}
+        for p, c in paths.items()}
     kernels[3]["at_use_pallas_train_tiles"] = path_tiles
-    log(f"[done] phases {args.phases} in {time.perf_counter() - t_start:.1f}"
-        " s")
+    if 10 in phases:
+        for pol in POLICIES:
+            if not any(c[f"train_grad.{pol}"] for c in paths.values()):
+                raise AssertionError(f"no {pol} train_grad launch on the "
+                                     "main paths")
+    bad = sorted(k for k in sys.modules if k in ("jax", "vmap_tpu")
+                 or k.startswith(("jax.", "jaxlib", "vmap_tpu.")))
+    if bad:
+        raise AssertionError(f"the JAX package or jax was imported: {bad}")
+    log(f"[done] phases {sorted(phases)} in "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -35,7 +35,8 @@ def pair():
     cfg = Config(max_n_models=4, do_bg=True, hidden_feature_size=8,
                  hidden_feature_size_bg=8, W=80, H=60, fx=60.0, fy=60.0,
                  cx=39.5, cy=29.5, frame_pool_size=16, seed=0)
-    jm, pm = JMapper(cfg), tmapper.Mapper(cfg, draw_source=lambda b, s: None)
+    jm, pm = JMapper(cfg), tmapper.Mapper(cfg, device="cpu",
+                                          draw_source=lambda b, s: None)
     for args in _frames(3):
         jm.ingest_frame(JFrame(*args))
         pm.ingest_frame(tmapper.FrameSample(*args))
@@ -99,13 +100,13 @@ def test_full_state_resume_continues_the_run(tmp_path):
     Mapper, frames 11..12: banks, tables and losses equal."""
     cfg = Config.from_json(small_synthetic_config(tmp_path / "cfg.json"))
     frames = list(_frames(13))
-    ref = tmapper.Mapper(cfg)
+    ref = tmapper.Mapper(cfg, device="cpu")
     ref_losses = _run(ref, frames)
 
-    first = tmapper.Mapper(cfg)
+    first = tmapper.Mapper(cfg, device="cpu")
     _run(first, frames[:11])
     TC.save_full_checkpoint(first, str(tmp_path / "state"), frame_id=10)
-    resumed = tmapper.Mapper(cfg)
+    resumed = tmapper.Mapper(cfg, device="cpu")
     assert TC.load_full_checkpoint(resumed, str(tmp_path / "state")) == 10
     losses = _run(resumed, frames[11:])
 

@@ -180,7 +180,7 @@ def test_imap_cli_meshes_checkpoints_and_resumes(tmp_path):
     from vmap_tpu_torch import train
     cfg = small_imap_config(tmp_path / "cfg.json")
     logdir = tmp_path / "logs"
-    base = ["--config", cfg, "--logdir", str(logdir)]
+    base = ["--config", cfg, "--logdir", str(logdir), "--device", "cpu"]
     mapper = train.main(base + ["--max_frames", "11", "--save_ckpt"])
     assert mapper.bank_bg is None and mapper.n_objects == 1
     meshes = sorted(os.listdir(logdir / "scene_mesh"))

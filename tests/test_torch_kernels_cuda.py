@@ -6,7 +6,11 @@ rtol 2e-3, and n_iter=20, finite, rtol 0.25 on the final summed loss,
 inactive slots bit-identical), the field kernels K2 / K3 (phase 6: alpha
 atol 3e-4, colour atol 2e-5, gradients rtol 2e-3 + 2e-3 max(1, |g|max))
 and the frame through them with use_pallas_train (phase 8, the phase 3
-tiers). Skips where CUDA is not available (no interpret mode exists for a
+tiers); the train-frame kernels under the bwd_bf16 and bfloat16 matmul
+policies (phase 10: n_iter=1 gradients per tensor within 1e-2 of scale and
+at least 10x closer to the plain policy than plain f32 is, n_iter=20
+finite within rtol 0.25) and under sample_reuse 4, bit-identical to the
+tiled batch. Skips where CUDA is not available (no interpret mode exists for a
 CUDA kernel). Run on the card, where jax is not installed, without
 tests/conftest.py (it imports jax):
 
@@ -40,6 +44,25 @@ def test_kernels_match_plain_on_card(cuda_device, shape):
     stats = {}
     chip_smoke.check_kernels(cuda_device, stats, shapes)
     assert stats["train_grad"][shape]["ms"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["obj", "bg", "imap"])
+def test_policy_kernels_match_plain_on_card(cuda_device, shape):
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    shapes = [s for s in chip_smoke.SHAPES if s[0] == shape]
+    stats = {}
+    chip_smoke.check_policies(cuda_device, stats, shapes)
+    for policy in chip_smoke.POLICIES:
+        assert stats["train_grad"][f"{shape}/{policy}"]["ms"] > 0
+
+
+@pytest.mark.cuda
+def test_reuse_kernel_frame_is_bit_identical_on_card(cuda_device):
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    chip_smoke.check_reuse_bit_identity(cuda_device)
 
 
 @pytest.mark.cuda

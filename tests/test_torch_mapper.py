@@ -91,18 +91,20 @@ def test_mapper_matches_jax_frame_by_frame():
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"compute_dtype": "bfloat16"}, "compute_dtype"),
-    ({"sample_reuse": 2}, "sample_reuse"),
+    ({"compute_dtype": "int8"}, "compute_dtype"),
+    ({"compute_dtype": "int8_fwd"}, "compute_dtype"),
     ({"mesh_axes": {"obj": 2}}, "mesh_axes"),
     ({"training_strategy": "forloop"}, "forloop"),
     ({"live_mode": True}, "live"),
+    ({"compute_dtype": "int8_static"}, "int8 policies"),
+    ({"compute_dtype": "int8_static_fwd"}, "ROADMAP"),
 ])
 def test_features_outside_the_slice_raise(change, match):
     cfg = _cfg()
     for k, v in change.items():
         setattr(cfg, k, v)
     with pytest.raises(NotImplementedError, match=match):
-        tmapper.Mapper(cfg)
+        tmapper.Mapper(cfg, device="cpu")
 
 
 def test_cuda_requested_without_cuda_raises(monkeypatch):
@@ -110,6 +112,55 @@ def test_cuda_requested_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="refusing"):
         tmapper.Mapper(_cfg(), device="cuda")
+
+
+def test_cuda_is_the_default_and_never_falls_back(monkeypatch, tmp_path):
+    """``Mapper(cfg)`` and the CLI without ``--device`` run on CUDA: where
+    CUDA is absent both raise, and neither carries on on the CPU."""
+    import torch
+    from vmap_tpu_torch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="refusing"):
+        tmapper.Mapper(_cfg())
+    cfg = small_synthetic_config(tmp_path / "cfg.json")
+    with pytest.raises(RuntimeError, match="refusing"):
+        train.main(["--config", cfg, "--logdir", str(tmp_path / "logs"),
+                    "--max_frames", "1"])
+    assert train.parse_args([]).device == "cuda"
+    assert not (tmp_path / "logs").exists()
+
+
+@pytest.mark.parametrize("reuse,want", [(4, 4), (3, 1)])
+def test_sample_reuse_and_policy_reach_the_step(reuse, want, capsys):
+    """The fixture's 4 iterations take reuse 4; reuse 3 does not divide
+    them and falls back to 1 with a warning, as the JAX Mapper does. The
+    policy reaches the step statics, and the object draws follow n_eff."""
+    cfg = _cfg()
+    cfg.sample_reuse, cfg.compute_dtype = reuse, "bwd_bf16"
+    pm = tmapper.Mapper(cfg, device="cpu")
+    st = pm.statics
+    assert (st.sample_reuse, st.compute_dtype) == (want, "bwd_bf16")
+    assert ("falling back to 1" in capsys.readouterr().out) == (want == 1)
+    obj, bg = pm._draws()
+    n_frames = st.n_iter * st.win
+    assert obj.kf.shape == (pm.slots, n_frames // want)
+    assert obj.z.shape[2] == n_frames * st.n_px
+    assert bg.kf.shape == (1, st.n_iter * st.win_bg)
+
+
+def test_kernel_path_refuses_a_policy_without_a_kernel(monkeypatch):
+    """On CUDA a matmul policy that K1 is not built for is refused at
+    construction, naming the kernel."""
+    import torch
+    from vmap_tpu_torch.kernels import KERNEL_POLICIES
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setitem(KERNEL_POLICIES, "train_frame", ("float32",))
+    cfg = _cfg()
+    cfg.compute_dtype = "bwd_bf16"
+    with pytest.raises(NotImplementedError,
+                       match="train_frame kernel under the 'bwd_bf16'"):
+        tmapper.Mapper(cfg, device="cuda")
 
 
 def test_kernel_path_refuses_widths_without_a_kernel(monkeypatch):
@@ -129,7 +180,7 @@ def test_train_cli_meshes_checkpoints_and_resumes(tmp_path):
     from vmap_tpu_torch import train
     cfg = small_synthetic_config(tmp_path / "cfg.json")
     logdir = tmp_path / "logs"
-    base = ["--config", cfg, "--logdir", str(logdir)]
+    base = ["--config", cfg, "--logdir", str(logdir), "--device", "cpu"]
     train.main(base + ["--max_frames", "11", "--save_ckpt"])
     meshes = sorted(os.listdir(logdir / "scene_mesh"))
     assert [f"frame_10_obj{i}.obj" for i in (0, 1, 2)] == \
@@ -153,11 +204,14 @@ def test_train_cli_meshes_checkpoints_and_resumes(tmp_path):
 
 def test_import_and_cpu_frame_stay_jax_free(tmp_path):
     """``import vmap_tpu_torch``, a CPU run of the port's trainer on the
-    fixture, mesh export and a full-state checkpoint never import jax."""
+    fixture under ``sample_reuse`` 4 and ``bwd_bf16``, mesh export and a
+    full-state checkpoint import neither jax nor any module of the JAX
+    package ``vmap_tpu``."""
     cfg = str(tmp_path / "cfg.json")
     logdir = str(tmp_path / "logs")
     raw = json.load(open(CONFIG))
     raw["dataset"]["path"] = FIXTURE
+    raw["tpu"].update(sample_reuse=4, compute_dtype="bwd_bf16")
     json.dump(raw, open(cfg, "w"))
     code = (
         "import sys, json, os\n"
@@ -167,15 +221,18 @@ def test_import_and_cpu_frame_stay_jax_free(tmp_path):
         "from vmap_tpu_torch.core import checkpoint, meshing\n"
         "from vmap_tpu_torch import train\n"
         f"m = train.main(['--config', {cfg!r}, '--logdir', {logdir!r},"
-        " '--max_frames', '1'])\n"
+        " '--max_frames', '1', '--device', 'cpu'])\n"
+        "assert m.statics.sample_reuse == 4, m.statics\n"
+        "assert m.statics.compute_dtype == 'bwd_bf16', m.statics\n"
         f"rows = [json.loads(l) for l in open(os.path.join({logdir!r},"
         " 'train_log.jsonl'))]\n"
         "assert len(rows) == 1 and rows[0]['loss'] == rows[0]['loss'], rows\n"
         f"assert m.export_meshes(os.path.join({logdir!r}, 'mesh'), 0)\n"
         f"checkpoint.save_full_checkpoint(m, os.path.join({logdir!r},"
         " 'ckpt'), 0)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or\n"
-        "             k.startswith(('jax.', 'jaxlib', 'flax')))\n"
+        "bad = sorted(k for k in sys.modules if k in ('jax', 'vmap_tpu')\n"
+        "             or k.startswith(('jax.', 'jaxlib', 'flax',\n"
+        "                              'vmap_tpu.')))\n"
         "assert not bad, bad\n"
         "print('JAXFREE')\n")
     env = dict(os.environ)

@@ -41,7 +41,7 @@ def _cfg():
 def pair():
     cfg = _cfg()
     scene = SyntheticScene(width=80, height=60)
-    jm, pm = JMapper(cfg), tmapper.Mapper(cfg)
+    jm, pm = JMapper(cfg), tmapper.Mapper(cfg, device="cpu")
     for fid in range(5):
         s = scene.frame_sample(fid, n_frames=8)
         args = (s["image"], s["depth"], s["obj"], s["bbox_dict"], s["T"], fid)

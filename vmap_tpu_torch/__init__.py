@@ -9,12 +9,11 @@ the field query with its backward) in place of the JAX package's Pallas
 kernels.
 
 Module names mirror ``vmap_tpu`` so each counterpart is easy to find.
-JAX-free host code (``Config``, ``data``, ``KeyframeTable``, ``geometry``,
-``native``, the HTML viewer) is imported from ``vmap_tpu``, never copied.
-Importing this package never imports ``jax``: ``vmap_tpu/__init__.py``
-pulls in only the numpy config, and this package imports none of
-``vmap_tpu.ops``, ``vmap_tpu.kernels`` or the jax-importing
-``vmap_tpu.core`` modules.
+The package stands alone: it imports nothing of ``vmap_tpu`` (nor
+``jax``), and keeps its own copies of the host code it needs (``config``,
+``data``, ``core.keyframe``, ``geometry``, ``native`` and
+``utils.viewer``), each the JAX package's module with its imports pointed
+here (``Config.fused_enabled`` resolves against the device).
 """
 
 __version__ = "0.1.0"

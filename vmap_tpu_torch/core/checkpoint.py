@@ -24,8 +24,8 @@ import random
 import numpy as np
 import torch
 
-from vmap_tpu.core.keyframe import KeyframeTable, ObjectKF
-from vmap_tpu.geometry.obb import OrientedBox
+from vmap_tpu_torch.core.keyframe import KeyframeTable, ObjectKF
+from vmap_tpu_torch.geometry.obb import OrientedBox
 from vmap_tpu_torch.core import bank as bank_lib
 from vmap_tpu_torch.core.bank import BankSpec, BankState
 

@@ -35,10 +35,10 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
-from vmap_tpu.geometry.marching_cubes import marching_cubes
-from vmap_tpu.geometry.mesh import Mesh, load_mesh
-from vmap_tpu.geometry.obb import OrientedBox, obb_from_points
-from vmap_tpu.geometry.pointcloud import unproject_depth
+from vmap_tpu_torch.geometry.marching_cubes import marching_cubes
+from vmap_tpu_torch.geometry.mesh import Mesh, load_mesh
+from vmap_tpu_torch.geometry.obb import OrientedBox, obb_from_points
+from vmap_tpu_torch.geometry.pointcloud import unproject_depth
 from vmap_tpu_torch.kernels.ensemble import field_eval, prepare_params
 from vmap_tpu_torch.ops.render import make_3d_grid, occupancy_activation
 

@@ -32,10 +32,10 @@ F = ctypes.c_float
 
 # C signatures of kernels/csrc/train_step.cu and ensemble.cu
 SIGNATURES = {
-    "vmap_train_grad": ((I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
-                         I, I, I, I, F, F, P), I),
-    "vmap_train_adamw": ((P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, F, P),
-                         I),
+    "vmap_train_grad": ((I, I, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
+                         I, I, I, I, I, I, F, F, P), I),
+    "vmap_train_adamw": ((P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, F,
+                          P), I),
     "vmap_field_fwd": ((I, P, P, I, P, P, I, I, P, P, P), I),
     "vmap_field_bwd": ((I, P, P, I, P, P, P, P, I, I, I, P, P), I),
     "vmap_field_bwd_subtile": ((I,), I),

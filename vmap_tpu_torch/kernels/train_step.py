@@ -24,7 +24,17 @@ normalisers ``flag * active / (count + 1e-10)`` of each loss term and
 iteration (``flag`` zeroes a term for every slot when any active slot has
 an empty mask) and the Adam bias corrections ``1 - b^t``.
 
-``LAUNCHES`` counts successful kernel launches by kernel name; only
+Both versions take the matmul ``policy`` (``ops.mlp.POLICIES``:
+"float32", "bwd_bf16", "bfloat16"; the JAX kernel's ``bf16`` argument)
+and ``reuse``
+(``sample_reuse``): the batch's pixel arrays then hold ``n_iter / reuse``
+iterations of rays, untiled, and iteration ``it`` trains on pixel block
+``it mod (n_iter / reuse)`` with its own z samples (the batch's z holds
+all ``n_iter``), as the JAX kernel's ``_prepare_batch(reuse=R)`` repeats
+its pixel operands along the iteration axis.
+
+``LAUNCHES`` counts successful kernel launches by kernel name, and
+``train_grad``'s also by policy (``train_grad.<policy>``); only
 ``FrameLaunch.grad`` / ``FrameLaunch.adamw`` change it.
 """
 
@@ -41,9 +51,10 @@ from vmap_tpu_torch.kernels import _build, check_width
 from vmap_tpu_torch.kernels import ensemble as E
 from vmap_tpu_torch.ops import losses as L
 from vmap_tpu_torch.ops.embedding import embed
-from vmap_tpu_torch.ops.mlp import mlp_apply
+from vmap_tpu_torch.ops.mlp import POLICIES, mlp_apply
 
-LAUNCHES = {"train_grad": 0, "train_adamw": 0}
+LAUNCHES = {"train_grad": 0, "train_adamw": 0,
+            **{f"train_grad.{p}": 0 for p in POLICIES}}
 
 # (rays per tile) * samples may not exceed this, per hidden size: it sets
 # the shared memory of one train_grad block (83 KB at h=32 / 120 rays x 10
@@ -66,8 +77,23 @@ OFFSET_NAMES = ("dirs", "w_in", "b_in", "w_mid1", "b_mid1", "w_cat", "b_cat",
 BATCH_KEYS = ("rgb", "depth", "state", "valid", "z", "origins", "dirs")
 
 
-def _slice_iter(batch: dict, it: int, n_per: int) -> dict:
-    return {k: batch[k][:, it * n_per:(it + 1) * n_per] for k in BATCH_KEYS}
+def _slice_iter(batch: dict, it: int, n_per: int, n_eff: int | None = None
+                ) -> dict:
+    """Iteration ``it``'s rays: z at ``it``, the pixel arrays at pixel
+    block ``it mod n_eff`` (``n_eff`` = n_iter / reuse; None: ``it``)."""
+    pix = it if n_eff is None else it % n_eff
+
+    def rays(k):
+        i = it if k == "z" else pix
+        return slice(i * n_per, (i + 1) * n_per)
+    return {k: batch[k][:, rays(k)] for k in BATCH_KEYS}
+
+
+def reuse_period(n_iter: int, reuse: int) -> int:
+    """n_eff = n_iter / reuse, the iterations of distinct pixels."""
+    if reuse < 1 or n_iter % reuse:
+        raise ValueError(f"sample_reuse {reuse} must divide n_iter {n_iter}")
+    return n_iter // reuse
 
 
 def field_tile(n_points: int) -> int:
@@ -78,13 +104,17 @@ def field_tile(n_points: int) -> int:
 
 
 def iteration_loss_grad(bank: BankState, sl: dict, color_scaling: float,
-                        opacity_scaling: float, field_kernel: bool = False
+                        opacity_scaling: float, field_kernel: bool = False,
+                        policy: str = "float32"
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain forward + autograd of one iteration's batch ``sl`` (rays of
-    that iteration only) -> (per-slot losses [cap], grad [cap, n_params]).
+    that iteration only) -> (per-slot losses [cap], grad [cap, n_params]),
+    the MLP and PE products under the matmul ``policy``.
     ``field_kernel``: the field goes through ``ensemble.FieldTrain`` on the
-    prepared parameters (K2 / K3 on CUDA); autograd carries its gradient
-    back through the pad and split to the flat buffer."""
+    prepared parameters (K2 / K3 on CUDA, f32 only); autograd carries its
+    gradient back through the pad and split to the flat buffer."""
+    if field_kernel and policy != "float32":
+        raise ValueError(f"the field kernels are f32 only, not {policy!r}")
     flat = bank.flat.detach().requires_grad_(True)
     pe, mlp_p = bank.spec.unflatten(flat)
     pts = (sl["origins"][:, :, None, :]
@@ -98,7 +128,8 @@ def iteration_loss_grad(bank: BankState, sl: dict, color_scaling: float,
         alpha = alpha.reshape(cap, n_rays, n_s)
         color = color.reshape(cap, n_rays, n_s, 3)
     else:
-        alpha, color = mlp_apply(mlp_p, embed(pe, pts, bank.scale))
+        alpha, color = mlp_apply(
+            mlp_p, embed(pe, pts, bank.scale, policy=policy), policy=policy)
         alpha = alpha[..., 0]
     total, per = L.step_batch_loss(
         alpha, color, sl["depth"], sl["rgb"], sl["state"],
@@ -111,40 +142,47 @@ def fused_frame_reference(bank: BankState, batch: dict, n_iter: int,
                           n_per: int, lr: float, wd: float,
                           color_scaling: float = 5.0,
                           opacity_scaling: float = 10.0,
-                          field_kernel: bool = False):
+                          field_kernel: bool = False, policy: str = "float32",
+                          reuse: int = 1):
     """Plain PyTorch frame of one bank: ``n_iter`` x (forward, autograd,
     ``apply_adamw``). ``batch`` is the sampler's ray-major output, rays
-    iteration-major with ``n_per`` rays per iteration. Returns (new
-    BankState, per-slot per-iteration losses [cap, n_iter]).
-    ``field_kernel``: see ``iteration_loss_grad``."""
+    iteration-major with ``n_per`` rays per iteration (pixel arrays for
+    n_iter / ``reuse`` iterations). Returns (new BankState, per-slot
+    per-iteration losses [cap, n_iter]). ``field_kernel``, ``policy``:
+    see ``iteration_loss_grad``."""
+    n_eff = reuse_period(n_iter, reuse)
     losses = []
     for it in range(n_iter):
-        per, grad = iteration_loss_grad(bank, _slice_iter(batch, it, n_per),
+        per, grad = iteration_loss_grad(bank,
+                                        _slice_iter(batch, it, n_per, n_eff),
                                         color_scaling, opacity_scaling,
-                                        field_kernel)
+                                        field_kernel, policy)
         bank = apply_adamw(bank, grad, lr, wd)
         losses.append(per)
     return bank, torch.stack(losses, dim=1)
 
 
 def kernel_operands(batch: dict, active: torch.Tensor, n_iter: int,
-                    n_per: int) -> dict:
+                    n_per: int, reuse: int = 1) -> dict:
     """Sampler output -> the kernel's operands, all f32 and contiguous:
-    od [cap, NR, 6] (origins, dirs), z [cap, NR, S], ray [cap, NR, 8]
+    od [cap, NE, 6] (origins, dirs), z [cap, NR, S], ray [cap, NE, 8]
     (depth, r, g, b, mask_obj, mask_sem, mask_obj & valid, 0) and wmul
-    [cap, n_iter, 4], the (depth, colour, opacity, 0) normalisers
-    ``flag * active / (count + 1e-10)`` per slot and iteration."""
+    [cap, n_eff, 4], the (depth, colour, opacity, 0) normalisers
+    ``flag * active / (count + 1e-10)`` per slot and pixel block; NR =
+    n_iter * n_per rays, NE = n_eff * n_per, n_eff = n_iter / ``reuse``
+    (the pixel-periodic operands are built once, not tiled)."""
     f32 = torch.float32
     cap = active.shape[0]
+    n_eff = reuse_period(n_iter, reuse)
     mask_obj = (batch["state"] != 0).to(f32)
     mask_sem = (batch["state"] != 2).to(f32)
     m_do = mask_obj * batch["valid"].to(f32)
     ray = torch.stack([batch["depth"].to(f32), batch["rgb"][..., 0],
                        batch["rgb"][..., 1], batch["rgb"][..., 2], mask_obj,
                        mask_sem, m_do, torch.zeros_like(mask_obj)], dim=-1)
-    cnts = ray[..., 4:7].reshape(cap, n_iter, n_per, 3).sum(2)
+    cnts = ray[..., 4:7].reshape(cap, n_eff, n_per, 3).sum(2)
     cnts = cnts[..., [2, 0, 1]]          # (m_do, mask_obj, mask_sem) counts
-    empty = torch.any((cnts == 0) & active[:, None, None], dim=0)  # [NI, 3]
+    empty = torch.any((cnts == 0) & active[:, None, None], dim=0)  # [NE, 3]
     wm = (1.0 - empty.to(f32))[None] * active.to(f32)[:, None, None] \
         / (cnts + 1e-10)
     od = torch.cat([batch["origins"], batch["dirs"]], dim=-1).to(f32)
@@ -199,15 +237,23 @@ def frame_geometry(hidden: int, n_samples: int, n_per: int,
 
 class FrameLaunch:
     """Validated operands and scratch of one bank's kernel frame; its
-    methods launch the two kernels for one iteration."""
+    methods launch the two kernels for one iteration.
+
+    Under a bf16 policy ``train_grad`` reads the weights of its products
+    from ``wr``, the parameters rounded to bf16 (in f32): made here from
+    the bank's parameters, and rewritten by each ``adamw`` from the
+    parameters it updates. So ``grad`` takes the bank's parameters as
+    they stand after the latest ``adamw`` of this launch."""
 
     def __init__(self, bank: BankState, batch: dict, n_iter: int, n_per: int,
-                 color_scaling: float, opacity_scaling: float):
+                 color_scaling: float, opacity_scaling: float,
+                 policy: str = "float32", reuse: int = 1):
         dev = bank.flat.device
         if dev.type != "cuda":
             raise ValueError(f"kernel path needs CUDA tensors, got {dev}")
         h = bank.spec.hidden
-        check_width("train_frame", h)
+        check_width("train_frame", h, policy)
+        n_eff = reuse_period(n_iter, reuse)
         cap, n_params = bank.flat.shape
         for name in ("flat", "m", "v"):
             t = getattr(bank, name)
@@ -220,20 +266,22 @@ class FrameLaunch:
         n_rays = n_iter * n_per
         for k in BATCH_KEYS:
             t = batch[k]
+            rays = n_rays if k == "z" else n_eff * n_per
             if t.device != dev:
                 raise ValueError(f"batch[{k!r}] on {t.device}, bank on {dev}")
-            if t.shape[:2] != (cap, n_rays):
+            if t.shape[:2] != (cap, rays):
                 raise ValueError(f"batch[{k!r}] shape {tuple(t.shape)}: "
-                                 f"expected ({cap}, {n_rays}, ...)")
+                                 f"expected ({cap}, {rays}, ...)")
         S = batch["z"].shape[2]
         if not 1 <= S <= 32:
             raise ValueError(f"{S} samples per ray; the kernel takes 1..32")
         self.lib = _build.load()
         self.dev, self.h, self.cap, self.n_params = dev, h, cap, n_params
-        self.n_iter, self.n_per, self.n_rays, self.S = n_iter, n_per, n_rays, S
+        self.n_iter, self.n_per, self.S = n_iter, n_per, S
+        self.n_eff, self.policy = n_eff, policy
         self.cs, self.osc = float(color_scaling), float(opacity_scaling)
         self.geom = frame_geometry(h, S, n_per, cap)
-        ops = kernel_operands(batch, bank.active, n_iter, n_per)
+        ops = kernel_operands(batch, bank.active, n_iter, n_per, reuse)
         self.od, self.z, self.ray = ops["od"], ops["z"], ops["ray"]
         self.wmul = ops["wmul"]
         bc1, bc2 = adam_bias_corrections(bank.step, n_iter)
@@ -245,6 +293,10 @@ class FrameLaunch:
         g = self.geom
         self.grad_part = torch.empty((cap, g.blocks, n_params),
                                      dtype=torch.float32, device=dev)
+        self.wr = (None if policy == "float32" else
+                   bank.flat.to(torch.bfloat16).to(torch.float32))
+        self.wr_ptr = ctypes.c_void_p(None if self.wr is None
+                                      else self.wr.data_ptr())
         self.loss_part = torch.empty((cap, g.blocks), dtype=torch.float32,
                                      device=dev)
 
@@ -263,45 +315,50 @@ class FrameLaunch:
         self._check("params", params, (self.cap, self.n_params))
         p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
         code = self.lib.vmap_train_grad(
-            self.h, p(params), p(self.od), p(self.z), p(self.ray),
-            p(self.wmul), p(self.scale), p(self.active), p(self.grad_part),
-            p(self.loss_part), ctypes.cast(self.offsets, ctypes.c_void_p),
-            self.cap, self.n_params, self.n_rays, self.n_per, self.n_iter,
-            it, self.S, self.geom.rays_per_tile, self.geom.n_tiles,
-            self.geom.blocks, self.cs, self.osc,
-            ctypes.c_void_p(self._stream()))
+            POLICIES.index(self.policy), self.h, p(params), self.wr_ptr,
+            p(self.od), p(self.z), p(self.ray), p(self.wmul), p(self.scale),
+            p(self.active), p(self.grad_part), p(self.loss_part),
+            ctypes.cast(self.offsets, ctypes.c_void_p), self.cap,
+            self.n_params, self.n_per, self.n_iter, self.n_eff, it, self.S,
+            self.geom.rays_per_tile, self.geom.n_tiles, self.geom.blocks,
+            self.cs, self.osc, ctypes.c_void_p(self._stream()))
         _build.check(self.lib, code, "train_grad kernel launch")
         LAUNCHES["train_grad"] += 1
+        LAUNCHES[f"train_grad.{self.policy}"] += 1
 
     def adamw(self, params, m, v, losses, it: int, lr: float,
               wd: float) -> None:
         """Kernel B: reduce the partials, masked AdamW in place on
-        (params, m, v), losses[:, it]."""
+        (params, m, v), losses[:, it]; under a bf16 policy also ``wr``."""
         for name, t in (("params", params), ("m", m), ("v", v)):
             self._check(name, t, (self.cap, self.n_params))
         self._check("losses", losses, (self.cap, self.n_iter))
         p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
         code = self.lib.vmap_train_adamw(
-            p(params), p(m), p(v), p(self.grad_part), p(self.loss_part),
-            p(losses), p(self.active), p(self.bc1), p(self.bc2), self.cap,
-            self.n_params, self.geom.blocks, self.n_iter, it, float(lr),
-            float(1 - lr * wd), ctypes.c_void_p(self._stream()))
+            p(params), self.wr_ptr, p(m), p(v), p(self.grad_part),
+            p(self.loss_part), p(losses), p(self.active), p(self.bc1),
+            p(self.bc2), self.cap, self.n_params, self.geom.blocks,
+            self.n_iter, it, float(lr), float(1 - lr * wd),
+            ctypes.c_void_p(self._stream()))
         _build.check(self.lib, code, "train_adamw kernel launch")
         LAUNCHES["train_adamw"] += 1
 
 
 def fused_frame(bank: BankState, batch: dict, n_iter: int, n_per: int,
                 lr: float, wd: float, color_scaling: float = 5.0,
-                opacity_scaling: float = 10.0):
-    """One bank's frame. CPU tensors: the plain version. CUDA tensors: the
-    CUDA kernels, 2 launches per iteration, into fresh state tensors (the
-    input bank is not modified). Returns (new BankState, losses
+                opacity_scaling: float = 10.0, policy: str = "float32",
+                reuse: int = 1):
+    """One bank's frame under the matmul ``policy``, with ``reuse`` (see
+    the module docstring). CPU tensors: the plain version. CUDA tensors:
+    the CUDA kernels, 2 launches per iteration, into fresh state tensors
+    (the input bank is not modified). Returns (new BankState, losses
     [cap, n_iter])."""
     if bank.flat.device.type == "cpu":
         return fused_frame_reference(bank, batch, n_iter, n_per, lr, wd,
-                                     color_scaling, opacity_scaling)
+                                     color_scaling, opacity_scaling,
+                                     policy=policy, reuse=reuse)
     fl = FrameLaunch(bank, batch, n_iter, n_per, color_scaling,
-                     opacity_scaling)
+                     opacity_scaling, policy, reuse)
     params = torch.empty_like(bank.flat).copy_(bank.flat)
     m = torch.empty_like(bank.m).copy_(bank.m)
     v = torch.empty_like(bank.v).copy_(bank.v)

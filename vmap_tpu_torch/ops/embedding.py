@@ -15,6 +15,8 @@ import math
 import numpy as np
 import torch
 
+from vmap_tpu_torch.ops.mlp import policy_matmul
+
 # The 21 icosahedral unit directions, re-declared here so the port never
 # imports the JAX module; tests/test_torch_ops.py holds them equal to
 # vmap_tpu.ops.embedding.ICO_DIRS.
@@ -51,15 +53,25 @@ def init_pe_params(device: torch.device | str = "cpu") -> dict:
 
 
 def embed(params: dict, x: torch.Tensor, scale: torch.Tensor,
-          max_deg: int = 5) -> torch.Tensor:
+          max_deg: int = 5, policy: str = "float32") -> torch.Tensor:
     """Encode points ``x`` [..., 3] -> [..., 3 + 21*(max_deg+1)].
 
     ``params["dirs"]`` is [21, 3], or [n, 21, 3] with ``x`` [n, ..., 3] and
     ``scale`` [n] for a bank of n slots. The band factor multiplies the
-    projection before ``pi`` does, as the JAX function does.
+    projection before ``pi`` does, as the JAX function does. Under a
+    matmul ``policy`` other than ``"float32"`` (banks only) the projection's
+    forward stays f32 and the dirs gradient is the product of bf16-rounded
+    operands, as in the train-frame kernel.
     """
     dirs = params["dirs"]
-    if dirs.dim() == 3:    # batched over a leading slot axis
+    if dirs.dim() == 2 and policy != "float32":
+        raise ValueError("matmul policies take a bank's parameters")
+    if dirs.dim() == 3 and policy != "float32":
+        n = x.shape[0]
+        xs = x / scale.reshape((-1,) + (1,) * (x.dim() - 1))
+        proj = policy_matmul(xs.reshape(n, -1, 3), dirs, policy,
+                             fwd_f32=True).reshape(*x.shape[:-1], N_DIRS)
+    elif dirs.dim() == 3:    # batched over a leading slot axis
         lead = x.shape[1:-1]
         s = scale.reshape((-1,) + (1,) * (len(lead) + 1))
         xs = x / s

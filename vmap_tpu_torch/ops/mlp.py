@@ -11,6 +11,18 @@
 Weights are stored [out, in] (``y = x @ W.T + b``), Xavier-normal; biases
 U(-1/sqrt(fan_in), 1/sqrt(fan_in)). Parameters are plain dicts of tensors;
 a bank of n slots is the same dict with a leading [n] axis.
+
+Matmul policies (``POLICIES``, named as the config's
+``tpu.compute_dtype`` names them; the JAX kernel's ``_mm_policy``;
+accumulation is f32 under every policy):
+  * ``"float32"``: every product in f32;
+  * ``"bwd_bf16"``: the forward in f32; the backward products (dW and dx)
+    from operands rounded to bf16: upstream gradients, saved activations,
+    weights;
+  * ``"bfloat16"``: as ``"bwd_bf16"``, and the forward products' operands
+    (weights, embedding, activations) rounded to bf16 too.
+Biases, their gradients, activations' ReLU masks and everything outside
+the products stay f32. ``PolicyMatmul`` is the rounded product.
 """
 
 from __future__ import annotations
@@ -18,6 +30,50 @@ from __future__ import annotations
 import torch
 
 LAYERS = ("in", "mid1", "cat", "mid2", "alpha", "col", "col_out")
+# the ported policies; a policy's index is its code in the train-frame
+# kernel (csrc/train_step.cu Policy)
+POLICIES = ("float32", "bwd_bf16", "bfloat16")
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to the nearest bf16 (ties to even, as JAX's ``astype``
+    and CUDA's ``__float2bfloat16_rn``), kept in f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+class PolicyMatmul(torch.autograd.Function):
+    """``x @ w^T`` over a leading slot axis (x [n, M, k], w [n, o, k] ->
+    [n, M, o]). ``fwd_bf16`` rounds both operands of the forward product;
+    ``bwd_bf16`` rounds dy, w and the saved x before the backward products
+    dx = dy w and dw = dy^T x. Products accumulate in f32."""
+
+    @staticmethod
+    def forward(ctx, x, w, fwd_bf16: bool, bwd_bf16: bool):
+        ctx.save_for_backward(x, w)
+        ctx.bwd_bf16 = bwd_bf16
+        if fwd_bf16:
+            x, w = bf16_round(x), bf16_round(w)
+        return x @ w.transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        if ctx.bwd_bf16:
+            x, w, dy = bf16_round(x), bf16_round(w), bf16_round(dy)
+        dx = dy @ w if ctx.needs_input_grad[0] else None
+        dw = dy.transpose(1, 2) @ x if ctx.needs_input_grad[1] else None
+        return dx, dw, None, None
+
+
+def policy_matmul(x: torch.Tensor, w: torch.Tensor, policy: str,
+                  fwd_f32: bool = False) -> torch.Tensor:
+    """``x @ w^T`` (x [n, M, k], w [n, o, k]) under ``policy``;
+    ``fwd_f32`` keeps the forward in f32 whatever the policy (the PE's
+    dirs projection)."""
+    if policy not in POLICIES:
+        raise ValueError(f"matmul policy {policy!r} not in {POLICIES}")
+    return PolicyMatmul.apply(x, w, policy == "bfloat16" and not fwd_f32,
+                              policy != "float32")
 
 
 def layer_fans(hidden: int, emb1: int = 87, emb2: int = 42) -> list:
@@ -44,27 +100,33 @@ def init_mlp_params(gen: torch.Generator, hidden: int, emb1: int = 87,
     return p
 
 
-def _linear(p: dict, name: str, x: torch.Tensor) -> torch.Tensor:
+def _linear(p: dict, name: str, x: torch.Tensor,
+            policy: str = "float32") -> torch.Tensor:
     w, b = p[f"w_{name}"], p[f"b_{name}"]
     if w.dim() == 2:
+        if policy != "float32":
+            raise ValueError("matmul policies take a bank's parameters")
         return x @ w.T + b
     # batched over a leading slot axis: w [n, out, in], x [n, ..., in]
     n = x.shape[0]
-    y = x.reshape(n, -1, x.shape[-1]) @ w.transpose(1, 2) + b[:, None, :]
+    x3 = x.reshape(n, -1, x.shape[-1])
+    y = (x3 @ w.transpose(1, 2) if policy == "float32"
+         else policy_matmul(x3, w, policy)) + b[:, None, :]
     return y.reshape(*x.shape[:-1], w.shape[1])
 
 
-def mlp_apply(params: dict, emb: torch.Tensor, emb1: int = 87
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``emb`` [..., emb1+emb2] -> (alpha [..., 1], color [..., 3])."""
+def mlp_apply(params: dict, emb: torch.Tensor, emb1: int = 87,
+              policy: str = "float32") -> tuple[torch.Tensor, torch.Tensor]:
+    """``emb`` [..., emb1+emb2] -> (alpha [..., 1], color [..., 3]), the
+    products under the matmul ``policy``."""
     x1 = emb[..., :emb1]
     x2 = emb[..., emb1:]
     p = params
-    h = torch.relu(_linear(p, "in", x1))
-    h = torch.relu(_linear(p, "mid1", h))
-    h = torch.relu(_linear(p, "cat", torch.cat([h, x1], dim=-1)))
-    h4 = torch.relu(_linear(p, "mid2", h))
-    alpha = _linear(p, "alpha", h4) * 10.0
-    c = torch.relu(_linear(p, "col", torch.cat([h4, x2], dim=-1)))
-    color = torch.sigmoid(_linear(p, "col_out", c))
+    h = torch.relu(_linear(p, "in", x1, policy))
+    h = torch.relu(_linear(p, "mid1", h, policy))
+    h = torch.relu(_linear(p, "cat", torch.cat([h, x1], dim=-1), policy))
+    h4 = torch.relu(_linear(p, "mid2", h, policy))
+    alpha = _linear(p, "alpha", h4, policy) * 10.0
+    c = torch.relu(_linear(p, "col", torch.cat([h4, x2], dim=-1), policy))
+    color = torch.sigmoid(_linear(p, "col_out", c, policy))
     return alpha, color

@@ -58,15 +58,29 @@ def n_uniforms(n_cam2surface: int, n_bins: int) -> int:
 def sample_z_sm(u: torch.Tensor, depth: torch.Tensor, state: torch.Tensor,
                 min_depth: float, max_bound: torch.Tensor,
                 n_cam2surface: int, n_bins: int, surface_eps: float,
-                stop_eps: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """Bins-major z samples for ``reuse == 1``.
+                stop_eps: float, reuse: int = 1
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Bins-major z samples.
 
     u [n_uniforms, *depth.shape]; max_bound broadcastable to depth.
     Returns (z [n_cam2surface + n_bins, *depth.shape], valid [*depth.shape]).
     One block of uniforms feeds all branches: the branches are mutually
     exclusive per ray, so sharing draws is distributionally exact.
+
+    ``reuse > 1`` (``sample_reuse``): depth / state [..., n] are one pixel
+    block that the frame cycles ``reuse`` times, u is [n_uniforms, ...,
+    reuse * n] (fresh for every repetition) and depth, state and max_bound
+    broadcast over the repetitions: z is [n_cam2surface + n_bins, ...,
+    reuse * n], equal to calling with the tiled inputs; valid stays
+    untiled ([..., n]).
     """
     valid = depth > min_depth
+    if reuse > 1:
+        z, _ = sample_z_sm(u.unflatten(-1, (reuse, depth.shape[-1])),
+                           depth[..., None, :], state[..., None, :],
+                           min_depth, max_bound[..., None], n_cam2surface,
+                           n_bins, surface_eps, stop_eps)
+        return z.flatten(-2), valid
     total = n_cam2surface + n_bins
     zero = torch.zeros_like(depth)
     z_invalid = _stratified_from_u(u[:total], zero + min_depth,

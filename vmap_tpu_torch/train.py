@@ -1,7 +1,7 @@
 """Training CLI of the port (counterpart of the repo's ``train.py``).
 
     python -m vmap_tpu_torch.train --config configs/Replica/room0_vmap.json \
-        --logdir logs/room0 [--max_frames N] [--device cuda]
+        --logdir logs/room0 [--max_frames N] [--device cpu]
 
 Per frame: ingest -> one training step over every object and the
 background; ``<logdir>/train_log.jsonl`` gets one line per frame, flushed
@@ -31,8 +31,9 @@ def parse_args(argv=None):
     p.add_argument("--resume", default=None,
                    help="full-state checkpoint (.pt file or its directory)")
     p.add_argument("--max_frames", type=int, default=None)
-    p.add_argument("--device", default="cpu",
-                   help="cpu, or cuda to train through the CUDA kernels")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the default: train through the CUDA "
+                        "kernels; raises without CUDA) or cpu")
     return p.parse_args(argv)
 
 
@@ -46,8 +47,8 @@ def run(argv=None, draw_source=None):
     """``main``, returning (Mapper, the dataset it was fed)."""
     args = parse_args(argv)
 
-    from vmap_tpu.config import Config
-    from vmap_tpu.data.loader import PrefetchIterator, make_dataset
+    from vmap_tpu_torch.config import Config
+    from vmap_tpu_torch.data.loader import PrefetchIterator, make_dataset
     from vmap_tpu_torch.core import checkpoint as ckpt_lib
     from vmap_tpu_torch.core import meshing
     from vmap_tpu_torch.core.mapper import FrameSample, Mapper
