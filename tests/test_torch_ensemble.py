@@ -107,7 +107,7 @@ def _assert_grads_close(g_port, g_jax):
             err_msg=f"gradient of {k}")
 
 
-@pytest.mark.parametrize("hidden", [32, 128])
+@pytest.mark.parametrize("hidden", [32, 128, 256])
 def test_field_train_grads_match_pallas_vjp(hidden):
     """Every weight gradient, the PE projection included, of a smooth
     readout over (alpha, colour)."""

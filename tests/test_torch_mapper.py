@@ -16,6 +16,7 @@ from vmap_tpu.core.mapper import Mapper as JMapper
 from vmap_tpu.data.replica import ReplicaDataset
 from vmap_tpu_torch.core import mapper as tmapper
 from vmap_tpu_torch.interop import FIELDS, bank_from_numpy
+from vmap_tpu_torch.ops.quant import Q8_SCALES
 
 from _torch_parity import jax_frame_draw_source, small_synthetic_config
 
@@ -91,13 +92,13 @@ def test_mapper_matches_jax_frame_by_frame():
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"compute_dtype": "int8"}, "compute_dtype"),
-    ({"compute_dtype": "int8_fwd"}, "compute_dtype"),
+    ({"compute_dtype": "float16"}, "compute_dtype"),
+    ({"compute_dtype": "int4"}, "compute_dtype"),
     ({"mesh_axes": {"obj": 2}}, "mesh_axes"),
     ({"training_strategy": "forloop"}, "forloop"),
     ({"live_mode": True}, "live"),
-    ({"compute_dtype": "int8_static"}, "int8 policies"),
-    ({"compute_dtype": "int8_static_fwd"}, "ROADMAP"),
+    ({"compute_dtype": "int8_dynamic"}, "int8 policies"),
+    ({"mesh_axes": {"obj": 4}}, "ROADMAP"),
 ])
 def test_features_outside_the_slice_raise(change, match):
     cfg = _cfg()
@@ -202,16 +203,16 @@ def test_train_cli_meshes_checkpoints_and_resumes(tmp_path):
     assert os.path.getsize(logdir / "scene_mesh" / "frame_12_obj1.obj") > 0
 
 
-def test_import_and_cpu_frame_stay_jax_free(tmp_path):
+def _cli_stays_jax_free(tmp_path, tpu: dict, n_frames: int) -> None:
     """``import vmap_tpu_torch``, a CPU run of the port's trainer on the
-    fixture under ``sample_reuse`` 4 and ``bwd_bf16``, mesh export and a
-    full-state checkpoint import neither jax nor any module of the JAX
-    package ``vmap_tpu``."""
+    fixture for ``n_frames`` frames with the ``tpu`` entries, mesh export
+    and a full-state checkpoint, in a subprocess that must import neither
+    jax nor any module of the JAX package ``vmap_tpu``."""
     cfg = str(tmp_path / "cfg.json")
     logdir = str(tmp_path / "logs")
     raw = json.load(open(CONFIG))
     raw["dataset"]["path"] = FIXTURE
-    raw["tpu"].update(sample_reuse=4, compute_dtype="bwd_bf16")
+    raw["tpu"].update(tpu)
     json.dump(raw, open(cfg, "w"))
     code = (
         "import sys, json, os\n"
@@ -221,12 +222,13 @@ def test_import_and_cpu_frame_stay_jax_free(tmp_path):
         "from vmap_tpu_torch.core import checkpoint, meshing\n"
         "from vmap_tpu_torch import train\n"
         f"m = train.main(['--config', {cfg!r}, '--logdir', {logdir!r},"
-        " '--max_frames', '1', '--device', 'cpu'])\n"
-        "assert m.statics.sample_reuse == 4, m.statics\n"
-        "assert m.statics.compute_dtype == 'bwd_bf16', m.statics\n"
+        f" '--max_frames', '{n_frames}', '--device', 'cpu'])\n"
+        + "".join(f"assert m.statics.{k} == {v!r}, m.statics\n"
+                  for k, v in tpu.items()) +
         f"rows = [json.loads(l) for l in open(os.path.join({logdir!r},"
         " 'train_log.jsonl'))]\n"
-        "assert len(rows) == 1 and rows[0]['loss'] == rows[0]['loss'], rows\n"
+        f"assert len(rows) == {n_frames}, rows\n"
+        "assert all(r['loss'] == r['loss'] for r in rows), rows\n"
         f"assert m.export_meshes(os.path.join({logdir!r}, 'mesh'), 0)\n"
         f"checkpoint.save_full_checkpoint(m, os.path.join({logdir!r},"
         " 'ckpt'), 0)\n"
@@ -241,3 +243,28 @@ def test_import_and_cpu_frame_stay_jax_free(tmp_path):
                          text=True, env=env, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "JAXFREE" in out.stdout
+
+
+def test_import_and_cpu_frame_stay_jax_free(tmp_path):
+    """One frame under ``sample_reuse`` 4 and ``bwd_bf16``."""
+    _cli_stays_jax_free(tmp_path, {"sample_reuse": 4,
+                                   "compute_dtype": "bwd_bf16"}, 1)
+
+
+def test_int8_cli_trains_meshes_checkpoints_jax_free(tmp_path):
+    """Three frames under the int8 policy (the plain ops.quant frame on
+    the CPU): finite losses, meshes, a full-state checkpoint."""
+    _cli_stays_jax_free(tmp_path, {"compute_dtype": "int8"}, 3)
+
+
+@pytest.mark.parametrize("policy", ["int8", "int8_fwd", "int8_static",
+                                    "int8_static_fwd"])
+def test_int8_policies_reach_the_step(policy):
+    """The Mapper takes each int8 policy and hands it to the step statics;
+    the static policies' scales are JAX's defaults (VMAP_Q8_SACT / SHEAD /
+    SGRAD unset), a constant of ops.quant."""
+    cfg = _cfg()
+    cfg.compute_dtype = policy
+    st = tmapper.Mapper(cfg, device="cpu").statics
+    assert st.compute_dtype == policy
+    assert Q8_SCALES == (8.0, 0.125, 0.02)

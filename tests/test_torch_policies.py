@@ -189,24 +189,15 @@ def test_reference_policy_matches_jax_kernel(policy_frames, policy):
         assert loss_effect == 0.0
 
 
-def test_frame_step_reuse_bwd_bf16_matches_jax_fused():
-    """One frame of both banks, sample_reuse 4 on the objects and bwd_bf16
-    on both, against JAX's fused frame step (interpret mode) on the same
-    pool, tables and draws. Four AdamW steps carry the bf16 rounding-
-    boundary noise of the gradients into the parameters (a flipped
-    near-zero gradient moves its parameter by up to 2 lr, and the f32
-    frames differ as much), so parameters compare within atol 4 lr. The
-    first moment, the decayed sum of the four gradients, carries no such
-    amplification: so that a step that dropped the policy cannot pass, the
-    port's must lie at least 10x closer in norm to JAX's than to the
-    port's own float32 frame on the same draws. The losses within rtol
-    2e-3."""
+def _frame_step_reuse_matches_jax_fused(policy: str) -> None:
+    """One frame of both banks, sample_reuse 4 on the objects and
+    ``policy`` on both, against JAX's fused frame step (interpret mode,
+    G = 1) on the same pool, tables and draws; see the two tests below."""
     packed, twc = _pool(1)
     tabs = _tables(1)
     bg_tab = tuple(a[:1] for a in _tables(2, cap=1))
     kw = dict(n_iter=4, px_block_bg=4, sample_reuse=4)
-    st_j, st_t = _statics(use_fused_frame=True, compute_dtype="bwd_bf16",
-                          **kw)
+    st_j, st_t = _statics(use_fused_frame=True, compute_dtype=policy, **kw)
     bo_j, bb_j = _jax_banks()
     pb_o, pb_b = prepare_bank(bo_j, 1), prepare_bank(bb_j, 1)
     obj_ids = np.arange(CAP, dtype=np.int32)
@@ -239,3 +230,26 @@ def test_frame_step_reuse_bwd_bf16_matches_jax_fused():
         err = np.linalg.norm(m - np.asarray(theirs.m))
         effect = np.linalg.norm(n(f32.m) - m)
         assert err <= 0.1 * effect, (err, effect)
+
+
+def test_frame_step_reuse_bwd_bf16_matches_jax_fused():
+    """One frame of both banks, sample_reuse 4 on the objects and
+    bwd_bf16 on both, against JAX's fused frame step (interpret mode) on
+    the same pool, tables and draws. Four AdamW steps carry the bf16
+    rounding-boundary noise of the gradients into the parameters (a
+    flipped near-zero gradient moves its parameter by up to 2 lr, and the
+    f32 frames differ as much), so parameters compare within atol 4 lr.
+    The first moment, the decayed sum of the four gradients, carries no
+    such amplification: so that a step that dropped the policy cannot
+    pass, the port's must lie at least 10x closer in norm to JAX's than to
+    the port's own float32 frame on the same draws. The losses within
+    rtol 2e-3."""
+    _frame_step_reuse_matches_jax_fused("bwd_bf16")
+
+
+def test_frame_step_reuse_int8_static_matches_jax_fused():
+    """As the bwd_bf16 test above, under int8_static: its activation and
+    gradient scales are fixed (ops.quant.Q8_SCALES, JAX's defaults), and
+    at G = 1 JAX's weight scales are per slot and tensor as the port's, so
+    the two granularities coincide and the same bars hold."""
+    _frame_step_reuse_matches_jax_fused("int8_static")

@@ -70,8 +70,8 @@ def check_supported(cfg: Config) -> None:
     if cfg.compute_dtype not in POLICIES:
         raise NotImplementedError(
             f"compute_dtype {cfg.compute_dtype!r}: the port has "
-            f"{'/'.join(POLICIES)}; the int8 policies are not ported "
-            "(ROADMAP: the K1 int8 policies)")
+            f"{', '.join(POLICIES[:3])} and the int8 policies "
+            f"{', '.join(POLICIES[3:])}")
     if cfg.mesh_axes:
         raise NotImplementedError(
             "tpu.mesh_axes: multi-device sharding is not ported (ROADMAP: "

@@ -7,20 +7,42 @@ dispatch on the same widths and policies and refuse the others. On CUDA
 tensors a wrapper raises for a width or policy outside its kernel's; the
 Mapper checks a configuration against the kernels its path runs before
 it allocates anything on the device.
+
+``MAX_POINTS`` is the points of one train-frame ray tile per width
+(``tile_rays``). Under the int8 policies the tile is also the
+granularity of the activation and gradient scales (``ops.quant``), so the
+plain version of the frame reads the same constant.
 """
 
 from vmap_tpu_torch.ops.mlp import POLICIES
 
 KERNEL_HIDDEN = {
-    "train_frame": (32, 128, 256),   # K1, csrc/train_step.cu
+    "train_frame": (32, 128, 256),   # K1, csrc/train_step.cu, train_step_q8.cu
     "field_fwd": (32, 128, 256),     # K2, csrc/ensemble.cu field_fwd_kernel
-    "field_bwd": (32, 128),          # K3, csrc/ensemble.cu field_bwd_kernel
+    "field_bwd": (32, 128, 256),     # K3, csrc/ensemble.cu field_bwd_kernel
 }
 KERNEL_POLICIES = {
     "train_frame": POLICIES,
     "field_fwd": ("float32",),
     "field_bwd": ("float32",),
 }
+# (rays per tile) * samples may not exceed this, per hidden size: it sets
+# the shared memory of one train_grad block (83 KB at h=32 / 120 rays x 10
+# samples, 187 KB at h=128 / 1200 rays x 14 samples, 169 KB at h=256 /
+# 4800 rays x 14 samples; at most 227 KB; the int8 tile adds 3 rows and 32
+# floats). Under the int8 policies a weight gradient sums s8 x s8 products
+# over one tile's points in f32, exact while points * 127^2 < 2^24: 64
+# points give 1.03 M, and a tile of more than 1040 points would break it.
+MAX_POINTS = {32: 64, 128: 56, 256: 38}
+
+
+def tile_rays(hidden: int, n_samples: int) -> int:
+    """Whole rays per train_grad tile. A width without a kernel (the plain
+    version at a test's width) takes the tile of the next wider kernel
+    width, or of the widest."""
+    wider = [h for h in sorted(MAX_POINTS) if h >= hidden]
+    points = MAX_POINTS[wider[0] if wider else max(MAX_POINTS)]
+    return max(1, points // n_samples)
 
 
 def check_width(kernel: str, hidden: int, policy: str = "float32") -> None:

@@ -30,10 +30,13 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 
-# C signatures of kernels/csrc/train_step.cu and ensemble.cu
+# C signatures of kernels/csrc/train_step.cu, train_step_q8.cu and
+# ensemble.cu
 SIGNATURES = {
     "vmap_train_grad": ((I, I, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
                          I, I, I, I, I, I, F, F, P), I),
+    "vmap_train_grad_q8": ((I, I) + (P,) * 13 + (I,) * 10 + (F, F, P), I),
+    "vmap_train_quant_w": ((P, P, P, P, P, I, I, I, P), I),
     "vmap_train_adamw": ((P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, F,
                           P), I),
     "vmap_field_fwd": ((I, P, P, I, P, P, I, I, P, P, P), I),

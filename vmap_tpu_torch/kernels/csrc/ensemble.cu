@@ -32,7 +32,11 @@
 // backward, and adds the sub-tile's weight gradients into its own partial
 // row grad_part[object, chunk, :] in a fixed order. The host sums the
 // partials over chunks in a fixed order: no atomics, deterministic.
-// Points past M and their cotangents are zero, so they add nothing.
+// Points past M and their cotangents are zero, so they add nothing. Built
+// for h = 32, 128 and 256. At h=256 a 32-point sub-tile's activations and
+// their gradients take 203 KB, one block per SM; as in field_fwd, the
+// weights (1.3 MB) stay in L2 and are read as L1 broadcasts, never copied
+// to shared memory, so only the sub-tile has to fit.
 //
 // What bounds them on the card: FP32 FMA issue and the load instructions
 // that feed it (one broadcast weight load per RI FMAs per point group), no
@@ -433,7 +437,7 @@ int launch_fwd(const float* params, int n_params, const Prep& off,
 // Points per sub-tile of one field_bwd block at each width (0: no kernel);
 // a chunk of tile_m points holds whole sub-tiles.
 constexpr int bwd_subtile(int hidden) {
-  return hidden == 32 ? 64 : hidden == 128 ? 32 : 0;
+  return hidden == 32 ? 64 : hidden == 128 || hidden == 256 ? 32 : 0;
 }
 
 template <int H, int TP, int RI, int PJ>
@@ -487,7 +491,7 @@ int vmap_field_fwd(int hidden, const float* params, const int* offsets,
 
 // K3: per-chunk partial weight gradients grad_part [O, ceil(M / tile_m),
 // n_params] of sum(g_alpha * alpha) + sum(g_color * colour), in the packed
-// prepared layout (padded columns stay 0); built for h = 32 and 128 only.
+// prepared layout (padded columns stay 0); built for h = 32, 128 and 256.
 // tile_m must be a multiple of vmap_field_bwd_subtile(hidden).
 int vmap_field_bwd(int hidden, const float* params, const int* offsets,
                    int n_params, const float* scale, const float* pts,
@@ -503,6 +507,10 @@ int vmap_field_bwd(int hidden, const float* params, const int* offsets,
         grad_part, st);
   if (hidden == 128)
     return launch_bwd<128, bwd_subtile(128), 8, 1>(
+        params, n_params, off, scale, pts, g_alpha, g_color, O, M, tile_m,
+        grad_part, st);
+  if (hidden == 256)
+    return launch_bwd<256, bwd_subtile(256), 8, 1>(
         params, n_params, off, scale, pts, g_alpha, g_color, O, M, tile_m,
         grad_part, st);
   return (int)cudaErrorInvalidValue;

@@ -16,11 +16,12 @@ Two versions of each function:
     (``torch.matmul`` and autograd);
   * ``field_eval`` (K2, ``csrc/ensemble.cu`` ``field_fwd_kernel``, hidden
     32 / 128 / 256) and the backward of ``FieldTrain`` (K3,
-    ``field_bwd_kernel``, hidden 32 / 128): on CPU tensors they run the
+    ``field_bwd_kernel``, hidden 32 / 128 / 256): on CPU tensors they run the
     plain version, on CUDA tensors they launch the kernel or raise
     (``kernels.KERNEL_HIDDEN``).
 
-``LAUNCHES`` counts successful kernel launches by kernel name; only
+``LAUNCHES`` counts successful kernel launches by kernel name, and
+``field_bwd``'s also by width (``field_bwd.<hidden>``); only
 ``_launch_fwd`` / ``_launch_bwd`` change it.
 """
 
@@ -32,9 +33,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from vmap_tpu_torch.kernels import _build, check_width
+from vmap_tpu_torch.kernels import KERNEL_HIDDEN, _build, check_width
 
-LAUNCHES = {"field_fwd": 0, "field_bwd": 0}
+LAUNCHES = {"field_fwd": 0, "field_bwd": 0,
+            **{f"field_bwd.{h}": 0 for h in KERNEL_HIDDEN["field_bwd"]}}
 
 EMB_PAD = 128                # emb_a (87) and emb_b (42) pad to 128 columns
 EMB1, EMB2 = 87, 42
@@ -238,6 +240,7 @@ def _launch_bwd(prepared: dict, pts: torch.Tensor, g_alpha: torch.Tensor,
         _build.check(L.lib, code, f"field_bwd kernel launch (tile_m "
                      f"{tile_m}; a multiple of {sub} at hidden {L.h})")
     LAUNCHES["field_bwd"] += 1
+    LAUNCHES[f"field_bwd.{L.h}"] += 1
     total = part.sum(dim=1)
     shapes = prepared_shapes(L.h)
     return {n: g.reshape((L.O,) + shapes[n])

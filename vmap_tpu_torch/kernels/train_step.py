@@ -8,15 +8,19 @@ backward -> masked AdamW.
 
 Two versions of one function:
   * ``fused_frame_reference``: plain PyTorch, the ``ops`` modules and
-    ``torch.autograd`` on the flat parameter buffer;
+    ``torch.autograd`` on the flat parameter buffer (under an int8 policy
+    the MLP is ``ops.quant.Int8MLP``, its backward written by hand);
   * ``fused_frame``: the wrapper of the hand-written CUDA kernels in
     ``csrc/train_step.cu`` (kernel A ``train_grad_kernel``: forward +
     render + hand-derived backward per (slot, ray tile), partial gradients
     to one scratch row per block, ``frame_geometry``; kernel B
-    ``adamw_kernel``: fixed-order sum of the rows + masked AdamW), built
-    for hidden 32, 128 and 256. The loop over iterations runs on the host,
-    two launches per iteration. On CPU tensors it runs the plain version;
-    on CUDA tensors it launches the kernels or raises.
+    ``adamw_kernel``: fixed-order sum of the rows + masked AdamW) and, for
+    the int8 policies, ``csrc/train_step_q8.cu`` (``train_grad_q8_kernel``,
+    the same tile on s8 operands, and ``quant_weights_kernel``, the
+    weights' quantised copy once per iteration), built for hidden 32, 128
+    and 256. The loop over iterations runs on the host, two launches per
+    iteration (int8: three). On CPU tensors it runs the plain version; on
+    CUDA tensors it launches the kernels or raises.
 
 Data-only factors are computed in plain torch before the loop, as the JAX
 package computes them outside its kernel (``_prepare_batch``): the
@@ -25,17 +29,19 @@ iteration (``flag`` zeroes a term for every slot when any active slot has
 an empty mask) and the Adam bias corrections ``1 - b^t``.
 
 Both versions take the matmul ``policy`` (``ops.mlp.POLICIES``:
-"float32", "bwd_bf16", "bfloat16"; the JAX kernel's ``bf16`` argument)
-and ``reuse``
-(``sample_reuse``): the batch's pixel arrays then hold ``n_iter / reuse``
+"float32", "bwd_bf16", "bfloat16" and the int8 ones; the JAX kernel's
+``bf16`` argument) and ``reuse`` (``sample_reuse``): the batch's pixel arrays then hold ``n_iter / reuse``
 iterations of rays, untiled, and iteration ``it`` trains on pixel block
 ``it mod (n_iter / reuse)`` with its own z samples (the batch's z holds
 all ``n_iter``), as the JAX kernel's ``_prepare_batch(reuse=R)`` repeats
-its pixel operands along the iteration axis.
+its pixel operands along the iteration axis. Under an int8 policy the
+activation and gradient scales are per ray tile of ``tile_rays(h, S)``
+rays, the kernel's own tile (``kernels.MAX_POINTS``, ``ops.quant``), and
+the static policies' scales are the constant ``ops.quant.Q8_SCALES``.
 
 ``LAUNCHES`` counts successful kernel launches by kernel name, and
 ``train_grad``'s also by policy (``train_grad.<policy>``); only
-``FrameLaunch.grad`` / ``FrameLaunch.adamw`` change it.
+``FrameLaunch.grad`` / ``adamw`` / ``quant_weights`` change it.
 """
 
 from __future__ import annotations
@@ -47,20 +53,17 @@ import torch
 
 from vmap_tpu_torch.core.bank import (BankSpec, BankState,
                                      adam_bias_corrections, apply_adamw)
-from vmap_tpu_torch.kernels import _build, check_width
+# MAX_POINTS is re-exported: callers read it as train_step.MAX_POINTS
+from vmap_tpu_torch.kernels import (MAX_POINTS, _build,  # noqa: F401
+                                    check_width, tile_rays)
 from vmap_tpu_torch.kernels import ensemble as E
 from vmap_tpu_torch.ops import losses as L
+from vmap_tpu_torch.ops import quant as Q
 from vmap_tpu_torch.ops.embedding import embed
 from vmap_tpu_torch.ops.mlp import POLICIES, mlp_apply
 
-LAUNCHES = {"train_grad": 0, "train_adamw": 0,
+LAUNCHES = {"train_grad": 0, "train_adamw": 0, "train_quant_w": 0,
             **{f"train_grad.{p}": 0 for p in POLICIES}}
-
-# (rays per tile) * samples may not exceed this, per hidden size: it sets
-# the shared memory of one train_grad block (83 KB at h=32 / 120 rays x 10
-# samples, 187 KB at h=128 / 1200 rays x 14 samples, 169 KB at h=256 /
-# 4800 rays x 14 samples; at most 227 KB)
-MAX_POINTS = {32: 64, 128: 56, 256: 38}
 # train_grad writes one partial gradient row per (slot, block). While one
 # block per ray tile keeps that scratch within SCRATCH_BUDGET bytes, each
 # block takes one tile; past it the grid is bounded to GRID_SMS blocks over
@@ -75,6 +78,11 @@ OFFSET_NAMES = ("dirs", "w_in", "b_in", "w_mid1", "b_mid1", "w_cat", "b_cat",
                 "w_mid2", "b_mid2", "w_alpha", "b_alpha", "w_col", "b_col",
                 "w_col_out", "b_col_out")
 BATCH_KEYS = ("rgb", "depth", "state", "valid", "z", "origins", "dirs")
+
+
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    """A tensor's device pointer for a C entry; None -> null."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def _slice_iter(batch: dict, it: int, n_per: int, n_eff: int | None = None
@@ -105,11 +113,14 @@ def field_tile(n_points: int) -> int:
 
 def iteration_loss_grad(bank: BankState, sl: dict, color_scaling: float,
                         opacity_scaling: float, field_kernel: bool = False,
-                        policy: str = "float32"
+                        policy: str = "float32",
+                        q8_tile_rays: int | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain forward + autograd of one iteration's batch ``sl`` (rays of
     that iteration only) -> (per-slot losses [cap], grad [cap, n_params]),
-    the MLP and PE products under the matmul ``policy``.
+    the MLP and PE products under the matmul ``policy``. Under an int8
+    policy the scales are per ray tile of ``q8_tile_rays`` rays (default:
+    the kernel's ``tile_rays``; ``ops.quant``).
     ``field_kernel``: the field goes through ``ensemble.FieldTrain`` on the
     prepared parameters (K2 / K3 on CUDA, f32 only); autograd carries its
     gradient back through the pad and split to the flat buffer."""
@@ -128,8 +139,11 @@ def iteration_loss_grad(bank: BankState, sl: dict, color_scaling: float,
         alpha = alpha.reshape(cap, n_rays, n_s)
         color = color.reshape(cap, n_rays, n_s, 3)
     else:
+        n_s = pts.shape[2]
+        rt = q8_tile_rays or tile_rays(bank.spec.hidden, n_s)
         alpha, color = mlp_apply(
-            mlp_p, embed(pe, pts, bank.scale, policy=policy), policy=policy)
+            mlp_p, embed(pe, pts, bank.scale, policy=policy), policy=policy,
+            tile_points=rt * n_s)
         alpha = alpha[..., 0]
     total, per = L.step_batch_loss(
         alpha, color, sl["depth"], sl["rgb"], sl["state"],
@@ -143,20 +157,20 @@ def fused_frame_reference(bank: BankState, batch: dict, n_iter: int,
                           color_scaling: float = 5.0,
                           opacity_scaling: float = 10.0,
                           field_kernel: bool = False, policy: str = "float32",
-                          reuse: int = 1):
+                          reuse: int = 1, q8_tile_rays: int | None = None):
     """Plain PyTorch frame of one bank: ``n_iter`` x (forward, autograd,
     ``apply_adamw``). ``batch`` is the sampler's ray-major output, rays
     iteration-major with ``n_per`` rays per iteration (pixel arrays for
     n_iter / ``reuse`` iterations). Returns (new BankState, per-slot
-    per-iteration losses [cap, n_iter]). ``field_kernel``, ``policy``:
-    see ``iteration_loss_grad``."""
+    per-iteration losses [cap, n_iter]). ``field_kernel``, ``policy``,
+    ``q8_tile_rays``: see ``iteration_loss_grad``."""
     n_eff = reuse_period(n_iter, reuse)
     losses = []
     for it in range(n_iter):
         per, grad = iteration_loss_grad(bank,
                                         _slice_iter(batch, it, n_per, n_eff),
                                         color_scaling, opacity_scaling,
-                                        field_kernel, policy)
+                                        field_kernel, policy, q8_tile_rays)
         bank = apply_adamw(bank, grad, lr, wd)
         losses.append(per)
     return bank, torch.stack(losses, dim=1)
@@ -190,11 +204,6 @@ def kernel_operands(batch: dict, active: torch.Tensor, n_iter: int,
             "ray": ray.contiguous(),
             "wmul": torch.cat([wm, torch.zeros_like(wm[..., :1])],
                               dim=-1).contiguous()}
-
-
-def tile_rays(hidden: int, n_samples: int) -> int:
-    """Whole rays per train_grad tile."""
-    return max(1, MAX_POINTS[hidden] // n_samples)
 
 
 @dataclass(frozen=True)
@@ -237,13 +246,19 @@ def frame_geometry(hidden: int, n_samples: int, n_per: int,
 
 class FrameLaunch:
     """Validated operands and scratch of one bank's kernel frame; its
-    methods launch the two kernels for one iteration.
+    methods launch the kernels for one iteration.
 
     Under a bf16 policy ``train_grad`` reads the weights of its products
     from ``wr``, the parameters rounded to bf16 (in f32): made here from
     the bank's parameters, and rewritten by each ``adamw`` from the
-    parameters it updates. So ``grad`` takes the bank's parameters as
-    they stand after the latest ``adamw`` of this launch."""
+    parameters it updates. Under an int8 policy ``wr`` holds the
+    quantised weights (integer-valued f32) and ``wscale`` their [cap, 9]
+    scales (``ops.quant.QW_NAMES``), written by ``quant_weights``: here
+    from the bank's parameters, then by each ``adamw`` but the frame's
+    last; ``qs`` the static policies' (scale, 127 / maximum) pairs of
+    ``ops.quant.Q8_SCALES``, None under the dynamic ones. So ``grad`` takes the
+    bank's parameters as they stand after the latest ``adamw`` of this
+    launch."""
 
     def __init__(self, bank: BankState, batch: dict, n_iter: int, n_per: int,
                  color_scaling: float, opacity_scaling: float,
@@ -293,12 +308,22 @@ class FrameLaunch:
         g = self.geom
         self.grad_part = torch.empty((cap, g.blocks, n_params),
                                      dtype=torch.float32, device=dev)
-        self.wr = (None if policy == "float32" else
-                   bank.flat.to(torch.bfloat16).to(torch.float32))
-        self.wr_ptr = ctypes.c_void_p(None if self.wr is None
-                                      else self.wr.data_ptr())
         self.loss_part = torch.empty((cap, g.blocks), dtype=torch.float32,
                                      device=dev)
+        self.q8 = policy in Q.INT8_POLICIES
+        self.wr = self.wscale = self.qs = None
+        if self.q8:
+            self.wr = torch.zeros_like(bank.flat)
+            self.wscale = torch.empty((cap, len(Q.QW_NAMES)),
+                                      dtype=torch.float32, device=dev)
+            if Q.q8_static(policy):
+                self.qs = torch.tensor(
+                    [v for m in Q.Q8_SCALES for v in (m * (1.0 / 127.0),
+                                                    127.0 / m)],
+                    dtype=torch.float32, device=dev)
+            self.quant_weights(bank.flat)
+        elif policy != "float32":
+            self.wr = bank.flat.to(torch.bfloat16).to(torch.float32)
 
     def _stream(self) -> int:
         return torch.cuda.current_stream(self.dev).cuda_stream
@@ -311,17 +336,26 @@ class FrameLaunch:
 
     def grad(self, params: torch.Tensor, it: int) -> None:
         """Kernel A: forward + backward of iteration ``it`` into the
-        scratch partials."""
+        scratch partials (``csrc/train_step.cu``, or under an int8 policy
+        ``csrc/train_step_q8.cu``)."""
         self._check("params", params, (self.cap, self.n_params))
-        p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-        code = self.lib.vmap_train_grad(
-            POLICIES.index(self.policy), self.h, p(params), self.wr_ptr,
-            p(self.od), p(self.z), p(self.ray), p(self.wmul), p(self.scale),
-            p(self.active), p(self.grad_part), p(self.loss_part),
-            ctypes.cast(self.offsets, ctypes.c_void_p), self.cap,
-            self.n_params, self.n_per, self.n_iter, self.n_eff, it, self.S,
-            self.geom.rays_per_tile, self.geom.n_tiles, self.geom.blocks,
-            self.cs, self.osc, ctypes.c_void_p(self._stream()))
+        p = _ptr
+        geom = (self.cap, self.n_params, self.n_per, self.n_iter, self.n_eff,
+                it, self.S, self.geom.rays_per_tile, self.geom.n_tiles,
+                self.geom.blocks, self.cs, self.osc,
+                ctypes.c_void_p(self._stream()))
+        batch = (p(self.od), p(self.z), p(self.ray), p(self.wmul),
+                 p(self.scale), p(self.active), p(self.grad_part),
+                 p(self.loss_part), ctypes.cast(self.offsets,
+                                                ctypes.c_void_p))
+        if self.q8:
+            code = self.lib.vmap_train_grad_q8(
+                int(Q.q8_backward(self.policy)), self.h, p(params),
+                p(self.wr), p(self.wscale), p(self.qs), *batch, *geom)
+        else:
+            code = self.lib.vmap_train_grad(
+                POLICIES.index(self.policy), self.h, p(params), p(self.wr),
+                *batch, *geom)
         _build.check(self.lib, code, "train_grad kernel launch")
         LAUNCHES["train_grad"] += 1
         LAUNCHES[f"train_grad.{self.policy}"] += 1
@@ -329,19 +363,35 @@ class FrameLaunch:
     def adamw(self, params, m, v, losses, it: int, lr: float,
               wd: float) -> None:
         """Kernel B: reduce the partials, masked AdamW in place on
-        (params, m, v), losses[:, it]; under a bf16 policy also ``wr``."""
+        (params, m, v), losses[:, it]; under a bf16 policy also ``wr``;
+        under an int8 policy then ``quant_weights`` for the next
+        iteration, if there is one."""
         for name, t in (("params", params), ("m", m), ("v", v)):
             self._check(name, t, (self.cap, self.n_params))
         self._check("losses", losses, (self.cap, self.n_iter))
-        p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+        p = _ptr
         code = self.lib.vmap_train_adamw(
-            p(params), self.wr_ptr, p(m), p(v), p(self.grad_part),
-            p(self.loss_part), p(losses), p(self.active), p(self.bc1),
-            p(self.bc2), self.cap, self.n_params, self.geom.blocks,
-            self.n_iter, it, float(lr), float(1 - lr * wd),
-            ctypes.c_void_p(self._stream()))
+            p(params), p(None if self.q8 else self.wr), p(m), p(v),
+            p(self.grad_part), p(self.loss_part), p(losses), p(self.active),
+            p(self.bc1), p(self.bc2), self.cap, self.n_params,
+            self.geom.blocks, self.n_iter, it, float(lr),
+            float(1 - lr * wd), ctypes.c_void_p(self._stream()))
         _build.check(self.lib, code, "train_adamw kernel launch")
         LAUNCHES["train_adamw"] += 1
+        if self.q8 and it + 1 < self.n_iter:
+            self.quant_weights(params)
+
+    def quant_weights(self, params: torch.Tensor) -> None:
+        """Int8 policies: the quantised copy ``wr`` and scales ``wscale``
+        of ``params``' MLP weights (``ops.quant.quant_weights``), one block
+        per (tensor, active slot)."""
+        self._check("params", params, (self.cap, self.n_params))
+        code = self.lib.vmap_train_quant_w(
+            _ptr(params), _ptr(self.wr), _ptr(self.wscale),
+            _ptr(self.active), ctypes.cast(self.offsets, ctypes.c_void_p),
+            self.cap, self.n_params, self.h, ctypes.c_void_p(self._stream()))
+        _build.check(self.lib, code, "train_quant_w kernel launch")
+        LAUNCHES["train_quant_w"] += 1
 
 
 def fused_frame(bank: BankState, batch: dict, n_iter: int, n_per: int,
@@ -349,10 +399,11 @@ def fused_frame(bank: BankState, batch: dict, n_iter: int, n_per: int,
                 opacity_scaling: float = 10.0, policy: str = "float32",
                 reuse: int = 1):
     """One bank's frame under the matmul ``policy``, with ``reuse`` (see
-    the module docstring). CPU tensors: the plain version. CUDA tensors:
-    the CUDA kernels, 2 launches per iteration, into fresh state tensors
-    (the input bank is not modified). Returns (new BankState, losses
-    [cap, n_iter])."""
+    the module docstring).
+    CPU tensors: the plain version. CUDA tensors: the CUDA kernels, 2
+    launches per iteration (an int8 policy: 3, and one before the first),
+    into fresh state tensors (the input bank is not modified). Returns
+    (new BankState, losses [cap, n_iter])."""
     if bank.flat.device.type == "cpu":
         return fused_frame_reference(bank, batch, n_iter, n_per, lr, wd,
                                      color_scaling, opacity_scaling,

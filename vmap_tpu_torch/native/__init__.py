@@ -23,13 +23,22 @@ _tried = False
 
 
 def _build() -> bool:
+    """Compile to a name of this process's own in the same directory, then
+    rename it onto ``libvmapgeom.so``: processes that build at the same
+    time (test workers on a fresh tree) each load a complete file, never
+    one that another compiler is still writing."""
+    tmp = f"{_SO}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
-           "-o", _SO, _SRC]
+           "-o", tmp, _SRC]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _SO)
         return True
     except (OSError, subprocess.SubprocessError):
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def get_lib():

@@ -60,8 +60,9 @@ def embed(params: dict, x: torch.Tensor, scale: torch.Tensor,
     ``scale`` [n] for a bank of n slots. The band factor multiplies the
     projection before ``pi`` does, as the JAX function does. Under a
     matmul ``policy`` other than ``"float32"`` (banks only) the projection's
-    forward stays f32 and the dirs gradient is the product of bf16-rounded
-    operands, as in the train-frame kernel.
+    forward stays f32; its dirs gradient is the product of bf16-rounded
+    operands under the bf16 policies and f32 under the int8 ones, as in
+    the train-frame kernel.
     """
     dirs = params["dirs"]
     if dirs.dim() == 2 and policy != "float32":

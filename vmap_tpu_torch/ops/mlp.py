@@ -20,7 +20,10 @@ accumulation is f32 under every policy):
     from operands rounded to bf16: upstream gradients, saved activations,
     weights;
   * ``"bfloat16"``: as ``"bwd_bf16"``, and the forward products' operands
-    (weights, embedding, activations) rounded to bf16 too.
+    (weights, embedding, activations) rounded to bf16 too;
+  * ``"int8"``, ``"int8_fwd"``, ``"int8_static"``, ``"int8_static_fwd"``:
+    s8 operands with scales, ``ops.quant`` (banks only; their scales are
+    per ray tile of ``tile_points`` points).
 Biases, their gradients, activations' ReLU masks and everything outside
 the products stay f32. ``PolicyMatmul`` is the rounded product.
 """
@@ -29,10 +32,13 @@ from __future__ import annotations
 
 import torch
 
+from vmap_tpu_torch.ops.quant import INT8_POLICIES, int8_mlp_apply
+
 LAYERS = ("in", "mid1", "cat", "mid2", "alpha", "col", "col_out")
-# the ported policies; a policy's index is its code in the train-frame
-# kernel (csrc/train_step.cu Policy)
-POLICIES = ("float32", "bwd_bf16", "bfloat16")
+# the ported policies; a float policy's index is its code in the
+# train-frame kernel (csrc/train_step.cu Policy), the int8 ones run
+# csrc/train_step_q8.cu
+POLICIES = ("float32", "bwd_bf16", "bfloat16") + INT8_POLICIES
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -69,9 +75,15 @@ def policy_matmul(x: torch.Tensor, w: torch.Tensor, policy: str,
                   fwd_f32: bool = False) -> torch.Tensor:
     """``x @ w^T`` (x [n, M, k], w [n, o, k]) under ``policy``;
     ``fwd_f32`` keeps the forward in f32 whatever the policy (the PE's
-    dirs projection)."""
+    dirs projection). Under an int8 policy only the dirs projection comes
+    here, and it stays f32 both ways, as in the JAX kernel."""
     if policy not in POLICIES:
         raise ValueError(f"matmul policy {policy!r} not in {POLICIES}")
+    if policy in INT8_POLICIES:
+        if not fwd_f32:
+            raise ValueError("int8 MLP products go through "
+                             "ops.quant.int8_mlp_apply")
+        return PolicyMatmul.apply(x, w, False, False)
     return PolicyMatmul.apply(x, w, policy == "bfloat16" and not fwd_f32,
                               policy != "float32")
 
@@ -116,9 +128,17 @@ def _linear(p: dict, name: str, x: torch.Tensor,
 
 
 def mlp_apply(params: dict, emb: torch.Tensor, emb1: int = 87,
-              policy: str = "float32") -> tuple[torch.Tensor, torch.Tensor]:
+              policy: str = "float32", tile_points: int | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """``emb`` [..., emb1+emb2] -> (alpha [..., 1], color [..., 3]), the
-    products under the matmul ``policy``."""
+    products under the matmul ``policy``; an int8 policy takes a bank's
+    parameters and the points of its scale tile (``tile_points``, see
+    ``ops.quant``)."""
+    if policy in INT8_POLICIES:
+        if tile_points is None or params["w_in"].dim() != 3:
+            raise ValueError("int8 policies take a bank's parameters and "
+                             "tile_points")
+        return int8_mlp_apply(params, emb, policy, tile_points)
     x1 = emb[..., :emb1]
     x2 = emb[..., emb1:]
     p = params
