@@ -83,7 +83,23 @@ Phases, in order (any failure raises and the script exits non-zero):
      without it; the iMAP frame under float32 and int8_static; then
      ``vmap_tpu_torch.train`` on room0_vmap.json under int8 for 6 frames:
      finite, falling losses, 2 x n_iter int8 train_grad launches and as
-     many train_quant_w launches per frame.
+     many train_quant_w launches per frame;
+ 12. the probes (``vmap_tpu_torch.probes``, their own library built from
+     probes/csrc/*.cu, ptxas registers printed): K4 ``mm`` (f32 FMA, bf16
+     and 3xbf16 mma.sync, f32 ind4), K10 ``int8`` (f32, i8, i8_quant), K7
+     ``sections`` (render, emb_cat, emb_split, ladder and the port's
+     sinpif ladder) and K8 ``overlap`` (vpu, mxu, both, and the balanced
+     vpu_bal / both_bal), every variant and shape held against its plain
+     version at 3 steps (rtol 1e-5 a step for f32 chains, 2e-3 bf16,
+     bit-equal i8, 1e-6 i8_quant, 1e-5 render and ladder), each emb /
+     ladder section read from one kernel step against the plain section
+     (within that step's f32 roundings plus rtol 1e-5), then each probe's
+     entry point run at the scripts' shapes and reps (and K1's per-block
+     products for mm and int8; K8's modes 5 times), with the plain
+     version's and the library call's (torch.matmul, torch._int_mm) device
+     time a step, each chain replayed as a CUDA graph, beside each
+     kernel's, and the probes' launches counted on their own path
+     ``probes``.
 
 Every kernel's entry in the JSON line carries its bound (the larger of
 its bytes over 3.35 TB/s and its products over the peak of their type:
@@ -1611,11 +1627,259 @@ def imap_policy_frames(dev, gpu: str, policy: str = "int8_static",
     return res, counts
 
 
+# --------------------------------------------------------------- phase 12
+# the probes (vmap_tpu_torch.probes): name, module, source, the TPU kernel
+# (script:line of its Pallas kernel function), the case whose numbers head
+# the JSON entry (every case is in its by_case)
+PROBES = (("probe_mm", "mm", "scripts/microbench_mm.py:27",
+           "[128,128]x[128,1280] f32"),
+          ("probe_int8", "int8", "scripts/microbench_int8.py:47",
+           "[ 128, 128]x[ 128, 1280] i8       "),
+          ("probe_sections", "sections", "scripts/microbench_sections.py:32",
+           "render"),
+          ("probe_overlap", "overlap", "scripts/microbench_overlap.py:60",
+           "both"))
+# elementwise FP32 instructions (an FMA is one; 67 TFLOP/s counts it as
+# two) and the special-function unit: 16 results per SM a clock for
+# reciprocal, exp2, sin and cos at compute capability 9.0 (the CUDA C
+# Programming Guide's arithmetic-instruction throughput table), x 132 SMs
+# x 1.98 GHz
+PEAK_F32_OPS, PEAK_SFU = PEAK_F32 / 2, 132 * 16 * 1.98e9
+# the plain versions' and the library calls' slope: 10 and 40 steps, each
+# chain of torch calls captured once in a CUDA graph and replayed (device
+# time, no host dispatch between the calls), best of 3 x 5 replays
+PLAIN_REPS, PLAIN_TIMING = (10, 40), {"tries": 3, "launches": 5}
+
+
+def probe_bound(name: str, case: dict) -> dict:
+    """One step's bound: its operations over the peak of their type (the
+    carry stays on chip; the chain's inputs and output, read and written
+    once a launch, amortise to under 0.1% of a step at these reps)."""
+    if name == "probe_mm":
+        ops = 2.0 * case["m"] * case["k"] * case["n"] * case["ind"]
+        t = {"f32": ops / PEAK_F32, "bf16": ops / PEAK_BF16,
+             "f32_3xbf16": 3 * ops / PEAK_BF16}[case["variant"]]
+    elif name == "probe_int8":
+        ops = 2.0 * case["m"] * case["k"] * case["n"]
+        # i8_quant adds per carry element |c|, max, c / s, rint and the
+        # rescale (5 ops) to the s8 products
+        t = {"f32": ops / PEAK_F32, "i8": ops / PEAK_INT8,
+             "i8_quant": ops / PEAK_INT8
+             + 5.0 * case["k"] * case["n"] / PEAK_F32_OPS}[case["mode"]]
+    elif name == "probe_sections":
+        from vmap_tpu_torch.probes import sections as SE
+        # counted from csrc/sections.cu: per render sample 35 FP32 ops and
+        # 2 exp + 3 reciprocals; per emb column 2 x 2 x 128 x 384 flops;
+        # per ladder element 2 sin/cos (ladder) or 12 (sinpi) and 34 ops
+        fp, sfu = {
+            "render": (35.0 * SE.OG * SE.T, 5.0 * SE.OG * SE.T),
+            "emb_cat": (2 * 128 * 384 * SE.T, 0.0),
+            "emb_split": (2 * 128 * 384 * SE.T, 0.0),
+            "ladder": (34.0 * 96 * SE.T, 2.0 * 96 * SE.T),
+            "ladder_sinpi": (22.0 * 96 * SE.T, 12.0 * 96 * SE.T)}[case["case"]]
+        t = max(fp / PEAK_F32_OPS, sfu / PEAK_SFU)
+    else:
+        from vmap_tpu_torch.probes import overlap as OV
+        # 14 FP32 operations a vpu round on [8, T]; two 3xbf16 products
+        vpu = 8 * OV.T * 14 * OV.ROUNDS[case["mode"]] / PEAK_F32_OPS
+        mxu = (2 * 3 * 2.0 * 128 * 128 * OV.T / PEAK_BF16
+               if case["mode"] in ("mxu", "both", "both_bal") else 0.0)
+        t = max(vpu, mxu)
+    return {"bound_ms": t * 1e3, "bound_by": "operations"}
+
+
+def graphed(run):
+    """``run(reps)`` (a chain of torch calls) as a CUDA graph replay: the
+    graph of each reps is captured once, after one run outside capture on a
+    side stream, so a replay times the device's work alone."""
+    import torch
+    graphs = {}
+
+    def replay(reps):
+        if reps not in graphs:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                run(reps)
+            torch.cuda.current_stream().wait_stream(side)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                out = run(reps)
+            graphs[reps] = (g, out)
+        g, out = graphs[reps]
+        g.replay()
+        return out
+    return replay
+
+
+def graph_step_ms(run, dev) -> float:
+    """The slope of ``run`` over PLAIN_REPS steps, each replayed as a CUDA
+    graph (``graphed``)."""
+    from vmap_tpu_torch.probes import _timing
+    return _timing.slope(graphed(run), *PLAIN_REPS, dev,
+                         **PLAIN_TIMING)["step_ns"] * 1e-6
+
+
+def library_step_ms(name: str, case: dict, dev) -> float | None:
+    """One PyTorch call a step computing the same chain, its device time a
+    step (``graph_step_ms``): torch.matmul for K4 (f32 with TF32 off for
+    f32 and 3xbf16; bf16 operands for bf16) and K10's f32 mode,
+    torch._int_mm for K10's i8. Never called by the port."""
+    import torch
+    from vmap_tpu_torch.probes import int8, mm
+    if name == "probe_mm" or (name == "probe_int8" and case["mode"] == "f32"):
+        w, c0 = mm.make_inputs(case["m"], case["k"], case["n"], dev)
+        bf16 = name == "probe_mm" and case["variant"] == "bf16"
+        dt = torch.bfloat16 if bf16 else torch.float32
+        ind = case.get("ind", 1)
+        ws = mm.operands(w, "f32", ind)["w"].to(dt)
+        scale = mm.fold_scale(ind) if name == "probe_mm" else int8.F32_SCALE
+        k = case["k"]
+
+        def run(reps):
+            c = c0.to(dt)
+            for _ in range(reps):
+                y = torch.matmul(ws[0], c)
+                for j in range(1, ws.shape[0]):
+                    y = y + torch.matmul(ws[j], c)
+                c = mm.fold(y, k, scale)
+            return c
+    elif name == "probe_int8" and case["mode"] == "i8":
+        w, c0 = mm.make_inputs(case["m"], case["k"], case["n"], dev)
+        wq, k = int8.quantised_weights(w), case["k"]
+
+        def run(reps):
+            c = torch.clamp(c0 * 100.0, -127, 127).to(torch.int8)
+            for _ in range(reps):
+                y = torch._int_mm(wq, c).to(torch.float32)
+                c = torch.clamp(mm.fold(y, k, 1e-3), -127, 127).to(torch.int8)
+            return c
+    else:
+        return None
+    return graph_step_ms(run, dev)
+
+
+def plain_step_ms(name: str, case: dict, dev) -> float:
+    """The plain version's device time a step on the card
+    (``graph_step_ms``)."""
+    from vmap_tpu_torch.probes import int8, mm, overlap, sections
+    if name in ("probe_mm", "probe_int8"):
+        w, c0 = mm.make_inputs(case["m"], case["k"], case["n"], dev)
+    if name == "probe_mm":
+        ops = mm.operands(w, case["variant"], case["ind"])
+        scale = mm.fold_scale(case["ind"])
+
+        def run(r):
+            return mm.chain_reference(ops, c0, case["variant"], r, scale)
+    elif name == "probe_int8":
+        nb, cl = int8.layout(case["mode"], case["n"], case["nb"])
+        groups = case["n"] // (nb * cl)
+
+        def run(r):
+            return int8.chain_reference(w, c0, case["mode"], r, groups)
+    elif name == "probe_sections":
+        ins = sections.make_inputs(case["case"], dev)
+
+        def run(r):
+            return sections.chain_reference(case["case"], ins, r)
+    else:
+        x = overlap.make_inputs(dev)
+
+        def run(r):
+            return overlap.chain_reference(x, case["mode"], r)
+    return graph_step_ms(run, dev)
+
+
+def probe_path(dev, gpu: str) -> tuple:
+    """Phase 12: build the probe library (ptxas registers printed), hold
+    every probe's kernel, in every variant and at every case, against its
+    plain version at a few steps (the launches of these checks are not the
+    path's), then run the probes' entry points (``main`` of
+    ``vmap_tpu_torch.probes.{mm,int8,sections,overlap}`` on the card, the
+    script's shapes and reps, K1's shapes for mm and int8) with the launch
+    counts set to 0 just before and read just after. Each case's time a
+    step is the kernel's slope; beside it the plain version's, the library
+    call's (K4, K10 i8) and the bound. Returns (the probes' JSON entries,
+    the path's launch counts)."""
+    import importlib
+    from vmap_tpu_torch import probes
+    t0 = time.perf_counter()
+    lib_path, build_log = probes.LIBRARY.build()
+    probes.LIBRARY.load()
+    with open(os.path.join(OUT, "nvcc_probes.log"), "w") as f:
+        f.write(build_log)
+    log(f"[12] built {os.path.relpath(lib_path, REPO)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for line in build_log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log(f"[12] ptxas: {line.strip()}")
+    mods = {name: importlib.import_module(f"vmap_tpu_torch.probes.{mod}")
+            for name, mod, _, _ in PROBES}
+    checks = {}
+    for name, mod in mods.items():
+        checks[name] = mod.compare(dev, reps=3)
+        worst = max(checks[name], key=lambda r: r["used"])
+        log(f"[12] {name}: {len(checks[name])} cases held to plain, worst "
+            f"{worst['case'].strip()} rel err {worst['max_rel_err']:.3e} "
+            f"(rtol {worst['rtol']:.1e}), {worst['used']:.3f} of its bound")
+
+    for k in probes.LAUNCHES:
+        probes.LAUNCHES[k] = 0
+    results = {name: mod.main(["--device", "cuda"])
+               for name, mod in mods.items()}
+    counts = dict(probes.LAUNCHES)
+    log(f"[12] probe path launches {counts}")
+
+    entries = []
+    for (name, mod_name, replaces, head), mod in zip(PROBES, mods.values()):
+        if not counts[mod_name] > 0:
+            raise AssertionError(f"{name}: no launch on the probe path")
+        res = results[name]
+        cases = ([{"case": m, **r} for m, r in res["modes"].items()]
+                 if name == "probe_overlap" else res)
+        by_case = {}
+        for case in cases:
+            case = {"mode": case["case"], **case}
+            row = {"ms": case["step_ns"] * 1e-6,
+                   "plain_ms": plain_step_ms(name, case, dev),
+                   "library_ms": library_step_ms(name, case, dev),
+                   **probe_bound(name, case)}
+            if "w_in_smem" in case:
+                row["w_in_smem"] = case["w_in_smem"]
+            by_case[case["case"].strip()] = row
+        if name == "probe_overlap":
+            for key in ("overlap", "overlap_bal"):
+                by_case[f"{key}_fraction"] = res[key]
+                by_case[f"{key}_fraction_runs"] = res[f"{key}_runs"]
+        top = by_case[head.strip()]
+        errs = checks[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"vmap_tpu_torch/probes/csrc/{mod_name}.cu",
+            "replaces": replaces, "launches": counts[mod_name],
+            "max_abs_err": max(r["max_abs_err"] for r in errs),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"], "per": "step of the chain",
+            "headline_case": head.strip(), "by_case": by_case,
+            "checks": errs})
+        for key, row in by_case.items():
+            if not isinstance(row, dict):
+                log(f"[12] {name} {key}: {row} ({gpu})")
+                continue
+            lib = ("" if row["library_ms"] is None
+                   else f", library {row['library_ms'] * 1e6:.1f}")
+            log(f"[12] {name} {key}: ns a step kernel "
+                f"{row['ms'] * 1e6:.1f}, plain {row['plain_ms'] * 1e6:.1f}"
+                f"{lib}, bound {row['bound_ms'] * 1e6:.2f} ({gpu})")
+    return entries, counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", nargs="+", type=int,
-                    default=list(range(1, 12)),
-                    help="phases to run (default all: 1 2 ... 11)")
+                    default=list(range(1, 13)),
+                    help="phases to run (default all: 1 2 ... 12)")
     args = ap.parse_args(argv)
     phases = set(args.phases)
     if not os.path.isdir(os.path.join(REPO, "vmap_tpu_torch", "kernels",
@@ -1654,6 +1918,7 @@ def main(argv=None) -> int:
 
     stats: dict = {}
     paths = {}     # main-path launch counts: {path: {kernel: count}}
+    probe_entries: list = []    # phase 12's kernels (their own path)
     path_tiles = {}
     for phase in sorted(phases - {1, 2}):
         t_phase = time.perf_counter()
@@ -1700,6 +1965,10 @@ def main(argv=None) -> int:
                 json.dump({"gpu": gpu, **res, "imap": res_imap}, f, indent=1)
             paths["int8_trainer"] = policy_trainer("11", "room0_int8",
                                                    "int8")
+        elif phase == 12:
+            probe_entries, _ = probe_path(dev, gpu)
+            with open(os.path.join(OUT, "probes.json"), "w") as f:
+                json.dump({"gpu": gpu, "probes": probe_entries}, f, indent=1)
         else:
             raise SystemExit(f"no phase {phase}")
         log(f"[{phase}] phase {phase} took "
@@ -1773,6 +2042,9 @@ def main(argv=None) -> int:
         p: {h: c[f"field_bwd.{h}"] for h in (32, 128, 256)}
         for p, c in paths.items()}
     kernels[5]["at_use_pallas_train_tiles"] = path_tiles
+    kernels += [{**{k: v for k, v in e.items() if k != "checks"},
+                 "launches_by_path": {"probes": e["launches"]}}
+                for e in probe_entries]
     for pol in (POLICIES[:3] if 10 in phases else ()) + (
             INT8_POLICIES if 11 in phases else ()):
         if not any(c[f"train_grad.{pol}"] for c in paths.values()):

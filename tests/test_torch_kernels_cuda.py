@@ -11,9 +11,12 @@ policies (phase 10: n_iter=1 gradients per tensor within 1e-2 of scale and
 at least 10x closer to the plain policy than plain f32 is, n_iter=20
 finite within rtol 0.25), under the int8 policies (phase 11: the same
 tiers with 5e-2 of scale) and under sample_reuse 4, bit-identical to the
-tiled batch. Skips where CUDA is not available (no interpret mode exists for a
-CUDA kernel). Run on the card, where jax is not installed, without
-tests/conftest.py (it imports jax):
+tiled batch; and the probe kernels (``vmap_tpu_torch.probes``: K4 mm, K10
+int8, K7 sections, K8 overlap) in every variant and shape against their
+plain versions at 3 steps (phase 12's tolerances). Skips where CUDA is
+not available (no interpret mode exists for a CUDA kernel). Run on the
+card, where jax is not installed, without tests/conftest.py (it imports
+jax):
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
@@ -130,3 +133,13 @@ def test_grid_volumes_match_their_chunks_on_card(cuda_device):
     for o, (_, _, g) in enumerate(work):
         np.testing.assert_array_equal(vols[o], occ[o, :g ** 3].reshape(
             g, g, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", ["mm", "int8", "sections", "overlap"])
+def test_probe_kernels_match_plain_on_card(cuda_device, probe):
+    import importlib
+    sys.path.insert(0, REPO)
+    mod = importlib.import_module(f"vmap_tpu_torch.probes.{probe}")
+    checks = mod.compare(cuda_device, reps=3)      # raises outside its tol
+    assert checks and all(r["used"] <= 1.0 for r in checks)

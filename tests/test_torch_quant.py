@@ -137,9 +137,10 @@ def one_iteration_vs_jax(jbank, b: dict, n_per: int, policies,
     return out
 
 
-def hold_by_ratio_rule(fr: dict, policy: str, jbank) -> None:
+def hold_by_ratio_rule(fr: dict, policy: str, jbank,
+                       scale_tol: float = 1e-2) -> None:
     """The port's ``policy`` frame against JAX's (module docstring): each
-    gradient tensor within 1e-2 of its scale, within a tenth of the
+    gradient tensor within ``scale_tol`` of its scale, within a tenth of the
     policy's effect in norm where the policy moves it, on at least 10
     tensors; the loss likewise."""
     cur, f32 = fr[policy], fr["float32"]
@@ -157,7 +158,7 @@ def hold_by_ratio_rule(fr: dict, policy: str, jbank) -> None:
           f"{float(f32['port_loss'].sum()):.6f} / "
           f"{float(cur['port_loss'].sum()):.6f}")
     for name, e in errs.items():
-        assert e["max_rel"] <= 1e-2, (name, e)
+        assert e["max_rel"] <= scale_tol, (name, e)
         if name in acting:
             assert e["err"] <= 0.1 * e["effect"], (name, e)
     # the policy acts on most tensors
@@ -218,6 +219,90 @@ def test_int8_static_matches_jax_kernel_at_h256():
     b = numpy_batch(np.random.default_rng(3), 1, 40, 14)
     fr = one_iteration_vs_jax(jbank, b, 40, ("int8_static",))
     hold_by_ratio_rule(fr, "int8_static", jbank)
+
+
+IMAP_RAYS = 120
+
+
+def imap_first_frame(tmp_path):
+    """``configs/Replica/room0_imap.json`` on the analytic scene (dataset
+    format Synthetic at the config's 1200x680 camera), cut to IMAP_RAYS
+    rays (24 pixels in each of the 5 window frames) x 14 samples, one
+    iteration and a 4-frame pool: the port's Mapper ingests frame 0 and
+    its sampler draws the first frame's batch with the trainer's own draws
+    (``Mapper._draws``, seeded by the config's ``tpu.seed``). Returns the
+    Mapper's fresh h=256 field as a JAX bank, and the batch as numpy."""
+    import json
+    import os
+    from vmap_tpu.core.bank import BankSpec, BankState
+    from vmap_tpu_torch.config import Config
+    from vmap_tpu_torch.core import mapper as TM
+    from vmap_tpu_torch.core import step as ST
+    from vmap_tpu_torch.data.loader import make_dataset
+    from vmap_tpu_torch.interop import bank_to_numpy
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "configs", "Replica",
+                           "room0_imap.json")) as f:
+        raw = json.load(f)
+    raw["dataset"].update(format="Synthetic", path="")
+    raw["render"].update(iters_per_frame=1, n_per_optim=IMAP_RAYS)
+    raw["vis"]["html_viewer"] = False
+    raw["tpu"]["frame_pool_size"] = 4
+    path = tmp_path / "room0_imap_first_frame.json"
+    path.write_text(json.dumps(raw))
+    cfg = Config.from_json(str(path))
+    s = make_dataset(cfg)[0]
+    pm = TM.Mapper(cfg, device="cpu")
+    pm.ingest_frame(TM.FrameSample(
+        image=s["image"], depth=s["depth"], inst=s["obj"],
+        bbox_dict=s["bbox_dict"], t_wc=s["T"], frame_id=s["frame_id"]))
+    st = pm.statics
+    obj_tab, _ = pm._device_tables()
+    draws, _ = pm._draws()
+    batch = ST._sample_bank(*pm.pool.arrays(), *obj_tab,
+                            torch.from_numpy(pm._slot_objid),
+                            st.n_iter * st.win, st.n_px, st.n_b2s, st, draws,
+                            px_block=st.px_block)
+    jbank = BankState(**{f: jnp.asarray(v) for f, v in
+                         bank_to_numpy(pm.bank_obj).items()},
+                      spec=BankSpec.create(cfg.hidden_feature_size))
+    return jbank, {k: n(v) for k, v in batch.items()}
+
+
+def test_int8_static_matches_jax_kernel_on_the_imap_first_frame(tmp_path):
+    """room0_imap's first frame on the analytic scene, its rays cut to 120
+    x 14 samples, n_iter=1, under int8_static: the port's plain frame
+    against JAX's kernel in interpret mode by the ratio rule, with each
+    gradient tensor within 2e-2 of its scale in place of 1e-2. This
+    frame's quantised gradients move by more than 1e-2 of scale under
+    noise of f32 size in the input: the test prints, and holds at 1e-2 or
+    more, how far the port's own frame moves when z is scaled by 1 +- 1e-6
+    (about 8 ulp), one element's quantum flip; the error norm, which tells
+    a fault from flips, stays
+    within a tenth of the policy's effect. Both sides move the loss
+    from float32's alike, so the iMAP trainer's loss under int8_static is
+    JAX's algebra with JAX's default static scales
+    (``ops.quant.Q8_SCALES``, set on the vMAP objects), not a fault of the
+    port."""
+    jbank, b = imap_first_frame(tmp_path)
+    assert b["z"].shape == (1, IMAP_RAYS, 14) and b["valid"].any()
+    fr = one_iteration_vs_jax(jbank, b, IMAP_RAYS, ("int8_static",))
+    sign = np.random.default_rng(1).choice([-1.0, 1.0], b["z"].shape)
+    nudged = {**b, "z": (b["z"] * (1.0 + sign * 1e-6)).astype(np.float32)}
+    m0 = np.asarray(jbank.m)
+    pb, _ = K.fused_frame_reference(
+        port_bank(jbank), {k: t(v) for k, v in nudged.items()}, 1,
+        IMAP_RAYS, LR, WD, CS, OSC, policy="int8_static")
+    own = policy_errors((n(pb.m) - 0.9 * m0) / 0.1,
+                        fr["int8_static"]["port_g"], fr["float32"]["port_g"],
+                        jbank.spec, np.asarray(jbank.active))
+    worst = max(e["max_rel"] for e in own.values())
+    print(f"\nthe port's own frame with z x (1 +- 1e-6): worst "
+          f"{worst:.3e} of scale")
+    # the reason for the 2e-2 bar: f32 noise alone moves this frame past
+    # the 1e-2 of the other tests
+    assert worst >= 1e-2, worst
+    hold_by_ratio_rule(fr, "int8_static", jbank, scale_tol=2e-2)
 
 
 # ------------------------------------------ tests/test_int8_kernel.py's shapes

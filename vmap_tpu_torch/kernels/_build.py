@@ -1,11 +1,17 @@
-"""Build and load the CUDA kernels of this package.
+"""Build and load the CUDA kernel libraries of this package.
 
-``load()`` compiles every ``kernels/csrc/*.cu`` with ``nvcc`` for sm_90a
-(one ``nvcc`` per source, all started together) and links them into one
-shared library with a plain C interface, at first use, and loads it with
-``ctypes``. The build lands in ``kernels/_build/<hash>/`` (listed in
-``.gitignore``), keyed by a hash of the sources and flags, so a second call
-or process reuses it. Nothing is compiled when the package is imported.
+A ``Library`` names a source directory, a build root, a library name and
+the C signatures of its entry points. ``Library.load()`` compiles every
+``<csrc>/*.cu`` with ``nvcc`` for sm_90a (one ``nvcc`` per source, all
+started together) and links them into one shared library with a plain C
+interface, at first use, and loads it with ``ctypes``. The build lands in
+``<build root>/<hash>/`` (listed in ``.gitignore``), keyed by a hash of the
+sources and flags, so a second call or process reuses it. Nothing is
+compiled when the package is imported.
+
+Two libraries: ``KERNELS`` (``kernels/csrc``, the system's kernels K1-K3,
+``libvmap_kernels.so``; the module-level ``build`` / ``load`` / ``check``
+are its) and ``vmap_tpu_torch.probes.LIBRARY`` (the probe kernels).
 """
 
 from __future__ import annotations
@@ -16,15 +22,12 @@ import os
 import shutil
 import subprocess
 import tempfile
-from functools import lru_cache
+from dataclasses import dataclass
 from pathlib import Path
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 # No --use_fast_math: the kernels rely on accurate sinpif / cospif / expf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-LIB_NAME = "libvmap_kernels.so"
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -42,7 +45,6 @@ SIGNATURES = {
     "vmap_field_fwd": ((I, P, P, I, P, P, I, I, P, P, P), I),
     "vmap_field_bwd": ((I, P, P, I, P, P, P, P, I, I, I, P, P), I),
     "vmap_field_bwd_subtile": ((I,), I),
-    "vmap_cuda_error_string": ((I,), ctypes.c_char_p),
 }
 
 
@@ -60,64 +62,93 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+@dataclass(frozen=True, eq=False)
+class Library:
+    """One shared library: ``csrc/*.cu`` (and the ``*.cuh`` they include)
+    built into ``build_root/<hash>/name``, its entry points typed by
+    ``signatures`` ({name: (argtypes, restype)}), plus the error-string
+    entry every library of this package exports,
+    ``vmap_cuda_error_string`` (int -> const char*)."""
+
+    csrc: Path
+    build_root: Path
+    name: str
+    signatures: dict
+
+    def sources(self) -> list[Path]:
+        return sorted(self.csrc.glob("*.cu"))
+
+    def source_hash(self) -> str:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for src in self.sources() + sorted(self.csrc.glob("*.cuh")):
+            h.update(src.name.encode())
+            h.update(src.read_bytes())
+        return h.hexdigest()[:16]
+
+    def build(self) -> tuple[Path, str]:
+        """Compile the sources if needed. Returns (library path, compiler
+        log; empty when the cached build was reused)."""
+        out_dir = self.build_root / self.source_hash()
+        lib = out_dir / self.name
+        if lib.exists():
+            return lib, ""
+        out_dir.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+
+        def run(cmds) -> list[str]:
+            """Run the commands together, wait for all; raise if one
+            failed."""
+            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for cmd in cmds]
+            logs = [proc.communicate()[0] for proc in procs]
+            for cmd, proc, log in zip(cmds, procs, logs):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                       f"{' '.join(cmd)}\n{log}")
+            return logs
+
+        srcs = self.sources()
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            objs = [os.path.join(tmp, src.stem + ".o") for src in srcs]
+            logs = run([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+                        for src, obj in zip(srcs, objs)])
+            so = os.path.join(tmp, self.name)
+            logs += run([[nvcc, "-shared", "-o", so, *objs]])
+            os.replace(so, lib)
+        return lib, "".join(logs)
+
+    def load(self) -> ctypes.CDLL:
+        """Build (once) and load the library with typed signatures."""
+        if self.name not in _LOADED:
+            path, _ = self.build()
+            lib = ctypes.CDLL(str(path))
+            for name, (argtypes, restype) in self.signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = restype
+            err = lib.vmap_cuda_error_string
+            err.argtypes, err.restype = [I], ctypes.c_char_p
+            _LOADED[self.name] = lib
+        return _LOADED[self.name]
+
+    def check(self, code: int, what: str) -> None:
+        """Raise if one of this library's launchers returned a CUDA error
+        code."""
+        check(self.load(), code, what)
 
 
-def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources() + sorted(CSRC.glob("*.cuh")):
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return h.hexdigest()[:16]
+_LOADED: dict[str, ctypes.CDLL] = {}
 
-
-def build() -> tuple[Path, str]:
-    """Compile the sources if needed. Returns (library path, compiler log;
-    empty when the cached build was reused)."""
-    out_dir = BUILD_ROOT / source_hash()
-    lib = out_dir / LIB_NAME
-    if lib.exists():
-        return lib, ""
-    out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-
-    def run(cmds) -> list[str]:
-        """Run the commands together, wait for all; raise if one failed."""
-        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for cmd in cmds]
-        logs = [proc.communicate()[0] for proc in procs]
-        for cmd, proc, log in zip(cmds, procs, logs):
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{' '.join(cmd)}\n{log}")
-        return logs
-
-    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
-        logs = run([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
-                    for src, obj in zip(sources(), objs)])
-        so = os.path.join(tmp, LIB_NAME)
-        logs += run([[nvcc, "-shared", "-o", so, *objs]])
-        os.replace(so, lib)
-    return lib, "".join(logs)
-
-
-@lru_cache(maxsize=1)
-def load() -> ctypes.CDLL:
-    """Build (once) and load the kernel library with typed signatures."""
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    for name, (argtypes, restype) in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = restype
-    return lib
+KERNELS = Library(Path(__file__).resolve().parent / "csrc",
+                  Path(__file__).resolve().parent / "_build",
+                  "libvmap_kernels.so", SIGNATURES)
+build, load = KERNELS.build, KERNELS.load
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
-    """Raise if a launcher returned a CUDA error code."""
+    """Raise if a launcher of the loaded library ``lib`` returned a CUDA
+    error code."""
     if code != 0:
         msg = lib.vmap_cuda_error_string(code).decode()
         raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")

@@ -1,0 +1,331 @@
+"""K7: the cost of each of K1's sections alone, chained inside one launch.
+
+Counterpart of ``scripts/microbench_sections.py::_one`` and its bodies
+(``:95-194``). Each case runs ``reps`` dependent steps c <- body(c) on the
+script's shapes (T = 1280 = S R, S = 10 samples, R = 128 rays, OG = 8
+rows), computing the function the script's body computes:
+
+  * ``render``: the render forward and backward of K1 on OG x R rays of S
+    samples (occupancy, transmittance, depth / colour / variance sums,
+    the losses' row sums ``ld`` / ``lc`` / ``lo`` over each row's 128 rays,
+    the gradient back to alpha), fed back as alpha;
+  * ``emb_cat``: the embedding concatenated to [384, T], two [128, 384]
+    products; ``emb_split``: the same as 8 banded [128, 96] products
+    (both FP32 FMA, as K1's tile is today, ``train_step.cuh`` ``dense``);
+  * ``ladder``: sin / cos and 5 double-angle levels on [96, T];
+    ``ladder_sinpi``: the ``sinpif`` / ``cospif`` per band that the port's
+    tile uses instead (``train_step.cuh``), on the same [96, T] (a
+    measurement of an existing code path; its plain version is sin(pi x)
+    in f64).
+
+A step of emb / ladder is c <- KEEP c + 1e-6 section(c), so the section
+moves the carry by only about 2e-4 (emb) or 1e-5 (ladder) of itself: a
+check on the carry alone cannot see it. ``compare`` therefore also holds
+the section's own output, read from one step of the kernel as
+``increment`` (out - KEEP c) / 1e-6, against the plain ``section``
+elementwise, within the two f32 roundings of that step (``increment``'s
+bound) plus rtol 1e-5.
+
+Layouts: the public functions take the script's [rows, T] arrays
+(column s R + r). The render kernel keeps the port's layout, per ray x
+sample ([OG, R, S], as ``train_step.cuh`` holds a ray's samples), one
+block per row of 128 rays, so a row sum is a reduction inside one block;
+the wrapper transposes in and out. The other cases are separable by
+column: a block owns 8 columns of the carry.
+
+    python -m vmap_tpu_torch.probes.sections [case ...] [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+
+import numpy as np
+import torch
+
+from vmap_tpu_torch import probes
+from vmap_tpu_torch.probes import _timing
+
+S, R, T, OG = 10, 128, 1280, 8
+CASES = ("render", "emb_cat", "emb_split", "ladder", "ladder_sinpi")
+SHAPES = {"render": ((OG, T), (OG, T), (OG, R), (3 * OG, R), (OG, R)),
+          "emb_cat": ((96, T), (128, 384), (128, 384)),
+          "emb_split": ((96, T), (128, 384), (128, 384)),
+          "ladder": ((96, T),), "ladder_sinpi": ((96, T),)}
+BASE_REPS = 200
+EMB_NB = 8
+LADDER_LEVELS = 5
+# c <- KEEP c + SECTION_SCALE section(c): the carry's factor a step
+KEEP = {"emb_cat": 0.999, "emb_split": 0.999, "ladder": 0.9,
+        "ladder_sinpi": 0.9}
+SECTION_SCALE = 1e-6
+SECTION_RTOL = 1e-5
+
+
+def tol(case: str, reps: int) -> float:
+    """rtol of the last carry: 1e-5 for render and the ladders (sigmoid,
+    sinf / cosf, sinpif against the plain functions), 1e-5 a step for the
+    FMA products."""
+    return 1e-5 * reps if case.startswith("emb") else 1e-5
+
+
+def _ulp(x: torch.Tensor) -> torch.Tensor:
+    """The f32 spacing at |x|, as f64."""
+    a = x.float().abs()
+    return (torch.nextafter(a, torch.full_like(a, math.inf)) - a).double()
+
+
+def increment(case: str, c: torch.Tensor, out: torch.Tensor) -> tuple:
+    """The section's output as one step c -> out shows it: ((out - KEEP c)
+    / 1e-6 in f64, with KEEP and 1e-6 the f32 constants the step uses, and
+    the bound of its error from the step's f32 roundings, (ulp(out) +
+    ulp(KEEP c)) / 1e-6, elementwise: 0.03-0.12 at these inputs, against
+    sections of about 1-100)."""
+    keep = float(np.float32(KEEP[case]))
+    scale = float(np.float32(SECTION_SCALE))
+    kc = c.double() * keep
+    inc = (out.double() - kc) / scale
+    return inc, (_ulp(out) + _ulp(kc)) / scale
+
+
+def make_inputs(case: str, dev) -> list:
+    """The script's inputs: each array from its own default_rng(7), uniform
+    [0.25, 0.75), f32."""
+    return [torch.tensor(np.random.default_rng(7).random(s) * 0.5 + 0.25,
+                         dtype=torch.float32).to(dev)
+            for s in SHAPES[case]]
+
+
+# ------------------------------------------------------------- plain bodies
+def _tile(a, s):
+    return a[:, s * R:(s + 1) * R]
+
+
+def _lane_sum(x):
+    acc = _tile(x, 0)
+    for s in range(1, S):
+        acc = acc + _tile(x, s)
+    return acc
+
+
+def _bcast(x):
+    return torch.cat([x] * S, 1)
+
+
+def _rep3(x):
+    return torch.cat([x, x, x], 0)
+
+
+def _sum3(x):
+    return x[0:OG] + x[OG:2 * OG] + x[2 * OG:3 * OG]
+
+
+def render_step(ins, c):
+    """microbench_sections.py::render_body on [OG, T] (ins: c0 source, z,
+    dep, gtc, mo)."""
+    z, dep, gtc, mo = ins[1], ins[2], ins[3], ins[4]
+    alpha = c
+    color = torch.sigmoid(_rep3(c * 0.3))
+    occ = torch.sigmoid(alpha)
+    free = torch.clamp(1.0 - occ + 1e-10, min=1e-10)
+    cp = torch.ones(OG, R, dtype=c.dtype, device=c.device)
+    cps = []
+    for s in range(S):
+        cps.append(cp)
+        cp = cp * _tile(free, s)
+    cp_full = torch.cat(cps, 1)
+    terms = occ * cp_full
+    rd = _lane_sum(terms * z)
+    ro = _lane_sum(terms)
+    dz = z - _bcast(rd)
+    var = _lane_sum(terms * (dz * dz))
+    info = 1.0 / (torch.sqrt(var) + 1e-4)
+    terms3 = _rep3(terms)
+    rc3 = _lane_sum(terms3 * color)
+    res_d, res_o, res_c3 = rd - dep, ro - mo, rc3 - gtc
+    mo3 = _rep3(mo)
+    ld = torch.sum(res_d.abs() * info, 1, keepdim=True)
+    lc = torch.sum(_sum3(res_c3.abs() * mo3), 1, keepdim=True)
+    lo = torch.sum(res_o.abs(), 1, keepdim=True)
+    d_rd = torch.sign(res_d) * info
+    d_ro = torch.sign(res_o)
+    d_rc3_b = _bcast(torch.sign(res_c3) * mo3)
+    dterm = _bcast(d_rd) * z + _bcast(d_ro) + _sum3(d_rc3_b * color)
+    tt = dterm * terms
+    suf = torch.zeros(OG, R, dtype=c.dtype, device=c.device)
+    sufs = [None] * S
+    for s in range(S - 1, -1, -1):
+        sufs[s] = suf
+        suf = suf + _tile(tt, s)
+    docc = dterm * cp_full - torch.cat(sufs, 1) / free
+    dalpha = docc * occ * (1.0 - occ) * 10.0
+    dlogits = d_rc3_b * terms3 * color * (1.0 - color)
+    return (dalpha * 1e-3 + c * 0.999 + (ld + lc + lo) * 1e-6
+            + dlogits[0:OG, 0:1].expand_as(c) * 1e-9)
+
+
+def emb_section(ins, c, split: bool):
+    """The emb_cat / emb_split sections: (W1 @ emb + W2 @ emb)[:96], emb the
+    4 bands c 2^-b."""
+    w1, w2 = ins[1], ins[2]
+    bands = [c, c * 0.5, c * 0.25, c * 0.125]
+    if not split:
+        emb = torch.cat(bands, 0)
+        y = w1 @ emb + w2 @ emb
+    else:
+        y = None
+        for k, b in enumerate(bands):
+            sl = slice(k * 96, (k + 1) * 96)
+            yk = w1[:, sl] @ b + w2[:, sl] @ b
+            y = yk if y is None else y + yk
+    return y[:96]
+
+
+def ladder_section(c, sinpi: bool):
+    """The ladder section: sins / coss of 6 levels summed. ``sinpi``: each
+    level sin(pi 2^l c) directly (f64, then f32)."""
+    if sinpi:
+        x = c.double()
+        sins = [torch.sin(math.pi * x * 2.0 ** lv).float()
+                for lv in range(LADDER_LEVELS + 1)]
+        coss = [torch.cos(math.pi * x * 2.0 ** lv).float()
+                for lv in range(LADDER_LEVELS + 1)]
+    else:
+        x = c * np.float32(np.pi)
+        sins, coss = [torch.sin(x)], [torch.cos(x)]
+        for _ in range(LADDER_LEVELS):
+            s_, c_ = sins[-1], coss[-1]
+            sins.append(2.0 * s_ * c_)
+            coss.append(1.0 - 2.0 * s_ * s_)
+    acc = sins[0]
+    for v in sins[1:] + coss:
+        acc = acc + v
+    return acc
+
+
+def section(case: str, ins, c):
+    """An emb / ladder case's section at carry c: y[:96] or the ladder's
+    sum."""
+    if case.startswith("emb"):
+        return emb_section(ins, c, case == "emb_split")
+    return ladder_section(c, case == "ladder_sinpi")
+
+
+def step_reference(case: str, ins, c):
+    """One step of the script's body."""
+    if case == "render":
+        return render_step(ins, c)
+    return c * KEEP[case] + section(case, ins, c) * SECTION_SCALE
+
+
+def chain_reference(case: str, ins: list, reps: int) -> torch.Tensor:
+    """Plain version: the last carry, from c0 = ins[0] 1.0001."""
+    c = ins[0] * 1.0001
+    for _ in range(reps):
+        c = step_reference(case, ins, c)
+    return c
+
+
+# -------------------------------------------------------------- the kernels
+def launch(case: str, ins: list, reps: int) -> torch.Tensor:
+    """The case's kernel (csrc/sections.cu) on CUDA tensors: the last carry
+    in the script's layout."""
+    for x, shape in zip(ins, SHAPES[case]):
+        if tuple(x.shape) != shape or x.dtype != torch.float32:
+            raise ValueError(f"{case}: input {tuple(x.shape)} {x.dtype}, "
+                             f"expected f32 {shape}")
+    lib = probes.LIBRARY.load()
+    if case == "render":
+        # [OG, S R] -> the port's layout [OG, R, S]
+        x0, z = (x.reshape(OG, S, R).transpose(1, 2).contiguous()
+                 for x in ins[:2])
+        rest = [x.contiguous() for x in ins[2:]]
+        dev = probes.check_cuda(x0, z, *rest)
+        out = torch.empty_like(x0)
+        code = lib.vmap_probe_render(*(probes.ptr(x) for x in (x0, z, *rest)),
+                                     probes.ptr(out), reps, probes.stream(dev))
+        result = out.transpose(1, 2).reshape(OG, T)
+    elif case.startswith("emb"):
+        c0 = ins[0].contiguous()
+        w1t, w2t = (w.t().contiguous() for w in ins[1:])     # [384, 128]
+        dev = probes.check_cuda(c0, w1t, w2t)
+        out = torch.empty_like(c0)
+        code = lib.vmap_probe_emb(int(case == "emb_split"), probes.ptr(c0),
+                                  probes.ptr(w1t), probes.ptr(w2t),
+                                  probes.ptr(out), T, EMB_NB, reps,
+                                  probes.stream(dev))
+        result = out
+    else:
+        c0 = ins[0].contiguous()
+        dev = probes.check_cuda(c0)
+        out = torch.empty_like(c0)
+        code = lib.vmap_probe_ladder(int(case == "ladder_sinpi"),
+                                     probes.ptr(c0), probes.ptr(out),
+                                     c0.numel(), reps, probes.stream(dev))
+        result = out
+    probes.LIBRARY.check(code, f"sections probe ({case}) launch")
+    probes.LAUNCHES["sections"] += 1
+    return result
+
+
+def chain(case: str, ins: list, reps: int) -> torch.Tensor:
+    """The chain: the plain version on CPU tensors, the kernel on CUDA."""
+    if ins[0].device.type == "cpu":
+        return chain_reference(case, ins, reps)
+    return launch(case, ins, reps)
+
+
+def measure(case: str, dev: torch.device) -> dict:
+    ins = make_inputs(case, dev)
+    sl = _timing.slope(lambda r: chain(case, ins, r), BASE_REPS,
+                       4 * BASE_REPS, dev)
+    return {"case": case, "reps": (BASE_REPS, 4 * BASE_REPS), **sl}
+
+
+def compare(dev: torch.device, reps: int = 4) -> list:
+    """Every case's kernel against its plain version at ``reps`` steps
+    (within ``tol``), and each emb / ladder section, read from one step of
+    the kernel, against the plain section (within ``increment``'s bound
+    plus SECTION_RTOL); raises if one is outside."""
+    res = []
+    for case in CASES:
+        ins = make_inputs(case, dev)
+        res.append(probes.held(case, launch(case, ins, reps),
+                               chain_reference(case, ins, reps),
+                               tol(case, reps)))
+        if case in KEEP:
+            c = ins[0] * 1.0001
+            inc, atol = increment(case, c, launch(case, ins, 1))
+            res.append(probes.held(f"{case} section", inc,
+                                   section(case, ins, c), SECTION_RTOL, atol))
+    return res
+
+
+LINES = {"render": "render section (full render_bwd replica)",
+         "emb_cat": "emb concat + 2 matmuls",
+         "emb_split": "emb split (8 banded matmuls, no concat)",
+         "ladder": f"ladder (sin+cos + 5 levels + 11 adds) [96,{T}]",
+         "ladder_sinpi": f"  the port's sinpif / cospif per band [96,{T}]"}
+
+
+def main(argv=None) -> list:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("cases", nargs="*", help=f"any of {CASES} (default all)")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    unknown = set(args.cases) - set(CASES)
+    if unknown:
+        ap.error(f"unknown cases {sorted(unknown)}; choose from {CASES}")
+    dev = probes.device_from_arg(args.device)
+    print(f"device: {_timing.device_label(dev)}", flush=True)
+    out = []
+    for case in args.cases or CASES:
+        r = measure(case, dev)
+        print(f"{LINES[case]}: {r['step_ns']:.0f} ns", flush=True)
+        out.append(r)
+    return out
+
+
+if __name__ == "__main__":
+    main()
