@@ -88,23 +88,34 @@ Phases, in order (any failure raises and the script exits non-zero):
      probes/csrc/*.cu, ptxas registers printed): K4 ``mm`` (f32 FMA, bf16
      and 3xbf16 mma.sync, f32 ind4), K10 ``int8`` (f32, i8, i8_quant), K7
      ``sections`` (render, emb_cat, emb_split, ladder and the port's
-     sinpif ladder) and K8 ``overlap`` (vpu, mxu, both, and the balanced
-     vpu_bal / both_bal), every variant and shape held against its plain
-     version at 3 steps (rtol 1e-5 a step for f32 chains, 2e-3 bf16,
-     bit-equal i8, 1e-6 i8_quant, 1e-5 render and ladder), each emb /
-     ladder section read from one kernel step against the plain section
-     (within that step's f32 roundings plus rtol 1e-5), then each probe's
-     entry point run at the scripts' shapes and reps (and K1's per-block
-     products for mm and int8; K8's modes 5 times), with the plain
-     version's and the library call's (torch.matmul, torch._int_mm) device
-     time a step, each chain replayed as a CUDA graph, beside each
-     kernel's, and the probes' launches counted on their own path
-     ``probes``.
+     sinpif ladder), K8 ``overlap`` (vpu, mxu, both, and the balanced
+     vpu_bal / both_bal), K9 ``vpu`` (mul / mixed in f32, per-op bf16 and
+     bf16_fma, sigmoid f32, at [8, 1280] and [96, 1280]), K5 ``ops`` (the
+     script's nine cases) and K6 ``dma`` (bulk, cp_async, bulk_hbm,
+     bulk_hbm_132), every variant and shape held against its plain
+     version at 3 steps (rtol 1e-5 a step for f32 chains, 1e-6 a step for
+     K9's f32, 2e-3 bf16 products, bit-equal i8 and K9's per-op bf16, one
+     bf16 ulp a step for bf16_fma, 1e-6 i8_quant, 1e-5 render and ladder;
+     K6 at 4000 copies, checksum and 8 final slots bit-equal), each emb /
+     ladder section and K5's strided_sum / serial_tiles work read from one
+     kernel step (within that step's f32 roundings plus rtol 1e-5), K5's
+     side outputs (lanesum_dot's whole product, the tile sums and running
+     products) held elementwise; then each probe's entry point run at the
+     scripts' shapes and reps (and K1's per-block products for mm and
+     int8; K8's modes and K5's dep_fma / ind_fma pair 5 times), with the
+     plain version's and the library call's (torch.matmul, torch._int_mm,
+     torch.sigmoid, torch.addcmul, torch.index_select) device time a
+     step, each chain replayed as a CUDA graph, beside each kernel's; the
+     sampler's pool gather on phase 5's vMAP frame beside K6, with the
+     least time any fetch of its 8-byte elements could take; and the
+     probes' launches counted on their own path ``probes``.
 
 Every kernel's entry in the JSON line carries its bound (the larger of
-its bytes over 3.35 TB/s and its products over the peak of their type:
-67 TFLOP/s FP32, 989 TFLOP/s bf16, 1979 TOP/s int8), computed from this
-run's shapes.
+its bytes over 3.35 TB/s and its operations over the peak of their type:
+67 TFLOP/s FP32, 989 TFLOP/s bf16, 1979 TOP/s int8; elementwise FP32 and
+packed bf16 at 128 and 256 results per SM a clock, the SFU at 16; K6's
+distinct source bytes over 3.35 TB/s, or a copy's 4 KB into one SM's
+shared memory at 128 B a clock), computed from this run's shapes.
 Prints that JSON line of per-kernel results, the nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}; before them it checks that
 neither jax nor any module of the JAX package ``vmap_tpu`` was imported.
@@ -131,9 +142,6 @@ RTOL_SEM, RTOL_FULL = 2e-3, 0.25
 # grid, without the HTML viewer: the export at full size is the first
 # run's, and the resume checks that the restored state trains and meshes
 RESUME_VIS = {"grid_dim": 64, "html_viewer": False}
-# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): FP32 outside the
-# tensor cores, bf16 and int8 in them, HBM3
-PEAK_F32, PEAK_BF16, PEAK_INT8, PEAK_BYTES = 67e12, 989e12, 1979e12, 3.35e12
 # K1's matmul policies (tpu.compute_dtype; ops.mlp.POLICIES): float32, the
 # bf16 ones (phase 10) and the int8 ones (phase 11)
 POLICIES = ("float32", "bwd_bf16", "bfloat16", "int8", "int8_fwd",
@@ -192,7 +200,9 @@ def policy_rates(policy: str) -> tuple:
     """(forward, backward) peak of the MLP products' operands under a K1
     matmul ``policy``: "bwd_bf16" runs the backward products on bf16
     operands, "bfloat16" the forward ones too; the int8 policies run the
-    forward on s8 operands, and the backward too unless they are *_fwd."""
+    forward on s8 operands, and the backward too unless they are *_fwd
+    (the card's published peaks, ``vmap_tpu_torch.probes``)."""
+    from vmap_tpu_torch.probes import PEAK_BF16, PEAK_F32, PEAK_INT8
     if policy in INT8_POLICIES:
         return PEAK_INT8, PEAK_F32 if policy.endswith("_fwd") else PEAK_INT8
     return (PEAK_BF16 if policy == "bfloat16" else PEAK_F32,
@@ -204,6 +214,7 @@ def bound(nbytes: float, fwd_flops: float = 0.0, bwd_flops: float = 0.0,
     """The least time the card could take: the larger of the bytes over
     the HBM rate and the products over the peak of their operands' type
     (``policy_rates``; ``f32_flops`` always in f32)."""
+    from vmap_tpu_torch.probes import PEAK_BYTES, PEAK_F32
     fwd_rate, bwd_rate = policy_rates(policy)
     t_ops = (fwd_flops / fwd_rate + bwd_flops / bwd_rate
              + f32_flops / PEAK_F32)
@@ -1638,156 +1649,70 @@ PROBES = (("probe_mm", "mm", "scripts/microbench_mm.py:27",
           ("probe_sections", "sections", "scripts/microbench_sections.py:32",
            "render"),
           ("probe_overlap", "overlap", "scripts/microbench_overlap.py:60",
-           "both"))
-# elementwise FP32 instructions (an FMA is one; 67 TFLOP/s counts it as
-# two) and the special-function unit: 16 results per SM a clock for
-# reciprocal, exp2, sin and cos at compute capability 9.0 (the CUDA C
-# Programming Guide's arithmetic-instruction throughput table), x 132 SMs
-# x 1.98 GHz
-PEAK_F32_OPS, PEAK_SFU = PEAK_F32 / 2, 132 * 16 * 1.98e9
-# the plain versions' and the library calls' slope: 10 and 40 steps, each
-# chain of torch calls captured once in a CUDA graph and replayed (device
-# time, no host dispatch between the calls), best of 3 x 5 replays
-PLAIN_REPS, PLAIN_TIMING = (10, 40), {"tries": 3, "launches": 5}
+           "both"),
+          ("probe_vpu", "vpu", "scripts/microbench_vpu.py:29",
+           "[8,1280] mul f32"),
+          ("probe_ops", "ops", "scripts/microbench_ops.py:41", "dep_fma"),
+          ("probe_dma", "dma", "scripts/microbench_dma.py:28",
+           "bulk_hbm_132"))
 
-
-def probe_bound(name: str, case: dict) -> dict:
-    """One step's bound: its operations over the peak of their type (the
-    carry stays on chip; the chain's inputs and output, read and written
-    once a launch, amortise to under 0.1% of a step at these reps)."""
-    if name == "probe_mm":
-        ops = 2.0 * case["m"] * case["k"] * case["n"] * case["ind"]
-        t = {"f32": ops / PEAK_F32, "bf16": ops / PEAK_BF16,
-             "f32_3xbf16": 3 * ops / PEAK_BF16}[case["variant"]]
-    elif name == "probe_int8":
-        ops = 2.0 * case["m"] * case["k"] * case["n"]
-        # i8_quant adds per carry element |c|, max, c / s, rint and the
-        # rescale (5 ops) to the s8 products
-        t = {"f32": ops / PEAK_F32, "i8": ops / PEAK_INT8,
-             "i8_quant": ops / PEAK_INT8
-             + 5.0 * case["k"] * case["n"] / PEAK_F32_OPS}[case["mode"]]
-    elif name == "probe_sections":
-        from vmap_tpu_torch.probes import sections as SE
-        # counted from csrc/sections.cu: per render sample 35 FP32 ops and
-        # 2 exp + 3 reciprocals; per emb column 2 x 2 x 128 x 384 flops;
-        # per ladder element 2 sin/cos (ladder) or 12 (sinpi) and 34 ops
-        fp, sfu = {
-            "render": (35.0 * SE.OG * SE.T, 5.0 * SE.OG * SE.T),
-            "emb_cat": (2 * 128 * 384 * SE.T, 0.0),
-            "emb_split": (2 * 128 * 384 * SE.T, 0.0),
-            "ladder": (34.0 * 96 * SE.T, 2.0 * 96 * SE.T),
-            "ladder_sinpi": (22.0 * 96 * SE.T, 12.0 * 96 * SE.T)}[case["case"]]
-        t = max(fp / PEAK_F32_OPS, sfu / PEAK_SFU)
-    else:
-        from vmap_tpu_torch.probes import overlap as OV
-        # 14 FP32 operations a vpu round on [8, T]; two 3xbf16 products
-        vpu = 8 * OV.T * 14 * OV.ROUNDS[case["mode"]] / PEAK_F32_OPS
-        mxu = (2 * 3 * 2.0 * 128 * 128 * OV.T / PEAK_BF16
-               if case["mode"] in ("mxu", "both", "both_bal") else 0.0)
-        t = max(vpu, mxu)
-    return {"bound_ms": t * 1e3, "bound_by": "operations"}
-
-
-def graphed(run):
-    """``run(reps)`` (a chain of torch calls) as a CUDA graph replay: the
-    graph of each reps is captured once, after one run outside capture on a
-    side stream, so a replay times the device's work alone."""
+def pool_gather(dev, gpu: str) -> dict:
+    """The sampler's pool gather (``core/step.py`` ``_sample_bank``,
+    ``pool_packed[pool_ids, u, v]``) on phase 5's vMAP frame: the index
+    tensors of its two gathers (object bank, background) recorded as
+    ``_sample_bank`` builds them, each gather then replayed as a CUDA
+    graph (``_timing.graph_step_ms``). Returns its ns an element ([2]
+    int32 words, 8 B) and ms a frame, and the least time any fetch of the
+    same elements could take: their 8 B each over the HBM rate (a K1 that
+    fetched its own pixels could at best save the gather's time less
+    that)."""
     import torch
-    graphs = {}
-
-    def replay(reps):
-        if reps not in graphs:
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                run(reps)
-            torch.cuda.current_stream().wait_stream(side)
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g):
-                out = run(reps)
-            graphs[reps] = (g, out)
-        g, out = graphs[reps]
-        g.replay()
-        return out
-    return replay
-
-
-def graph_step_ms(run, dev) -> float:
-    """The slope of ``run`` over PLAIN_REPS steps, each replayed as a CUDA
-    graph (``graphed``)."""
+    from vmap_tpu_torch import probes
+    from vmap_tpu_torch.core import step as ST
     from vmap_tpu_torch.probes import _timing
-    return _timing.slope(graphed(run), *PLAIN_REPS, dev,
-                         **PLAIN_TIMING)["step_ns"] * 1e-6
+    st, _, _, pool, obj_tab, obj_ids, bg_tab = bench_workload(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d_o = ST.torch_draws(gen, ST.draw_shapes(
+        104, st.n_iter * st.win, st.n_px, st.n_b2s, st.n_bins, 1), dev)
+    d_b = ST.torch_draws(gen, ST.draw_shapes(
+        1, st.n_iter * st.win_bg, st.n_px_bg, st.n_b2s_bg, st.n_bins,
+        st.px_block_bg), dev)
+    packed = pool[0]
 
+    class Gathers(torch.overrides.TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.index = []
 
-def library_step_ms(name: str, case: dict, dev) -> float | None:
-    """One PyTorch call a step computing the same chain, its device time a
-    step (``graph_step_ms``): torch.matmul for K4 (f32 with TF32 off for
-    f32 and 3xbf16; bf16 operands for bf16) and K10's f32 mode,
-    torch._int_mm for K10's i8. Never called by the port."""
-    import torch
-    from vmap_tpu_torch.probes import int8, mm
-    if name == "probe_mm" or (name == "probe_int8" and case["mode"] == "f32"):
-        w, c0 = mm.make_inputs(case["m"], case["k"], case["n"], dev)
-        bf16 = name == "probe_mm" and case["variant"] == "bf16"
-        dt = torch.bfloat16 if bf16 else torch.float32
-        ind = case.get("ind", 1)
-        ws = mm.operands(w, "f32", ind)["w"].to(dt)
-        scale = mm.fold_scale(ind) if name == "probe_mm" else int8.F32_SCALE
-        k = case["k"]
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.Tensor.__getitem__ and args[0] is packed:
+                self.index.append(args[1])
+            return func(*args, **(kwargs or {}))
 
-        def run(reps):
-            c = c0.to(dt)
-            for _ in range(reps):
-                y = torch.matmul(ws[0], c)
-                for j in range(1, ws.shape[0]):
-                    y = y + torch.matmul(ws[j], c)
-                c = mm.fold(y, k, scale)
-            return c
-    elif name == "probe_int8" and case["mode"] == "i8":
-        w, c0 = mm.make_inputs(case["m"], case["k"], case["n"], dev)
-        wq, k = int8.quantised_weights(w), case["k"]
-
-        def run(reps):
-            c = torch.clamp(c0 * 100.0, -127, 127).to(torch.int8)
-            for _ in range(reps):
-                y = torch._int_mm(wq, c).to(torch.float32)
-                c = torch.clamp(mm.fold(y, k, 1e-3), -127, 127).to(torch.int8)
-            return c
-    else:
-        return None
-    return graph_step_ms(run, dev)
-
-
-def plain_step_ms(name: str, case: dict, dev) -> float:
-    """The plain version's device time a step on the card
-    (``graph_step_ms``)."""
-    from vmap_tpu_torch.probes import int8, mm, overlap, sections
-    if name in ("probe_mm", "probe_int8"):
-        w, c0 = mm.make_inputs(case["m"], case["k"], case["n"], dev)
-    if name == "probe_mm":
-        ops = mm.operands(w, case["variant"], case["ind"])
-        scale = mm.fold_scale(case["ind"])
-
-        def run(r):
-            return mm.chain_reference(ops, c0, case["variant"], r, scale)
-    elif name == "probe_int8":
-        nb, cl = int8.layout(case["mode"], case["n"], case["nb"])
-        groups = case["n"] // (nb * cl)
-
-        def run(r):
-            return int8.chain_reference(w, c0, case["mode"], r, groups)
-    elif name == "probe_sections":
-        ins = sections.make_inputs(case["case"], dev)
-
-        def run(r):
-            return sections.chain_reference(case["case"], ins, r)
-    else:
-        x = overlap.make_inputs(dev)
-
-        def run(r):
-            return overlap.chain_reference(x, case["mode"], r)
-    return graph_step_ms(run, dev)
+    with Gathers() as rec:
+        ST._sample_bank(*pool, *obj_tab, obj_ids, st.n_iter * st.win,
+                        st.n_px, st.n_b2s, st, d_o, px_block=st.px_block)
+        ST._sample_bank(*pool, *bg_tab, obj_ids[:1] * 0,
+                        st.n_iter * st.win_bg, st.n_px_bg, st.n_b2s_bg, st,
+                        d_b, px_block=st.px_block_bg)
+    if len(rec.index) != 2:
+        raise AssertionError(f"expected the sampler's 2 pool gathers a "
+                             f"frame, recorded {len(rec.index)}")
+    ms = elements = 0
+    for idx in rec.index:
+        elements += packed[idx].numel() // 2
+        ms += _timing.graph_step_ms(
+            lambda r, idx=idx: [packed[idx] for _ in range(r)][-1], dev)
+    res = {"ms_per_frame": ms, "ns_per_element": ms * 1e6 / elements,
+           "elements_per_frame": elements, "bytes_per_frame": 8 * elements,
+           "fetch_bound_ms_per_frame": 8 * elements / probes.PEAK_BYTES
+           * 1e3}
+    log(f"[12] sampler pool gather on phase 5's vMAP frame: "
+        f"{res['ns_per_element']:.4f} ns an element, {ms:.4f} ms a frame "
+        f"({elements} elements of 8 B); any fetch of them at least "
+        f"{res['fetch_bound_ms_per_frame']:.5f} ms a frame (8 B an element "
+        f"over 3.35 TB/s) ({gpu})")
+    return res
 
 
 def probe_path(dev, gpu: str) -> tuple:
@@ -1795,12 +1720,13 @@ def probe_path(dev, gpu: str) -> tuple:
     every probe's kernel, in every variant and at every case, against its
     plain version at a few steps (the launches of these checks are not the
     path's), then run the probes' entry points (``main`` of
-    ``vmap_tpu_torch.probes.{mm,int8,sections,overlap}`` on the card, the
-    script's shapes and reps, K1's shapes for mm and int8) with the launch
-    counts set to 0 just before and read just after. Each case's time a
-    step is the kernel's slope; beside it the plain version's, the library
-    call's (K4, K10 i8) and the bound. Returns (the probes' JSON entries,
-    the path's launch counts)."""
+    ``vmap_tpu_torch.probes.{mm,int8,sections,overlap,vpu,ops,dma}`` on
+    the card, the scripts' shapes and reps, K1's shapes for mm and int8)
+    with the launch counts set to 0 just before and read just after. Each
+    case's time a step is the kernel's slope; beside it the module's
+    ``plain_ms``, ``library_ms`` (None where no single call computes the
+    step) and ``bound``; beside K6 the sampler's pool gather. Returns (the
+    probes' JSON entries, the path's launch counts)."""
     import importlib
     from vmap_tpu_torch import probes
     t0 = time.perf_counter()
@@ -1817,7 +1743,7 @@ def probe_path(dev, gpu: str) -> tuple:
             for name, mod, _, _ in PROBES}
     checks = {}
     for name, mod in mods.items():
-        checks[name] = mod.compare(dev, reps=3)
+        checks[name] = mod.compare(dev)
         worst = max(checks[name], key=lambda r: r["used"])
         log(f"[12] {name}: {len(checks[name])} cases held to plain, worst "
             f"{worst['case'].strip()} rel err {worst['max_rel_err']:.3e} "
@@ -1839,18 +1765,22 @@ def probe_path(dev, gpu: str) -> tuple:
                  if name == "probe_overlap" else res)
         by_case = {}
         for case in cases:
-            case = {"mode": case["case"], **case}
             row = {"ms": case["step_ns"] * 1e-6,
-                   "plain_ms": plain_step_ms(name, case, dev),
-                   "library_ms": library_step_ms(name, case, dev),
-                   **probe_bound(name, case)}
-            if "w_in_smem" in case:
-                row["w_in_smem"] = case["w_in_smem"]
+                   "plain_ms": mod.plain_ms(case, dev),
+                   "library_ms": mod.library_ms(case, dev),
+                   **mod.bound(case)}
+            for key in ("w_in_smem", "us_per_launch", "ns_per_op",
+                        "ns_per_op_runs", "blocks", "aggregate_ns_per_copy",
+                        "gb_per_s"):
+                if key in case:
+                    row[key] = case[key]
             by_case[case["case"].strip()] = row
         if name == "probe_overlap":
             for key in ("overlap", "overlap_bal"):
                 by_case[f"{key}_fraction"] = res[key]
                 by_case[f"{key}_fraction_runs"] = res[f"{key}_runs"]
+        if name == "probe_dma":
+            by_case["pool_gather"] = pool_gather(dev, gpu)
         top = by_case[head.strip()]
         errs = checks[name]
         entries.append({
@@ -1860,10 +1790,14 @@ def probe_path(dev, gpu: str) -> tuple:
             "max_abs_err": max(r["max_abs_err"] for r in errs),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-            "library_ms": top["library_ms"], "per": "step of the chain",
+            "library_ms": top["library_ms"],
+            "per": ("copy of each block" if name == "probe_dma"
+                    else "step of the chain"),
             "headline_case": head.strip(), "by_case": by_case,
             "checks": errs})
         for key, row in by_case.items():
+            if key == "pool_gather":
+                continue
             if not isinstance(row, dict):
                 log(f"[12] {name} {key}: {row} ({gpu})")
                 continue

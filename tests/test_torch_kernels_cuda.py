@@ -12,8 +12,10 @@ at least 10x closer to the plain policy than plain f32 is, n_iter=20
 finite within rtol 0.25), under the int8 policies (phase 11: the same
 tiers with 5e-2 of scale) and under sample_reuse 4, bit-identical to the
 tiled batch; and the probe kernels (``vmap_tpu_torch.probes``: K4 mm, K10
-int8, K7 sections, K8 overlap) in every variant and shape against their
-plain versions at 3 steps (phase 12's tolerances). Skips where CUDA is
+int8, K7 sections, K8 overlap, K9 vpu, K5 ops, K6 dma) in every variant
+and shape against their plain versions at 3 steps (K6 at 4000 copies;
+phase 12's tolerances), their entry points refusing what they do not
+take. Skips where CUDA is
 not available (no interpret mode exists for a CUDA kernel). Run on the
 card, where jax is not installed, without tests/conftest.py (it imports
 jax):
@@ -136,10 +138,69 @@ def test_grid_volumes_match_their_chunks_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("probe", ["mm", "int8", "sections", "overlap"])
+@pytest.mark.parametrize("probe", ["mm", "int8", "sections", "overlap",
+                                   "vpu", "ops", "dma"])
 def test_probe_kernels_match_plain_on_card(cuda_device, probe):
+    """Each probe's kernels against their plain versions (``compare``'s
+    default: 3 steps; K6 the script's 4000 copies, exact), each launch
+    counted on its probe."""
     import importlib
     sys.path.insert(0, REPO)
+    from vmap_tpu_torch import probes
     mod = importlib.import_module(f"vmap_tpu_torch.probes.{probe}")
-    checks = mod.compare(cuda_device, reps=3)      # raises outside its tol
+    before = probes.LAUNCHES[probe]
+    # raises outside its tolerance
+    checks = mod.compare(cuda_device)
     assert checks and all(r["used"] <= 1.0 for r in checks)
+    assert probes.LAUNCHES[probe] > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", ["vpu", "ops", "dma"])
+def test_new_probe_entry_points_refuse_bad_input(cuda_device, probe):
+    """The C entry points of csrc/{vpu,ops,dma}.cu return an error for a
+    shape they do not take (the launcher then raises), and the wrappers
+    refuse a CPU tensor and a wrong shape."""
+    sys.path.insert(0, REPO)
+    from vmap_tpu_torch import probes
+    from vmap_tpu_torch.probes import dma, ops, vpu
+    lib = probes.LIBRARY.load()
+    stream = probes.stream(cuda_device)
+    x = torch.zeros(8, 1280, device=cuda_device)
+    if probe == "vpu":
+        # an odd element count for the packed bf16 route; bf16 sigmoid
+        codes = [lib.vmap_probe_vpu(0, 1, probes.ptr(x), probes.ptr(x), 1279,
+                                    1, stream),
+                 lib.vmap_probe_vpu(2, 1, probes.ptr(x), probes.ptr(x),
+                                    x.numel(), 1, stream)]
+        bad = lambda: vpu.launch(x[:, :640].contiguous(), "mul", "f32", 1)
+        cpu = lambda: vpu.launch(x.cpu(), "mul", "f32", 1)
+    elif probe == "ops":
+        # lanesum_dot over 7 rows; strided_sum without its side output
+        codes = [lib.vmap_probe_ops(4, probes.ptr(x), probes.ptr(x),
+                                    probes.ptr(x), probes.ptr(x), 7, 1,
+                                    stream),
+                 lib.vmap_probe_ops(5, probes.ptr(x), None, probes.ptr(x),
+                                    None, 8, 1, stream)]
+        bad = lambda: ops.launch("dep_fma", [x[:4].contiguous()], 1)
+        cpu = lambda: ops.launch("dep_fma", [x.cpu()], 1)
+    else:
+        src = torch.zeros(64, 128, dtype=torch.int32, device=cuda_device)
+        sums = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+        # fewer than 8 copies; a source of 8 rows; a grain of 4 rows
+        codes = [lib.vmap_probe_dma(0, probes.ptr(src), 64, 4, 1, 1,
+                                    probes.ptr(sums), probes.ptr(x), stream),
+                 lib.vmap_probe_dma(1, probes.ptr(src), 8, 16, 1, 1,
+                                    probes.ptr(sums), probes.ptr(x), stream),
+                 lib.vmap_probe_dma(0, probes.ptr(src), 64, 16, 1, 4,
+                                    probes.ptr(sums), probes.ptr(x), stream)]
+        bad = lambda: dma.launch(src.float(), 16, 0)
+        cpu = lambda: dma.launch(src.cpu(), 16, 0)
+    for code in codes:
+        assert code != 0
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            probes.LIBRARY.check(code, f"{probe} probe launch")
+    with pytest.raises(ValueError):
+        bad()
+    with pytest.raises(ValueError, match="CUDA"):
+        cpu()

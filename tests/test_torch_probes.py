@@ -1,6 +1,7 @@
 """The port's probes (``vmap_tpu_torch.probes``: K4 mm, K10 int8, K7
-sections, K8 overlap) against the JAX scripts' own Pallas kernels
-(``scripts/microbench_*.py``) in interpret mode, on the CPU.
+sections, K8 overlap, K9 vpu, K5 ops, K6 dma) against the JAX scripts'
+own Pallas kernels (``scripts/microbench_*.py``) in interpret mode, on
+the CPU.
 
 The harness loads a script module by path, as it stands, and swaps two of
 its globals: ``pl`` for a namespace whose ``pallas_call`` forces
@@ -42,7 +43,8 @@ import torch
 from jax.experimental import pallas as real_pl
 
 from vmap_tpu_torch import probes
-from vmap_tpu_torch.probes import _timing, int8, mm, overlap, sections
+from vmap_tpu_torch.probes import (_timing, dma, int8, mm, ops, overlap,
+                                   sections, vpu)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -52,11 +54,11 @@ class _Stop(Exception):
     pass
 
 
-def load_script(name: str, jnp_sum=None):
+def load_script(name: str, **jnp_over):
     """``scripts/<name>.py`` with ``pl.pallas_call`` captured and forced
-    to interpret mode, and ``jax.jit`` the identity (``jnp_sum``: in
-    place of the script's ``jnp.sum``). Returns (module, list the kernel
-    outputs are appended to)."""
+    to interpret mode, and ``jax.jit`` the identity (``jnp_over``:
+    functions in place of the script's ``jnp.<name>``). Returns (module,
+    list the kernel outputs are appended to)."""
     spec = importlib.util.spec_from_file_location(
         f"_probe_{name}", os.path.join(REPO, "scripts", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
@@ -72,18 +74,19 @@ def load_script(name: str, jnp_sum=None):
             raise _Stop
         return run
 
-    mod.pl = types.SimpleNamespace(pallas_call=pallas_call,
-                                   BlockSpec=real_pl.BlockSpec)
+    mod.pl = types.SimpleNamespace(**{
+        **{k: getattr(real_pl, k) for k in dir(real_pl)
+           if not k.startswith("__")}, "pallas_call": pallas_call})
     proxy = types.ModuleType("jax_proxy")
     proxy.__dict__.update({k: getattr(jax, k) for k in dir(jax)
                            if not k.startswith("__")})
     proxy.jit = lambda f: f
     mod.jax = proxy
-    if jnp_sum is not None:
+    if jnp_over:
         np_proxy = types.ModuleType("jnp_proxy")
         np_proxy.__dict__.update({k: getattr(jnp, k) for k in dir(jnp)
                                   if not k.startswith("__")})
-        np_proxy.sum = jnp_sum
+        np_proxy.__dict__.update(jnp_over)
         mod.jnp = np_proxy
     return mod, outputs
 
@@ -283,7 +286,7 @@ def test_overlap_plain_matches_jax_kernel(mode):
         overlap.tol(OV_REPS), overlap.T))
     # the same kernel writing c[:8, :128] itself: v's row sums give 0, the
     # block sum of c gives the block
-    mod, outs = load_script("microbench_overlap", jnp_sum=lambda x, *axis, **kw:
+    mod, outs = load_script("microbench_overlap", sum=lambda x, *axis, **kw:
                             x if not axis and "axis" not in kw
                             else jnp.zeros_like(jnp.sum(x, *axis, **kw)))
     got = run_captured(outs, mod._run, mode, OV_REPS)
@@ -325,11 +328,303 @@ def test_overlap_fraction_is_the_scripts():
     assert overlap.BAL_ROUNDS % 4 == 0
 
 
+# ------------------------------------------------------------------- K9
+VPU_REPS = 3
+
+
+def _jnp(t: torch.Tensor):
+    """A jnp copy of a CPU tensor (its own buffer, never an alias of
+    torch's memory)."""
+    return jnp.asarray(t.numpy().copy())
+
+
+@pytest.fixture(scope="module")
+def vpu_script():
+    """microbench_vpu with its module-level REPS set to VPU_REPS: its
+    ``make_kernel(rows, dt, op)(x)`` then returns the whole last tile."""
+    mod, outs = load_script("microbench_vpu")
+    mod.REPS = VPU_REPS
+    return mod, outs
+
+
+@pytest.mark.parametrize("rows", vpu.ROWS)
+@pytest.mark.parametrize("op,route", [("mul", "f32"), ("mul", "bf16"),
+                                      ("mixed", "f32"), ("mixed", "bf16"),
+                                      ("sigmoid", "f32")])
+def test_vpu_plain_matches_jax_kernel(vpu_script, rows, op, route):
+    """The whole [rows, 1280] output of the script's kernel: bf16
+    bit-equal to the port's plain per-op chain (JAX rounds after every
+    operation, as torch does), f32 within rtol 1e-6 a step."""
+    mod, outs = vpu_script
+    x = vpu.make_inputs(rows, CPU)
+    dt = jnp.float32 if route == "f32" else jnp.bfloat16
+    got = run_captured(outs, mod.make_kernel(rows, dt, op), _jnp(x))
+    want = vpu.chain(x, op, route, VPU_REPS).numpy()
+    assert got.shape == (rows, vpu.T) and np.isfinite(got).all()
+    if route == "bf16":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want,
+                                   rtol=vpu.F32_RTOL * VPU_REPS, atol=0)
+
+
+@pytest.mark.parametrize("op", ["mul", "mixed"])
+def test_vpu_bf16_fma_is_another_function(op):
+    """bf16_fma rounds b a + a once a step: within one bf16 ulp a step of
+    the exact (f64) chain on the same bf16 inputs (a, b0 = bf16(a
+    bf16(1.0001)), bf16(a bf16(0.1))), yet not the script's function (it
+    differs from the per-op chain), so ``vpu.hold`` tells them apart."""
+    x = vpu.make_inputs(8, CPU)
+    fma = vpu.chain(x, op, "bf16_fma", VPU_REPS)
+    per_op = vpu.chain(x, op, "bf16", VPU_REPS)
+    assert not torch.equal(fma, per_op)
+    case = (8, op, "bf16")
+    with pytest.raises(AssertionError):
+        vpu.hold(case, fma, per_op, VPU_REPS)
+    vpu.hold((8, op, "bf16_fma"), fma, fma, VPU_REPS)
+    ab = x.to(torch.bfloat16)
+    a = ab.double()
+    tenth = (ab * torch.tensor(0.1, dtype=torch.bfloat16)).double()
+    exact = (ab * torch.tensor(1.0001, dtype=torch.bfloat16)).double()
+    for _ in range(VPU_REPS):
+        exact = exact * a + a
+        if op == "mixed":
+            exact = torch.maximum(exact, tenth)
+    assert float(((fma.double() - exact).abs()
+                  / probes.ulp(exact, 8)).max()) <= VPU_REPS
+
+
+@pytest.mark.parametrize("op", ["mul", "mixed"])
+def test_vpu_timed_plain_chain_is_the_f32_torch_chain(op):
+    """The plain bf16_fma chain that is timed (``exact`` off) sums b a + a
+    in f32 before it rounds to bf16: within a bf16 ulp a step of the
+    exact value the kernels are held to."""
+    x = vpu.make_inputs(8, CPU)
+    fast = vpu.chain_reference(x, op, "bf16_fma", VPU_REPS, exact=False)
+    exact = vpu.chain_reference(x, op, "bf16_fma", VPU_REPS)
+    vpu.hold((8, op, "bf16_fma"), fast, exact, VPU_REPS)
+
+
+# ------------------------------------------------------------------- K5
+def _record(name: str, rec: dict):
+    """jnp.<name> that also records each concrete (untraced) result."""
+    real = getattr(jnp, name)
+
+    def fn(*args, **kw):
+        out = real(*args, **kw)
+        if not isinstance(out, jax.core.Tracer):
+            rec.setdefault(name, []).append(np.asarray(out))
+        return out
+    return fn
+
+
+@pytest.fixture(scope="module")
+def ops_script():
+    """microbench_ops with each case's body captured as its main hands it
+    to ``run_kernel``, and jnp.dot / jnp.concatenate recording what a
+    body computes when called on jnp arrays (lanesum_dot's whole product,
+    strided_sum's and serial_tiles' increments)."""
+    rec: dict = {}
+    mod, outs = load_script("microbench_ops",
+                            dot=_record("dot", rec),
+                            concatenate=_record("concatenate", rec))
+    bodies = {}
+
+    def capture(body, shapes, reps):
+        bodies[case] = (body, tuple(map(tuple, shapes)), reps)
+        return 0.0
+
+    mod.run_kernel = capture
+    for case in ops.CASES:
+        mod.main.__globals__["sys"] = types.SimpleNamespace(argv=["", case])
+        mod.main()
+    return mod, outs, bodies, rec
+
+
+@pytest.mark.parametrize("case", ops.CASES)
+def test_ops_plain_step_matches_jax_body(ops_script, case):
+    """The script's body, called on jnp arrays for 1 and 3 steps, against
+    the port's plain chain elementwise (``ops.tol``), and the work the
+    carry cannot see: lanesum_dot's whole [8, 128] product, strided_sum's
+    and serial_tiles' increments (the body's concat), and those
+    increments read from one step of the body as ``probes.increment``
+    reads them."""
+    _, _, bodies, rec = ops_script
+    body, shapes, reps = bodies[case]
+    assert shapes == ops.SHAPES[case] and reps == ops.REPS[case]
+    ins = ops.make_inputs(case, CPU)
+    j = [_jnp(x) for x in ins]
+    c0 = ins[0] * 1.0001
+    for n in (1, 3):
+        c = _jnp(c0)
+        for _ in range(n):
+            rec.clear()
+            c = body(j, c, 0)
+        want, work = ops.chain_reference(case, ins, n)
+        assert float(want.abs().min()) > 0
+        np.testing.assert_allclose(np.asarray(c), want.numpy(),
+                                   rtol=ops.tol(case, n), atol=0)
+        if case == "lanesum_dot":
+            np.testing.assert_allclose(rec["dot"][-1], work.numpy(),
+                                       rtol=ops.tol(case, n), atol=0)
+        if case in ops.KEEP:
+            np.testing.assert_allclose(
+                rec["concatenate"][-1], ops.increment_of(case, work).numpy(),
+                rtol=ops.tol(case, n), atol=0)
+    if case in ops.KEEP:
+        out = torch.from_numpy(np.array(body(j, _jnp(c0), 0)))
+        inc, atol = probes.increment(ops.KEEP[case], ops.WORK_SCALE, c0, out)
+        want = ops.increment_of(case, ops.step_reference(case, ins, c0)[1])
+        probes.held(case, inc, want, ops.RTOL, atol)
+
+
+@pytest.mark.parametrize("case", ops.CASES)
+def test_ops_plain_matches_jax_kernel_row_sums(ops_script, case):
+    """The script's kernel (``_one``, 3 reps): its row sums of c[:8]."""
+    mod, outs, bodies, _ = ops_script
+    body, shapes, _ = bodies[case]
+    got = run_captured(outs, mod._one, body, shapes, 3)
+    c, _ = ops.chain(case, ops.make_inputs(case, CPU), 3)
+    np.testing.assert_allclose(got[:, 0], c[:8].double().sum(1).numpy(),
+                               rtol=sum_tol(ops.tol(case, 3), c.shape[1]))
+
+
+def test_ops_cpu_run_reports_the_pair_spread(monkeypatch, capsys):
+    """Every case is timed, dep_fma and ind_fma RUNS times each, and their
+    difference is printed against their spread."""
+    monkeypatch.setattr(ops, "REPS", {c: 1 for c in ops.CASES})
+    res = ops.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "plain PyTorch version, not a device time" in out
+    assert "dep_fma - ind_fma:" in out
+    assert [r["case"] for r in res] == list(ops.CASES)
+    assert [len(r.get("ns_per_op_runs", ())) for r in res[:2]] == [
+        ops.RUNS] * 2
+
+
+# ------------------------------------------------------------------- K6
+DMA_N = 40
+
+
+def test_dma_plain_matches_jax_kernel_and_its_race():
+    """The script's kernel checksums a race: it waits on copy i, starts
+    copy i + 8 into the same slot, then reads the slot. In interpret mode
+    a copy completes when it starts, so it sums word 0 of copy i + 8 for
+    i < n - 8 and of copy i for the last 8. That sum, computed from the
+    port's row sequence, is held equal to JAX's output (the port's
+    addressing against the script's); the port's defined checksum to the
+    same rows' own words; its 8 final slots to the last 8 copies' rows."""
+    mod, outs = load_script("microbench_dma")
+    src = dma.make_source(4096, CPU)
+    got = run_captured(outs, mod.build(DMA_N),
+                       jnp.asarray(src.numpy().view(np.uint32).copy()))
+    plain = dma.run_case("bulk", src, DMA_N)
+    rows = plain["rows"][0].tolist()
+    words = [int(src[r, 0]) for r in rows]
+    racy = (sum(words[8:]) + sum(words[-8:])) & dma.MASK
+    assert int(got[0, 0]) == racy
+    assert int(plain["sums"][0]) == sum(words) & dma.MASK != racy
+    for i in range(DMA_N - 8, DMA_N):
+        assert torch.equal(plain["slots"][0, i % 8],
+                           src[rows[i]:rows[i] + 8])
+
+
+def test_dma_blocks_take_their_own_stretch_of_the_rows():
+    """Block b continues the row sequence at copy b n; each block's
+    checksum and slots are its own rows'."""
+    src = dma.make_source(4096, CPU)
+    many = dma.chain_reference(src, DMA_N, 3)
+    assert many["rows"][1, 0] == DMA_N * 37 % (4096 - 8)
+    for b in range(3):
+        words = src[many["rows"][b], 0].long()
+        assert int(many["sums"][b]) == int(words.sum()) & dma.MASK
+        last = int(many["rows"][b, -1])
+        assert torch.equal(many["slots"][b, (DMA_N - 1) % 8],
+                           src[last:last + 8])
+
+
+@pytest.mark.parametrize("grain_rows", [(1, 4096), (8, 8 * 3 * DMA_N + 8)])
+def test_dma_row_sequence_and_its_grain(grain_rows):
+    """Grain 1 is the script's (i 37) mod (rows - 8); grain 8 on a source
+    of 8 blocks n + 8 rows puts every copy of a launch on its own 8 rows,
+    so no byte is read twice."""
+    grain, rows = grain_rows
+    seq = dma.copy_rows(rows, DMA_N, 3, grain)
+    if grain == 1:
+        assert seq[0].tolist() == [i * 37 % (rows - 8) for i in range(DMA_N)]
+        return
+    assert bool((seq % 8 == 0).all())
+    assert len(set(seq.reshape(-1).tolist())) == 3 * DMA_N
+    assert int(seq.max()) + 8 <= rows
+    src = dma.make_source(rows, CPU)
+    many = dma.chain_reference(src, DMA_N, 3, grain)
+    for b in range(3):
+        last = int(seq[b, -1])
+        assert torch.equal(many["slots"][b, (DMA_N - 1) % 8],
+                           src[last:last + 8])
+
+
+def test_dma_bound_counts_each_byte_once():
+    """K6's bound: distinct source bytes over the HBM rate, or a copy's
+    4 KB into one SM's shared memory. The 2 MiB source is read whole by
+    the first 4000 copies (no new byte a copy: the shared-memory term);
+    bulk_hbm's 16000 copies and bulk_hbm_132's 132 x 16000 read distinct
+    rows (4 KB a copy of each block at 3.35 TB/s)."""
+    smem = dma.COPY_BYTES / probes.SMEM_BYTES_PER_SM * 1e3
+    hbm = dma.COPY_BYTES / probes.PEAK_BYTES * 1e3
+    # rows 0 .. 4094: a copy starts at most at row 4087
+    assert dma.unique_bytes("bulk", dma.N1) == dma.unique_bytes(
+        "bulk", dma.N2) == 4095 * 128 * 4
+    for case in ("bulk", "cp_async", "bulk_hbm"):
+        assert dma.bound({"case": case}) == {"bound_ms": smem,
+                                             "bound_by": "bytes"}
+    assert dma.unique_bytes("bulk_hbm", dma.N2) == dma.N2 * dma.COPY_BYTES
+    assert dma.unique_bytes("bulk_hbm_132", dma.N2) == (
+        132 * dma.N2 * dma.COPY_BYTES)
+    got = dma.bound({"case": "bulk_hbm_132"})
+    assert got["bound_by"] == "bytes"
+    assert got["bound_ms"] == pytest.approx(132 * hbm, rel=1e-12)
+
+
+def test_probe_bounds_count_the_step():
+    """Each probe module's ``bound`` (the kernels line's bound_ms): a few
+    cases against the count by hand."""
+    f32_ops, sfu = probes.PEAK_F32 / 2, 132 * 16 * 1.98e9
+    assert mm.bound({"m": 128, "k": 128, "n": 1280, "ind": 1,
+                     "variant": "bf16"})["bound_ms"] == pytest.approx(
+        2.0 * 128 * 128 * 1280 / 989e12 * 1e3)
+    assert int8.bound({"m": 128, "k": 128, "n": 1280, "mode": "i8"})[
+        "bound_ms"] == pytest.approx(2.0 * 128 * 128 * 1280 / 1979e12 * 1e3)
+    assert vpu.bound({"rows": 96, "op": "mul", "route": "bf16"}) == {
+        "bound_ms": pytest.approx(2 * 96 * 1280 / (2 * f32_ops) * 1e3),
+        "bound_by": "operations"}
+    assert vpu.bound({"rows": 8, "op": "sigmoid", "route": "f32"})[
+        "bound_ms"] == pytest.approx(2 * 8 * 1280 / sfu * 1e3)
+    assert ops.bound({"case": "dep_fma"})["bound_ms"] == pytest.approx(
+        8 * 1280 / f32_ops * 1e3)
+    assert sections.bound({"case": "emb_cat"})["bound_by"] == "operations"
+    assert overlap.bound({"case": "mxu"})["bound_ms"] == pytest.approx(
+        2 * 3 * 2.0 * 128 * 128 * 1280 / 989e12 * 1e3)
+
+
+def test_timed_library_columns_name_one_call_or_none():
+    """Where no single PyTorch call computes a step, ``library_ms`` is
+    None without timing anything (K9's per-op bf16 chain: addcmul rounds
+    once; mixed; K5's elementwise chains; K7; K8; K10's i8_quant)."""
+    assert vpu.library_ms({"op": "mul", "route": "bf16"}, CPU) is None
+    assert vpu.library_ms({"op": "mixed", "route": "f32"}, CPU) is None
+    assert ops.library_ms({"case": "strided_sum"}, CPU) is None
+    assert sections.library_ms({"case": "render"}, CPU) is None
+    assert overlap.library_ms({"case": "both"}, CPU) is None
+    assert int8.library_ms({"mode": "i8_quant"}, CPU) is None
+
+
 # ------------------------------------------------------- entry points
-@pytest.mark.parametrize("name", ["mm", "int8", "sections", "overlap"])
+@pytest.mark.parametrize("name", ["mm", "int8", "sections", "overlap",
+                                  "vpu", "ops", "dma"])
 def test_probe_needs_cuda_unless_asked_for_the_cpu(name):
     mod = {"mm": mm, "int8": int8, "sections": sections,
-           "overlap": overlap}[name]
+           "overlap": overlap, "vpu": vpu, "ops": ops, "dma": dma}[name]
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="--device cpu"):
@@ -363,13 +658,30 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
         probes.check_cuda(c0)
 
 
+@pytest.mark.parametrize("name", ["vpu", "ops", "dma"])
+def test_new_probe_launchers_refuse_cpu_tensors(name):
+    """The launchers take CUDA tensors only: on a CPU tensor they raise
+    before any library is built (the chains' CPU path is the plain
+    version), and count no launch."""
+    before = dict(probes.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        if name == "vpu":
+            vpu.launch(vpu.make_inputs(8, CPU), "mul", "bf16", 1)
+        elif name == "ops":
+            ops.launch("lanesum_dot", ops.make_inputs("lanesum_dot", CPU), 1)
+        else:
+            dma.launch(dma.make_source(4096, CPU), 8, 0)
+    assert probes.LAUNCHES == before
+
+
 def test_probe_imports_stay_jax_free():
     """Importing every probe module (and running a plain chain) imports
     neither jax nor the JAX package."""
     code = (
         "import sys, torch\n"
         f"sys.path.insert(0, {REPO!r})\n"
-        "from vmap_tpu_torch.probes import mm, int8, sections, overlap\n"
+        "from vmap_tpu_torch.probes import (mm, int8, sections, overlap,\n"
+        "                                   vpu, ops, dma)\n"
         "w, c = mm.make_inputs(16, 32, 32, torch.device('cpu'))\n"
         "int8.chain(w, c, 'i8_quant', 1)\n"
         "bad = sorted(k for k in sys.modules if k in ('jax', 'vmap_tpu')\n"

@@ -11,7 +11,15 @@ of that computation at K1's shapes on the card, launch latency cancelled:
   * ``sections`` (K7, ``scripts/microbench_sections.py``): K1's render,
     embedding products and sin/cos ladder, each alone;
   * ``overlap`` (K8, ``scripts/microbench_overlap.py``): whether FMA work
-    hides tensor-core work inside one kernel.
+    hides tensor-core work inside one kernel;
+  * ``vpu`` (K9, ``scripts/microbench_vpu.py``): elementwise chains in f32
+    against packed bf16;
+  * ``ops`` (K5, ``scripts/microbench_ops.py``): the per-op cost model,
+    dependent against independent FMA chains, sigmoid, sin / cos, a lane
+    sum as a product against a strided sum, the forward product, a serial
+    tile chain;
+  * ``dma`` (K6, ``scripts/microbench_dma.py``): 4 KB row copies into
+    shared memory, 8 in flight (TMA bulk copies and ``cp.async``).
 
 Run one as ``python -m vmap_tpu_torch.probes.<name>`` (the card;
 ``--device cpu`` times the plain PyTorch version). The kernels live in
@@ -20,6 +28,13 @@ Run one as ``python -m vmap_tpu_torch.probes.<name>`` (the card;
 tensor a probe runs its plain version; on a CUDA tensor it launches its
 kernel or raises. ``LAUNCHES`` counts successful launches per probe; only
 the launchers change it.
+
+Beside a probe's own time, phase 12 of ``chip_smoke.py`` reads each
+module's ``bound(case)`` (the least time a step could take on the card,
+from the peaks below), ``plain_ms(case, dev)`` (the plain version's time
+a step) and ``library_ms(case, dev)`` (one PyTorch call computing the
+same step, or None where there is none), ``case`` being one of the
+dicts its ``main`` returns.
 """
 
 from __future__ import annotations
@@ -27,6 +42,7 @@ from __future__ import annotations
 import ctypes
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from vmap_tpu_torch.kernels._build import Library
@@ -42,11 +58,38 @@ SIGNATURES = {
     "vmap_probe_emb": ((I, P, P, P, P, I, I, I, P), I),
     "vmap_probe_ladder": ((I, P, P, I, I, P), I),
     "vmap_probe_overlap": ((I, P, P, P, P, P, P, P, P, P, I, I, P), I),
+    "vmap_probe_vpu": ((I, I, P, P, I, I, P), I),
+    "vmap_probe_ops": ((I, P, P, P, P, I, I, P), I),
+    "vmap_probe_dma": ((I, P, I, I, I, I, P, P, P), I),
 }
 LIBRARY = Library(_HERE / "csrc", _HERE / "_build", "libvmap_probes.so",
                   SIGNATURES)
 
-LAUNCHES = {"mm": 0, "int8": 0, "sections": 0, "overlap": 0}
+LAUNCHES = {"mm": 0, "int8": 0, "sections": 0, "overlap": 0, "vpu": 0,
+            "ops": 0, "dma": 0}
+
+# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): FP32 outside the
+# tensor cores, bf16 and int8 in them, HBM3
+PEAK_F32, PEAK_BF16, PEAK_INT8, PEAK_BYTES = 67e12, 989e12, 1979e12, 3.35e12
+# per SM a clock at compute capability 9.0, x 132 SMs x the 1.98 GHz boost
+# clock (CUDA C++ Programming Guide): elementwise FP32 instructions (128;
+# an FMA is one, where 67 TFLOP/s counts it as two); the special-function
+# unit (16 results of reciprocal, exp2, sin, cos); packed 16-bit (bf16x2)
+# add, multiply and multiply-add (256 results, twice FP32's)
+SMS, CLOCK = 132, 1.98e9
+PEAK_F32_OPS = PEAK_F32 / 2
+PEAK_SFU = SMS * 16 * CLOCK
+PEAK_BF16X2_OPS = 2 * PEAK_F32_OPS
+# one SM's shared memory: 32 banks of 32 bits a clock (the Guide's shared
+# memory section), so 128 B a clock into one block's buffers
+SMEM_BYTES_PER_SM = 32 * 4 * CLOCK
+
+
+def bound(ops_s: float = 0.0, bytes_s: float = 0.0) -> dict:
+    """``bound_ms`` / ``bound_by`` of the phase-12 kernels line: the larger
+    of a step's operations and its bytes, each over its peak (seconds)."""
+    return {"bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
 
 
 def device_from_arg(name: str) -> torch.device:
@@ -101,3 +144,25 @@ def held(case: str, got: torch.Tensor, want: torch.Tensor, rtol: float,
     if not (finite and bool((diff <= bound).all())):
         raise AssertionError(f"{case}: kernel against plain {res}")
     return res
+
+
+def ulp(x: torch.Tensor, bits: int = 24) -> torch.Tensor:
+    """The spacing at |x| of a float with ``bits`` significant bits (24:
+    f32, 8: bf16), as f64 (normal numbers; 0 maps to the smallest normal's
+    spacing)."""
+    a = x.double().abs().clamp_min(2.0 ** -126)
+    _, e = torch.frexp(a)
+    return torch.ldexp(torch.ones_like(a), e - bits)
+
+
+def increment(keep: float, scale: float, c: torch.Tensor,
+              out: torch.Tensor) -> tuple:
+    """A step's work as one step c -> out = KEEP c + SCALE work shows it:
+    ((out - KEEP c) / SCALE in f64, with KEEP and SCALE the f32 constants
+    the step uses, and the bound of its error from the step's f32
+    roundings, (ulp(out) + ulp(KEEP c)) / SCALE, elementwise)."""
+    keep = float(np.float32(keep))
+    scale = float(np.float32(scale))
+    kc = c.double() * keep
+    inc = (out.double() - kc) / scale
+    return inc, (ulp(out) + ulp(kc)) / scale

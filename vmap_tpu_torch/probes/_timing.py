@@ -6,7 +6,11 @@ the chain's set-up cancelled. ``scripts/microbench_{mm,int8,sections}.py``
 take r2 = 4 r1, so (t(4 r) - t(r)) / 3 / r; ``microbench_overlap.py`` 200
 and 600. t(r) is the best of 3 runs of 10 launches, each run ended by a
 data-dependent readback of the last output: CUDA events on the card, the
-wall clock on the CPU.
+wall clock on the CPU. On the card a run's launches queue behind a
+device-side sleep (``HOLD_CYCLES``) recorded before its first event, so
+they run back to back: a launch shorter than the host's time to issue the
+next one (a Python wrapper's tens of microseconds) is timed as the
+device's, not the host's.
 """
 
 from __future__ import annotations
@@ -14,6 +18,14 @@ from __future__ import annotations
 import time
 
 import torch
+
+# about 5 ms at the card's clock: longer than the host takes to queue a
+# run's launches
+HOLD_CYCLES = 10_000_000
+# the plain versions' and the library calls' slope: 10 and 40 steps, each
+# chain of torch calls captured once in a CUDA graph and replayed (device
+# time, no host dispatch between the calls), best of 3 x 5 replays
+PLAIN_REPS, PLAIN_TIMING = (10, 40), {"tries": 3, "launches": 5}
 
 
 def _readback(out) -> float:
@@ -31,6 +43,7 @@ def launch_ms(run, reps: int, dev: torch.device, tries: int = 3,
         if dev.type == "cuda":
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(HOLD_CYCLES)
             t0.record()
             for _ in range(launches):
                 out = run(reps)
@@ -54,6 +67,36 @@ def slope(run, r1: int, r2: int, dev: torch.device, **kw) -> dict:
     t1 = launch_ms(run, r1, dev, **kw)
     t2 = launch_ms(run, r2, dev, **kw)
     return {"t1_ms": t1, "t2_ms": t2, "step_ns": (t2 - t1) / (r2 - r1) * 1e6}
+
+
+def graphed(run):
+    """``run(reps)`` (a chain of torch calls) as a CUDA graph replay: the
+    graph of each reps is captured once, after one run outside capture on a
+    side stream, so a replay times the device's work alone."""
+    graphs = {}
+
+    def replay(reps):
+        if reps not in graphs:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                run(reps)
+            torch.cuda.current_stream().wait_stream(side)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                out = run(reps)
+            graphs[reps] = (g, out)
+        g, out = graphs[reps]
+        g.replay()
+        return out
+    return replay
+
+
+def graph_step_ms(run, dev: torch.device, reps: tuple = PLAIN_REPS) -> float:
+    """The slope of ``run`` between ``reps`` steps, each replayed as a CUDA
+    graph (``graphed``), in ms a step: the plain versions' and the library
+    calls' device time."""
+    return slope(graphed(run), *reps, dev, **PLAIN_TIMING)["step_ns"] * 1e-6
 
 
 def device_label(dev: torch.device) -> str:

@@ -188,7 +188,47 @@ def measure(case: tuple, dev: torch.device) -> dict:
             "ns_per_product": ns, "tops": 2.0 * m * k * n / ns / 1e3}
 
 
-def compare(dev: torch.device, reps: int = 4) -> list:
+def bound(case: dict) -> dict:
+    """A step's bound: the products over the peak of their type; i8_quant
+    adds per carry element |c|, max, c / s, rint and the rescale (5 FP32
+    ops)."""
+    ops = 2.0 * case["m"] * case["k"] * case["n"]
+    return probes.bound({
+        "f32": ops / probes.PEAK_F32, "i8": ops / probes.PEAK_INT8,
+        "i8_quant": ops / probes.PEAK_INT8
+        + 5.0 * case["k"] * case["n"] / probes.PEAK_F32_OPS}[case["mode"]])
+
+
+def plain_ms(case: dict, dev: torch.device) -> float:
+    w, c0 = mm.make_inputs(case["m"], case["k"], case["n"], dev)
+    nb, cl = layout(case["mode"], case["n"], case["nb"])
+    groups = case["n"] // (nb * cl)
+    return _timing.graph_step_ms(
+        lambda r: chain_reference(w, c0, case["mode"], r, groups), dev)
+
+
+def library_ms(case: dict, dev: torch.device) -> float | None:
+    """``torch.matmul`` (f32 mode) or ``torch._int_mm`` (i8) a product;
+    None for i8_quant (no single call quantises and multiplies)."""
+    if case["mode"] == "f32":
+        run = mm.matmul_chain(case, dev, torch.float32, F32_SCALE)
+    elif case["mode"] == "i8":
+        w, c0 = mm.make_inputs(case["m"], case["k"], case["n"], dev)
+        wq, k = quantised_weights(w), case["k"]
+
+        def run(reps):
+            c = torch.clamp(c0 * 100.0, -127, 127).to(torch.int8)
+            for _ in range(reps):
+                y = torch._int_mm(wq, c).to(torch.float32)
+                c = torch.clamp(mm.fold(y, k, 1e-3), -127, 127).to(
+                    torch.int8)
+            return c
+    else:
+        return None
+    return _timing.graph_step_ms(run, dev)
+
+
+def compare(dev: torch.device, reps: int = 3) -> list:
     """Every case's kernel against its plain version at ``reps`` steps;
     raises if one is outside ``tol``."""
     res = []

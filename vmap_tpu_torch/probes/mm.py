@@ -237,7 +237,51 @@ def measure(case: tuple, dev: torch.device) -> dict:
             "ns_per_product": ns, "tflops": 2.0 * m * k * n / ns / 1e3}
 
 
-def compare(dev: torch.device, reps: int = 4) -> list:
+def bound(case: dict) -> dict:
+    """A step's bound: its products over the peak of their type (the carry
+    stays on chip; the chain's inputs and output, read and written once a
+    launch, amortise to under 0.1% of a step at these reps)."""
+    ops = 2.0 * case["m"] * case["k"] * case["n"] * case["ind"]
+    return probes.bound({"f32": ops / probes.PEAK_F32,
+                         "bf16": ops / probes.PEAK_BF16,
+                         "f32_3xbf16": 3 * ops / probes.PEAK_BF16}[
+                             case["variant"]])
+
+
+def plain_ms(case: dict, dev: torch.device) -> float:
+    w, c0 = make_inputs(case["m"], case["k"], case["n"], dev)
+    ops = operands(w, case["variant"], case["ind"])
+    scale = fold_scale(case["ind"])
+    return _timing.graph_step_ms(
+        lambda r: chain_reference(ops, c0, case["variant"], r, scale), dev)
+
+
+def matmul_chain(case: dict, dev: torch.device, dt: torch.dtype,
+                 scale: float):
+    """The chain as ``torch.matmul`` calls on ``dt`` operands, a function
+    of the steps: the library call's chain (TF32 off for f32)."""
+    w, c0 = make_inputs(case["m"], case["k"], case["n"], dev)
+    ws = operands(w, "f32", case.get("ind", 1))["w"].to(dt)
+
+    def run(reps):
+        c = c0.to(dt)
+        for _ in range(reps):
+            y = torch.matmul(ws[0], c)
+            for j in range(1, ws.shape[0]):
+                y = y + torch.matmul(ws[j], c)
+            c = fold(y, case["k"], scale)
+        return c
+    return run
+
+
+def library_ms(case: dict, dev: torch.device) -> float:
+    """``torch.matmul`` a product: f32 (f32 and 3xbf16) or bf16 operands."""
+    dt = torch.bfloat16 if case["variant"] == "bf16" else torch.float32
+    return _timing.graph_step_ms(
+        matmul_chain(case, dev, dt, fold_scale(case["ind"])), dev)
+
+
+def compare(dev: torch.device, reps: int = 3) -> list:
     """Every case's kernel against its plain version on ``dev`` (CUDA) at
     ``reps`` steps; raises if one is outside ``tol``. Returns the errors."""
     res = []

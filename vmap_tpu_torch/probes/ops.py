@@ -1,0 +1,344 @@
+"""K5: the per-op cost model of K1's sections, each op chained in one launch.
+
+Counterpart of ``scripts/microbench_ops.py::_one`` and its bodies
+(``:92-170``). Each case runs ``reps`` dependent steps c <- body(c) from
+c = x0 1.0001 on the script's shapes and draws (each input from its own
+default_rng(0), uniform [0.25, 0.75), f32; T = 1280 = 10 tiles of 128):
+
+  * ``dep_fma`` c x + x and ``ind_fma`` (8 independent c (1 + 0.01 k) + x,
+    summed in order, / 8) on [8, T]: dependent against independent FMAs,
+    latency against issue;
+  * ``sigmoid`` on [8, T] and ``sincos`` sin(c) + cos(c / 2) on [96, T];
+  * ``lanesum_dot``: y = c @ m, [8, T] x [T, 128], c <- y's column 0
+    broadcast; ``strided_sum``: c <- c + 1e-6 (the sum of c's 10 column
+    tiles) in every tile;
+  * ``fwd_mm`` / ``fwd_mm_bf16``: y = w @ c, [128, 384] x [384, T] (f32, or
+    both operands rounded to bf16 with f32 sums), c <- concat(y, y, y)
+    0.33333, on K4's chain kernel (``probes.mm``: its fold is the concat);
+  * ``serial_tiles``: c <- 0.999 c + 1e-6 cp, cp the running product over
+    the tiles (cp_0 = 1).
+
+Every product the script's kernel computes is computed in full. Where the
+carry cannot see a case's work, the kernel also writes the last step's
+work to a side output: lanesum_dot's whole [8, 128] product (its carry
+keeps column 0 only), strided_sum's sum of tiles and serial_tiles' running
+products (1e-6 of the carry a step). ``compare`` holds, at 3 steps and
+elementwise, the carry, the side output, and for strided_sum /
+serial_tiles the work read back from one kernel step as
+``probes.increment`` reads it ((out - KEEP c) / 1e-6, KEEP = 1 and 0.999).
+
+Values leave f32 range in lanesum_dot (about 640x a step, within about 13
+steps) and fwd_mm (about 64x, within 21): at the script's 500 steps both
+time arithmetic on inf, as the TPU's kernel did. dep_fma and sigmoid tend
+to fixed points. So the kernels are held at a few steps and timed at the
+script's reps (the slope between reps and 4 reps, ns a step).
+``dep_fma`` against ``ind_fma`` is the script's question (is an FMA's
+cost its latency or its issue?); that pair is timed ``RUNS`` times, and
+its spread printed beside the difference.
+
+    python -m vmap_tpu_torch.probes.ops [--device cuda|cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from vmap_tpu_torch import probes
+from vmap_tpu_torch.probes import _timing, mm
+
+T, TILE = 1280, 128
+NT = T // TILE
+# the script's cases (its main's default list), their shapes and reps
+CASES = ("dep_fma", "ind_fma", "sigmoid", "sincos", "lanesum_dot",
+         "strided_sum", "fwd_mm", "fwd_mm_bf16", "serial_tiles")
+SHAPES = {"dep_fma": ((8, T),), "ind_fma": ((8, T),),
+          "sigmoid": ((8, T),), "sincos": ((96, T),),
+          "lanesum_dot": ((8, T), (T, TILE)), "strided_sum": ((8, T),),
+          "fwd_mm": ((384, T), (128, 384)),
+          "fwd_mm_bf16": ((384, T), (128, 384)), "serial_tiles": ((8, T),)}
+REPS = {"dep_fma": 4000, "ind_fma": 500, "sigmoid": 1000, "sincos": 500,
+        "lanesum_dot": 500, "strided_sum": 1000, "fwd_mm": 500,
+        "fwd_mm_bf16": 500, "serial_tiles": 1000}
+# the C kernel of each case of csrc/ops.cu (fwd_mm*: mm.cu)
+KASE = {c: i for i, c in enumerate(
+    ("dep_fma", "ind_fma", "sigmoid", "sincos", "lanesum_dot",
+     "strided_sum", "serial_tiles"))}
+# operations a step the script's ns/op divides by
+OPS_PER_STEP = {"ind_fma": 16}
+# c <- KEEP c + WORK_SCALE work
+KEEP = {"strided_sum": 1.0, "serial_tiles": 0.999}
+WORK_SCALE = 1e-6
+MM_SCALE = 0.33333
+RTOL = 1e-5           # a step, every f32 case (fwd_mm: mm.tol)
+RUNS = 5              # timings of the dep_fma / ind_fma pair
+PAIR = ("dep_fma", "ind_fma")
+
+
+def make_inputs(case: str, dev) -> list:
+    """The script's inputs: each array from its own default_rng(0),
+    uniform [0.25, 0.75), f32."""
+    return [torch.tensor(np.random.default_rng(0).random(s) * 0.5 + 0.25,
+                         dtype=torch.float32).to(dev)
+            for s in SHAPES[case]]
+
+
+def _variant(case: str) -> str:
+    return "bf16" if case == "fwd_mm_bf16" else "f32"
+
+
+def mm_operands(case: str, ins: list) -> dict:
+    """fwd_mm's loop-invariant copies of w (``mm.operands``, one product)."""
+    return mm.operands(ins[1], _variant(case), 1)
+
+
+def via_f64(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn(x) taken in f64 and rounded once to f32: the correctly rounded
+    value, on every device and thread count. torch's multithreaded f32
+    sin / cos on the CPU were seen to return values 7.5e-5 off on part of
+    a [96, 1280] array in some processes, none importing jax (cause not
+    found), so the value a kernel is held to is not taken from them."""
+    return fn(x.double()).float()
+
+
+def _tiles(c: torch.Tensor) -> list:
+    return [c[:, s * TILE:(s + 1) * TILE] for s in range(NT)]
+
+
+def step_reference(case: str, ins: list, c: torch.Tensor,
+                   exact: bool = True) -> tuple:
+    """One step of the script's body: (the next carry, the step's work
+    where the carry cannot see it, else None). ``exact`` (the value the
+    kernels are held to): sigmoid, sin and cos taken in f64 and rounded
+    once (``via_f64``); otherwise torch's f32 functions (the plain chain
+    that is timed)."""
+    x = ins[0]
+    f32 = via_f64 if exact else (lambda fn, v: fn(v))
+    if case == "dep_fma":
+        return c * x + x, None
+    if case == "ind_fma":
+        outs = [c * np.float32(1.0 + 0.01 * k) + x for k in range(8)]
+        s = outs[0]
+        for o in outs[1:]:
+            s = s + o
+        return s * 0.125, None
+    if case == "sigmoid":
+        return f32(torch.sigmoid, c), None
+    if case == "sincos":
+        return f32(torch.sin, c) + f32(torch.cos, c * 0.5), None
+    if case == "lanesum_dot":
+        y = c @ ins[1]
+        return y[:, :1].expand_as(c).contiguous(), y
+    if case == "strided_sum":
+        tiles = _tiles(c)
+        acc = tiles[0]
+        for t in tiles[1:]:
+            acc = acc + t
+        return c + torch.cat([acc] * NT, 1) * WORK_SCALE, acc
+    if case == "serial_tiles":
+        cp = torch.ones_like(c[:, :TILE])
+        outs = []
+        for t in _tiles(c):
+            outs.append(cp)
+            cp = cp * t
+        work = torch.cat(outs, 1)
+        return c * KEEP[case] + work * WORK_SCALE, work
+    return mm.chain_reference(mm_operands(case, ins), c, _variant(case), 1,
+                              MM_SCALE), None
+
+
+def increment_of(case: str, work: torch.Tensor) -> torch.Tensor:
+    """The increment (over WORK_SCALE) a strided_sum / serial_tiles step
+    adds to the carry, from the step's work."""
+    return torch.cat([work] * NT, 1) if case == "strided_sum" else work
+
+
+def chain_reference(case: str, ins: list, reps: int,
+                    exact: bool = True) -> tuple:
+    """Plain version: (the last carry, the last step's work or None), from
+    c0 = x0 1.0001 (``exact``: as ``step_reference``)."""
+    c, work = ins[0] * 1.0001, None
+    if case.startswith("fwd_mm"):
+        return mm.chain_reference(mm_operands(case, ins), c, _variant(case),
+                                  reps, MM_SCALE), None
+    for _ in range(reps):
+        c, work = step_reference(case, ins, c, exact)
+    return c, work
+
+
+def launch(case: str, ins: list, reps: int) -> tuple:
+    """The case's kernel on CUDA tensors (csrc/ops.cu; fwd_mm* mm.cu):
+    (the last carry, the side output or None)."""
+    for t, shape in zip(ins, SHAPES[case]):
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"{case}: input {tuple(t.shape)} {t.dtype}, "
+                             f"expected f32 {shape}")
+    if case.startswith("fwd_mm"):
+        out = mm.launch(mm_operands(case, ins), ins[0] * 1.0001,
+                        _variant(case), reps, MM_SCALE, mm.SCRIPT_NB,
+                        counter="ops")
+        return out, None
+    x = ins[0].contiguous()
+    m = ins[1].contiguous() if case == "lanesum_dot" else None
+    dev = probes.check_cuda(x, *([m] if m is not None else []))
+    out = torch.empty_like(x)
+    side = {"lanesum_dot": (8, TILE), "strided_sum": (8, TILE),
+            "serial_tiles": (8, T)}.get(case)
+    side = None if side is None else torch.empty(side, device=dev)
+    code = probes.LIBRARY.load().vmap_probe_ops(
+        KASE[case], probes.ptr(x), probes.ptr(m), probes.ptr(out),
+        probes.ptr(side), x.shape[0], reps, probes.stream(dev))
+    probes.LIBRARY.check(code, f"ops probe ({case}) launch")
+    probes.LAUNCHES["ops"] += 1
+    return out, side
+
+
+def chain(case: str, ins: list, reps: int) -> tuple:
+    """The chain: the plain version on CPU tensors, the kernel on CUDA."""
+    if ins[0].device.type == "cpu":
+        return chain_reference(case, ins, reps)
+    return launch(case, ins, reps)
+
+
+def tol(case: str, reps: int) -> float:
+    """rtol of the carry and the side output: 1e-5 a step (FMA against
+    separate roundings, accurate expf / sinf / cosf against torch's, sums
+    in another order); fwd_mm as K4 (``mm.tol``)."""
+    if case.startswith("fwd_mm"):
+        return mm.tol(_variant(case), reps)
+    return RTOL * reps
+
+
+def compare(dev: torch.device, reps: int = 3) -> list:
+    """Every case's kernel against its plain version at ``reps`` steps:
+    the whole last carry and side output within ``tol``; for strided_sum /
+    serial_tiles also the work read from one kernel step (within
+    ``probes.increment``'s bound plus rtol 1e-5). Raises if one is
+    outside; returns the errors."""
+    res = []
+    for case in CASES:
+        ins = make_inputs(case, dev)
+        got, got_w = launch(case, ins, reps)
+        want, want_w = chain_reference(case, ins, reps)
+        res.append(probes.held(case, got, want, tol(case, reps)))
+        if want_w is not None:
+            res.append(probes.held(f"{case} side", got_w, want_w,
+                                   tol(case, reps)))
+        if case in KEEP:
+            c0 = ins[0] * 1.0001
+            inc, atol = probes.increment(KEEP[case], WORK_SCALE, c0,
+                                         launch(case, ins, 1)[0])
+            want_inc = increment_of(case, step_reference(case, ins, c0)[1])
+            res.append(probes.held(f"{case} increment", inc, want_inc, RTOL,
+                                   atol))
+    return res
+
+
+def bound(case: dict) -> dict:
+    """A step's bound: FP32 instructions and SFU results of the
+    elementwise cases (ind_fma 8 FMAs, 7 adds, 1 mul an element;
+    strided_sum 9 adds and 10 FMAs, serial_tiles 9 muls, 10 muls and 10
+    FMAs per column-mod-128 group of a row, 1024 groups; sincos sin, cos
+    and 2 FP32 ops), the products' flops over FP32's or bf16's peak."""
+    n8, n96 = 8 * T, 96 * T
+    fp, sfu, mma = {
+        "dep_fma": (n8, 0, 0), "ind_fma": (16 * n8, 0, 0),
+        "sigmoid": (0, 2 * n8, 0), "sincos": (2 * n96, 2 * n96, 0),
+        "lanesum_dot": (0, 0, 2.0 * 8 * T * TILE),
+        "strided_sum": (19 * 1024, 0, 0),
+        "serial_tiles": (29 * 1024, 0, 0),
+        "fwd_mm": (0, 0, 2.0 * 128 * 384 * T),
+        "fwd_mm_bf16": (0, 0, 2.0 * 128 * 384 * T)}[case["case"]]
+    peak = (probes.PEAK_BF16 if case["case"] == "fwd_mm_bf16"
+            else probes.PEAK_F32)
+    return probes.bound(max(fp / probes.PEAK_F32_OPS, sfu / probes.PEAK_SFU,
+                            mma / peak))
+
+
+def plain_ms(case: dict, dev: torch.device) -> float:
+    """The plain chain (``exact`` off: torch's f32 sigmoid / sin / cos) a
+    step."""
+    ins = make_inputs(case["case"], dev)
+    return _timing.graph_step_ms(
+        lambda r: chain_reference(case["case"], ins, r, exact=False)[0], dev)
+
+
+def library_ms(case: dict, dev: torch.device) -> float | None:
+    """One PyTorch call a step: ``torch.sigmoid`` (sigmoid) or
+    ``torch.matmul`` (lanesum_dot; fwd_mm on f32 or bf16 operands, TF32
+    off). None for the others: no single call computes their step."""
+    name = case["case"]
+    if name not in ("sigmoid", "lanesum_dot", "fwd_mm", "fwd_mm_bf16"):
+        return None
+    ins = make_inputs(name, dev)
+    dt = torch.bfloat16 if name == "fwd_mm_bf16" else torch.float32
+    w = ins[-1].to(dt)
+
+    def run(reps):
+        c = (ins[0] * 1.0001).to(dt)
+        for _ in range(reps):
+            if name == "sigmoid":
+                c = torch.sigmoid(c)
+            elif name == "lanesum_dot":
+                c = torch.matmul(c, w)[:, :1].expand(8, T)
+            else:
+                c = mm.fold(torch.matmul(w, c), 384, MM_SCALE)
+        return c
+    return _timing.graph_step_ms(run, dev)
+
+
+def measure(case: str, dev: torch.device) -> dict:
+    ins = make_inputs(case, dev)
+    reps = REPS[case]
+    sl = _timing.slope(lambda r: chain(case, ins, r), reps, 4 * reps, dev)
+    return {"case": case, "reps": (reps, 4 * reps), **sl,
+            "ns_per_op": sl["step_ns"] / OPS_PER_STEP.get(case, 1)}
+
+
+def _pair(dev: torch.device) -> dict:
+    """dep_fma and ind_fma, each timed RUNS times in turns: the median run
+    of each, with every run's slope."""
+    runs = {case: [] for case in PAIR}
+    for _ in range(RUNS):
+        for case in PAIR:
+            runs[case].append(measure(case, dev))
+    out = {}
+    for case, rs in runs.items():
+        rs = sorted(rs, key=lambda r: r["step_ns"])
+        out[case] = {**rs[len(rs) // 2],
+                     "ns_per_op_runs": [r["ns_per_op"] for r in rs]}
+    return out
+
+
+def main(argv=None) -> list:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    dev = probes.device_from_arg(args.device)
+    print(f"device: {_timing.device_label(dev)}", flush=True)
+    pair = _pair(dev)
+    out = []
+    for case in CASES:
+        r = pair.get(case) or measure(case, dev)
+        spread = ""
+        if "ns_per_op_runs" in r:
+            each = r["ns_per_op_runs"]
+            spread = (f" (median of {len(each)}, runs {min(each):.3f}-"
+                      f"{max(each):.3f})")
+        print(f"{case} {'x'.join(map(str, SHAPES[case][0]))}: "
+              f"{r['step_ns']:.1f} ns a step, {r['ns_per_op']:.3f} ns/op"
+              f"{spread}", flush=True)
+        out.append(r)
+    dep, ind = (pair[c]["ns_per_op_runs"] for c in PAIR)
+    gap = float(np.median(dep) - np.median(ind))
+    noise = max(max(dep) - min(dep), max(ind) - min(ind))
+    verdict = "exceeds" if abs(gap) > noise else "is within"
+    print(f"dep_fma - ind_fma: {gap:.3f} ns/op, which {verdict} the larger "
+          f"spread of the {RUNS} runs ({noise:.3f})", flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

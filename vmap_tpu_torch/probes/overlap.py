@@ -138,7 +138,28 @@ def overlap_fraction(slopes: dict, balanced: bool = False) -> float:
             / min(slopes[vpu], slopes["mxu"]))
 
 
-def compare(dev: torch.device, reps: int = 4) -> list:
+def bound(case: dict) -> dict:
+    """A step's bound: 14 FP32 operations a vpu round on [8, T]; the two
+    3xbf16 products."""
+    mode = case["case"]
+    vpu = 8 * T * 14 * ROUNDS[mode] / probes.PEAK_F32_OPS
+    mxu = (2 * 3 * 2.0 * 128 * 128 * T / probes.PEAK_BF16
+           if mode in ("mxu", "both", "both_bal") else 0.0)
+    return probes.bound(max(vpu, mxu))
+
+
+def plain_ms(case: dict, dev: torch.device) -> float:
+    x = make_inputs(dev)
+    return _timing.graph_step_ms(
+        lambda r: chain_reference(x, case["case"], r), dev)
+
+
+def library_ms(case: dict, dev: torch.device) -> None:
+    """None: no single PyTorch call computes both chains."""
+    return None
+
+
+def compare(dev: torch.device, reps: int = 3) -> list:
     """Each mode's kernel against its plain version at ``reps`` steps (both
     chains' last values); raises if one is outside ``tol``."""
     x = make_inputs(dev)

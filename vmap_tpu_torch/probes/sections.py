@@ -70,23 +70,12 @@ def tol(case: str, reps: int) -> float:
     return 1e-5 * reps if case.startswith("emb") else 1e-5
 
 
-def _ulp(x: torch.Tensor) -> torch.Tensor:
-    """The f32 spacing at |x|, as f64."""
-    a = x.float().abs()
-    return (torch.nextafter(a, torch.full_like(a, math.inf)) - a).double()
-
-
 def increment(case: str, c: torch.Tensor, out: torch.Tensor) -> tuple:
-    """The section's output as one step c -> out shows it: ((out - KEEP c)
-    / 1e-6 in f64, with KEEP and 1e-6 the f32 constants the step uses, and
-    the bound of its error from the step's f32 roundings, (ulp(out) +
-    ulp(KEEP c)) / 1e-6, elementwise: 0.03-0.12 at these inputs, against
-    sections of about 1-100)."""
-    keep = float(np.float32(KEEP[case]))
-    scale = float(np.float32(SECTION_SCALE))
-    kc = c.double() * keep
-    inc = (out.double() - kc) / scale
-    return inc, (_ulp(out) + _ulp(kc)) / scale
+    """The section's output as one step c -> out shows it
+    (``probes.increment`` with the case's KEEP and 1e-6: the bound of its
+    error from the step's f32 roundings is 0.03-0.12 at these inputs,
+    against sections of about 1-100)."""
+    return probes.increment(KEEP[case], SECTION_SCALE, c, out)
 
 
 def make_inputs(case: str, dev) -> list:
@@ -283,7 +272,32 @@ def measure(case: str, dev: torch.device) -> dict:
     return {"case": case, "reps": (BASE_REPS, 4 * BASE_REPS), **sl}
 
 
-def compare(dev: torch.device, reps: int = 4) -> list:
+def bound(case: dict) -> dict:
+    """A step's bound, counted from csrc/sections.cu: per render sample 35
+    FP32 ops and 2 exp + 3 reciprocals; per emb column 2 x 2 x 128 x 384
+    flops; per ladder element 2 sin / cos (ladder) or 12 (sinpi) and 34
+    ops (22)."""
+    fp, sfu = {
+        "render": (35.0 * OG * T, 5.0 * OG * T),
+        "emb_cat": (2 * 128 * 384 * T, 0.0),
+        "emb_split": (2 * 128 * 384 * T, 0.0),
+        "ladder": (34.0 * 96 * T, 2.0 * 96 * T),
+        "ladder_sinpi": (22.0 * 96 * T, 12.0 * 96 * T)}[case["case"]]
+    return probes.bound(max(fp / probes.PEAK_F32_OPS, sfu / probes.PEAK_SFU))
+
+
+def plain_ms(case: dict, dev: torch.device) -> float:
+    ins = make_inputs(case["case"], dev)
+    return _timing.graph_step_ms(
+        lambda r: chain_reference(case["case"], ins, r), dev)
+
+
+def library_ms(case: dict, dev: torch.device) -> None:
+    """None: no single PyTorch call computes a section."""
+    return None
+
+
+def compare(dev: torch.device, reps: int = 3) -> list:
     """Every case's kernel against its plain version at ``reps`` steps
     (within ``tol``), and each emb / ladder section, read from one step of
     the kernel, against the plain section (within ``increment``'s bound
