@@ -9,8 +9,9 @@ Phases, in order (any failure raises and the script exits non-zero):
   3. train-frame kernels against plain on the card, at the object shape
      (104 slots, 100 active, h=32, 120 rays x 10 samples), the
      background shape (1 slot, h=128, 1200 rays x 14 samples) and the
-     iMAP shape (1 slot, h=256, 4800 rays x 14 samples; its scratch of
-     partial gradient rows is printed): each kernel alone (one
+     iMAP shape (1 slot, h=256, 4800 rays x 14 samples; each float
+     instance's tile points, rows per slot, scratch of partial gradient
+     rows and dynamic shared memory are printed): each kernel alone (one
      iteration's gradient, one AdamW step), then whole frames at n_iter=1
      (losses / parameters / moments within rtol 2e-3) and at n_iter=20
      (finite; final summed loss within rtol 0.25); inactive slots
@@ -115,12 +116,19 @@ its bytes over 3.35 TB/s and its operations over the peak of their type:
 67 TFLOP/s FP32, 989 TFLOP/s bf16, 1979 TOP/s int8; elementwise FP32 and
 packed bf16 at 128 and 256 results per SM a clock, the SFU at 16; K6's
 distinct source bytes over 3.35 TB/s, or a copy's 4 KB into one SM's
-shared memory at 128 B a clock), computed from this run's shapes.
+shared memory at 128 B a clock), computed from this run's shapes; K1's
+float policies on the route their kernel takes, their bf16 tensor-core
+passes (``grad_bound``: float32 three, bwd_bf16's forward six).
 Prints that JSON line of per-kernel results, the nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}; before them it checks that
 neither jax nor any module of the JAX package ``vmap_tpu`` was imported.
 Without CUDA it exits non-zero and prints no result. Scratch output goes
 to smoke_out/ (gitignored).
+
+    python3 chip_smoke.py --sections
+
+times the float-policy train_grad's sections at phase 3's shapes in
+place of the phases (``k1_sections``).
 """
 
 from __future__ import annotations
@@ -197,16 +205,18 @@ def mlp_macs(hidden: int) -> int:
 
 
 def policy_rates(policy: str) -> tuple:
-    """(forward, backward) peak of the MLP products' operands under a K1
-    matmul ``policy``: "bwd_bf16" runs the backward products on bf16
-    operands, "bfloat16" the forward ones too; the int8 policies run the
-    forward on s8 operands, and the backward too unless they are *_fwd
-    (the card's published peaks, ``vmap_tpu_torch.probes``)."""
-    from vmap_tpu_torch.probes import PEAK_BF16, PEAK_F32, PEAK_INT8
+    """(forward, backward) peak of the products' operands under a matmul
+    ``policy`` run on the FMA pipe or s8 tensor cores: f32 for "float32";
+    the int8 policies run the forward on s8 operands, and the backward too
+    unless they are *_fwd (the card's published peaks,
+    ``vmap_tpu_torch.probes``). K1's float policies run on bf16 tensor
+    cores: ``grad_bound``'s ``PASSES``."""
+    from vmap_tpu_torch.probes import PEAK_F32, PEAK_INT8
     if policy in INT8_POLICIES:
         return PEAK_INT8, PEAK_F32 if policy.endswith("_fwd") else PEAK_INT8
-    return (PEAK_BF16 if policy == "bfloat16" else PEAK_F32,
-            PEAK_F32 if policy == "float32" else PEAK_BF16)
+    if policy != "float32":
+        raise ValueError(f"no FMA-pipe rate for {policy!r}")
+    return PEAK_F32, PEAK_F32
 
 
 def bound(nbytes: float, fwd_flops: float = 0.0, bwd_flops: float = 0.0,
@@ -224,26 +234,44 @@ def bound(nbytes: float, fwd_flops: float = 0.0, bwd_flops: float = 0.0,
             "library_ms": None}
 
 
-def grad_bound(bank, n_per: int, S: int, policy: str = "float32") -> dict:
+# the bf16 tensor-core passes of each float policy's forward and backward
+# products in train_grad (csrc/train_step.cu fwd_pieces / bwd_pieces: two
+# pieces a pass pair but the small one, three pieces six passes)
+PASSES = {"float32": (3, 3), "bwd_bf16": (6, 1), "bfloat16": (1, 1)}
+
+
+def grad_bound(bank, n_per: int, S: int, policy: str = "float32",
+               fp32_rate: bool = False) -> dict:
     """train_grad's bound for one iteration (launch): the work of the
     function, one gradient of the active slots, whatever the kernel's own
     scratch. Products: the active slots' points through the forward and
     the backward's two (weight and input gradients). Bytes: the active
     slots' parameters, their rays (origin and direction 6, depth, colour
     and masks 7, S z samples) and their loss normalisers and scale in,
-    one gradient row and a loss per active slot out. The PE's projection
-    and its gradient run in f32 under every policy but the bf16 ones,
-    whose gradient products round them too (they are 63 of about 11,000
-    multiply-adds per point at h=32)."""
+    one gradient row and a loss per active slot out. A float policy's
+    products are bounded on the route the kernel takes, its ``PASSES`` of
+    bf16 tensor-core products (float32's f32-accurate products at 989 / 3
+    TFLOP/s); the PE's projection and its gradient (63 of about 11,000
+    multiply-adds a point at h=32), which it runs on the FMA pipe, at the
+    FP32 rate. ``fp32_rate``: the products at the FP32 rate instead (the
+    phase-3 log's second figure). An int8 policy: its products at the
+    peak of their operands (``policy_rates``)."""
+    from vmap_tpu_torch.probes import PEAK_BF16, PEAK_BYTES, PEAK_F32
     n_act = int(bank.active.sum())
     n_params = bank.spec.n_params
     pts = n_act * n_per * S
     fwd = 2.0 * (mlp_macs(bank.spec.hidden) - PE_MACS) * pts
     pe = 2.0 * PE_MACS * pts
     nbytes = 4 * n_act * (2 * n_params + n_per * (6 + 7 + S) + 5)
-    if policy in BF16_POLICIES:
-        return bound(nbytes, fwd + pe, 2 * (fwd + pe), policy)
-    return bound(nbytes, fwd, 2 * fwd, policy, f32_flops=3 * pe)
+    if policy in INT8_POLICIES or fp32_rate:
+        return bound(nbytes, fwd, 2 * fwd, "float32" if fp32_rate else policy,
+                     f32_flops=3 * pe)
+    pf, pb = PASSES[policy]
+    t_ops = (pf + 2 * pb) * fwd / PEAK_BF16 + 3 * pe / PEAK_F32
+    t_mem = nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_mem) * 1e3,
+            "bound_by": "operations" if t_ops >= t_mem else "bytes",
+            "library_ms": None}
 
 
 def adamw_bound(bank) -> dict:
@@ -316,7 +344,7 @@ def check_kernels(dev, stats: dict, shapes=SHAPES) -> None:
         fl = K.FrameLaunch(bank, batch, 1, n_per, CS, OSC)
         fl.grad(bank.flat, 0)
         act = bank.active              # inactive slots' partials are unset
-        g_k = fl.grad_part[act].sum(dim=1)
+        g_k = fl.grad_part[act][..., fl.row_index].sum(dim=1)
         gscale = float(g_ref.abs().max())
         err_g = rel_close(g_k, g_ref[act], RTOL_SEM, 1e-4 * gscale,
                           f"{name} train_grad gradient")
@@ -324,7 +352,7 @@ def check_kernels(dev, stats: dict, shapes=SHAPES) -> None:
                   f"{name} train_grad per-slot loss")
         # kernel B alone: AdamW on the same reference gradient
         fl.grad_part.zero_()
-        fl.grad_part[:, 0] = g_ref
+        fl.grad_part[:, 0, fl.row_index] = g_ref
         p, m, v = bank.flat.clone(), bank.m.clone(), bank.v.clone()
         losses = torch.empty(cap, 1, device=dev)
         fl.adamw(p, m, v, losses, 0, LR, WD)
@@ -338,19 +366,32 @@ def check_kernels(dev, stats: dict, shapes=SHAPES) -> None:
                                             (m, ref.m, "m"),
                                             (v, ref.v, "v")))
         assert torch.equal(p[inact], bank.flat[inact]), "inactive p moved"
+        assert torch.equal(fl.ws, K.stage_weights(p, bank.spec)), \
+            f"{name}: train_adamw's staged weights are not the update's"
         geom = fl.geom
+        smem = K.float_smem_bytes(h, geom.rays_per_tile, S)   # float32
         key = f"{name}/float32"
         stats.setdefault("train_grad", {})[key] = {
             "max_abs_err": err_g, "blocks_per_slot": geom.blocks,
             "n_tiles": geom.n_tiles, "scratch_bytes": geom.scratch_bytes,
+            "tile_points": geom.rays_per_tile * S, "smem_bytes": smem,
             **grad_bound(bank, n_per, S)}
         stats.setdefault("train_adamw", {})[name] = {
             "max_abs_err": err_b, **adamw_bound(bank)}
         log(f"[3] {name}: train_grad geometry {geom.rays_per_tile} rays per "
-            f"tile, {geom.n_tiles} tiles over {geom.blocks} blocks per "
-            f"slot; partial-gradient scratch {geom.rows} rows, "
-            f"{geom.scratch_bytes} bytes ({geom.scratch_bytes / 2**20:.1f} "
-            "MiB)")
+            f"tile ({geom.rays_per_tile * S} points), {geom.n_tiles} tiles "
+            f"over {geom.blocks} blocks per slot; partial-gradient scratch "
+            f"{geom.rows} rows, {geom.scratch_bytes} bytes "
+            f"({geom.scratch_bytes / 2**20:.1f} MiB); dynamic shared memory "
+            f"{smem} bytes a block")
+        # the other float instances' plans at this shape (phase 10 runs
+        # them): the same tile, their own slabs
+        for pol in BF16_POLICIES:
+            g = K.frame_geometry(h, S, n_per, cap, pol)
+            log(f"[3] {name}/{pol}: {g.rays_per_tile * S} points a tile, "
+                f"{g.blocks} blocks per slot, scratch {g.scratch_bytes} "
+                f"bytes, dynamic shared memory "
+                f"{K.float_smem_bytes(h, g.rays_per_tile, S, pol)} bytes")
 
         # per-kernel times at this shape, against the plain version
         sl = K._slice_iter(batch, 0, n_per)
@@ -367,7 +408,9 @@ def check_kernels(dev, stats: dict, shapes=SHAPES) -> None:
             f"{err_b:.3e}; ms kernel/plain/bound: grad "
             f"{stats['train_grad'][key]['ms']:.4f}/"
             f"{stats['train_grad'][key]['plain_ms']:.4f}/"
-            f"{stats['train_grad'][key]['bound_ms']:.4f}, adamw "
+            f"{stats['train_grad'][key]['bound_ms']:.4f} (FP32 rate "
+            f"{grad_bound(bank, n_per, S, fp32_rate=True)['bound_ms']:.4f})"
+            f", adamw "
             f"{stats['train_adamw'][name]['ms']:.4f}/"
             f"{stats['train_adamw'][name]['plain_ms']:.4f}/"
             f"{stats['train_adamw'][name]['bound_ms']:.4f}")
@@ -376,6 +419,58 @@ def check_kernels(dev, stats: dict, shapes=SHAPES) -> None:
         frame_tiers("3", name, bank, S, n_per, dev,
                     lambda bank, batch, n_iter: K.fused_frame(
                         bank, batch, n_iter, n_per, LR, WD, CS, OSC))
+
+
+SECTIONS = ("pe", "forward", "render", "weight_grads", "input_grads",
+            "rest")
+
+
+def k1_sections(dev, gpu: str) -> None:
+    """``--sections``: where a float-policy train_grad launch spends its
+    time, at phase 3's shapes, banks and batches, under each float policy.
+    The kernel library is built once more with ``-DK1_PROFILE``
+    (``csrc/train_step.cu`` K1_MARK; the library the port runs never has
+    the counters): block (0, 0)'s thread 0 then adds the clocks of each
+    section of every tile it runs, the block synchronised at both ends of
+    a section: points and PE, the forward products, render and losses, the
+    weight gradients, the input gradients, and the rest (bias gradients,
+    band folds, activation reloads, the dirs gradient). The
+    synchronisation adds its own wait to each section, so the launch runs
+    slower than the port's; the shares are what this reads. Prints one
+    JSON line per (shape, policy): ms a launch (``time_cuda``, 10), the
+    tiles of block 0, its clocks a tile and each section's share."""
+    import ctypes
+    import torch
+    from vmap_tpu_torch.kernels import _build
+    from vmap_tpu_torch.kernels import train_step as K
+    t0 = time.perf_counter()
+    lib = _build.KERNELS.load(defines=("K1_PROFILE",))
+    lib.vmap_k1_profile.argtypes = [ctypes.c_void_p]
+    lib.vmap_k1_profile.restype = ctypes.c_int
+    log(f"[sections] built the K1_PROFILE library in "
+        f"{time.perf_counter() - t0:.1f} s")
+    clocks = (ctypes.c_ulonglong * 8)()
+    for policy in POLICIES[:3]:
+        for name, cap, n_act, h, n_per, S, scale in SHAPES:
+            bank = conditioned_bank(cap, n_act, h, scale, 0, dev)
+            fl = K.FrameLaunch(bank, random_batch(cap, n_per, S, 1, dev), 1,
+                               n_per, CS, OSC, policy, lib=lib)
+            torch.cuda.synchronize()
+            _build.check(lib, lib.vmap_k1_profile(clocks), "zero clocks")
+            ms = time_cuda(lambda: fl.grad(bank.flat, 0), 10)
+            _build.check(lib, lib.vmap_k1_profile(clocks), "read clocks")
+            g = fl.geom
+            tiles = -(-g.n_tiles // g.blocks)    # of block 0, a launch
+            total = sum(clocks[:len(SECTIONS)])
+            print(json.dumps({
+                "gpu": gpu, "shape": name, "policy": policy, "hidden": h,
+                "tile_points": g.rays_per_tile * S,
+                "blocks_per_slot": g.blocks, "ms": ms,
+                "tiles_of_block0": tiles,
+                # time_cuda's warm-up launch and its 10
+                "clocks_a_tile": total / (11 * tiles),
+                "share": {sec: clocks[i] / max(total, 1)
+                          for i, sec in enumerate(SECTIONS)}}), flush=True)
 
 
 def frame_tiers(phase, name, bank, S, n_per, dev, kernel_frame) -> None:
@@ -1362,7 +1457,6 @@ def check_policies(dev, stats: dict, shapes=SHAPES,
     import torch
     from vmap_tpu_torch.kernels import train_step as K
     from vmap_tpu_torch.ops import quant as Q
-    from vmap_tpu_torch.ops.mlp import bf16_round
     failures: list = []
     for name, cap, n_act, h, n_per, S, scale in shapes:
         bank = conditioned_bank(cap, n_act, h, scale, 0, dev)
@@ -1377,10 +1471,10 @@ def check_policies(dev, stats: dict, shapes=SHAPES,
                                               policy=policy), 20)
             res.update(grad_bound(bank, n_per, S, policy))
             stats.setdefault("train_grad", {})[f"{name}/{policy}"] = res
-            # train_adamw keeps the rounded weights that train_grad reads
-            # under a bf16 policy: after an update they are the updated
-            # parameters rounded to bf16; under an int8 policy
-            # train_quant_w makes the quantised copy from them
+            # train_adamw keeps the staged bf16 hi / lo weights that
+            # train_grad reads under a float policy: after an update they
+            # are the updated parameters' (K.stage_weights); under an int8
+            # policy train_quant_w makes the quantised copy from them
             p, m, v = (t.clone() for t in (bank.flat, bank.m, bank.v))
             fl.grad(p, 0)
             fl.adamw(p, m, v, torch.empty(cap, 1, device=dev), 0, LR, WD)
@@ -1398,9 +1492,9 @@ def check_policies(dev, stats: dict, shapes=SHAPES,
                         "ms": time_cuda(lambda: fl.quant_weights(p), 50),
                         "plain_ms": time_cuda(
                             lambda: Q.quant_weights(w, h), 50)}
-            elif not (torch.equal(fl.wr, bf16_round(p))
+            elif not (torch.equal(fl.ws, K.stage_weights(p, bank.spec))
                       and not torch.equal(p, bank.flat)):
-                failures.append(f"{name}/{policy}: train_adamw's rounded "
+                failures.append(f"{name}/{policy}: train_adamw's staged "
                                 "copy is not the updated parameters'")
             log(f"[{phase}] {name}/{policy}: train_grad ms kernel/plain/bound "
                 f"{res['ms']:.4f}/{res['plain_ms']:.4f}/"
@@ -1814,6 +1908,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", nargs="+", type=int,
                     default=list(range(1, 13)),
                     help="phases to run (default all: 1 2 ... 12)")
+    ap.add_argument("--sections", action="store_true",
+                    help="in place of the phases: time the float-policy "
+                    "train_grad's sections (k1_sections)")
     args = ap.parse_args(argv)
     phases = set(args.phases)
     if not os.path.isdir(os.path.join(REPO, "vmap_tpu_torch", "kernels",
@@ -1836,6 +1933,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     gpu = gpu_line()
     log(f"[1] {gpu}; torch {torch.__version__} cuda {torch.version.cuda}")
+    if args.sections:
+        k1_sections(dev, gpu)
+        return 0
 
     # 2. build
     from vmap_tpu_torch.kernels import _build

@@ -198,9 +198,9 @@ def test_imap_cli_meshes_checkpoints_and_resumes(tmp_path):
 
 # ----------------------------------------------------- launch geometry
 def _smem_bytes(hidden, rt, S):
-    """Shared memory of one train_grad block (csrc/train_step.cu
-    grad_smem_bytes): (EMB + 2 NDIR + 5 h + 8) rows of the odd stride,
-    plus the per-ray losses."""
+    """Shared memory of one int8 train_grad block's tile (csrc/
+    train_step.cuh grad_smem_bytes): (EMB + 2 NDIR + 5 h + 8) rows of the
+    odd stride, plus the per-ray losses."""
     return 4 * (((rt * S) | 1) * (129 + 42 + 5 * hidden + 8) + rt)
 
 
@@ -208,9 +208,11 @@ def test_imap_geometry_bounds_the_scratch():
     """At the full iMAP shape (h=256, 14 samples, 4800 rays, one slot) the
     partial-gradient rows are bounded by the SM count: <= 512 MiB."""
     g = K.frame_geometry(256, 14, 4800, 1)
-    assert g.rays_per_tile == 2 and g.n_tiles == 2400
+    assert g.rays_per_tile == 4 and g.n_tiles == 1200
     assert g.blocks == g.rows == K.GRID_SMS == 132
-    assert g.scratch_bytes == 132 * 319811 * 4 <= 512 << 20
+    # each block's partial row (staged weights, then dirs and biases) and
+    # activation scratch (h1..h3 of 56 points at stride 57)
+    assert g.scratch_bytes == 132 * (333136 + 3 * 256 * 57) * 4 <= 512 << 20
     # more rays do not grow it
     assert K.frame_geometry(256, 14, 48000, 1).scratch_bytes == \
         g.scratch_bytes
@@ -222,7 +224,7 @@ def test_vmap_geometry_is_one_block_per_tile():
     obj = K.frame_geometry(32, 10, 120, 104)
     assert (obj.rays_per_tile, obj.n_tiles, obj.blocks, obj.rows) == \
         (6, 20, 20, 2080)
-    assert obj.scratch_bytes == 2080 * 11363 * 4
+    assert obj.scratch_bytes == 2080 * (13040 + 3 * 32 * 61) * 4
     bg = K.frame_geometry(128, 14, 1200, 1)
     assert (bg.rays_per_tile, bg.n_tiles, bg.blocks, bg.rows) == \
         (4, 300, 300, 300)
@@ -235,11 +237,13 @@ def test_vmap_geometry_is_one_block_per_tile():
 def test_geometry_covers_every_ray_once(h, S, n_per, cap):
     """Block b takes tiles b, b + blocks, ... (the kernel's loop): every
     ray of the iteration lies in exactly one tile of exactly one block,
-    every block has a tile, and a tile fits the block's shared memory."""
+    every block has a tile, and a tile fits the block's shared memory
+    (the float policies' plan, float_smem_bytes)."""
     g = K.frame_geometry(h, S, n_per, cap)
     assert 1 <= g.blocks <= g.n_tiles and g.rows == cap * g.blocks
-    assert g.scratch_bytes <= max(K.SCRATCH_BUDGET,
-                                  max(cap, K.GRID_SMS) * 319811 * 4)
+    assert g.scratch_bytes <= max(
+        K.SCRATCH_BUDGET, max(cap, K.GRID_SMS) * K.block_scratch_bytes(
+            256, kernels.FLOAT_POINTS[256], 1))
     hits = np.zeros(n_per, np.int64)
     for b in range(g.blocks):
         tiles = range(b, g.n_tiles, g.blocks)
@@ -249,7 +253,7 @@ def test_geometry_covers_every_ray_once(h, S, n_per, cap):
             assert r0 < n_per                  # no tile is all padding
             hits[r0:r0 + g.rays_per_tile] += 1
     np.testing.assert_array_equal(hits, 1)
-    assert _smem_bytes(h, g.rays_per_tile, S) <= 232448
+    assert K.float_smem_bytes(h, g.rays_per_tile, S) <= 232448
 
 
 def test_max_points_fit_shared_memory():

@@ -79,6 +79,38 @@ def test_int8_policy_kernels_match_plain_on_card(cuda_device, shape):
         assert stats["train_grad"][f"{shape}/{policy}"]["ms"] > 0
 
 
+# ragged shapes for the float policies' tensor-core tile: n_per not a
+# multiple of the tile's rays (the last tile 2, 1 and 1 rays), S such that
+# the tile's points are no multiple of 16 (63, 52, 22), the last slots
+# inactive: (name, cap, n_active, hidden, rays per iteration, samples,
+# scale)
+RAGGED = (("ragged32", 5, 3, 32, 121, 9, 2.0),
+          ("ragged128", 3, 2, 128, 53, 13, 5.0),
+          ("ragged256", 2, 1, 256, 31, 11, 5.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["float32", "bwd_bf16", "bfloat16"])
+def test_float_tile_ragged_matches_plain_on_card(cuda_device, policy):
+    """K1 under each float policy at ragged shapes: float32 in phase 3's
+    tiers (the gradient alone, then frames at n_iter 1 and 20), bwd_bf16 /
+    bfloat16 in phase 10's."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    if policy == "float32":
+        stats = {}
+        chip_smoke.check_kernels(cuda_device, stats, RAGGED)
+        assert all(v["ms"] > 0 for v in stats["train_grad"].values())
+        return
+    failures = []
+    for name, cap, n_act, h, n_per, S, scale in RAGGED:
+        bank = chip_smoke.conditioned_bank(cap, n_act, h, scale, 0,
+                                           cuda_device)
+        chip_smoke.check_policy_tiers(name, bank, S, n_per, cuda_device,
+                                      policy, failures)
+    assert not failures, failures
+
+
 @pytest.mark.cuda
 def test_reuse_kernel_frame_is_bit_identical_on_card(cuda_device):
     sys.path.insert(0, REPO)

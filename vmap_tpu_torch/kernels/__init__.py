@@ -8,10 +8,12 @@ tensors a wrapper raises for a width or policy outside its kernel's; the
 Mapper checks a configuration against the kernels its path runs before
 it allocates anything on the device.
 
-``MAX_POINTS`` is the points of one train-frame ray tile per width
-(``tile_rays``). Under the int8 policies the tile is also the
-granularity of the activation and gradient scales (``ops.quant``), so the
-plain version of the frame reads the same constant.
+``MAX_POINTS`` is the points of one train-frame ray tile per width under
+the int8 policies (``tile_rays``): the tile is also the granularity of
+their activation and gradient scales (``ops.quant``), so the plain version
+of the frame reads the same constant. ``FLOAT_POINTS`` is the float
+policies' tile (``float_tile_rays``), the tensor-core tile of
+``csrc/train_step.cu``.
 """
 
 from vmap_tpu_torch.ops.mlp import POLICIES
@@ -26,23 +28,38 @@ KERNEL_POLICIES = {
     "field_fwd": ("float32",),
     "field_bwd": ("float32",),
 }
-# (rays per tile) * samples may not exceed this, per hidden size: it sets
-# the shared memory of one train_grad block (83 KB at h=32 / 120 rays x 10
-# samples, 187 KB at h=128 / 1200 rays x 14 samples, 169 KB at h=256 /
-# 4800 rays x 14 samples; at most 227 KB; the int8 tile adds 3 rows and 32
-# floats). Under the int8 policies a weight gradient sums s8 x s8 products
+# (rays per tile) * samples may not exceed this under the int8 policies,
+# per hidden size: it sets the shared memory of one int8 train_grad block
+# (83 KB at h=32 / 120 rays x 10 samples, 187 KB at h=128 / 1200 rays x 14
+# samples, 169 KB at h=256 / 4800 rays x 14 samples, then 3 rows and 32
+# floats; at most 227 KB). A weight gradient there sums s8 x s8 products
 # over one tile's points in f32, exact while points * 127^2 < 2^24: 64
 # points give 1.03 M, and a tile of more than 1040 points would break it.
 MAX_POINTS = {32: 64, 128: 56, 256: 38}
+# the float policies' tile (csrc/train_step.cu Tile<H>::FP): its f32
+# activations beside the slabs of staged weights (kernels/train_step.py
+# float_smem_bytes) within the 227 KB a block may use at every S <= 32;
+# the products pad it to whole 16-point steps
+FLOAT_POINTS = {32: 64, 128: 56, 256: 56}
+
+
+def _rays(table: dict, hidden: int, n_samples: int) -> int:
+    wider = [h for h in sorted(table) if h >= hidden]
+    points = table[wider[0] if wider else max(table)]
+    return max(1, points // n_samples)
 
 
 def tile_rays(hidden: int, n_samples: int) -> int:
-    """Whole rays per train_grad tile. A width without a kernel (the plain
-    version at a test's width) takes the tile of the next wider kernel
-    width, or of the widest."""
-    wider = [h for h in sorted(MAX_POINTS) if h >= hidden]
-    points = MAX_POINTS[wider[0] if wider else max(MAX_POINTS)]
-    return max(1, points // n_samples)
+    """Whole rays per train_grad tile under the int8 policies. A width
+    without a kernel (the plain version at a test's width) takes the tile
+    of the next wider kernel width, or of the widest."""
+    return _rays(MAX_POINTS, hidden, n_samples)
+
+
+def float_tile_rays(hidden: int, n_samples: int) -> int:
+    """Whole rays per train_grad tile under the float policies (the next
+    wider kernel width's, as ``tile_rays``)."""
+    return _rays(FLOAT_POINTS, hidden, n_samples)
 
 
 def check_width(kernel: str, hidden: int, policy: str = "float32") -> None:

@@ -6,8 +6,10 @@ the C signatures of its entry points. ``Library.load()`` compiles every
 started together) and links them into one shared library with a plain C
 interface, at first use, and loads it with ``ctypes``. The build lands in
 ``<build root>/<hash>/`` (listed in ``.gitignore``), keyed by a hash of the
-sources and flags, so a second call or process reuses it. Nothing is
-compiled when the package is imported.
+sources and flags, so a second call or process reuses it; ``defines``
+(preprocessor macros, as ``K1_PROFILE`` for ``chip_smoke.py --sections``)
+give a build of their own. Nothing is compiled when the package is
+imported.
 
 Two libraries: ``KERNELS`` (``kernels/csrc``, the system's kernels K1-K3,
 ``libvmap_kernels.so``; the module-level ``build`` / ``load`` / ``check``
@@ -36,12 +38,12 @@ F = ctypes.c_float
 # C signatures of kernels/csrc/train_step.cu, train_step_q8.cu and
 # ensemble.cu
 SIGNATURES = {
-    "vmap_train_grad": ((I, I, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
-                         I, I, I, I, I, I, F, F, P), I),
+    "vmap_train_grad": ((I, I) + (P,) * 12 + (I,) * 10 + (F, F, P), I),
     "vmap_train_grad_q8": ((I, I) + (P,) * 13 + (I,) * 10 + (F, F, P), I),
     "vmap_train_quant_w": ((P, P, P, P, P, I, I, I, P), I),
-    "vmap_train_adamw": ((P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, F,
-                          P), I),
+    "vmap_train_adamw": ((P,) * 11 + (I,) * 6 + (F, F, P), I),
+    "vmap_staged_size": ((I,), I),
+    "vmap_grad_row": ((I,), I),
     "vmap_field_fwd": ((I, P, P, I, P, P, I, I, P, P, P), I),
     "vmap_field_bwd": ((I, P, P, I, P, P, P, P, I, I, I, P, P), I),
     "vmap_field_bwd_subtile": ((I,), I),
@@ -78,17 +80,18 @@ class Library:
     def sources(self) -> list[Path]:
         return sorted(self.csrc.glob("*.cu"))
 
-    def source_hash(self) -> str:
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    def source_hash(self, defines: tuple = ()) -> str:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS + _macros(defines)).encode())
         for src in self.sources() + sorted(self.csrc.glob("*.cuh")):
             h.update(src.name.encode())
             h.update(src.read_bytes())
         return h.hexdigest()[:16]
 
-    def build(self) -> tuple[Path, str]:
-        """Compile the sources if needed. Returns (library path, compiler
-        log; empty when the cached build was reused)."""
-        out_dir = self.build_root / self.source_hash()
+    def build(self, defines: tuple = ()) -> tuple[Path, str]:
+        """Compile the sources (with ``-D`` each of ``defines``) if needed.
+        Returns (library path, compiler log; empty when the cached build
+        was reused)."""
+        out_dir = self.build_root / self.source_hash(defines)
         lib = out_dir / self.name
         if lib.exists():
             return lib, ""
@@ -111,17 +114,19 @@ class Library:
         srcs = self.sources()
         with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
             objs = [os.path.join(tmp, src.stem + ".o") for src in srcs]
-            logs = run([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+            logs = run([[nvcc, *NVCC_FLAGS, *_macros(defines), "-c",
+                         str(src), "-o", obj]
                         for src, obj in zip(srcs, objs)])
             so = os.path.join(tmp, self.name)
             logs += run([[nvcc, "-shared", "-o", so, *objs]])
             os.replace(so, lib)
         return lib, "".join(logs)
 
-    def load(self) -> ctypes.CDLL:
+    def load(self, defines: tuple = ()) -> ctypes.CDLL:
         """Build (once) and load the library with typed signatures."""
-        if self.name not in _LOADED:
-            path, _ = self.build()
+        key = (self.name, tuple(defines))
+        if key not in _LOADED:
+            path, _ = self.build(defines)
             lib = ctypes.CDLL(str(path))
             for name, (argtypes, restype) in self.signatures.items():
                 fn = getattr(lib, name)
@@ -129,8 +134,8 @@ class Library:
                 fn.restype = restype
             err = lib.vmap_cuda_error_string
             err.argtypes, err.restype = [I], ctypes.c_char_p
-            _LOADED[self.name] = lib
-        return _LOADED[self.name]
+            _LOADED[key] = lib
+        return _LOADED[key]
 
     def check(self, code: int, what: str) -> None:
         """Raise if one of this library's launchers returned a CUDA error
@@ -138,7 +143,11 @@ class Library:
         check(self.load(), code, what)
 
 
-_LOADED: dict[str, ctypes.CDLL] = {}
+_LOADED: dict[tuple, ctypes.CDLL] = {}
+
+
+def _macros(defines: tuple) -> tuple:
+    return tuple(f"-D{d}" for d in defines)
 
 KERNELS = Library(Path(__file__).resolve().parent / "csrc",
                   Path(__file__).resolve().parent / "_build",

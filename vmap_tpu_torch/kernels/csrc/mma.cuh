@@ -1,0 +1,132 @@
+// Warp-level tensor-core helpers of the float train-frame tile
+// (train_step.cu): mma.sync m16n8k16 bf16 -> f32, its fragment loads
+// (32-bit shared-memory loads, ldmatrix .trans), the split of an f32
+// operand into bf16 pieces and the products of the pieces, and 16-byte
+// cp.async copies into shared memory.
+//
+// Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), with
+// g = lane / 4 and t = lane % 4; each register holds two bf16, the lower
+// column (A) or row (B) in its low half:
+//   A 16 x 16, row-major:  a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)
+//                          a3 (g+8, 2t+8..)
+//   B 16 x 8, "col":       b0 (2t..2t+1, g)  b1 (2t+8.., g)
+//   C / D 16 x 8 f32:      d0 (g, 2t)  d1 (g, 2t+1)  d2 (g+8, 2t)
+//                          d3 (g+8, 2t+1)
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc += A B with both operands given as NP bf16 pieces (split below):
+// the pieces' products down to 2^-8 (NP - 1) of the whole, the small terms
+// first. NP = 1 the one product a0 b0; 2 the three a1 b0 + a0 b1 + a0 b0;
+// 3 the six a2 b0 + a1 b1 + a0 b2 + a1 b0 + a0 b1 + a0 b0
+template <int NP>
+__device__ __forceinline__ void mma_pieces(float (&d)[4],
+                                           const uint32_t (&a)[NP][4],
+                                           const uint32_t (&b)[NP][2]) {
+  if constexpr (NP == 3) {
+    mma_bf16(d, a[2], b[0]);
+    mma_bf16(d, a[1], b[1]);
+    mma_bf16(d, a[0], b[2]);
+  }
+  if constexpr (NP >= 2) {
+    mma_bf16(d, a[1], b[0]);
+    mma_bf16(d, a[0], b[1]);
+  }
+  mma_bf16(d, a[0], b[0]);
+}
+
+__device__ __forceinline__ uint32_t lds32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A fragment of rows row0.., columns k0.. of a row-major bf16 array in
+// shared memory (row stride ld elements, even)
+__device__ __forceinline__ void load_a_rows(uint32_t (&a)[4], const bf16* A,
+                                            int ld, int row0, int k0,
+                                            int lane) {
+  const bf16* p = A + (row0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
+  a[0] = lds32(p);
+  a[1] = lds32(p + 8 * ld);
+  a[2] = lds32(p + 8);
+  a[3] = lds32(p + 8 * ld + 8);
+}
+
+// A fragment of A = S^T, rows m0.., columns k0.., where S is a row-major
+// bf16 array in shared memory (A[m][k] = S[k][m]; row stride ld a multiple
+// of 8, m0 a multiple of 8): one ldmatrix .x4 .trans. Lane l names row
+// (l & 7) of 8 x 8 matrix l / 8: matrices 0..3 are a0..a3.
+__device__ __forceinline__ void load_a_trans(uint32_t (&a)[4], const bf16* S,
+                                             int ld, int m0, int k0,
+                                             int lane) {
+  const int q = lane >> 3, r = lane & 7;
+  const bf16* p = S + (k0 + r + ((q >> 1) << 3)) * ld + m0 + ((q & 1) << 3);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// (x0, x1) -> NP bf16x2 pieces, x0 in the low halves: p[0] = bf16(x),
+// p[1] = bf16(x - p[0]), p[2] = bf16(x - p[0] - p[1]) (each difference
+// exact in f32): x = p[0] + p[1] to within 2^-16 |x|, x = p[0] + p[1] +
+// p[2] to within 2^-24 |x|
+template <int NP>
+__device__ __forceinline__ void split(float x0, float x1, uint32_t (&p)[NP]) {
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    p[i] = *reinterpret_cast<const uint32_t*>(&h);
+    x0 -= __uint_as_float(p[i] << 16);
+    x1 -= __uint_as_float(p[i] & 0xffff0000u);
+  }
+}
+
+// An L2 policy that keeps what it names resident (evict_last): the staged
+// weights, re-read by every tile, against the partial-gradient rows
+// streamed past them
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(pol));
+  return pol;
+}
+
+// 16 bytes global -> shared through L2 (cp.async.cg) under the L2 policy
+// pol, grouped by commit_group; wait_group<N> returns once at most N of
+// this thread's groups are in flight
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           uint64_t pol) {
+  asm volatile(
+      "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n"
+      :: "r"(smem_u32(dst)), "l"(src), "l"(pol) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+}  // namespace

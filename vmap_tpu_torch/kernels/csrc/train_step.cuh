@@ -1,6 +1,8 @@
-// The train-frame tile shared by train_step.cu (the float policies) and
-// train_step_q8.cu (the int8 policies): the operand helpers and
-// tile_body, one ray tile of one slot. See train_step.cu for the design.
+// The train-frame helpers shared by train_step.cu (the float policies'
+// tensor-core tile) and train_step_q8.cu (the int8 policies): the
+// operand helpers, and the int8 tile: its shared-memory buffers and
+// tile_body, one ray tile of one slot on FP32 FMA loops. See
+// train_step.cu and train_step_q8.cu for the designs.
 
 #pragma once
 
@@ -48,38 +50,6 @@ struct Offsets {
 
 __device__ __forceinline__ float sgnf(float x) {
   return (float)((x > 0.f) - (x < 0.f));
-}
-
-// out[i][p] = act(b[i] + sum_k w[i][k] ina[k][p] + sum_k w[i][na+k] inb[k][p])
-// for i < n_out (n_out % TI == 0), p < P. w is row-major [n_out, ldw].
-// R: a ReLU output is stored rounded to bf16.
-template <int TI, int NT, bool R>
-__device__ void dense(const float* __restrict__ w, const float* __restrict__ b,
-                      int n_out, int ldw, const float* ina, int na,
-                      const float* inb, int nb, float* out, int P, int LDP,
-                      bool relu) {
-  const int n_items = (n_out / TI) * P;
-  for (int idx = threadIdx.x; idx < n_items; idx += NT) {
-    const int i0 = (idx / P) * TI, p = idx % P;
-    const float* wr = w + (size_t)i0 * ldw;
-    float acc[TI];
-#pragma unroll
-    for (int t = 0; t < TI; ++t) acc[t] = b[i0 + t];
-    for (int k = 0; k < na; ++k) {
-      const float x = ina[k * LDP + p];
-#pragma unroll
-      for (int t = 0; t < TI; ++t) acc[t] = fmaf(wr[t * ldw + k], x, acc[t]);
-    }
-    for (int k = 0; k < nb; ++k) {
-      const float x = inb[k * LDP + p];
-#pragma unroll
-      for (int t = 0; t < TI; ++t)
-        acc[t] = fmaf(wr[t * ldw + na + k], x, acc[t]);
-    }
-#pragma unroll
-    for (int t = 0; t < TI; ++t)
-      out[(i0 + t) * LDP + p] = relu ? rnd<R>(fmaxf(acc[t], 0.f)) : acc[t];
-  }
 }
 
 // G[i * ldw + col0 + k] (+)= sum_p dout[i][p] * in[k][p]  (i < n_out,
@@ -183,15 +153,14 @@ __device__ __forceinline__ void backward_q8(
     Offsets off, const TileBufs<H>& b, int P, int LDP, bool add);
 
 // One ray tile (rays ray0 .. ray0 + RT of this iteration, past n_per
-// padded) of one slot: points, forward, render, losses, backward. Ray r of
-// the tile reads od, ray and zs at row rbase + ray0 + r. The weight
-// gradients go to the block's row G and the tile's loss to *loss; with
-// add, both are added onto what the block's earlier tiles left there.
-// Ends with the block synchronised, so the next tile may reuse sm. W holds
-// the f32 parameters; Wr their bf16 rounding, read for the weights of the
-// products the policy rounds (Wr == W under F32), or under an int8 policy
-// the quantised weights, with wsc their scales and qs the static scales
-// (null: dynamic; train_step_q8.cu).
+// padded) of one slot under an int8 policy: points, forward, render,
+// losses, backward. Ray r of the tile reads od, ray and zs at row rbase +
+// ray0 + r. The weight gradients go to the block's row G and the tile's
+// loss to *loss; with add, both are added onto what the block's earlier
+// tiles left there. Ends with the block synchronised, so the next tile may
+// reuse sm. W holds the f32 parameters; Wr the quantised weights, with wsc
+// their scales and qs the static scales (null: dynamic;
+// train_step_q8.cu). Under INT8_FWD the backward is FP32 on W.
 template <int H, int NT, int POL>
 __device__ __forceinline__ void tile_body(const float* __restrict__ W,
                           const float* __restrict__ Wr,
@@ -205,11 +174,7 @@ __device__ __forceinline__ void tile_body(const float* __restrict__ W,
                           float osc, bool add, float* sm,
                           const float* __restrict__ wsc = nullptr,
                           const float* __restrict__ qs = nullptr) {
-  constexpr bool RF = POL == BF16;   // forward operands rounded
-  constexpr bool RB = POL == BWD_BF16 || POL == BF16;  // backward rounded
-  constexpr bool Q8 = POL == INT8 || POL == INT8_FWD;
-  const float* Wf = RF ? Wr : W;     // forward product weights
-  const float* Wb = RB ? Wr : W;     // backward product weights
+  static_assert(POL == INT8 || POL == INT8_FWD, "the int8 tile");
   const int P = RT * S;
   const TileBufs<H> bufs(sm, LDP, RT);
   float *emb = bufs.emb, *proj = bufs.proj, *dproj = bufs.dproj;
@@ -244,48 +209,15 @@ __device__ __forceinline__ void tile_body(const float* __restrict__ W,
       emb[(3 + b * NDIR + j) * LDP + p] = sinpif(pr * (float)(1 << b));
   }
   __syncthreads();
-  if constexpr (RF) {   // the projection has read xs: emb is a product operand
-    round_rows<NT>(emb, EMB, P, LDP);
-    __syncthreads();
-  }
   if constexpr (POL == INT8) {   // emb quantised in place, xs kept in f32
     quant_emb_q8<H, NT>(bufs, P, LDP);
     __syncthreads();
   }
 
   // 2. MLP forward
-  Q8Act qa{};
-  if constexpr (Q8) {
-    qa = forward_q8<H, NT, POL == INT8_FWD>(W, Wr, wsc, qs, off, bufs, P,
-                                           LDP);
-  } else {
-    dense<4, NT, RF>(Wf + off.w_in, W + off.b_in, H, EMB1, emb, EMB1,
-                     nullptr, 0, h1, P, LDP, true);
-    __syncthreads();
-    dense<4, NT, RF>(Wf + off.w_mid1, W + off.b_mid1, H, H, h1, H, nullptr,
-                     0, h2, P, LDP, true);
-    __syncthreads();
-    dense<4, NT, RF>(Wf + off.w_cat, W + off.b_cat, H, H + EMB1, h2, H, emb,
-                     EMB1, h3, P, LDP, true);
-    __syncthreads();
-    dense<4, NT, RF>(Wf + off.w_mid2, W + off.b_mid2, H, H, h3, H, nullptr,
-                     0, h4, P, LDP, true);
-    __syncthreads();
-    dense<1, NT, RF>(Wf + off.w_alpha, W + off.b_alpha, 1, H, h4, H, nullptr,
-                     0, alp, P, LDP, false);
-    dense<4, NT, RF>(Wf + off.w_col, W + off.b_col, H, H + EMB2, h4, H,
-                     emb + EMB1 * LDP, EMB2, hc, P, LDP, true);
-    __syncthreads();
-    dense<1, NT, RF>(Wf + off.w_col_out, W + off.b_col_out, 3, H, hc, H,
-                     nullptr, 0, col, P, LDP, false);
-  }
+  const Q8Act qa = forward_q8<H, NT, POL == INT8_FWD>(W, Wr, wsc, qs, off,
+                                                      bufs, P, LDP);
   __syncthreads();
-  if constexpr (POL == BWD_BF16) {
-    // the f32 forward is done: from here on the saved activations are
-    // read by the backward products (and, sign unchanged, the ReLU masks)
-    round_rows<NT>(emb, EMB, P, LDP);
-    round_rows<NT>(h1, 5 * H, P, LDP);
-  }
 
   // 3. per ray: render, losses, render backward -> dal, dy
   if (threadIdx.x < RT) {
@@ -365,18 +297,13 @@ __device__ __forceinline__ void tile_body(const float* __restrict__ W,
     return;
   }
 
-  // 4. MLP backward; each activation buffer becomes its pre-activation
-  //    gradient once its own weight gradient has been taken. Under a bf16
-  //    backward policy each gradient's bias gradient comes first, from its
-  //    f32 values (bgrad_round), and the products then read it rounded.
-  if constexpr (RB) {
-    bgrad_round<NT>(G + off.b_col_out, dy, 3, P, LDP, add);
-    bgrad_round<NT>(G + off.b_alpha, dal, 1, P, LDP, add);
-  }
+  // 4. MLP backward (INT8_FWD: f32); each activation buffer becomes its
+  //    pre-activation gradient once its own weight gradient has been taken.
+  const float* Wb = W;
   wgrad<NT>(G + off.w_col_out, H, 0, dy, 3, hc, H, P, LDP, add);
-  if constexpr (!RB) bgrad<NT>(G + off.b_col_out, dy, 3, P, LDP, add);
+  bgrad<NT>(G + off.b_col_out, dy, 3, P, LDP, add);
   wgrad<NT>(G + off.w_alpha, H, 0, dal, 1, h4, H, P, LDP, add);
-  if constexpr (!RB) bgrad<NT>(G + off.b_alpha, dal, 1, P, LDP, add);
+  bgrad<NT>(G + off.b_alpha, dal, 1, P, LDP, add);
   __syncthreads();
   for (int idx = threadIdx.x; idx < H * P; idx += NT) {
     const int k = idx / P, p = idx % P;
@@ -384,11 +311,10 @@ __device__ __forceinline__ void tile_body(const float* __restrict__ W,
     hc[k * LDP + p] = hc[k * LDP + p] > 0.f ? g : 0.f;
   }
   __syncthreads();
-  if constexpr (RB) bgrad_round<NT>(G + off.b_col, hc, H, P, LDP, add);
   wgrad<NT>(G + off.w_col, H + EMB2, 0, hc, H, h4, H, P, LDP, add);
   wgrad<NT>(G + off.w_col, H + EMB2, H, hc, H, emb + EMB1 * LDP, EMB2, P,
             LDP, add);
-  if constexpr (!RB) bgrad<NT>(G + off.b_col, hc, H, P, LDP, add);
+  bgrad<NT>(G + off.b_col, hc, H, P, LDP, add);
   __syncthreads();
   for (int idx = threadIdx.x; idx < (H + NDIR) * P; idx += NT) {
     const int k = idx / P, p = idx % P;
@@ -408,9 +334,8 @@ __device__ __forceinline__ void tile_body(const float* __restrict__ W,
     }
   }
   __syncthreads();
-  if constexpr (RB) bgrad_round<NT>(G + off.b_mid2, h4, H, P, LDP, add);
   wgrad<NT>(G + off.w_mid2, H, 0, h4, H, h3, H, P, LDP, add);
-  if constexpr (!RB) bgrad<NT>(G + off.b_mid2, h4, H, P, LDP, add);
+  bgrad<NT>(G + off.b_mid2, h4, H, P, LDP, add);
   __syncthreads();
   for (int idx = threadIdx.x; idx < H * P; idx += NT) {
     const int k = idx / P, p = idx % P;
@@ -418,10 +343,9 @@ __device__ __forceinline__ void tile_body(const float* __restrict__ W,
     h3[k * LDP + p] = h3[k * LDP + p] > 0.f ? g : 0.f;
   }
   __syncthreads();
-  if constexpr (RB) bgrad_round<NT>(G + off.b_cat, h3, H, P, LDP, add);
   wgrad<NT>(G + off.w_cat, H + EMB1, 0, h3, H, h2, H, P, LDP, add);
   wgrad<NT>(G + off.w_cat, H + EMB1, H, h3, H, emb, EMB1, P, LDP, add);
-  if constexpr (!RB) bgrad<NT>(G + off.b_cat, h3, H, P, LDP, add);
+  bgrad<NT>(G + off.b_cat, h3, H, P, LDP, add);
   __syncthreads();
   for (int idx = threadIdx.x; idx < (H + NDIR) * P; idx += NT) {
     const int k = idx / P, p = idx % P;
@@ -440,9 +364,8 @@ __device__ __forceinline__ void tile_body(const float* __restrict__ W,
     }
   }
   __syncthreads();
-  if constexpr (RB) bgrad_round<NT>(G + off.b_mid1, h2, H, P, LDP, add);
   wgrad<NT>(G + off.w_mid1, H, 0, h2, H, h1, H, P, LDP, add);
-  if constexpr (!RB) bgrad<NT>(G + off.b_mid1, h2, H, P, LDP, add);
+  bgrad<NT>(G + off.b_mid1, h2, H, P, LDP, add);
   __syncthreads();
   for (int idx = threadIdx.x; idx < H * P; idx += NT) {
     const int k = idx / P, p = idx % P;
@@ -450,9 +373,8 @@ __device__ __forceinline__ void tile_body(const float* __restrict__ W,
     h1[k * LDP + p] = h1[k * LDP + p] > 0.f ? g : 0.f;
   }
   __syncthreads();
-  if constexpr (RB) bgrad_round<NT>(G + off.b_in, h1, H, P, LDP, add);
   wgrad<NT>(G + off.w_in, EMB1, 0, h1, H, emb, EMB1, P, LDP, add);
-  if constexpr (!RB) bgrad<NT>(G + off.b_in, h1, H, P, LDP, add);
+  bgrad<NT>(G + off.b_in, h1, H, P, LDP, add);
   for (int idx = threadIdx.x; idx < NDIR * P; idx += NT) {
     const int j = idx / P, p = idx % P;
     float acc = dproj[j * LDP + p];
@@ -464,10 +386,6 @@ __device__ __forceinline__ void tile_body(const float* __restrict__ W,
     dproj[j * LDP + p] = acc;
   }
   __syncthreads();
-  if constexpr (RB) {
-    round_rows<NT>(dproj, NDIR, P, LDP);
-    __syncthreads();
-  }
   // d dirs[j][k] = sum_p dproj[j][p] xs[k][p]
   wgrad<NT>(G + off.dirs, 3, 0, dproj, NDIR, emb, 3, P, LDP, add);
   __syncthreads();

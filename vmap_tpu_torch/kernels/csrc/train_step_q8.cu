@@ -36,8 +36,9 @@
 // parameters) and the scale. The wrapper launches it after each
 // train_adamw, and once before the frame's first iteration.
 //
-// What bounds it on the card: as train_step.cu's f32 tile, FP32 FMA issue
-// over shared-memory operands, plus 11 block reductions and in-place
+// What bounds it on the card: FP32 FMA issue over shared-memory operands
+// (the tile the float policies ran before they moved to tensor cores in
+// train_step.cu), plus 11 block reductions and in-place
 // quantisation passes per tile (about 10 H + 150 values per point against
 // about 3 x 11,199 multiply-adds per point at h=32). Tensor-core s8
 // products (mma.sync / wgmma) are a later redesign.

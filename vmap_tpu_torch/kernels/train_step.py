@@ -12,9 +12,11 @@ Two versions of one function:
     the MLP is ``ops.quant.Int8MLP``, its backward written by hand);
   * ``fused_frame``: the wrapper of the hand-written CUDA kernels in
     ``csrc/train_step.cu`` (kernel A ``train_grad_kernel``: forward +
-    render + hand-derived backward per (slot, ray tile), partial gradients
-    to one scratch row per block, ``frame_geometry``; kernel B
-    ``adamw_kernel``: fixed-order sum of the rows + masked AdamW) and, for
+    render + hand-derived backward per (slot, ray tile), its MLP products
+    on tensor cores from the weights' staged bf16 pieces
+    (``stage_weights``), partial gradients to one scratch row per block,
+    ``frame_geometry``; kernel B ``adamw_kernel``: fixed-order sum of the
+    rows + masked AdamW, and the updated weights' staged copy) and, for
     the int8 policies, ``csrc/train_step_q8.cu`` (``train_grad_q8_kernel``,
     the same tile on s8 operands, and ``quant_weights_kernel``, the
     weights' quantised copy once per iteration), built for hidden 32, 128
@@ -55,12 +57,12 @@ from vmap_tpu_torch.core.bank import (BankSpec, BankState,
                                      adam_bias_corrections, apply_adamw)
 # MAX_POINTS is re-exported: callers read it as train_step.MAX_POINTS
 from vmap_tpu_torch.kernels import (MAX_POINTS, _build,  # noqa: F401
-                                    check_width, tile_rays)
+                                    check_width, float_tile_rays, tile_rays)
 from vmap_tpu_torch.kernels import ensemble as E
 from vmap_tpu_torch.ops import losses as L
 from vmap_tpu_torch.ops import quant as Q
 from vmap_tpu_torch.ops.embedding import embed
-from vmap_tpu_torch.ops.mlp import POLICIES, mlp_apply
+from vmap_tpu_torch.ops.mlp import POLICIES, mlp_apply, split_bf16
 
 LAUNCHES = {"train_grad": 0, "train_adamw": 0, "train_quant_w": 0,
             **{f"train_grad.{p}": 0 for p in POLICIES}}
@@ -78,6 +80,15 @@ OFFSET_NAMES = ("dirs", "w_in", "b_in", "w_mid1", "b_mid1", "w_cat", "b_cat",
                 "w_mid2", "b_mid2", "w_alpha", "b_alpha", "w_col", "b_col",
                 "w_col_out", "b_col_out")
 BATCH_KEYS = ("rgb", "depth", "state", "valid", "z", "origins", "dirs")
+# the product weights in the order of csrc/train_step.cu WMat
+STAGED_NAMES = ("w_in", "w_mid1", "w_cat", "w_mid2", "w_alpha", "w_col",
+                "w_col_out")
+# the staged weights' bf16 pieces (csrc/train_step.cu STAGED_PIECES), and
+# the pieces of each forward / backward product operand per float policy
+# (fwd_pieces / bwd_pieces)
+STAGED_PIECES = 3
+PIECES = {"float32": (2, 2), "bwd_bf16": (3, 1), "bfloat16": (1, 1)}
+SMEM_LIMIT = 232448      # the dynamic shared memory a block may use
 
 
 def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
@@ -206,6 +217,105 @@ def kernel_operands(batch: dict, active: torch.Tensor, n_iter: int,
                               dim=-1).contiguous()}
 
 
+def _up16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def staged_layout(hidden: int) -> tuple[list, int]:
+    """The staged copy of the product weights (csrc/train_step.cu): each
+    weight of ``STAGED_NAMES``, [n_out, n_in], as a zero-padded
+    [up16(n_out), up16(n_in)] row-major block. Returns ([(name, n_out, n_in,
+    offset)], elements per plane)."""
+    spec = BankSpec.create(hidden)
+    shapes = {n: shape for _, n, shape, _, _ in spec.names}
+    layout, off = [], 0
+    for name in STAGED_NAMES:
+        n_out, n_in = shapes[name]
+        layout.append((name, n_out, n_in, off))
+        off += _up16(n_out) * _up16(n_in)
+    return layout, off
+
+
+def stage_weights(flat: torch.Tensor, spec: BankSpec) -> torch.Tensor:
+    """[cap, n_params] f32 -> the staged bf16 copy [cap, STAGED_PIECES, NS]
+    (plane i the i-th piece of ``ops.mlp.split_bf16``) of each slot's
+    product weights: the plain version of what ``adamw_kernel`` writes,
+    which the float policies' ``train_grad`` reads."""
+    layout, ns = staged_layout(spec.hidden)
+    cap = flat.shape[0]
+    out = torch.zeros((cap, STAGED_PIECES, ns), dtype=torch.bfloat16,
+                      device=flat.device)
+    _, mlp_p = spec.unflatten(flat)
+    for name, n_out, n_in, off in layout:
+        rows, cols = _up16(n_out), _up16(n_in)
+        for plane, t in enumerate(split_bf16(mlp_p[name], STAGED_PIECES)):
+            block = out[:, plane, off:off + rows * cols].view(cap, rows, cols)
+            block[:, :n_out, :n_in] = t
+    return out
+
+
+def slab_bytes(hidden: int, policy: str) -> int:
+    """One slab buffer of a float-policy train_grad block
+    (csrc/train_step.cu slab_bytes): the forward's (its pieces' planes of
+    [hidden rows][KF + 8] bf16; KF 64 at h=32, 32 at h=128, 16 at h=256,
+    and with three pieces 48, 16, 16) or the input gradients' (16 rows of
+    up16(h + 87) + 8), the larger."""
+    npf, npb = PIECES[policy]
+    kf = {32: (64, 48), 128: (32, 16), 256: (16, 16)}[hidden][npf == 3]
+    return max(2 * npf * hidden * (kf + 8),
+               2 * npb * 16 * (_up16(hidden + 87) + 8))
+
+
+def _rest_size(spec: BankSpec) -> int:
+    """The parameters that are no product weight (the dirs and biases):
+    the first ones of the layout (BankSpec: the PE's dirs, then the MLP's
+    names sorted, b_* before w_*)."""
+    n = sum(size for _, name, _, _, size in spec.names
+            if name not in STAGED_NAMES)
+    if min(spec.offset(name) for name in STAGED_NAMES) != n:
+        raise ValueError("the product weights do not follow the dirs and "
+                         "biases in the parameter layout")
+    return n
+
+
+def grad_row_size(hidden: int) -> int:
+    """Floats of a float-policy partial-gradient row (csrc/train_step.cu
+    grad_row): the staged weights' NS, then the dirs and biases, to a
+    multiple of 16."""
+    spec = BankSpec.create(hidden)
+    return staged_layout(hidden)[1] + _up16(_rest_size(spec))
+
+
+def grad_row_index(spec: BankSpec) -> torch.Tensor:
+    """Where each parameter's partial gradient sits in a float-policy
+    partial-gradient row of ``grad_row_size`` floats, int32 (the index
+    ``train_adamw`` reads by): a product weight at its staged index, the
+    dirs and biases, which lead the parameter layout, at NS + their own."""
+    layout, ns = staged_layout(spec.hidden)
+    idx = torch.arange(spec.n_params, dtype=torch.int32) + ns
+    for name, n_out, n_in, off in layout:
+        base = spec.offset(name)
+        r = torch.arange(n_out)[:, None] * _up16(n_in) + torch.arange(n_in)
+        idx[base:base + n_out * n_in] = (off + r).reshape(-1)
+    _rest_size(spec)   # the dirs and biases lead the layout
+    return idx
+
+
+def float_smem_bytes(hidden: int, rays: int, n_samples: int,
+                     policy: str = "float32") -> int:
+    """Dynamic shared memory of one float-policy train_grad block
+    (csrc/train_step.cu float_smem_bytes and its launcher): the tile's f32
+    rows at the odd stride LDP = P | 1 (the embedding, the projection and
+    its gradient, two hidden-activation buffers, the heads' 8 rows, 42
+    band-gradient rows) and its per-ray losses, and a ring of two slabs of
+    staged weights where it fits within SMEM_LIMIT, else one."""
+    ldp = (rays * n_samples) | 1
+    act = 4 * (ldp * (129 + 4 * 21 + 2 * hidden + 8) + rays)
+    slab = slab_bytes(hidden, policy)
+    two = 2 * slab + act
+    return two if two <= SMEM_LIMIT else two - slab
+
+
 @dataclass(frozen=True)
 class FrameGeometry:
     """train_grad's launch geometry for one bank and iteration. Block b of
@@ -215,13 +325,26 @@ class FrameGeometry:
     n_tiles: int          # ray tiles per slot and iteration
     blocks: int           # train_grad blocks per slot = partial rows per slot
     rows: int             # partial rows of the bank: cap * blocks
-    scratch_bytes: int    # the f32 partial rows: rows * n_params * 4
+    scratch_bytes: int    # the blocks' f32 scratch (block_scratch_bytes)
+
+
+def block_scratch_bytes(hidden: int, rays: int, n_samples: int,
+                        policy: str = "float32") -> int:
+    """One train_grad block's global scratch (``FrameLaunch``): under an
+    int8 policy its partial-gradient row of n_params floats; under a float
+    policy its row of ``grad_row_size`` floats and its activation scratch,
+    h1, h2, h3 of its tile at the row stride (rays * S) | 1."""
+    if policy in Q.INT8_POLICIES:
+        return 4 * BankSpec.create(hidden).n_params
+    return 4 * (grad_row_size(hidden)
+                + 3 * hidden * ((rays * n_samples) | 1))
 
 
 def frame_geometry(hidden: int, n_samples: int, n_per: int,
-                   cap: int) -> FrameGeometry:
+                   cap: int, policy: str = "float32") -> FrameGeometry:
     """The geometry for ``cap`` slots at ``hidden`` with ``n_per`` rays of
-    ``n_samples`` samples per iteration.
+    ``n_samples`` samples per iteration under the matmul ``policy`` (its
+    tile: ``float_tile_rays``, or under an int8 policy ``tile_rays``).
 
     Of three ways to bound the scratch (K3's fixed grid of blocks that
     each loop over their own tiles; a thread-block cluster holding a
@@ -229,40 +352,49 @@ def frame_geometry(hidden: int, n_samples: int, n_per: int,
     scratch so that a tile holds more rays), the fixed grid is taken: it
     runs the tile body unchanged and bounds the rows by the SM count
     (or by ``cap`` past 132 slots) whatever ``n_per``, where the other two
-    only make tiles larger and so divide the rows by a constant. One block
-    per tile stays where its scratch is small (every vMAP shape: 95 MB at
-    h=32, 113 MB at h=128), so those launches are unchanged; the iMAP
-    field (h=256, 4800 rays x 14 samples: 2400 tiles of 1.28 MB rows,
-    3.1 GB) gets 132 rows, 169 MB."""
-    rt = tile_rays(hidden, n_samples)
+    only make tiles larger and so divide the rows by a constant. The
+    scratch is ``block_scratch_bytes`` a block. One block per tile stays
+    where it is small (the vMAP shapes under float32: 157.2 MB for the
+    objects at h=32, 147.6 MB for the background at h=128), so those
+    launches are unchanged; the iMAP field (h=256, 4800 rays x 14 samples:
+    1200 float tiles of 1.51 MB or 2400 int8 ones of 1.28 MB, 1.8 or 3.1
+    GB) gets 132 blocks, 199.0 MB under float32. Fewer rows than tiles
+    below the budget would save only the rows' bytes, and the geometry is
+    set by ``cap``, not by the slots active: a bank with few active slots
+    would run few blocks of many tiles each on an idle card."""
+    rt = (tile_rays if policy in Q.INT8_POLICIES
+          else float_tile_rays)(hidden, n_samples)
     n_tiles = -(-n_per // rt)
-    row_bytes = 4 * BankSpec.create(hidden).n_params
+    block_bytes = block_scratch_bytes(hidden, rt, n_samples, policy)
     blocks = n_tiles
-    if cap * n_tiles * row_bytes > SCRATCH_BUDGET:
+    if cap * n_tiles * block_bytes > SCRATCH_BUDGET:
         blocks = max(1, min(n_tiles, GRID_SMS // cap))
     return FrameGeometry(rt, n_tiles, blocks, cap * blocks,
-                         cap * blocks * row_bytes)
+                         cap * blocks * block_bytes)
 
 
 class FrameLaunch:
     """Validated operands and scratch of one bank's kernel frame; its
     methods launch the kernels for one iteration.
 
-    Under a bf16 policy ``train_grad`` reads the weights of its products
-    from ``wr``, the parameters rounded to bf16 (in f32): made here from
-    the bank's parameters, and rewritten by each ``adamw`` from the
-    parameters it updates. Under an int8 policy ``wr`` holds the
+    Under a float policy ``train_grad`` reads the weights of its products
+    from ``ws``, their staged bf16 pieces (``stage_weights``): made here
+    from the bank's parameters, and rewritten by each ``adamw`` from the
+    parameters it updates; its partial-gradient rows (``grad_part``) hold
+    the weights in the staged layout, ``row_index`` each parameter's place
+    (``grad_row_index``). Under an int8 policy ``wr`` holds the
     quantised weights (integer-valued f32) and ``wscale`` their [cap, 9]
     scales (``ops.quant.QW_NAMES``), written by ``quant_weights``: here
     from the bank's parameters, then by each ``adamw`` but the frame's
     last; ``qs`` the static policies' (scale, 127 / maximum) pairs of
     ``ops.quant.Q8_SCALES``, None under the dynamic ones. So ``grad`` takes the
     bank's parameters as they stand after the latest ``adamw`` of this
-    launch."""
+    launch. ``lib``: the kernel library (default ``_build.load()``; the
+    section-timing build of ``chip_smoke.py --sections``)."""
 
     def __init__(self, bank: BankState, batch: dict, n_iter: int, n_per: int,
                  color_scaling: float, opacity_scaling: float,
-                 policy: str = "float32", reuse: int = 1):
+                 policy: str = "float32", reuse: int = 1, lib=None):
         dev = bank.flat.device
         if dev.type != "cuda":
             raise ValueError(f"kernel path needs CUDA tensors, got {dev}")
@@ -290,12 +422,12 @@ class FrameLaunch:
         S = batch["z"].shape[2]
         if not 1 <= S <= 32:
             raise ValueError(f"{S} samples per ray; the kernel takes 1..32")
-        self.lib = _build.load()
+        self.lib = lib or _build.load()
         self.dev, self.h, self.cap, self.n_params = dev, h, cap, n_params
         self.n_iter, self.n_per, self.S = n_iter, n_per, S
         self.n_eff, self.policy = n_eff, policy
         self.cs, self.osc = float(color_scaling), float(opacity_scaling)
-        self.geom = frame_geometry(h, S, n_per, cap)
+        self.geom = frame_geometry(h, S, n_per, cap, policy)
         ops = kernel_operands(batch, bank.active, n_iter, n_per, reuse)
         self.od, self.z, self.ray = ops["od"], ops["z"], ops["ray"]
         self.wmul = ops["wmul"]
@@ -306,12 +438,26 @@ class FrameLaunch:
         self.offsets = (ctypes.c_int * len(OFFSET_NAMES))(
             *[bank.spec.offset(n) for n in OFFSET_NAMES])
         g = self.geom
-        self.grad_part = torch.empty((cap, g.blocks, n_params),
+        self.q8 = policy in Q.INT8_POLICIES
+        # a float policy's rows hold the weights in the staged layout, then
+        # the dirs and biases (row_index: each parameter's place in a row),
+        # and each block has an activation scratch (h1, h2, h3 of its tile
+        # at the kernel's row stride (rays * S) | 1): block_scratch_bytes
+        row = n_params
+        self.row_index = torch.arange(n_params, dtype=torch.int32,
+                                      device=dev)
+        self.act_part = None
+        if not self.q8:
+            row = grad_row_size(h)
+            self.row_index = grad_row_index(bank.spec).to(dev)
+            self.act_part = torch.empty(
+                (cap, g.blocks, 3, h, (g.rays_per_tile * S) | 1),
+                dtype=torch.float32, device=dev)
+        self.grad_part = torch.empty((cap, g.blocks, row),
                                      dtype=torch.float32, device=dev)
         self.loss_part = torch.empty((cap, g.blocks), dtype=torch.float32,
                                      device=dev)
-        self.q8 = policy in Q.INT8_POLICIES
-        self.wr = self.wscale = self.qs = None
+        self.wr = self.ws = self.wscale = self.qs = None
         if self.q8:
             self.wr = torch.zeros_like(bank.flat)
             self.wscale = torch.empty((cap, len(Q.QW_NAMES)),
@@ -322,8 +468,12 @@ class FrameLaunch:
                                                     127.0 / m)],
                     dtype=torch.float32, device=dev)
             self.quant_weights(bank.flat)
-        elif policy != "float32":
-            self.wr = bank.flat.to(torch.bfloat16).to(torch.float32)
+        else:
+            if (self.lib.vmap_staged_size(h) != staged_layout(h)[1]
+                    or self.lib.vmap_grad_row(h) != row):
+                raise RuntimeError("staged_layout / grad_row_size disagree "
+                                   "with the kernel library's")
+            self.ws = stage_weights(bank.flat, bank.spec)
 
     def _stream(self) -> int:
         return torch.cuda.current_stream(self.dev).cuda_stream
@@ -346,16 +496,17 @@ class FrameLaunch:
                 ctypes.c_void_p(self._stream()))
         batch = (p(self.od), p(self.z), p(self.ray), p(self.wmul),
                  p(self.scale), p(self.active), p(self.grad_part),
-                 p(self.loss_part), ctypes.cast(self.offsets,
-                                                ctypes.c_void_p))
+                 p(self.loss_part))
+        offsets = ctypes.cast(self.offsets, ctypes.c_void_p)
         if self.q8:
             code = self.lib.vmap_train_grad_q8(
                 int(Q.q8_backward(self.policy)), self.h, p(params),
-                p(self.wr), p(self.wscale), p(self.qs), *batch, *geom)
+                p(self.wr), p(self.wscale), p(self.qs), *batch, offsets,
+                *geom)
         else:
             code = self.lib.vmap_train_grad(
-                POLICIES.index(self.policy), self.h, p(params), p(self.wr),
-                *batch, *geom)
+                POLICIES.index(self.policy), self.h, p(params), p(self.ws),
+                *batch, p(self.act_part), offsets, *geom)
         _build.check(self.lib, code, "train_grad kernel launch")
         LAUNCHES["train_grad"] += 1
         LAUNCHES[f"train_grad.{self.policy}"] += 1
@@ -363,7 +514,7 @@ class FrameLaunch:
     def adamw(self, params, m, v, losses, it: int, lr: float,
               wd: float) -> None:
         """Kernel B: reduce the partials, masked AdamW in place on
-        (params, m, v), losses[:, it]; under a bf16 policy also ``wr``;
+        (params, m, v), losses[:, it]; under a float policy also ``ws``;
         under an int8 policy then ``quant_weights`` for the next
         iteration, if there is one."""
         for name, t in (("params", params), ("m", m), ("v", v)):
@@ -371,10 +522,10 @@ class FrameLaunch:
         self._check("losses", losses, (self.cap, self.n_iter))
         p = _ptr
         code = self.lib.vmap_train_adamw(
-            p(params), p(None if self.q8 else self.wr), p(m), p(v),
-            p(self.grad_part), p(self.loss_part), p(losses), p(self.active),
-            p(self.bc1), p(self.bc2), self.cap, self.n_params,
-            self.geom.blocks, self.n_iter, it, float(lr),
+            p(params), p(self.ws), p(None if self.q8 else self.row_index),
+            p(m), p(v), p(self.grad_part), p(self.loss_part), p(losses),
+            p(self.active), p(self.bc1), p(self.bc2), self.h, self.cap,
+            self.n_params, self.geom.blocks, self.n_iter, it, float(lr),
             float(1 - lr * wd), ctypes.c_void_p(self._stream()))
         _build.check(self.lib, code, "train_adamw kernel launch")
         LAUNCHES["train_adamw"] += 1

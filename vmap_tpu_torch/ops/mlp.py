@@ -47,6 +47,20 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def split_bf16(x: torch.Tensor, pieces: int = 2) -> tuple:
+    """The f32 ``x`` as ``pieces`` bf16 tensors: p0 = bf16(x), p1 = bf16(x -
+    p0), p2 = bf16(x - p0 - p1) (each difference exact in f32), so p0 + p1
+    is ``x`` to within 2^-16 |x| and p0 + p1 + p2 to within 2^-24 |x|. The
+    operands of the train-frame kernel's tensor-core products
+    (``csrc/mma.cuh`` split, ``csrc/train_step.cu``)."""
+    out, r = [], x
+    for _ in range(pieces):
+        p = r.to(torch.bfloat16)
+        out.append(p)
+        r = r - p.to(torch.float32)
+    return tuple(out)
+
+
 class PolicyMatmul(torch.autograd.Function):
     """``x @ w^T`` over a leading slot axis (x [n, M, k], w [n, o, k] ->
     [n, M, o]). ``fwd_bf16`` rounds both operands of the forward product;
