@@ -75,10 +75,12 @@ Phases, in order (any failure raises and the script exits non-zero):
      finite, falling losses, 2 x n_iter bwd_bf16 train_grad launches per
      frame;
  11. the int8 matmul policies (int8, int8_fwd, int8_static,
-     int8_static_fwd; csrc/train_step_q8.cu): train_grad under each
-     against the plain ops.quant frame at the shapes of phase 3, in the
-     tiers of phase 10 with each tensor's largest error within 5e-2 of its
-     scale, and train_quant_w's quantised weights equal to the plain
+     int8_static_fwd; csrc/train_step_q8.cu, s8 tensor cores): train_grad
+     under each against the plain ops.quant frame at the shapes of phase
+     3, in the tiers of phase 10 with each tensor's largest error within
+     5e-2 of its scale (each int8 tile's points, rows per slot, scratch and
+     dynamic shared memory printed, the latter held to the library's),
+     and train_quant_w's s8 weights and transposes equal to the plain
      ones; the full-width vMAP frame under float32 with and without
      sample_reuse 4, each int8 policy with reuse 4, and int8 / int8_static
      without it; the iMAP frame under float32 and int8_static; then
@@ -116,9 +118,11 @@ its bytes over 3.35 TB/s and its operations over the peak of their type:
 67 TFLOP/s FP32, 989 TFLOP/s bf16, 1979 TOP/s int8; elementwise FP32 and
 packed bf16 at 128 and 256 results per SM a clock, the SFU at 16; K6's
 distinct source bytes over 3.35 TB/s, or a copy's 4 KB into one SM's
-shared memory at 128 B a clock), computed from this run's shapes; K1's
-float policies on the route their kernel takes, their bf16 tensor-core
-passes (``grad_bound``: float32 three, bwd_bf16's forward six).
+shared memory at 128 B a clock), computed from this run's shapes; K1 on the
+route its kernel takes (``grad_bound``'s ``PASSES``): bf16 tensor-core
+passes under the float policies (float32 three, bwd_bf16's forward six),
+s8 ones under the int8 policies (the _fwd halves' backward float32's
+three bf16 passes).
 Prints that JSON line of per-kernel results, the nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}; before them it checks that
 neither jax nor any module of the JAX package ``vmap_tpu`` was imported.
@@ -127,7 +131,7 @@ to smoke_out/ (gitignored).
 
     python3 chip_smoke.py --sections
 
-times the float-policy train_grad's sections at phase 3's shapes in
+times train_grad's sections at phase 3's shapes under every policy in
 place of the phases (``k1_sections``).
 """
 
@@ -204,40 +208,30 @@ def mlp_macs(hidden: int) -> int:
             + (h + 42) * h + 3 * h)
 
 
-def policy_rates(policy: str) -> tuple:
-    """(forward, backward) peak of the products' operands under a matmul
-    ``policy`` run on the FMA pipe or s8 tensor cores: f32 for "float32";
-    the int8 policies run the forward on s8 operands, and the backward too
-    unless they are *_fwd (the card's published peaks,
-    ``vmap_tpu_torch.probes``). K1's float policies run on bf16 tensor
-    cores: ``grad_bound``'s ``PASSES``."""
-    from vmap_tpu_torch.probes import PEAK_F32, PEAK_INT8
-    if policy in INT8_POLICIES:
-        return PEAK_INT8, PEAK_F32 if policy.endswith("_fwd") else PEAK_INT8
-    if policy != "float32":
-        raise ValueError(f"no FMA-pipe rate for {policy!r}")
-    return PEAK_F32, PEAK_F32
-
-
 def bound(nbytes: float, fwd_flops: float = 0.0, bwd_flops: float = 0.0,
-          policy: str = "float32", f32_flops: float = 0.0) -> dict:
+          f32_flops: float = 0.0) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the HBM rate and the products over the peak of their operands' type
-    (``policy_rates``; ``f32_flops`` always in f32)."""
+    the HBM rate and the products (``fwd_flops``, ``bwd_flops``,
+    ``f32_flops``) over the FP32 peak (the field kernels' FMA loops; K1's
+    tensor-core routes: ``grad_bound``)."""
     from vmap_tpu_torch.probes import PEAK_BYTES, PEAK_F32
-    fwd_rate, bwd_rate = policy_rates(policy)
-    t_ops = (fwd_flops / fwd_rate + bwd_flops / bwd_rate
-             + f32_flops / PEAK_F32)
+    t_ops = (fwd_flops + bwd_flops + f32_flops) / PEAK_F32
     t_mem = nbytes / PEAK_BYTES
     return {"bound_ms": max(t_ops, t_mem) * 1e3,
             "bound_by": "operations" if t_ops >= t_mem else "bytes",
             "library_ms": None}
 
 
-# the bf16 tensor-core passes of each float policy's forward and backward
-# products in train_grad (csrc/train_step.cu fwd_pieces / bwd_pieces: two
-# pieces a pass pair but the small one, three pieces six passes)
-PASSES = {"float32": (3, 3), "bwd_bf16": (6, 1), "bfloat16": (1, 1)}
+# the tensor-core passes of each policy's forward and backward products in
+# train_grad, (bf16 forward, bf16 backward, s8 forward, s8 backward): the
+# float policies' bf16 passes (csrc/train_step.cu fwd_pieces / bwd_pieces:
+# two pieces a pass pair but the small one, three pieces six passes); the
+# int8 policies' products one s8 pass each (csrc/train_step_q8.cu), the
+# _fwd halves' f32 backward float32's three bf16 passes
+PASSES = {"float32": (3, 3, 0, 0), "bwd_bf16": (6, 1, 0, 0),
+          "bfloat16": (1, 1, 0, 0),
+          **{p: (0, 3, 1, 0) if p.endswith("_fwd") else (0, 0, 1, 1)
+             for p in INT8_POLICIES}}
 
 
 def grad_bound(bank, n_per: int, S: int, policy: str = "float32",
@@ -248,26 +242,28 @@ def grad_bound(bank, n_per: int, S: int, policy: str = "float32",
     the backward's two (weight and input gradients). Bytes: the active
     slots' parameters, their rays (origin and direction 6, depth, colour
     and masks 7, S z samples) and their loss normalisers and scale in,
-    one gradient row and a loss per active slot out. A float policy's
-    products are bounded on the route the kernel takes, its ``PASSES`` of
-    bf16 tensor-core products (float32's f32-accurate products at 989 / 3
-    TFLOP/s); the PE's projection and its gradient (63 of about 11,000
-    multiply-adds a point at h=32), which it runs on the FMA pipe, at the
-    FP32 rate. ``fp32_rate``: the products at the FP32 rate instead (the
-    phase-3 log's second figure). An int8 policy: its products at the
-    peak of their operands (``policy_rates``)."""
-    from vmap_tpu_torch.probes import PEAK_BF16, PEAK_BYTES, PEAK_F32
+    one gradient row and a loss per active slot out. The products are
+    bounded on the route the kernel takes, its ``PASSES`` of tensor-core
+    products: bf16 at 989 TFLOP/s (float32's f32-accurate products as
+    three passes), s8 at 1979 TOP/s (the int8 policies' products; the _fwd
+    halves' f32 backward as float32's three bf16 passes); the PE's
+    projection and its gradient (63 of about 11,000 multiply-adds a point
+    at h=32), which it runs on the FMA pipe, at the FP32 rate.
+    ``fp32_rate``: the products at the FP32 rate instead (the phase-3
+    log's second figure)."""
+    from vmap_tpu_torch.probes import (PEAK_BF16, PEAK_BYTES, PEAK_F32,
+                                       PEAK_INT8)
     n_act = int(bank.active.sum())
     n_params = bank.spec.n_params
     pts = n_act * n_per * S
     fwd = 2.0 * (mlp_macs(bank.spec.hidden) - PE_MACS) * pts
     pe = 2.0 * PE_MACS * pts
     nbytes = 4 * n_act * (2 * n_params + n_per * (6 + 7 + S) + 5)
-    if policy in INT8_POLICIES or fp32_rate:
-        return bound(nbytes, fwd, 2 * fwd, "float32" if fp32_rate else policy,
-                     f32_flops=3 * pe)
-    pf, pb = PASSES[policy]
-    t_ops = (pf + 2 * pb) * fwd / PEAK_BF16 + 3 * pe / PEAK_F32
+    if fp32_rate:
+        return bound(nbytes, fwd, 2 * fwd, f32_flops=3 * pe)
+    pf, pb, qf, qb = PASSES[policy]
+    t_ops = ((pf + 2 * pb) * fwd / PEAK_BF16
+             + (qf + 2 * qb) * fwd / PEAK_INT8 + 3 * pe / PEAK_F32)
     t_mem = nbytes / PEAK_BYTES
     return {"bound_ms": max(t_ops, t_mem) * 1e3,
             "bound_by": "operations" if t_ops >= t_mem else "bytes",
@@ -422,43 +418,50 @@ def check_kernels(dev, stats: dict, shapes=SHAPES) -> None:
 
 
 SECTIONS = ("pe", "forward", "render", "weight_grads", "input_grads",
-            "rest")
+            "rest", "quant")
 
 
 def k1_sections(dev, gpu: str) -> None:
-    """``--sections``: where a float-policy train_grad launch spends its
-    time, at phase 3's shapes, banks and batches, under each float policy.
-    The kernel library is built once more with ``-DK1_PROFILE``
-    (``csrc/train_step.cu`` K1_MARK; the library the port runs never has
-    the counters): block (0, 0)'s thread 0 then adds the clocks of each
-    section of every tile it runs, the block synchronised at both ends of
-    a section: points and PE, the forward products, render and losses, the
-    weight gradients, the input gradients, and the rest (bias gradients,
-    band folds, activation reloads, the dirs gradient). The
-    synchronisation adds its own wait to each section, so the launch runs
-    slower than the port's; the shares are what this reads. Prints one
-    JSON line per (shape, policy): ms a launch (``time_cuda``, 10), the
-    tiles of block 0, its clocks a tile and each section's share."""
+    """``--sections``: where a train_grad launch spends its time, at phase
+    3's shapes, banks and batches, under each policy. The kernel library is
+    built once more with ``-DK1_PROFILE`` (``csrc/train_step.cuh``
+    K1_MARK; the library the port runs never has the counters): block (0,
+    0)'s thread 0 then adds the clocks of each section of every tile it
+    runs, the block synchronised at both ends of a section: points and PE,
+    the forward products, render and losses, the weight gradients, the
+    input gradients, the rest (bias gradients, band folds, activation
+    reloads, the dirs gradient) and, in the int8 tile
+    (``csrc/train_step_q8.cu``, its own counters), the quantisation passes
+    and scale reductions (the s8 copies, the abs-max and the bias sums in
+    registers; a product's epilogue up to its abs-max counts with the
+    product). The synchronisation adds its own wait to each section, so
+    the launch runs slower than the port's; the shares are what this
+    reads. Prints one JSON line per (shape, policy): ms a launch
+    (``time_cuda``, 10), the tiles of block 0, its clocks a tile and each
+    section's share."""
     import ctypes
     import torch
     from vmap_tpu_torch.kernels import _build
     from vmap_tpu_torch.kernels import train_step as K
     t0 = time.perf_counter()
     lib = _build.KERNELS.load(defines=("K1_PROFILE",))
-    lib.vmap_k1_profile.argtypes = [ctypes.c_void_p]
-    lib.vmap_k1_profile.restype = ctypes.c_int
+    for fn in (lib.vmap_k1_profile, lib.vmap_k1_profile_q8):
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     log(f"[sections] built the K1_PROFILE library in "
         f"{time.perf_counter() - t0:.1f} s")
     clocks = (ctypes.c_ulonglong * 8)()
-    for policy in POLICIES[:3]:
+    for policy in POLICIES:
+        read = (lib.vmap_k1_profile_q8 if policy in INT8_POLICIES
+                else lib.vmap_k1_profile)
         for name, cap, n_act, h, n_per, S, scale in SHAPES:
             bank = conditioned_bank(cap, n_act, h, scale, 0, dev)
             fl = K.FrameLaunch(bank, random_batch(cap, n_per, S, 1, dev), 1,
                                n_per, CS, OSC, policy, lib=lib)
             torch.cuda.synchronize()
-            _build.check(lib, lib.vmap_k1_profile(clocks), "zero clocks")
+            _build.check(lib, read(clocks), "zero clocks")
             ms = time_cuda(lambda: fl.grad(bank.flat, 0), 10)
-            _build.check(lib, lib.vmap_k1_profile(clocks), "read clocks")
+            _build.check(lib, read(clocks), "read clocks")
             g = fl.geom
             tiles = -(-g.n_tiles // g.blocks)    # of block 0, a launch
             total = sum(clocks[:len(SECTIONS)])
@@ -1416,21 +1419,23 @@ def check_policy_tiers(name, bank, S, n_per, dev, policy,
 
 
 def quantised_copy_errors(bank, fl, params) -> list:
-    """Where train_quant_w's copy (fl.wr, fl.wscale) of ``params`` differs
-    from the plain ``ops.quant.quant_weights`` of the same parameters, over
-    the active slots: the same f32 operations, so they must be equal."""
+    """Where train_quant_w's s8 copy (fl.wq, fl.wscale) of ``params``
+    differs from the plain ``ops.quant.quant_weights`` of the same
+    parameters in the kernel's layout (``kernels.train_step.stage_q8``:
+    each tensor's values, its transpose and their zero padding), over the
+    active slots: the same f32 operations, so they must be equal. Returns
+    the names of the tensors (or "scales") that differ."""
     import torch
+    from vmap_tpu_torch.kernels import train_step as K
     from vmap_tpu_torch.ops import quant as Q
     act, h = bank.active, bank.spec.hidden
     _, w = bank.spec.unflatten(params[act])
-    _, wq = bank.spec.unflatten(fl.wr[act])
     want = Q.quant_weights(w, h)
-    got = {"w_in": wq["w_in"], "w_mid1": wq["w_mid1"],
-           "w_cat_h": wq["w_cat"][..., :h], "w_cat_x": wq["w_cat"][..., h:],
-           "w_mid2": wq["w_mid2"], "w_alpha": wq["w_alpha"],
-           "w_col_h": wq["w_col"][..., :h], "w_col_x": wq["w_col"][..., h:],
-           "w_out": wq["w_col_out"]}
-    bad = [n for n in Q.QW_NAMES if not torch.equal(got[n], want[n][0])]
+    staged, got = K.stage_q8(want, h), fl.wq[act]
+    layout, size = K.q8_layout(h)
+    ends = [off for _, _, _, off, _ in layout[1:]] + [size]
+    bad = [name for (name, _, _, off, _), end in zip(layout, ends)
+           if not torch.equal(got[:, off:end], staged[:, off:end])]
     scales = torch.cat([want[n][1].reshape(-1, 1) for n in Q.QW_NAMES], 1)
     if not torch.equal(fl.wscale[act], scales):
         bad.append("scales")
@@ -1438,13 +1443,15 @@ def quantised_copy_errors(bank, fl, params) -> list:
 
 
 def quant_w_bound(bank) -> dict:
-    """train_quant_w's bound: the active slots' nine weight tensors read
-    in f32 and written as s8 (the function's output, as the JAX kernel's
-    ``quant_weights`` casts to int8; the port keeps its copy in f32 for its
-    FMA loops), and nine f32 scales written per slot."""
+    """train_quant_w's bound on what the function (ops.quant.quant_weights)
+    needs: the active slots' nine weight tensors read in f32 and written
+    once as s8, and nine f32 scales written per slot. The transposes the
+    kernel also writes (a layout the int8 tile reads) are not the
+    function's work: ``transpose_bytes`` gives them apart."""
     n_act, h = int(bank.active.sum()), bank.spec.hidden
     n_w = 87 * h + 2 * h * h + (h + 87) * h + h + (h + 42) * h + 3 * h
-    return bound(n_act * (4 * n_w + n_w + 4 * 9))
+    return {**bound(n_act * (4 * n_w + n_w + 4 * 9)),
+            "transpose_bytes": n_act * n_w}
 
 
 def check_policies(dev, stats: dict, shapes=SHAPES,
@@ -1457,6 +1464,7 @@ def check_policies(dev, stats: dict, shapes=SHAPES,
     import torch
     from vmap_tpu_torch.kernels import train_step as K
     from vmap_tpu_torch.ops import quant as Q
+    from vmap_tpu_torch.probes import PEAK_BYTES
     failures: list = []
     for name, cap, n_act, h, n_per, S, scale in shapes:
         bank = conditioned_bank(cap, n_act, h, scale, 0, dev)
@@ -1465,19 +1473,43 @@ def check_policies(dev, stats: dict, shapes=SHAPES,
             res = check_policy_tiers(name, bank, S, n_per, dev, policy,
                                      failures, phase)
             fl = K.FrameLaunch(bank, batch, 1, n_per, CS, OSC, policy)
+            if policy in INT8_POLICIES:
+                geom = fl.geom
+                smem = K.q8_smem_bytes(h, geom.rays_per_tile, S, policy)
+                if fl.lib.vmap_q8_smem(h, int(Q.q8_backward(policy)), S,
+                                       geom.rays_per_tile) != smem:
+                    failures.append(f"{name}/{policy}: q8_smem_bytes "
+                                    "disagrees with the library's")
+                res.update(tile_points=geom.rays_per_tile * S,
+                           blocks_per_slot=geom.blocks,
+                           scratch_bytes=geom.scratch_bytes,
+                           smem_bytes=smem)
+                log(f"[{phase}] {name}/{policy}: int8 tile "
+                    f"{geom.rays_per_tile} rays ({geom.rays_per_tile * S} "
+                    f"points, the scale granularity), {geom.n_tiles} tiles "
+                    f"over {geom.blocks} blocks per slot; scratch "
+                    f"{geom.rows} rows, {geom.scratch_bytes} bytes "
+                    f"({geom.scratch_bytes / 2**20:.1f} MiB); dynamic shared "
+                    f"memory {smem} bytes a block")
             res["ms"] = time_cuda(lambda: fl.grad(bank.flat, 0), 20)
             res["plain_ms"] = time_cuda(
                 lambda: K.iteration_loss_grad(bank, batch, CS, OSC,
                                               policy=policy), 20)
             res.update(grad_bound(bank, n_per, S, policy))
             stats.setdefault("train_grad", {})[f"{name}/{policy}"] = res
-            # train_adamw keeps the staged bf16 hi / lo weights that
-            # train_grad reads under a float policy: after an update they
-            # are the updated parameters' (K.stage_weights); under an int8
-            # policy train_quant_w makes the quantised copy from them
+            # train_adamw keeps the staged bf16 pieces that train_grad
+            # reads under a float policy and int8_fwd / int8_static_fwd:
+            # after an update they are the updated parameters'
+            # (K.stage_weights); under an int8 policy train_quant_w makes
+            # the s8 copy from the updated parameters
             p, m, v = (t.clone() for t in (bank.flat, bank.m, bank.v))
             fl.grad(p, 0)
             fl.adamw(p, m, v, torch.empty(cap, 1, device=dev), 0, LR, WD)
+            if fl.ws is not None and not (
+                    torch.equal(fl.ws, K.stage_weights(p, bank.spec))
+                    and not torch.equal(p, bank.flat)):
+                failures.append(f"{name}/{policy}: train_adamw's staged "
+                                "copy is not the updated parameters'")
             if policy in INT8_POLICIES:
                 fl.quant_weights(p)
                 bad = quantised_copy_errors(bank, fl, p)
@@ -1486,16 +1518,34 @@ def check_policies(dev, stats: dict, shapes=SHAPES,
                                     f"differs from plain in {bad}")
                 if policy == "int8":
                     _, w = bank.spec.unflatten(p)
-                    stats.setdefault("train_quant_w", {})[name] = {
+                    qw = stats.setdefault("train_quant_w", {})[name] = {
                         "max_abs_err": 0.0 if not bad else None,
                         **quant_w_bound(bank),
                         "ms": time_cuda(lambda: fl.quant_weights(p), 50),
                         "plain_ms": time_cuda(
                             lambda: Q.quant_weights(w, h), 50)}
-            elif not (torch.equal(fl.ws, K.stage_weights(p, bank.spec))
-                      and not torch.equal(p, bank.flat)):
-                failures.append(f"{name}/{policy}: train_adamw's staged "
-                                "copy is not the updated parameters'")
+                    # under int8 FrameLaunch makes no staged bf16 pieces
+                    # and train_adamw writes none (no kernel of the policy
+                    # reads them): the work that saves, the pieces made
+                    # (stage_weights, once a frame) and the launch writing
+                    # them, as under a float policy
+                    losses = torch.empty(cap, 1, device=dev)
+                    adam = lambda: fl.adamw(p, m, v, losses, 0, LR, WD)
+                    res["train_adamw_ms"] = time_cuda(adam, 50)
+                    res["stage_weights_ms"] = time_cuda(
+                        lambda: K.stage_weights(p, bank.spec), 20)
+                    fl.ws = K.stage_weights(p, bank.spec)
+                    res["train_adamw_staged_ms"] = time_cuda(adam, 50)
+                    fl.ws = None
+                    log(f"[{phase}] {name}/int8: train_quant_w ms kernel/"
+                        f"plain/bound {qw['ms']:.4f}/{qw['plain_ms']:.4f}/"
+                        f"{qw['bound_ms']:.5f} (the transposes "
+                        f"{qw['transpose_bytes']} bytes more, "
+                        f"{qw['transpose_bytes'] / PEAK_BYTES * 1e3:.5f} ms "
+                        f"at the HBM rate); train_adamw ms "
+                        f"{res['train_adamw_ms']:.4f}, writing the staged "
+                        f"pieces {res['train_adamw_staged_ms']:.4f}; "
+                        f"stage_weights {res['stage_weights_ms']:.4f} ms")
             log(f"[{phase}] {name}/{policy}: train_grad ms kernel/plain/bound "
                 f"{res['ms']:.4f}/{res['plain_ms']:.4f}/"
                 f"{res['bound_ms']:.4f} ({res['bound_by']})")
@@ -1909,8 +1959,8 @@ def main(argv=None) -> int:
                     default=list(range(1, 13)),
                     help="phases to run (default all: 1 2 ... 12)")
     ap.add_argument("--sections", action="store_true",
-                    help="in place of the phases: time the float-policy "
-                    "train_grad's sections (k1_sections)")
+                    help="in place of the phases: time train_grad's "
+                    "sections under every policy (k1_sections)")
     args = ap.parse_args(argv)
     phases = set(args.phases)
     if not os.path.isdir(os.path.join(REPO, "vmap_tpu_torch", "kernels",

@@ -198,10 +198,11 @@ def test_imap_cli_meshes_checkpoints_and_resumes(tmp_path):
 
 # ----------------------------------------------------- launch geometry
 def _smem_bytes(hidden, rt, S):
-    """Shared memory of one int8 train_grad block's tile (csrc/
-    train_step.cuh grad_smem_bytes): (EMB + 2 NDIR + 5 h + 8) rows of the
-    odd stride, plus the per-ray losses."""
-    return 4 * (((rt * S) | 1) * (129 + 42 + 5 * hidden + 8) + rt)
+    """Shared memory of one int8 train_grad block (csrc/train_step_q8.cu
+    q8_smem_bytes), the larger of its two tiles': int8 / int8_static's s8
+    backward and the _fwd halves' f32 one."""
+    return max(K.q8_smem_bytes(hidden, rt, S, pol)
+               for pol in ("int8", "int8_fwd"))
 
 
 def test_imap_geometry_bounds_the_scratch():

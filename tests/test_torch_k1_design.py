@@ -18,7 +18,10 @@ versions of what it computes beside the products, and its geometry.
   per slot, scratch bytes and shared-memory plan within the 232,448 bytes
   a block may use, for every width, policy and sample count of the
   shipped configurations and every S up to 32; ``MAX_POINTS``, the int8
-  tile and scale granularity, unchanged.
+  tile and scale granularity, unchanged;
+* chip_smoke.py's train_grad bound under every policy: the tensor-core
+  passes its kernel runs (bf16 under the float policies, s8 under the
+  int8 ones, the _fwd halves' backward as float32's).
 """
 
 import glob
@@ -246,15 +249,17 @@ def test_shipped_geometry_fits(policy):
         else:
             assert g.rays_per_tile == kernels.tile_rays(h, S)
             assert pts <= kernels.MAX_POINTS[h], name
+            assert K.q8_smem_bytes(h, g.rays_per_tile, S,
+                                   policy) <= SMEM_LIMIT
         assert 1 <= g.blocks <= g.n_tiles
         assert g.n_tiles * g.rays_per_tile >= n_per
         assert g.rows == cap * g.blocks
-        # what FrameLaunch allocates: the partial rows, and under a float
-        # policy each block's activation scratch [3, h, LDP]
-        if policy in POLICIES[:3]:
-            per = K.grad_row_size(h) + 3 * h * (pts | 1)
-        else:
-            per = BankSpec.create(h).n_params
+        # what FrameLaunch allocates: the partial rows (the staged layout
+        # under every policy), and but under int8 / int8_static each
+        # block's activation scratch [3, h, LDP]
+        per = K.grad_row_size(h)
+        if policy not in ("int8", "int8_static"):
+            per += 3 * h * (pts | 1)
         assert g.scratch_bytes == 4 * g.rows * per
 
 
@@ -308,14 +313,20 @@ def test_k1_sections_needs_the_card(capsys):
 
 
 @pytest.mark.parametrize("policy,passes", [("float32", 9), ("bwd_bf16", 8),
-                                           ("bfloat16", 3)])
+                                           ("bfloat16", 3), ("int8", 0),
+                                           ("int8_static", 0),
+                                           ("int8_fwd", 6),
+                                           ("int8_static_fwd", 6)])
 def test_k1_bound_is_the_route_the_kernel_takes(policy, passes):
-    """chip_smoke.py's train_grad bound under a float policy counts the
-    MLP products as the bf16 tensor-core passes the kernel runs them in
-    (forward and the backward's two products: float32 3 + 2 x 3, bwd_bf16
-    6 + 2 x 1, bfloat16 1 + 2 x 1) at 989 TFLOP/s, and the PE's projection
-    and its gradient at the FP32 rate; float32's FP32-rate figure, the
-    phase-3 log's second, is the slower."""
+    """chip_smoke.py's train_grad bound counts the MLP products as the
+    tensor-core passes the kernel runs them in (the forward and the
+    backward's two products): under a float policy bf16 passes (float32 3
+    + 2 x 3, bwd_bf16 6 + 2 x 1, bfloat16 1 + 2 x 1) at 989 TFLOP/s; under
+    int8 / int8_static one s8 pass each (1 + 2 x 1) at 1979 TOP/s; under
+    the _fwd halves the forward's s8 pass and the f32 backward's three
+    bf16 passes (2 x 3); the PE's projection and its gradient at the FP32
+    rate. The FP32-rate figure, the phase-3 log's second, is the
+    slower."""
     import sys
     sys.path.insert(0, REPO)
     import chip_smoke
@@ -324,7 +335,10 @@ def test_k1_bound_is_the_route_the_kernel_takes(policy, passes):
                                        torch.device("cpu"))
     pts = n_act * n_per * S
     mlp = 87 * h + 2 * h * h + (h + 87) * h + h + (h + 42) * h + 3 * h
-    want = (passes * 2 * mlp * pts / 989e12 + 3 * 2 * 63 * pts / 67e12)
+    s8 = {"int8": 3, "int8_static": 3, "int8_fwd": 1,
+          "int8_static_fwd": 1}.get(policy, 0)
+    want = (passes * 2 * mlp * pts / 989e12 + s8 * 2 * mlp * pts / 1979e12
+            + 3 * 2 * 63 * pts / 67e12)
     got = chip_smoke.grad_bound(bank, n_per, S, policy)
     assert got["bound_by"] == "operations"
     assert got["bound_ms"] == pytest.approx(want * 1e3, rel=1e-12)

@@ -10,10 +10,11 @@ tiers); the train-frame kernels under the bwd_bf16 and bfloat16 matmul
 policies (phase 10: n_iter=1 gradients per tensor within 1e-2 of scale and
 at least 10x closer to the plain policy than plain f32 is, n_iter=20
 finite within rtol 0.25), under the int8 policies (phase 11: the same
-tiers with 5e-2 of scale) and under sample_reuse 4, bit-identical to the
-tiled batch; and the probe kernels (``vmap_tpu_torch.probes``: K4 mm, K10
-int8, K7 sections, K8 overlap, K9 vpu, K5 ops, K6 dma) in every variant
-and shape against their plain versions at 3 steps (K6 at 4000 copies;
+tiers with 5e-2 of scale; also at ragged shapes) and under sample_reuse
+4, bit-identical to the tiled batch; and the probe kernels
+(``vmap_tpu_torch.probes``: K4 mm, K10 int8, K7 sections, K8 overlap,
+K9 vpu, K5 ops, K6 dma) in every variant and shape against their plain
+versions at 3 steps (K6 at 4000 copies;
 phase 12's tolerances), their entry points refusing what they do not
 take. Skips where CUDA is
 not available (no interpret mode exists for a CUDA kernel). Run on the
@@ -108,6 +109,33 @@ def test_float_tile_ragged_matches_plain_on_card(cuda_device, policy):
                                            cuda_device)
         chip_smoke.check_policy_tiers(name, bank, S, n_per, cuda_device,
                                       policy, failures)
+    assert not failures, failures
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["int8", "int8_fwd", "int8_static",
+                                    "int8_static_fwd"])
+def test_int8_tile_ragged_matches_plain_on_card(cuda_device, policy):
+    """K1 under each int8 policy at the ragged shapes, in phase 11's tiers:
+    int8 tiles of 63, 52 and 33 points (tile_rays at S 9 / 13 / 11), none a
+    multiple of 32, the last tile 2, 1 and 1 rays, the last slots
+    inactive; train_quant_w's s8 copy equal to plain."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from vmap_tpu_torch.kernels import train_step as K
+    failures = []
+    for name, cap, n_act, h, n_per, S, scale in RAGGED:
+        bank = chip_smoke.conditioned_bank(cap, n_act, h, scale, 0,
+                                           cuda_device)
+        assert (K.frame_geometry(h, S, n_per, cap, policy).rays_per_tile
+                * S) % 32
+        chip_smoke.check_policy_tiers(name, bank, S, n_per, cuda_device,
+                                      policy, failures, "11")
+        fl = K.FrameLaunch(bank, chip_smoke.random_batch(cap, n_per, S, 1,
+                                                         cuda_device),
+                           1, n_per, chip_smoke.CS, chip_smoke.OSC, policy)
+        bad = chip_smoke.quantised_copy_errors(bank, fl, bank.flat)
+        assert not bad, f"{name}/{policy}: train_quant_w differs in {bad}"
     assert not failures, failures
 
 

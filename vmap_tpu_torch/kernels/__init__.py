@@ -29,12 +29,17 @@ KERNEL_POLICIES = {
     "field_bwd": ("float32",),
 }
 # (rays per tile) * samples may not exceed this under the int8 policies,
-# per hidden size: it sets the shared memory of one int8 train_grad block
-# (83 KB at h=32 / 120 rays x 10 samples, 187 KB at h=128 / 1200 rays x 14
-# samples, 169 KB at h=256 / 4800 rays x 14 samples, then 3 rows and 32
-# floats; at most 227 KB). A weight gradient there sums s8 x s8 products
-# over one tile's points in f32, exact while points * 127^2 < 2^24: 64
-# points give 1.03 M, and a tile of more than 1040 points would break it.
+# per hidden size: it is the granularity of their activation and gradient
+# scales (ops.quant), and it sets the shared memory of one int8 train_grad
+# block (csrc/train_step_q8.cu, kernels/train_step.py q8_smem_bytes: the
+# tile's s8 copies, point-major for the products that read them next and,
+# under int8 / int8_static, feature-major for the backward; at the shipped
+# shapes 103 KB at h=32 / 120 rays x 10 samples, two blocks an SM, 169 KB
+# at h=128 / 1200 x 14, 151 KB at h=256 / 4800 x 14; at most 210 KB at
+# every S <= 32). A weight gradient sums s8 x s8 products over one tile's
+# points in s32, exactly; the scaled sums equal ops.quant's f32 ones while
+# points * 127^2 < 2^24: 64 points give 1.03 M, and a tile of more than
+# 1040 points would break it.
 MAX_POINTS = {32: 64, 128: 56, 256: 38}
 # the float policies' tile (csrc/train_step.cu Tile<H>::FP): its f32
 # activations beside the slabs of staged weights (kernels/train_step.py

@@ -39,11 +39,13 @@ F = ctypes.c_float
 # ensemble.cu
 SIGNATURES = {
     "vmap_train_grad": ((I, I) + (P,) * 12 + (I,) * 10 + (F, F, P), I),
-    "vmap_train_grad_q8": ((I, I) + (P,) * 13 + (I,) * 10 + (F, F, P), I),
+    "vmap_train_grad_q8": ((I, I) + (P,) * 15 + (I,) * 10 + (F, F, P), I),
     "vmap_train_quant_w": ((P, P, P, P, P, I, I, I, P), I),
     "vmap_train_adamw": ((P,) * 11 + (I,) * 6 + (F, F, P), I),
     "vmap_staged_size": ((I,), I),
     "vmap_grad_row": ((I,), I),
+    "vmap_q8_size": ((I,), I),
+    "vmap_q8_smem": ((I, I, I, I), I),
     "vmap_field_fwd": ((I, P, P, I, P, P, I, I, P, P, P), I),
     "vmap_field_bwd": ((I, P, P, I, P, P, P, P, I, I, I, P, P), I),
     "vmap_field_bwd_subtile": ((I,), I),
@@ -66,23 +68,25 @@ def _nvcc() -> str:
 
 @dataclass(frozen=True, eq=False)
 class Library:
-    """One shared library: ``csrc/*.cu`` (and the ``*.cuh`` they include)
-    built into ``build_root/<hash>/name``, its entry points typed by
-    ``signatures`` ({name: (argtypes, restype)}), plus the error-string
-    entry every library of this package exports,
+    """One shared library: ``csrc/*.cu`` (and the ``*.cuh`` they include,
+    there and in ``headers``) built into ``build_root/<hash>/name``, its
+    entry points typed by ``signatures`` ({name: (argtypes, restype)}),
+    plus the error-string entry every library of this package exports,
     ``vmap_cuda_error_string`` (int -> const char*)."""
 
     csrc: Path
     build_root: Path
     name: str
     signatures: dict
+    headers: tuple = ()   # headers of other directories the sources include
 
     def sources(self) -> list[Path]:
         return sorted(self.csrc.glob("*.cu"))
 
     def source_hash(self, defines: tuple = ()) -> str:
         h = hashlib.sha256(" ".join(NVCC_FLAGS + _macros(defines)).encode())
-        for src in self.sources() + sorted(self.csrc.glob("*.cuh")):
+        for src in (self.sources() + sorted(self.csrc.glob("*.cuh"))
+                    + list(self.headers)):
             h.update(src.name.encode())
             h.update(src.read_bytes())
         return h.hexdigest()[:16]

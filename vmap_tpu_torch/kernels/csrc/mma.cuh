@@ -1,17 +1,23 @@
-// Warp-level tensor-core helpers of the float train-frame tile
-// (train_step.cu): mma.sync m16n8k16 bf16 -> f32, its fragment loads
+// Warp-level tensor-core helpers of the train-frame tiles: mma.sync
+// m16n8k16 bf16 -> f32 (train_step.cu's float tile), its fragment loads
 // (32-bit shared-memory loads, ldmatrix .trans), the split of an f32
-// operand into bf16 pieces and the products of the pieces, and 16-byte
-// cp.async copies into shared memory.
+// operand into bf16 pieces and the products of the pieces; mma.sync
+// m16n8k32 s8 -> s32 and its fragment loads (train_step_q8.cu's int8
+// tile); and 16-byte cp.async copies into shared memory. The probe kernels
+// (probes/csrc/probe_common.cuh) include it for the same products.
 //
-// Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), with
-// g = lane / 4 and t = lane % 4; each register holds two bf16, the lower
-// column (A) or row (B) in its low half:
-//   A 16 x 16, row-major:  a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)
-//                          a3 (g+8, 2t+8..)
-//   B 16 x 8, "col":       b0 (2t..2t+1, g)  b1 (2t+8.., g)
-//   C / D 16 x 8 f32:      d0 (g, 2t)  d1 (g, 2t+1)  d2 (g+8, 2t)
-//                          d3 (g+8, 2t+1)
+// Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16" and
+// "mma.m16n8k32"), with g = lane / 4 and t = lane % 4; each bf16 register
+// holds two bf16, the lower column (A) or row (B) in its low half, each s8
+// register four s8, the lowest column (A) or row (B) in its low byte:
+//   A 16 x 16 bf16, row-major:  a0 (g, 2t..2t+1)  a1 (g+8, 2t..)
+//                               a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
+//   B 16 x 8 bf16, "col":       b0 (2t..2t+1, g)  b1 (2t+8.., g)
+//   A 16 x 32 s8, row-major:    a0 (g, 4t..4t+3)  a1 (g+8, 4t..)
+//                               a2 (g, 4t+16..)  a3 (g+8, 4t+16..)
+//   B 32 x 8 s8, "col":         b0 (4t..4t+3, g)  b1 (4t+16.., g)
+//   C / D 16 x 8 f32 or s32:    d0 (g, 2t)  d1 (g, 2t+1)  d2 (g+8, 2t)
+//                               d3 (g+8, 2t+1)
 
 #pragma once
 
@@ -51,8 +57,40 @@ __device__ __forceinline__ void mma_pieces(float (&d)[4],
   mma_bf16(d, a[0], b[0]);
 }
 
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
+__device__ __forceinline__ uint32_t lds32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// d += A B, s8 operands, exact s32 sums
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A fragment of rows row0.., columns k0.. of a row-major s8 array in
+// shared memory (row stride lda bytes, a multiple of 4; lda / 4 = 4 mod 8
+// puts the 8 rows of a fragment on distinct banks)
+__device__ __forceinline__ void load_a_s8(uint32_t (&a)[4], const int8_t* A,
+                                          int lda, int row0, int k0,
+                                          int lane) {
+  const int8_t* p = A + (row0 + (lane >> 2)) * lda + k0 + 4 * (lane & 3);
+  a[0] = lds32(p);
+  a[1] = lds32(p + 8 * lda);
+  a[2] = lds32(p + 16);
+  a[3] = lds32(p + 8 * lda + 16);
+}
+
+// B fragment of columns col0.., k0.. of an s8 array in shared memory held
+// column by column ([col][ldb], one column's k values contiguous)
+__device__ __forceinline__ void load_b_s8(uint32_t (&b)[2], const int8_t* B,
+                                          int ldb, int col0, int k0,
+                                          int lane) {
+  const int8_t* p = B + (col0 + (lane >> 2)) * ldb + k0 + 4 * (lane & 3);
+  b[0] = lds32(p);
+  b[1] = lds32(p + 16);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

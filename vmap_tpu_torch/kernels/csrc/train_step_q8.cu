@@ -1,47 +1,85 @@
 // The train-frame kernel under the int8 matmul policies (sm_90a, plain C
-// interface, loaded with ctypes).
+// interface, loaded with ctypes): every int8 MLP product on s8 tensor
+// cores, mma.sync m16n8k32 with exact s32 sums.
 //
 // Replaces the int8 paths of the TPU kernel
 // vmap_tpu/kernels/train_step.py::_make_kernel: quant_dyn / quant_static /
-// quant_weights (:501-590), the quantised forward of fwd_mlp (:803-846) and
-// the quantised backward bwd_chunk_q8 (:1050-1117). The plain version, and
-// the statement of the scale granularity this kernel computes, is
-// vmap_tpu_torch/ops/quant.py.
+// quant_relu / quant_emb / quant_weights (:520-590), the quantised forward
+// of fwd_mlp (:812, its q8f branch) and the quantised backward
+// bwd_chunk_q8 (:1050). The plain version, and the statement of the scale
+// granularity this kernel computes, is vmap_tpu_torch/ops/quant.py.
 //
-// The tile is train_step.cuh's tile_body, under two policies of its own:
-//   INT8      (int8, int8_static): the embedding is quantised in place
-//       after the PE (its f32 xs rows kept for the dirs gradient), each
-//       ReLU output in place once its scale is known, and every product,
-//       forward and backward, reads integer-valued operands;
-//   INT8_FWD  (int8_fwd, int8_static_fwd): the forward products quantise
-//       their operands as they read them, so the activations and the
-//       embedding stay f32 for tile_body's f32 backward.
-// Static or dynamic scales are a runtime choice: qs points to the static
-// (scale, 127 / maximum) pairs of the activations, head gradients and
-// hidden gradients, or is null. A dynamic scale is the abs-max of one
-// tensor over the tile (max |x| / 127 + 1e-30), one block reduction each:
-// max is order-free, so the result does not depend on the reduction order.
+// One iteration of one bank is train_grad_q8_kernel, grid (partial row,
+// slot), the float tile's grid, tile order and partial rows (train_step.cu;
+// kernels/train_step.py frame_geometry): a block takes the ray tiles row,
+// row + n_rows, ... of tile_rays(h, S) whole rays (kernels.MAX_POINTS: the
+// int8 scale granularity, one scale per tile and tensor) and adds each
+// tile's gradients to its row, the weights in the staged layout
+// (grad_row), then the dirs and biases. train_adamw sums the rows in a
+// fixed order (writing no staged bf16 pieces: under int8 / int8_static no
+// kernel reads them); quant_weights_kernel then writes the s8 copy this
+// kernel reads.
 //
-// Exact s32 sums on FP32 FMA loops: every quantised operand is held as an
-// integer-valued float, and an s8 x s8 sum is exact in f32 while it stays
-// under 2^24 (forward contractions over <= h + 87 = 343 inputs: 5.5 M;
-// input gradients over <= 256 rows: 4.1 M; weight gradients over one tile's
-// <= MAX_POINTS = 64 points: 1.0 M). So each tile's product equals the TPU's
-// s32 result, and it is scaled in f32 in the same order (acc * (s_a *
-// s_b)), with __fmul_rn / __fadd_rn so that no multiply-add is contracted.
+// The products (mma.cuh mma_s8; A row-major, k contiguous; B "col", k
+// contiguous per column, so every fragment register is one 32-bit
+// shared-memory load):
+//   forward         out[i][p] = sum_k Wq[i][k] xq[k][p]: A the weights
+//                   [i][k], B the activations point-major [p][k];
+//   input grads     dx[k][p] = sum_i Wq[i][k] dq[i][p]: A the weights'
+//                   transpose [k][i], B the gradient point-major [p][i];
+//   weight grads    dW[i][k] = sum_p dq[i][p] xq[k][p] over the tile's
+//                   points: A the gradient feature-major [i][p], B the
+//                   activations feature-major [k][p].
+// ldmatrix .trans moves 16-bit elements only, so an s8 operand cannot be
+// transposed as it is loaded: each pass that quantises a tensor writes its
+// s8 copies in the layouts its products read (the point-major copy for the
+// next product, the feature-major one for the backward), and
+// quant_weights_kernel writes each weight's transpose beside it. The
+// contraction depths are padded with s8 zeros to whole k32 steps, which
+// add exactly nothing: the embedding's 87 / 42 rows to 96 / 64, the tile's
+// points to up32(P). An s8 x s8 -> s32 sum is an exact integer; it is
+// converted to f32 (exactly: every sum here stays under 2^24, ops/quant.py)
+// and scaled as the plain version scales it, acc * (s_a * s_b), with
+// __fmul_rn / __fadd_rn so that no multiply-add is contracted.
 //
-// The weights are quantised once per iteration by quant_weights_kernel, one
-// block per (tensor, slot): a block reduction gives the tensor's scale, then
-// the block writes the integer-valued copy wq (the layout of the
-// parameters) and the scale. The wrapper launches it after each
-// train_adamw, and once before the frame's first iteration.
+// A hidden layer's epilogue (fwd_layer, bwd_layer) keeps its f32 values in
+// the accumulator registers: each warp takes the abs-max of its fragments,
+// one block reduction combines the warps (max is order-free, so the scale
+// does not depend on the order), then each warp quantises its own values
+// into the s8 copies. A hidden gradient's f32 bias gradient is summed per
+// row in the same registers (quad shuffles, then one partial per row and
+// column unit, added in a fixed order). Static scales skip the reduction.
+// The ReLU masks are the quantised activations' (q > 0): each gradient is
+// quantised in place over its activation's feature-major copy.
 //
-// What bounds it on the card: FP32 FMA issue over shared-memory operands
-// (the tile the float policies ran before they moved to tensor cores in
-// train_step.cu), plus 11 block reductions and in-place
-// quantisation passes per tile (about 10 H + 150 values per point against
-// about 3 x 11,199 multiply-adds per point at h=32). Tensor-core s8
-// products (mma.sync / wgmma) are a later redesign.
+// The weights: quant_weights_kernel, a few blocks per (tensor, active
+// slot), writes the nine QW tensors' s8 copies, each padded to whole
+// 16 x 32 tiles, and their transposes (q8_layout), with the [cap, 9]
+// scales, after each train_adamw but the frame's last and once before the
+// first iteration. A block streams each product's s8 weights through a ring of
+// two slabs in shared memory (16-byte cp.async copies, L2 evict_last; the
+// next slab in flight while one computes), slabs of Q8Tile<H>::KS columns
+// across all rows: at h=32 and h=128 every weight of a product is one slab,
+// at h=256 slabs of 64 columns (the nine tensors and their transposes are
+// 690 KB a slot).
+//
+// Policies: INT8 (int8, int8_static) runs the backward above. INT8_FWD
+// (int8_fwd, int8_static_fwd) runs the same s8 forward, keeping each
+// layer's f32 ReLU output (h1..h3 in the block's activation scratch, h4 and
+// hc in shared memory), then the float tile's f32 backward
+// (train_step.cuh float_backward<H, F32>: three bf16 tensor-core passes
+// from the staged bf16 pieces), never TF32. Static or dynamic scales are a
+// runtime choice: qs points to the static (scale, 127 / maximum) pairs of
+// the activations, head gradients and hidden gradients, or is null.
+//
+// What bounds it on the card (chip_smoke.py --sections; PERF.md §6): at
+// h=256 the weight gradients, 60% of an int8 tile: the
+// read-modify-write of the block's 1.33 MB partial row for every tile of
+// 28 points (the scale tile; twice the float tile's tiles), about 2 TB/s;
+// at h=32 / 128 the chain of block barriers: the quantisation passes and
+// scale reductions 26-31% of a tile, then the products' slab steps. The
+// products' own bound is far below: 3 x 11,200 s8 multiply-adds a point
+// at h=32, at 1979 TOP/s.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,16 +102,211 @@ constexpr float INV_127 = 1.f / 127.f;
 __device__ __forceinline__ float q8(float x, float mul) {
   return rintf(fminf(fmaxf(__fmul_rn(x, mul), -127.f), 127.f));
 }
+__device__ __forceinline__ int8_t to_s8(float q) { return (int8_t)(int)q; }
 
-// max |x| over rows [n][LDP] (their first P entries), in every thread
-template <int NT>
-__device__ float block_amax(const float* x, int n, int P, int LDP,
-                            float* red) {
-  float m = 0.f;
-  for (int idx = threadIdx.x; idx < n * P; idx += NT) {
-    const int i = idx / P, p = idx % P;
-    m = fmaxf(m, fabsf(x[i * LDP + p]));
+__host__ __device__ constexpr int up8(int x) { return (x + 7) / 8 * 8; }
+__host__ __device__ constexpr int up32(int x) { return (x + 31) / 32 * 32; }
+
+// ---- the staged s8 weights (kernels/train_step.py q8_layout): per slot,
+// for each QW tensor [n_out][n_in] in order, its copy [up16(n_out)]
+// [up32(n_in)] row-major, then its transpose [up16(n_in)][up32(n_out)],
+// zero-padded (every block a multiple of 512 bytes, so 16-byte aligned)
+__host__ __device__ constexpr int qw_out(int H, int t) {
+  return t == QW_ALPHA ? 1 : t == QW_OUT ? 3 : H;
+}
+__host__ __device__ constexpr int qw_in(int H, int t) {
+  return t == QW_IN || t == QW_CAT_X ? EMB1 : t == QW_COL_X ? EMB2 : H;
+}
+__host__ __device__ constexpr int qw_off(int H, int t) {
+  int s = 0;
+  for (int i = 0; i < t; ++i)
+    s += up16(qw_out(H, i)) * up32(qw_in(H, i)) +
+         up16(qw_in(H, i)) * up32(qw_out(H, i));
+  return s;
+}
+__host__ __device__ constexpr int qwt_off(int H, int t) {
+  return qw_off(H, t) + up16(qw_out(H, t)) * up32(qw_in(H, t));
+}
+__host__ __device__ constexpr int q8_size(int H) { return qw_off(H, NQW); }
+
+// ---- the int8 tile's shape per width (threads: Tile<H>::NT). FP the most
+// points of a tile (kernels.MAX_POINTS, the scale granularity); a warp's
+// product unit is one 16-row m tile by WN 8-point n tiles; KS the slab's
+// columns; MINB the blocks an SM the registers must allow.
+template <int H>
+struct Q8Tile;
+template <>
+struct Q8Tile<32> {
+  static constexpr int FP = 64, WN = 2, KS = 96, MINB = 2;
+};
+template <>
+struct Q8Tile<128> {
+  static constexpr int FP = 56, WN = 7, KS = 128, MINB = 1;
+};
+template <>
+struct Q8Tile<256> {
+  static constexpr int FP = 38, WN = 5, KS = 64, MINB = 1;
+};
+
+// n units of a product at FP points; units a warp holds for M rows
+template <int H>
+__host__ __device__ constexpr int q8_nu() {
+  return ((Q8Tile<H>::FP + 7) / 8 + Q8Tile<H>::WN - 1) / Q8Tile<H>::WN;
+}
+template <int H>
+__host__ __device__ constexpr int q8_mu(int M) {
+  return (M / 16 * q8_nu<H>() + Tile<H>::NT / 32 - 1) / (Tile<H>::NT / 32);
+}
+
+// bytes of one slab: the largest product's rows x (its columns, at most
+// KS, + 16): the forward's H rows over up to max(96, H) columns, the input
+// gradients' up to 96 rows (the embedding's) over H
+template <int H>
+__host__ __device__ constexpr size_t q8_slab_s8() {
+  constexpr int KS = Q8Tile<H>::KS;
+  constexpr int kf = (H > 96 ? H : 96) < KS ? (H > 96 ? H : 96) : KS;
+  constexpr int kb = H < KS ? H : KS;
+  constexpr size_t f = (size_t)H * (kf + 16), b = (size_t)96 * (kb + 16);
+  return f > b ? f : b;
+}
+// QB (INT8): the s8 slabs; INT8_FWD also the float backward's bf16 slabs
+template <int H, bool QB>
+__host__ __device__ constexpr size_t q8_slab() {
+  return QB || q8_slab_s8<H>() > slab_bytes<H, F32>() ? q8_slab_s8<H>()
+                                                       : slab_bytes<H, F32>();
+}
+
+// The tile's shared memory after the two slabs: f32 rows of LDP, then
+// the s8 copies (16-byte aligned).
+//   QB: emb [EMB], proj, dproj [NDIR], alp, col [3], dal, dy [3], rl [RT],
+//       red [32], bpart [H][q8_nu] (the bias gradients' partials);
+//   INT8_FWD: FloatBufs' rows, rl [RT], red [32].
+// s8: point-major copies [up8(P)][K + 16]: ph (K = H), pe1 (96), pe2 (64),
+// and under QB pdl, pda (32, the head gradients); QB also feature-major
+// copies [rows][up32(P) + 16]: fe1 (96), fe2 (64), fh1..fh4, fc (H each),
+// fdl, fda (16).
+template <int H, bool QB>
+__host__ __device__ constexpr size_t q8_f32_bytes(int LDP, int RT) {
+  return (4 * ((QB ? (size_t)(EMB + 2 * NDIR + 8) * LDP + H * q8_nu<H>()
+                   : float_rows(H) * LDP) + RT + 32) + 15) / 16 * 16;
+}
+template <int H, bool QB>
+__host__ __device__ constexpr size_t q8_s8_bytes(int P) {
+  return (size_t)up8(P) * (H + 16 + 112 + 80 + (QB ? 2 * 48 : 0)) +
+         (QB ? (size_t)(up32(P) + 16) * (96 + 64 + 5 * H + 32) : 0);
+}
+template <int H, bool QB>
+__host__ __device__ constexpr size_t q8_smem_bytes(int P, int RT) {
+  return 2 * q8_slab<H, QB>() + q8_f32_bytes<H, QB>(P | 1, RT) +
+         q8_s8_bytes<H, QB>(P);
+}
+
+// acc (and acc1: TWO) += this warp's units of A x B over segment 0 (and
+// segment 1, into acc1): A global [M][K] s8 row-major (K a multiple of 32,
+// streamed through the two slabs), B shared [points][ldb] s8 point-major.
+// Unit u: m tile u / un, n tiles from (u % un) WN; only the n tiles with
+// points are computed. Starts by staging its first slab; ends with the
+// slabs free (the block synchronised after its last read of them and of
+// B).
+template <int H, int MU, bool TWO>
+__device__ __forceinline__ void prod_s8(
+    int (&acc)[MU][Q8Tile<H>::WN][4], int (&acc1)[MU][Q8Tile<H>::WN][4],
+    const int8_t* __restrict__ A0, int K0, const int8_t* B0, int ldb0,
+    const int8_t* __restrict__ A1, int K1, const int8_t* B1, int ldb1,
+    int M, int P, int8_t* slab0, int8_t* slab1) {
+  constexpr int NT = Tile<H>::NT, NW = NT / 32, WN = Q8Tile<H>::WN;
+  constexpr int KS = Q8Tile<H>::KS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nt = (P + 7) >> 3, un = (nt + WN - 1) / WN, units = M / 16 * un;
+  if (units > MU * NW) __trap();   // Q8Tile<H> does not cover this product
+#pragma unroll
+  for (int j = 0; j < MU; ++j)
+#pragma unroll
+    for (int wn = 0; wn < WN; ++wn)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        acc[j][wn][q] = 0;
+        if constexpr (TWO) acc1[j][wn][q] = 0;
+      }
+  const int kmax = TWO && K1 > K0 ? K1 : K0;
+  const int LD = (kmax < KS ? kmax : KS) + 16;
+  const int ns0 = (K0 + KS - 1) / KS;
+  const int ns = ns0 + (TWO ? (K1 + KS - 1) / KS : 0);
+  int8_t* buf[2] = {slab0, slab1};
+  auto stage = [&](int s) {   // columns [c0, c0 + kw) of the segment's A
+    const bool seg1 = TWO && s >= ns0;
+    const int K = seg1 ? K1 : K0, c0 = (seg1 ? s - ns0 : s) * KS;
+    const int kw = K - c0 < KS ? K - c0 : KS;
+    stage_slab<NT, 1>(reinterpret_cast<bf16*>(buf[s & 1]), LD / 2,
+                      reinterpret_cast<const bf16*>(seg1 ? A1 : A0), 0,
+                      K / 2, 0, M, c0 / 2, kw / 2);
+  };
+  stage(0);
+  for (int s = 0; s < ns; ++s) {
+    if (s + 1 < ns) {
+      stage(s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bool seg1 = TWO && s >= ns0;
+    const int K = seg1 ? K1 : K0, c0 = (seg1 ? s - ns0 : s) * KS;
+    const int kw = K - c0 < KS ? K - c0 : KS;
+    const int8_t* B = seg1 ? B1 : B0;
+    const int ldb = seg1 ? ldb1 : ldb0;
+    const int8_t* sh = buf[s & 1];
+#pragma unroll
+    for (int j = 0; j < MU; ++j) {
+      const int u = warp + j * NW;
+      if (u < units) {
+        const int m0 = u / un * 16, n0 = u % un * WN;   // n0 in n tiles
+        for (int kk = 0; kk < kw; kk += 32) {
+          uint32_t a[4];
+          load_a_s8(a, sh, LD, m0, kk, lane);
+#pragma unroll
+          for (int wn = 0; wn < WN; ++wn) {
+            if (n0 + wn >= nt) continue;
+            uint32_t b[2];
+            load_b_s8(b, B, ldb, 8 * (n0 + wn), c0 + kk, lane);
+            if (seg1)
+              mma_s8(acc1[j][wn], a, b);
+            else
+              mma_s8(acc[j][wn], a, b);
+          }
+        }
+      }
+    }
+    __syncthreads();
   }
+}
+
+// f(j, wn, q, i, p) for every accumulator element of this warp's units of
+// an M-row product: row i, point p (p may pass P; f checks it)
+template <int H, int MU, class F>
+__device__ __forceinline__ void for_acc(int M, int P, F f) {
+  constexpr int NW = Tile<H>::NT / 32, WN = Q8Tile<H>::WN;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nt = (P + 7) >> 3, un = (nt + WN - 1) / WN, units = M / 16 * un;
+#pragma unroll
+  for (int j = 0; j < MU; ++j) {
+    const int u = warp + j * NW;
+    if (u >= units) continue;
+    const int m0 = u / un * 16, n0 = u % un * WN * 8;
+#pragma unroll
+    for (int wn = 0; wn < WN; ++wn)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        f(j, wn, q, m0 + (lane >> 2) + (q >> 1) * 8,
+          n0 + 8 * wn + 2 * (lane & 3) + (q & 1));
+  }
+}
+
+// the largest m over the block, in every thread; starts and ends with the
+// block synchronised after its use of red
+template <int NT>
+__device__ __forceinline__ float block_max(float m, float* red) {
+#pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
@@ -88,323 +321,508 @@ struct QScale {
   float s, inv;   // the scale, and the multiplier that quantises
 };
 
-// The scale of rows [n][LDP] over the tile: the static pair st (scale,
-// 127 / maximum), or, where st is null, the dynamic one. With inplace the
-// rows are quantised in place. Starts and ends with the block
-// synchronised.
-template <int NT>
-__device__ QScale quant_rows(float* x, int n, int P, int LDP,
-                             const float* st, float* red, bool inplace) {
-  __syncthreads();
-  QScale q;
-  if (st) {
-    q.s = st[0];
-    q.inv = st[1];
-  } else {
-    q.s = __fadd_rn(__fmul_rn(block_amax<NT>(x, n, P, LDP, red), INV_127),
-                    1e-30f);
-    q.inv = 1.f / q.s;
-  }
-  if (inplace) {
-    for (int idx = threadIdx.x; idx < n * P; idx += NT) {
-      const int i = idx / P, p = idx % P;
-      x[i * LDP + p] = q8(x[i * LDP + p], q.inv);
-    }
-    __syncthreads();
-  }
-  return q;
+// the static pair st (scale, 127 / maximum), or where st is null the
+// dynamic scale of a tensor whose abs-max over the tile is amax
+__device__ __forceinline__ QScale q_scale(const float* st, float amax) {
+  if (st) return {st[0], st[1]};
+  const float s = __fadd_rn(__fmul_rn(amax, INV_127), 1e-30f);
+  return {s, 1.f / s};
 }
 
-// The embedding quantised in place at its static row scales, its f32 xs
-// rows kept in xs for the dirs gradient
-template <int H, int NT>
-__device__ __forceinline__ void quant_emb_q8(const TileBufs<H>& t, int P,
-                                             int LDP) {
+// this warp's values v (f32 bits, rows i < n, points p < P) quantised at
+// inv into fm [][LDQ] (if not null) and pm [][ldpm]
+template <int H, int MU>
+__device__ __forceinline__ void store_q8(
+    const int (&v)[MU][Q8Tile<H>::WN][4], int M, int n, int P, float inv,
+    int8_t* fm, int LDQ, int8_t* pm, int ldpm) {
+  for_acc<H, MU>(M, P, [&](int j, int wn, int q, int i, int p) {
+    if (i < n && p < P) {
+      const int8_t c = to_s8(q8(__int_as_float(v[j][wn][q]), inv));
+      if (fm) fm[i * LDQ + p] = c;
+      pm[p * ldpm + i] = c;
+    }
+  });
+}
+
+// One hidden layer of the s8 forward: y = relu(acc0 sa (+ acc1 sb) + b)
+// for the tile's points, its scale (the static pair st, else the abs-max
+// over the tile's first PV points, those of its rays within n_per: the
+// plain version's tiles hold no padded rays),
+// y quantised into pm [up8(P)][H + 16] (the next products' B) and, with
+// fm, into fm [H][LDQ] (the backward's); with f32, y itself to f32
+// [H][LDP] (int8_fwd's f32 backward). Returns the scale. Ends with the
+// copies written, not synchronised.
+template <int H, bool TWO>
+__device__ __forceinline__ float fwd_layer(
+    const int8_t* A0, int K0, const int8_t* B0, int ldb0, float sa,
+    const int8_t* A1, int K1, const int8_t* B1, int ldb1, float sb,
+    const float* __restrict__ bias, const float* st, float* red, int8_t* fm,
+    int LDQ, int8_t* pm, float* f32, int LDP, int P, int PV, int8_t* slab0,
+    int8_t* slab1) {
+  constexpr int MU = q8_mu<H>(H), WN = Q8Tile<H>::WN;
+  int acc[MU][WN][4], acc1[MU][WN][4];
+  prod_s8<H, MU, TWO>(acc, acc1, A0, K0, B0, ldb0, A1, K1, B1, ldb1, H, P,
+                      slab0, slab1);
+  K1_MARK(1);
+  float m = 0.f;
+  for_acc<H, MU>(H, P, [&](int j, int wn, int q, int i, int p) {
+    float y = __fmul_rn((float)acc[j][wn][q], sa);
+    if constexpr (TWO) y = __fadd_rn(y, __fmul_rn((float)acc1[j][wn][q], sb));
+    y = fmaxf(__fadd_rn(y, bias[i]), 0.f);
+    if (f32 && p < P) f32[i * LDP + p] = y;
+    if (p < PV) m = fmaxf(m, y);
+    acc[j][wn][q] = __float_as_int(y);
+  });
+  const QScale qs = q_scale(st, st ? 0.f : block_max<Tile<H>::NT>(m, red));
+  store_q8<H, MU>(acc, H, H, P, qs.inv, fm, LDQ, pm, H + 16);
+  K1_MARK(6);
+  return qs.s;
+}
+
+// A head of the s8 forward: out[i][p] = acc s + b[i] (i < n: the alpha
+// head 1, the colour head 3), A [16][H], B the point-major pm [][H + 16]
+template <int H>
+__device__ __forceinline__ void head_layer(const int8_t* A, const int8_t* B,
+                                           float s,
+                                           const float* __restrict__ bias,
+                                           float* out, int n, int LDP, int P,
+                                           int8_t* slab0, int8_t* slab1) {
+  constexpr int MU = q8_mu<H>(16), WN = Q8Tile<H>::WN;
+  int acc[MU][WN][4];
+  prod_s8<H, MU, false>(acc, acc, A, H, B, H + 16, nullptr, 0, nullptr, 0,
+                        16, P, slab0, slab1);
+  for_acc<H, MU>(16, P, [&](int j, int wn, int q, int i, int p) {
+    if (i < n && p < P)
+      out[i * LDP + p] = __fadd_rn(__fmul_rn((float)acc[j][wn][q], s),
+                                   bias[i]);
+  });
+  K1_MARK(1);
+}
+
+// The input gradient of a hidden layer under the s8 backward: g = acc0 sa
+// (+ acc1 sb) where the layer's quantised activation (fm, feature-major)
+// is > 0, else 0. Its f32 bias gradient to Gb (added with add): each row's
+// sum over the tile's points, a quad's lanes by shuffles, then one partial
+// per (row, n unit) in bpart, added in unit order. Its scale (st, else the
+// abs-max), then g quantised in place over the activation in fm [H][LDQ]
+// (the mask read, its own element, before) and into pm [][H + 16].
+// Returns the scale. Ends with the copies written, not synchronised.
+template <int H, bool TWO>
+__device__ __forceinline__ float bwd_layer(
+    const int8_t* A0, int K0, const int8_t* B0, int ldb0, float sa,
+    const int8_t* A1, int K1, const int8_t* B1, int ldb1, float sb,
+    const float* st, float* red, float* bpart, float* __restrict__ Gb,
+    bool add, int8_t* fm, int LDQ, int8_t* pm, int P, int8_t* slab0,
+    int8_t* slab1) {
+  constexpr int NT = Tile<H>::NT, NW = NT / 32, WN = Q8Tile<H>::WN;
+  constexpr int MU = q8_mu<H>(H), NU = q8_nu<H>();
+  int acc[MU][WN][4], acc1[MU][WN][4];
+  prod_s8<H, MU, TWO>(acc, acc1, A0, K0, B0, ldb0, A1, K1, B1, ldb1, H, P,
+                      slab0, slab1);
+  float m = 0.f;
+  for_acc<H, MU>(H, P, [&](int j, int wn, int q, int i, int p) {
+    float g = __fmul_rn((float)acc[j][wn][q], sa);
+    if constexpr (TWO) g = __fadd_rn(g, __fmul_rn((float)acc1[j][wn][q], sb));
+    if (!(p < P && fm[i * LDQ + p] > 0)) g = 0.f;
+    m = fmaxf(m, fabsf(g));
+    acc[j][wn][q] = __float_as_int(g);
+  });
+  // (a section mark right after prod_s8 here, at h=128, made the
+  // K1_PROFILE build trap with an illegal instruction; after the mask it
+  // does not: kernels/q8_profile_fault.py)
+  K1_MARK(4);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nt = (P + 7) >> 3, un = (nt + WN - 1) / WN, units = H / 16 * un;
+#pragma unroll
+  for (int j = 0; j < MU; ++j) {
+    const int u = warp + j * NW;
+    if (u >= units) continue;
+    float r0 = 0.f, r1 = 0.f;   // rows g and g + 8 of the unit
+#pragma unroll
+    for (int wn = 0; wn < WN; ++wn)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float v = __int_as_float(acc[j][wn][q]);
+        if (q < 2)
+          r0 += v;
+        else
+          r1 += v;
+      }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      r0 += __shfl_xor_sync(0xffffffffu, r0, o);
+      r1 += __shfl_xor_sync(0xffffffffu, r1, o);
+    }
+    if ((lane & 3) == 0) {
+      const int i = u / un * 16 + (lane >> 2);
+      bpart[i * NU + u % un] = r0;
+      bpart[(i + 8) * NU + u % un] = r1;
+    }
+  }
+  __syncthreads();
+  const QScale qs = q_scale(st, st ? 0.f : block_max<NT>(m, red));
+  for (int i = threadIdx.x; i < H; i += NT) {
+    float s = 0.f;
+    for (int k = 0; k < un; ++k) s += bpart[i * NU + k];
+    Gb[i] = add ? Gb[i] + s : s;
+  }
+  store_q8<H, MU>(acc, H, H, P, qs.inv, fm, LDQ, pm, H + 16);
+  K1_MARK(6);
+  return qs.s;
+}
+
+// The embedding columns' input gradients of the s8 backward: g = (acc s)
+// 127 (the row scale 127 of the band rows, ops/quant.py) of rows [i0, i1)
+// of an M-row product (A: the transpose [M][H] of w_col_x, w_cat_x or
+// w_in; B the gradient's point-major copy) into the f32 rows dst[i][LDP],
+// for fold_bands. Ends with the rows written, not synchronised.
+template <int H, int M>
+__device__ __forceinline__ void band_layer(const int8_t* A, const int8_t* B,
+                                           float s, float* dst, int i0,
+                                           int i1, int LDP, int P,
+                                           int8_t* slab0, int8_t* slab1) {
+  constexpr int MU = q8_mu<H>(M), WN = Q8Tile<H>::WN;
+  int acc[MU][WN][4];
+  prod_s8<H, MU, false>(acc, acc, A, H, B, H + 16, nullptr, 0, nullptr, 0, M,
+                        P, slab0, slab1);
+  for_acc<H, MU>(M, P, [&](int j, int wn, int q, int i, int p) {
+    if (i >= i0 && i < i1 && p < P)
+      dst[i * LDP + p] =
+          __fmul_rn(__fmul_rn((float)acc[j][wn][q], s), 127.f);
+  });
+}
+
+// G[i * ldg + k] (+)= (sum_p D[i][p] X[k][p]) s, times 1 / XS_MUL (k < 3)
+// or 1 / 127 under emb (the trunk's embedding columns: their static row
+// scale divides the gradient once more), for every i < up16(n_out) and
+// k < N (a multiple of 16): D and X feature-major s8 [][LDQ], the points
+// padded to P32 with zeros; the weight's gradient in the staged layout of
+// its partial-gradient row, 16 bytes a lane (acc_quad) past L1 as
+// wgrad_mma; RA: the next unit's row values read ahead. Reads only the
+// tile's copies; no synchronisation.
+template <int NT, int WM, bool RA>
+__device__ void wgrad_s8(float* __restrict__ G, int ldg, const int8_t* D,
+                         int n_out, const int8_t* X, int N, int P32, int LDQ,
+                         float s, bool emb, bool add) {
+  constexpr int NW = NT / 32, WN = 2;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const bool odd = t & 1;
+  const int rows = up16(n_out), um = (rows / 16 + WM - 1) / WM;
+  const int un = N / (8 * WN), units = um * un;
+  auto out = [&](int u, int wm, int wn) {
+    return reinterpret_cast<float4*>(
+        G + (size_t)(u / un * 16 * WM + 16 * wm + g + (odd ? 8 : 0)) * ldg +
+        u % un * 8 * WN + 8 * wn + 2 * t - (odd ? 2 : 0));
+  };
+  float4 next[WM][WN];
+  auto fetch = [&](int u) {
+#pragma unroll
+    for (int wm = 0; wm < WM; ++wm)
+#pragma unroll
+      for (int wn = 0; wn < WN; ++wn)
+        if (u / un * 16 * WM + 16 * wm < rows)
+          next[wm][wn] = __ldcs(out(u, wm, wn));
+  };
+  if (RA && add && warp < units) fetch(warp);
+  for (int u = warp; u < units; u += NW) {
+    const int m0 = u / un * 16 * WM, n0 = u % un * 8 * WN;
+    float4 prev[WM][WN];
+#pragma unroll
+    for (int wm = 0; wm < WM; ++wm)
+#pragma unroll
+      for (int wn = 0; wn < WN; ++wn) prev[wm][wn] = next[wm][wn];
+    if (RA && add && u + NW < units) fetch(u + NW);
+    int acc[WM][WN][4] = {};
+    for (int p0 = 0; p0 < P32; p0 += 32) {
+      uint32_t b[WN][2];
+#pragma unroll
+      for (int wn = 0; wn < WN; ++wn)
+        load_b_s8(b[wn], X, LDQ, n0 + 8 * wn, p0, lane);
+#pragma unroll
+      for (int wm = 0; wm < WM; ++wm) {
+        if (m0 + 16 * wm >= n_out) continue;
+        uint32_t a[4];
+        load_a_s8(a, D, LDQ, m0 + 16 * wm, p0, lane);
+#pragma unroll
+        for (int wn = 0; wn < WN; ++wn) mma_s8(acc[wm][wn], a, b[wn]);
+      }
+    }
+#pragma unroll
+    for (int wm = 0; wm < WM; ++wm)
+#pragma unroll
+      for (int wn = 0; wn < WN; ++wn) {
+        float c[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int k = n0 + 8 * wn + 2 * t + (q & 1);
+          c[q] = __fmul_rn((float)acc[wm][wn][q], s);
+          if (emb) c[q] = __fmul_rn(c[q], k < 3 ? INV_XS : INV_127);
+        }
+        float4 v = acc_quad(c, odd);
+        if (m0 + 16 * wm >= rows) continue;
+        if (add) {
+          const float4 w = RA ? prev[wm][wn] : __ldcs(out(u, wm, wn));
+          v = make_float4(w.x + v.x, w.y + v.y, w.z + v.z, w.w + v.w);
+        }
+        __stcs(out(u, wm, wn), v);
+      }
+  }
+}
+
+// The embedding at its static row scales (x XS_MUL the xs rows, x127 the
+// sin rows; saturating): the trunk's 87 rows into pe1 [][112] and (FM)
+// fe1 [96][LDQ], the colour head's 42 into pe2 [][80] and fe2 [64][LDQ]
+template <int NT, bool FM>
+__device__ void quant_emb(const float* emb, int P, int LDP, int8_t* fe1,
+                          int8_t* fe2, int LDQ, int8_t* pe1, int8_t* pe2) {
   for (int idx = threadIdx.x; idx < EMB * P; idx += NT) {
     const int i = idx / P, p = idx % P;
-    const float x = t.emb[i * LDP + p];
-    if (i < 3) t.xs[i * LDP + p] = x;
-    t.emb[i * LDP + p] = q8(x, i < 3 ? XS_MUL : 127.f);
-  }
-}
-
-// out[i][p] = act(acc_a[i][p] * sa + acc_b[i][p] * sb + b[i]) with
-// acc_a = sum_k wq[i][k] ina[k][p], acc_b = sum_k wq[i][na+k] inb[k][p]
-// over integer operands (exact). QR: ina / inb hold f32 values that are
-// quantised as they are read, x mula / mulb, their first nxa / nxb rows
-// (the embedding's xs rows) x XS_MUL.
-template <int TI, int NT, bool QR>
-__device__ void dense_q8(const float* __restrict__ wq,
-                         const float* __restrict__ b, int n_out, int ldw,
-                         const float* ina, int na, int nxa, float mula,
-                         float sa, const float* inb, int nb, int nxb,
-                         float mulb, float sb, float* out, int P, int LDP,
-                         bool relu) {
-  const int n_items = (n_out / TI) * P;
-  for (int idx = threadIdx.x; idx < n_items; idx += NT) {
-    const int i0 = (idx / P) * TI, p = idx % P;
-    const float* wr = wq + (size_t)i0 * ldw;
-    float acc[TI], accb[TI];
-#pragma unroll
-    for (int t = 0; t < TI; ++t) acc[t] = accb[t] = 0.f;
-    for (int k = 0; k < na; ++k) {
-      float x = ina[k * LDP + p];
-      if constexpr (QR) x = q8(x, k < nxa ? XS_MUL : mula);
-#pragma unroll
-      for (int t = 0; t < TI; ++t) acc[t] = fmaf(wr[t * ldw + k], x, acc[t]);
-    }
-    for (int k = 0; k < nb; ++k) {
-      float x = inb[k * LDP + p];
-      if constexpr (QR) x = q8(x, k < nxb ? XS_MUL : mulb);
-#pragma unroll
-      for (int t = 0; t < TI; ++t)
-        accb[t] = fmaf(wr[t * ldw + na + k], x, accb[t]);
-    }
-#pragma unroll
-    for (int t = 0; t < TI; ++t) {
-      float y = __fmul_rn(acc[t], sa);
-      if (nb) y = __fadd_rn(y, __fmul_rn(accb[t], sb));
-      y = __fadd_rn(y, b[i0 + t]);
-      out[(i0 + t) * LDP + p] = relu ? fmaxf(y, 0.f) : y;
+    const int8_t c = to_s8(q8(emb[i * LDP + p], i < 3 ? XS_MUL : 127.f));
+    if (i < EMB1) {
+      if (FM) fe1[i * LDQ + p] = c;
+      pe1[p * 112 + i] = c;
+    } else {
+      if (FM) fe2[(i - EMB1) * LDQ + p] = c;
+      pe2[p * 80 + i - EMB1] = c;
     }
   }
 }
 
-// The int8 forward (fwd_mlp under q8f): W for the biases, Wq the quantised
-// weights with scales wsc. QR (INT8_FWD): the rows keep their f32 values
-// and each product quantises what it reads; else each ReLU output is
-// quantised in place once its scale is known. Ends with the block
-// synchronised.
-template <int H, int NT, bool QR>
-__device__ __forceinline__ Q8Act forward_q8(
-    const float* __restrict__ W, const float* __restrict__ Wq,
-    const float* __restrict__ wsc, const float* __restrict__ qs, Offsets off,
-    const TileBufs<H>& t, int P, int LDP) {
-  float *emb = t.emb, *red = t.red;
-  Q8Act a;
-  dense_q8<4, NT, QR>(Wq + off.w_in, W + off.b_in, H, EMB1, emb, EMB1, 3,
-                      127.f, wsc[QW_IN], nullptr, 0, 0, 0.f, 0.f, t.h1, P,
-                      LDP, true);
-  const QScale q1 = quant_rows<NT>(t.h1, H, P, LDP, qs, red, !QR);
-  a.s1 = q1.s;
-  dense_q8<4, NT, QR>(Wq + off.w_mid1, W + off.b_mid1, H, H, t.h1, H, 0,
-                      q1.inv, __fmul_rn(wsc[QW_MID1], q1.s), nullptr, 0, 0,
-                      0.f, 0.f, t.h2, P, LDP, true);
-  const QScale q2 = quant_rows<NT>(t.h2, H, P, LDP, qs, red, !QR);
-  a.s2 = q2.s;
-  dense_q8<4, NT, QR>(Wq + off.w_cat, W + off.b_cat, H, H + EMB1, t.h2, H, 0,
-                      q2.inv, __fmul_rn(wsc[QW_CAT_H], q2.s), emb, EMB1, 3,
-                      127.f, wsc[QW_CAT_X], t.h3, P, LDP, true);
-  const QScale q3 = quant_rows<NT>(t.h3, H, P, LDP, qs, red, !QR);
-  a.s3 = q3.s;
-  dense_q8<4, NT, QR>(Wq + off.w_mid2, W + off.b_mid2, H, H, t.h3, H, 0,
-                      q3.inv, __fmul_rn(wsc[QW_MID2], q3.s), nullptr, 0, 0,
-                      0.f, 0.f, t.h4, P, LDP, true);
-  const QScale q4 = quant_rows<NT>(t.h4, H, P, LDP, qs, red, !QR);
-  a.s4 = q4.s;
-  dense_q8<1, NT, QR>(Wq + off.w_alpha, W + off.b_alpha, 1, H, t.h4, H, 0,
-                      q4.inv, __fmul_rn(wsc[QW_ALPHA], q4.s), nullptr, 0, 0,
-                      0.f, 0.f, t.alp, P, LDP, false);
-  dense_q8<4, NT, QR>(Wq + off.w_col, W + off.b_col, H, H + EMB2, t.h4, H, 0,
-                      q4.inv, __fmul_rn(wsc[QW_COL_H], q4.s),
-                      emb + EMB1 * LDP, EMB2, 0, 127.f, wsc[QW_COL_X], t.hc,
-                      P, LDP, true);
-  const QScale qc = quant_rows<NT>(t.hc, H, P, LDP, qs, red, !QR);
-  a.sc = qc.s;
-  dense_q8<1, NT, QR>(Wq + off.w_col_out, W + off.b_col_out, 3, H, t.hc, H,
-                      0, qc.inv, __fmul_rn(wsc[QW_OUT], qc.s), nullptr, 0, 0,
-                      0.f, 0.f, t.col, P, LDP, false);
-  __syncthreads();
-  return a;
-}
-
-// G[i * ldw + col0 + k] (+)= (sum_p dout[i][p] in[k][p]) * s over integer
-// operands; emb: the columns are the trunk's embedding rows, whose static
-// row scale divides the gradient once more (1 / XS_MUL for the xs rows,
-// 1 / 127 for the others)
+// A head gradient x [n][LDP] (f32: dlogits, dalpha) at its tile scale
+// (st, else the abs-max) into fm [16][LDQ] and pm [][48]; returns the
+// scale. Ends with the block synchronised after the reduction, the copies
+// written but not synchronised.
 template <int NT>
-__device__ void wgrad_q8(float* __restrict__ G, int ldw, int col0,
-                         const float* dout, int n_out, const float* in,
-                         int n_in, int P, int LDP, float s, bool emb,
-                         bool add) {
-  for (int idx = threadIdx.x; idx < n_out * n_in; idx += NT) {
-    const int i = idx / n_in, k = idx % n_in;
-    const float* d = dout + i * LDP;
-    const float* x = in + k * LDP;
-    float acc = 0.f;
-    for (int p = 0; p < P; ++p) acc = fmaf(d[p], x[p], acc);
-    float g = __fmul_rn(acc, s);
-    if (emb) g = __fmul_rn(g, k < 3 ? INV_XS : INV_127);
-    float* gp = G + (size_t)i * ldw + col0 + k;
-    *gp = add ? *gp + g : g;
+__device__ float quant_head(const float* x, int n, int P, int LDP,
+                            const float* st, float* red, int8_t* fm, int LDQ,
+                            int8_t* pm) {
+  float m = 0.f;
+  if (!st)
+    for (int idx = threadIdx.x; idx < n * P; idx += NT)
+      m = fmaxf(m, fabsf(x[idx / P * LDP + idx % P]));
+  const QScale qs = q_scale(st, st ? 0.f : block_max<NT>(m, red));
+  for (int idx = threadIdx.x; idx < n * P; idx += NT) {
+    const int i = idx / P, p = idx % P;
+    const int8_t c = to_s8(q8(x[i * LDP + p], qs.inv));
+    fm[i * LDQ + p] = c;
+    pm[p * 48 + i] = c;
   }
+  return qs.s;
 }
 
-// The quantised backward (bwd_chunk_q8). Each output gradient's bias
-// gradient is taken from its f32 values; the gradient is then quantised
-// in place once (dalpha and dlogits with the head scale, the others with
-// the hidden one) and read by both its weight- and its input-gradient
-// product. The ReLU masks are the quantised activations' (q > 0); dproj
-// and the dirs gradient stay f32.
-template <int H, int NT>
-__device__ __forceinline__ void backward_q8(
-    const float* __restrict__ Wq, const float* __restrict__ wsc,
-    const float* __restrict__ qs, const Q8Act& a, float* __restrict__ G,
-    Offsets off, const TileBufs<H>& t, int P, int LDP, bool add) {
-  float *emb = t.emb, *xs = t.xs, *red = t.red;
-  const float* head = qs ? qs + 2 : nullptr;
-  const float* hid = qs ? qs + 4 : nullptr;
-
-  bgrad<NT>(G + off.b_col_out, t.dy, 3, P, LDP, add);
-  bgrad<NT>(G + off.b_alpha, t.dal, 1, P, LDP, add);
-  const float sdl = quant_rows<NT>(t.dy, 3, P, LDP, head, red, true).s;
-  const float sda = quant_rows<NT>(t.dal, 1, P, LDP, head, red, true).s;
-  wgrad_q8<NT>(G + off.w_col_out, H, 0, t.dy, 3, t.hc, H, P, LDP,
-               __fmul_rn(sdl, a.sc), false, add);
-  wgrad_q8<NT>(G + off.w_alpha, H, 0, t.dal, 1, t.h4, H, P, LDP,
-               __fmul_rn(sda, a.s4), false, add);
-  __syncthreads();
-  const float s_out = __fmul_rn(wsc[QW_OUT], sdl);
-  for (int idx = threadIdx.x; idx < H * P; idx += NT) {
-    const int k = idx / P, p = idx % P;
-    const float g = dot_col(Wq + off.w_col_out, H, k, t.dy, 3, p, LDP);
-    t.hc[k * LDP + p] = t.hc[k * LDP + p] > 0.f ? __fmul_rn(g, s_out) : 0.f;
-  }
-  __syncthreads();
-  bgrad<NT>(G + off.b_col, t.hc, H, P, LDP, add);
-  const float sdc = quant_rows<NT>(t.hc, H, P, LDP, hid, red, true).s;
-  wgrad_q8<NT>(G + off.w_col, H + EMB2, 0, t.hc, H, t.h4, H, P, LDP,
-               __fmul_rn(sdc, a.s4), false, add);
-  wgrad_q8<NT>(G + off.w_col, H + EMB2, H, t.hc, H, emb + EMB1 * LDP, EMB2,
-               P, LDP, __fmul_rn(sdc, INV_127), false, add);
-  __syncthreads();
-  const float s_colh = __fmul_rn(wsc[QW_COL_H], sdc);
-  const float s_alpha = __fmul_rn(wsc[QW_ALPHA], sda);
-  const float s_colx = __fmul_rn(wsc[QW_COL_X], sdc);
-  for (int idx = threadIdx.x; idx < (H + NDIR) * P; idx += NT) {
-    const int k = idx / P, p = idx % P;
-    if (k < H) {
-      const float g = __fadd_rn(
-          __fmul_rn(dot_col(Wq + off.w_col, H + EMB2, k, t.hc, H, p, LDP),
-                    s_colh),
-          __fmul_rn(Wq[off.w_alpha + k] * t.dal[p], s_alpha));
-      t.h4[k * LDP + p] = t.h4[k * LDP + p] > 0.f ? g : 0.f;
-    } else {
-      const int j = k - H;
-      float acc = 0.f;
-      for (int b = 4; b < NBAND; ++b) {
-        const int e = (b - 4) * NDIR + j;   // column within emb2
-        const float g = __fmul_rn(
-            __fmul_rn(dot_col(Wq + off.w_col, H + EMB2, H + e, t.hc, H, p,
-                              LDP), s_colx), 127.f);
-        acc += band_grad(g, t.proj[j * LDP + p], b);
-      }
-      t.dproj[j * LDP + p] = acc;
-    }
-  }
-  __syncthreads();
-  bgrad<NT>(G + off.b_mid2, t.h4, H, P, LDP, add);
-  const float sdh4 = quant_rows<NT>(t.h4, H, P, LDP, hid, red, true).s;
-  wgrad_q8<NT>(G + off.w_mid2, H, 0, t.h4, H, t.h3, H, P, LDP,
-               __fmul_rn(sdh4, a.s3), false, add);
-  __syncthreads();
-  const float s_mid2 = __fmul_rn(wsc[QW_MID2], sdh4);
-  for (int idx = threadIdx.x; idx < H * P; idx += NT) {
-    const int k = idx / P, p = idx % P;
-    const float g = dot_col(Wq + off.w_mid2, H, k, t.h4, H, p, LDP);
-    t.h3[k * LDP + p] = t.h3[k * LDP + p] > 0.f ? __fmul_rn(g, s_mid2) : 0.f;
-  }
-  __syncthreads();
-  bgrad<NT>(G + off.b_cat, t.h3, H, P, LDP, add);
-  const float sdh3 = quant_rows<NT>(t.h3, H, P, LDP, hid, red, true).s;
-  wgrad_q8<NT>(G + off.w_cat, H + EMB1, 0, t.h3, H, t.h2, H, P, LDP,
-               __fmul_rn(sdh3, a.s2), false, add);
-  wgrad_q8<NT>(G + off.w_cat, H + EMB1, H, t.h3, H, emb, EMB1, P, LDP, sdh3,
-               true, add);
-  __syncthreads();
-  const float s_cath = __fmul_rn(wsc[QW_CAT_H], sdh3);
-  const float s_catx = __fmul_rn(wsc[QW_CAT_X], sdh3);
-  for (int idx = threadIdx.x; idx < (H + NDIR) * P; idx += NT) {
-    const int k = idx / P, p = idx % P;
-    if (k < H) {
-      const float g = dot_col(Wq + off.w_cat, H + EMB1, k, t.h3, H, p, LDP);
-      t.h2[k * LDP + p] = t.h2[k * LDP + p] > 0.f ? __fmul_rn(g, s_cath)
-                                                  : 0.f;
-    } else {
-      const int j = k - H;
-      float acc = t.dproj[j * LDP + p];
-      for (int b = 0; b < 4; ++b) {
-        const int e = 3 + b * NDIR + j;     // column within emb1
-        const float g = __fmul_rn(
-            __fmul_rn(dot_col(Wq + off.w_cat, H + EMB1, H + e, t.h3, H, p,
-                              LDP), s_catx), 127.f);
-        acc += band_grad(g, t.proj[j * LDP + p], b);
-      }
-      t.dproj[j * LDP + p] = acc;
-    }
-  }
-  __syncthreads();
-  bgrad<NT>(G + off.b_mid1, t.h2, H, P, LDP, add);
-  const float sdh2 = quant_rows<NT>(t.h2, H, P, LDP, hid, red, true).s;
-  wgrad_q8<NT>(G + off.w_mid1, H, 0, t.h2, H, t.h1, H, P, LDP,
-               __fmul_rn(sdh2, a.s1), false, add);
-  __syncthreads();
-  const float s_mid1 = __fmul_rn(wsc[QW_MID1], sdh2);
-  for (int idx = threadIdx.x; idx < H * P; idx += NT) {
-    const int k = idx / P, p = idx % P;
-    const float g = dot_col(Wq + off.w_mid1, H, k, t.h2, H, p, LDP);
-    t.h1[k * LDP + p] = t.h1[k * LDP + p] > 0.f ? __fmul_rn(g, s_mid1) : 0.f;
-  }
-  __syncthreads();
-  bgrad<NT>(G + off.b_in, t.h1, H, P, LDP, add);
-  const float sdh1 = quant_rows<NT>(t.h1, H, P, LDP, hid, red, true).s;
-  wgrad_q8<NT>(G + off.w_in, EMB1, 0, t.h1, H, emb, EMB1, P, LDP, sdh1, true,
-               add);
-  const float s_in = __fmul_rn(wsc[QW_IN], sdh1);
-  for (int idx = threadIdx.x; idx < NDIR * P; idx += NT) {
-    const int j = idx / P, p = idx % P;
-    float acc = t.dproj[j * LDP + p];
-    for (int b = 0; b < 4; ++b) {
-      const int e = 3 + b * NDIR + j;
-      const float g = __fmul_rn(
-          __fmul_rn(dot_col(Wq + off.w_in, EMB1, e, t.h1, H, p, LDP), s_in),
-          127.f);
-      acc += band_grad(g, t.proj[j * LDP + p], b);
-    }
-    t.dproj[j * LDP + p] = acc;
-  }
-  __syncthreads();
-  // d dirs[j][k] = sum_p dproj[j][p] xs[k][p], f32
-  wgrad<NT>(G + off.dirs, 3, 0, t.dproj, NDIR, xs, 3, P, LDP, add);
-  __syncthreads();
-}
-
-// The tile under an int8 policy, not inlined (as train_step.cu's
-// grad_tile): Wq is the slot's quantised weights, wsc their scales.
-template <int H, int NT, int POL>
-__device__ __noinline__ void grad_tile_q8(const float* __restrict__ W,
-                          const float* __restrict__ Wq,
+// One ray tile under an int8 policy (the float tile's contract,
+// train_step.cu float_tile): W the slot's f32 parameters, wq its s8 weights
+// (q8_layout) with scales wsc, qs the static pairs (null: dynamic), ws its
+// staged bf16 pieces and hs the block's activation scratch (INT8_FWD's f32
+// backward); sm the f32 rows and s8 the s8 copies (q8_smem_bytes), whose
+// padding is zero. Not inlined, as float_tile.
+template <int H, int POL>
+__device__ __noinline__ void q8_tile(const float* __restrict__ W,
+                          const int8_t* __restrict__ wq,
                           const float* __restrict__ wsc,
                           const float* __restrict__ qs,
+                          const bf16* __restrict__ ws, int NS,
                           const float* __restrict__ od,
                           const float* __restrict__ zs,
                           const float* __restrict__ ray,
                           const float* __restrict__ wm, float sc,
                           float* __restrict__ G, float* __restrict__ loss,
-                          Offsets off, size_t rbase, int ray0,
-                          int n_per, int S, int RT, int LDP, float cs,
-                          float osc, bool add, float* sm) {
-  tile_body<H, NT, POL>(W, Wq, od, zs, ray, wm, sc, G, loss, off, rbase,
-                        ray0, n_per, S, RT, LDP, cs, osc, add, sm, wsc, qs);
+                          float* __restrict__ hs, Offsets off, size_t rbase,
+                          int ray0, int n_per, int S, int RT, int LDP,
+                          float cs, float osc, bool add, float* sm,
+                          int8_t* s8, int8_t* slab0, int8_t* slab1) {
+  constexpr bool QB = POL == INT8;
+  constexpr int NT = Tile<H>::NT;
+  const int P = RT * S, P8 = up8(P), P32 = up32(P), LDQ = P32 + 16;
+  // the points of the tile's rays within n_per (a partial last tile's
+  // padded rays enter no scale: their gradients are zero, and the forward
+  // abs-max skips them)
+  const int PV = (n_per - ray0 < RT ? n_per - ray0 : RT) * S;
+  // f32 rows (q8_f32_bytes; INT8_FWD: FloatBufs' order)
+  float* emb = sm;
+  float* proj = emb + EMB * LDP;
+  float* dproj = proj + NDIR * LDP;
+  float* ha = dproj + NDIR * LDP;          // INT8_FWD: hc, then h4 at hb
+  float* hb = ha + H * LDP;
+  float* alp = QB ? ha : hb + H * LDP;
+  float *col = alp + LDP, *dal = col + 3 * LDP, *dy = dal + LDP;
+  float* rl = dy + 3 * LDP + (QB ? 0 : 2 * NDIR * LDP);
+  float* red = rl + RT;
+  float* bpart = red + 32;
+  // s8 copies (q8_s8_bytes)
+  int8_t* ph = s8;
+  int8_t* pe1 = ph + P8 * (H + 16);
+  int8_t* pe2 = pe1 + P8 * 112;
+  int8_t* pdl = pe2 + P8 * 80;
+  int8_t* pda = pdl + P8 * 48;
+  int8_t* fe1 = pda + P8 * 48;
+  int8_t* fe2 = fe1 + 96 * LDQ;
+  int8_t* fh1 = fe2 + 64 * LDQ;
+  int8_t *fh2 = fh1 + H * LDQ, *fh3 = fh2 + H * LDQ, *fh4 = fh3 + H * LDQ;
+  int8_t* fc = fh4 + H * LDQ;
+  int8_t* fdl = fc + H * LDQ;
+  int8_t* fda = fdl + 16 * LDQ;
+  const float* act = qs;
+  const float* head = qs ? qs + 2 : nullptr;
+  const float* hid = qs ? qs + 4 : nullptr;
+  auto Wq = [&](int t) { return wq + qw_off(H, t); };
+  auto WqT = [&](int t) { return wq + qwt_off(H, t); };
+  K1_MARK_START();
+
+  // 1. points, projection, sin bands; the embedding's s8 copies
+  tile_points<NT>(W, od, zs, sc, off, emb, proj, rbase, ray0, n_per, S, P,
+                  LDP);
+  K1_MARK(0);
+  quant_emb<NT, QB>(emb, P, LDP, fe1, fe2, LDQ, pe1, pe2);
+  K1_MARK(6);
+
+  // 2. the s8 forward; under INT8_FWD h1..h3 to the scratch, h4 to hb, hc
+  //    to ha (f32), for the float backward
+  const float s1 = fwd_layer<H, false>(
+      Wq(QW_IN), 96, pe1, 112, wsc[QW_IN], nullptr, 0, nullptr, 0, 0.f,
+      W + off.b_in, act, red, QB ? fh1 : nullptr, LDQ, ph, QB ? nullptr : hs,
+      LDP, P, PV, slab0, slab1);
+  const float s2 = fwd_layer<H, false>(
+      Wq(QW_MID1), H, ph, H + 16, __fmul_rn(wsc[QW_MID1], s1), nullptr, 0,
+      nullptr, 0, 0.f, W + off.b_mid1, act, red, QB ? fh2 : nullptr, LDQ, ph,
+      QB ? nullptr : hs + H * LDP, LDP, P, PV, slab0, slab1);
+  const float s3 = fwd_layer<H, true>(
+      Wq(QW_CAT_H), H, ph, H + 16, __fmul_rn(wsc[QW_CAT_H], s2), Wq(QW_CAT_X),
+      96, pe1, 112, wsc[QW_CAT_X], W + off.b_cat, act, red,
+      QB ? fh3 : nullptr, LDQ, ph, QB ? nullptr : hs + 2 * H * LDP, LDP, P,
+      PV, slab0, slab1);
+  const float s4 = fwd_layer<H, false>(
+      Wq(QW_MID2), H, ph, H + 16, __fmul_rn(wsc[QW_MID2], s3), nullptr, 0,
+      nullptr, 0, 0.f, W + off.b_mid2, act, red, QB ? fh4 : nullptr, LDQ, ph,
+      QB ? nullptr : hb, LDP, P, PV, slab0, slab1);
+  head_layer<H>(Wq(QW_ALPHA), ph, __fmul_rn(wsc[QW_ALPHA], s4),
+                W + off.b_alpha, alp, 1, LDP, P, slab0, slab1);
+  const float s_c = fwd_layer<H, true>(
+      Wq(QW_COL_H), H, ph, H + 16, __fmul_rn(wsc[QW_COL_H], s4), Wq(QW_COL_X),
+      64, pe2, 80, wsc[QW_COL_X], W + off.b_col, act, red, QB ? fc : nullptr,
+      LDQ, ph, QB ? nullptr : ha, LDP, P, PV, slab0, slab1);
+  head_layer<H>(Wq(QW_OUT), ph, __fmul_rn(wsc[QW_OUT], s_c),
+                W + off.b_col_out, col, 3, LDP, P, slab0, slab1);
+  __syncthreads();
+
+  // 3. per ray: render, losses, render backward -> dal, dy
+  render_loss<NT>(zs, ray, wm, alp, col, dal, dy, rl, loss, add, rbase, ray0,
+                  n_per, S, RT, LDP, cs, osc);
+  K1_MARK(2);
+
+  if constexpr (!QB) {
+    // 4. int8_fwd: the float tile's f32 backward, three bf16 passes
+    const FloatBufs<H> bufs(sm, LDP);
+    float_backward<H, F32>(W, ws, NS, G, hs, off, bufs, P, LDP, add,
+                           reinterpret_cast<bf16*>(slab0),
+                           reinterpret_cast<bf16*>(slab1));
+    return;
+  }
+
+  // 4. the s8 backward (bwd_chunk_q8). Each output gradient's bias
+  //    gradient from its f32 values, then the gradient quantised once (the
+  //    heads' with the head scale, the others with the hidden one) and read
+  //    by its weight- and input-gradient products; each hidden gradient
+  //    over its activation's feature-major copy, the point-major one
+  //    shared (a product that reads it runs before the next quantisation
+  //    writes it).
+  constexpr bool RA = Tile<H>::RA;
+  float* Gx = G + NS;   // the row's dirs and biases (grad_row)
+  bgrad<NT>(Gx + off.b_col_out, dy, 3, P, LDP, add);
+  bgrad<NT>(Gx + off.b_alpha, dal, 1, P, LDP, add);
+  K1_MARK(5);
+  const float sdl = quant_head<NT>(dy, 3, P, LDP, head, red, fdl, LDQ, pdl);
+  const float sda = quant_head<NT>(dal, 1, P, LDP, head, red, fda, LDQ, pda);
+  __syncthreads();
+  K1_MARK(6);
+  wgrad_s8<NT, 1, RA>(G + mat_off(H, M_OUT), H, fdl, 3, fc, H, P32, LDQ,
+                      __fmul_rn(sdl, s_c), false, add);
+  wgrad_s8<NT, 1, RA>(G + mat_off(H, M_ALPHA), H, fda, 1, fh4, H, P32, LDQ,
+                      __fmul_rn(sda, s4), false, add);
+  K1_MARK(3);
+  // dhc: w_out^T dlogits, over hc
+  const float sdc = bwd_layer<H, false>(
+      WqT(QW_OUT), 32, pdl, 48, __fmul_rn(wsc[QW_OUT], sdl), nullptr, 0,
+      nullptr, 0, 0.f, hid, red, bpart, Gx + off.b_col, add, fc, LDQ, ph, P,
+      slab0, slab1);
+  __syncthreads();
+  constexpr int LC = up16(H + EMB2), LT = up16(H + EMB1);
+  wgrad_s8<NT, 2, RA>(G + mat_off(H, M_COL), LC, fc, H, fh4, H, P32, LDQ,
+                      __fmul_rn(sdc, s4), false, add);
+  wgrad_s8<NT, 2, RA>(G + mat_off(H, M_COL) + H, LC, fc, H, fe2, 48, P32,
+                      LDQ, __fmul_rn(sdc, INV_127), false, add);
+  K1_MARK(3);
+  // bands 4, 5: w_col_x^T dhc into emb's colour-head rows (dead since
+  // their quantisation)
+  band_layer<H, 48>(WqT(QW_COL_X), ph, __fmul_rn(wsc[QW_COL_X], sdc),
+                    emb + EMB1 * LDP, 0, EMB2, LDP, P, slab0, slab1);
+  __syncthreads();
+  K1_MARK(4);
+  fold_bands<NT>(dproj, emb + EMB1 * LDP, proj, 4, 2, P, LDP, false);
+  K1_MARK(5);
+  // dh4: w_col_h^T dhc + w_alpha^T dalpha, over h4
+  const float sdh4 = bwd_layer<H, true>(
+      WqT(QW_COL_H), H, ph, H + 16, __fmul_rn(wsc[QW_COL_H], sdc),
+      WqT(QW_ALPHA), 32, pda, 48, __fmul_rn(wsc[QW_ALPHA], sda), hid, red,
+      bpart, Gx + off.b_mid2, add, fh4, LDQ, ph, P, slab0, slab1);
+  __syncthreads();
+  wgrad_s8<NT, 2, RA>(G + mat_off(H, M_MID2), H, fh4, H, fh3, H, P32, LDQ,
+                      __fmul_rn(sdh4, s3), false, add);
+  K1_MARK(3);
+  const float sdh3 = bwd_layer<H, false>(
+      WqT(QW_MID2), H, ph, H + 16, __fmul_rn(wsc[QW_MID2], sdh4), nullptr, 0,
+      nullptr, 0, 0.f, hid, red, bpart, Gx + off.b_cat, add, fh3, LDQ, ph, P,
+      slab0, slab1);
+  __syncthreads();
+  wgrad_s8<NT, 2, RA>(G + mat_off(H, M_CAT), LT, fh3, H, fh2, H, P32, LDQ,
+                      __fmul_rn(sdh3, s2), false, add);
+  wgrad_s8<NT, 2, RA>(G + mat_off(H, M_CAT) + H, LT, fh3, H, fe1, 96, P32,
+                      LDQ, sdh3, true, add);
+  K1_MARK(3);
+  // bands 0..3: w_cat_x^T dh3 into emb's trunk band rows
+  band_layer<H, 96>(WqT(QW_CAT_X), ph, __fmul_rn(wsc[QW_CAT_X], sdh3), emb,
+                    3, EMB1, LDP, P, slab0, slab1);
+  __syncthreads();
+  K1_MARK(4);
+  fold_bands<NT>(dproj, emb + 3 * LDP, proj, 0, 4, P, LDP, true);
+  K1_MARK(5);
+  const float sdh2 = bwd_layer<H, false>(
+      WqT(QW_CAT_H), H, ph, H + 16, __fmul_rn(wsc[QW_CAT_H], sdh3), nullptr,
+      0, nullptr, 0, 0.f, hid, red, bpart, Gx + off.b_mid1, add, fh2, LDQ, ph,
+      P, slab0, slab1);
+  __syncthreads();
+  wgrad_s8<NT, 2, RA>(G + mat_off(H, M_MID1), H, fh2, H, fh1, H, P32, LDQ,
+                      __fmul_rn(sdh2, s1), false, add);
+  K1_MARK(3);
+  const float sdh1 = bwd_layer<H, false>(
+      WqT(QW_MID1), H, ph, H + 16, __fmul_rn(wsc[QW_MID1], sdh2), nullptr, 0,
+      nullptr, 0, 0.f, hid, red, bpart, Gx + off.b_in, add, fh1, LDQ, ph, P,
+      slab0, slab1);
+  __syncthreads();
+  wgrad_s8<NT, 2, RA>(G + mat_off(H, M_IN), up16(EMB1), fh1, H, fe1, 96, P32,
+                      LDQ, sdh1, true, add);
+  K1_MARK(3);
+  band_layer<H, 96>(WqT(QW_IN), ph, __fmul_rn(wsc[QW_IN], sdh1), emb, 3, EMB1,
+                    LDP, P, slab0, slab1);
+  __syncthreads();
+  K1_MARK(4);
+  fold_bands<NT>(dproj, emb + 3 * LDP, proj, 0, 4, P, LDP, true);
+  __syncthreads();
+  // d dirs[j][k] = sum_p dproj[j][p] xs[k][p], f32
+  wgrad<NT>(Gx + off.dirs, 3, 0, dproj, NDIR, emb, 3, P, LDP, add);
+  __syncthreads();
+  K1_MARK(5);
 }
 
 // train_grad_kernel under an int8 policy: the same grid of (partial row,
 // slot) and tile order. sample_reuse is a runtime offset here (with n_eff
 // == n_iter it is 0).
-template <int H, int NT, int POL>
-__global__ void __launch_bounds__(NT)
+template <int H, int POL>
+__global__ void __launch_bounds__(Tile<H>::NT, Q8Tile<H>::MINB)
 train_grad_q8_kernel(const float* __restrict__ params,   // [cap, NP]
-                     const float* __restrict__ wq,       // [cap, NP]
+                     const bf16* __restrict__ ws,        // [cap, 3, NS]
+                     const int8_t* __restrict__ wq,      // [cap, q8_size]
                      const float* __restrict__ wscale,   // [cap, NQW]
                      const float* __restrict__ qs,       // [6] or null
                      const float* __restrict__ od,       // [cap, NE, 6]
@@ -413,27 +831,44 @@ train_grad_q8_kernel(const float* __restrict__ params,   // [cap, NP]
                      const float* __restrict__ wmul,     // [cap, n_eff, 4]
                      const float* __restrict__ scale,    // [cap]
                      const int* __restrict__ active,     // [cap]
-                     float* __restrict__ grad_part,      // [cap, n_rows, NP]
+                     float* __restrict__ grad_part,  // [cap, n_rows, NG]
                      float* __restrict__ loss_part,      // [cap, n_rows]
+                     float* __restrict__ act_part,  // INT8_FWD [.., 3, H, LDP]
                      Offsets off, int n_params, int n_rays, int n_per,
                      int n_iter, int it, int S, int RT, int n_tiles, int LDP,
                      float cs, float osc, int n_eff) {
+  constexpr bool QB = POL == INT8;
+  constexpr int NT = Tile<H>::NT, NS = staged_size(H);
+  constexpr size_t SB = q8_slab<H, QB>();
   const int row = blockIdx.x, slot = blockIdx.y, n_rows = gridDim.x;
   if (!active[slot]) return;
-  extern __shared__ float sm[];
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* slab0 = reinterpret_cast<int8_t*>(smem);
+  int8_t* slab1 = slab0 + SB;
+  float* sm = reinterpret_cast<float*>(smem + 2 * SB);
+  int8_t* s8 = reinterpret_cast<int8_t*>(smem + 2 * SB +
+                                         q8_f32_bytes<H, QB>(LDP, RT));
+  // the s8 copies zeroed once: each pass writes its tensor's elements only,
+  // so their padding (rows, columns and points past the tile's) stays zero
+  const int n16 = (int)(q8_s8_bytes<H, QB>(RT * S) / 16);
+  for (int i = threadIdx.x; i < n16; i += NT)
+    reinterpret_cast<uint4*>(s8)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
   // pixel rows of block it mod n_eff; z advanced to this iteration's rows
   const size_t rbase = ((size_t)slot * n_eff + it % n_eff) * n_per;
   zs += ((size_t)slot * n_rays + (size_t)it * n_per - rbase) * S;
   const float* wm = wmul + ((size_t)slot * n_eff + it % n_eff) * 4;
-  for (int tile = row; tile < n_tiles; tile += n_rows) {
-    float* G = grad_part + ((size_t)slot * n_rows + row) * n_params;
-    float* loss = loss_part + (size_t)slot * n_rows + row;
-    grad_tile_q8<H, NT, POL>(params + (size_t)slot * n_params,
-                             wq + (size_t)slot * n_params,
-                             wscale + (size_t)slot * NQW, qs, od, zs, ray, wm,
-                             scale[slot], G, loss, off, rbase, tile * RT,
-                             n_per, S, RT, LDP, cs, osc, tile != row, sm);
-  }
+  const size_t blk = (size_t)slot * n_rows + row;
+  for (int tile = row; tile < n_tiles; tile += n_rows)
+    q8_tile<H, POL>(params + (size_t)slot * n_params,
+                    wq + (size_t)slot * q8_size(H), wscale + (size_t)slot * NQW,
+                    qs, QB ? nullptr : ws + (size_t)slot * STAGED_PIECES * NS,
+                    NS, od, zs,
+                    ray, wm, scale[slot], grad_part + blk * grad_row(H),
+                    loss_part + blk,
+                    QB ? nullptr : act_part + blk * 3 * H * LDP, off, rbase,
+                    tile * RT, n_per, S, RT, LDP, cs, osc, tile != row, sm,
+                    s8, slab0, slab1);
 }
 
 // Tensor t of a slot's quantised weights: offset, shape, row stride and
@@ -463,78 +898,92 @@ __device__ __forceinline__ float fold_w(float w, int fold, int c) {
   return w;
 }
 
-constexpr int QUANT_THREADS = 256;
+constexpr int QUANT_THREADS = 512;
 
-// One block per (tensor, active slot): the tensor's dynamic scale (a block
-// reduction of |w| after the fold), then its integer-valued copy in wq.
+// gridDim.z blocks per (tensor, active slot): each takes the tensor's
+// dynamic scale (a block reduction of |w| after the fold, the same in
+// every block: max is order-free), then writes its share of the s8 copy
+// and of the transpose, padding included (q8_layout); the first writes the
+// scale.
 __global__ void __launch_bounds__(QUANT_THREADS)
-quant_weights_kernel(const float* __restrict__ p, float* __restrict__ wq,
+quant_weights_kernel(const float* __restrict__ p, int8_t* __restrict__ wq,
                      float* __restrict__ wscale,
                      const int* __restrict__ active, Offsets off,
                      int n_params, int H) {
   __shared__ float red[QUANT_THREADS / 32];
   const int t = blockIdx.x, slot = blockIdx.y;
+  const int part = blockIdx.z, parts = gridDim.z;
   if (!active[slot]) return;
   const QwDesc d = qw_desc(t, off, H);
   const float* src = p + (size_t)slot * n_params + d.off;
-  float* dst = wq + (size_t)slot * n_params + d.off;
   float m = 0.f;
   for (int idx = threadIdx.x; idx < d.rows * d.cols; idx += QUANT_THREADS) {
     const int r = idx / d.cols, c = idx % d.cols;
     m = fmaxf(m, fabsf(fold_w(src[r * d.ld + c], d.fold, c)));
   }
-  for (int o = 16; o > 0; o >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
-  __syncthreads();
-  m = 0.f;
-  for (int w = 0; w < QUANT_THREADS / 32; ++w) m = fmaxf(m, red[w]);
+  m = block_max<QUANT_THREADS>(m, red);
   const float s = __fadd_rn(__fmul_rn(m, INV_127), 1e-30f);
   const float inv = 1.f / s;
-  for (int idx = threadIdx.x; idx < d.rows * d.cols; idx += QUANT_THREADS) {
-    const int r = idx / d.cols, c = idx % d.cols;
-    dst[r * d.ld + c] = rintf(__fmul_rn(fold_w(src[r * d.ld + c], d.fold, c),
-                                        inv));
-  }
-  if (threadIdx.x == 0) wscale[(size_t)slot * NQW + t] = s;
+  auto q = [&](int r, int c) {   // element (r, c) of the tensor, or 0
+    return r < d.rows && c < d.cols
+               ? to_s8(rintf(__fmul_rn(fold_w(src[r * d.ld + c], d.fold, c),
+                                       inv)))
+               : (int8_t)0;
+  };
+  int8_t* dst = wq + (size_t)slot * q8_size(H);
+  const int C = up32(d.cols), n = up16(d.rows) * C;
+  for (int idx = n * part / parts + threadIdx.x; idx < n * (part + 1) / parts;
+       idx += QUANT_THREADS)
+    dst[qw_off(H, t) + idx] = q(idx / C, idx % C);
+  const int CT = up32(d.rows), nt = up16(d.cols) * CT;
+  for (int idx = nt * part / parts + threadIdx.x;
+       idx < nt * (part + 1) / parts; idx += QUANT_THREADS)
+    dst[qwt_off(H, t) + idx] = q(idx % CT, idx / CT);
+  if (part == 0 && threadIdx.x == 0) wscale[(size_t)slot * NQW + t] = s;
 }
 
 // The operands and geometry of one int8 train_grad launch.
 struct Q8Args {
-  const float *params, *wq, *wscale, *qs, *od, *z, *ray, *wmul, *scale;
+  const float* params;
+  const bf16* ws;
+  const int8_t* wq;
+  const float *wscale, *qs, *od, *z, *ray, *wmul, *scale;
   const int* active;
-  float *grad_part, *loss_part;
+  float *grad_part, *loss_part, *act_part;
   Offsets off;
   int cap, n_params, n_per, n_iter, n_eff, it, S, RT, n_tiles, n_rows;
   float cs, osc;
 };
 
-template <int H, int NT, int POL>
+template <int H, int POL>
 int launch_q8(const Q8Args& a, cudaStream_t stream) {
-  if (a.RT > NT) return (int)cudaErrorInvalidValue;
   const int P = a.RT * a.S;
-  const int LDP = P | 1;
-  // tile_body's buffers, then the f32 xs rows and the reduction scratch
-  const size_t smem = grad_smem_bytes(H, LDP, a.RT)
-                      + sizeof(float) * (3 * (size_t)LDP + 32);
+  if (P > Q8Tile<H>::FP) return (int)cudaErrorInvalidValue;
+  const int LDP = P | 1;   // odd row stride: conflict-free column reads
+  const size_t smem = q8_smem_bytes<H, POL == INT8>(P, a.RT);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  auto kernel = train_grad_q8_kernel<H, POL>;
   cudaError_t err = cudaFuncSetAttribute(
-      train_grad_q8_kernel<H, NT, POL>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)   // all of L1 as shared memory: two h=32 blocks
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(a.n_rows, a.cap);
-  train_grad_q8_kernel<H, NT, POL><<<grid, NT, smem, stream>>>(
-      a.params, a.wq, a.wscale, a.qs, a.od, a.z, a.ray, a.wmul, a.scale,
-      a.active, a.grad_part, a.loss_part, a.off, a.n_params,
-      a.n_iter * a.n_per, a.n_per, a.n_iter, a.it, a.S, a.RT, a.n_tiles, LDP,
-      a.cs, a.osc, a.n_eff);
+  kernel<<<grid, Tile<H>::NT, smem, stream>>>(
+      a.params, a.ws, a.wq, a.wscale, a.qs, a.od, a.z, a.ray, a.wmul,
+      a.scale, a.active, a.grad_part, a.loss_part, a.act_part, a.off,
+      a.n_params, a.n_iter * a.n_per, a.n_per, a.n_iter, a.it, a.S, a.RT,
+      a.n_tiles, LDP, a.cs, a.osc, a.n_eff);
   return (int)cudaGetLastError();
 }
 
 template <int POL>
 int launch_q8_width(int hidden, const Q8Args& a, cudaStream_t stream) {
-  if (hidden == 32) return launch_q8<32, 256, POL>(a, stream);
-  if (hidden == 128) return launch_q8<128, 256, POL>(a, stream);
-  if (hidden == 256) return launch_q8<256, 512, POL>(a, stream);
+  if (hidden == 32) return launch_q8<32, POL>(a, stream);
+  if (hidden == 128) return launch_q8<128, POL>(a, stream);
+  if (hidden == 256) return launch_q8<256, POL>(a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -542,45 +991,95 @@ int launch_q8_width(int hidden, const Q8Args& a, cudaStream_t stream) {
 
 extern "C" {
 
+// The s8 weights' bytes per slot (q8_layout) at a kernel width, 0 for any
+// other: kernels/train_step.py holds its q8_layout to it.
+int vmap_q8_size(int hidden) {
+  return hidden == 32    ? q8_size(32)
+         : hidden == 128 ? q8_size(128)
+         : hidden == 256 ? q8_size(256)
+                         : 0;
+}
+
+// The dynamic shared memory of one int8 train_grad block (q8b 1: int8 /
+// int8_static, 0: the _fwd policies) at S samples and RT rays a tile, 0 at
+// a width without a kernel: kernels/train_step.py q8_smem_bytes is held to
+// it.
+int vmap_q8_smem(int hidden, int q8b, int S, int RT) {
+  const int P = RT * S;
+  if (hidden == 32)
+    return (int)(q8b ? q8_smem_bytes<32, true>(P, RT)
+                     : q8_smem_bytes<32, false>(P, RT));
+  if (hidden == 128)
+    return (int)(q8b ? q8_smem_bytes<128, true>(P, RT)
+                     : q8_smem_bytes<128, false>(P, RT));
+  if (hidden == 256)
+    return (int)(q8b ? q8_smem_bytes<256, true>(P, RT)
+                     : q8_smem_bytes<256, false>(P, RT));
+  return 0;
+}
+
 // vmap_train_grad (train_step.cu) under an int8 policy: q8b 1 for int8 /
-// int8_static (quantised backward), 0 for int8_fwd / int8_static_fwd. wq /
-// wscale: the quantised weights and their [cap, 9] scales
+// int8_static (the s8 backward), 0 for int8_fwd / int8_static_fwd (the
+// float tile's f32 backward on ws, with the activation scratch act_part
+// [cap, n_rows, 3, hidden, (RT S) | 1]). ws: the staged bf16 pieces
+// [cap, 3, staged_size] (vmap_train_adamw), null under q8b; wq / wscale:
+// the s8 weights [cap, q8_size] and their [cap, 9] scales
 // (vmap_train_quant_w); qs: the static policies' (scale, 127 / maximum)
 // pairs for activations, head gradients and hidden gradients, or null for
-// dynamic scales.
+// dynamic scales. The partial
+// rows are grad_row(hidden) floats, as the float policies'.
 int vmap_train_grad_q8(int q8b, int hidden, const float* params,
-                       const float* wq, const float* wscale, const float* qs,
-                       const float* od, const float* z, const float* ray,
-                       const float* wmul, const float* scale,
-                       const int* active, float* grad_part, float* loss_part,
+                       const void* ws, const void* wq, const float* wscale,
+                       const float* qs, const float* od, const float* z,
+                       const float* ray, const float* wmul,
+                       const float* scale, const int* active,
+                       float* grad_part, float* loss_part, float* act_part,
                        const int* offsets, int cap, int n_params, int n_per,
                        int n_iter, int n_eff, int it, int S, int RT,
                        int n_tiles, int n_rows, float cs, float osc,
                        void* stream) {
+  const Offsets off = offsets_from(offsets);
   if (!grad_args_ok(cap, n_per, n_iter, n_eff, it, S, RT, n_tiles, n_rows) ||
-      wq == nullptr || wscale == nullptr)
+      wq == nullptr || wscale == nullptr ||
+      (!q8b && (ws == nullptr || act_part == nullptr)) ||
+      !rest_fits(off, hidden))
     return (int)cudaErrorInvalidValue;
-  const Q8Args a = {params, wq, wscale, qs, od, z, ray, wmul, scale, active,
-                    grad_part, loss_part, offsets_from(offsets), cap,
-                    n_params, n_per, n_iter, n_eff, it, S, RT, n_tiles,
+  const Q8Args a = {params, static_cast<const bf16*>(ws),
+                    static_cast<const int8_t*>(wq), wscale, qs, od, z, ray,
+                    wmul, scale, active, grad_part, loss_part, act_part, off,
+                    cap, n_params, n_per, n_iter, n_eff, it, S, RT, n_tiles,
                     n_rows, cs, osc};
   cudaStream_t st = (cudaStream_t)stream;
   return q8b ? launch_q8_width<INT8>(hidden, a, st)
              : launch_q8_width<INT8_FWD>(hidden, a, st);
 }
 
-// The quantised copy wq (integer-valued, the parameters' layout) of the
-// nine MLP weight tensors of every active slot, and their scales wscale
-// [cap, 9], from the parameters p.
-int vmap_train_quant_w(const float* p, float* wq, float* wscale,
+// The s8 copy wq [cap, q8_size(hidden)] (q8_layout: each QW tensor and its
+// transpose, zero-padded) of the nine MLP weight tensors of every active
+// slot, and their scales wscale [cap, 9], from the parameters p.
+int vmap_train_quant_w(const float* p, void* wq, float* wscale,
                        const int* active, const int* offsets, int cap,
                        int n_params, int hidden, void* stream) {
-  if (cap < 1 || (hidden != 32 && hidden != 128 && hidden != 256))
-    return (int)cudaErrorInvalidValue;
-  dim3 grid(NQW, cap);
+  if (cap < 1 || vmap_q8_size(hidden) == 0) return (int)cudaErrorInvalidValue;
+  // blocks enough to fill the SMs (132 on the H100 SXM) when the bank
+  // has few slots: the iMAP field's nine tensors take 8 blocks each
+  const int parts = cap * NQW >= 132 ? 1 : (132 + cap * NQW - 1) / (cap * NQW);
+  dim3 grid(NQW, cap, parts < 8 ? parts : 8);
   quant_weights_kernel<<<grid, QUANT_THREADS, 0, (cudaStream_t)stream>>>(
-      p, wq, wscale, active, offsets_from(offsets), n_params, hidden);
+      p, static_cast<int8_t*>(wq), wscale, active, offsets_from(offsets),
+      n_params, hidden);
   return (int)cudaGetLastError();
 }
+
+#ifdef K1_PROFILE
+// the int8 tile's section clocks of the measuring build (this file's
+// k1_prof) into host[8], then zeroed
+int vmap_k1_profile_q8(unsigned long long* host) {
+  cudaError_t e = cudaMemcpyFromSymbol(host, k1_prof, sizeof(k1_prof));
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long zero[8] = {};
+  return (int)cudaMemcpyToSymbol(k1_prof, zero, sizeof(k1_prof));
+}
+#endif
 
 }  // extern "C"

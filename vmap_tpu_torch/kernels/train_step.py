@@ -18,10 +18,11 @@ Two versions of one function:
     ``frame_geometry``; kernel B ``adamw_kernel``: fixed-order sum of the
     rows + masked AdamW, and the updated weights' staged copy) and, for
     the int8 policies, ``csrc/train_step_q8.cu`` (``train_grad_q8_kernel``,
-    the same tile on s8 operands, and ``quant_weights_kernel``, the
-    weights' quantised copy once per iteration), built for hidden 32, 128
-    and 256. The loop over iterations runs on the host, two launches per
-    iteration (int8: three). On CPU tensors it runs the plain version; on
+    the same grid and rows with every MLP product on s8 tensor cores, and
+    ``quant_weights_kernel``, the weights' s8 copy and its transpose once
+    per iteration, ``q8_layout``), built for hidden 32, 128 and 256. The
+    loop over iterations runs on the host, two launches per iteration
+    (int8: three). On CPU tensors it runs the plain version; on
     CUDA tensors it launches the kernels or raises.
 
 Data-only factors are computed in plain torch before the loop, as the JAX
@@ -217,8 +218,8 @@ def kernel_operands(batch: dict, active: torch.Tensor, n_iter: int,
                               dim=-1).contiguous()}
 
 
-def _up16(x: int) -> int:
-    return -(-x // 16) * 16
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 def staged_layout(hidden: int) -> tuple[list, int]:
@@ -232,7 +233,7 @@ def staged_layout(hidden: int) -> tuple[list, int]:
     for name in STAGED_NAMES:
         n_out, n_in = shapes[name]
         layout.append((name, n_out, n_in, off))
-        off += _up16(n_out) * _up16(n_in)
+        off += _up(n_out, 16) * _up(n_in, 16)
     return layout, off
 
 
@@ -247,7 +248,7 @@ def stage_weights(flat: torch.Tensor, spec: BankSpec) -> torch.Tensor:
                       device=flat.device)
     _, mlp_p = spec.unflatten(flat)
     for name, n_out, n_in, off in layout:
-        rows, cols = _up16(n_out), _up16(n_in)
+        rows, cols = _up(n_out, 16), _up(n_in, 16)
         for plane, t in enumerate(split_bf16(mlp_p[name], STAGED_PIECES)):
             block = out[:, plane, off:off + rows * cols].view(cap, rows, cols)
             block[:, :n_out, :n_in] = t
@@ -263,7 +264,7 @@ def slab_bytes(hidden: int, policy: str) -> int:
     npf, npb = PIECES[policy]
     kf = {32: (64, 48), 128: (32, 16), 256: (16, 16)}[hidden][npf == 3]
     return max(2 * npf * hidden * (kf + 8),
-               2 * npb * 16 * (_up16(hidden + 87) + 8))
+               2 * npb * 16 * (_up(hidden + 87, 16) + 8))
 
 
 def _rest_size(spec: BankSpec) -> int:
@@ -283,7 +284,7 @@ def grad_row_size(hidden: int) -> int:
     grad_row): the staged weights' NS, then the dirs and biases, to a
     multiple of 16."""
     spec = BankSpec.create(hidden)
-    return staged_layout(hidden)[1] + _up16(_rest_size(spec))
+    return staged_layout(hidden)[1] + _up(_rest_size(spec), 16)
 
 
 def grad_row_index(spec: BankSpec) -> torch.Tensor:
@@ -295,10 +296,99 @@ def grad_row_index(spec: BankSpec) -> torch.Tensor:
     idx = torch.arange(spec.n_params, dtype=torch.int32) + ns
     for name, n_out, n_in, off in layout:
         base = spec.offset(name)
-        r = torch.arange(n_out)[:, None] * _up16(n_in) + torch.arange(n_in)
+        r = torch.arange(n_out)[:, None] * _up(n_in, 16) + torch.arange(n_in)
         idx[base:base + n_out * n_in] = (off + r).reshape(-1)
     _rest_size(spec)   # the dirs and biases lead the layout
     return idx
+
+
+# the int8 tile's shape per width (csrc/train_step_q8.cu Q8Tile): the n
+# tiles of a warp's product unit and the slab's columns
+Q8_WN = {32: 2, 128: 7, 256: 5}
+Q8_KS = {32: 96, 128: 128, 256: 64}
+
+
+def q8_layout(hidden: int) -> tuple[list, int]:
+    """The s8 weights ``train_quant_w`` writes (csrc/train_step_q8.cu
+    qw_off): for each ``ops.quant.QW_NAMES`` tensor [n_out, n_in] in
+    order, its copy as a zero-padded [up16(n_out), up32(n_in)] row-major
+    block, then its transpose [up16(n_in), up32(n_out)]. Returns ([(name,
+    n_out, n_in, offset, transpose offset)], bytes per slot)."""
+    h = hidden
+    spec = BankSpec.create(h)
+    shapes = {n: shape for _, n, shape, _, _ in spec.names}
+    emb1, emb2 = shapes["w_in"][1], shapes["w_col"][1] - h
+    dims = {"w_in": (h, emb1), "w_mid1": (h, h), "w_cat_h": (h, h),
+            "w_cat_x": (h, emb1), "w_mid2": (h, h), "w_alpha": (1, h),
+            "w_col_h": (h, h), "w_col_x": (h, emb2), "w_out": (3, h)}
+    layout, off = [], 0
+    for name in Q.QW_NAMES:
+        n_out, n_in = dims[name]
+        off_t = off + _up(n_out, 16) * _up(n_in, 32)
+        layout.append((name, n_out, n_in, off, off_t))
+        off = off_t + _up(n_in, 16) * _up(n_out, 32)
+    return layout, off
+
+
+def stage_q8(qw: dict, hidden: int) -> torch.Tensor:
+    """``ops.quant.quant_weights``' quantised weights ({name: (q [n, out,
+    in] integer-valued f32, scale)}) -> their s8 layout [n, q8_layout
+    bytes] (int8): the plain version of what ``quant_weights_kernel``
+    writes, which the int8 ``train_grad`` reads."""
+    layout, size = q8_layout(hidden)
+    q0 = qw[layout[0][0]][0]
+    n = q0.shape[0]
+    out = torch.zeros((n, size), dtype=torch.int8, device=q0.device)
+    for name, n_out, n_in, off, off_t in layout:
+        q = qw[name][0].to(torch.int8)
+        rows, cols = _up(n_out, 16), _up(n_in, 32)
+        out[:, off:off + rows * cols].view(n, rows, cols)[
+            :, :n_out, :n_in] = q
+        rows, cols = _up(n_in, 16), _up(n_out, 32)
+        out[:, off_t:off_t + rows * cols].view(n, rows, cols)[
+            :, :n_in, :n_out] = q.transpose(1, 2)
+    return out
+
+
+def q8_smem_bytes(hidden: int, rays: int, n_samples: int,
+                  policy: str = "int8") -> int:
+    """Dynamic shared memory of one int8-policy train_grad block
+    (csrc/train_step_q8.cu q8_smem_bytes; the library's vmap_q8_smem):
+    two slabs (``q8_slab_bytes``), the f32 rows at the odd stride LDP = P |
+    1 (int8 / int8_static: the embedding, the projection and its gradient
+    and the heads' 8 rows, then the per-ray losses, 32 floats of reduction
+    scratch and the bias partials [h][units]; the _fwd halves:
+    ``float_smem_bytes``' rows, the per-ray losses and the 32 floats), to
+    16 bytes, and the s8
+    copies: point-major [up8(P)][K + 16] of the hidden layers (K = h), the
+    embedding (96, 64) and, under int8 / int8_static, the two head
+    gradients (32 each), which also keep feature-major copies
+    [rows][up32(P) + 16] of the embedding (96, 64 rows), the five hidden
+    activations (h) and the two head gradients (16 rows each)."""
+    h, pts = hidden, rays * n_samples
+    ldp, ldq = pts | 1, _up(pts, 32) + 16
+    qb = Q.q8_backward(policy)
+    nu = -(-_up(MAX_POINTS[h], 8) // (8 * Q8_WN[h]))
+    rows = ((129 + 42 + 8) * ldp + h * nu if qb
+            else (129 + 4 * 21 + 2 * h + 8) * ldp)
+    f32 = _up(4 * (rows + rays + 32), 16)
+    s8 = _up(pts, 8) * (h + 16 + 112 + 80 + (96 if qb else 0))
+    if qb:
+        s8 += ldq * (96 + 64 + 5 * h + 32)
+    return 2 * q8_slab_bytes(h, policy) + f32 + s8
+
+
+def q8_slab_bytes(hidden: int, policy: str = "int8") -> int:
+    """One slab of an int8-policy train_grad block (csrc/train_step_q8.cu
+    q8_slab): the largest product's rows x (its columns, at most
+    ``Q8_KS``, + 16) bytes, the forward's h rows over up to max(96, h)
+    columns or the input gradients' up to 96 rows (the embedding's) over
+    h; under a _fwd half at least the float backward's ``slab_bytes``."""
+    h, ks = hidden, Q8_KS[hidden]
+    slab = max(h * (min(ks, max(96, h)) + 16), 96 * (min(ks, h) + 16))
+    if not Q.q8_backward(policy):
+        slab = max(slab, slab_bytes(h, "float32"))
+    return slab
 
 
 def float_smem_bytes(hidden: int, rays: int, n_samples: int,
@@ -330,14 +420,15 @@ class FrameGeometry:
 
 def block_scratch_bytes(hidden: int, rays: int, n_samples: int,
                         policy: str = "float32") -> int:
-    """One train_grad block's global scratch (``FrameLaunch``): under an
-    int8 policy its partial-gradient row of n_params floats; under a float
-    policy its row of ``grad_row_size`` floats and its activation scratch,
-    h1, h2, h3 of its tile at the row stride (rays * S) | 1."""
-    if policy in Q.INT8_POLICIES:
-        return 4 * BankSpec.create(hidden).n_params
-    return 4 * (grad_row_size(hidden)
-                + 3 * hidden * ((rays * n_samples) | 1))
+    """One train_grad block's global scratch (``FrameLaunch``): its
+    partial-gradient row of ``grad_row_size`` floats and, but under int8 /
+    int8_static (whose backward keeps its s8 copies in shared memory), its
+    activation scratch, h1, h2, h3 of its tile at the row stride (rays *
+    S) | 1."""
+    row = grad_row_size(hidden)
+    if Q.q8_backward(policy):
+        return 4 * row
+    return 4 * (row + 3 * hidden * ((rays * n_samples) | 1))
 
 
 def frame_geometry(hidden: int, n_samples: int, n_per: int,
@@ -357,7 +448,7 @@ def frame_geometry(hidden: int, n_samples: int, n_per: int,
     where it is small (the vMAP shapes under float32: 157.2 MB for the
     objects at h=32, 147.6 MB for the background at h=128), so those
     launches are unchanged; the iMAP field (h=256, 4800 rays x 14 samples:
-    1200 float tiles of 1.51 MB or 2400 int8 ones of 1.28 MB, 1.8 or 3.1
+    1200 float tiles of 1.51 MB or 2400 int8 ones of 1.33 MB, 1.8 or 3.2
     GB) gets 132 blocks, 199.0 MB under float32. Fewer rows than tiles
     below the budget would save only the rows' bytes, and the geometry is
     set by ``cap``, not by the slots active: a bank with few active slots
@@ -377,16 +468,19 @@ class FrameLaunch:
     """Validated operands and scratch of one bank's kernel frame; its
     methods launch the kernels for one iteration.
 
-    Under a float policy ``train_grad`` reads the weights of its products
-    from ``ws``, their staged bf16 pieces (``stage_weights``): made here
-    from the bank's parameters, and rewritten by each ``adamw`` from the
-    parameters it updates; its partial-gradient rows (``grad_part``) hold
-    the weights in the staged layout, ``row_index`` each parameter's place
-    (``grad_row_index``). Under an int8 policy ``wr`` holds the
-    quantised weights (integer-valued f32) and ``wscale`` their [cap, 9]
-    scales (``ops.quant.QW_NAMES``), written by ``quant_weights``: here
-    from the bank's parameters, then by each ``adamw`` but the frame's
-    last; ``qs`` the static policies' (scale, 127 / maximum) pairs of
+    ``ws`` holds the product weights' staged bf16 pieces
+    (``stage_weights``): made here from the bank's parameters, and
+    rewritten by each ``adamw`` from the parameters it updates; under a
+    float policy ``train_grad``'s products read them, under int8_fwd /
+    int8_static_fwd its f32 backward; int8 / int8_static have none
+    (None). The partial-gradient rows
+    (``grad_part``, every policy) hold the weights in the staged layout,
+    ``row_index`` each parameter's place (``grad_row_index``). Under an
+    int8 policy ``wq`` holds the s8 weights and their transposes
+    (``q8_layout``) and ``wscale`` their [cap, 9] scales
+    (``ops.quant.QW_NAMES``), written by ``quant_weights``: here from the
+    bank's parameters, then by each ``adamw`` but the frame's last; ``qs``
+    the static policies' (scale, 127 / maximum) pairs of
     ``ops.quant.Q8_SCALES``, None under the dynamic ones. So ``grad`` takes the
     bank's parameters as they stand after the latest ``adamw`` of this
     launch. ``lib``: the kernel library (default ``_build.load()``; the
@@ -439,17 +533,19 @@ class FrameLaunch:
             *[bank.spec.offset(n) for n in OFFSET_NAMES])
         g = self.geom
         self.q8 = policy in Q.INT8_POLICIES
-        # a float policy's rows hold the weights in the staged layout, then
-        # the dirs and biases (row_index: each parameter's place in a row),
-        # and each block has an activation scratch (h1, h2, h3 of its tile
-        # at the kernel's row stride (rays * S) | 1): block_scratch_bytes
-        row = n_params
-        self.row_index = torch.arange(n_params, dtype=torch.int32,
-                                      device=dev)
+        row = grad_row_size(h)
+        if (self.lib.vmap_staged_size(h) != staged_layout(h)[1]
+                or self.lib.vmap_grad_row(h) != row):
+            raise RuntimeError("staged_layout / grad_row_size disagree "
+                               "with the kernel library's")
+        # the rows hold the weights in the staged layout, then the dirs and
+        # biases (row_index: each parameter's place in a row), and each
+        # block but int8 / int8_static's has an activation scratch (h1, h2,
+        # h3 of its tile at the kernel's row stride (rays * S) | 1):
+        # block_scratch_bytes
+        self.row_index = grad_row_index(bank.spec).to(dev)
         self.act_part = None
-        if not self.q8:
-            row = grad_row_size(h)
-            self.row_index = grad_row_index(bank.spec).to(dev)
+        if not (self.q8 and Q.q8_backward(policy)):
             self.act_part = torch.empty(
                 (cap, g.blocks, 3, h, (g.rays_per_tile * S) | 1),
                 dtype=torch.float32, device=dev)
@@ -457,9 +553,17 @@ class FrameLaunch:
                                      dtype=torch.float32, device=dev)
         self.loss_part = torch.empty((cap, g.blocks), dtype=torch.float32,
                                      device=dev)
-        self.wr = self.ws = self.wscale = self.qs = None
+        # the staged bf16 pieces, which no kernel of int8 / int8_static
+        # reads (train_adamw writes them where they exist)
+        self.ws = (None if self.q8 and Q.q8_backward(policy)
+                   else stage_weights(bank.flat, bank.spec))
+        self.wq = self.wscale = self.qs = None
         if self.q8:
-            self.wr = torch.zeros_like(bank.flat)
+            if self.lib.vmap_q8_size(h) != q8_layout(h)[1]:
+                raise RuntimeError("q8_layout disagrees with the kernel "
+                                   "library's")
+            self.wq = torch.zeros((cap, q8_layout(h)[1]), dtype=torch.int8,
+                                  device=dev)
             self.wscale = torch.empty((cap, len(Q.QW_NAMES)),
                                       dtype=torch.float32, device=dev)
             if Q.q8_static(policy):
@@ -468,12 +572,6 @@ class FrameLaunch:
                                                     127.0 / m)],
                     dtype=torch.float32, device=dev)
             self.quant_weights(bank.flat)
-        else:
-            if (self.lib.vmap_staged_size(h) != staged_layout(h)[1]
-                    or self.lib.vmap_grad_row(h) != row):
-                raise RuntimeError("staged_layout / grad_row_size disagree "
-                                   "with the kernel library's")
-            self.ws = stage_weights(bank.flat, bank.spec)
 
     def _stream(self) -> int:
         return torch.cuda.current_stream(self.dev).cuda_stream
@@ -501,8 +599,8 @@ class FrameLaunch:
         if self.q8:
             code = self.lib.vmap_train_grad_q8(
                 int(Q.q8_backward(self.policy)), self.h, p(params),
-                p(self.wr), p(self.wscale), p(self.qs), *batch, offsets,
-                *geom)
+                p(self.ws), p(self.wq), p(self.wscale), p(self.qs), *batch,
+                p(self.act_part), offsets, *geom)
         else:
             code = self.lib.vmap_train_grad(
                 POLICIES.index(self.policy), self.h, p(params), p(self.ws),
@@ -514,15 +612,15 @@ class FrameLaunch:
     def adamw(self, params, m, v, losses, it: int, lr: float,
               wd: float) -> None:
         """Kernel B: reduce the partials, masked AdamW in place on
-        (params, m, v), losses[:, it]; under a float policy also ``ws``;
-        under an int8 policy then ``quant_weights`` for the next
-        iteration, if there is one."""
+        (params, m, v), losses[:, it] and ``ws`` (if the policy has it);
+        under an int8 policy then ``quant_weights`` for the next iteration,
+        if there is one."""
         for name, t in (("params", params), ("m", m), ("v", v)):
             self._check(name, t, (self.cap, self.n_params))
         self._check("losses", losses, (self.cap, self.n_iter))
         p = _ptr
         code = self.lib.vmap_train_adamw(
-            p(params), p(self.ws), p(None if self.q8 else self.row_index),
+            p(params), p(self.ws), p(self.row_index),
             p(m), p(v), p(self.grad_part), p(self.loss_part), p(losses),
             p(self.active), p(self.bc1), p(self.bc2), self.h, self.cap,
             self.n_params, self.geom.blocks, self.n_iter, it, float(lr),
@@ -533,12 +631,14 @@ class FrameLaunch:
             self.quant_weights(params)
 
     def quant_weights(self, params: torch.Tensor) -> None:
-        """Int8 policies: the quantised copy ``wr`` and scales ``wscale``
-        of ``params``' MLP weights (``ops.quant.quant_weights``), one block
-        per (tensor, active slot)."""
+        """Int8 policies: the s8 copy ``wq`` (``q8_layout``) and scales
+        ``wscale`` of ``params``' MLP weights (``ops.quant.quant_weights``):
+        grid (tensor, slot, part), up to 8 parts a tensor when the bank has
+        few slots (each part reduces the whole tensor's abs-max, then
+        writes its share of the copy and the transpose)."""
         self._check("params", params, (self.cap, self.n_params))
         code = self.lib.vmap_train_quant_w(
-            _ptr(params), _ptr(self.wr), _ptr(self.wscale),
+            _ptr(params), _ptr(self.wq), _ptr(self.wscale),
             _ptr(self.active), ctypes.cast(self.offsets, ctypes.c_void_p),
             self.cap, self.n_params, self.h, ctypes.c_void_p(self._stream()))
         _build.check(self.lib, code, "train_quant_w kernel launch")

@@ -62,8 +62,10 @@ SIGNATURES = {
     "vmap_probe_ops": ((I, P, P, P, P, I, I, P), I),
     "vmap_probe_dma": ((I, P, I, I, I, I, P, P, P), I),
 }
+# probe_common.cuh includes the kernel library's mma.cuh
 LIBRARY = Library(_HERE / "csrc", _HERE / "_build", "libvmap_probes.so",
-                  SIGNATURES)
+                  SIGNATURES,
+                  headers=(_HERE.parent / "kernels" / "csrc" / "mma.cuh",))
 
 LAUNCHES = {"mm": 0, "int8": 0, "sections": 0, "overlap": 0, "vpu": 0,
             "ops": 0, "dma": 0}

@@ -36,8 +36,6 @@
 
 namespace {
 
-using probe::bf16;
-
 template <int V, bool STAGE_W>
 __global__ void __launch_bounds__(256)
 mm_chain_kernel(const float* __restrict__ wt_g, const bf16* __restrict__ whi_g,

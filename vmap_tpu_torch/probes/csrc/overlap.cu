@@ -35,8 +35,6 @@
 
 namespace {
 
-using probe::bf16;
-
 constexpr int M = 128, NB = 16, THREADS = 128, LD = M + 8;
 constexpr int ROUNDS = 4, BAL_ROUNDS = 108;
 constexpr int WARPS = THREADS / 32, NTILE = NB / 8;
