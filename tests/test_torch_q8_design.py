@@ -178,16 +178,17 @@ def test_int8_tile_plan_at_the_shipped_shapes():
 
 @pytest.mark.parametrize("name", ["profile", "mark_after_prod",
                                   "clock_after_prod", "sync_after_prod",
-                                  "mark_syncwarp"])
+                                  "mark_syncwarp", "checked",
+                                  "checked_mark"])
 def test_profile_fault_variants_edit_the_int8_tile(name):
     """kernels.q8_profile_fault's variants of csrc/train_step_q8.cu: the
-    shipped source for the control, else its code right after bwd_layer's
-    product in place of the section mark after the mask pass, and nothing
-    else changed."""
+    shipped source for the control (and the checked build), else its code
+    right after bwd_layer's product in place of the section mark after the
+    mask pass, and nothing else changed."""
     from vmap_tpu_torch.kernels import q8_profile_fault as F
     src = (Path(K.__file__).parent / "csrc" / "train_step_q8.cu").read_text()
     out = F.variant_source(name, src)
-    code, _ = F.VARIANTS[name]
+    code, _ = {**F.VARIANTS, **F.CHECKED}[name]
     if code is None:
         assert out == src
         return
@@ -204,3 +205,16 @@ def test_profile_fault_needs_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs a CUDA device"):
         F.main()
+
+
+def test_checked_build_is_off_in_the_shipped_builds():
+    """The checked build's define (csrc/mma.cuh VMAP_SMEM_CHECK) is set
+    only by kernels.q8_profile_fault's checked variants: never by the
+    libraries' own flags, and its sites compile to nothing without it."""
+    from vmap_tpu_torch.kernels import _build
+    from vmap_tpu_torch.kernels import q8_profile_fault as F
+    assert not any("VMAP_SMEM_CHECK" in f for f in _build.NVCC_FLAGS)
+    assert all("VMAP_SMEM_CHECK" in d for _, d in F.CHECKED.values())
+    assert not any("VMAP_SMEM_CHECK" in d for _, d in F.VARIANTS.values())
+    mma = (Path(K.__file__).parent / "csrc" / "mma.cuh").read_text()
+    assert "#define SMEM_CHECK(base, p, n, site) ((void)0)" in mma

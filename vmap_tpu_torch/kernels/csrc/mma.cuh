@@ -18,16 +18,86 @@
 //   B 32 x 8 s8, "col":         b0 (4t..4t+3, g)  b1 (4t+16.., g)
 //   C / D 16 x 8 f32 or s32:    d0 (g, 2t)  d1 (g, 2t+1)  d2 (g+8, 2t)
 //                               d3 (g+8, 2t+1)
+//
+// The checked build (-DVMAP_SMEM_CHECK, off in every shipped build;
+// kernels/q8_profile_fault.py builds it): a kernel states its
+// shared-memory plan as regions (smem_plan_add, the block's thread 0,
+// then a block barrier), and SMEM_CHECK(base, p, n, site) traps, printing
+// the site number, where the n bytes at p do not lie within the plan's
+// region that holds base (the buffer the address was formed from), or no
+// region holds base. In the shipped build SMEM_CHECK is nothing.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#ifdef VMAP_SMEM_CHECK
+#include <cstdio>
+#endif
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+#ifdef VMAP_SMEM_CHECK
+constexpr int SMEM_REGIONS = 24;
+__shared__ uint32_t smem_plan[SMEM_REGIONS][2];   // [lo, hi) shared bytes
+__shared__ int smem_plan_n;
+
+__device__ __noinline__ void smem_trap(int site, uint32_t a, int n,
+                                       uint32_t lo, uint32_t hi) {
+  printf("smem check: site %d block (%d, %d) thread %d: bytes [%u, %u) "
+         "outside the plan's region [%u, %u)\n", site, blockIdx.x,
+         blockIdx.y, threadIdx.x, a, a + n, lo, hi);
+  __trap();
+}
+
+// the dynamic shared memory's first address and its bytes at this launch
+__device__ __forceinline__ uint32_t dyn_smem_lo() {
+  extern __shared__ __align__(16) unsigned char vmap_dyn_smem[];
+  return smem_u32(vmap_dyn_smem);
+}
+__device__ __forceinline__ uint32_t dyn_smem_bytes() {
+  uint32_t n;
+  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(n));
+  return n;
+}
+
+// thread 0 only: a plan of no regions
+__device__ __forceinline__ void smem_plan_reset() { smem_plan_n = 0; }
+
+// thread 0 only: region [lo, lo + bytes), itself within the launch's
+// dynamic shared memory (site 0 if not)
+__device__ __forceinline__ void smem_plan_add(const void* lo, size_t bytes) {
+  const uint32_t a = smem_u32(lo), d0 = dyn_smem_lo();
+  if (smem_plan_n >= SMEM_REGIONS || a < d0 ||
+      a + bytes > d0 + dyn_smem_bytes())
+    smem_trap(0, a, (int)bytes, d0, d0 + dyn_smem_bytes());
+  smem_plan[smem_plan_n][0] = a;
+  smem_plan[smem_plan_n][1] = a + (uint32_t)bytes;
+  ++smem_plan_n;
+}
+
+__device__ __forceinline__ void smem_check(const void* base, const void* p,
+                                           int n, int site) {
+  const uint32_t b = smem_u32(base), a = smem_u32(p);
+  for (int r = 0; r < smem_plan_n; ++r)
+    if (smem_plan[r][0] <= b && b < smem_plan[r][1]) {
+      if (a < smem_plan[r][0] || a + n > smem_plan[r][1])
+        smem_trap(site, a, n, smem_plan[r][0], smem_plan[r][1]);
+      return;
+    }
+  smem_trap(site, a, n, 0, 0);
+}
+#define SMEM_CHECK(base, p, n, site) smem_check((base), (p), (n), (site))
+#else
+#define SMEM_CHECK(base, p, n, site) ((void)0)
+#endif
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
@@ -77,6 +147,8 @@ __device__ __forceinline__ void load_a_s8(uint32_t (&a)[4], const int8_t* A,
                                           int lda, int row0, int k0,
                                           int lane) {
   const int8_t* p = A + (row0 + (lane >> 2)) * lda + k0 + 4 * (lane & 3);
+  SMEM_CHECK(A, p, 4, 3);
+  SMEM_CHECK(A, p + 8 * lda + 16, 4, 4);
   a[0] = lds32(p);
   a[1] = lds32(p + 8 * lda);
   a[2] = lds32(p + 16);
@@ -89,12 +161,10 @@ __device__ __forceinline__ void load_b_s8(uint32_t (&b)[2], const int8_t* B,
                                           int ldb, int col0, int k0,
                                           int lane) {
   const int8_t* p = B + (col0 + (lane >> 2)) * ldb + k0 + 4 * (lane & 3);
+  SMEM_CHECK(B, p, 4, 5);
+  SMEM_CHECK(B, p + 16, 4, 6);
   b[0] = lds32(p);
   b[1] = lds32(p + 16);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // A fragment of rows row0.., columns k0.. of a row-major bf16 array in

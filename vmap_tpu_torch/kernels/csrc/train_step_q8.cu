@@ -72,6 +72,15 @@
 // runtime choice: qs points to the static (scale, 127 / maximum) pairs of
 // the activations, head gradients and hidden gradients, or is null.
 //
+// The checked build (-DVMAP_SMEM_CHECK, mma.cuh; never shipped): each tile
+// states its plan (q8_plan: the two slabs, the f32 rows, every s8 copy,
+// each within the launch's dynamic shared memory, whose size is
+// vmap_q8_smem's), and every shared-memory address the int8 products and
+// passes form is held to the region of the buffer it was formed from:
+// the slab ring's cp.async destinations (sites 1, 2), the s8 fragment
+// loads (mma.cuh, 3-6), the s8 copies' writes (7-12), the masks' reads
+// (13) and the bias partials (14, 15).
+//
 // What bounds it on the card (chip_smoke.py --sections; PERF.md §6): at
 // h=256 the weight gradients, 60% of an int8 tile: the
 // read-modify-write of the block's 1.33 MB partial row for every tile of
@@ -237,6 +246,10 @@ __device__ __forceinline__ void prod_s8(
     const bool seg1 = TWO && s >= ns0;
     const int K = seg1 ? K1 : K0, c0 = (seg1 ? s - ns0 : s) * KS;
     const int kw = K - c0 < KS ? K - c0 : KS;
+    // the copies' destinations run from the slab's first byte to row M - 1,
+    // column kw - 16 (16 bytes each, in order)
+    SMEM_CHECK(buf[s & 1], buf[s & 1], 16, 1);
+    SMEM_CHECK(buf[s & 1], buf[s & 1] + (M - 1) * LD + kw - 16, 16, 2);
     stage_slab<NT, 1>(reinterpret_cast<bf16*>(buf[s & 1]), LD / 2,
                       reinterpret_cast<const bf16*>(seg1 ? A1 : A0), 0,
                       K / 2, 0, M, c0 / 2, kw / 2);
@@ -338,7 +351,11 @@ __device__ __forceinline__ void store_q8(
   for_acc<H, MU>(M, P, [&](int j, int wn, int q, int i, int p) {
     if (i < n && p < P) {
       const int8_t c = to_s8(q8(__int_as_float(v[j][wn][q]), inv));
-      if (fm) fm[i * LDQ + p] = c;
+      if (fm) {
+        SMEM_CHECK(fm, fm + i * LDQ + p, 1, 7);
+        fm[i * LDQ + p] = c;
+      }
+      SMEM_CHECK(pm, pm + p * ldpm + i, 1, 8);
       pm[p * ldpm + i] = c;
     }
   });
@@ -423,6 +440,7 @@ __device__ __forceinline__ float bwd_layer(
   for_acc<H, MU>(H, P, [&](int j, int wn, int q, int i, int p) {
     float g = __fmul_rn((float)acc[j][wn][q], sa);
     if constexpr (TWO) g = __fadd_rn(g, __fmul_rn((float)acc1[j][wn][q], sb));
+    if (p < P) SMEM_CHECK(fm, fm + i * LDQ + p, 1, 13);
     if (!(p < P && fm[i * LDQ + p] > 0)) g = 0.f;
     m = fmaxf(m, fabsf(g));
     acc[j][wn][q] = __float_as_int(g);
@@ -455,6 +473,8 @@ __device__ __forceinline__ float bwd_layer(
     }
     if ((lane & 3) == 0) {
       const int i = u / un * 16 + (lane >> 2);
+      SMEM_CHECK(bpart, bpart + i * NU + u % un, 4, 14);
+      SMEM_CHECK(bpart, bpart + (i + 8) * NU + u % un, 4, 14);
       bpart[i * NU + u % un] = r0;
       bpart[(i + 8) * NU + u % un] = r1;
     }
@@ -463,7 +483,10 @@ __device__ __forceinline__ float bwd_layer(
   const QScale qs = q_scale(st, st ? 0.f : block_max<NT>(m, red));
   for (int i = threadIdx.x; i < H; i += NT) {
     float s = 0.f;
-    for (int k = 0; k < un; ++k) s += bpart[i * NU + k];
+    for (int k = 0; k < un; ++k) {
+      SMEM_CHECK(bpart, bpart + i * NU + k, 4, 15);
+      s += bpart[i * NU + k];
+    }
     Gb[i] = add ? Gb[i] + s : s;
   }
   store_q8<H, MU>(acc, H, H, P, qs.inv, fm, LDQ, pm, H + 16);
@@ -580,10 +603,18 @@ __device__ void quant_emb(const float* emb, int P, int LDP, int8_t* fe1,
     const int i = idx / P, p = idx % P;
     const int8_t c = to_s8(q8(emb[i * LDP + p], i < 3 ? XS_MUL : 127.f));
     if (i < EMB1) {
-      if (FM) fe1[i * LDQ + p] = c;
+      if (FM) {
+        SMEM_CHECK(fe1, fe1 + i * LDQ + p, 1, 9);
+        fe1[i * LDQ + p] = c;
+      }
+      SMEM_CHECK(pe1, pe1 + p * 112 + i, 1, 10);
       pe1[p * 112 + i] = c;
     } else {
-      if (FM) fe2[(i - EMB1) * LDQ + p] = c;
+      if (FM) {
+        SMEM_CHECK(fe2, fe2 + (i - EMB1) * LDQ + p, 1, 9);
+        fe2[(i - EMB1) * LDQ + p] = c;
+      }
+      SMEM_CHECK(pe2, pe2 + p * 80 + i - EMB1, 1, 10);
       pe2[p * 80 + i - EMB1] = c;
     }
   }
@@ -605,6 +636,8 @@ __device__ float quant_head(const float* x, int n, int P, int LDP,
   for (int idx = threadIdx.x; idx < n * P; idx += NT) {
     const int i = idx / P, p = idx % P;
     const int8_t c = to_s8(q8(x[i * LDP + p], qs.inv));
+    SMEM_CHECK(fm, fm + i * LDQ + p, 1, 11);
+    SMEM_CHECK(pm, pm + p * 48 + i, 1, 12);
     fm[i * LDQ + p] = c;
     pm[p * 48 + i] = c;
   }
@@ -668,6 +701,33 @@ __device__ __noinline__ void q8_tile(const float* __restrict__ W,
   const float* hid = qs ? qs + 4 : nullptr;
   auto Wq = [&](int t) { return wq + qw_off(H, t); };
   auto WqT = [&](int t) { return wq + qwt_off(H, t); };
+#ifdef VMAP_SMEM_CHECK
+  // q8_plan: the regions of q8_smem_bytes, in its order (the block's
+  // earlier tile has synchronised after its last access)
+  if (threadIdx.x == 0) {
+    const size_t SB = slab1 - slab0;
+    smem_plan_reset();
+    smem_plan_add(slab0, SB);
+    smem_plan_add(slab1, SB);
+    smem_plan_add(sm, q8_f32_bytes<H, QB>(LDP, RT));
+    int8_t* const copies[] = {ph, pe1, pe2, pdl, pda, fe1, fe2, fh1,
+                              fh2, fh3, fh4, fc, fdl, fda};
+    const size_t bytes[] = {
+        (size_t)P8 * (H + 16), (size_t)P8 * 112, (size_t)P8 * 80,
+        (size_t)P8 * 48, (size_t)P8 * 48, (size_t)96 * LDQ,
+        (size_t)64 * LDQ, (size_t)H * LDQ, (size_t)H * LDQ,
+        (size_t)H * LDQ, (size_t)H * LDQ, (size_t)H * LDQ,
+        (size_t)16 * LDQ, (size_t)16 * LDQ};
+    for (int c = 0; c < (QB ? 14 : 3); ++c)
+      smem_plan_add(copies[c], bytes[c]);
+    // the copies end where q8_s8_bytes says they do
+    if (copies[QB ? 13 : 2] + bytes[QB ? 13 : 2] !=
+        s8 + q8_s8_bytes<H, QB>(P))
+      smem_trap(0, smem_u32(copies[QB ? 13 : 2]), 0, smem_u32(s8),
+                smem_u32(s8) + (uint32_t)q8_s8_bytes<H, QB>(P));
+  }
+  __syncthreads();
+#endif
   K1_MARK_START();
 
   // 1. points, projection, sin bands; the embedding's s8 copies
