@@ -36,8 +36,13 @@ Phases, in order (any failure raises and the script exits non-zero):
      (h=128) and 1 x 131,072 (h=256), and K3 at the same three (every
      weight gradient within rtol 2e-3, atol 2e-3 x max(1, |g|max) of the
      f32 plain version; where the f32 plain version misses that bar
-     against the f64 one, K3 within twice its error of the f64 one),
-     timed with CUDA events;
+     against the f64 one, K3 within twice its error of the f64 one; twice,
+     bit for bit the same, and again at 4 x TILE_M), timed with CUDA
+     events, each width's tiles, grids and shared memory printed and held
+     to the library's (vmap_field_layout), the staged bf16 pieces equal to
+     their plain version and the staging timed alone, K2 also with the
+     PE's double-angle ladder in place of sinpif (its errors and time
+     logged);
   7. meshing at full width: a 100-object h=32 bank over 128^3 grid points
      per object, one h=128 background over 256^3 and one h=256 iMAP scene
      field over 256^3 (mesh_all_objects' chunks of 65,536), per-chunk and
@@ -122,7 +127,9 @@ shared memory at 128 B a clock), computed from this run's shapes; K1 on the
 route its kernel takes (``grad_bound``'s ``PASSES``): bf16 tensor-core
 passes under the float policies (float32 three, bwd_bf16's forward six),
 s8 ones under the int8 policies (the _fwd halves' backward float32's
-three bf16 passes).
+three bf16 passes); K2 and K3 on theirs (``FIELD_PASSES``: K2 three bf16
+passes, K3 six for its recomputed forward and 2 x 3 for its gradients),
+each beside its bound at the FP32 rate (``bound_fp32_ms``).
 Prints that JSON line of per-kernel results, the nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}; before them it checks that
 neither jax nor any module of the JAX package ``vmap_tpu`` was imported.
@@ -212,8 +219,8 @@ def bound(nbytes: float, fwd_flops: float = 0.0, bwd_flops: float = 0.0,
           f32_flops: float = 0.0) -> dict:
     """The least time the card could take: the larger of the bytes over
     the HBM rate and the products (``fwd_flops``, ``bwd_flops``,
-    ``f32_flops``) over the FP32 peak (the field kernels' FMA loops; K1's
-    tensor-core routes: ``grad_bound``)."""
+    ``f32_flops``) over the FP32 peak (the tensor-core routes:
+    ``grad_bound``, ``field_bound``)."""
     from vmap_tpu_torch.probes import PEAK_BYTES, PEAK_F32
     t_ops = (fwd_flops + bwd_flops + f32_flops) / PEAK_F32
     t_mem = nbytes / PEAK_BYTES
@@ -264,6 +271,37 @@ def grad_bound(bank, n_per: int, S: int, policy: str = "float32",
     pf, pb, qf, qb = PASSES[policy]
     t_ops = ((pf + 2 * pb) * fwd / PEAK_BF16
              + (qf + 2 * qb) * fwd / PEAK_INT8 + 3 * pe / PEAK_F32)
+    t_mem = nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_mem) * 1e3,
+            "bound_by": "operations" if t_ops >= t_mem else "bytes",
+            "library_ms": None}
+
+
+# the bf16 tensor-core passes of the field kernels' products
+# (csrc/ensemble.cu): K2's forward three (two pieces); K3's recomputed
+# forward six (three pieces), its input and weight gradients three each
+FIELD_PASSES = {"field_fwd": 3, "field_bwd": 6 + 2 * 3}
+
+
+def field_bound(O: int, M: int, hidden: int, n_w: int, bwd: bool,
+                fp32_rate: bool = False) -> dict:
+    """K2's (``bwd`` False) or K3's bound on O objects x M points of
+    hidden ``hidden``: bytes, the points in (and K3's cotangents), the
+    prepared parameters in (n_w floats; K3 also their gradients out), K2's
+    alpha and colour out; products on the route the kernels take, their
+    FIELD_PASSES of bf16 passes at 989 TFLOP/s, the PE's projection (and
+    K3's dirs gradient) at the FP32 rate. ``fp32_rate``: every product at
+    the FP32 rate (the log's second figure; PR 5's bound)."""
+    from vmap_tpu_torch.probes import PEAK_BF16, PEAK_BYTES, PEAK_F32
+    pts = O * M
+    fwd = 2.0 * (mlp_macs(hidden) - PE_MACS) * pts
+    pe = 2.0 * PE_MACS * pts
+    nbytes = 4 * (pts * 7 + (2 if bwd else 1) * n_w)
+    if fp32_rate:
+        flops = fwd + pe
+        return bound(nbytes, flops, 2 * flops if bwd else 0.0)
+    passes = FIELD_PASSES["field_bwd" if bwd else "field_fwd"]
+    t_ops = passes * fwd / PEAK_BF16 + (2 if bwd else 1) * pe / PEAK_F32
     t_mem = nbytes / PEAK_BYTES
     return {"bound_ms": max(t_ops, t_mem) * 1e3,
             "bound_by": "operations" if t_ops >= t_mem else "bytes",
@@ -580,68 +618,147 @@ def field_grad_error(g_k, g_r, g_d, gmax: float) -> tuple:
     return err, "f64" if ok else None
 
 
+def field_layout_held(lib, hidden: int) -> None:
+    """The field kernels' layout and plans as the library states them
+    (vmap_field_layout) equal to kernels/ensemble.py's."""
+    from vmap_tpu_torch.kernels import FIELD_POINTS
+    from vmap_tpu_torch.kernels import ensemble as E
+    want = (E.staged_size(hidden), E.wgrad_tiles(hidden),
+            E.scratch_rows(hidden), E.rest_floats(hidden),
+            FIELD_POINTS["field_fwd"][hidden],
+            FIELD_POINTS["field_bwd"][hidden],
+            E.field_smem_bytes("field_fwd", hidden),
+            E.field_smem_bytes("field_bwd", hidden),
+            E.field_smem_bytes("field_wgrad", hidden))
+    got = tuple(lib.vmap_field_layout(hidden, i) for i in range(len(want)))
+    if got != want:
+        raise AssertionError(f"h={hidden}: the library's field layout {got} "
+                             f"is not kernels/ensemble.py's {want}")
+
+
 def check_field_kernels(dev, stats: dict, shapes=FIELD_SHAPES) -> None:
     """K2 and K3 against their plain versions (JAX bar,
     tests/test_pallas_kernel.py:55-56 and :103-108; K3 by
-    ``field_grad_error``); K3 at the widths it is built for."""
+    ``field_grad_error``); K3 at the widths it is built for, twice (bit
+    for bit the same) and at a second tile_m. Each width's tiles, grids
+    and shared memory are printed and held to the library's; the staged
+    pieces equal to their plain version; K2 also with the PE's
+    double-angle ladder (its errors and time logged, not held), and the
+    staging (packing and split) timed alone."""
     import torch
-    from vmap_tpu_torch.kernels import KERNEL_HIDDEN
+    from vmap_tpu_torch.kernels import KERNEL_HIDDEN, _build
     from vmap_tpu_torch.kernels import ensemble as E
+    lib = _build.load()
     for name, O, h, M, scale in shapes:
+        field_layout_held(lib, h)
         prepared, pts, g_a, g_c = field_operands(O, h, M, scale, 3, dev)
         a_k, c_k = E.field_eval(prepared, pts)
         a_r, c_r = E.field_eval_reference(prepared, pts)
         torch.cuda.synchronize()
         err_a = rel_close(a_k, a_r, 0.0, 3e-4, f"{name} field_fwd alpha")
         err_c = rel_close(c_k, c_r, 0.0, 2e-5, f"{name} field_fwd colour")
+        _, ws = E._STAGED["value"]
+        if not torch.equal(ws, E.staged_pieces_reference(prepared, h)):
+            raise AssertionError(f"{name}: field_stage's pieces differ from "
+                                 "their plain version")
         n_w = sum(v.numel() for v in prepared.values())
-        flops = 2.0 * mlp_macs(h) * O * M
+        plan = E.field_plan("field_fwd", h, O, M)
+        log(f"[6] {name} field_fwd plan: {plan['points']} points a tile, "
+            f"{plan['blocks']} blocks of {plan['threads']} threads, "
+            f"{plan['smem_bytes']} B dynamic shared memory")
         fwd = stats.setdefault("field_fwd", {})[name] = {
             "max_abs_err": max(err_a, err_c),
-            # points in, alpha + colour out, the prepared parameters
-            **bound(4 * (O * M * 7 + n_w), flops),
+            **field_bound(O, M, h, n_w, False),
+            "bound_fp32_ms": field_bound(O, M, h, n_w, False,
+                                         fp32_rate=True)["bound_ms"],
             "ms": time_cuda(lambda: E.field_eval(prepared, pts), 10),
             "plain_ms": time_cuda(
-                lambda: E.field_eval_reference(prepared, pts), 10)}
+                lambda: E.field_eval_reference(prepared, pts), 10),
+            "stage_ms": time_cuda(lambda: restage(E, lib, prepared, h), 10),
+            "plan": plan}
+        # the PE's double-angle ladder against sinpif, in the same call
+        a_l, c_l = E._launch_fwd(prepared, pts, ladder=True)
+        torch.cuda.synchronize()
+        fwd["ladder_alpha_err"] = float((a_l - a_r).abs().max())
+        fwd["ladder_colour_err"] = float((c_l - c_r).abs().max())
+        fwd["ladder_holds_tiers"] = (fwd["ladder_alpha_err"] <= 3e-4
+                                     and fwd["ladder_colour_err"] <= 2e-5)
+        fwd["ladder_ms"] = time_cuda(
+            lambda: E._launch_fwd(prepared, pts, ladder=True), 10)
+        fwd["sinpif_ms"] = time_cuda(
+            lambda: E._launch_fwd(prepared, pts, ladder=False), 10)
         msg = (f"[6] {name} ({O} x {M} points, h={h}): field_fwd alpha err "
-               f"{err_a:.3e} colour err {err_c:.3e}, ms kernel/plain "
-               f"{fwd['ms']:.4f}/{fwd['plain_ms']:.4f}")
+               f"{err_a:.3e} colour err {err_c:.3e}, ms kernel/plain/bound "
+               f"{fwd['ms']:.4f}/{fwd['plain_ms']:.4f}/{fwd['bound_ms']:.4f} "
+               f"(bound at the FP32 rate {fwd['bound_fp32_ms']:.4f}), "
+               f"staging {fwd['stage_ms']:.4f} ms; PE ladder / sinpif "
+               f"{fwd['ladder_ms']:.4f}/{fwd['sinpif_ms']:.4f} ms, ladder "
+               f"errs {fwd['ladder_alpha_err']:.3e} / "
+               f"{fwd['ladder_colour_err']:.3e} "
+               f"({'holds' if fwd['ladder_holds_tiers'] else 'misses'} "
+               "the tiers)")
         if h not in KERNEL_HIDDEN["field_bwd"]:
             log(msg + f"; no field_bwd kernel at h={h}")
             continue
         g_k = E.field_grad(prepared, pts, g_a, g_c)
+        g_k2 = E.field_grad(prepared, pts, g_a, g_c)
+        g_t = E.field_grad(prepared, pts, g_a, g_c, 4 * E.TILE_M)
         g_r = E.field_grad_reference(prepared, pts, g_a, g_c)
         g_d = E.field_grad_reference(
             {k: v.double() for k, v in prepared.items()}, pts.double(),
             g_a.double(), g_c.double())
         torch.cuda.synchronize()
+        if not all(torch.equal(g_k[n], g_k2[n]) for n in E.W_NAMES):
+            raise AssertionError(f"{name} field_bwd: two launches differ")
         err_g, worst, to_f64 = 0.0, "", []
         for n in E.W_NAMES:
             gmax = float(g_r[n].abs().max())
-            e, held = field_grad_error(g_k[n], g_r[n], g_d[n], gmax)
-            if held is None:
-                raise AssertionError(
-                    f"{name} field_bwd d{n}: max abs err {e} against the f32 "
-                    "plain version, beyond its bar, and not within twice the "
-                    "f32 plain version's own error against the f64 one")
-            if held == "f64":
-                to_f64.append(n)
-            if e / max(1.0, gmax) >= err_g:
-                err_g, worst = e / max(1.0, gmax), n
+            for got, tag in ((g_k[n], ""), (g_t[n], " (tile_m x4)")):
+                e, held = field_grad_error(got, g_r[n], g_d[n], gmax)
+                if held is None:
+                    raise AssertionError(
+                        f"{name} field_bwd{tag} d{n}: max abs err {e} "
+                        "against the f32 plain version, beyond its bar, and "
+                        "not within twice the f32 plain version's own error "
+                        "against the f64 one")
+                if held == "f64" and n not in to_f64:
+                    to_f64.append(n)
+                if e / max(1.0, gmax) >= err_g:
+                    err_g, worst = e / max(1.0, gmax), n + tag
         if to_f64:
             log(f"[6] {name} field_bwd: d{', d'.join(to_f64)} held to the "
                 "f64 plain version (the f32 plain version misses the bar "
                 "there too)")
+        bplan = E.field_plan("field_bwd", h, O, M)
+        log(f"[6] {name} field_bwd plan: {bplan['points']} points a tile, "
+            f"{bplan['blocks']} blocks of {bplan['threads']} threads, "
+            f"{bplan['smem_bytes']} B; field_wgrad {bplan['wgrad_blocks']} "
+            f"blocks ({bplan['wgrad_tiles']} tiles x {bplan['splits']} "
+            f"splits x {O}), {bplan['wgrad_smem_bytes']} B; scratch "
+            f"{O * 4 * E.scratch_rows(h) * bplan['Mp'] / 2**20:.1f} MiB")
         bwd = stats.setdefault("field_bwd", {})[name] = {
             "max_abs_err": err_g, "held_to_f64": to_f64,
-            # points and cotangents in, the parameters in and their
-            # gradients out; the forward recomputed, then the backward
-            **bound(4 * (O * M * 7 + 2 * n_w), flops, 2 * flops),
+            "bit_equal_launches": True,
+            **field_bound(O, M, h, n_w, True),
+            "bound_fp32_ms": field_bound(O, M, h, n_w, True,
+                                         fp32_rate=True)["bound_ms"],
             "ms": time_cuda(lambda: E.field_grad(prepared, pts, g_a, g_c), 3),
             "plain_ms": time_cuda(
-                lambda: E.field_grad_reference(prepared, pts, g_a, g_c), 3)}
+                lambda: E.field_grad_reference(prepared, pts, g_a, g_c), 3),
+            "plan": bplan}
         log(msg + f"; field_bwd worst err/scale {err_g:.3e} (d{worst}), "
-            f"ms kernel/plain {bwd['ms']:.4f}/{bwd['plain_ms']:.4f}")
+            f"ms kernel/plain/bound {bwd['ms']:.4f}/{bwd['plain_ms']:.4f}/"
+            f"{bwd['bound_ms']:.4f} (at the FP32 rate "
+            f"{bwd['bound_fp32_ms']:.4f}), two launches bit-equal")
+
+
+def restage(E, lib, prepared: dict, hidden: int) -> None:
+    """The staging a change of weights costs: the packed rows and the
+    split kernel's pieces made anew."""
+    import ctypes
+    offs, _, _ = E._offsets(hidden)
+    E._STAGED.clear()
+    E.stage(prepared, hidden, lib, (ctypes.c_int * len(offs))(*offs))
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1216,9 +1333,10 @@ def check_field_train_path(dev) -> dict:
         tile = K.field_tile(m)
         prepared, pts, g_a, g_c = field_operands(cap, h, m, scale, 4, dev)
         sl = random_batch(cap, n_per, S, 5, dev)
+        plan = E.field_plan("field_bwd", h, cap, m, tile)
         t = times[name] = {
             "objects": cap, "points": m, "tile_m": tile,
-            "blocks": cap * -(-m // tile),
+            "blocks": plan["blocks"], "wgrad_blocks": plan["wgrad_blocks"],
             "field_bwd_ms": time_cuda(
                 lambda: E.field_grad(prepared, pts, g_a, g_c, tile), 10),
             "field_bwd_plain_ms": time_cuda(
@@ -1229,7 +1347,8 @@ def check_field_train_path(dev) -> dict:
             "iteration_autograd_ms": time_cuda(
                 lambda: K.iteration_loss_grad(bank, sl, CS, OSC), 10)}
         log(f"[8] {name}: {cap} x {m} points, tile_m {tile} "
-            f"({t['blocks']} field_bwd blocks); field_bwd "
+            f"({t['blocks']} field_bwd blocks, {t['wgrad_blocks']} "
+            f"field_wgrad blocks); field_bwd "
             f"{t['field_bwd_ms']:.4f} ms, plain {t['field_bwd_plain_ms']:.4f}"
             f" ms; one iteration's gradient through the field kernels "
             f"{t['iteration_field_kernels_ms']:.4f} ms, autograd "

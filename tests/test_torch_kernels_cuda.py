@@ -11,7 +11,10 @@ policies (phase 10: n_iter=1 gradients per tensor within 1e-2 of scale and
 at least 10x closer to the plain policy than plain f32 is, n_iter=20
 finite within rtol 0.25), under the int8 policies (phase 11: the same
 tiers with 5e-2 of scale; also at ragged shapes) and under sample_reuse
-4, bit-identical to the tiled batch; and the probe kernels
+4, bit-identical to the tiled batch; K2 at the meshing launch and at
+ragged point counts, K3 at the use_pallas_train tiles bit-equal across
+two launches and within the JAX bar across two tile_m; and the probe
+kernels
 (``vmap_tpu_torch.probes``: K4 mm, K10 int8, K7 sections, K8 overlap,
 K9 vpu, K5 ops, K6 dma) in every variant and shape against their plain
 versions at 3 steps (K6 at 4000 copies;
@@ -157,6 +160,61 @@ def test_field_kernels_match_plain_on_card(cuda_device, shape):
     chip_smoke.check_field_kernels(cuda_device, stats, shapes)
     assert stats["field_fwd"][shape]["ms"] > 0
     assert stats["field_bwd"][shape]["ms"] > 0
+
+
+# K2 at the meshing launch (mesh_all_objects' 128-object bank query of
+# MESH_CHUNK points at h=32) and at ragged point counts (a partial last
+# tile; at h=32 an item range crossing objects)
+FIELD_FWD_CASES = ((128, 32, 65536), (3, 32, 1037), (1, 128, 65536 + 77),
+                   (2, 256, 4096 + 5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("O,h,M", FIELD_FWD_CASES)
+def test_field_fwd_at_meshing_and_ragged_shapes_on_card(cuda_device, O, h,
+                                                        M):
+    """K2 in phase 6's tiers (alpha atol 3e-4, colour 2e-5)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from vmap_tpu_torch.kernels import ensemble as E
+    prepared, pts, _, _ = chip_smoke.field_operands(O, h, M, 2.0, 5,
+                                                    cuda_device)
+    a_k, c_k = E.field_eval(prepared, pts)
+    a_r, c_r = E.field_eval_reference(prepared, pts)
+    torch.cuda.synchronize()
+    chip_smoke.rel_close(a_k, a_r, 0.0, 3e-4, f"{O}x{M} h={h} alpha")
+    chip_smoke.rel_close(c_k, c_r, 0.0, 2e-5, f"{O}x{M} h={h} colour")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["obj", "bg", "imap"])
+def test_field_bwd_repeats_bit_for_bit_and_tile_m_on_card(cuda_device,
+                                                          shape):
+    """K3 at the use_pallas_train tiles (phase 8's shapes, field_tile):
+    two launches on the same inputs give bit-equal gradients (no atomics,
+    fixed-order sums), and a second tile_m (which reorders the weight
+    gradients' sum) stays within the JAX bar (rtol 2e-3, atol 2e-3
+    max(1, |g|max)) of the first."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from vmap_tpu_torch.kernels import ensemble as E
+    from vmap_tpu_torch.kernels import train_step as K
+    _, cap, _, h, n_per, S, scale = next(
+        s for s in chip_smoke.SHAPES if s[0] == shape)
+    m = n_per * S
+    prepared, pts, g_a, g_c = chip_smoke.field_operands(cap, h, m, scale, 4,
+                                                        cuda_device)
+    tile = K.field_tile(m)
+    g1 = E.field_grad(prepared, pts, g_a, g_c, tile)
+    g2 = E.field_grad(prepared, pts, g_a, g_c, tile)
+    g3 = E.field_grad(prepared, pts, g_a, g_c, 128)
+    torch.cuda.synchronize()
+    for n in E.W_NAMES:
+        assert torch.equal(g1[n], g2[n]), n
+        gmax = float(g1[n].abs().max())
+        err = (g3[n] - g1[n]).abs()
+        assert bool((err <= 2e-3 * max(1.0, gmax)
+                     + 2e-3 * g1[n].abs()).all()), (n, float(err.max()))
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
-// Warp-level tensor-core helpers of the train-frame tiles: mma.sync
-// m16n8k16 bf16 -> f32 (train_step.cu's float tile), its fragment loads
-// (32-bit shared-memory loads, ldmatrix .trans), the split of an f32
+// Warp-level tensor-core helpers of the train-frame tiles and the field
+// kernels: mma.sync m16n8k16 bf16 -> f32 (train_step.cu's float tile,
+// ensemble.cu), its fragment loads (32-bit shared-memory loads, ldmatrix
+// and ldmatrix .trans), the split of an f32
 // operand into bf16 pieces and the products of the pieces; mma.sync
 // m16n8k32 s8 -> s32 and its fragment loads (train_step_q8.cu's int8
 // tile); and 16-byte cp.async copies into shared memory. The probe kernels
@@ -177,6 +178,61 @@ __device__ __forceinline__ void load_a_rows(uint32_t (&a)[4], const bf16* A,
   a[1] = lds32(p + 8 * ld);
   a[2] = lds32(p + 8);
   a[3] = lds32(p + 8 * ld + 8);
+}
+
+// ldmatrix .x4: four 8 x 8 b16 matrices, lane l naming row (l & 7) of
+// matrix l / 8 (16 bytes, 16-byte aligned); r[j] matrix j. .trans gives
+// each matrix transposed.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// A fragment of rows row0.., columns k0.. of a row-major bf16 array in
+// shared memory (row stride ld a multiple of 8, k0 of 8): one ldmatrix
+// .x4 (matrices a0..a3: rows +0 / +8, columns +0 / +8)
+__device__ __forceinline__ void load_a_ldsm(uint32_t (&a)[4], const bf16* A,
+                                            int ld, int row0, int k0,
+                                            int lane) {
+  const int q = lane >> 3;
+  ldsm_x4(a, A + (row0 + (lane & 7) + (q & 1) * 8) * ld + k0 + (q >> 1) * 8);
+}
+
+// B fragments of the n tiles n0 and n0 + 8, depth k0.. 16, from a bf16
+// array in shared memory held k by k (x[k][n], row stride ld a multiple of
+// 8, n0 of 8): one ldmatrix .x4 .trans; b[t] the tile n0 + 8 t
+__device__ __forceinline__ void load_b_kn(uint32_t (&b)[2][2], const bf16* x,
+                                          int ld, int k0, int n0, int lane) {
+  const int q = lane >> 3;
+  uint32_t r[4];
+  ldsm_x4_t(r, x + (k0 + (lane & 7) + (q & 1) * 8) * ld + n0 + (q >> 1) * 8);
+  b[0][0] = r[0];
+  b[0][1] = r[1];
+  b[1][0] = r[2];
+  b[1][1] = r[3];
+}
+
+// the same from an array held n by n (x[n][k]: each column's depth
+// contiguous): one ldmatrix .x4
+__device__ __forceinline__ void load_b_nk(uint32_t (&b)[2][2], const bf16* x,
+                                          int ld, int n0, int k0, int lane) {
+  const int q = lane >> 3;
+  uint32_t r[4];
+  ldsm_x4(r, x + (n0 + (lane & 7) + (q >> 1) * 8) * ld + k0 + (q & 1) * 8);
+  b[0][0] = r[0];
+  b[0][1] = r[1];
+  b[1][0] = r[2];
+  b[1][1] = r[3];
 }
 
 // A fragment of A = S^T, rows m0.., columns k0.., where S is a row-major

@@ -16,9 +16,13 @@ Two versions of each function:
     (``torch.matmul`` and autograd);
   * ``field_eval`` (K2, ``csrc/ensemble.cu`` ``field_fwd_kernel``, hidden
     32 / 128 / 256) and the backward of ``FieldTrain`` (K3,
-    ``field_bwd_kernel``, hidden 32 / 128 / 256): on CPU tensors they run the
-    plain version, on CUDA tensors they launch the kernel or raise
-    (``kernels.KERNEL_HIDDEN``).
+    ``field_bwd_kernel`` then ``field_wgrad_kernel``, hidden 32 / 128 /
+    256): on CPU tensors they run the plain version, on CUDA tensors they
+    launch the kernel or raise (``kernels.KERNEL_HIDDEN``).
+The kernels' products run on bf16 tensor cores, float32 as three passes of
+two-piece operands, from the weights' staged bf16 pieces (``stage``,
+``field_stage_kernel``, reused while the weights do not change); their
+tiles and grids are ``field_plan``'s.
 
 ``LAUNCHES`` counts successful kernel launches by kernel name, and
 ``field_bwd``'s also by width (``field_bwd.<hidden>``); only
@@ -33,7 +37,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from vmap_tpu_torch.kernels import KERNEL_HIDDEN, _build, check_width
+from vmap_tpu_torch.kernels import (FIELD_POINTS, KERNEL_HIDDEN, _build,
+                                    check_width)
 
 LAUNCHES = {"field_fwd": 0, "field_bwd": 0,
             **{f"field_bwd.{h}": 0 for h in KERNEL_HIDDEN["field_bwd"]}}
@@ -141,6 +146,175 @@ def field_grad_reference(prepared: dict, pts: torch.Tensor,
 
 
 # ------------------------------------------------------------ CUDA launch
+# The field kernels' layout and plan (csrc/ensemble.cu; the library's
+# vmap_field_layout states the same, and chip_smoke.py holds them equal).
+# The seven product weights in train_step.cuh's staged layout: each
+# [up16(n_out), up16(n_in)], in this order
+STAGED = ("w_in", "w_mid1", "w_cat", "w_mid2", "w_alpha", "w_col", "w_out")
+STAGED_PIECES = 3          # the weights' bf16 pieces (field_stage_kernel)
+# the pieces of each kernel's forward operands (K2 two, three passes; K3
+# three, six passes) and of K3's input and weight gradients' (two)
+FIELD_PIECES = {"field_fwd": 2, "field_bwd": 3}
+GRAD_PIECES = 2
+SMS = 132                  # the H100 SXM's SMs, which the grids fill
+FIELD_NT = {"field_fwd": {32: 512, 128: 256, 256: 256},
+            "field_bwd": {32: 512, 128: 512, 256: 512}}
+# a forward slab's columns (h=32: the weights resident)
+FIELD_KF = {"field_fwd": {128: 64, 256: 32}, "field_bwd": {128: 32, 256: 16}}
+FIELD_KB = 16                       # an input-gradient slab's rows
+# field_wgrad: tile columns, points a step, ring stages, threads; its
+# tile's rows (32 at h=32, else 128) and blocks an SM its ring allows
+WG_TK, WG_KP, WG_STAGES, WG_NT = 128, 32, 4, 256
+
+
+def wg_rows(hidden: int) -> int:
+    return 32 if hidden == 32 else 128
+
+
+def wg_blocks_per_sm(hidden: int) -> int:
+    return 2 if hidden == 32 else 1
+EROWS, EBROWS = 96, 48     # the embedding region's rows; emb_b's in it
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def staged_dims(hidden: int) -> list:
+    """[(rows, columns)] of the staged product weights, STAGED order."""
+    h = hidden
+    n = {"w_in": (h, EMB1), "w_mid1": (h, h), "w_cat": (h, h + EMB1),
+         "w_mid2": (h, h), "w_alpha": (1, h), "w_col": (h, h + EMB2),
+         "w_out": (3, h)}
+    return [(_up(n[k][0], 16), _up(n[k][1], 16)) for k in STAGED]
+
+
+def staged_size(hidden: int) -> int:
+    return sum(r * c for r, c in staged_dims(hidden))
+
+
+def scratch_rows(hidden: int) -> int:
+    """Rows of K3's scratch an object: the activations (emb_a 96, emb_b
+    48, h1..h4, c) and the pre-activation gradients (the heads' 16 + 16,
+    dc, dh4..dh1)."""
+    return EROWS + EBROWS + 5 * hidden + 32 + 5 * hidden
+
+
+def rest_floats(hidden: int) -> int:
+    """Floats of a K3 block's rest row: REST_NAMES' gradients, to 4."""
+    return _up(63 + 5 * hidden + 4, 4)
+
+
+# the rest row's order: (name, floats)
+def rest_layout(hidden: int) -> list:
+    h = hidden
+    return [("dirs", 63), ("b_in", h), ("b_mid1", h), ("b_cat", h),
+            ("b_mid2", h), ("b_alpha", 1), ("b_col", h), ("b_out", 3)]
+
+
+def wgrad_tiles(hidden: int) -> int:
+    """field_wgrad's output tiles an object: wg_rows x 128 columns over
+    each staged weight."""
+    ti = wg_rows(hidden)
+    return sum(-(-r // ti) * -(-c // WG_TK) for r, c in staged_dims(hidden))
+
+
+def field_smem_bytes(kernel: str, hidden: int) -> int:
+    """Dynamic shared memory of one block (csrc/ensemble.cu Plan,
+    wg_smem): field_fwd / field_bwd the weights (h=32: every staged
+    matrix's NF pieces [rows][cols + 8], resident; else two slabs, the
+    larger of a forward slab [NF][h][KF + 8] and, for field_bwd, an
+    input-gradient slab [2][16][up16(h + 87) + 8]), the embedding region
+    [NF][96][P + 8] and the activation buffer [NF][h][P + 8] (bf16), then
+    f32 rows of P (field_fwd xs and the heads, 7; field_bwd xs, proj, dproj
+    and the heads, 49), field_bwd's rest row and its four ReLU masks as
+    bits (u32 [h][ceil(P / 64)][2] each); field_wgrad its 4-stage ring of
+    [2][wg_rows + 128][40] bf16 panels and the panels' row pointers (NF:
+    FIELD_PIECES)."""
+    def a16(b: int) -> int:
+        return _up(b, 16)
+
+    h = hidden
+    if kernel == "field_wgrad":
+        rows = wg_rows(h) + WG_TK
+        return WG_STAGES * 2 * rows * (WG_KP + 8) * 2 + 8 * rows
+    bwd = kernel == "field_bwd"
+    pts, nf = FIELD_POINTS[kernel][h], FIELD_PIECES[kernel]
+    if h == 32:
+        w = a16(2 * sum(nf * r * (c + 8) for r, c in staged_dims(h)))
+    else:
+        slab = max(nf * h * (FIELD_KF[kernel][h] + 8),
+                   GRAD_PIECES * FIELD_KB * (_up(h + EMB1, 16) + 8)
+                   if bwd else 0)
+        w = 2 * (2 * slab)
+    ldb = pts + 8
+    act = a16(nf * EROWS * ldb * 2) + a16(nf * h * ldb * 2)
+    f32 = a16(4 * (49 if bwd else 7) * pts)
+    if not bwd:
+        return w + act + f32
+    masks = 4 * 4 * h * -(-pts // 64) * 2
+    return w + act + f32 + a16(4 * rest_floats(h)) + masks
+
+
+def field_plan(kernel: str, hidden: int, O: int, M: int,
+               tile_m: int = 512) -> dict:
+    """The grid of a launch on O objects x M points, from the kernels'
+    split rules. field_fwd: a 1-D grid of min(SMS, O ceil(M / P)) blocks,
+    each a contiguous run of the (object, tile) pairs. field_bwd: Mp = M
+    to a multiple of the tile and of 128 (field_wgrad's step, 32), blocks
+    per object min(Mp / P, max(1, SMS // O)) (one block an SM, one wave);
+    field_wgrad: wgrad_tiles(h)
+    tiles an object times S splits, each a run of whole units of
+    ``unit`` points: tile_m, halved (to multiples of 32) while ceil(Mp /
+    unit) units a tile would not fill the card's blocks (SMS x
+    wg_blocks_per_sm), and S the most splits that fit one wave, at least
+    1 and at most the units."""
+    pts = FIELD_POINTS[kernel][hidden]
+    plan = {"points": pts, "threads": FIELD_NT[kernel][hidden],
+            "smem_bytes": field_smem_bytes(kernel, hidden)}
+    if kernel == "field_fwd":
+        return {**plan, "blocks": min(SMS, O * -(-M // pts))}
+    mp = _up(M, math.lcm(pts, 128))
+    per_obj = min(mp // pts, max(1, SMS // O))
+    tiles = wgrad_tiles(hidden)
+    target = SMS * wg_blocks_per_sm(hidden)
+    unit = tile_m
+    while (-(-mp // unit) * tiles * O < target and unit // 2 >= WG_KP
+           and (unit // 2) % WG_KP == 0):
+        unit //= 2
+    splits = max(1, min(-(-mp // unit), target // (tiles * O)))
+    return {**plan, "Mp": mp, "blocks_per_object": per_obj,
+            "blocks": per_obj * O, "wgrad_tiles": tiles, "unit": unit,
+            "splits": splits, "wgrad_blocks": tiles * splits * O,
+            "wgrad_smem_bytes": field_smem_bytes("field_wgrad", hidden)}
+
+
+def staged_pieces_reference(prepared: dict, hidden: int) -> torch.Tensor:
+    """The plain version of ``field_stage_kernel``: the prepared weights'
+    seven product matrices (the concat layers whole, without the padded
+    columns) in the staged layout, as [O, 3, staged_size] bf16 pieces p0 =
+    bf16(w), p1 = bf16(w - p0), p2 = bf16(w - p0 - p1), the padding 0."""
+    p = {n: prepared[n].detach().float() for n in W_NAMES}
+    mats = {"w_in": p["w_in"][..., :EMB1], "w_mid1": p["w_mid1"],
+            "w_cat": torch.cat([p["w_cat_h"], p["w_cat_x"][..., :EMB1]], -1),
+            "w_mid2": p["w_mid2"], "w_alpha": p["w_alpha"],
+            "w_col": torch.cat([p["w_col_h"], p["w_col_x"][..., :EMB2]], -1),
+            "w_out": p["w_out"]}
+    O = p["dirs"].shape[0]
+    out = torch.zeros((O, STAGED_PIECES, staged_size(hidden)),
+                      dtype=torch.bfloat16, device=p["dirs"].device)
+    off = 0
+    for name, (r, c) in zip(STAGED, staged_dims(hidden)):
+        w = mats[name]
+        for pc in range(STAGED_PIECES):
+            t = w.bfloat16()
+            out[:, pc, off:off + r * c].view(O, r, c)[
+                :, :w.shape[1], :w.shape[2]] = t
+            w = w - t.float()
+        off += r * c
+    return out
+
+
 def _offsets(hidden: int) -> tuple[list, list, int]:
     """(offsets, sizes, n_params) of the packed prepared row."""
     offs, sizes, off = [], [], 0
@@ -162,6 +336,54 @@ def _packed(prepared: dict, hidden: int) -> torch.Tensor:
                              f"expected {(O,) + shapes[n]}")
     return torch.cat([prepared[n].detach().reshape(O, -1).float()
                       for n in W_NAMES], dim=1).contiguous()
+
+
+# The packed rows and bf16 pieces of the last weights staged: meshing
+# queries one bank's prepared weights some 256 times a grid, and
+# FieldTrain's backward the forward's. The entry holds the prepared
+# tensors themselves, so no other tensor can take their place, and their
+# version counters (shared with every view of their storage): a new
+# tensor, or an in-place change through torch, misses. A write torch does
+# not see (a kernel through a raw pointer) would not; no code of the port
+# writes so to a prepared tensor (prepare_params pads and splits the
+# weights into tensors of its own at every call).
+_STAGED: dict = {}
+
+
+def _weights_key(prepared: dict, hidden: int):
+    try:
+        return (hidden,) + tuple((prepared[n], prepared[n]._version)
+                                 for n in W_NAMES)
+    except RuntimeError:   # inference tensors carry no version counter
+        return None
+
+
+def _same(a, b) -> bool:
+    return (a is not None and b is not None and a[0] == b[0]
+            and all(x is y and vx == vy
+                    for (x, vx), (y, vy) in zip(a[1:], b[1:])))
+
+
+def stage(prepared: dict, hidden: int, lib, offsets) -> tuple:
+    """(packed f32 rows [O, n_params], bf16 pieces [O, 3, staged_size]) of
+    the prepared weights on their CUDA device: ``field_stage_kernel``
+    splits the pieces. Reused while the weights do not change."""
+    key = _weights_key(prepared, hidden)
+    if _same(key, _STAGED.get("key")):
+        return _STAGED["value"]
+    params = _packed(prepared, hidden)
+    O = params.shape[0]
+    ws = torch.empty((O, STAGED_PIECES, staged_size(hidden)),
+                     dtype=torch.bfloat16, device=params.device)
+    code = lib.vmap_field_stage(
+        hidden, _ptr(params), ctypes.cast(offsets, ctypes.c_void_p),
+        params.shape[1], O, _ptr(ws),
+        ctypes.c_void_p(torch.cuda.current_stream(params.device).cuda_stream))
+    _build.check(lib, code, "field_stage kernel launch")
+    _STAGED.clear()
+    if key is not None:
+        _STAGED.update(key=key, value=(params, ws))
+    return params, ws
 
 
 class _Launch:
@@ -189,7 +411,7 @@ class _Launch:
         self.dev, self.h, self.O, self.M = dev, h, O, pts.shape[1]
         offs, self.sizes, self.n_params = _offsets(h)
         self.offsets = (ctypes.c_int * len(offs))(*offs)
-        self.params = _packed(prepared, h)
+        self.params, self.ws = stage(prepared, h, self.lib, self.offsets)
         self.scale = prepared["scale"].detach().reshape(O).float().contiguous()
         self.pts = pts.detach().float().contiguous()
 
@@ -201,26 +423,70 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _launch_fwd(prepared: dict, pts: torch.Tensor):
-    """K2 on CUDA tensors -> (alpha [O, M], colour [O, M, 3])."""
+# the PE's bands in K2: the double-angle ladder from sincospif, or sinpif
+# each (chip_smoke.py phase 6 times both and holds both to its tiers)
+PE_LADDER = False
+
+
+def _launch_fwd(prepared: dict, pts: torch.Tensor, ladder: bool | None = None):
+    """K2 on CUDA tensors -> (alpha [O, M], colour [O, M, 3]); ``ladder``
+    the PE's route (None: PE_LADDER)."""
     L = _Launch(prepared, pts, "field_fwd")
     alpha = torch.empty((L.O, L.M), dtype=torch.float32, device=L.dev)
     color = torch.empty((L.O, L.M, 3), dtype=torch.float32, device=L.dev)
+    plan = field_plan("field_fwd", L.h, L.O, L.M)
     code = L.lib.vmap_field_fwd(
-        L.h, _ptr(L.params), ctypes.cast(L.offsets, ctypes.c_void_p),
-        L.n_params, _ptr(L.scale), _ptr(L.pts), L.O, L.M, _ptr(alpha),
+        L.h, int(PE_LADDER if ladder is None else ladder), _ptr(L.params),
+        ctypes.cast(L.offsets, ctypes.c_void_p), L.n_params, _ptr(L.ws),
+        _ptr(L.scale), _ptr(L.pts), L.O, L.M, plan["blocks"], _ptr(alpha),
         _ptr(color), L.stream())
     _build.check(L.lib, code, "field_fwd kernel launch")
     LAUNCHES["field_fwd"] += 1
     return alpha, color
 
 
+def unstage_grads(wgrad: torch.Tensor, rest: torch.Tensor,
+                  hidden: int) -> dict:
+    """K3's summed gradients -> {name: grad} in the prepared shapes:
+    ``wgrad`` [O, staged_size] (the staged layout), ``rest`` [O,
+    rest_floats] (rest_layout); the padded columns' gradients 0."""
+    h, O = hidden, wgrad.shape[0]
+    blocks, off = {}, 0
+    for name, (r, c) in zip(STAGED, staged_dims(h)):
+        blocks[name] = wgrad[:, off:off + r * c].view(O, r, c)
+        off += r * c
+
+    def padded(g, used):
+        return F.pad(g, (0, EMB_PAD - used))
+
+    out = {"w_in": padded(blocks["w_in"][:, :h, :EMB1], EMB1),
+           "w_mid1": blocks["w_mid1"][:, :h, :h],
+           "w_cat_h": blocks["w_cat"][:, :h, :h],
+           "w_cat_x": padded(blocks["w_cat"][:, :h, h:h + EMB1], EMB1),
+           "w_mid2": blocks["w_mid2"][:, :h, :h],
+           "w_alpha": blocks["w_alpha"][:, :1, :h],
+           "w_col_h": blocks["w_col"][:, :h, :h],
+           "w_col_x": padded(blocks["w_col"][:, :h, h:h + EMB2], EMB2),
+           "w_out": blocks["w_out"][:, :3, :h]}
+    shapes = prepared_shapes(h)
+    off = 0
+    for name, n in rest_layout(h):
+        out[name] = rest[:, off:off + n].reshape((O,) + shapes[name])
+        off += n
+    return {n: out[n].contiguous() for n in W_NAMES}
+
+
 def _launch_bwd(prepared: dict, pts: torch.Tensor, g_alpha: torch.Tensor,
                 g_color: torch.Tensor, tile_m: int) -> dict:
-    """K3 on CUDA tensors -> {name: grad} for W_NAMES (chunk partials
-    summed here, in a fixed order). ``tile_m`` must be a multiple of the
-    kernel's sub-tile (``vmap_field_bwd_subtile``), which the launcher
-    checks."""
+    """K3 on CUDA tensors -> {name: grad} for W_NAMES: field_bwd_kernel
+    (forward, input gradients, the scratch and the blocks' rest rows),
+    then field_wgrad_kernel (the weight gradients over splits of whole
+    units of ``tile_m`` points, or of its halves where the splits would not
+    fill the card; tile_m a multiple of WG_KP); the splits and the blocks'
+    rows summed here, in a fixed order."""
+    if tile_m < WG_KP or tile_m % WG_KP:
+        raise ValueError(f"tile_m {tile_m}: the field backward takes a "
+                         f"multiple of {WG_KP} points")
     L = _Launch(prepared, pts, "field_bwd")
     ga = g_alpha.detach().float().contiguous()
     gc = g_color.detach().float().contiguous()
@@ -228,23 +494,27 @@ def _launch_bwd(prepared: dict, pts: torch.Tensor, g_alpha: torch.Tensor,
             or ga.device != L.dev or gc.device != L.dev:
         raise ValueError("cotangents must be [O, M] and [O, M, 3] on "
                          f"{L.dev}")
-    n_chunks = -(-L.M // tile_m)
-    part = torch.empty((L.O, n_chunks, L.n_params), dtype=torch.float32,
+    plan = field_plan("field_bwd", L.h, L.O, L.M, tile_m)
+    mp, per_obj, splits = plan["Mp"], plan["blocks_per_object"], \
+        plan["splits"]
+    scratch = torch.empty((L.O, GRAD_PIECES, scratch_rows(L.h), mp),
+                          dtype=torch.bfloat16, device=L.dev)
+    rest = torch.empty((L.O, per_obj, rest_floats(L.h)), dtype=torch.float32,
+                       device=L.dev)
+    part = torch.empty((L.O, splits, staged_size(L.h)), dtype=torch.float32,
                        device=L.dev)
     code = L.lib.vmap_field_bwd(
         L.h, _ptr(L.params), ctypes.cast(L.offsets, ctypes.c_void_p),
-        L.n_params, _ptr(L.scale), _ptr(L.pts), _ptr(ga), _ptr(gc), L.O,
-        L.M, tile_m, _ptr(part), L.stream())
-    if code:
-        sub = L.lib.vmap_field_bwd_subtile(L.h)
-        _build.check(L.lib, code, f"field_bwd kernel launch (tile_m "
-                     f"{tile_m}; a multiple of {sub} at hidden {L.h})")
+        L.n_params, _ptr(L.ws), _ptr(L.scale), _ptr(L.pts), _ptr(ga),
+        _ptr(gc), L.O, L.M, mp, per_obj, _ptr(scratch), _ptr(rest),
+        L.stream())
+    _build.check(L.lib, code, "field_bwd kernel launch")
+    code = L.lib.vmap_field_wgrad(L.h, _ptr(scratch), L.O, mp, plan["unit"],
+                                  splits, _ptr(part), L.stream())
+    _build.check(L.lib, code, f"field_wgrad kernel launch (tile_m {tile_m})")
     LAUNCHES["field_bwd"] += 1
     LAUNCHES[f"field_bwd.{L.h}"] += 1
-    total = part.sum(dim=1)
-    shapes = prepared_shapes(L.h)
-    return {n: g.reshape((L.O,) + shapes[n])
-            for n, g in zip(W_NAMES, torch.split(total, L.sizes, dim=1))}
+    return unstage_grads(part.sum(dim=1), rest.sum(dim=1), L.h)
 
 
 # ------------------------------------------------------------ public API
@@ -292,7 +562,8 @@ class FieldTrain(torch.autograd.Function):
 def field_train(prepared: dict, pts: torch.Tensor, tile_m: int = TILE_M
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(alpha [O, M], colour [O, M, 3]) through ``FieldTrain``. ``tile_m``
-    is the backward kernel's points per chunk (one partial gradient row per
-    chunk), as the JAX kernel's point tile."""
+    is the backward's points per chunk, as the JAX kernel's point tile: the
+    weight gradients sum whole chunks a split, so it sets the order of the
+    sum, not the grid."""
     return FieldTrain.apply(pts, prepared["scale"], tile_m,
                             *[prepared[n] for n in W_NAMES])
