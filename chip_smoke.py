@@ -53,8 +53,9 @@ Phases, in order (any failure raises and the script exits non-zero):
   8. the field-kernel training path: object-, background- and iMAP-shape
      frames through the plain frame with StepStatics.use_pallas_train,
      held to the tiers of phase 3 (K3 launched at h = 32, 128 and 256);
-     field_bwd and one iteration's gradient timed at each shape's own
-     backward tile against their plain versions;
+     field_bwd (and its two kernels alone) and one iteration's gradient
+     timed at each shape's own backward tile against their plain
+     versions;
   9. the iMAP trainer: ``vmap_tpu_torch.train`` on room0_imap.json with
      dataset.format Synthetic and vis.html_viewer false for 11 frames with
      --save_ckpt: finite losses, n_iter launches of each train-frame
@@ -1339,6 +1340,7 @@ def check_field_train_path(dev) -> dict:
             "blocks": plan["blocks"], "wgrad_blocks": plan["wgrad_blocks"],
             "field_bwd_ms": time_cuda(
                 lambda: E.field_grad(prepared, pts, g_a, g_c, tile), 10),
+            **field_bwd_split_ms(prepared, pts, g_a, g_c, tile),
             "field_bwd_plain_ms": time_cuda(
                 lambda: E.field_grad_reference(prepared, pts, g_a, g_c), 10),
             "iteration_field_kernels_ms": time_cuda(
@@ -1349,8 +1351,11 @@ def check_field_train_path(dev) -> dict:
         log(f"[8] {name}: {cap} x {m} points, tile_m {tile} "
             f"({t['blocks']} field_bwd blocks, {t['wgrad_blocks']} "
             f"field_wgrad blocks); field_bwd "
-            f"{t['field_bwd_ms']:.4f} ms, plain {t['field_bwd_plain_ms']:.4f}"
-            f" ms; one iteration's gradient through the field kernels "
+            f"{t['field_bwd_ms']:.4f} ms (its kernels alone: field_bwd "
+            f"{t['field_bwd_kernel_ms']:.4f}, field_wgrad "
+            f"{t['field_wgrad_kernel_ms']:.4f}), plain "
+            f"{t['field_bwd_plain_ms']:.4f} ms; one iteration's gradient "
+            f"through the field kernels "
             f"{t['iteration_field_kernels_ms']:.4f} ms, autograd "
             f"{t['iteration_autograd_ms']:.4f} ms")
     for k in ("field_fwd",) + tuple(f"field_bwd.{h}" for h in
@@ -1359,6 +1364,17 @@ def check_field_train_path(dev) -> dict:
             raise AssertionError(f"use_pallas_train frames launched no {k}")
     log(f"[8] use_pallas_train frames: launches {counts}")
     return counts, times
+
+
+def field_bwd_split_ms(prepared, pts, g_a, g_c, tile_m: int) -> dict:
+    """K3's two kernels timed alone (CUDA events) on the same operands:
+    field_bwd_kernel (forward, input gradients, the scratch) and
+    field_wgrad_kernel (the weight gradients from it)."""
+    from vmap_tpu_torch.kernels import ensemble as E
+    k3 = E._BwdLaunch(prepared, pts, g_a, g_c, tile_m)
+    k3.bwd()
+    return {"field_bwd_kernel_ms": time_cuda(k3.bwd, 10),
+            "field_wgrad_kernel_ms": time_cuda(k3.wgrad, 10)}
 
 
 # ---------------------------------------------------------------- phase 9

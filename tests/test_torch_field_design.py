@@ -314,10 +314,15 @@ def test_grids_fill_the_card():
            for _, cap, _, h, n_per, S, _ in C.SHAPES]
     assert [(g["blocks"], g["wgrad_blocks"]) for g in got] == [
         (104, 728), (132, 126), (132, 130)]
-    # K2: meshing's launches and phase 6's fill all 132 SMs
+    # K2: meshing's launches and phase 6's fill all 132 SMs, two blocks an
+    # SM at h=32
     for O, h, M in ((128, 32, 65536), (1, 128, 65536), (1, 256, 65536),
                     (8, 32, 65573), (1, 128, 131072), (1, 256, 131072)):
-        assert E.field_plan("field_fwd", h, O, M)["blocks"] == E.SMS
+        assert E.field_plan("field_fwd", h, O, M)["blocks"] == \
+            E.SMS * (2 if h == 32 else 1)
+        # the plan fits the blocks an SM it counts on
+        assert E.FWD_BLOCKS_PER_SM[h] * E.field_smem_bytes(
+            "field_fwd", h) <= 233472
 
 
 def test_chip_smoke_field_bound_is_the_route():

@@ -55,7 +55,7 @@ FLOAT_POINTS = {32: 64, 128: 56, 256: 56}
 # weights resident at h=32, else a ring of two slabs, the embedding region
 # and one activation buffer as bf16 pieces, f32 rows) within the 227 KB a
 # block may use
-FIELD_POINTS = {"field_fwd": {32: 128, 128: 128, 256: 96},
+FIELD_POINTS = {"field_fwd": {32: 64, 128: 128, 256: 96},
                 "field_bwd": {32: 128, 128: 64, 256: 48}}
 
 

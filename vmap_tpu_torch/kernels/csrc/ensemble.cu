@@ -28,26 +28,27 @@
 // own accumulation truncates): K3's ReLU masks must fall where the f32
 // plain version's do, and a pre-activation put on the other side of 0
 // moves a gradient by a whole point's share, beyond phase 6's K3 bar
-// (tests/test_torch_field_design.py: a three-pass forward misses it). The
-// weights are the
-// seven product matrices in train_step.cuh's staged layout (each
-// [up16(n_out)][up16(n_in)], the concat layers whole), three bf16 pieces
-// an element, written by field_stage_kernel from the packed f32 row (the
-// wrapper keeps them while the weights do not change). Activations live
+// (tests/test_torch_field_design.py: a three-pass forward misses it).
+// The weights are the seven product matrices in train_step.cuh's staged
+// layout (each [up16(n_out)][up16(n_in)], the concat layers whole), three
+// bf16 pieces an element, written by field_stage_kernel from the packed
+// f32 row (the wrapper keeps them while the weights do not change).
+// Activations live
 // in shared memory as bf16 pieces, feature by feature ([piece][row]
 // [P + 8], points fastest), so every fragment is one ldmatrix; a layer's
 // sums stay in the accumulators until its last product step, then
 // overwrite the layer's input: one H-row activation buffer and a 96-row
 // embedding region per tile. The embedding region holds emb_a (87 rows,
 // 9 zero) for the first three layers, then emb_b (42 rows, 6 zero). The
-// PE's projection and sines stay f32 on the FMA pipe (sinpif, or the
-// double-angle ladder from sincospif: pe_ladder); the build uses no fast
-// math.
+// PE's projection and sines stay f32 on the FMA pipe: K2 the double-angle
+// ladder from sincospif (pe_ladder; the wrapper's PE_LADDER), K3 sinpif
+// each band; the build uses no fast math.
 //
 // K2 field_fwd_kernel: a 1-D grid of blocks (at most SMS x MINB), block b
 // taking the items [b N / G, (b + 1) N / G) of the N = O n_tiles (object,
 // point tile) pairs in order, so the card is filled whatever the objects
-// and points. At h=32 a block holds the object's whole weights in shared
+// and points. At h=32 a block (two an SM, 64-point tiles: one's barriers
+// hide in the other's work) holds the object's whole weights in shared
 // memory (57 KB as pieces), staged once per object it meets; at h=128 and
 // h=256 (0.4 / 1.3 MB) each product streams its pieces through a ring of
 // two slabs of KF columns (cp.async, L2 evict_last), the next in flight
@@ -60,8 +61,9 @@
 //     h1..h4's ReLU masks kept as bits in shared memory), the cotangents
 //     (d alpha-layer = 10 g_alpha, d logits = g_c s (1 - s), 0 past M),
 //     and the input gradients dx = W^T d (A = W^T by ldmatrix .trans), the
-//     ReLU masks in the epilogue from the saved activations, each
-//     pre-activation gradient saved too; the band gradients folded through
+//     ReLU masks applied in the epilogue from those bits (c's from its
+//     activation), each pre-activation gradient saved too; the band
+//     gradients (W_cat_x's and W_in's added first) folded through
 //     pi 2^b cospif(2^b proj) into the projection's, the bias and dirs
 //     gradients summed in shared memory over the block's tiles and written
 //     once, to rest_part[object, block];
@@ -77,13 +79,14 @@
 // h=128 / 256 (0.4 / 1.3 MB a row), so they are one product over the
 // points after the tiles, not a partial row read and written per tile.
 //
-// What bounds them on the card (chip_smoke.py phase 6; PERF.md): the
-// products are 3 x 11,200 / 100,000 / 331,000 multiply-adds a point at h =
-// 32 / 128 / 256 (bf16 at 989 TFLOP/s) and, at h=32, the PE's 126 sines a
-// point on the FMA / SFU pipes as much; mma.sync issue, the fragment loads
-// and the slab steps' barriers set the time. K3 runs 12 passes to K2's 3
-// and also moves its scratch, (176 + 10 h) rows x 4 bytes a point, written
-// once and read once.
+// What bounds them on the card (chip_smoke.py phases 6 and 8; PERF.md):
+// the products are 3 x 11,200 / 100,000 / 331,000 multiply-adds a point at
+// h = 32 / 128 / 256 (bf16 at 989 TFLOP/s) and, at h=32, the PE's 126
+// sines a point on the FMA / SFU pipes about as much; mma.sync issue, the
+// fragment loads and the slab steps' barriers set the time, 4-8 x the
+// bound. K3 runs 12 passes to K2's 3, its forward-and-input-gradient pass
+// most of its time, and moves its scratch, (176 + 10 h) rows x 4 bytes a
+// point, written once and read once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,10 +95,10 @@
 
 namespace {
 
-constexpr int EMB_PAD = 128;   // row stride of the prepared w_in / w_cat_x / w_col_x
+constexpr int EMB_PAD = 128;   // row stride of w_in, w_cat_x, w_col_x
 constexpr int N_PREP = 17;     // prepared tensors per object
 constexpr int WP = 3;          // staged planes of the weights' bf16 pieces
-constexpr int NB = 2;          // pieces of the input and weight gradients' operands
+constexpr int NB = 2;          // pieces of the gradients' product operands
 constexpr int EROWS = 96;      // the embedding region's rows (up16(87))
 constexpr int EBROWS = 48;     // emb_b's rows in it (up16(h + 42) - h)
 
@@ -118,9 +121,9 @@ struct Prep {
 template <int H, bool BWD>
 struct FTile;
 template <>
-struct FTile<32, false> {
+struct FTile<32, false> {   // two blocks an SM: one hides the other's barriers
   static constexpr bool RES = true;
-  static constexpr int NF = 2, NT = 512, MINB = 1, P = 128, KF = 0, KB = 0;
+  static constexpr int NF = 2, NT = 256, MINB = 2, P = 64, KF = 0, KB = 0;
   static constexpr int FWM = 1, FWN = 2, FMU = 1, DWM = 1, DWN = 2, DMU = 1;
 };
 template <>
@@ -167,7 +170,9 @@ __host__ __device__ constexpr int res_off(int H, int m, int NP) {
   for (int i = 0; i < m; ++i) s += NP * mat_rows(H, i) * (mat_cols(H, i) + 8);
   return s;
 }
-__host__ __device__ constexpr size_t a16(size_t b) { return (b + 15) / 16 * 16; }
+__host__ __device__ constexpr size_t a16(size_t b) {
+  return (b + 15) / 16 * 16;
+}
 
 // K3's bias and dirs gradients, a block's rest row (kernels/ensemble.py
 // REST_NAMES order): dirs [21][3], b_in, b_mid1, b_cat, b_mid2 [H],
@@ -181,8 +186,12 @@ __host__ __device__ constexpr int r_b_mid1(int H) { return 3 * NDIR + H; }
 __host__ __device__ constexpr int r_b_cat(int H) { return 3 * NDIR + 2 * H; }
 __host__ __device__ constexpr int r_b_mid2(int H) { return 3 * NDIR + 3 * H; }
 __host__ __device__ constexpr int r_b_alpha(int H) { return 3 * NDIR + 4 * H; }
-__host__ __device__ constexpr int r_b_col(int H) { return 3 * NDIR + 4 * H + 1; }
-__host__ __device__ constexpr int r_b_out(int H) { return 3 * NDIR + 5 * H + 1; }
+__host__ __device__ constexpr int r_b_col(int H) {
+  return 3 * NDIR + 4 * H + 1;
+}
+__host__ __device__ constexpr int r_b_out(int H) {
+  return 3 * NDIR + 5 * H + 1;
+}
 
 // K3's scratch, per object [NB][scratch_rows][Mp] bf16 pieces: the
 // activations x (the weight gradients' columns) then the pre-activation
@@ -196,7 +205,7 @@ __host__ __device__ constexpr int xr_c(int H) { return EROWS + EBROWS + 4 * H; }
 __host__ __device__ constexpr int dr_out(int H) { return xr_c(H) + H; }   // 16
 __host__ __device__ constexpr int dr_alpha(int H) { return dr_out(H) + 16; }
 __host__ __device__ constexpr int dr_c(int H) { return dr_out(H) + 32; }
-__host__ __device__ constexpr int dr_h(int H, int l) {                   // dh4..dh1
+__host__ __device__ constexpr int dr_h(int H, int l) {   // dh4..dh1
   return dr_c(H) + (5 - l) * H;
 }
 __host__ __device__ constexpr int scratch_rows(int H) { return dr_h(H, 1) + H; }
@@ -248,7 +257,8 @@ struct Plan {
   static constexpr int F32_ROWS = BWD ? 3 + 2 * NDIR + 4 : 7;
   static constexpr size_t rest = f32 + a16((size_t)4 * F32_ROWS * P);
   static constexpr int NSEG = (P + 63) / 64;
-  static constexpr size_t mask = rest + (BWD ? a16((size_t)4 * rest_floats(H)) : 0);
+  static constexpr size_t mask =
+      rest + (BWD ? a16((size_t)4 * rest_floats(H)) : 0);
   static constexpr size_t bytes =
       mask + (BWD ? (size_t)4 * 4 * H * NSEG * 2 : 0);
 };
@@ -453,7 +463,8 @@ __device__ __forceinline__ void dgrad_prod(const bf16* __restrict__ ws,
   bf16* buf[2] = {slab0, slab1};
   const bf16* src = ws + mat_off(H, m);
   const int ns = Rr / kb;
-  if constexpr (!T::RES) stage_slab<NT, NB>(buf[0], LD, src, NS, C, 0, kb, 0, C);
+  if constexpr (!T::RES)
+    stage_slab<NT, NB>(buf[0], LD, src, NS, C, 0, kb, 0, C);
   for (int s = 0; s < ns; ++s) {
     const int i0 = s * kb;
     if constexpr (!T::RES) {

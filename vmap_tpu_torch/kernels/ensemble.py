@@ -20,9 +20,10 @@ Two versions of each function:
     256): on CPU tensors they run the plain version, on CUDA tensors they
     launch the kernel or raise (``kernels.KERNEL_HIDDEN``).
 The kernels' products run on bf16 tensor cores, float32 as three passes of
-two-piece operands, from the weights' staged bf16 pieces (``stage``,
-``field_stage_kernel``, reused while the weights do not change); their
-tiles and grids are ``field_plan``'s.
+two-piece operands (K3's recomputed forward six passes of three), from the
+weights' staged bf16 pieces (``stage``, ``field_stage_kernel``, reused
+while the weights do not change); their tiles and grids are
+``field_plan``'s.
 
 ``LAUNCHES`` counts successful kernel launches by kernel name, and
 ``field_bwd``'s also by width (``field_bwd.<hidden>``); only
@@ -157,14 +158,18 @@ STAGED_PIECES = 3          # the weights' bf16 pieces (field_stage_kernel)
 FIELD_PIECES = {"field_fwd": 2, "field_bwd": 3}
 GRAD_PIECES = 2
 SMS = 132                  # the H100 SXM's SMs, which the grids fill
-FIELD_NT = {"field_fwd": {32: 512, 128: 256, 256: 256},
+FIELD_NT = {"field_fwd": {32: 256, 128: 256, 256: 256},
             "field_bwd": {32: 512, 128: 512, 256: 512}}
+# field_fwd's blocks an SM (its plan allows them and its grid counts on
+# them); field_bwd runs one an SM
+FWD_BLOCKS_PER_SM = {32: 2, 128: 1, 256: 1}
 # a forward slab's columns (h=32: the weights resident)
 FIELD_KF = {"field_fwd": {128: 64, 256: 32}, "field_bwd": {128: 32, 256: 16}}
 FIELD_KB = 16                       # an input-gradient slab's rows
-# field_wgrad: tile columns, points a step, ring stages, threads; its
+# field_wgrad: tile columns, points a step, ring stages; its
 # tile's rows (32 at h=32, else 128) and blocks an SM its ring allows
-WG_TK, WG_KP, WG_STAGES, WG_NT = 128, 32, 4, 256
+WG_TK, WG_KP, WG_STAGES = 128, 32, 4
+EROWS, EBROWS = 96, 48     # the embedding region's rows; emb_b's in it
 
 
 def wg_rows(hidden: int) -> int:
@@ -173,7 +178,6 @@ def wg_rows(hidden: int) -> int:
 
 def wg_blocks_per_sm(hidden: int) -> int:
     return 2 if hidden == 32 else 1
-EROWS, EBROWS = 96, 48     # the embedding region's rows; emb_b's in it
 
 
 def _up(x: int, m: int) -> int:
@@ -201,7 +205,7 @@ def scratch_rows(hidden: int) -> int:
 
 
 def rest_floats(hidden: int) -> int:
-    """Floats of a K3 block's rest row: REST_NAMES' gradients, to 4."""
+    """Floats of a K3 block's rest row: rest_layout's gradients, to 4."""
     return _up(63 + 5 * hidden + 4, 4)
 
 
@@ -259,21 +263,21 @@ def field_smem_bytes(kernel: str, hidden: int) -> int:
 def field_plan(kernel: str, hidden: int, O: int, M: int,
                tile_m: int = 512) -> dict:
     """The grid of a launch on O objects x M points, from the kernels'
-    split rules. field_fwd: a 1-D grid of min(SMS, O ceil(M / P)) blocks,
-    each a contiguous run of the (object, tile) pairs. field_bwd: Mp = M
-    to a multiple of the tile and of 128 (field_wgrad's step, 32), blocks
-    per object min(Mp / P, max(1, SMS // O)) (one block an SM, one wave);
-    field_wgrad: wgrad_tiles(h)
-    tiles an object times S splits, each a run of whole units of
-    ``unit`` points: tile_m, halved (to multiples of 32) while ceil(Mp /
-    unit) units a tile would not fill the card's blocks (SMS x
-    wg_blocks_per_sm), and S the most splits that fit one wave, at least
-    1 and at most the units."""
+    split rules. field_fwd: a 1-D grid of min(SMS x FWD_BLOCKS_PER_SM, O
+    ceil(M / P)) blocks, each a contiguous run of the (object, tile)
+    pairs. field_bwd: Mp = M to a multiple of the tile and of 128
+    (field_wgrad's step, 32), blocks per object min(Mp / P, max(1, SMS //
+    O)) (one block an SM, one wave). field_wgrad: wgrad_tiles(h) tiles an
+    object times S splits, each a run of whole units of ``unit`` points:
+    tile_m, halved (to multiples of 32) while ceil(Mp / unit) units a tile
+    would not fill the card's blocks (SMS x wg_blocks_per_sm), and S the
+    most splits that fit one wave, at least 1 and at most the units."""
     pts = FIELD_POINTS[kernel][hidden]
     plan = {"points": pts, "threads": FIELD_NT[kernel][hidden],
             "smem_bytes": field_smem_bytes(kernel, hidden)}
     if kernel == "field_fwd":
-        return {**plan, "blocks": min(SMS, O * -(-M // pts))}
+        return {**plan, "blocks": min(SMS * FWD_BLOCKS_PER_SM[hidden],
+                                      O * -(-M // pts))}
     mp = _up(M, math.lcm(pts, 128))
     per_obj = min(mp // pts, max(1, SMS // O))
     tiles = wgrad_tiles(hidden)
@@ -423,9 +427,12 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-# the PE's bands in K2: the double-angle ladder from sincospif, or sinpif
-# each (chip_smoke.py phase 6 times both and holds both to its tiers)
-PE_LADDER = False
+# the PE's bands in K2: the double-angle ladder from sincospif (s' = 2 s
+# c, c' = 1 - 2 s^2), or sinpif each. The ladder holds phase 6's tiers and
+# runs faster at every width (chip_smoke.py phase 6 times both in one
+# call; PERF.md §6 PR 11). K3's forward keeps sinpif: its ReLU masks want
+# the most accurate embedding.
+PE_LADDER = True
 
 
 def _launch_fwd(prepared: dict, pts: torch.Tensor, ladder: bool | None = None):
@@ -476,45 +483,71 @@ def unstage_grads(wgrad: torch.Tensor, rest: torch.Tensor,
     return {n: out[n].contiguous() for n in W_NAMES}
 
 
+class _BwdLaunch:
+    """K3's operands on CUDA tensors: the validated launch, the cotangents,
+    field_plan's grid and the buffers (the scratch, the blocks' rest rows,
+    the splits' partial rows); ``bwd()`` and ``wgrad()`` launch its two
+    kernels (chip_smoke.py times each alone)."""
+
+    def __init__(self, prepared: dict, pts: torch.Tensor,
+                 g_alpha: torch.Tensor, g_color: torch.Tensor, tile_m: int):
+        if tile_m < WG_KP or tile_m % WG_KP:
+            raise ValueError(f"tile_m {tile_m}: the field backward takes a "
+                             f"multiple of {WG_KP} points")
+        self.L = L = _Launch(prepared, pts, "field_bwd")
+        self.ga = g_alpha.detach().float().contiguous()
+        self.gc = g_color.detach().float().contiguous()
+        if tuple(self.ga.shape) != (L.O, L.M) \
+                or tuple(self.gc.shape) != (L.O, L.M, 3) \
+                or self.ga.device != L.dev or self.gc.device != L.dev:
+            raise ValueError("cotangents must be [O, M] and [O, M, 3] on "
+                             f"{L.dev}")
+        self.tile_m = tile_m
+        self.plan = plan = field_plan("field_bwd", L.h, L.O, L.M, tile_m)
+        self.scratch = torch.empty(
+            (L.O, GRAD_PIECES, scratch_rows(L.h), plan["Mp"]),
+            dtype=torch.bfloat16, device=L.dev)
+        self.rest = torch.empty(
+            (L.O, plan["blocks_per_object"], rest_floats(L.h)),
+            dtype=torch.float32, device=L.dev)
+        self.part = torch.empty((L.O, plan["splits"], staged_size(L.h)),
+                                dtype=torch.float32, device=L.dev)
+
+    def bwd(self) -> None:
+        """field_bwd_kernel: the forward, the input gradients, the scratch
+        and the blocks' rest rows."""
+        L, plan = self.L, self.plan
+        code = L.lib.vmap_field_bwd(
+            L.h, _ptr(L.params), ctypes.cast(L.offsets, ctypes.c_void_p),
+            L.n_params, _ptr(L.ws), _ptr(L.scale), _ptr(L.pts),
+            _ptr(self.ga), _ptr(self.gc), L.O, L.M, plan["Mp"],
+            plan["blocks_per_object"], _ptr(self.scratch), _ptr(self.rest),
+            L.stream())
+        _build.check(L.lib, code, "field_bwd kernel launch")
+
+    def wgrad(self) -> None:
+        """field_wgrad_kernel: the weight gradients from the scratch."""
+        L, plan = self.L, self.plan
+        code = L.lib.vmap_field_wgrad(
+            L.h, _ptr(self.scratch), L.O, plan["Mp"], plan["unit"],
+            plan["splits"], _ptr(self.part), L.stream())
+        _build.check(L.lib, code,
+                     f"field_wgrad kernel launch (tile_m {self.tile_m})")
+
+
 def _launch_bwd(prepared: dict, pts: torch.Tensor, g_alpha: torch.Tensor,
                 g_color: torch.Tensor, tile_m: int) -> dict:
-    """K3 on CUDA tensors -> {name: grad} for W_NAMES: field_bwd_kernel
-    (forward, input gradients, the scratch and the blocks' rest rows),
+    """K3 on CUDA tensors -> {name: grad} for W_NAMES: field_bwd_kernel,
     then field_wgrad_kernel (the weight gradients over splits of whole
     units of ``tile_m`` points, or of its halves where the splits would not
     fill the card; tile_m a multiple of WG_KP); the splits and the blocks'
     rows summed here, in a fixed order."""
-    if tile_m < WG_KP or tile_m % WG_KP:
-        raise ValueError(f"tile_m {tile_m}: the field backward takes a "
-                         f"multiple of {WG_KP} points")
-    L = _Launch(prepared, pts, "field_bwd")
-    ga = g_alpha.detach().float().contiguous()
-    gc = g_color.detach().float().contiguous()
-    if tuple(ga.shape) != (L.O, L.M) or tuple(gc.shape) != (L.O, L.M, 3) \
-            or ga.device != L.dev or gc.device != L.dev:
-        raise ValueError("cotangents must be [O, M] and [O, M, 3] on "
-                         f"{L.dev}")
-    plan = field_plan("field_bwd", L.h, L.O, L.M, tile_m)
-    mp, per_obj, splits = plan["Mp"], plan["blocks_per_object"], \
-        plan["splits"]
-    scratch = torch.empty((L.O, GRAD_PIECES, scratch_rows(L.h), mp),
-                          dtype=torch.bfloat16, device=L.dev)
-    rest = torch.empty((L.O, per_obj, rest_floats(L.h)), dtype=torch.float32,
-                       device=L.dev)
-    part = torch.empty((L.O, splits, staged_size(L.h)), dtype=torch.float32,
-                       device=L.dev)
-    code = L.lib.vmap_field_bwd(
-        L.h, _ptr(L.params), ctypes.cast(L.offsets, ctypes.c_void_p),
-        L.n_params, _ptr(L.ws), _ptr(L.scale), _ptr(L.pts), _ptr(ga),
-        _ptr(gc), L.O, L.M, mp, per_obj, _ptr(scratch), _ptr(rest),
-        L.stream())
-    _build.check(L.lib, code, "field_bwd kernel launch")
-    code = L.lib.vmap_field_wgrad(L.h, _ptr(scratch), L.O, mp, plan["unit"],
-                                  splits, _ptr(part), L.stream())
-    _build.check(L.lib, code, f"field_wgrad kernel launch (tile_m {tile_m})")
+    k3 = _BwdLaunch(prepared, pts, g_alpha, g_color, tile_m)
+    k3.bwd()
+    k3.wgrad()
     LAUNCHES["field_bwd"] += 1
-    LAUNCHES[f"field_bwd.{L.h}"] += 1
-    return unstage_grads(part.sum(dim=1), rest.sum(dim=1), L.h)
+    LAUNCHES[f"field_bwd.{k3.L.h}"] += 1
+    return unstage_grads(k3.part.sum(dim=1), k3.rest.sum(dim=1), k3.L.h)
 
 
 # ------------------------------------------------------------ public API
