@@ -38,11 +38,10 @@ Phases, in order (any failure raises and the script exits non-zero):
      f32 plain version; where the f32 plain version misses that bar
      against the f64 one, K3 within twice its error of the f64 one; twice,
      bit for bit the same, and again at 4 x TILE_M), timed with CUDA
-     events, each width's tiles, grids and shared memory printed and held
-     to the library's (vmap_field_layout), the staged bf16 pieces equal to
-     their plain version and the staging timed alone, K2 also with the
-     PE's double-angle ladder in place of sinpif (its errors and time
-     logged);
+     events, each width's tiles, grids and shared memory printed (the
+     library's plan, vmap_field_plan), the staged bf16 pieces
+     (field_stage) equal to their plain version and the staging timed
+     alone and with K2 (the time a change of weights costs K2);
   7. meshing at full width: a 100-object h=32 bank over 128^3 grid points
      per object, one h=128 background over 256^3 and one h=256 iMAP scene
      field over 256^3 (mesh_all_objects' chunks of 65,536), per-chunk and
@@ -619,39 +618,22 @@ def field_grad_error(g_k, g_r, g_d, gmax: float) -> tuple:
     return err, "f64" if ok else None
 
 
-def field_layout_held(lib, hidden: int) -> None:
-    """The field kernels' layout and plans as the library states them
-    (vmap_field_layout) equal to kernels/ensemble.py's."""
-    from vmap_tpu_torch.kernels import FIELD_POINTS
-    from vmap_tpu_torch.kernels import ensemble as E
-    want = (E.staged_size(hidden), E.wgrad_tiles(hidden),
-            E.scratch_rows(hidden), E.rest_floats(hidden),
-            FIELD_POINTS["field_fwd"][hidden],
-            FIELD_POINTS["field_bwd"][hidden],
-            E.field_smem_bytes("field_fwd", hidden),
-            E.field_smem_bytes("field_bwd", hidden),
-            E.field_smem_bytes("field_wgrad", hidden))
-    got = tuple(lib.vmap_field_layout(hidden, i) for i in range(len(want)))
-    if got != want:
-        raise AssertionError(f"h={hidden}: the library's field layout {got} "
-                             f"is not kernels/ensemble.py's {want}")
-
-
 def check_field_kernels(dev, stats: dict, shapes=FIELD_SHAPES) -> None:
     """K2 and K3 against their plain versions (JAX bar,
     tests/test_pallas_kernel.py:55-56 and :103-108; K3 by
     ``field_grad_error``); K3 at the widths it is built for, twice (bit
     for bit the same) and at a second tile_m. Each width's tiles, grids
-    and shared memory are printed and held to the library's; the staged
-    pieces equal to their plain version; K2 also with the PE's
-    double-angle ladder (its errors and time logged, not held), and the
-    staging (packing and split) timed alone."""
+    and shared memory (the library's plan) are printed; field_stage's
+    pieces are held equal to their plain version, and the staging
+    (packing and split) timed alone and with K2: K2's ``ms`` reuses the
+    pieces (meshing's ~256 launches a grid on one bank's weights),
+    ``ms_fresh_stage`` makes them anew each launch (FieldTrain's forward,
+    whose weights change every iteration)."""
     import torch
     from vmap_tpu_torch.kernels import KERNEL_HIDDEN, _build
     from vmap_tpu_torch.kernels import ensemble as E
     lib = _build.load()
     for name, O, h, M, scale in shapes:
-        field_layout_held(lib, h)
         prepared, pts, g_a, g_c = field_operands(O, h, M, scale, 3, dev)
         a_k, c_k = E.field_eval(prepared, pts)
         a_r, c_r = E.field_eval_reference(prepared, pts)
@@ -659,45 +641,42 @@ def check_field_kernels(dev, stats: dict, shapes=FIELD_SHAPES) -> None:
         err_a = rel_close(a_k, a_r, 0.0, 3e-4, f"{name} field_fwd alpha")
         err_c = rel_close(c_k, c_r, 0.0, 2e-5, f"{name} field_fwd colour")
         _, ws = E._STAGED["value"]
-        if not torch.equal(ws, E.staged_pieces_reference(prepared, h)):
+        ws_r = E.staged_pieces_reference(prepared, h)
+        if not torch.equal(ws, ws_r):
             raise AssertionError(f"{name}: field_stage's pieces differ from "
                                  "their plain version")
         n_w = sum(v.numel() for v in prepared.values())
-        plan = E.field_plan("field_fwd", h, O, M)
-        log(f"[6] {name} field_fwd plan: {plan['points']} points a tile, "
-            f"{plan['blocks']} blocks of {plan['threads']} threads, "
-            f"{plan['smem_bytes']} B dynamic shared memory")
+        plan = E.field_plan(h, O, M)
+        log(f"[6] {name} field_fwd plan: {plan['fwd_points']} points a "
+            f"tile, {plan['fwd_blocks']} blocks of {plan['fwd_threads']} "
+            f"threads ({plan['fwd_blocks_per_sm']} an SM), "
+            f"{plan['fwd_smem_bytes']} B dynamic shared memory")
+        stg = stats.setdefault("field_stage", {})[name] = {
+            "max_abs_err": float((ws.float() - ws_r.float()).abs().max()),
+            **stage_bound(O, h),
+            "ms": time_cuda(lambda: restage(E, lib, prepared, h), 10),
+            "plain_ms": time_cuda(lambda: (
+                E._packed(prepared, h),
+                E.staged_pieces_reference(prepared, h)), 10)}
         fwd = stats.setdefault("field_fwd", {})[name] = {
             "max_abs_err": max(err_a, err_c),
             **field_bound(O, M, h, n_w, False),
             "bound_fp32_ms": field_bound(O, M, h, n_w, False,
                                          fp32_rate=True)["bound_ms"],
             "ms": time_cuda(lambda: E.field_eval(prepared, pts), 10),
+            "ms_fresh_stage": time_cuda(lambda: (
+                restage(E, lib, prepared, h),
+                E.field_eval(prepared, pts)), 10),
             "plain_ms": time_cuda(
                 lambda: E.field_eval_reference(prepared, pts), 10),
-            "stage_ms": time_cuda(lambda: restage(E, lib, prepared, h), 10),
             "plan": plan}
-        # the PE's double-angle ladder against sinpif, in the same call
-        a_l, c_l = E._launch_fwd(prepared, pts, ladder=True)
-        torch.cuda.synchronize()
-        fwd["ladder_alpha_err"] = float((a_l - a_r).abs().max())
-        fwd["ladder_colour_err"] = float((c_l - c_r).abs().max())
-        fwd["ladder_holds_tiers"] = (fwd["ladder_alpha_err"] <= 3e-4
-                                     and fwd["ladder_colour_err"] <= 2e-5)
-        fwd["ladder_ms"] = time_cuda(
-            lambda: E._launch_fwd(prepared, pts, ladder=True), 10)
-        fwd["sinpif_ms"] = time_cuda(
-            lambda: E._launch_fwd(prepared, pts, ladder=False), 10)
         msg = (f"[6] {name} ({O} x {M} points, h={h}): field_fwd alpha err "
                f"{err_a:.3e} colour err {err_c:.3e}, ms kernel/plain/bound "
                f"{fwd['ms']:.4f}/{fwd['plain_ms']:.4f}/{fwd['bound_ms']:.4f} "
-               f"(bound at the FP32 rate {fwd['bound_fp32_ms']:.4f}), "
-               f"staging {fwd['stage_ms']:.4f} ms; PE ladder / sinpif "
-               f"{fwd['ladder_ms']:.4f}/{fwd['sinpif_ms']:.4f} ms, ladder "
-               f"errs {fwd['ladder_alpha_err']:.3e} / "
-               f"{fwd['ladder_colour_err']:.3e} "
-               f"({'holds' if fwd['ladder_holds_tiers'] else 'misses'} "
-               "the tiers)")
+               f"(bound at the FP32 rate {fwd['bound_fp32_ms']:.4f}), with "
+               f"the weights staged anew {fwd['ms_fresh_stage']:.4f}; "
+               f"field_stage ms kernel/plain/bound {stg['ms']:.4f}/"
+               f"{stg['plain_ms']:.4f}/{stg['bound_ms']:.4f}")
         if h not in KERNEL_HIDDEN["field_bwd"]:
             log(msg + f"; no field_bwd kernel at h={h}")
             continue
@@ -730,13 +709,15 @@ def check_field_kernels(dev, stats: dict, shapes=FIELD_SHAPES) -> None:
             log(f"[6] {name} field_bwd: d{', d'.join(to_f64)} held to the "
                 "f64 plain version (the f32 plain version misses the bar "
                 "there too)")
-        bplan = E.field_plan("field_bwd", h, O, M)
-        log(f"[6] {name} field_bwd plan: {bplan['points']} points a tile, "
-            f"{bplan['blocks']} blocks of {bplan['threads']} threads, "
-            f"{bplan['smem_bytes']} B; field_wgrad {bplan['wgrad_blocks']} "
-            f"blocks ({bplan['wgrad_tiles']} tiles x {bplan['splits']} "
-            f"splits x {O}), {bplan['wgrad_smem_bytes']} B; scratch "
-            f"{O * 4 * E.scratch_rows(h) * bplan['Mp'] / 2**20:.1f} MiB")
+        scratch_mib = (O * 2 * plan["scratch_pieces"] * plan["scratch_rows"]
+                       * plan["Mp"] / 2**20)
+        log(f"[6] {name} field_bwd plan: {plan['bwd_points']} points a "
+            f"tile, {plan['bwd_blocks']} blocks of {plan['bwd_threads']} "
+            f"threads, {plan['bwd_smem_bytes']} B; field_wgrad "
+            f"{plan['wgrad_blocks']} blocks ({plan['wgrad_tiles']} tiles x "
+            f"{plan['splits']} splits x {O}, {plan['wgrad_blocks_per_sm']} "
+            f"an SM), {plan['wgrad_smem_bytes']} B; scratch "
+            f"{scratch_mib:.1f} MiB")
         bwd = stats.setdefault("field_bwd", {})[name] = {
             "max_abs_err": err_g, "held_to_f64": to_f64,
             "bit_equal_launches": True,
@@ -746,11 +727,22 @@ def check_field_kernels(dev, stats: dict, shapes=FIELD_SHAPES) -> None:
             "ms": time_cuda(lambda: E.field_grad(prepared, pts, g_a, g_c), 3),
             "plain_ms": time_cuda(
                 lambda: E.field_grad_reference(prepared, pts, g_a, g_c), 3),
-            "plan": bplan}
+            "plan": plan}
         log(msg + f"; field_bwd worst err/scale {err_g:.3e} (d{worst}), "
             f"ms kernel/plain/bound {bwd['ms']:.4f}/{bwd['plain_ms']:.4f}/"
             f"{bwd['bound_ms']:.4f} (at the FP32 rate "
             f"{bwd['bound_fp32_ms']:.4f}), two launches bit-equal")
+
+
+def stage_bound(O: int, hidden: int) -> dict:
+    """field_stage's bound (``ensemble.stage``): the prepared tensors read
+    and packed into one f32 row an object, and the seven product weights'
+    three bf16 pieces written (the staged layout), over the HBM rate."""
+    from vmap_tpu_torch.kernels import ensemble as E
+    from vmap_tpu_torch.kernels import train_step as K
+    n_params = E._offsets(hidden)[2]
+    return bound(O * (4 * 2 * n_params
+                      + 2 * E.STAGED_PIECES * K.staged_layout(hidden)[1]))
 
 
 def restage(E, lib, prepared: dict, hidden: int) -> None:
@@ -1334,10 +1326,10 @@ def check_field_train_path(dev) -> dict:
         tile = K.field_tile(m)
         prepared, pts, g_a, g_c = field_operands(cap, h, m, scale, 4, dev)
         sl = random_batch(cap, n_per, S, 5, dev)
-        plan = E.field_plan("field_bwd", h, cap, m, tile)
+        plan = E.field_plan(h, cap, m, tile)
         t = times[name] = {
             "objects": cap, "points": m, "tile_m": tile,
-            "blocks": plan["blocks"], "wgrad_blocks": plan["wgrad_blocks"],
+            "blocks": plan["bwd_blocks"], "wgrad_blocks": plan["wgrad_blocks"],
             "field_bwd_ms": time_cuda(
                 lambda: E.field_grad(prepared, pts, g_a, g_c, tile), 10),
             **field_bwd_split_ms(prepared, pts, g_a, g_c, tile),
@@ -1358,11 +1350,13 @@ def check_field_train_path(dev) -> dict:
             f"through the field kernels "
             f"{t['iteration_field_kernels_ms']:.4f} ms, autograd "
             f"{t['iteration_autograd_ms']:.4f} ms")
-    for k in ("field_fwd",) + tuple(f"field_bwd.{h}" for h in
-                                    KERNEL_HIDDEN["field_bwd"]):
+    for k in ("field_stage", "field_fwd") + tuple(
+            f"field_bwd.{h}" for h in KERNEL_HIDDEN["field_bwd"]):
         if not counts[k] > 0:
             raise AssertionError(f"use_pallas_train frames launched no {k}")
-    log(f"[8] use_pallas_train frames: launches {counts}")
+    log(f"[8] use_pallas_train frames: launches {counts} (field_stage "
+        f"{counts['field_stage']} for {counts['field_fwd']} forwards and "
+        f"{counts['field_bwd']} backwards)")
     return counts, times
 
 
@@ -2220,9 +2214,12 @@ def main(argv=None) -> int:
         ("field_fwd", "ensemble.cu", "ensemble.py:97", rows("field_fwd"),
          None, lambda c: c["field_fwd"]),
         ("field_bwd", "ensemble.cu", "ensemble.py:215", rows("field_bwd"),
-         None, lambda c: c["field_bwd"]))
-    must_launch = ((("train_grad", "train_adamw", "field_fwd", "field_bwd")
-                    if {4, 8} <= phases else ())
+         None, lambda c: c["field_bwd"]),
+        # the weights' bf16 pieces K2 and K3 read (JAX's K2 reads f32)
+        ("field_stage", "ensemble.cu", "ensemble.py:97",
+         rows("field_stage"), None, lambda c: c["field_stage"]))
+    must_launch = ((("train_grad", "train_adamw", "field_stage", "field_fwd",
+                     "field_bwd") if {4, 8} <= phases else ())
                    + (("train_grad_q8", "train_quant_w")
                       if 11 in phases else ()))
     kernels = []
@@ -2257,10 +2254,11 @@ def main(argv=None) -> int:
         for p, c in paths.items()}
     kernels[0]["launches_by_policy"] = kernels[1]["launches_by_policy"] = \
         launches_by_policy
-    kernels[5]["launches_by_width"] = {
+    field_bwd = next(k for k in kernels if k["name"] == "field_bwd")
+    field_bwd["launches_by_width"] = {
         p: {h: c[f"field_bwd.{h}"] for h in (32, 128, 256)}
         for p, c in paths.items()}
-    kernels[5]["at_use_pallas_train_tiles"] = path_tiles
+    field_bwd["at_use_pallas_train_tiles"] = path_tiles
     kernels += [{**{k: v for k, v in e.items() if k != "checks"},
                  "launches_by_path": {"probes": e["launches"]}}
                 for e in probe_entries]

@@ -16,16 +16,21 @@ plain versions of what they compute, and their geometry.
 * the staged pieces (``staged_pieces_reference``, field_stage_kernel's
   plain version) in K1's staged layout, and ``unstage_grads`` its inverse
   for K3's gradients;
-* the kernels' shared-memory plans (``field_smem_bytes``) within the
-  232,448 bytes a block may use at every width, their tiles
-  (``kernels.FIELD_POINTS``), and the grids of ``field_plan``: enough
-  blocks for 132 SMs at the use_pallas_train tiles, phase 6's shapes and
-  the meshing launch;
+* the staged pieces' cache (``ensemble.stage``): two ``prepare_params``
+  calls on one bank never share a key;
+* the kernels' plan, the library's own (``csrc/field_plan.cuh``, built
+  here alone with g++): the shared memory of every block within the
+  232,448 bytes a block may use and its blocks an SM within the SM's, at
+  every width, the tiles, and the grids: enough blocks for the H100's 132
+  SMs at the use_pallas_train tiles, phase 6's shapes and the meshing
+  launch; the arguments the kernels refuse;
 * chip_smoke.py's field bound on the route.
 """
 
+import ctypes
 import math
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -36,6 +41,7 @@ from vmap_tpu_torch import kernels
 from vmap_tpu_torch.core.bank import init_bank
 from vmap_tpu_torch.kernels import ensemble as E
 from vmap_tpu_torch.kernels import train_step as K
+from vmap_tpu_torch.probes import SMS   # the H100 SXM's 132 SMs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -45,7 +51,9 @@ import chip_smoke as C  # noqa: E402
 from test_torch_k1_design import mm_bf16_pieces  # noqa: E402
 
 WIDTHS = (32, 128, 256)
-SMEM_LIMIT = 232448
+SMEM_LIMIT = 232448        # the most shared memory a block may use
+SM_SMEM = 233472           # an SM's, 1 KB of it taken by each block
+CSRC = os.path.join(REPO, "vmap_tpu_torch", "kernels", "csrc")
 EMB1, EMB2 = E.EMB1, E.EMB2
 # (objects, points) at each width: small, but wide enough for the errors
 SIZES = {32: (2, 2048), 128: (1, 4096), 256: (1, 4096)}
@@ -225,13 +233,36 @@ def test_staged_pieces_are_k1_staged_layout(h):
     pe, mlp = bank.spec.unflatten(bank.flat)
     prepared = E.prepare_params(pe, mlp, bank.scale, h)
     got = E.staged_pieces_reference(prepared, h)
-    assert got.shape == (3, E.STAGED_PIECES, E.staged_size(h))
-    assert E.staged_size(h) == K.staged_layout(h)[1]
+    assert got.shape == (3, E.STAGED_PIECES, K.staged_layout(h)[1])
     assert torch.equal(got, K.stage_weights(bank.flat, bank.spec))
 
 
 @pytest.mark.parametrize("h", WIDTHS)
-def test_unstage_inverts_the_staged_gradient_layout(h):
+def test_prepare_params_calls_never_share_a_stage_key(h):
+    """The staged pieces' cache key: K1 writes a bank through a raw
+    pointer, which moves no version counter, and most prepared tensors
+    of a stacked bank are views of it; each prepare_params call pads
+    w_in, w_cat_x and w_col_x into new tensors, so a second call on the
+    same bank (its weights rewritten in between or not) misses the
+    first's pieces. Its own key still hits, and an in-place change
+    through torch misses."""
+    bank = init_bank(torch.Generator().manual_seed(h), 2, h)
+    pe, mlp = bank.spec.unflatten(bank.flat)
+    p1 = E.prepare_params(pe, mlp, bank.scale, h)
+    k1 = E._weights_key(p1, h)
+    assert E._same(k1, E._weights_key(p1, h))
+    p2 = E.prepare_params(pe, mlp, bank.scale, h)
+    assert not E._same(k1, E._weights_key(p2, h))
+    fresh = [n for n in E.W_NAMES
+             if p1[n].untyped_storage().data_ptr()
+             != bank.flat.untyped_storage().data_ptr()]
+    assert set(fresh) >= {"w_in", "w_cat_x", "w_col_x"}, fresh
+    p1["b_in"].add_(1.0)
+    assert not E._same(k1, E._weights_key(p1, h))
+
+
+@pytest.mark.parametrize("h", WIDTHS)
+def test_unstage_inverts_the_staged_gradient_layout(plan_lib, h):
     """K3's rows (the weights staged, the biases and dirs in rest_layout)
     -> the prepared shapes: every gradient where it belongs, the padded
     columns 0."""
@@ -244,12 +275,13 @@ def test_unstage_inverts_the_staged_gradient_layout(h):
         want[n][..., used:] = 0.0
     staged = E.staged_pieces_reference(want, h)   # the layout, as pieces
     wgrad = staged[:, 0].float() + staged[:, 1].float()
-    rest = torch.zeros((O, E.rest_floats(h)))
+    rest_floats = plan_lib(h, O, 1)["rest_floats"]
+    rest = torch.zeros((O, rest_floats))
     off = 0
     for n, size in E.rest_layout(h):
         rest[:, off:off + size] = want[n].reshape(O, -1)
         off += size
-    assert off == 63 + 5 * h + 4 <= E.rest_floats(h)
+    assert off == 63 + 5 * h + 4 <= rest_floats
     got = E.unstage_grads(wgrad, rest, h)
     for n in E.W_NAMES:
         tol = 2.0 ** -16 * float(want[n].abs().max()) if n.startswith(
@@ -258,71 +290,107 @@ def test_unstage_inverts_the_staged_gradient_layout(h):
         assert float((got[n] - want[n]).abs().max()) <= tol, n
 
 
+@pytest.fixture(scope="module")
+def plan_lib(tmp_path_factory):
+    """csrc/field_plan.cuh built alone with g++, its field_plan exported:
+    plan(h, O, M, tile_m, sms) -> the library's plan (ensemble.plan_dict)
+    at ``sms`` SMs (132 unless given), as the card's library states it
+    through vmap_field_plan."""
+    d = tmp_path_factory.mktemp("field_plan")
+    src, so = d / "plan.cpp", d / "libplan.so"
+    src.write_text('#include "field_plan.cuh"\n'
+                   'extern "C" int plan(int h, int sms, int O, int M, '
+                   'int tile_m, int* out) {\n'
+                   '  return field_plan(h, sms, O, M, tile_m, out);\n}\n')
+    subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-I",
+                    CSRC, "-o", str(so), str(src)], check=True,
+                   capture_output=True, timeout=120)
+    lib = ctypes.CDLL(str(so))
+
+    def plan(h, O, M, tile_m=E.TILE_M, sms=SMS, code=0):
+        out = (ctypes.c_int * len(E.PLAN))()
+        assert lib.plan(h, sms, O, M, tile_m, out) == code
+        return E.plan_dict(out, O)
+    return plan
+
+
 @pytest.mark.parametrize("kernel", ["field_fwd", "field_bwd", "field_wgrad"])
 @pytest.mark.parametrize("h", WIDTHS)
-def test_shared_memory_plans_fit(kernel, h):
+def test_shared_memory_plans_fit(plan_lib, kernel, h):
     """Each block's plan within the 232,448 bytes a block may use, the
-    tiles those of kernels.FIELD_POINTS (multiples of 32 points, whole
-    16-point mma steps of every warp tile)."""
-    assert E.field_smem_bytes(kernel, h) <= SMEM_LIMIT
+    blocks an SM its launch bound asks for within the SM's shared memory,
+    the tiles whole 16-point mma steps of every warp tile (the header's
+    static_asserts hold the same at compile time)."""
+    plan = plan_lib(h, 1, 65536)
+    key = {"field_fwd": "fwd", "field_bwd": "bwd",
+           "field_wgrad": "wgrad"}[kernel]
+    smem, per_sm = plan[f"{key}_smem_bytes"], plan[f"{key}_blocks_per_sm"]
+    assert 0 < smem <= SMEM_LIMIT
+    assert per_sm * (smem + 1024) <= SM_SMEM
     if kernel != "field_wgrad":
-        assert kernels.FIELD_POINTS[kernel][h] % 16 == 0
-        plan = E.field_plan(kernel, h, 1, 65536)
-        assert plan["points"] == kernels.FIELD_POINTS[kernel][h]
-        assert plan["smem_bytes"] == E.field_smem_bytes(kernel, h)
-    # the band gradients (84 f32 rows) fit field_bwd's embedding region
-    p = kernels.FIELD_POINTS["field_bwd"][h]
-    assert 84 * (p + 4) * 4 <= 3 * E.EROWS * (p + 8) * 2
+        assert plan[f"{key}_points"] % 16 == 0
     # every warp busy in field_bwd's products: its 16 warps' units
-    assert E.FIELD_NT["field_bwd"][h] == 512
+    assert plan["bwd_threads"] == 512
+    # h=32's K2 tile and weights leave room for two blocks an SM
+    assert plan["fwd_blocks_per_sm"] == (2 if h == 32 else 1)
 
 
-def test_grids_fill_the_card():
-    """field_plan at the use_pallas_train tiles (phase 8: each shape's
-    iteration batch and its field_tile), at phase 6's shapes and at the
-    meshing launches: field_bwd one wave of at most 132 blocks (one an SM),
-    all its objects' tiles at 132 objects or more, and within one object's
-    blocks of filling 132 SMs otherwise; field_wgrad
-    one wave of SMS x wg_blocks_per_sm that one more split would overflow
+def test_grids_fill_the_card(plan_lib):
+    """The library's grids at the use_pallas_train tiles (phase 8: each
+    shape's iteration batch and its field_tile), at phase 6's shapes and
+    at the meshing launches, on 132 SMs: field_bwd one wave of at most 132
+    blocks (one an SM), all its objects' tiles at 132 objects or more, and
+    within one object's blocks of filling 132 SMs otherwise; field_wgrad
+    one wave of 132 x its blocks an SM that one more split would overflow
     (or every unit split, or one split already filling it), each split a
     run of whole units of tile_m or one of its halves."""
     cases = [(cap, h, n_per * S, K.field_tile(n_per * S))
              for _, cap, _, h, n_per, S, _ in C.SHAPES]
     cases += [(O, h, M, E.TILE_M) for _, O, h, M, _ in C.FIELD_SHAPES]
     for O, h, M, tile_m in cases:
-        plan = E.field_plan("field_bwd", h, O, M, tile_m)
-        target = E.SMS * E.wg_blocks_per_sm(h)
+        plan = plan_lib(h, O, M, tile_m)
+        target = SMS * plan["wgrad_blocks_per_sm"]
         per_split = plan["wgrad_tiles"] * O
         n_units = -(-plan["Mp"] // plan["unit"])
-        assert (plan["blocks"] <= E.SMS and plan["blocks"] + O > E.SMS
-                or plan["blocks_per_object"] == plan["Mp"] // plan["points"]
-                or O >= E.SMS), (O, h, M, plan)
+        assert (plan["bwd_blocks"] <= SMS and plan["bwd_blocks"] + O > SMS
+                or plan["blocks_per_object"] == plan["Mp"]
+                // plan["bwd_points"] or O >= SMS), (O, h, M, plan)
         assert (plan["wgrad_blocks"] <= target < plan["wgrad_blocks"]
                 + per_split or plan["splits"] == n_units
                 or (plan["splits"] == 1 and per_split >= target)), plan
-        assert plan["Mp"] % plan["points"] == 0 and plan["Mp"] >= M
-        assert plan["Mp"] % E.WG_KP == 0 and tile_m % E.WG_KP == 0
-        assert tile_m % plan["unit"] == 0 and plan["unit"] % E.WG_KP == 0
+        assert plan["Mp"] % plan["bwd_points"] == 0 and plan["Mp"] >= M
+        assert plan["Mp"] % 32 == 0 and tile_m % 32 == 0
+        assert tile_m % plan["unit"] == 0 and plan["unit"] % 32 == 0
         assert 1 <= plan["splits"] <= n_units
-        assert plan["blocks_per_object"] <= plan["Mp"] // plan["points"]
+        assert plan["blocks_per_object"] <= plan["Mp"] // plan["bwd_points"]
     # phase 8's tiles, by the numbers: (field_bwd blocks, field_wgrad
     # blocks): 104 / 728 at h=32 (104 objects, a block each), 132 / 126 at
     # h=128 (9 tiles x 14 splits of 768-point units), 132 / 130 at h=256
     # (26 x 5)
-    got = [E.field_plan("field_bwd", h, cap, n_per * S,
-                        K.field_tile(n_per * S))
+    got = [plan_lib(h, cap, n_per * S, K.field_tile(n_per * S))
            for _, cap, _, h, n_per, S, _ in C.SHAPES]
-    assert [(g["blocks"], g["wgrad_blocks"]) for g in got] == [
+    assert [(g["bwd_blocks"], g["wgrad_blocks"]) for g in got] == [
         (104, 728), (132, 126), (132, 130)]
     # K2: meshing's launches and phase 6's fill all 132 SMs, two blocks an
     # SM at h=32
     for O, h, M in ((128, 32, 65536), (1, 128, 65536), (1, 256, 65536),
                     (8, 32, 65573), (1, 128, 131072), (1, 256, 131072)):
-        assert E.field_plan("field_fwd", h, O, M)["blocks"] == \
-            E.SMS * (2 if h == 32 else 1)
-        # the plan fits the blocks an SM it counts on
-        assert E.FWD_BLOCKS_PER_SM[h] * E.field_smem_bytes(
-            "field_fwd", h) <= 233472
+        plan = plan_lib(h, O, M)
+        assert plan["fwd_blocks"] == SMS * plan["fwd_blocks_per_sm"]
+    # fewer tiles than the card's blocks: one block a tile
+    assert plan_lib(32, 1, 100)["fwd_blocks"] == 2
+    # the grids follow the card's SM count
+    assert plan_lib(128, 1, 131072, sms=114)["fwd_blocks"] == 114
+
+
+@pytest.mark.parametrize("args", [
+    (64, 1, 1024, 512), (32, 0, 1024, 512), (32, 65536, 1024, 512),
+    (128, 1, 0, 512), (128, 1, 1024, 48), (256, 1, 1024, 16)])
+def test_plan_refuses_what_the_kernels_refuse(plan_lib, args):
+    """A width without kernels, objects outside 1..65535, no points, or a
+    tile_m that is not a multiple of 32 points: cudaErrorInvalidValue."""
+    h, O, M, tile_m = args
+    plan_lib(h, O, M, tile_m, code=1)
 
 
 def test_chip_smoke_field_bound_is_the_route():

@@ -13,7 +13,8 @@ finite within rtol 0.25), under the int8 policies (phase 11: the same
 tiers with 5e-2 of scale; also at ragged shapes) and under sample_reuse
 4, bit-identical to the tiled batch; K2 at the meshing launch and at
 ragged point counts, K3 at the use_pallas_train tiles bit-equal across
-two launches and within the JAX bar across two tile_m; and the probe
+two launches and within the JAX bar across two tile_m, the field kernels'
+plan on the card's SM count; and the probe
 kernels
 (``vmap_tpu_torch.probes``: K4 mm, K10 int8, K7 sections, K8 overlap,
 K9 vpu, K5 ops, K6 dma) in every variant and shape against their plain
@@ -223,6 +224,27 @@ def test_field_train_frames_match_plain_on_card(cuda_device):
     import chip_smoke
     counts, _ = chip_smoke.check_field_train_path(cuda_device)
     assert counts["field_fwd"] == counts["field_bwd"] > 0
+
+
+@pytest.mark.cuda
+def test_field_plan_fills_the_card_on_card(cuda_device):
+    """The library's plan (vmap_field_plan) on the card's own SM count:
+    K2 one wave at the meshing launch, and at 132 SMs the phase-8 grids
+    the header's rule gives on the CPU (tests/test_torch_field_design.py)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from vmap_tpu_torch.kernels import ensemble as E
+    from vmap_tpu_torch.kernels import train_step as K
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = E.field_plan(32, 128, 65536)
+    assert plan["fwd_blocks"] == sms * plan["fwd_blocks_per_sm"]
+    got = [E.field_plan(h, cap, n_per * S, K.field_tile(n_per * S))
+           for _, cap, _, h, n_per, S, _ in chip_smoke.SHAPES]
+    if sms == 132:
+        assert [(g["bwd_blocks"], g["wgrad_blocks"]) for g in got] == [
+            (104, 728), (132, 126), (132, 130)]
+    with pytest.raises(RuntimeError):
+        E.field_plan(128, 1, 1024, 48)
 
 
 @pytest.mark.cuda

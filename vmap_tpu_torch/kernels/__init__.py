@@ -13,8 +13,8 @@ the int8 policies (``tile_rays``): the tile is also the granularity of
 their activation and gradient scales (``ops.quant``), so the plain version
 of the frame reads the same constant. ``FLOAT_POINTS`` is the float
 policies' tile (``float_tile_rays``), the tensor-core tile of
-``csrc/train_step.cu``; ``FIELD_POINTS`` the field kernels' tiles
-(``csrc/ensemble.cu``).
+``csrc/train_step.cu``. The field kernels' tiles and grids are their
+library's (``csrc/field_plan.cuh``; ``ensemble.field_plan``).
 """
 
 from vmap_tpu_torch.ops.mlp import POLICIES
@@ -48,15 +48,6 @@ MAX_POINTS = {32: 64, 128: 56, 256: 38}
 # float_smem_bytes) within the 227 KB a block may use at every S <= 32;
 # the products pad it to whole 16-point steps
 FLOAT_POINTS = {32: 64, 128: 56, 256: 56}
-# the field kernels' point tiles (csrc/ensemble.cu FTile<H, BWD>::P): K2
-# field_fwd's, and K3's forward-and-input-gradient pass (field_bwd, its
-# forward on three pieces), each a multiple of its warp tile's points;
-# their shared-memory plans (kernels/ensemble.py field_smem_bytes: the
-# weights resident at h=32, else a ring of two slabs, the embedding region
-# and one activation buffer as bf16 pieces, f32 rows) within the 227 KB a
-# block may use
-FIELD_POINTS = {"field_fwd": {32: 64, 128: 128, 256: 96},
-                "field_bwd": {32: 128, 128: 64, 256: 48}}
 
 
 def _rays(table: dict, hidden: int, n_samples: int) -> int:

@@ -47,10 +47,10 @@ SIGNATURES = {
     "vmap_q8_size": ((I,), I),
     "vmap_q8_smem": ((I, I, I, I), I),
     "vmap_field_stage": ((I, P, P, I, I, P, P), I),
-    "vmap_field_fwd": ((I, I, P, P, I, P, P, P, I, I, I, P, P, P), I),
-    "vmap_field_bwd": ((I, P, P, I, P, P, P, P, P, I, I, I, I, P, P, P), I),
-    "vmap_field_wgrad": ((I, P, I, I, I, I, P, P), I),
-    "vmap_field_layout": ((I, I), I),
+    "vmap_field_plan": ((I, I, I, I, P), I),
+    "vmap_field_fwd": ((I, P, P, I, P, P, P, I, I, P, P, P), I),
+    "vmap_field_bwd": ((I, P, P, I, P, P, P, P, P, I, I, I, P, P, P), I),
+    "vmap_field_wgrad": ((I, P, I, I, I, P, P), I),
 }
 
 

@@ -1,6 +1,7 @@
 // Constants and helpers shared by the field kernels of this directory
 // (train_step.cu, ensemble.cu): the positional-encoding widths of
-// n_unidir_funcs 5 and the IEEE sigmoid.
+// n_unidir_funcs 5, the staged layout of the product weights, the shared
+// memory a block may use and the IEEE sigmoid.
 
 #pragma once
 
@@ -12,6 +13,32 @@ constexpr int EMB = 3 + NDIR * NBAND;   // 129
 constexpr int EMB1 = 3 + NDIR * 4;      // 87: xs + bands 0..3 (trunk)
 constexpr int EMB2 = EMB - EMB1;        // 42: bands 4..5 (colour head)
 constexpr float PI_F = 3.14159265358979323846f;
+
+// ---- the staged product weights (kernels/train_step.py staged_layout):
+// the seven weight matrices [n_out][n_in] in this order, each as bf16
+// [up16(n_out)][up16(n_in)] row-major with zero padding; a slot holds
+// STAGED_PIECES planes of staged_size(H) elements: bf16 pieces p0 = bf16(w),
+// p1 = bf16(w - p0), p2 = bf16(w - p0 - p1) (mma.cuh split)
+enum WMat : int { M_IN, M_MID1, M_CAT, M_MID2, M_ALPHA, M_COL, M_OUT, NMAT };
+
+__host__ __device__ constexpr int up16(int x) { return (x + 15) / 16 * 16; }
+__host__ __device__ constexpr int mat_out(int H, int m) {
+  return m == M_ALPHA ? 1 : m == M_OUT ? 3 : H;
+}
+__host__ __device__ constexpr int mat_in(int H, int m) {
+  return m == M_IN ? EMB1 : m == M_CAT ? H + EMB1 : m == M_COL ? H + EMB2 : H;
+}
+__host__ __device__ constexpr int mat_off(int H, int m) {
+  int s = 0;
+  for (int i = 0; i < m; ++i) s += up16(mat_out(H, i)) * up16(mat_in(H, i));
+  return s;
+}
+__host__ __device__ constexpr int staged_size(int H) {
+  return mat_off(H, NMAT);
+}
+constexpr int STAGED_PIECES = 3;
+
+constexpr size_t SMEM_MAX = 232448;   // the most a block may use
 
 __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.f / (1.f + expf(-x));

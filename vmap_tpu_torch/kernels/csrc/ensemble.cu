@@ -41,10 +41,14 @@
 // embedding region per tile. The embedding region holds emb_a (87 rows,
 // 9 zero) for the first three layers, then emb_b (42 rows, 6 zero). The
 // PE's projection and sines stay f32 on the FMA pipe: K2 the double-angle
-// ladder from sincospif (pe_ladder; the wrapper's PE_LADDER), K3 sinpif
-// each band; the build uses no fast math.
+// ladder from sincospif (it holds phase 6's tiers and ran no slower than
+// sinpif at any width, PERF.md), K3 sinpif each band (its ReLU masks want
+// the most accurate embedding); the build uses no fast math.
 //
-// K2 field_fwd_kernel: a 1-D grid of blocks (at most SMS x MINB), block b
+// The tiles, shared-memory plans and grids are field_plan.cuh's; the
+// launchers size each grid from the card's SM count.
+//
+// K2 field_fwd_kernel: a 1-D grid of blocks (at most SMs x MINB), block b
 // taking the items [b N / G, (b + 1) N / G) of the N = O n_tiles (object,
 // point tile) pairs in order, so the card is filled whatever the objects
 // and points. At h=32 a block (two an SM, 64-point tiles: one's barriers
@@ -54,7 +58,7 @@
 // two slabs of KF columns (cp.async, L2 evict_last), the next in flight
 // while one computes.
 //
-// K3 in two kernels (kernels/ensemble.py field_plan):
+// K3 in two kernels:
 //   field_bwd_kernel, grid (block, object), 512 threads, a block taking a
 //     run of an object's point tiles: the forward as K2 (each activation
 //     also saved as pieces to the scratch, point-contiguous rows, and
@@ -91,16 +95,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "field_plan.cuh"
 #include "train_step.cuh"
 
 namespace {
 
 constexpr int EMB_PAD = 128;   // row stride of w_in, w_cat_x, w_col_x
 constexpr int N_PREP = 17;     // prepared tensors per object
-constexpr int WP = 3;          // staged planes of the weights' bf16 pieces
-constexpr int NB = 2;          // pieces of the gradients' product operands
-constexpr int EROWS = 96;      // the embedding region's rows (up16(87))
-constexpr int EBROWS = 48;     // emb_b's rows in it (up16(h + 42) - h)
 
 // Offsets of the prepared tensors inside one object's packed row, in the
 // order of kernels/ensemble.py W_NAMES.
@@ -108,185 +109,6 @@ struct Prep {
   int dirs, w_in, b_in, w_mid1, b_mid1, w_cat_h, w_cat_x, b_cat, w_mid2,
       b_mid2, w_alpha, b_alpha, w_col_h, b_col, w_out, b_out, w_col_x;
 };
-
-// ---- the tiles. NT threads, MINB blocks an SM, P points a tile (a
-// multiple of 8 FWN and of 8 DWN), NF the forward's pieces (K2 two, three
-// passes; K3 three, six passes: its ReLU masks must fall where the f32
-// plain version's do, or a gradient moves by a whole element's share), RES:
-// the weights resident in shared memory, else KF columns a forward slab and
-// KB rows an input-gradient slab; (FWM, FWN, FMU) the forward's warp tile
-// (16-row x 8-point mma tiles) and the most units a warp holds, (DWM, DWN,
-// DMU) the input gradients'. kernels/__init__.py FIELD_POINTS states P,
-// ensemble.py field_smem_bytes the plan.
-template <int H, bool BWD>
-struct FTile;
-template <>
-struct FTile<32, false> {   // two blocks an SM: one hides the other's barriers
-  static constexpr bool RES = true;
-  static constexpr int NF = 2, NT = 256, MINB = 2, P = 64, KF = 0, KB = 0;
-  static constexpr int FWM = 1, FWN = 2, FMU = 1, DWM = 1, DWN = 2, DMU = 1;
-};
-template <>
-struct FTile<128, false> {
-  static constexpr bool RES = false;
-  static constexpr int NF = 2, NT = 256, MINB = 1, P = 128, KF = 64, KB = 0;
-  static constexpr int FWM = 2, FWN = 4, FMU = 2, DWM = 1, DWN = 2, DMU = 1;
-};
-template <>
-struct FTile<256, false> {
-  static constexpr bool RES = false;
-  static constexpr int NF = 2, NT = 256, MINB = 1, P = 96, KF = 32, KB = 0;
-  static constexpr int FWM = 2, FWN = 4, FMU = 3, DWM = 1, DWN = 2, DMU = 1;
-};
-template <>
-struct FTile<32, true> {
-  static constexpr bool RES = true;
-  static constexpr int NF = 3, NT = 512, MINB = 1, P = 128, KF = 0, KB = 0;
-  static constexpr int FWM = 1, FWN = 2, FMU = 1, DWM = 2, DWN = 2, DMU = 2;
-};
-template <>
-struct FTile<128, true> {
-  static constexpr bool RES = false;
-  static constexpr int NF = 3, NT = 512, MINB = 1, P = 64, KF = 32, KB = 16;
-  static constexpr int FWM = 2, FWN = 2, FMU = 1, DWM = 2, DWN = 2, DMU = 2;
-};
-template <>
-struct FTile<256, true> {
-  static constexpr bool RES = false;
-  static constexpr int NF = 3, NT = 512, MINB = 1, P = 48, KF = 16, KB = 16;
-  static constexpr int FWM = 2, FWN = 2, FMU = 2, DWM = 2, DWN = 2, DMU = 3;
-};
-
-__host__ __device__ constexpr int mat_rows(int H, int m) {
-  return up16(mat_out(H, m));
-}
-__host__ __device__ constexpr int mat_cols(int H, int m) {
-  return up16(mat_in(H, m));
-}
-// the resident weights (RES): matrix m's NP pieces [NP][rows][cols + 8] at
-// res_off(H, m, NP), elements
-__host__ __device__ constexpr int res_off(int H, int m, int NP) {
-  int s = 0;
-  for (int i = 0; i < m; ++i) s += NP * mat_rows(H, i) * (mat_cols(H, i) + 8);
-  return s;
-}
-__host__ __device__ constexpr size_t a16(size_t b) {
-  return (b + 15) / 16 * 16;
-}
-
-// K3's bias and dirs gradients, a block's rest row (kernels/ensemble.py
-// REST_NAMES order): dirs [21][3], b_in, b_mid1, b_cat, b_mid2 [H],
-// b_alpha, b_col [H], b_out [3]
-__host__ __device__ constexpr int rest_floats(int H) {
-  return (3 * NDIR + 5 * H + 4 + 3) / 4 * 4;   // 63 + 5 H + 4, to 4
-}
-enum { R_DIRS = 0 };
-__host__ __device__ constexpr int r_b_in(int H) { return 3 * NDIR; }
-__host__ __device__ constexpr int r_b_mid1(int H) { return 3 * NDIR + H; }
-__host__ __device__ constexpr int r_b_cat(int H) { return 3 * NDIR + 2 * H; }
-__host__ __device__ constexpr int r_b_mid2(int H) { return 3 * NDIR + 3 * H; }
-__host__ __device__ constexpr int r_b_alpha(int H) { return 3 * NDIR + 4 * H; }
-__host__ __device__ constexpr int r_b_col(int H) {
-  return 3 * NDIR + 4 * H + 1;
-}
-__host__ __device__ constexpr int r_b_out(int H) {
-  return 3 * NDIR + 5 * H + 1;
-}
-
-// K3's scratch, per object [NB][scratch_rows][Mp] bf16 pieces: the
-// activations x (the weight gradients' columns) then the pre-activation
-// gradients d (their rows), each row the object's Mp points
-__host__ __device__ constexpr int xr_ea(int) { return 0; }            // 96
-__host__ __device__ constexpr int xr_eb(int) { return EROWS; }        // 48
-__host__ __device__ constexpr int xr_h(int H, int l) {                // h1..h4
-  return EROWS + EBROWS + (l - 1) * H;
-}
-__host__ __device__ constexpr int xr_c(int H) { return EROWS + EBROWS + 4 * H; }
-__host__ __device__ constexpr int dr_out(int H) { return xr_c(H) + H; }   // 16
-__host__ __device__ constexpr int dr_alpha(int H) { return dr_out(H) + 16; }
-__host__ __device__ constexpr int dr_c(int H) { return dr_out(H) + 32; }
-__host__ __device__ constexpr int dr_h(int H, int l) {   // dh4..dh1
-  return dr_c(H) + (5 - l) * H;
-}
-__host__ __device__ constexpr int scratch_rows(int H) { return dr_h(H, 1) + H; }
-
-// the scratch row of staged matrix m's gradient row i, and of its column k
-__host__ __device__ constexpr int d_row(int H, int m, int i) {
-  return (m == M_IN      ? dr_h(H, 1)
-          : m == M_MID1  ? dr_h(H, 2)
-          : m == M_CAT   ? dr_h(H, 3)
-          : m == M_MID2  ? dr_h(H, 4)
-          : m == M_ALPHA ? dr_alpha(H)
-          : m == M_COL   ? dr_c(H)
-                         : dr_out(H)) + i;
-}
-__host__ __device__ constexpr int x_row(int H, int m, int k) {
-  return m == M_IN      ? xr_ea(H) + k
-         : m == M_MID1  ? xr_h(H, 1) + k
-         : m == M_CAT   ? (k < H ? xr_h(H, 2) + k : xr_ea(H) + k - H)
-         : m == M_MID2  ? xr_h(H, 3) + k
-         : m == M_ALPHA ? xr_h(H, 4) + k
-         : m == M_COL   ? (k < H ? xr_h(H, 4) + k : xr_eb(H) + k - H)
-                        : xr_c(H) + k;
-}
-
-// ---- the shared-memory plan of a tile (bytes from the dynamic base):
-// the weights (RES: all seven matrices' NF pieces; else two slabs, the
-// larger of a forward slab [NF][H][KF + 8] and an input-gradient slab
-// [NB][KB][up16(H + 87) + 8]), the embedding region [NF][96][P + 8] and
-// the activation buffer [NF][H][P + 8] (bf16), then f32 rows of P: K2 xs
-// [3], the heads' outputs [4]; K3 xs [3], proj, dproj [21], the heads [4],
-// the rest row, and h1..h4's ReLU masks as bits [4][H][ceil(P / 64)][2]
-// (u32: the even points' bits, then the odd ones')
-template <int H, bool BWD>
-struct Plan {
-  using T = FTile<H, BWD>;
-  static constexpr int P = T::P, LDB = P + 8, NF = T::NF;
-  static constexpr size_t slab =
-      (size_t)2 *
-      (T::RES ? 0
-              : ((size_t)NF * H * (T::KF + 8) >
-                         (size_t)NB * T::KB * (up16(H + EMB1) + 8)
-                     ? (size_t)NF * H * (T::KF + 8)
-                     : (size_t)NB * T::KB * (up16(H + EMB1) + 8)));
-  static constexpr size_t w = T::RES ? a16(2 * (size_t)res_off(H, NMAT, NF))
-                                     : 2 * slab;
-  static constexpr size_t emb = w;
-  static constexpr size_t act = emb + a16((size_t)NF * EROWS * LDB * 2);
-  static constexpr size_t f32 = act + a16((size_t)NF * H * LDB * 2);
-  static constexpr int F32_ROWS = BWD ? 3 + 2 * NDIR + 4 : 7;
-  static constexpr size_t rest = f32 + a16((size_t)4 * F32_ROWS * P);
-  static constexpr int NSEG = (P + 63) / 64;
-  static constexpr size_t mask =
-      rest + (BWD ? a16((size_t)4 * rest_floats(H)) : 0);
-  static constexpr size_t bytes =
-      mask + (BWD ? (size_t)4 * 4 * H * NSEG * 2 : 0);
-};
-
-// f32 band-gradient rows in K3's embedding region: [84][LDF]
-template <int P>
-__host__ __device__ constexpr int band_ld() { return P + 4; }
-
-// ---- K3's weight-gradient kernel: 256 threads, output tiles of TI rows
-// (32 at h=32, else 128) x 128 columns, 32 points a step, 4 stages
-constexpr int WG_NT = 256, WG_TK = 128, WG_KP = 32, WG_ST = 4,
-              WG_LD = WG_KP + 8;
-__host__ __device__ constexpr int wg_ti(int H) { return H == 32 ? 32 : 128; }
-__host__ __device__ constexpr int wg_tiles(int H, int m) {
-  return (mat_rows(H, m) + wg_ti(H) - 1) / wg_ti(H) *
-         ((mat_cols(H, m) + WG_TK - 1) / WG_TK);
-}
-__host__ __device__ constexpr int wg_tiles(int H) {
-  int s = 0;
-  for (int m = 0; m < NMAT; ++m) s += wg_tiles(H, m);
-  return s;
-}
-// the ring [WG_ST][NB][TI + TK][WG_LD] bf16, then the panels' row
-// pointers [TI + TK]
-__host__ __device__ constexpr size_t wg_smem(int H) {
-  return (size_t)WG_ST * NB * (wg_ti(H) + WG_TK) * WG_LD * 2 +
-         (size_t)8 * (wg_ti(H) + WG_TK);
-}
 
 // ---- helpers
 
@@ -640,7 +462,7 @@ __device__ void zero_emb_pad(bf16* emb) {
   }
 }
 
-template <int H, bool LADDER>
+template <int H>
 __global__ void __launch_bounds__(FTile<H, false>::NT, FTile<H, false>::MINB)
 field_fwd_kernel(const float* __restrict__ params, int n_params, Prep off,
                  const bf16* __restrict__ ws,       // [O, WP, NS]
@@ -674,8 +496,8 @@ field_fwd_kernel(const float* __restrict__ params, int n_params, Prep off,
       if (o != cur) stage_resident<H, NT, NF>(wr, wo, NS);
       cur = o;
     }
-    pe_trunk<NT, P, NF, LADDER>(pts + (size_t)o * M * 3, scale[o], W + off.dirs,
-                            M, p0, xs, nullptr, emb);
+    pe_trunk<NT, P, NF, true>(pts + (size_t)o * M * 3, scale[o], W + off.dirs,
+                              M, p0, xs, nullptr, emb);
     auto hidden = [&](const float* b) {
       return [=](int i, int p, float v0, float v1) {
         const float bb = b[i];
@@ -701,7 +523,7 @@ field_fwd_kernel(const float* __restrict__ params, int n_params, Prep off,
     fwd_prod<H, T, 1, WN, 1>(wo, NS, wr, M_ALPHA, act, H, PSH, nullptr, 0,
                              slab0, slab1, head(W + off.b_alpha, out4));
     // emb_a's last reader (M_CAT) has passed its barriers
-    pe_head<NT, P, NF, LADDER>(xs, nullptr, W + off.dirs, emb);
+    pe_head<NT, P, NF, true>(xs, nullptr, W + off.dirs, emb);
     fwd_prod<H, T, WM, WN, MU>(wo, NS, wr, M_COL, act, H, PSH, emb, PSE,
                                slab0, slab1, hidden(W + off.b_col));
     fwd_prod<H, T, 1, WN, 1>(wo, NS, wr, M_OUT, act, H, PSH, nullptr, 0,
@@ -801,8 +623,6 @@ field_bwd_kernel(const float* __restrict__ params, int n_params, Prep off,
   constexpr int RP = rest_floats(H), SR = scratch_rows(H), NF = T::NF;
   constexpr int WM = T::FWM, WN = T::FWN, MU = T::FMU;
   constexpr int DM = T::DWM, DN = T::DWN, DU = T::DMU;
-  static_assert(4 * 4 * NDIR * band_ld<P>() <= 2 * NF * EROWS * (P + 8),
-                "the band gradients fit the embedding region");
   const int o = blockIdx.y, b = blockIdx.x, nb = gridDim.x;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* wr = reinterpret_cast<bf16*>(smem);
@@ -1029,7 +849,7 @@ field_bwd_kernel(const float* __restrict__ params, int n_params, Prep off,
 // the staged layout. Warps: TI = 128 a 2 x 4 grid of 64 x 32 warp tiles,
 // TI = 32 a 1 x 8 grid of 32 x 16.
 template <int H>
-__global__ void __launch_bounds__(WG_NT, 1)
+__global__ void __launch_bounds__(WG_NT, wg_minb(H))
 field_wgrad_kernel(const bf16* __restrict__ scr, int Mp, int unit,
                    int n_splits, float* __restrict__ part) {
   constexpr int TI = wg_ti(H), TK = WG_TK, NTL = wg_tiles(H);
@@ -1200,22 +1020,28 @@ cudaError_t set_smem(K kernel, size_t smem) {
   return err;
 }
 
-template <int H, bool LADDER>
+// the SM count of the current device
+int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)err;
+}
+
+template <int H>
 int launch_fwd(const float* params, int n_params, const Prep& off,
                const bf16* ws, const float* scale, const float* pts, int O,
-               int M, int blocks, float* alpha, float* color,
+               int M, int sms, float* alpha, float* color,
                cudaStream_t stream) {
   using T = FTile<H, false>;
   constexpr size_t smem = Plan<H, false>::bytes;
-  static_assert(smem <= SMEM_MAX, "field_fwd's plan exceeds shared memory");
   const int n_tiles = (M + T::P - 1) / T::P;
-  if (blocks < 1 || (long long)blocks > (long long)O * n_tiles)
-    return (int)cudaErrorInvalidValue;
-  auto kernel = field_fwd_kernel<H, LADDER>;
+  auto kernel = field_fwd_kernel<H>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, T::NT, smem, stream>>>(params, n_params, off, ws, scale,
-                                          pts, M, O, n_tiles, alpha, color);
+  kernel<<<fwd_blocks<H>(sms, O, M), T::NT, smem, stream>>>(
+      params, n_params, off, ws, scale, pts, M, O, n_tiles, alpha, color);
   return (int)cudaGetLastError();
 }
 
@@ -1223,47 +1049,44 @@ template <int H>
 int launch_bwd(const float* params, int n_params, const Prep& off,
                const bf16* ws, const float* scale, const float* pts,
                const float* g_alpha, const float* g_color, int O, int M,
-               int Mp, int blocks, bf16* scr, float* rest_part,
+               int tile_m, int sms, bf16* scr, float* rest_part,
                cudaStream_t stream) {
   using T = FTile<H, true>;
   constexpr size_t smem = Plan<H, true>::bytes;
-  static_assert(smem <= SMEM_MAX, "field_bwd's plan exceeds shared memory");
   // the tiles cover the scratch's Mp points (those past M with zero
   // cotangents), so the weight gradients read no unwritten row
-  const int n_tiles = Mp / T::P;
-  if (blocks < 1 || blocks > n_tiles || Mp < M || Mp % T::P || Mp % WG_KP)
-    return (int)cudaErrorInvalidValue;
+  const BwdGrid g = bwd_grid<H>(sms, O, M, tile_m);
   auto kernel = field_bwd_kernel<H>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  field_bwd_kernel<H><<<dim3(blocks, O), T::NT, smem, stream>>>(
-      params, n_params, off, ws, scale, pts, g_alpha, g_color, M, n_tiles,
-      scr, Mp, rest_part);
+  kernel<<<dim3(g.per_obj, O), T::NT, smem, stream>>>(
+      params, n_params, off, ws, scale, pts, g_alpha, g_color, M,
+      g.Mp / T::P, scr, g.Mp, rest_part);
   return (int)cudaGetLastError();
 }
 
 template <int H>
-int launch_wgrad(const bf16* scr, int O, int Mp, int unit, int n_splits,
+int launch_wgrad(const bf16* scr, int O, int M, int tile_m, int sms,
                  float* part, cudaStream_t stream) {
   constexpr size_t smem = wg_smem(H);
-  static_assert(smem <= SMEM_MAX, "field_wgrad's ring exceeds shared memory");
-  if (unit < WG_KP || unit % WG_KP || Mp % WG_KP || n_splits < 1 ||
-      n_splits > (Mp + unit - 1) / unit)
-    return (int)cudaErrorInvalidValue;
+  const BwdGrid g = bwd_grid<H>(sms, O, M, tile_m);
   auto kernel = field_wgrad_kernel<H>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(wg_tiles(H) * n_splits, O), WG_NT, smem, stream>>>(
-      scr, Mp, unit, n_splits, part);
+  kernel<<<dim3(wg_tiles(H) * g.splits, O), WG_NT, smem, stream>>>(
+      scr, g.Mp, g.unit, g.splits, part);
   return (int)cudaGetLastError();
 }
+
+static_assert(PLAN_INVALID == (int)cudaErrorInvalidValue,
+              "field_plan.cuh's refusal is cudaErrorInvalidValue");
 
 }  // namespace
 
 extern "C" {
 
-// The bf16 pieces ws [O, 3, staged_size(hidden)] (train_step.cuh's staged
-// layout; plane i piece i of mma.cuh split) of the packed prepared rows
+// The bf16 pieces ws [O, 3, staged_size(hidden)] (the staged layout of
+// common.cuh; plane i piece i of mma.cuh split) of the packed prepared rows
 // params [O, n_params] (offsets[17] into a row), which field_fwd and
 // field_bwd read. Returns a cudaError_t code (0 on success).
 int vmap_field_stage(int hidden, const float* params, const int* offsets,
@@ -1278,45 +1101,59 @@ int vmap_field_stage(int hidden, const float* params, const int* offsets,
   return (int)cudaGetLastError();
 }
 
+// The plan of a launch on O objects x M points with K3's weight gradients
+// summed in units of tile_m points, on the current device's SMs, into
+// out[PL_N] (field_plan.cuh PlanField): the grids the entries below
+// launch and the sizes of the buffers they write. Returns a cudaError_t
+// code (0 on success).
+int vmap_field_plan(int hidden, int O, int M, int tile_m, int* out) {
+  int sms = 0;
+  const int err = sm_count(&sms);
+  return err ? err : field_plan(hidden, sms, O, M, tile_m, out);
+}
+
 // K2: alpha [O, M] (x10 applied) and colour [O, M, 3] (sigmoid applied) of
-// every object's field at its points pts [O, M, 3], on `blocks` blocks
-// (1 ..  O ceil(M / P)); params [O, n_params] packed prepared rows (the
-// biases and dirs read), ws their pieces (vmap_field_stage), scale [O];
-// pe_ladder: the bands by the double-angle ladder, else sinpif each.
-// Returns a cudaError_t code (0 on success).
-int vmap_field_fwd(int hidden, int pe_ladder, const float* params,
-                   const int* offsets, int n_params, const void* ws,
-                   const float* scale, const float* pts, int O, int M,
-                   int blocks, float* alpha, float* color, void* stream) {
-  if (bad_shape(hidden, offsets, n_params, O, M))
+// every object's field at its points pts [O, M, 3], on the plan's blocks;
+// params [O, n_params] packed prepared rows (the biases and dirs read), ws
+// their pieces (vmap_field_stage), scale [O]. Returns a cudaError_t code
+// (0 on success).
+int vmap_field_fwd(int hidden, const float* params, const int* offsets,
+                   int n_params, const void* ws, const float* scale,
+                   const float* pts, int O, int M, float* alpha,
+                   float* color, void* stream) {
+  int sms = 0;
+  if (const int err = sm_count(&sms)) return err;
+  // (K2 sums no weight gradients: any valid tile_m)
+  if (bad_shape(hidden, offsets, n_params, O, M) ||
+      !plan_args_ok(sms, O, M, WG_KP))
     return (int)cudaErrorInvalidValue;
   const Prep off = make_prep(offsets);
   const bf16* w = static_cast<const bf16*>(ws);
   cudaStream_t st = (cudaStream_t)stream;
-#define VMAP_FWD(HH, LL)                                                   \
-  launch_fwd<HH, LL>(params, n_params, off, w, scale, pts, O, M, blocks,    \
-                     alpha, color, st)
-  if (hidden == 32) return pe_ladder ? VMAP_FWD(32, true) : VMAP_FWD(32, false);
-  if (hidden == 128)
-    return pe_ladder ? VMAP_FWD(128, true) : VMAP_FWD(128, false);
-  if (hidden == 256)
-    return pe_ladder ? VMAP_FWD(256, true) : VMAP_FWD(256, false);
+#define VMAP_FWD(HH)                                                      \
+  launch_fwd<HH>(params, n_params, off, w, scale, pts, O, M, sms, alpha, \
+                 color, st)
+  if (hidden == 32) return VMAP_FWD(32);
+  if (hidden == 128) return VMAP_FWD(128);
+  if (hidden == 256) return VMAP_FWD(256);
 #undef VMAP_FWD
   return (int)cudaErrorInvalidValue;
 }
 
-// K3, first kernel: the forward and input gradients of every object's
-// Mp points (Mp >= M, a multiple of 64 and of the tile's P; blocks per
-// object 1 .. Mp / P), writing the activations and pre-activation
-// gradients as two pieces to scratch [O, 2, vmap_field_layout(hidden, 2), Mp]
-// and each block's bias and dirs gradients to rest_part [O, blocks,
-// vmap_field_layout(hidden, 3)].
+// K3, first kernel: the forward and input gradients of every object's Mp
+// points (the plan's), writing the activations and pre-activation
+// gradients as two pieces to scratch [O, 2, scratch rows, Mp] and each
+// block's bias and dirs gradients to rest_part [O, blocks an object, rest
+// floats] (the plan's sizes for the same O, M, tile_m).
 int vmap_field_bwd(int hidden, const float* params, const int* offsets,
                    int n_params, const void* ws, const float* scale,
                    const float* pts, const float* g_alpha,
-                   const float* g_color, int O, int M, int Mp, int blocks,
+                   const float* g_color, int O, int M, int tile_m,
                    void* scratch, float* rest_part, void* stream) {
-  if (bad_shape(hidden, offsets, n_params, O, M))
+  int sms = 0;
+  if (const int err = sm_count(&sms)) return err;
+  if (bad_shape(hidden, offsets, n_params, O, M) ||
+      !plan_args_ok(sms, O, M, tile_m))
     return (int)cudaErrorInvalidValue;
   const Prep off = make_prep(offsets);
   const bf16* w = static_cast<const bf16*>(ws);
@@ -1324,7 +1161,7 @@ int vmap_field_bwd(int hidden, const float* params, const int* offsets,
   cudaStream_t st = (cudaStream_t)stream;
 #define VMAP_BWD(HH)                                                         \
   launch_bwd<HH>(params, n_params, off, w, scale, pts, g_alpha, g_color, O,  \
-                 M, Mp, blocks, scr, rest_part, st)
+                 M, tile_m, sms, scr, rest_part, st)
   if (hidden == 32) return VMAP_BWD(32);
   if (hidden == 128) return VMAP_BWD(128);
   if (hidden == 256) return VMAP_BWD(256);
@@ -1333,48 +1170,22 @@ int vmap_field_bwd(int hidden, const float* params, const int* offsets,
 }
 
 // K3, second kernel: every weight's gradient from the scratch, split over
-// n_splits runs of whole units of `unit` points (a multiple of 32: the
-// wrapper's tile_m, halved while the splits do not fill the card), into
-// part [O, n_splits, staged_size(hidden)] (the staged layout, padding 0).
-int vmap_field_wgrad(int hidden, const void* scratch, int O, int Mp,
-                     int unit, int n_splits, float* part, void* stream) {
+// the plan's runs of whole units of points, into part [O, splits,
+// staged_size(hidden)] (the staged layout, padding 0).
+int vmap_field_wgrad(int hidden, const void* scratch, int O, int M,
+                     int tile_m, float* part, void* stream) {
+  int sms = 0;
+  if (const int err = sm_count(&sms)) return err;
+  if (!plan_args_ok(sms, O, M, tile_m)) return (int)cudaErrorInvalidValue;
   const bf16* scr = static_cast<const bf16*>(scratch);
   cudaStream_t st = (cudaStream_t)stream;
-  if (O < 1 || O > 65535) return (int)cudaErrorInvalidValue;
   if (hidden == 32)
-    return launch_wgrad<32>(scr, O, Mp, unit, n_splits, part, st);
+    return launch_wgrad<32>(scr, O, M, tile_m, sms, part, st);
   if (hidden == 128)
-    return launch_wgrad<128>(scr, O, Mp, unit, n_splits, part, st);
+    return launch_wgrad<128>(scr, O, M, tile_m, sms, part, st);
   if (hidden == 256)
-    return launch_wgrad<256>(scr, O, Mp, unit, n_splits, part, st);
+    return launch_wgrad<256>(scr, O, M, tile_m, sms, part, st);
   return (int)cudaErrorInvalidValue;
-}
-
-// The field kernels' layout at a kernel width (0 for any other), which
-// kernels/ensemble.py states and chip_smoke.py holds it to: what 0 the
-// staged elements a piece, 1 the weight-gradient tiles an object, 2 the
-// scratch rows, 3 the rest row's floats, 4 / 5 the points a tile of
-// field_fwd / field_bwd, 6 / 7 / 8 the dynamic shared memory of field_fwd
-// / field_bwd / field_wgrad.
-int vmap_field_layout(int hidden, int what) {
-#define VMAP_LAYOUT(HH)                                              \
-  switch (what) {                                                    \
-    case 0: return staged_size(HH);                                  \
-    case 1: return wg_tiles(HH);                                     \
-    case 2: return scratch_rows(HH);                                 \
-    case 3: return rest_floats(HH);                                  \
-    case 4: return FTile<HH, false>::P;                              \
-    case 5: return FTile<HH, true>::P;                               \
-    case 6: return (int)Plan<HH, false>::bytes;                      \
-    case 7: return (int)Plan<HH, true>::bytes;                       \
-    case 8: return (int)wg_smem(HH);                                 \
-    default: return 0;                                               \
-  }
-  if (hidden == 32) VMAP_LAYOUT(32)
-  if (hidden == 128) VMAP_LAYOUT(128)
-  if (hidden == 256) VMAP_LAYOUT(256)
-#undef VMAP_LAYOUT
-  return 0;
 }
 
 }  // extern "C"

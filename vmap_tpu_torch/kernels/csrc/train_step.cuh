@@ -103,30 +103,6 @@ __device__ void bgrad_round(float* __restrict__ G, float* dout, int n, int P,
   __syncthreads();
 }
 
-// ---- the staged product weights (kernels/train_step.py staged_layout):
-// the seven weight matrices [n_out][n_in] in this order, each as bf16
-// [up16(n_out)][up16(n_in)] row-major with zero padding; a slot holds
-// STAGED_PIECES planes of staged_size(H) elements: bf16 pieces p0 = bf16(w),
-// p1 = bf16(w - p0), p2 = bf16(w - p0 - p1) (mma.cuh split)
-enum WMat : int { M_IN, M_MID1, M_CAT, M_MID2, M_ALPHA, M_COL, M_OUT, NMAT };
-
-__host__ __device__ constexpr int up16(int x) { return (x + 15) / 16 * 16; }
-__host__ __device__ constexpr int mat_out(int H, int m) {
-  return m == M_ALPHA ? 1 : m == M_OUT ? 3 : H;
-}
-__host__ __device__ constexpr int mat_in(int H, int m) {
-  return m == M_IN ? EMB1 : m == M_CAT ? H + EMB1 : m == M_COL ? H + EMB2 : H;
-}
-__host__ __device__ constexpr int mat_off(int H, int m) {
-  int s = 0;
-  for (int i = 0; i < m; ++i) s += up16(mat_out(H, i)) * up16(mat_in(H, i));
-  return s;
-}
-__host__ __device__ constexpr int staged_size(int H) {
-  return mat_off(H, NMAT);
-}
-constexpr int STAGED_PIECES = 3;
-
 // A partial-gradient row (every policy): the product weights' gradients
 // in the staged layout (the 16-byte writes of wgrad_mma / wgrad_s8), then
 // the other parameters, the dirs and biases, which lead the parameter
@@ -213,8 +189,6 @@ __host__ __device__ constexpr size_t slab_bytes() {
   constexpr size_t bwd = 2 * NB * (size_t)Tile<H>::KB * (up16(H + EMB1) + 8);
   return fwd > bwd ? fwd : bwd;
 }
-
-constexpr size_t SMEM_MAX = 232448;   // the most a block may use
 
 // cp.async copy of rows [r0, r0 + nr) x columns [c0, c0 + nc) of a staged
 // matrix (row length C; its planes NS apart, PL of them) to dst [PL][nr][ld]

@@ -22,12 +22,12 @@ Two versions of each function:
 The kernels' products run on bf16 tensor cores, float32 as three passes of
 two-piece operands (K3's recomputed forward six passes of three), from the
 weights' staged bf16 pieces (``stage``, ``field_stage_kernel``, reused
-while the weights do not change); their tiles and grids are
-``field_plan``'s.
+while the weights do not change); their tiles and grids are the
+library's (``csrc/field_plan.cuh``, ``field_plan``).
 
 ``LAUNCHES`` counts successful kernel launches by kernel name, and
-``field_bwd``'s also by width (``field_bwd.<hidden>``); only
-``_launch_fwd`` / ``_launch_bwd`` change it.
+``field_bwd``'s also by width (``field_bwd.<hidden>``); only ``stage``,
+``_launch_fwd`` and ``_launch_bwd`` change it.
 """
 
 from __future__ import annotations
@@ -38,15 +38,15 @@ import math
 import torch
 import torch.nn.functional as F
 
-from vmap_tpu_torch.kernels import (FIELD_POINTS, KERNEL_HIDDEN, _build,
-                                    check_width)
+from vmap_tpu_torch.kernels import KERNEL_HIDDEN, _build, check_width
 
-LAUNCHES = {"field_fwd": 0, "field_bwd": 0,
+LAUNCHES = {"field_stage": 0, "field_fwd": 0, "field_bwd": 0,
             **{f"field_bwd.{h}": 0 for h in KERNEL_HIDDEN["field_bwd"]}}
 
 EMB_PAD = 128                # emb_a (87) and emb_b (42) pad to 128 columns
 EMB1, EMB2 = 87, 42
 TILE_M = 512                 # default points per backward chunk (JAX TILE_M)
+STAGED_PIECES = 3            # the weights' bf16 pieces (field_stage_kernel)
 # the prepared tensors, in the order of the kernels' packed row
 W_NAMES = ("dirs", "w_in", "b_in", "w_mid1", "b_mid1", "w_cat_h", "w_cat_x",
            "b_cat", "w_mid2", "b_mid2", "w_alpha", "b_alpha", "w_col_h",
@@ -147,150 +147,47 @@ def field_grad_reference(prepared: dict, pts: torch.Tensor,
 
 
 # ------------------------------------------------------------ CUDA launch
-# The field kernels' layout and plan (csrc/ensemble.cu; the library's
-# vmap_field_layout states the same, and chip_smoke.py holds them equal).
-# The seven product weights in train_step.cuh's staged layout: each
-# [up16(n_out), up16(n_in)], in this order
-STAGED = ("w_in", "w_mid1", "w_cat", "w_mid2", "w_alpha", "w_col", "w_out")
-STAGED_PIECES = 3          # the weights' bf16 pieces (field_stage_kernel)
-# the pieces of each kernel's forward operands (K2 two, three passes; K3
-# three, six passes) and of K3's input and weight gradients' (two)
-FIELD_PIECES = {"field_fwd": 2, "field_bwd": 3}
-GRAD_PIECES = 2
-SMS = 132                  # the H100 SXM's SMs, which the grids fill
-FIELD_NT = {"field_fwd": {32: 256, 128: 256, 256: 256},
-            "field_bwd": {32: 512, 128: 512, 256: 512}}
-# field_fwd's blocks an SM (its plan allows them and its grid counts on
-# them); field_bwd runs one an SM
-FWD_BLOCKS_PER_SM = {32: 2, 128: 1, 256: 1}
-# a forward slab's columns (h=32: the weights resident)
-FIELD_KF = {"field_fwd": {128: 64, 256: 32}, "field_bwd": {128: 32, 256: 16}}
-FIELD_KB = 16                       # an input-gradient slab's rows
-# field_wgrad: tile columns, points a step, ring stages; its
-# tile's rows (32 at h=32, else 128) and blocks an SM its ring allows
-WG_TK, WG_KP, WG_STAGES = 128, 32, 4
-EROWS, EBROWS = 96, 48     # the embedding region's rows; emb_b's in it
+# The field kernels' tiles, grids and buffer sizes are the library's
+# (csrc/field_plan.cuh): vmap_field_plan states them for a launch, in this
+# order (PlanField), and the launchers size their grids by the same rule
+PLAN = ("fwd_points", "fwd_threads", "fwd_smem_bytes", "fwd_blocks_per_sm",
+        "fwd_blocks", "bwd_points", "bwd_threads", "bwd_smem_bytes",
+        "bwd_blocks_per_sm", "blocks_per_object", "Mp", "wgrad_tiles",
+        "wgrad_threads", "wgrad_smem_bytes", "wgrad_blocks_per_sm", "unit",
+        "splits", "scratch_pieces", "scratch_rows", "rest_floats")
 
 
-def wg_rows(hidden: int) -> int:
-    return 32 if hidden == 32 else 128
+def field_plan(hidden: int, O: int, M: int, tile_m: int = TILE_M) -> dict:
+    """The plan of the field kernels' launches on O objects x M points on
+    the current CUDA device (PLAN's keys; ``tile_m`` sets only K3's weight
+    gradient units), with each grid's blocks: ``bwd_blocks`` and
+    ``wgrad_blocks``."""
+    lib = _build.load()
+    out = (ctypes.c_int * len(PLAN))()
+    _build.check(lib, lib.vmap_field_plan(hidden, O, M, tile_m, out),
+                 f"field plan (hidden {hidden}, {O} x {M} points, tile_m "
+                 f"{tile_m})")
+    return plan_dict(out, O)
 
 
-def wg_blocks_per_sm(hidden: int) -> int:
-    return 2 if hidden == 32 else 1
+def plan_dict(values, O: int) -> dict:
+    """vmap_field_plan's values (PLAN order) for O objects -> the plan."""
+    plan = dict(zip(PLAN, values))
+    plan["bwd_blocks"] = plan["blocks_per_object"] * O
+    plan["wgrad_blocks"] = plan["wgrad_tiles"] * plan["splits"] * O
+    return plan
+
+
+def _staged_layout(hidden: int) -> tuple[list, int]:
+    """The staged layout of the product weights, K1's
+    (``train_step.staged_layout``: [(name, n_out, n_in, offset)], elements
+    a piece), which the field kernels share."""
+    from vmap_tpu_torch.kernels.train_step import staged_layout
+    return staged_layout(hidden)
 
 
 def _up(x: int, m: int) -> int:
     return -(-x // m) * m
-
-
-def staged_dims(hidden: int) -> list:
-    """[(rows, columns)] of the staged product weights, STAGED order."""
-    h = hidden
-    n = {"w_in": (h, EMB1), "w_mid1": (h, h), "w_cat": (h, h + EMB1),
-         "w_mid2": (h, h), "w_alpha": (1, h), "w_col": (h, h + EMB2),
-         "w_out": (3, h)}
-    return [(_up(n[k][0], 16), _up(n[k][1], 16)) for k in STAGED]
-
-
-def staged_size(hidden: int) -> int:
-    return sum(r * c for r, c in staged_dims(hidden))
-
-
-def scratch_rows(hidden: int) -> int:
-    """Rows of K3's scratch an object: the activations (emb_a 96, emb_b
-    48, h1..h4, c) and the pre-activation gradients (the heads' 16 + 16,
-    dc, dh4..dh1)."""
-    return EROWS + EBROWS + 5 * hidden + 32 + 5 * hidden
-
-
-def rest_floats(hidden: int) -> int:
-    """Floats of a K3 block's rest row: rest_layout's gradients, to 4."""
-    return _up(63 + 5 * hidden + 4, 4)
-
-
-# the rest row's order: (name, floats)
-def rest_layout(hidden: int) -> list:
-    h = hidden
-    return [("dirs", 63), ("b_in", h), ("b_mid1", h), ("b_cat", h),
-            ("b_mid2", h), ("b_alpha", 1), ("b_col", h), ("b_out", 3)]
-
-
-def wgrad_tiles(hidden: int) -> int:
-    """field_wgrad's output tiles an object: wg_rows x 128 columns over
-    each staged weight."""
-    ti = wg_rows(hidden)
-    return sum(-(-r // ti) * -(-c // WG_TK) for r, c in staged_dims(hidden))
-
-
-def field_smem_bytes(kernel: str, hidden: int) -> int:
-    """Dynamic shared memory of one block (csrc/ensemble.cu Plan,
-    wg_smem): field_fwd / field_bwd the weights (h=32: every staged
-    matrix's NF pieces [rows][cols + 8], resident; else two slabs, the
-    larger of a forward slab [NF][h][KF + 8] and, for field_bwd, an
-    input-gradient slab [2][16][up16(h + 87) + 8]), the embedding region
-    [NF][96][P + 8] and the activation buffer [NF][h][P + 8] (bf16), then
-    f32 rows of P (field_fwd xs and the heads, 7; field_bwd xs, proj, dproj
-    and the heads, 49), field_bwd's rest row and its four ReLU masks as
-    bits (u32 [h][ceil(P / 64)][2] each); field_wgrad its 4-stage ring of
-    [2][wg_rows + 128][40] bf16 panels and the panels' row pointers (NF:
-    FIELD_PIECES)."""
-    def a16(b: int) -> int:
-        return _up(b, 16)
-
-    h = hidden
-    if kernel == "field_wgrad":
-        rows = wg_rows(h) + WG_TK
-        return WG_STAGES * 2 * rows * (WG_KP + 8) * 2 + 8 * rows
-    bwd = kernel == "field_bwd"
-    pts, nf = FIELD_POINTS[kernel][h], FIELD_PIECES[kernel]
-    if h == 32:
-        w = a16(2 * sum(nf * r * (c + 8) for r, c in staged_dims(h)))
-    else:
-        slab = max(nf * h * (FIELD_KF[kernel][h] + 8),
-                   GRAD_PIECES * FIELD_KB * (_up(h + EMB1, 16) + 8)
-                   if bwd else 0)
-        w = 2 * (2 * slab)
-    ldb = pts + 8
-    act = a16(nf * EROWS * ldb * 2) + a16(nf * h * ldb * 2)
-    f32 = a16(4 * (49 if bwd else 7) * pts)
-    if not bwd:
-        return w + act + f32
-    masks = 4 * 4 * h * -(-pts // 64) * 2
-    return w + act + f32 + a16(4 * rest_floats(h)) + masks
-
-
-def field_plan(kernel: str, hidden: int, O: int, M: int,
-               tile_m: int = 512) -> dict:
-    """The grid of a launch on O objects x M points, from the kernels'
-    split rules. field_fwd: a 1-D grid of min(SMS x FWD_BLOCKS_PER_SM, O
-    ceil(M / P)) blocks, each a contiguous run of the (object, tile)
-    pairs. field_bwd: Mp = M to a multiple of the tile and of 128
-    (field_wgrad's step, 32), blocks per object min(Mp / P, max(1, SMS //
-    O)) (one block an SM, one wave). field_wgrad: wgrad_tiles(h) tiles an
-    object times S splits, each a run of whole units of ``unit`` points:
-    tile_m, halved (to multiples of 32) while ceil(Mp / unit) units a tile
-    would not fill the card's blocks (SMS x wg_blocks_per_sm), and S the
-    most splits that fit one wave, at least 1 and at most the units."""
-    pts = FIELD_POINTS[kernel][hidden]
-    plan = {"points": pts, "threads": FIELD_NT[kernel][hidden],
-            "smem_bytes": field_smem_bytes(kernel, hidden)}
-    if kernel == "field_fwd":
-        return {**plan, "blocks": min(SMS * FWD_BLOCKS_PER_SM[hidden],
-                                      O * -(-M // pts))}
-    mp = _up(M, math.lcm(pts, 128))
-    per_obj = min(mp // pts, max(1, SMS // O))
-    tiles = wgrad_tiles(hidden)
-    target = SMS * wg_blocks_per_sm(hidden)
-    unit = tile_m
-    while (-(-mp // unit) * tiles * O < target and unit // 2 >= WG_KP
-           and (unit // 2) % WG_KP == 0):
-        unit //= 2
-    splits = max(1, min(-(-mp // unit), target // (tiles * O)))
-    return {**plan, "Mp": mp, "blocks_per_object": per_obj,
-            "blocks": per_obj * O, "wgrad_tiles": tiles, "unit": unit,
-            "splits": splits, "wgrad_blocks": tiles * splits * O,
-            "wgrad_smem_bytes": field_smem_bytes("field_wgrad", hidden)}
 
 
 def staged_pieces_reference(prepared: dict, hidden: int) -> torch.Tensor:
@@ -303,19 +200,18 @@ def staged_pieces_reference(prepared: dict, hidden: int) -> torch.Tensor:
             "w_cat": torch.cat([p["w_cat_h"], p["w_cat_x"][..., :EMB1]], -1),
             "w_mid2": p["w_mid2"], "w_alpha": p["w_alpha"],
             "w_col": torch.cat([p["w_col_h"], p["w_col_x"][..., :EMB2]], -1),
-            "w_out": p["w_out"]}
+            "w_col_out": p["w_out"]}
+    layout, size = _staged_layout(hidden)
     O = p["dirs"].shape[0]
-    out = torch.zeros((O, STAGED_PIECES, staged_size(hidden)),
-                      dtype=torch.bfloat16, device=p["dirs"].device)
-    off = 0
-    for name, (r, c) in zip(STAGED, staged_dims(hidden)):
+    out = torch.zeros((O, STAGED_PIECES, size), dtype=torch.bfloat16,
+                      device=p["dirs"].device)
+    for name, n_out, n_in, off in layout:
+        r, c = _up(n_out, 16), _up(n_in, 16)
         w = mats[name]
         for pc in range(STAGED_PIECES):
             t = w.bfloat16()
-            out[:, pc, off:off + r * c].view(O, r, c)[
-                :, :w.shape[1], :w.shape[2]] = t
+            out[:, pc, off:off + r * c].view(O, r, c)[:, :n_out, :n_in] = t
             w = w - t.float()
-        off += r * c
     return out
 
 
@@ -344,13 +240,15 @@ def _packed(prepared: dict, hidden: int) -> torch.Tensor:
 
 # The packed rows and bf16 pieces of the last weights staged: meshing
 # queries one bank's prepared weights some 256 times a grid, and
-# FieldTrain's backward the forward's. The entry holds the prepared
-# tensors themselves, so no other tensor can take their place, and their
-# version counters (shared with every view of their storage): a new
-# tensor, or an in-place change through torch, misses. A write torch does
-# not see (a kernel through a raw pointer) would not; no code of the port
-# writes so to a prepared tensor (prepare_params pads and splits the
-# weights into tensors of its own at every call).
+# FieldTrain's backward the forward's. The key holds the prepared tensors
+# themselves and their version counters: a change through torch (in place,
+# or a new tensor) misses. A write torch does not see would not: K1's
+# train_adamw writes the bank through a raw pointer, and dirs, w_mid1,
+# w_cat_h, w_mid2, w_alpha, w_col_h, w_out and every bias of a stacked
+# bank's prepare_params are views of the bank's own tensors. What rules a
+# stale hit out is that prepare_params pads w_in, w_cat_x and w_col_x into
+# new tensors at every call (tests/test_torch_field_design.py holds that
+# two calls on one bank never share a key): the key must keep one of them.
 _STAGED: dict = {}
 
 
@@ -377,13 +275,14 @@ def stage(prepared: dict, hidden: int, lib, offsets) -> tuple:
         return _STAGED["value"]
     params = _packed(prepared, hidden)
     O = params.shape[0]
-    ws = torch.empty((O, STAGED_PIECES, staged_size(hidden)),
+    ws = torch.empty((O, STAGED_PIECES, _staged_layout(hidden)[1]),
                      dtype=torch.bfloat16, device=params.device)
     code = lib.vmap_field_stage(
         hidden, _ptr(params), ctypes.cast(offsets, ctypes.c_void_p),
         params.shape[1], O, _ptr(ws),
         ctypes.c_void_p(torch.cuda.current_stream(params.device).cuda_stream))
     _build.check(lib, code, "field_stage kernel launch")
+    LAUNCHES["field_stage"] += 1
     _STAGED.clear()
     if key is not None:
         _STAGED.update(key=key, value=(params, ws))
@@ -427,41 +326,38 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-# the PE's bands in K2: the double-angle ladder from sincospif (s' = 2 s
-# c, c' = 1 - 2 s^2), or sinpif each. The ladder holds phase 6's tiers and
-# runs faster at every width (chip_smoke.py phase 6 times both in one
-# call; PERF.md §6 PR 11). K3's forward keeps sinpif: its ReLU masks want
-# the most accurate embedding.
-PE_LADDER = True
-
-
-def _launch_fwd(prepared: dict, pts: torch.Tensor, ladder: bool | None = None):
-    """K2 on CUDA tensors -> (alpha [O, M], colour [O, M, 3]); ``ladder``
-    the PE's route (None: PE_LADDER)."""
+def _launch_fwd(prepared: dict, pts: torch.Tensor):
+    """K2 on CUDA tensors -> (alpha [O, M], colour [O, M, 3])."""
     L = _Launch(prepared, pts, "field_fwd")
     alpha = torch.empty((L.O, L.M), dtype=torch.float32, device=L.dev)
     color = torch.empty((L.O, L.M, 3), dtype=torch.float32, device=L.dev)
-    plan = field_plan("field_fwd", L.h, L.O, L.M)
     code = L.lib.vmap_field_fwd(
-        L.h, int(PE_LADDER if ladder is None else ladder), _ptr(L.params),
-        ctypes.cast(L.offsets, ctypes.c_void_p), L.n_params, _ptr(L.ws),
-        _ptr(L.scale), _ptr(L.pts), L.O, L.M, plan["blocks"], _ptr(alpha),
-        _ptr(color), L.stream())
+        L.h, _ptr(L.params), ctypes.cast(L.offsets, ctypes.c_void_p),
+        L.n_params, _ptr(L.ws), _ptr(L.scale), _ptr(L.pts), L.O, L.M,
+        _ptr(alpha), _ptr(color), L.stream())
     _build.check(L.lib, code, "field_fwd kernel launch")
     LAUNCHES["field_fwd"] += 1
     return alpha, color
 
 
+def rest_layout(hidden: int) -> list:
+    """[(name, floats)] of K3's rest row (csrc/field_plan.cuh r_*): the
+    prepared tensors that are not product weights, in W_NAMES order."""
+    shapes = prepared_shapes(hidden)
+    return [(n, math.prod(shapes[n])) for n in W_NAMES
+            if not n.startswith("w_")]
+
+
 def unstage_grads(wgrad: torch.Tensor, rest: torch.Tensor,
                   hidden: int) -> dict:
     """K3's summed gradients -> {name: grad} in the prepared shapes:
-    ``wgrad`` [O, staged_size] (the staged layout), ``rest`` [O,
-    rest_floats] (rest_layout); the padded columns' gradients 0."""
+    ``wgrad`` [O, staged_size] (the staged layout), ``rest`` [O, rest
+    floats] (rest_layout, then padding); the padded columns' gradients 0."""
     h, O = hidden, wgrad.shape[0]
-    blocks, off = {}, 0
-    for name, (r, c) in zip(STAGED, staged_dims(h)):
+    blocks = {}
+    for name, n_out, n_in, off in _staged_layout(h)[0]:
+        r, c = _up(n_out, 16), _up(n_in, 16)
         blocks[name] = wgrad[:, off:off + r * c].view(O, r, c)
-        off += r * c
 
     def padded(g, used):
         return F.pad(g, (0, EMB_PAD - used))
@@ -474,7 +370,7 @@ def unstage_grads(wgrad: torch.Tensor, rest: torch.Tensor,
            "w_alpha": blocks["w_alpha"][:, :1, :h],
            "w_col_h": blocks["w_col"][:, :h, :h],
            "w_col_x": padded(blocks["w_col"][:, :h, h:h + EMB2], EMB2),
-           "w_out": blocks["w_out"][:, :3, :h]}
+           "w_out": blocks["w_col_out"][:, :3, :h]}
     shapes = prepared_shapes(h)
     off = 0
     for name, n in rest_layout(h):
@@ -485,15 +381,12 @@ def unstage_grads(wgrad: torch.Tensor, rest: torch.Tensor,
 
 class _BwdLaunch:
     """K3's operands on CUDA tensors: the validated launch, the cotangents,
-    field_plan's grid and the buffers (the scratch, the blocks' rest rows,
-    the splits' partial rows); ``bwd()`` and ``wgrad()`` launch its two
+    the plan and the buffers (the scratch, the blocks' rest rows, the
+    splits' partial rows); ``bwd()`` and ``wgrad()`` launch its two
     kernels (chip_smoke.py times each alone)."""
 
     def __init__(self, prepared: dict, pts: torch.Tensor,
                  g_alpha: torch.Tensor, g_color: torch.Tensor, tile_m: int):
-        if tile_m < WG_KP or tile_m % WG_KP:
-            raise ValueError(f"tile_m {tile_m}: the field backward takes a "
-                             f"multiple of {WG_KP} points")
         self.L = L = _Launch(prepared, pts, "field_bwd")
         self.ga = g_alpha.detach().float().contiguous()
         self.gc = g_color.detach().float().contiguous()
@@ -503,34 +396,34 @@ class _BwdLaunch:
             raise ValueError("cotangents must be [O, M] and [O, M, 3] on "
                              f"{L.dev}")
         self.tile_m = tile_m
-        self.plan = plan = field_plan("field_bwd", L.h, L.O, L.M, tile_m)
+        self.plan = plan = field_plan(L.h, L.O, L.M, tile_m)
         self.scratch = torch.empty(
-            (L.O, GRAD_PIECES, scratch_rows(L.h), plan["Mp"]),
+            (L.O, plan["scratch_pieces"], plan["scratch_rows"], plan["Mp"]),
             dtype=torch.bfloat16, device=L.dev)
         self.rest = torch.empty(
-            (L.O, plan["blocks_per_object"], rest_floats(L.h)),
+            (L.O, plan["blocks_per_object"], plan["rest_floats"]),
             dtype=torch.float32, device=L.dev)
-        self.part = torch.empty((L.O, plan["splits"], staged_size(L.h)),
-                                dtype=torch.float32, device=L.dev)
+        self.part = torch.empty(
+            (L.O, plan["splits"], _staged_layout(L.h)[1]),
+            dtype=torch.float32, device=L.dev)
 
     def bwd(self) -> None:
         """field_bwd_kernel: the forward, the input gradients, the scratch
         and the blocks' rest rows."""
-        L, plan = self.L, self.plan
+        L = self.L
         code = L.lib.vmap_field_bwd(
             L.h, _ptr(L.params), ctypes.cast(L.offsets, ctypes.c_void_p),
             L.n_params, _ptr(L.ws), _ptr(L.scale), _ptr(L.pts),
-            _ptr(self.ga), _ptr(self.gc), L.O, L.M, plan["Mp"],
-            plan["blocks_per_object"], _ptr(self.scratch), _ptr(self.rest),
-            L.stream())
+            _ptr(self.ga), _ptr(self.gc), L.O, L.M, self.tile_m,
+            _ptr(self.scratch), _ptr(self.rest), L.stream())
         _build.check(L.lib, code, "field_bwd kernel launch")
 
     def wgrad(self) -> None:
         """field_wgrad_kernel: the weight gradients from the scratch."""
-        L, plan = self.L, self.plan
+        L = self.L
         code = L.lib.vmap_field_wgrad(
-            L.h, _ptr(self.scratch), L.O, plan["Mp"], plan["unit"],
-            plan["splits"], _ptr(self.part), L.stream())
+            L.h, _ptr(self.scratch), L.O, L.M, self.tile_m, _ptr(self.part),
+            L.stream())
         _build.check(L.lib, code,
                      f"field_wgrad kernel launch (tile_m {self.tile_m})")
 
@@ -540,7 +433,7 @@ def _launch_bwd(prepared: dict, pts: torch.Tensor, g_alpha: torch.Tensor,
     """K3 on CUDA tensors -> {name: grad} for W_NAMES: field_bwd_kernel,
     then field_wgrad_kernel (the weight gradients over splits of whole
     units of ``tile_m`` points, or of its halves where the splits would not
-    fill the card; tile_m a multiple of WG_KP); the splits and the blocks'
+    fill the card; tile_m a multiple of 32); the splits and the blocks'
     rows summed here, in a fixed order."""
     k3 = _BwdLaunch(prepared, pts, g_alpha, g_color, tile_m)
     k3.bwd()
