@@ -12,7 +12,13 @@ Phases, in order (any failure raises and the script exits non-zero):
      iMAP shape (1 slot, h=256, 4800 rays x 14 samples; each float
      instance's tile points, rows per slot, scratch of partial gradient
      rows and dynamic shared memory are printed): each kernel alone (one
-     iteration's gradient, one AdamW step), then whole frames at n_iter=1
+     iteration's gradient; one AdamW step on every partial row filled with
+     seeded random values, held to apply_adamw on the plain fixed-order
+     sum ``row_sum``, two launches bit-equal, the losses equal to
+     ``loss_sum``, its update plan, bounds and read rate printed beside
+     torch.sum over the same rows; the update kernels timed launched
+     back to back behind a device-side sleep, ``time_device``), then
+     whole frames at n_iter=1
      (losses / parameters / moments within rtol 2e-3) and at n_iter=20
      (finite; final summed loss within rtol 0.25); inactive slots
      bit-identical;
@@ -86,7 +92,9 @@ Phases, in order (any failure raises and the script exits non-zero):
      5e-2 of its scale (each int8 tile's points, rows per slot, scratch and
      dynamic shared memory printed, the latter held to the library's),
      and train_quant_w's s8 weights and transposes equal to the plain
-     ones; the full-width vMAP frame under float32 with and without
+     ones (also the copy made before the first iteration), both update
+     kernels timed against their plain versions, bounds and rates; the
+     full-width vMAP frame under float32 with and without
      sample_reuse 4, each int8 policy with reuse 4, and int8 / int8_static
      without it; the iMAP frame under float32 and int8_static; then
      ``vmap_tpu_torch.train`` on room0_vmap.json under int8 for 6 frames:
@@ -204,6 +212,29 @@ def time_cuda(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def time_device(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` launches queued behind
+    a device-side sleep (probes/_timing.py HOLD_CYCLES), so that they run
+    back to back: the device's time even where a launch is shorter than
+    the host's Python wrapper (the update kernels); best of 3."""
+    import torch
+    from vmap_tpu_torch.probes._timing import HOLD_CYCLES
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        best = min(best, t0.elapsed_time(t1) / reps)
+    return best
+
+
 PE_MACS = 63    # the PE's dirs projection (21 x 3) per point, always f32
 
 
@@ -308,12 +339,33 @@ def field_bound(O: int, M: int, hidden: int, n_w: int, bwd: bool,
             "library_ms": None}
 
 
-def adamw_bound(bank) -> dict:
-    """train_adamw's bound: the active slots' parameters and moments read
-    and written, and one gradient row each read (the kernel's partial
-    rows are its own scratch, not the function's work)."""
-    n_act = int(bank.active.sum())
-    return bound(4 * n_act * bank.spec.n_params * 7)
+def adamw_bound(bank, n_rows: int, pieces: bool = True) -> dict:
+    """train_adamw's bounds. ``bound_ms``: the function's, the active
+    slots' parameters and moments read and written and one gradient row
+    each read (the kernel's partial rows are K1's scratch, not the
+    function's work). ``rows_bound_ms``: what the kernel must move while
+    K1 writes partial rows, its ``rows_bytes``: the active slots' n_rows
+    partial rows read, parameters and moments read and written, the staged
+    bf16 pieces written (``pieces``: not under int8 / int8_static) and the
+    row index read once."""
+    from vmap_tpu_torch.kernels import train_step as K
+    from vmap_tpu_torch.probes import PEAK_BYTES
+    n_act, h = int(bank.active.sum()), bank.spec.hidden
+    row = K.grad_row_size(h)
+    nbytes = (4 * n_act * (n_rows * row + 6 * bank.spec.n_params) + 4 * row
+              + (2 * K.STAGED_PIECES * n_act * K.staged_layout(h)[1]
+                 if pieces else 0))
+    return {**bound(4 * n_act * bank.spec.n_params * 7),
+            "rows_bytes": nbytes, "rows_bound_ms": nbytes / PEAK_BYTES * 1e3}
+
+
+def adamw_rate(st: dict) -> str:
+    """train_adamw's read rate over its rows_bytes, TB/s, and its times."""
+    st["tb_s"] = st["rows_bytes"] / (st["ms"] * 1e-3) / 1e12
+    return (f"train_adamw ms kernel/plain/bound/rows bound "
+            f"{st['ms']:.4f}/{st['plain_ms']:.4f}/{st['bound_ms']:.5f}/"
+            f"{st['rows_bound_ms']:.5f}, {st['tb_s']:.3f} TB/s over "
+            f"{st['rows_bytes']} bytes")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -384,13 +436,24 @@ def check_kernels(dev, stats: dict, shapes=SHAPES) -> None:
                           f"{name} train_grad gradient")
         rel_close(fl.loss_part[act].sum(dim=1), per_ref[act], RTOL_SEM, 1e-6,
                   f"{name} train_grad per-slot loss")
-        # kernel B alone: AdamW on the same reference gradient
-        fl.grad_part.zero_()
-        fl.grad_part[:, 0, fl.row_index] = g_ref
-        p, m, v = bank.flat.clone(), bank.m.clone(), bank.v.clone()
-        losses = torch.empty(cap, 1, device=dev)
-        fl.adamw(p, m, v, losses, 0, LR, WD)
-        ref = apply_adamw(bank, g_ref, LR, WD)
+        # kernel B alone: every partial row seeded, held to apply_adamw on
+        # the rows' plain fixed-order sum (K.row_sum, the kernel's order)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        rows = fl.grad_part.shape[1]
+        fl.grad_part.copy_(torch.randn(fl.grad_part.shape, generator=gen,
+                                       device=dev) * (gscale / rows))
+        fl.loss_part.copy_(torch.rand(fl.loss_part.shape, generator=gen,
+                                      device=dev))
+        g_sum = K.row_sum(fl.grad_part)[:, fl.row_index]
+        ref = apply_adamw(bank, g_sum, LR, WD)
+        runs = []
+        for _ in range(2):   # two launches from the same state: bit-equal
+            p, m, v = bank.flat.clone(), bank.m.clone(), bank.v.clone()
+            losses = torch.empty(cap, 1, device=dev)
+            fl.adamw(p, m, v, losses, 0, LR, WD)
+            runs.append((p, m, v, losses, fl.ws.clone()))
+        assert all(torch.equal(a, b) for a, b in zip(*runs)), \
+            f"{name}: two train_adamw launches differ"
         # same f32 update up to FMA contraction: an ulp of each tensor's
         # scale
         err_b = max(rel_close(got, want, 1e-5,
@@ -399,7 +462,13 @@ def check_kernels(dev, stats: dict, shapes=SHAPES) -> None:
                     for got, want, what in ((p, ref.flat, "p"),
                                             (m, ref.m, "m"),
                                             (v, ref.v, "v")))
-        assert torch.equal(p[inact], bank.flat[inact]), "inactive p moved"
+        for got, was, what in ((p, bank.flat, "p"), (m, bank.m, "m"),
+                               (v, bank.v, "v")):
+            assert torch.equal(got[inact], was[inact]), \
+                f"inactive {what} moved"
+        want_l = torch.where(bank.active, K.loss_sum(fl.loss_part), 0.0)
+        assert torch.equal(losses[:, 0], want_l), \
+            f"{name}: train_adamw's losses are not loss_sum's"
         assert torch.equal(fl.ws, K.stage_weights(p, bank.spec)), \
             f"{name}: train_adamw's staged weights are not the update's"
         geom = fl.geom
@@ -411,7 +480,8 @@ def check_kernels(dev, stats: dict, shapes=SHAPES) -> None:
             "tile_points": geom.rays_per_tile * S, "smem_bytes": smem,
             **grad_bound(bank, n_per, S)}
         stats.setdefault("train_adamw", {})[name] = {
-            "max_abs_err": err_b, **adamw_bound(bank)}
+            "max_abs_err": err_b, **adamw_bound(bank, rows)}
+        log(f"[3] {name}: the update kernels' plan {fl.plan}")
         log(f"[3] {name}: train_grad geometry {geom.rays_per_tile} rays per "
             f"tile ({geom.rays_per_tile * S} points), {geom.n_tiles} tiles "
             f"over {geom.blocks} blocks per slot; partial-gradient scratch "
@@ -433,10 +503,14 @@ def check_kernels(dev, stats: dict, shapes=SHAPES) -> None:
             lambda: fl.grad(bank.flat, 0), 20)
         stats["train_grad"][key]["plain_ms"] = time_cuda(
             lambda: K.iteration_loss_grad(bank, sl, CS, OSC), 20)
-        stats["train_adamw"][name]["ms"] = time_cuda(
+        ad = stats["train_adamw"][name]
+        ad["ms"] = time_device(
             lambda: fl.adamw(p, m, v, losses, 0, LR, WD), 50)
-        stats["train_adamw"][name]["plain_ms"] = time_cuda(
-            lambda: apply_adamw(bank, g_ref, LR, WD), 50)
+        ad["plain_ms"] = time_cuda(lambda: apply_adamw(
+            bank, K.row_sum(fl.grad_part)[:, fl.row_index], LR, WD), 5)
+        # a reference point, not the function: one library call reading
+        # the same rows
+        ad["torch_sum_ms"] = time_cuda(lambda: fl.grad_part.sum(dim=1), 50)
         log(f"[3] {name}: train_grad max_abs_err {err_g:.3e} "
             f"(grad scale {gscale:.3e}), train_adamw max_abs_err "
             f"{err_b:.3e}; ms kernel/plain/bound: grad "
@@ -444,10 +518,8 @@ def check_kernels(dev, stats: dict, shapes=SHAPES) -> None:
             f"{stats['train_grad'][key]['plain_ms']:.4f}/"
             f"{stats['train_grad'][key]['bound_ms']:.4f} (FP32 rate "
             f"{grad_bound(bank, n_per, S, fp32_rate=True)['bound_ms']:.4f})"
-            f", adamw "
-            f"{stats['train_adamw'][name]['ms']:.4f}/"
-            f"{stats['train_adamw'][name]['plain_ms']:.4f}/"
-            f"{stats['train_adamw'][name]['bound_ms']:.4f}")
+            f"; {adamw_rate(ad)}; torch.sum over the rows "
+            f"{ad['torch_sum_ms']:.4f} ms")
 
         # whole frames, two tiers
         frame_tiers("3", name, bank, S, n_per, dev,
@@ -1579,7 +1651,8 @@ def quant_w_bound(bank) -> dict:
     function's work: ``transpose_bytes`` gives them apart."""
     n_act, h = int(bank.active.sum()), bank.spec.hidden
     n_w = 87 * h + 2 * h * h + (h + 87) * h + h + (h + 42) * h + 3 * h
-    return {**bound(n_act * (4 * n_w + n_w + 4 * 9)),
+    nbytes = n_act * (4 * n_w + n_w + 4 * 9)
+    return {**bound(nbytes), "bytes": nbytes,
             "transpose_bytes": n_act * n_w}
 
 
@@ -1591,6 +1664,7 @@ def check_policies(dev, stats: dict, shapes=SHAPES,
     (bf16) or quantised (int8) copy checked after an update, and under the
     int8 policies train_quant_w timed against its plain version."""
     import torch
+    from vmap_tpu_torch.core.bank import apply_adamw
     from vmap_tpu_torch.kernels import train_step as K
     from vmap_tpu_torch.ops import quant as Q
     from vmap_tpu_torch.probes import PEAK_BYTES
@@ -1603,6 +1677,11 @@ def check_policies(dev, stats: dict, shapes=SHAPES,
                                      failures, phase)
             fl = K.FrameLaunch(bank, batch, 1, n_per, CS, OSC, policy)
             if policy in INT8_POLICIES:
+                # the copy FrameLaunch makes before the first iteration
+                bad = quantised_copy_errors(bank, fl, bank.flat)
+                if bad:
+                    failures.append(f"{name}/{policy}: train_quant_w's first "
+                                    f"copy differs from plain in {bad}")
                 geom = fl.geom
                 smem = K.q8_smem_bytes(h, geom.rays_per_tile, S, policy)
                 if fl.lib.vmap_q8_smem(h, int(Q.q8_backward(policy)), S,
@@ -1650,9 +1729,13 @@ def check_policies(dev, stats: dict, shapes=SHAPES,
                     qw = stats.setdefault("train_quant_w", {})[name] = {
                         "max_abs_err": 0.0 if not bad else None,
                         **quant_w_bound(bank),
-                        "ms": time_cuda(lambda: fl.quant_weights(p), 50),
+                        "ms": time_device(lambda: fl.quant_weights(p), 50),
+                        "host_paced_ms": time_cuda(
+                            lambda: fl.quant_weights(p), 50),
                         "plain_ms": time_cuda(
-                            lambda: Q.quant_weights(w, h), 50)}
+                            lambda: K.stage_q8(Q.quant_weights(w, h), h),
+                            50)}
+                    qw["tb_s"] = qw["bytes"] / (qw["ms"] * 1e-3) / 1e12
                     # under int8 FrameLaunch makes no staged bf16 pieces
                     # and train_adamw writes none (no kernel of the policy
                     # reads them): the work that saves, the pieces made
@@ -1660,7 +1743,12 @@ def check_policies(dev, stats: dict, shapes=SHAPES,
                     # them, as under a float policy
                     losses = torch.empty(cap, 1, device=dev)
                     adam = lambda: fl.adamw(p, m, v, losses, 0, LR, WD)
-                    res["train_adamw_ms"] = time_cuda(adam, 50)
+                    ad = {**adamw_bound(bank, geom.blocks, pieces=False),
+                          "ms": time_device(adam, 50),
+                          "plain_ms": time_cuda(lambda: apply_adamw(
+                              bank, K.row_sum(fl.grad_part)[:, fl.row_index],
+                              LR, WD), 5)}
+                    res["train_adamw"] = ad
                     res["stage_weights_ms"] = time_cuda(
                         lambda: K.stage_weights(p, bank.spec), 20)
                     fl.ws = K.stage_weights(p, bank.spec)
@@ -1668,11 +1756,15 @@ def check_policies(dev, stats: dict, shapes=SHAPES,
                     fl.ws = None
                     log(f"[{phase}] {name}/int8: train_quant_w ms kernel/"
                         f"plain/bound {qw['ms']:.4f}/{qw['plain_ms']:.4f}/"
-                        f"{qw['bound_ms']:.5f} (the transposes "
+                        f"{qw['bound_ms']:.5f} (launched back to back; "
+                        f"paced by the host {qw['host_paced_ms']:.4f}; "
+                        f"the transposes "
                         f"{qw['transpose_bytes']} bytes more, "
                         f"{qw['transpose_bytes'] / PEAK_BYTES * 1e3:.5f} ms "
-                        f"at the HBM rate); train_adamw ms "
-                        f"{res['train_adamw_ms']:.4f}, writing the staged "
+                        f"at the HBM rate), {qw['tb_s']:.3f} TB/s over the "
+                        f"function's {qw['bytes']} bytes; plan "
+                        f"{fl.plan}; "
+                        f"{adamw_rate(ad)}, writing the staged "
                         f"pieces {res['train_adamw_staged_ms']:.4f}; "
                         f"stage_weights {res['stage_weights_ms']:.4f} ms")
             log(f"[{phase}] {name}/{policy}: train_grad ms kernel/plain/bound "
@@ -2249,6 +2341,10 @@ def main(argv=None) -> int:
             "bound_by": worst.get("bound_by"),
             "library_ms": None,
             "by_shape": per, "launches_by_path": by_path})
+        if top and all("rows_bound_ms" in v for v in top.values()):
+            # train_adamw: also the bound with K1's partial rows
+            kernels[-1]["rows_bound_ms"] = sum(v["rows_bound_ms"]
+                                               for v in top.values())
     launches_by_policy = {
         p: {pol: c[f"train_grad.{pol}"] for pol in POLICIES}
         for p, c in paths.items()}

@@ -42,9 +42,8 @@ SIGNATURES = {
     "vmap_train_grad_q8": ((I, I) + (P,) * 15 + (I,) * 10 + (F, F, P), I),
     "vmap_train_quant_w": ((P, P, P, P, P, I, I, I, P), I),
     "vmap_train_adamw": ((P,) * 11 + (I,) * 6 + (F, F, P), I),
+    "vmap_update_plan": ((I, I, I, P), I),
     "vmap_staged_size": ((I,), I),
-    "vmap_grad_row": ((I,), I),
-    "vmap_q8_size": ((I,), I),
     "vmap_q8_smem": ((I, I, I, I), I),
     "vmap_field_stage": ((I, P, P, I, I, P, P), I),
     "vmap_field_plan": ((I, I, I, I, P), I),

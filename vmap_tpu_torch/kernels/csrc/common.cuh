@@ -1,9 +1,19 @@
 // Constants and helpers shared by the field kernels of this directory
 // (train_step.cu, ensemble.cu): the positional-encoding widths of
 // n_unidir_funcs 5, the staged layout of the product weights, the shared
-// memory a block may use and the IEEE sigmoid.
+// memory a block and an SM may use and the IEEE sigmoid. It compiles on a
+// host compiler alone too, as the plan headers that include it do
+// (field_plan.cuh, update_plan.cuh).
 
 #pragma once
+
+#ifndef __CUDACC__
+#include <math.h>
+#define __host__
+#define __device__
+#define __forceinline__ inline
+#endif
+#include <stddef.h>
 
 namespace {
 
@@ -39,6 +49,9 @@ __host__ __device__ constexpr int staged_size(int H) {
 constexpr int STAGED_PIECES = 3;
 
 constexpr size_t SMEM_MAX = 232448;   // the most a block may use
+// The shared memory of one SM, and what each resident block takes of it
+// beyond its dynamic shared memory
+constexpr size_t SM_SMEM = 233472, BLOCK_RESERVED = 1024;
 
 __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.f / (1.f + expf(-x));

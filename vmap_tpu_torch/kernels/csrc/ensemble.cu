@@ -1020,15 +1020,6 @@ cudaError_t set_smem(K kernel, size_t smem) {
   return err;
 }
 
-// the SM count of the current device
-int sm_count(int* sms) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  return (int)err;
-}
-
 template <int H>
 int launch_fwd(const float* params, int n_params, const Prep& off,
                const bf16* ws, const float* scale, const float* pts, int O,

@@ -8,14 +8,6 @@
 
 #pragma once
 
-#ifndef __CUDACC__
-#include <math.h>
-#define __host__
-#define __device__
-#define __forceinline__ inline
-#endif
-#include <stddef.h>
-
 #include "common.cuh"
 
 namespace {
@@ -204,10 +196,6 @@ __host__ __device__ constexpr size_t wg_smem(int H) {
          (size_t)8 * (wg_ti(H) + WG_TK);
 }
 __host__ __device__ constexpr int wg_minb(int H) { return H == 32 ? 2 : 1; }
-
-// The shared memory of one SM, and what each resident block takes of it
-// beyond its dynamic shared memory
-constexpr size_t SM_SMEM = 233472, BLOCK_RESERVED = 1024;
 
 // Every plan within a block's shared memory, the blocks an SM each launch
 // bound asks for within the SM's, the tiles whole 16-point mma steps, and

@@ -4,8 +4,9 @@
 // and ldmatrix .trans), the split of an f32
 // operand into bf16 pieces and the products of the pieces; mma.sync
 // m16n8k32 s8 -> s32 and its fragment loads (train_step_q8.cu's int8
-// tile); and 16-byte cp.async copies into shared memory. The probe kernels
-// (probes/csrc/probe_common.cuh) include it for the same products.
+// tile); 16-byte cp.async copies into shared memory; and TMA 1-D bulk
+// copies completing on mbarriers (train_step.cu's train_adamw). The probe
+// kernels (probes/csrc/probe_common.cuh) include it for the same products.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16" and
 // "mma.m16n8k32"), with g = lane / 4 and t = lane % 4; each bf16 register
@@ -291,6 +292,52 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// 16 bytes global -> shared through L2, no cache hint (data read once)
+__device__ __forceinline__ void cp_async16_once(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+// ---- TMA 1-D bulk copies completing on an mbarrier (a 64-bit word in
+// shared memory; PTX ISA "mbarrier", "cp.async.bulk")
+// init: `count` arrivals a phase
+__device__ __forceinline__ void mbarrier_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+// orders this thread's generic-proxy shared-memory accesses (a barrier's
+// initialisation, reads of a buffer) before later async-proxy ones (the
+// TMA unit's writes into it)
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// arrive once, expecting `bytes` of transactions in the current phase
+__device__ __forceinline__ void mbarrier_expect(uint64_t* bar,
+                                                uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbarrier_wait(uint64_t* bar,
+                                              uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) global ->
+// this block's shared memory, completing as transactions on `bar`
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
+                                              uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 }  // namespace

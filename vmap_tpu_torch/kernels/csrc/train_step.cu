@@ -22,13 +22,29 @@
 //       staged layout below, then the biases and dirs) and its loss to
 //       loss_part[slot, row]; later tiles add to them in tile order: no
 //       atomics, deterministic (kernels/train_step.py frame_geometry).
-//   adamw_kernel        grid (param chunk, slot). Sums a parameter's row
-//       partials in a fixed order (deterministic), then applies masked
+//   adamw_kernel        one wave of blocks, each taking runs of 512 row
+//       positions of active slots (update_plan.cuh: the runs, the ring,
+//       the thread mapping and the summation order). Streams the run's
+//       partial rows through a two-stage ring in shared memory by
+//       TMA 1-D bulk copies on mbarriers, sums each position's rows in row
+//       order (deterministic, no atomics), maps the position to its
+//       parameter (kernels/train_step.py grad_row_param), applies masked
 //       AdamW (torch semantics: p *= 1 - lr wd first, betas 0.9 / 0.999,
 //       eps 1e-8, per-slot bias corrections 1 - b^t precomputed on the
 //       host), and writes the staged copy of the updated product weights
-//       (where the policy reads it: not int8 / int8_static). Inactive
-//       slots are not touched, so they stay bit-identical.
+//       as 8-byte vectors (where the policy reads it: not int8 /
+//       int8_static). Inactive slots are not touched, so they stay
+//       bit-identical.
+//       Replaces the TPU kernel's adam_sub
+//       (vmap_tpu/kernels/train_step.py:1144). Bound by bytes: it must
+//       read the rows (100 x 20 x 13,040, 300 x 101,072 and 132 x 333,136
+//       floats at the object, background and iMAP shapes of
+//       chip_smoke.py phase 3) besides p, m, v; one thread's serial
+//       4-byte loads over the rows kept too few bytes in flight, which
+//       the ring of 32 KB a block, six blocks an SM, is for; a warp reads
+//       and writes whole runs of p, m and v (its lanes on consecutive
+//       positions), which at the object shape's 20-row items weigh as
+//       much as the stream.
 //
 // The products run on tensor cores: mma.sync m16n8k16, bf16 operands, f32
 // accumulation (mma.cuh); each warp owns a register tile of WM x WN 16 x 8
@@ -362,59 +378,180 @@ train_grad_kernel(const float* __restrict__ params,   // [cap, NP]
                        tile != row, sm, slab0, slab1);
 }
 
-constexpr int ADAM_THREADS = 256;
+// The bf16 pieces of 4 positions' values in one plane: 8 bytes
+// One staged plane of 4 positions' values r, as one 8-byte store of their
+// bf16 roundings, which r then loses (mma.cuh split: the next plane holds
+// what is left)
+__device__ __forceinline__ void store_piece4(bf16* w, float (&r)[ADAM_V]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(r[0], r[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(r[2], r[3]);
+  *reinterpret_cast<uint2*>(w) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                 *reinterpret_cast<const uint32_t*>(&hi));
+  r[0] -= __low2float(lo);
+  r[1] -= __high2float(lo);
+  r[2] -= __low2float(hi);
+  r[3] -= __high2float(hi);
+}
 
-// The rows (grad_row; gidx[j] parameter j's place, as kernels/train_step.py
-// grad_row_index gives it) summed in row order, then AdamW, and the updated
-// product weights' staged copy written to ws ([cap, STAGED_PIECES,
-// staged_size(hidden)] bf16), which the next iteration's train_grad reads
-// (under int8_fwd / int8_static_fwd its f32 backward; int8 / int8_static
-// read none and pass a null ws)
-__global__ void __launch_bounds__(ADAM_THREADS)
+// The partial rows (grad_row; rparam[q] the parameter at row position q,
+// -1 on padding: kernels/train_step.py grad_row_param) summed in row
+// order, then AdamW, and the updated product weights' staged copy written
+// to ws ([cap, STAGED_PIECES, staged_size(hidden)] bf16, zeros on its
+// padding), which the next iteration's train_grad reads (under int8_fwd /
+// int8_static_fwd its f32 backward; int8 / int8_static read none and pass
+// a null ws); losses[slot, it] by update_plan.cuh's fixed-order warp sum.
+// The grid, runs, ring, thread mapping and summation order are
+// update_plan.cuh's.
+__global__ void __launch_bounds__(ADAM_NT, ADAM_BPS)
 adamw_kernel(float* __restrict__ p, bf16* __restrict__ ws,
-             const int* __restrict__ gidx, float* __restrict__ m,
+             const int* __restrict__ rparam, float* __restrict__ m,
              float* __restrict__ v, const float* __restrict__ grad_part,
              const float* __restrict__ loss_part, float* __restrict__ losses,
              const int* __restrict__ active, const float* __restrict__ bc1,
-             const float* __restrict__ bc2, int hidden, int n_params,
-             int n_rows, int n_iter, int it, float lr, float decay) {
-  const int slot = blockIdx.y;
-  const int j = blockIdx.x * ADAM_THREADS + threadIdx.x;
-  const bool act = active[slot] != 0;
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
+             const float* __restrict__ bc2, int hidden, int cap, int n_params,
+             int n_rows, int n_iter, int it, float lr, float decay, int L) {
+  constexpr int NT = ADAM_NT, RUN = ADAM_RUN, RS = ADAM_RS;
+  const int tid = threadIdx.x;
+  if (blockIdx.x < L) {
+    // the losses: warp w of block b slot b NT / 32 + w; lane l sums rows
+    // l, l + 32, ... in order, then the butterfly (every lane ends with
+    // lane 0's sum)
+    const int s = blockIdx.x * (NT / 32) + (tid >> 5), lane = tid & 31;
+    if (s >= cap) return;
     float acc = 0.f;
-    if (act)
-      for (int t = 0; t < n_rows; ++t)
-        acc += loss_part[(size_t)slot * n_rows + t];
-    losses[(size_t)slot * n_iter + it] = acc;
+    if (active[s]) {
+      const float* lp = loss_part + (size_t)s * n_rows;
+#pragma unroll 4
+      for (int t = lane; t < n_rows; t += 32) acc += lp[t];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) losses[(size_t)s * n_iter + it] = acc;
+    return;
   }
-  if (!act || j >= n_params) return;
-  const int ng = grad_row(hidden), gj = gidx[j];
-  const float* gp = grad_part + (size_t)slot * n_rows * ng + gj;
-  float g = 0.f;
-  for (int t = 0; t < n_rows; ++t) g += gp[(size_t)t * ng];
+  // the ring [ADAM_STAGES][RS][RUN] and its stages' mbarriers
+  extern __shared__ __align__(128) unsigned char adam_smem_dyn[];
+  auto ring = reinterpret_cast<float (*)[RS][RUN]>(adam_smem_dyn);
+  uint64_t* full = reinterpret_cast<uint64_t*>(adam_smem_dyn +
+                                               ADAM_STAGES * ADAM_STAGE_BYTES);
+  __shared__ __align__(16) float pbuf[RUN];   // the pieces' exchange
+  const int ng = grad_row(hidden), NS = staged_size(hidden);
+  const int runs = adam_runs_of(ng), items = cap * runs;
+  const int chunks = adam_chunks(n_rows);
+  const int b = blockIdx.x - L, G = gridDim.x - L;   // the streaming blocks
+
+  // the block's items b, b + G, ... of active slots; the stream of their
+  // stages (item, chunk of RS rows), thread 0 ADAM_STAGES ahead
+  auto next_item = [&](int i) {
+    while (i < items && !active[i / runs]) i += G;
+    return i;
+  };
+  int p_item = next_item(b), p_chunk = 0;   // thread 0's next issue
+  auto issue = [&](int s) {
+    const int slot = p_item / runs, run = p_item - slot * runs;
+    const uint32_t bytes = 4u * adam_run_len_of(ng, run);
+    const int r0 = p_chunk * RS;
+    const int nr = n_rows - r0 < RS ? n_rows - r0 : RS;
+    const float* src =
+        grad_part + ((size_t)slot * n_rows + r0) * ng + run * RUN;
+    mbarrier_expect(&full[s], nr * bytes);
+    for (int r = 0; r < nr; ++r)
+      bulk_copy_g2s(ring[s][r], src + (size_t)r * ng, bytes, &full[s]);
+    if (++p_chunk == chunks) {
+      p_chunk = 0;
+      p_item = next_item(p_item + G);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < ADAM_STAGES; ++s) mbarrier_init(&full[s], 1);
+    fence_proxy_async_smem();
+    for (int s = 0; s < ADAM_STAGES && p_item < items; ++s) issue(s);
+  }
+  __syncthreads();
+
   // betas as the f32 roundings of 0.9, 1 - 0.9, 0.999, 1 - 0.999 (the
   // constants the plain PyTorch and JAX updates multiply by)
   const float b1 = 0.9f, omb1 = (float)(1.0 - 0.9);
   const float b2 = 0.999f, omb2 = (float)(1.0 - 0.999);
-  const size_t q = (size_t)slot * n_params + j;
-  const float mn = b1 * m[q] + omb1 * g;
-  const float vn = b2 * v[q] + omb2 * g * g;
-  const float mhat = mn / bc1[(size_t)slot * n_iter + it];
-  const float vhat = vn / bc2[(size_t)slot * n_iter + it];
-  const float pn = p[q] * decay - lr * mhat / (sqrtf(vhat) + 1e-8f);
-  p[q] = pn;
-  const int NS = staged_size(hidden);
-  if (ws != nullptr && gj < NS) {   // a product weight, at its staged index
-    bf16* w = ws + (size_t)slot * STAGED_PIECES * NS + gj;
-    float r = pn;
-    for (int i = 0; i < STAGED_PIECES; ++i) {   // mma.cuh split
-      w[(size_t)i * NS] = __float2bfloat16_rn(r);
-      r -= __bfloat162float(w[(size_t)i * NS]);
+  // thread tid's positions tid + i NT of the run: their sums, parameters
+  // (-1: none), and the parameters' values and moments
+  float g[ADAM_V], pv[ADAM_V], mv[ADAM_V], vv[ADAM_V];
+  int j[ADAM_V];
+  float c1 = 1.f, c2 = 1.f;
+  int k = 0;   // the stage consumed
+  for (int item = next_item(b), chunk = 0; item < items; ++k) {
+    const int slot = item / runs, run = item - slot * runs;
+    const int len = adam_run_len_of(ng, run), q0 = run * RUN;
+    const size_t base = (size_t)slot * n_params;
+    if (chunk == 0) {
+      // the item's parameters and moments, read while its rows stream in:
+      // the four indices first, then their values (the loads of an index
+      // and of its values interleaved, one index at a time, made each
+      // item wait for eight dependent reads)
+#pragma unroll
+      for (int i = 0; i < ADAM_V; ++i) {
+        g[i] = 0.f;
+        j[i] = tid + i * NT < len ? rparam[q0 + tid + i * NT] : -1;
+      }
+#pragma unroll
+      for (int i = 0; i < ADAM_V; ++i)
+        if (j[i] >= 0) {
+          pv[i] = p[base + j[i]];
+          mv[i] = m[base + j[i]];
+          vv[i] = v[base + j[i]];
+        }
+      c1 = bc1[(size_t)slot * n_iter + it];
+      c2 = bc2[(size_t)slot * n_iter + it];
     }
+    const int s = k % ADAM_STAGES;
+    mbarrier_wait(&full[s], (uint32_t)(k / ADAM_STAGES) & 1u);
+    const int r0 = chunk * RS;
+    const int nr = n_rows - r0 < RS ? n_rows - r0 : RS;
+    for (int r = 0; r < nr; ++r) {   // rows in order: the stated sum
+#pragma unroll
+      for (int i = 0; i < ADAM_V; ++i) g[i] += ring[s][r][tid + i * NT];
+    }
+    __syncthreads();   // stage s read by every thread: refill it
+    if (tid == 0 && p_item < items) {
+      fence_proxy_async_smem();
+      issue(s);
+    }
+    if (++chunk < chunks) continue;
+    chunk = 0;
+#pragma unroll
+    for (int i = 0; i < ADAM_V; ++i) {
+      float pn = 0.f;   // the staged layout's padding
+      if (j[i] >= 0) {
+        const float mn = b1 * mv[i] + omb1 * g[i];
+        const float vn = b2 * vv[i] + omb2 * g[i] * g[i];
+        const float mhat = mn / c1;
+        const float vhat = vn / c2;
+        pn = pv[i] * decay - lr * mhat / (sqrtf(vhat) + 1e-8f);
+        p[base + j[i]] = pn;
+        m[base + j[i]] = mn;
+        v[base + j[i]] = vn;
+      }
+      pbuf[tid + i * NT] = pn;
+    }
+    __syncthreads();   // pbuf written (the next item's first stage
+                       // barrier comes before it is written again)
+    const int qv = q0 + ADAM_V * tid;   // this thread's 4 staged positions
+    if (ws != nullptr && qv < NS && ADAM_V * tid < len) {
+      float r4[ADAM_V];
+      const float4 x = *reinterpret_cast<const float4*>(&pbuf[ADAM_V * tid]);
+      r4[0] = x.x;
+      r4[1] = x.y;
+      r4[2] = x.z;
+      r4[3] = x.w;
+      bf16* w = ws + (size_t)slot * STAGED_PIECES * NS + qv;
+#pragma unroll
+      for (int pc = 0; pc < STAGED_PIECES; ++pc)   // mma.cuh split
+        store_piece4(w + (size_t)pc * NS, r4);
+    }
+    item = next_item(item + G);
   }
-  m[q] = mn;
-  v[q] = vn;
 }
 
 // The operands and geometry of one train_grad launch (vmap_train_grad).
@@ -474,15 +611,12 @@ int launch_policy(int hidden, const GradArgs& a, cudaStream_t stream) {
 
 extern "C" {
 
-// The staged weights' elements per plane and the floats of a float-policy
-// partial-gradient row at a kernel width (0 for any other):
-// kernels/train_step.py holds its staged_layout and grad_row_size to them.
+// The staged weights' elements per plane at a kernel width (0 for any
+// other): kernels/train_step.py holds its staged_layout to it (and its
+// grad_row_size and q8_layout to vmap_update_plan's).
 int vmap_staged_size(int hidden) {
   return hidden == 32 || hidden == 128 || hidden == 256 ? staged_size(hidden)
                                                         : 0;
-}
-int vmap_grad_row(int hidden) {
-  return vmap_staged_size(hidden) ? grad_row(hidden) : 0;
 }
 
 // One iteration's forward + backward of one bank under a matmul policy
@@ -522,25 +656,52 @@ int vmap_train_grad(int policy, int hidden, const float* params,
 
 // Row-partial reduction + masked AdamW of one bank for iteration `it`;
 // also writes losses[slot, it]. The rows are grad_row(hidden) floats
-// (every policy's; gidx [n_params] each parameter's place in them), and
-// the updated product weights' staged bf16 copy goes to ws [cap, 3,
-// staged_size(hidden)] (the float policies' train_grad operand, and the
-// int8_fwd halves' f32 backward's), or nowhere if ws is null (int8 /
-// int8_static).
-int vmap_train_adamw(float* p, void* ws, const int* gidx, float* m, float* v,
-                     const float* grad_part, const float* loss_part,
-                     float* losses, const int* active, const float* bc1,
-                     const float* bc2, int hidden, int cap, int n_params,
-                     int n_rows, int n_iter, int it, float lr, float decay,
+// (every policy's; rparam [grad_row] the parameter at each position, -1
+// on padding), and the updated product weights' staged bf16 copy goes to
+// ws [cap, 3, staged_size(hidden)] (the float policies' train_grad
+// operand, and the int8_fwd halves' f32 backward's), or nowhere if ws is
+// null (int8 / int8_static). grad_part, rparam and ws 16-byte aligned.
+// The grid is update_plan.cuh's adam_loss_blocks + adam_blocks on the
+// card's SM count.
+int vmap_train_adamw(float* p, void* ws, const int* rparam, float* m,
+                     float* v, const float* grad_part,
+                     const float* loss_part, float* losses,
+                     const int* active, const float* bc1, const float* bc2,
+                     int hidden, int cap, int n_params, int n_rows,
+                     int n_iter, int it, float lr, float decay,
                      void* stream) {
   if (cap < 1 || n_params < 1 || n_rows < 1 || it < 0 || it >= n_iter ||
-      gidx == nullptr || vmap_staged_size(hidden) == 0)
+      rparam == nullptr || vmap_staged_size(hidden) == 0 ||
+      (reinterpret_cast<uintptr_t>(grad_part) |
+       reinterpret_cast<uintptr_t>(rparam) |
+       reinterpret_cast<uintptr_t>(ws)) % 16)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((n_params + ADAM_THREADS - 1) / ADAM_THREADS, cap);
-  adamw_kernel<<<grid, ADAM_THREADS, 0, (cudaStream_t)stream>>>(
-      p, static_cast<bf16*>(ws), gidx, m, v, grad_part, loss_part, losses,
-      active, bc1, bc2, hidden, n_params, n_rows, n_iter, it, lr, decay);
+  int sms = 0;
+  cudaError_t err = (cudaError_t)sm_count(&sms);
+  if (err == cudaSuccess)   // all of L1 as shared memory: ADAM_BPS blocks
+    err = cudaFuncSetAttribute(adamw_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const int L = adam_loss_blocks(cap);
+  adamw_kernel<<<L + adam_blocks(sms, cap, hidden), ADAM_NT,
+                 ADAM_STAGES * ADAM_STAGE_BYTES + 8 * ADAM_STAGES,
+                 (cudaStream_t)stream>>>(
+      p, static_cast<bf16*>(ws), rparam, m, v, grad_part, loss_part, losses,
+      active, bc1, bc2, hidden, cap, n_params, n_rows, n_iter, it, lr, decay,
+      L);
   return (int)cudaGetLastError();
+}
+
+// K1's update-step plan (update_plan.cuh update_plan) of a bank of cap
+// slots at `hidden` with n_rows partial rows a slot, on the current
+// card's SM count, into out[UP_N] (kernels/train_step.py UPDATE_PLAN).
+// Returns a CUDA error code.
+int vmap_update_plan(int hidden, int cap, int n_rows, int* out) {
+  int sms = 0;
+  const int err = sm_count(&sms);
+  if (err != 0) return err;
+  return update_plan(hidden, sms, cap, n_rows, out);
 }
 
 #ifdef K1_PROFILE

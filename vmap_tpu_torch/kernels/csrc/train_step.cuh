@@ -15,6 +15,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "update_plan.cuh"
 
 namespace {
 
@@ -103,19 +104,7 @@ __device__ void bgrad_round(float* __restrict__ G, float* dout, int n, int P,
   __syncthreads();
 }
 
-// A partial-gradient row (every policy): the product weights' gradients
-// in the staged layout (the 16-byte writes of wgrad_mma / wgrad_s8), then
-// the other parameters, the dirs and biases, which lead the parameter
-// layout (BankSpec: the PE's dirs, then the MLP's names sorted, b_* before
-// w_*): parameter j < rest_size(H) at staged_size(H) + j. grad_row
-// floats, a multiple of 16, so every row starts 64-byte aligned.
-// kernels/train_step.py grad_row_index gives each parameter's place.
-__host__ __device__ constexpr int rest_size(int H) {
-  return 3 * NDIR + 5 * H + 4;   // dirs, five [H] biases, b_alpha, b_col_out
-}
-__host__ __device__ constexpr int grad_row(int H) {
-  return staged_size(H) + up16(rest_size(H));
-}
+// A partial-gradient row (every policy): update_plan.cuh grad_row.
 
 // Whether the dirs and biases lie within the first rest_size(H) parameters,
 // where a partial-gradient row keeps them
@@ -839,6 +828,16 @@ __device__ __forceinline__ void float_backward(
   wgrad<NT>(Gx + off.dirs, 3, 0, dproj, NDIR, emb, 3, P, LDP, add);
   __syncthreads();
   K1_MARK(5);
+}
+
+// the SM count of the current device (the launchers' grids: field_plan.cuh,
+// update_plan.cuh)
+inline int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)err;
 }
 
 // The offsets array of a C entry (the order of kernels/train_step.py

@@ -52,11 +52,19 @@
 // The ReLU masks are the quantised activations' (q > 0): each gradient is
 // quantised in place over its activation's feature-major copy.
 //
-// The weights: quant_weights_kernel, a few blocks per (tensor, active
-// slot), writes the nine QW tensors' s8 copies, each padded to whole
-// 16 x 32 tiles, and their transposes (q8_layout), with the [cap, 9]
-// scales, after each train_adamw but the frame's last and once before the
-// first iteration. A block streams each product's s8 weights through a ring of
+// The weights: quant_weights_kernel writes the nine QW tensors' s8
+// copies, each padded to whole 16 x 32 tiles, and their transposes
+// (q8_layout), with the [cap, 9] scales, after each train_adamw but the
+// frame's last and once before the first iteration: each weight matrix of
+// an active slot in 32-row bands, one block a band, a matrix's bands one
+// thread-block cluster that takes its scales through distributed shared
+// memory (update_plan.cuh). Replaces the TPU kernel's quant_weights
+// (vmap_tpu/kernels/train_step.py:576-590). Its bound is bytes (the
+// weights read once, the s8 copy written once: 0.0017 ms for the object
+// bank), far under its chain of dependent steps a unit takes (the band's
+// read, the block reduction, the cluster's exchange, the quantisation and
+// the stores) and the launch.
+// The tile: a block streams each product's s8 weights through a ring of
 // two slabs in shared memory (16-byte cp.async copies, L2 evict_last; the
 // next slab in flight while one computes), slabs of Q8Tile<H>::KS columns
 // across all rows: at h=32 and h=128 every weight of a product is one slab,
@@ -90,18 +98,16 @@
 // products' own bound is far below: 3 x 11,200 s8 multiply-adds a point
 // at h=32, at 1979 TOP/s.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "train_step.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-// the nine quantised weight tensors of a slot: ops/quant.py QW_NAMES
-enum QW : int {
-  QW_IN, QW_MID1, QW_CAT_H, QW_CAT_X, QW_MID2, QW_ALPHA, QW_COL_H, QW_COL_X,
-  QW_OUT, NQW
-};
 // the xs rows of the trunk's embedding quantise x127 / XS_RANGE (4)
 constexpr float XS_MUL = 127.f / 4.f;
 constexpr float INV_XS = 1.f / XS_MUL;
@@ -114,29 +120,9 @@ __device__ __forceinline__ float q8(float x, float mul) {
 __device__ __forceinline__ int8_t to_s8(float q) { return (int8_t)(int)q; }
 
 __host__ __device__ constexpr int up8(int x) { return (x + 7) / 8 * 8; }
-__host__ __device__ constexpr int up32(int x) { return (x + 31) / 32 * 32; }
 
-// ---- the staged s8 weights (kernels/train_step.py q8_layout): per slot,
-// for each QW tensor [n_out][n_in] in order, its copy [up16(n_out)]
-// [up32(n_in)] row-major, then its transpose [up16(n_in)][up32(n_out)],
-// zero-padded (every block a multiple of 512 bytes, so 16-byte aligned)
-__host__ __device__ constexpr int qw_out(int H, int t) {
-  return t == QW_ALPHA ? 1 : t == QW_OUT ? 3 : H;
-}
-__host__ __device__ constexpr int qw_in(int H, int t) {
-  return t == QW_IN || t == QW_CAT_X ? EMB1 : t == QW_COL_X ? EMB2 : H;
-}
-__host__ __device__ constexpr int qw_off(int H, int t) {
-  int s = 0;
-  for (int i = 0; i < t; ++i)
-    s += up16(qw_out(H, i)) * up32(qw_in(H, i)) +
-         up16(qw_in(H, i)) * up32(qw_out(H, i));
-  return s;
-}
-__host__ __device__ constexpr int qwt_off(int H, int t) {
-  return qw_off(H, t) + up16(qw_out(H, t)) * up32(qw_in(H, t));
-}
-__host__ __device__ constexpr int q8_size(int H) { return qw_off(H, NQW); }
+// the nine quantised weight tensors (QW_*) and their staged s8 copies
+// (q8_layout: qw_off, qwt_off, q8_size) are update_plan.cuh's
 
 // ---- the int8 tile's shape per width (threads: Tile<H>::NT). FP the most
 // points of a tile (kernels.MAX_POINTS, the scale granularity); a warp's
@@ -931,75 +917,240 @@ train_grad_q8_kernel(const float* __restrict__ params,   // [cap, NP]
                     s8, slab0, slab1);
 }
 
-// Tensor t of a slot's quantised weights: offset, shape, row stride and
-// which static row scale folds into it first (1: the trunk's embedding
-// columns, 2: the colour head's, x 1/127)
-struct QwDesc {
-  int off, rows, cols, ld, fold;
-};
-
-__device__ QwDesc qw_desc(int t, const Offsets& o, int H) {
-  switch (t) {
-    case QW_IN: return {o.w_in, H, EMB1, EMB1, 1};
-    case QW_MID1: return {o.w_mid1, H, H, H, 0};
-    case QW_CAT_H: return {o.w_cat, H, H, H + EMB1, 0};
-    case QW_CAT_X: return {o.w_cat + H, H, EMB1, H + EMB1, 1};
-    case QW_MID2: return {o.w_mid2, H, H, H, 0};
-    case QW_ALPHA: return {o.w_alpha, 1, H, H, 0};
-    case QW_COL_H: return {o.w_col, H, H, H + EMB2, 0};
-    case QW_COL_X: return {o.w_col + H, H, EMB2, H + EMB2, 2};
-    default: return {o.w_col_out, 3, H, H, 0};
-  }
-}
-
+// w after its tensor's fold (qw_fold) at column c of the tensor
 __device__ __forceinline__ float fold_w(float w, int fold, int c) {
   if (fold == 1) return __fmul_rn(w, c < 3 ? INV_XS : INV_127);
   if (fold == 2) return __fmul_rn(w, INV_127);
   return w;
 }
 
-constexpr int QUANT_THREADS = 512;
+// the two halves of a thread-block cluster barrier (cg's sync is both):
+// arrive (this block's earlier shared-memory accesses released to the
+// cluster), then wait until every block of the cluster has arrived
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 
-// gridDim.z blocks per (tensor, active slot): each takes the tensor's
-// dynamic scale (a block reduction of |w| after the fold, the same in
-// every block: max is order-free), then writes its share of the s8 copy
-// and of the transpose, padding included (q8_layout); the first writes the
-// scale.
-__global__ void __launch_bounds__(QUANT_THREADS)
+// source matrix m's offset in a slot's parameters (update_plan.cuh QMat)
+__device__ __forceinline__ int qm_param_off(const Offsets& o, int m) {
+  switch (m) {
+    case QM_IN: return o.w_in;
+    case QM_MID1: return o.w_mid1;
+    case QM_CAT: return o.w_cat;
+    case QM_MID2: return o.w_mid2;
+    case QM_ALPHA: return o.w_alpha;
+    case QM_COL: return o.w_col;
+    default: return o.w_col_out;
+  }
+}
+
+// The s8 copy of every active slot's nine QW tensors and their scales:
+// clusters of q_cluster(H) blocks, block k of a cluster band k of the
+// unit's matrix, as update_plan.cuh states (the band's one read, the
+// cluster's maxima through distributed shared memory, the s8 bands in
+// shared memory written as 16-byte stores, padding included: q8_layout).
+template <int H>
+__global__ void __launch_bounds__(q_threads(H), q_bps(H))
 quant_weights_kernel(const float* __restrict__ p, int8_t* __restrict__ wq,
                      float* __restrict__ wscale,
-                     const int* __restrict__ active, Offsets off,
-                     int n_params, int H) {
-  __shared__ float red[QUANT_THREADS / 32];
-  const int t = blockIdx.x, slot = blockIdx.y;
-  const int part = blockIdx.z, parts = gridDim.z;
-  if (!active[slot]) return;
-  const QwDesc d = qw_desc(t, off, H);
-  const float* src = p + (size_t)slot * n_params + d.off;
-  float m = 0.f;
-  for (int idx = threadIdx.x; idx < d.rows * d.cols; idx += QUANT_THREADS) {
-    const int r = idx / d.cols, c = idx % d.cols;
-    m = fmaxf(m, fabsf(fold_w(src[r * d.ld + c], d.fold, c)));
+                     const int* __restrict__ active, Offsets off, int cap,
+                     int n_params) {
+  constexpr int NT = q_threads(H), CL = q_cluster(H), NW = NT / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* stage = reinterpret_cast<float*>(smem);
+  // the copy band [QBAND][up32(n_in)], then the transpose band
+  // [up16(n_in)][QTRS bytes]
+  int8_t* qc = reinterpret_cast<int8_t*>(smem + q_stage_bytes(H));
+  float* bmax = reinterpret_cast<float*>(smem + q_smem(H)) - 2 - 2 * NW;
+  float* red = bmax + 2;
+  // h=32's matrices are one band: a block alone, launched as no cluster
+  const int k = CL > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int G = gridDim.x / CL;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t total = (size_t)cap * n_params;
+  for (int u = blockIdx.x / CL; u < cap * NQM; u += G) {
+    const int slot = u / NQM, mat = u - slot * NQM;
+    if (!active[slot]) continue;   // the same for the whole cluster
+    const int ld = qm_ld(H, mat), nsrc = q_src_rows(H, mat, k);
+    // 1. the band's rows: one span of the parameters, from the 16-byte
+    // boundary at or before it
+    const size_t a = (size_t)slot * n_params + qm_param_off(off, mat) +
+                     (size_t)QBAND * k * ld;
+    const size_t A = a & ~(size_t)3;
+    const int lead = (int)(a - A);
+    const int nchunk = nsrc ? (lead + nsrc * ld + 3) >> 2 : 0;
+    for (int c = tid; c < nchunk; c += NT) {
+      const size_t e = A + 4 * (size_t)c;
+      if (e + 4 <= total)
+        cp_async16_once(stage + 4 * c, p + e);
+      else   // past the parameters' last whole 16 bytes
+        for (int i = 0; i < 4 && e + i < total; ++i)
+          stage[4 * c + i] = p[e + i];
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // 2. each tensor's abs-max after the fold, over the cluster. The fold
+    // multiplies a column by a positive constant and rounding is
+    // monotonic, so the folded maximum is the fold of the raw |w|
+    // maximum of each column class (fold 1: the xs columns c < 3 and the
+    // rest), bit for bit: the warps' raw maxima in red, warp 0's fold and
+    // reduction of them in bmax
+    const int t0 = qm_first(mat), nt = qm_count(mat);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (i >= nt) break;
+      const int t = t0 + i, cols = qw_in(H, t), fold = qw_fold(t);
+      float mx = 0.f, mr = 0.f;   // the xs columns', the rest's
+      for (int r = warp; r < nsrc; r += NW) {
+        const float* row = stage + lead + r * ld + qw_col0(H, t);
+#pragma unroll 4
+        for (int c = lane; c < cols; c += 32) {
+          const float a = fabsf(row[c]);
+          if (fold == 1 && c < 3)
+            mx = fmaxf(mx, a);
+          else
+            mr = fmaxf(mr, a);
+        }
+      }
+      mx = fmaxf(fold_w(mx, fold, 0), fold_w(mr, fold, 3));
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      if (lane == 0) red[i * NW + warp] = mx;
+    }
+    __syncthreads();
+    if (warp == 0)
+      for (int i = 0; i < 2; ++i) {
+        float m = lane < NW && i < nt ? red[i * NW + lane] : 0.f;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+        if (lane == 0) bmax[i] = m;
+      }
+    float mx[2];
+    if constexpr (CL > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();   // every block's maxima written
+      // lane r of warp 0 reads block r's, the warp reduces them and
+      // leaves the cluster's in red (read by this block alone)
+      if (warp == 0)
+        for (int i = 0; i < 2; ++i) {
+          float m = lane < CL ? cluster.map_shared_rank(bmax, lane)[i] : 0.f;
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+          if (lane == 0) red[i] = m;
+        }
+      __syncthreads();
+      mx[0] = red[0];
+      mx[1] = red[1];
+      // read: the others may overwrite bmax once every block has arrived
+      // here, which the wait at the unit's end holds them to
+      cluster_arrive();
+    } else {
+      __syncthreads();
+      mx[0] = bmax[0];
+      mx[1] = bmax[1];
+    }
+
+    // 3. quantise both tensors into their s8 bands, then 16-byte stores
+    int8_t* dst = wq + (size_t)slot * q8_size(H);
+    const int ncopy = q_copy_rows(H, mat, k);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (i >= nt) break;
+      const int t = t0 + i, cols = qw_in(H, t), fold = qw_fold(t);
+      const int CW = up32(cols), TR = up16(cols);
+      const float s = __fadd_rn(__fmul_rn(mx[i], INV_127), 1e-30f);
+      const float inv = 1.f / s;
+      if (k == 0 && tid == 0) wscale[(size_t)slot * NQW + t] = s;
+      int8_t* qb = qc + (i ? q_s8_band(H, t0) : 0);
+      int8_t* qt = qb + QBAND * CW;
+      // a warp: rows 4 q4 .. 4 q4 + 3 of 32 columns, lane = column
+      for (int wc = warp; wc < (QBAND / 4) * (CW / 32); wc += NW) {
+        const int q4 = wc % (QBAND / 4), c = wc / (QBAND / 4) * 32 + lane;
+        const float* row = stage + lead + 4 * q4 * ld + qw_col0(H, t) + c;
+        uint32_t word = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 4 * q4 + e;
+          const int8_t q =
+              r < nsrc && c < cols
+                  ? to_s8(rintf(__fmul_rn(fold_w(row[e * ld], fold, c),
+                                          inv)))
+                  : (int8_t)0;
+          qb[r * CW + c] = q;
+          word |= (uint32_t)(uint8_t)q << (8 * e);
+        }
+        if (c < TR)
+          *reinterpret_cast<uint32_t*>(qt + c * QTRS + 4 * q4) = word;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (i >= nt) break;
+      const int t = t0 + i, CW = up32(qw_in(H, t)), TR = up16(qw_in(H, t));
+      const int8_t* qb = qc + (i ? q_s8_band(H, t0) : 0);
+      const int8_t* qt = qb + QBAND * CW;
+      // the copy band: rows 32k .. 32k + ncopy - 1, one contiguous range
+      uint4* dc =
+          reinterpret_cast<uint4*>(dst + qw_off(H, t) + QBAND * k * CW);
+      for (int c = tid; c < ncopy * CW / 16; c += NT)
+        dc[c] = reinterpret_cast<const uint4*>(qb)[c];
+      // the transpose band: 32 bytes of each of the transpose's TR rows
+      if (q_has_tr(H, mat, k)) {
+        int8_t* dt = dst + qwt_off(H, t) + QBAND * k;
+        const int RW = up32(qw_out(H, t));
+        for (int c = tid; c < 2 * TR; c += NT) {
+          const uint32_t* w = reinterpret_cast<const uint32_t*>(
+              qt + (c >> 1) * QTRS + 16 * (c & 1));
+          *reinterpret_cast<uint4*>(dt + (size_t)(c >> 1) * RW +
+                                    16 * (c & 1)) =
+              make_uint4(w[0], w[1], w[2], w[3]);
+        }
+      }
+    }
+    // the next unit writes the stage and the s8 bands only after barriers
+    // that every thread reaches once its stores are issued
+    if constexpr (CL > 1) cluster_wait();
   }
-  m = block_max<QUANT_THREADS>(m, red);
-  const float s = __fadd_rn(__fmul_rn(m, INV_127), 1e-30f);
-  const float inv = 1.f / s;
-  auto q = [&](int r, int c) {   // element (r, c) of the tensor, or 0
-    return r < d.rows && c < d.cols
-               ? to_s8(rintf(__fmul_rn(fold_w(src[r * d.ld + c], d.fold, c),
-                                       inv)))
-               : (int8_t)0;
-  };
-  int8_t* dst = wq + (size_t)slot * q8_size(H);
-  const int C = up32(d.cols), n = up16(d.rows) * C;
-  for (int idx = n * part / parts + threadIdx.x; idx < n * (part + 1) / parts;
-       idx += QUANT_THREADS)
-    dst[qw_off(H, t) + idx] = q(idx / C, idx % C);
-  const int CT = up32(d.rows), nt = up16(d.cols) * CT;
-  for (int idx = nt * part / parts + threadIdx.x;
-       idx < nt * (part + 1) / parts; idx += QUANT_THREADS)
-    dst[qwt_off(H, t) + idx] = q(idx % CT, idx / CT);
-  if (part == 0 && threadIdx.x == 0) wscale[(size_t)slot * NQW + t] = s;
+}
+
+template <int H>
+int launch_quant(const float* p, int8_t* wq, float* wscale,
+                 const int* active, const Offsets& off, int cap,
+                 int n_params, int sms, cudaStream_t stream) {
+  auto kernel = quant_weights_kernel<H>;
+  const size_t smem = q_smem(H);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)   // all of L1 as shared memory: q_bps blocks
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(q_clusters(sms, cap, H) * q_cluster(H));
+  cfg.blockDim = dim3(q_threads(H));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = q_cluster(H);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = q_cluster(H) > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, p, wq, wscale, active, off, cap,
+                           n_params);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // The operands and geometry of one int8 train_grad launch.
@@ -1050,15 +1201,6 @@ int launch_q8_width(int hidden, const Q8Args& a, cudaStream_t stream) {
 }  // namespace
 
 extern "C" {
-
-// The s8 weights' bytes per slot (q8_layout) at a kernel width, 0 for any
-// other: kernels/train_step.py holds its q8_layout to it.
-int vmap_q8_size(int hidden) {
-  return hidden == 32    ? q8_size(32)
-         : hidden == 128 ? q8_size(128)
-         : hidden == 256 ? q8_size(256)
-                         : 0;
-}
 
 // The dynamic shared memory of one int8 train_grad block (q8b 1: int8 /
 // int8_static, 0: the _fwd policies) at S samples and RT rays a tile, 0 at
@@ -1116,19 +1258,28 @@ int vmap_train_grad_q8(int q8b, int hidden, const float* params,
 
 // The s8 copy wq [cap, q8_size(hidden)] (q8_layout: each QW tensor and its
 // transpose, zero-padded) of the nine MLP weight tensors of every active
-// slot, and their scales wscale [cap, 9], from the parameters p.
+// slot, and their scales wscale [cap, 9], from the parameters p (p and wq
+// 16-byte aligned). The grid is update_plan.cuh's q_clusters on the
+// card's SM count.
 int vmap_train_quant_w(const float* p, void* wq, float* wscale,
                        const int* active, const int* offsets, int cap,
                        int n_params, int hidden, void* stream) {
-  if (cap < 1 || vmap_q8_size(hidden) == 0) return (int)cudaErrorInvalidValue;
-  // blocks enough to fill the SMs (132 on the H100 SXM) when the bank
-  // has few slots: the iMAP field's nine tensors take 8 blocks each
-  const int parts = cap * NQW >= 132 ? 1 : (132 + cap * NQW - 1) / (cap * NQW);
-  dim3 grid(NQW, cap, parts < 8 ? parts : 8);
-  quant_weights_kernel<<<grid, QUANT_THREADS, 0, (cudaStream_t)stream>>>(
-      p, static_cast<int8_t*>(wq), wscale, active, offsets_from(offsets),
-      n_params, hidden);
-  return (int)cudaGetLastError();
+  if (cap < 1 || n_params < 1 ||
+      (hidden != 32 && hidden != 128 && hidden != 256) ||
+      (reinterpret_cast<uintptr_t>(p) | reinterpret_cast<uintptr_t>(wq)) %
+          16)
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  if (const int err = sm_count(&sms)) return err;
+  const Offsets off = offsets_from(offsets);
+  int8_t* q = static_cast<int8_t*>(wq);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (hidden == 32)
+    return launch_quant<32>(p, q, wscale, active, off, cap, n_params, sms, st);
+  if (hidden == 128)
+    return launch_quant<128>(p, q, wscale, active, off, cap, n_params, sms,
+                             st);
+  return launch_quant<256>(p, q, wscale, active, off, cap, n_params, sms, st);
 }
 
 #ifdef K1_PROFILE

@@ -15,12 +15,15 @@ Two versions of one function:
     render + hand-derived backward per (slot, ray tile), its MLP products
     on tensor cores from the weights' staged bf16 pieces
     (``stage_weights``), partial gradients to one scratch row per block,
-    ``frame_geometry``; kernel B ``adamw_kernel``: fixed-order sum of the
-    rows + masked AdamW, and the updated weights' staged copy) and, for
-    the int8 policies, ``csrc/train_step_q8.cu`` (``train_grad_q8_kernel``,
-    the same grid and rows with every MLP product on s8 tensor cores, and
+    ``frame_geometry``; kernel B ``adamw_kernel``: the rows streamed by
+    TMA bulk copies and summed in a fixed order (``row_sum``), masked
+    AdamW, and the updated weights' staged copy) and, for the int8
+    policies, ``csrc/train_step_q8.cu`` (``train_grad_q8_kernel``, the
+    same grid and rows with every MLP product on s8 tensor cores, and
     ``quant_weights_kernel``, the weights' s8 copy and its transpose once
-    per iteration, ``q8_layout``), built for hidden 32, 128 and 256. The
+    per iteration, ``q8_layout``, by clusters of 32-row bands), built for
+    hidden 32, 128 and 256; ``csrc/update_plan.cuh`` states the two update
+    kernels' plan (``update_plan``). The
     loop over iterations runs on the host, two launches per iteration
     (int8: three). On CPU tensors it runs the plain version; on
     CUDA tensors it launches the kernels or raises.
@@ -289,9 +292,10 @@ def grad_row_size(hidden: int) -> int:
 
 def grad_row_index(spec: BankSpec) -> torch.Tensor:
     """Where each parameter's partial gradient sits in a float-policy
-    partial-gradient row of ``grad_row_size`` floats, int32 (the index
-    ``train_adamw`` reads by): a product weight at its staged index, the
-    dirs and biases, which lead the parameter layout, at NS + their own."""
+    partial-gradient row of ``grad_row_size`` floats, int32 (its inverse,
+    ``grad_row_param``, is what ``train_adamw`` reads by): a product weight
+    at its staged index, the dirs and biases, which lead the parameter
+    layout, at NS + their own."""
     layout, ns = staged_layout(spec.hidden)
     idx = torch.arange(spec.n_params, dtype=torch.int32) + ns
     for name, n_out, n_in, off in layout:
@@ -300,6 +304,64 @@ def grad_row_index(spec: BankSpec) -> torch.Tensor:
         idx[base:base + n_out * n_in] = (off + r).reshape(-1)
     _rest_size(spec)   # the dirs and biases lead the layout
     return idx
+
+
+def grad_row_param(spec: BankSpec) -> torch.Tensor:
+    """The inverse of ``grad_row_index``: the parameter at each of the
+    ``grad_row_size`` positions of a partial-gradient row, -1 on the
+    staged layout's zero padding and the row's tail, int32 (the index
+    ``train_adamw`` reads by, position by position)."""
+    idx = grad_row_index(spec).long()
+    out = torch.full((grad_row_size(spec.hidden),), -1, dtype=torch.int32)
+    out[idx] = torch.arange(spec.n_params, dtype=torch.int32)
+    return out
+
+
+def row_sum(grad_part: torch.Tensor) -> torch.Tensor:
+    """[cap, n_rows, row] partial rows -> [cap, row], each position's rows
+    added in row order from 0, one f32 add each: the summation order
+    ``train_adamw`` states (csrc/update_plan.cuh), its plain version."""
+    g = torch.zeros_like(grad_part[:, 0])
+    for t in range(grad_part.shape[1]):
+        g = g + grad_part[:, t]
+    return g
+
+
+def loss_sum(loss_part: torch.Tensor) -> torch.Tensor:
+    """[cap, n_rows] partial losses -> [cap] in ``train_adamw``'s order
+    (csrc/update_plan.cuh): lane l of 32 sums rows l, l + 32, ... in
+    order, then the lanes pairwise, halves added to halves (16, 8, 4, 2,
+    1 apart)."""
+    cap, n = loss_part.shape
+    x = torch.nn.functional.pad(loss_part, (0, -n % 32)).view(cap, -1, 32)
+    lanes = torch.zeros_like(x[:, 0])
+    for k in range(x.shape[1]):
+        lanes = lanes + x[:, k]
+    while lanes.shape[1] > 1:
+        half = lanes.shape[1] // 2
+        lanes = lanes[:, :half] + lanes[:, half:]
+    return lanes[:, 0]
+
+
+# csrc/update_plan.cuh update_plan's values, in its order (vmap_update_plan)
+UPDATE_PLAN = ("adam_threads", "adam_run", "adam_rows_a_stage",
+               "adam_stages", "adam_smem_bytes", "adam_blocks_per_sm",
+               "adam_runs", "adam_chunks", "adam_blocks", "adam_loss_blocks",
+               "quant_threads", "quant_band_rows", "quant_cluster",
+               "quant_smem_bytes", "quant_blocks_per_sm", "quant_clusters",
+               "grad_row", "q8_size")
+
+
+def update_plan(hidden: int, cap: int, n_rows: int, lib=None) -> dict:
+    """The update kernels' plan of a bank of ``cap`` slots at ``hidden``
+    with ``n_rows`` partial rows a slot on the current card
+    (``vmap_update_plan``): train_adamw's threads, run, ring and grid,
+    train_quant_w's band, cluster, shared memory and clusters."""
+    lib = lib or _build.load()
+    out = (ctypes.c_int * len(UPDATE_PLAN))()
+    _build.check(lib, lib.vmap_update_plan(hidden, cap, n_rows, out),
+                 f"update plan (hidden {hidden}, {cap} slots, {n_rows} rows)")
+    return dict(zip(UPDATE_PLAN, out))
 
 
 # the int8 tile's shape per width (csrc/train_step_q8.cu Q8Tile): the n
@@ -475,7 +537,10 @@ class FrameLaunch:
     int8_static_fwd its f32 backward; int8 / int8_static have none
     (None). The partial-gradient rows
     (``grad_part``, every policy) hold the weights in the staged layout,
-    ``row_index`` each parameter's place (``grad_row_index``). Under an
+    ``row_index`` each parameter's place (``grad_row_index``) and
+    ``row_param`` the parameter at each place (``grad_row_param``, which
+    ``adamw`` reads by); ``plan`` the update kernels' (``update_plan``).
+    Under an
     int8 policy ``wq`` holds the s8 weights and their transposes
     (``q8_layout``) and ``wscale`` their [cap, 9] scales
     (``ops.quant.QW_NAMES``), written by ``quant_weights``: here from the
@@ -534,16 +599,21 @@ class FrameLaunch:
         g = self.geom
         self.q8 = policy in Q.INT8_POLICIES
         row = grad_row_size(h)
+        # the update kernels' plan (csrc/update_plan.cuh), which also
+        # states the rows' and the s8 weights' sizes
+        self.plan = update_plan(h, cap, g.blocks, self.lib)
         if (self.lib.vmap_staged_size(h) != staged_layout(h)[1]
-                or self.lib.vmap_grad_row(h) != row):
-            raise RuntimeError("staged_layout / grad_row_size disagree "
-                               "with the kernel library's")
+                or self.plan["grad_row"] != row
+                or self.plan["q8_size"] != q8_layout(h)[1]):
+            raise RuntimeError("staged_layout / grad_row_size / q8_layout "
+                               "disagree with the kernel library's")
         # the rows hold the weights in the staged layout, then the dirs and
         # biases (row_index: each parameter's place in a row), and each
         # block but int8 / int8_static's has an activation scratch (h1, h2,
         # h3 of its tile at the kernel's row stride (rays * S) | 1):
         # block_scratch_bytes
         self.row_index = grad_row_index(bank.spec).to(dev)
+        self.row_param = grad_row_param(bank.spec).to(dev)
         self.act_part = None
         if not (self.q8 and Q.q8_backward(policy)):
             self.act_part = torch.empty(
@@ -559,9 +629,6 @@ class FrameLaunch:
                    else stage_weights(bank.flat, bank.spec))
         self.wq = self.wscale = self.qs = None
         if self.q8:
-            if self.lib.vmap_q8_size(h) != q8_layout(h)[1]:
-                raise RuntimeError("q8_layout disagrees with the kernel "
-                                   "library's")
             self.wq = torch.zeros((cap, q8_layout(h)[1]), dtype=torch.int8,
                                   device=dev)
             self.wscale = torch.empty((cap, len(Q.QW_NAMES)),
@@ -611,16 +678,17 @@ class FrameLaunch:
 
     def adamw(self, params, m, v, losses, it: int, lr: float,
               wd: float) -> None:
-        """Kernel B: reduce the partials, masked AdamW in place on
-        (params, m, v), losses[:, it] and ``ws`` (if the policy has it);
-        under an int8 policy then ``quant_weights`` for the next iteration,
-        if there is one."""
+        """Kernel B: reduce the partials (``row_sum``'s order; the losses
+        ``loss_sum``'s), masked AdamW in place on (params, m, v),
+        losses[:, it] and ``ws`` (if the policy has it); under an int8
+        policy then ``quant_weights`` for the next iteration, if there is
+        one."""
         for name, t in (("params", params), ("m", m), ("v", v)):
             self._check(name, t, (self.cap, self.n_params))
         self._check("losses", losses, (self.cap, self.n_iter))
         p = _ptr
         code = self.lib.vmap_train_adamw(
-            p(params), p(self.ws), p(self.row_index),
+            p(params), p(self.ws), p(self.row_param),
             p(m), p(v), p(self.grad_part), p(self.loss_part), p(losses),
             p(self.active), p(self.bc1), p(self.bc2), self.h, self.cap,
             self.n_params, self.geom.blocks, self.n_iter, it, float(lr),
@@ -632,10 +700,10 @@ class FrameLaunch:
 
     def quant_weights(self, params: torch.Tensor) -> None:
         """Int8 policies: the s8 copy ``wq`` (``q8_layout``) and scales
-        ``wscale`` of ``params``' MLP weights (``ops.quant.quant_weights``):
-        grid (tensor, slot, part), up to 8 parts a tensor when the bank has
-        few slots (each part reduces the whole tensor's abs-max, then
-        writes its share of the copy and the transpose)."""
+        ``wscale`` of ``params``' MLP weights (``ops.quant.quant_weights``,
+        then ``stage_q8``): a cluster of 32-row bands per (active slot,
+        source matrix), the grid from the card's SM count
+        (csrc/update_plan.cuh)."""
         self._check("params", params, (self.cap, self.n_params))
         code = self.lib.vmap_train_quant_w(
             _ptr(params), _ptr(self.wq), _ptr(self.wscale),
