@@ -148,6 +148,13 @@ to smoke_out/ (gitignored).
 
 times train_grad's sections at phase 3's shapes under every policy in
 place of the phases (``k1_sections``).
+
+    git archive <parent> | tar -x -C dev/parent
+    python3 chip_smoke.py --update-ab dev/parent . . dev/parent
+
+times the update kernels (train_adamw, train_quant_w) and the int8 vMAP
+frame of each checkout in turn on the same timers, each in a process of
+its own, in place of the phases (``update_ab``).
 """
 
 from __future__ import annotations
@@ -506,8 +513,10 @@ def check_kernels(dev, stats: dict, shapes=SHAPES) -> None:
         ad = stats["train_adamw"][name]
         ad["ms"] = time_device(
             lambda: fl.adamw(p, m, v, losses, 0, LR, WD), 50)
+        # the plain version as a user would write it; row_sum's fixed
+        # order is the correctness reference above, not a plain cost
         ad["plain_ms"] = time_cuda(lambda: apply_adamw(
-            bank, K.row_sum(fl.grad_part)[:, fl.row_index], LR, WD), 5)
+            bank, fl.grad_part.sum(1)[:, fl.row_index], LR, WD), 20)
         # a reference point, not the function: one library call reading
         # the same rows
         ad["torch_sum_ms"] = time_cuda(lambda: fl.grad_part.sum(dim=1), 50)
@@ -1136,8 +1145,9 @@ def imap_workload(dev):
 
 def device_split(fn) -> dict | None:
     """Device ms of one call of ``fn()`` (after a warm-up call) by kernel:
-    train_grad, train_adamw and everything else, from torch.profiler's
-    CUDA activity; None when the profiler records no device time."""
+    train_grad, train_adamw, train_quant_w and everything else, from
+    torch.profiler's CUDA activity; None when the profiler records no
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1146,12 +1156,15 @@ def device_split(fn) -> dict | None:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    split = {"train_grad": 0.0, "train_adamw": 0.0, "other": 0.0}
+    split = {"train_grad": 0.0, "train_adamw": 0.0, "train_quant_w": 0.0,
+             "other": 0.0}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        k = ("train_grad" if "train_grad_kernel" in e.name else
-             "train_adamw" if "adamw_kernel" in e.name else "other")
+        k = ("train_grad" if "train_grad_" in e.name else
+             "train_adamw" if "adamw_kernel" in e.name else
+             "train_quant_w" if "quant_weights_kernel" in e.name else
+             "other")
         split[k] += e.time_range.elapsed_us() / 1e3
     split["total"] = sum(split.values())
     return split if split["total"] > 0 else None
@@ -1746,8 +1759,8 @@ def check_policies(dev, stats: dict, shapes=SHAPES,
                     ad = {**adamw_bound(bank, geom.blocks, pieces=False),
                           "ms": time_device(adam, 50),
                           "plain_ms": time_cuda(lambda: apply_adamw(
-                              bank, K.row_sum(fl.grad_part)[:, fl.row_index],
-                              LR, WD), 5)}
+                              bank, fl.grad_part.sum(1)[:, fl.row_index],
+                              LR, WD), 20)}
                     res["train_adamw"] = ad
                     res["stage_weights_ms"] = time_cuda(
                         lambda: K.stage_weights(p, bank.spec), 20)
@@ -2174,6 +2187,106 @@ def probe_path(dev, gpu: str) -> tuple:
     return entries, counts
 
 
+# ------------------------------------------------------------ --update-ab
+def update_times(dev) -> dict:
+    """The update kernels of the checkout this process imports at phase
+    3's shapes, on one yardstick: ms a launch launched back to back
+    (``time_device``, 50) and paced by the host (``time_cuda``, 50).
+    train_adamw under float32 on the partial rows of one train_grad
+    launch, and under int8 beside train_quant_w; then phase 5's vMAP frame
+    under int8 without reuse: one frame's device ms by kernel
+    (``device_split``) and 5 frames on the host's clock
+    (``policy_full_width``, beside float32)."""
+    import dataclasses
+    import torch
+    from vmap_tpu_torch.core import step as ST
+    from vmap_tpu_torch.kernels import train_step as K
+    res = {}
+    for name, cap, n_act, h, n_per, S, scale in SHAPES:
+        bank = conditioned_bank(cap, n_act, h, scale, 0, dev)
+        batch = random_batch(cap, n_per, S, 1, dev)
+        for policy in ("float32", "int8"):
+            fl = K.FrameLaunch(bank, batch, 1, n_per, CS, OSC, policy)
+            p, m, v = (t.clone() for t in (bank.flat, bank.m, bank.v))
+            losses = torch.empty(cap, 1, device=dev)
+            fl.grad(p, 0)
+            adam = lambda: fl.adamw(p, m, v, losses, 0, LR, WD)  # noqa: E731
+            r = res.setdefault(f"{name}/{policy}", {})
+            r["train_adamw"] = {"ms": time_device(adam, 50),
+                                "host_paced_ms": time_cuda(adam, 50)}
+            if policy == "int8":
+                qw = lambda: fl.quant_weights(p)  # noqa: E731
+                r["train_quant_w"] = {"ms": time_device(qw, 50),
+                                      "host_paced_ms": time_cuda(qw, 50)}
+    st0, bo, bb, pool, obj_tab, obj_ids, bg_tab = bench_workload(dev)
+    st = dataclasses.replace(st0, use_fused_frame=True, compute_dtype="int8",
+                             sample_reuse=1)
+    gen = torch.Generator(device=dev).manual_seed(100)
+    d_o = ST.torch_draws(gen, ST.draw_shapes(
+        104, st.n_iter * st.win, st.n_px, st.n_b2s, st.n_bins, 1), dev)
+    d_b = ST.torch_draws(gen, ST.draw_shapes(
+        1, st.n_iter * st.win_bg, st.n_px_bg, st.n_b2s_bg, st.n_bins,
+        st.px_block_bg), dev)
+    res["int8_frame_device_ms"] = device_split(lambda: ST.frame_step(
+        st, bo, bb, *pool, obj_tab, obj_ids, bg_tab, d_o, d_b))
+    frames, _ = policy_full_width(dev, "", (("float32", 1), ("int8", 1)), 5,
+                                  "ab")
+    res["frames_ms"] = {k: r["frame_ms"] for k, r in frames.items()}
+    return res
+
+
+def update_ab(trees: list) -> list:
+    """``--update-ab``: the update kernels of each checkout in ``trees``
+    (``.`` this one; the parent's unpacked by ``git archive`` into a
+    gitignored directory) on the same timers, in the order given (parent,
+    change, change, parent compares two). Each distinct checkout's library
+    is built first, all at once; then each entry of ``trees`` runs
+    ``update_times`` in a process of its own (``--update-times --tree``).
+    Logs and returns one record a run; smoke_out/update_ab.json keeps
+    them."""
+    trees = [os.path.abspath(t) for t in trees]
+    build = ("import sys; sys.path.insert(0, '.'); "
+             "from vmap_tpu_torch.kernels import _build; _build.build()")
+    procs = {t: subprocess.Popen([sys.executable, "-c", build], cwd=t,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+             for t in dict.fromkeys(trees)}
+    for t, proc in procs.items():
+        out = proc.communicate(timeout=900)[0]
+        if proc.returncode:
+            raise RuntimeError(f"build of {t} failed:\n{out[-4000:]}")
+    runs = []
+    for i, t in enumerate(trees):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--update-times", "--tree", t],
+                              capture_output=True, text=True, timeout=900)
+        tag = "UPDATE_TIMES "
+        lines = [x for x in proc.stdout.splitlines() if x.startswith(tag)]
+        if proc.returncode or not lines:
+            raise RuntimeError(f"update_times in {t} failed "
+                               f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+        run = {"tree": os.path.relpath(t, REPO),
+               **json.loads(lines[-1][len(tag):])}
+        runs.append(run)
+        for key, r in run.items():
+            if "/" in key:
+                log(f"[ab] {i} {run['tree']} {key}: " + ", ".join(
+                    f"{k} ms {x['ms']:.4f} (host-paced "
+                    f"{x['host_paced_ms']:.4f})" for k, x in r.items()))
+        split = run["int8_frame_device_ms"]
+        log(f"[ab] {i} {run['tree']} int8 vMAP frame device ms "
+            "(torch.profiler): " + (", ".join(
+                f"{k} {v:.3f}" for k, v in split.items()) if split
+                else "not measured"))
+        for k, ms in run["frames_ms"].items():
+            log(f"[ab] {i} {run['tree']} vMAP frame {k}: median "
+                f"{sorted(ms)[len(ms) // 2]:.3f} ms "
+                f"{[round(x, 3) for x in ms]} (host clock)")
+    with open(os.path.join(OUT, "update_ab.json"), "w") as f:
+        json.dump(runs, f, indent=1)
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", nargs="+", type=int,
@@ -2182,6 +2295,12 @@ def main(argv=None) -> int:
     ap.add_argument("--sections", action="store_true",
                     help="in place of the phases: time train_grad's "
                     "sections under every policy (k1_sections)")
+    ap.add_argument("--update-ab", nargs="+", metavar="TREE",
+                    help="in place of the phases: time the update kernels "
+                    "of each checkout TREE in turn (update_ab)")
+    ap.add_argument("--update-times", action="store_true",
+                    help=argparse.SUPPRESS)   # one run of --update-ab
+    ap.add_argument("--tree", help=argparse.SUPPRESS)  # its checkout
     args = ap.parse_args(argv)
     phases = set(args.phases)
     if not os.path.isdir(os.path.join(REPO, "vmap_tpu_torch", "kernels",
@@ -2196,6 +2315,8 @@ def main(argv=None) -> int:
               "smoke test needs an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if args.tree:
+        sys.path.insert(0, os.path.abspath(args.tree))
     os.makedirs(OUT, exist_ok=True)
 
     # 1. device
@@ -2206,6 +2327,17 @@ def main(argv=None) -> int:
     log(f"[1] {gpu}; torch {torch.__version__} cuda {torch.version.cuda}")
     if args.sections:
         k1_sections(dev, gpu)
+        return 0
+    if args.update_ab:
+        update_ab(args.update_ab)
+        return 0
+    if args.update_times:
+        import vmap_tpu_torch
+        from vmap_tpu_torch.kernels import _build
+        assert vmap_tpu_torch.__file__.startswith(
+            os.path.abspath(args.tree) + os.sep), vmap_tpu_torch.__file__
+        _build.load()
+        print("UPDATE_TIMES " + json.dumps(update_times(dev)), flush=True)
         return 0
 
     # 2. build

@@ -54,8 +54,10 @@ def test_interop_round_trip_bit_exact():
         bank_from_numpy(arrays, 16)        # wrong width for the flat buffer
 
 
-def test_apply_adamw_matches_jax(rng):
-    jbank = _jax_bank()
+@pytest.mark.parametrize("cap,hidden,n_active", [(5, 32, 3), (4, 32, 3),
+                                                  (1, 128, 1)])
+def test_apply_adamw_matches_jax(rng, cap, hidden, n_active):
+    jbank = _jax_bank(hidden, cap, n_active)
     g = rng.normal(0, 1, jbank.flat.shape).astype(np.float32)
     want = jb.apply_adamw(jbank, jnp.asarray(g), 1e-3, 0.013)
     got = tb.apply_adamw(port_bank(jbank), t(g), 1e-3, 0.013)

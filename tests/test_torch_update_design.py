@@ -15,9 +15,8 @@ their plan and the plain versions of what they compute.
   by) inverts ``grad_row_index``, -1 exactly on the padding;
 * ``row_sum`` (train_adamw's stated summation order) within n_rows 2^-24
   sum |g| of the f64 sum and close to torch's own sum; ``loss_sum`` the
-  kernel's warp order;
-* ``apply_adamw`` on that sum against the JAX package's on the same numpy
-  inputs;
+  kernel's warp order (``apply_adamw`` on any gradient against the JAX
+  package's: tests/test_torch_bank_pool.py);
 * chip_smoke.py's bounds of train_adamw (the function's, and with K1's
   partial rows).
 """
@@ -28,14 +27,10 @@ import subprocess
 import sys
 from types import SimpleNamespace
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from vmap_tpu.core import bank as jb
-from vmap_tpu_torch.core import bank as tb
 from vmap_tpu_torch.core.bank import BankSpec
 from vmap_tpu_torch.kernels import train_step as K
 from vmap_tpu_torch.ops import quant as Q
@@ -46,7 +41,7 @@ sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tests"))
 
 import chip_smoke as C  # noqa: E402
-from _torch_parity import n, port_bank, t  # noqa: E402
+from _torch_parity import n, t  # noqa: E402
 
 WIDTHS = (32, 128, 256)
 SMEM_LIMIT = 232448        # the most shared memory a block may use
@@ -315,39 +310,6 @@ def test_loss_sum_is_the_warp_order(rng):
         np.testing.assert_array_equal(got, lanes[:, 0])
         assert (np.abs(got - x.astype(np.float64).sum(1))
                 <= rows * 2.0 ** -24 * np.abs(x).sum(1)).all()
-
-
-@pytest.mark.parametrize("cap,h,n_rows,n_active", [(4, 32, 20, 3),
-                                                   (1, 128, 30, 1)])
-def test_apply_adamw_on_row_sum_matches_jax(rng, cap, h, n_rows, n_active):
-    """AdamW on row_sum of seeded partial rows (read through
-    grad_row_index), the port's against the JAX package's apply_adamw on
-    the same numpy inputs, at tests/test_torch_train_step.py's tolerances;
-    inactive slots untouched."""
-    key = jax.random.PRNGKey(3)
-    jbank = jb.init_bank(key, cap, hidden=h)
-    for s in range(n_active):
-        jbank = jb.activate_slot(jbank, s, jax.random.fold_in(key, s),
-                                 2.0 + 0.5 * s, hidden=h)
-    jbank = jbank.replace(
-        m=jnp.asarray(rng.normal(0, 1e-4, jbank.m.shape), jnp.float32),
-        v=jnp.asarray(rng.uniform(0, 1e-6, jbank.v.shape), jnp.float32),
-        step=jnp.where(jbank.active, 3, 0).astype(jnp.int32))
-    spec = BankSpec.create(h)
-    parts = rng.normal(0, 1e-2, (cap, n_rows, K.grad_row_size(h)))
-    g = n(K.row_sum(t(parts.astype(np.float32)))[:, K.grad_row_index(spec)
-                                                  .long()])
-    want = jb.apply_adamw(jbank, jnp.asarray(g), 1e-3, 0.013)
-    got = tb.apply_adamw(port_bank(jbank), t(g), 1e-3, 0.013)
-    np.testing.assert_allclose(n(got.flat), np.asarray(want.flat),
-                               rtol=2e-4, atol=2e-6)
-    np.testing.assert_allclose(n(got.m), np.asarray(want.m), rtol=2e-4,
-                               atol=1e-7)
-    np.testing.assert_allclose(n(got.v), np.asarray(want.v), rtol=2e-4,
-                               atol=1e-12)
-    inact = ~np.asarray(jbank.active)
-    np.testing.assert_array_equal(n(got.flat)[inact],
-                                  np.asarray(jbank.flat)[inact])
 
 
 def test_chip_smoke_adamw_bounds():
