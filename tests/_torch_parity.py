@@ -4,17 +4,45 @@ reference frame of the train-frame kernel, and array conversions."""
 
 from __future__ import annotations
 
+import shutil
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
+from vmap_tpu import native as jnative
 from vmap_tpu.core.bank import apply_adamw
 from vmap_tpu.ops import losses as L
 from vmap_tpu.ops.embedding import embed
 from vmap_tpu.ops.mlp import mlp_apply
+from vmap_tpu_torch import native as tnative
 from vmap_tpu_torch.core.step import Draws
 from vmap_tpu_torch.interop import FIELDS, bank_from_numpy
+
+
+def wait_for_jax_native(timeout_s: float = 60.0) -> bool:
+    """The JAX package builds its library in place, so a test worker that
+    loads it while another worker's g++ is still writing it fails to load
+    it, and the module then caches that failure. Where g++ exists, forget
+    the failure and try again until the other build has finished."""
+    deadline = time.monotonic() + timeout_s
+    while not jnative.available():
+        if shutil.which("g++") is None or time.monotonic() > deadline:
+            return False
+        time.sleep(0.5)
+        with jnative._lock:
+            jnative._tried = False
+    return True
+
+
+def both_native() -> bool:
+    """Both packages' marching cubes on their native libraries. Native and
+    numpy backends emit the same surface with vertices in another order,
+    so a mesh compared vertex by vertex must come from one backend on each
+    side."""
+    return tnative.available() and wait_for_jax_native()
 
 
 def small_synthetic_config(path) -> str:

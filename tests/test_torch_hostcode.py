@@ -11,8 +11,6 @@ import dataclasses
 import glob
 import json
 import os
-import shutil
-import time
 
 import numpy as np
 import pytest
@@ -36,6 +34,8 @@ from vmap_tpu_torch.geometry import obb as tobb
 from vmap_tpu_torch.geometry import pointcloud as tpc
 from vmap_tpu_torch.geometry.mesh import Mesh as TMesh
 from vmap_tpu_torch.utils import viewer as tviewer
+
+from _torch_parity import both_native
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(os.path.relpath(p, REPO) for p in
@@ -82,27 +82,12 @@ def _sphere_volume(dim=24, radius=8.0):
     return (1.0 / (1.0 + np.exp((r - radius) * 2.0))).astype(np.float32)
 
 
-def _wait_for_jax_native(timeout_s: float = 60.0) -> bool:
-    """The JAX package builds its library in place, so a test worker that
-    loads it while another worker's g++ is still writing it fails to load
-    it, and the module then caches that failure. Where g++ exists, forget
-    the failure and try again until the other build has finished."""
-    deadline = time.monotonic() + timeout_s
-    while not jnative.available():
-        if shutil.which("g++") is None or time.monotonic() > deadline:
-            return False
-        time.sleep(0.5)
-        with jnative._lock:
-            jnative._tried = False
-    return True
-
-
 @pytest.mark.parametrize("backend", ["native", "numpy"])
 def test_marching_cubes_matches(backend):
     """A sphere volume on each backend; the port's native library is its
     own build of its own copy of the source."""
     vol = _sphere_volume()
-    assert tnative.available() and _wait_for_jax_native()
+    assert both_native()
     assert tnative.get_lib()._name != jnative.get_lib()._name
     v_t, f_t = t_mc(vol, 0.5, backend=backend)
     v_j, f_j = j_mc(vol, 0.5, backend=backend)

@@ -36,7 +36,8 @@ from vmap_tpu_torch.core import mapper as tmapper
 from vmap_tpu_torch.core import meshing as TM
 from vmap_tpu_torch.kernels import train_step as K
 
-from _torch_parity import jax_frame_draw_source, port_bank, small_imap_config
+from _torch_parity import (both_native, jax_frame_draw_source, port_bank,
+                           small_imap_config)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_FRAMES = 4
@@ -136,8 +137,10 @@ def test_imap_scene_mesh_matches_jax(imap):
     from every keyframe's points, the grid through the field query,
     marching cubes, vertex colours. Vertices atol 1e-3 m, the bar of the
     room-scale background mesh in tests/test_torch_meshing.py (voxels of
-    about 0.4 m here); faces equal; colours within 1 of 255."""
+    about 0.4 m here); faces equal; colours within 1 of 255. Both sides
+    mesh on their native libraries (``both_native``)."""
     _, jm, pm, _ = imap
+    assert both_native()
     jb, tb = jm.get_bound(0), pm.get_bound(0)
     for f in ("center", "R", "extent"):
         np.testing.assert_allclose(getattr(tb, f), getattr(jb, f), atol=1e-9)

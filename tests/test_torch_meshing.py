@@ -24,7 +24,7 @@ from vmap_tpu_torch.core import mapper as tmapper
 from vmap_tpu_torch.core import meshing as TM
 from vmap_tpu_torch.ops.render import make_3d_grid
 
-from _torch_parity import n, port_bank
+from _torch_parity import both_native, n, port_bank
 
 
 def _cfg():
@@ -143,6 +143,7 @@ def test_occupancy_volumes_match_jax(pair):
 
 def test_mesh_all_objects_matches_jax(pair):
     jm, pm = pair
+    assert both_native()
     want = JM.mesh_all_objects(jm)
     got = TM.mesh_all_objects(pm)
     assert set(got) == set(want) == set(_objects(pm))
