@@ -124,7 +124,23 @@ Phases, in order (any failure raises and the script exits non-zero):
      step, each chain replayed as a CUDA graph, beside each kernel's; the
      sampler's pool gather on phase 5's vMAP frame beside K6, with the
      least time any fetch of its 8-byte elements could take; and the
-     probes' launches counted on their own path ``probes``.
+     probes' launches counted on their own path ``probes``;
+ 13. the room protocol end to end (``vmap_tpu_torch.room_pipeline``):
+     the procedural room of 40 objects (5,812 triangles) at 1200 x 680,
+     frame 0 ray-traced on the card and one tile of 32,768 of its rays
+     held against the same function on the CPU (inst / cls equal but on
+     at most 1e-3 of the rays, depth within rtol 1e-5 and rgb within 1
+     where the winners agree; the render's ms a frame), then the pipeline
+     for 24 frames: the Replica files written without cv2 (invalid-depth
+     share under 0.15, frame 0 read back through the port's loader equal
+     to the render), room0_vmap.json as the pipeline rewrites it
+     (px_block_bg 1) trained on the card with finite losses and 2 x 20 x
+     24 launches of train_grad / train_adamw, the export at the last frame
+     at grid_dim 128 (field_stage and field_fwd launched), then the object
+     and scene protocols: a finite row for every meshed object with a GT
+     submesh, the objects' mean, the background and the scene printed,
+     and each stage's host seconds (no quality bar: 24 frames are not the
+     protocol's 1,000).
 
 Every kernel's entry in the JSON line carries its bound (the larger of
 its bytes over 3.35 TB/s and its operations over the peak of their type:
@@ -1520,6 +1536,208 @@ def run_imap_trainer(n_frames: int = 11, n_resume: int = 1) -> tuple:
                          vis={"html_viewer": False})
 
 
+# --------------------------------------------------------------- phase 13
+ROOM_OBJECTS, ROOM_FRAMES = 40, 24
+ROOM_W, ROOM_H, ROOM_F = 1200, 680, 600.0
+RENDER_TILE = 32768           # one ray tile of the room's render settings
+RENDER_TIE_SHARE = 1e-3       # pixels whose winner may differ (edge ties)
+RENDER_DEPTH_RTOL = 1e-5      # depth where the winners agree
+METRICS = ("accuracy", "completion", "completion_ratio_1cm",
+           "completion_ratio_5cm")
+
+
+def render_checks(dev, objects, settings, pose) -> tuple:
+    """Frame 0 of the room rendered on the card, one ray tile of it held
+    against the same function on the CPU (``inst`` / ``cls`` equal but on
+    at most RENDER_TIE_SHARE of the rays, ``depth`` within
+    RENDER_DEPTH_RTOL and ``rgb`` within 1 where the winners agree), and
+    the render's ms a frame (CUDA events, 3 frames). Returns the frame
+    (numpy, (W, H) layout) and the numbers."""
+    import numpy as np
+    from vmap_tpu_torch.data_generation.renderer import MeshRenderer
+    gpu = MeshRenderer(objects, settings, device=dev)
+    frame = gpu.render(pose)
+    cpu = MeshRenderer(objects, settings, device="cpu")
+    d, o = cpu.rays(pose)
+    t0 = time.perf_counter()
+    want = [x.numpy() for x in cpu.trace(d[:RENDER_TILE], o)]
+    cpu_s = time.perf_counter() - t0
+    got = [frame[k].reshape((-1,) + frame[k].shape[2:])[:RENDER_TILE]
+           for k in ("rgb", "depth", "inst", "cls")]
+    agree = got[2] == want[2]
+    inst_share = 1.0 - float(agree.mean())
+    cls_share = float((got[3] != want[3]).mean())
+    if max(inst_share, cls_share) > RENDER_TIE_SHARE:
+        raise AssertionError(f"render: inst / cls differ from the CPU on "
+                             f"{inst_share:.2e} / {cls_share:.2e} of a tile")
+    rel = (np.abs(got[1][agree] - want[1][agree])
+           / np.maximum(np.abs(want[1][agree]), 1e-30))
+    if rel.size and rel.max() > RENDER_DEPTH_RTOL:
+        raise AssertionError(f"render: depth rel error {rel.max():.3e}")
+    rgb_err = int(np.abs(got[0].astype(np.int32) - want[0].astype(
+        np.int32))[agree].max(initial=0))
+    if rgb_err > 1:
+        raise AssertionError(f"render: rgb differs by {rgb_err}")
+    ms = time_cuda(lambda: gpu.render_tensors(pose), 3)
+    res = {"render_ms": ms, "triangles": gpu.n_triangles,
+           "tile_rays": RENDER_TILE, "inst_mismatch": inst_share,
+           "cls_mismatch": cls_share,
+           "depth_max_rel": float(rel.max()) if rel.size else 0.0,
+           "rgb_max_err": rgb_err, "cpu_tile_s": cpu_s,
+           "ray_triangle_tests": ROOM_W * ROOM_H * gpu.n_triangles}
+    log(f"[13] render: {gpu.n_triangles} triangles at {ROOM_W}x{ROOM_H}, "
+        f"{ms:.1f} ms a frame on the card (CUDA events, 3 frames; "
+        f"{res['ray_triangle_tests'] / ms / 1e6:.2f} G ray-triangle tests "
+        f"a s); one tile of {RENDER_TILE} rays against the CPU "
+        f"({cpu_s:.1f} s there): inst / cls mismatch {inst_share:.2e} / "
+        f"{cls_share:.2e} (tier {RENDER_TIE_SHARE:g}), depth max rel "
+        f"{res['depth_max_rel']:.2e} (tier {RENDER_DEPTH_RTOL:g}), rgb max "
+        f"{rgb_err} (tier 1)")
+    return frame, res
+
+
+def dataset_checks(data_dir: str, frame: dict, cfg_path: str) -> dict:
+    """Frame 0 read back through the port's Replica loader (no cv2): the
+    colour equal to the render, the depth equal to the render's after the
+    mm rounding, the masks equal; the PNG read time a frame, and the
+    native row reconstruction's time for the frame's colour and depth
+    under Paeth (the slowest filter libpng writes; the port writes none)."""
+    import numpy as np
+    from vmap_tpu_torch import native
+    from vmap_tpu_torch.config import Config
+    from vmap_tpu_torch.data.replica import ReplicaDataset
+    from vmap_tpu_torch.data.transforms import depth_filter, depth_scale
+    from vmap_tpu_torch.utils.png import read_png
+    cfg = Config.from_json(cfg_path)
+    mm = np.clip(np.round(frame["depth"] * 1000.0), 0, 65535).astype(
+        np.uint16)
+    files = {"depth": ("depth", mm), "semantic_instance": (
+        "semantic_instance", frame["inst"].astype(np.uint16)),
+        "semantic_class": ("semantic_class", frame["cls"].astype(np.uint16))}
+    for sub, (name, want) in files.items():
+        got = read_png(os.path.join(data_dir, sub, f"{name}_0.png"))
+        if not np.array_equal(got, want.T):
+            raise AssertionError(f"{sub}_0.png differs from the render")
+    t0 = time.perf_counter()
+    sample = ReplicaDataset(cfg)[0]
+    read_s = time.perf_counter() - t0
+    if not np.array_equal(sample["image"], frame["rgb"]):
+        raise AssertionError("rgb_0.png read back differs from the render")
+    want = depth_filter(depth_scale(mm.astype(np.float32), cfg.depth_scale),
+                        cfg.max_depth)
+    if not np.array_equal(sample["depth"], want):
+        raise AssertionError("depth_0.png read back differs from the "
+                             "render's mm rounding")
+    t0 = time.perf_counter()
+    read_png(os.path.join(data_dir, "rgb", "rgb_0.png"))
+    rgb_s = time.perf_counter() - t0
+    paeth_ms = {}
+    for name, img, bpp in (("rgb", frame["rgb"].transpose(1, 0, 2), 3),
+                           ("depth", mm.T.astype(">u2"), 2)):
+        raw = np.ascontiguousarray(img).view(np.uint8).reshape(
+            img.shape[0], -1)
+        rows = np.concatenate([np.full((len(raw), 1), 4, np.uint8), raw], 1)
+        t0 = time.perf_counter()
+        native.png_unfilter(rows, bpp)
+        paeth_ms[name] = (time.perf_counter() - t0) * 1e3
+    log(f"[13] frame 0 read back through the port's Replica loader equal "
+        f"to the render (depth after the mm rounding); the loader took "
+        f"{read_s * 1e3:.1f} ms for the frame (4 PNGs, host), rgb_0.png "
+        f"alone {rgb_s * 1e3:.1f} ms; every row under Paeth, the native "
+        f"reconstruction takes {paeth_ms['rgb']:.1f} ms (rgb) / "
+        f"{paeth_ms['depth']:.1f} ms (depth) a frame")
+    return {"loader_ms": read_s * 1e3, "rgb_png_read_ms": rgb_s * 1e3,
+            "paeth_unfilter_ms": paeth_ms}
+
+
+def room_protocol(dev, gpu: str) -> tuple:
+    """The room protocol end to end on the card, through the port's
+    pipeline (``vmap_tpu_torch.room_pipeline``): the room of ROOM_OBJECTS
+    objects at 1200 x 680 for ROOM_FRAMES frames, trained with the shipped
+    room0_vmap.json as the pipeline rewrites it (px_block_bg 1, the export
+    at the last frame at grid_dim 128), evaluated by the object and the
+    scene protocols. Returns (launch counts of the pipeline's run, the
+    numbers)."""
+    import numpy as np
+    from vmap_tpu_torch import room_pipeline
+    from vmap_tpu_torch.data_generation.room import (make_room_scene,
+                                                     room_trajectory)
+    from vmap_tpu_torch.generate_dataset import room_settings
+
+    objs, shell, meta = make_room_scene(ROOM_OBJECTS, seed=0)
+    traj = room_trajectory(ROOM_FRAMES, size=meta["size"], seed=0)
+    settings = room_settings(ROOM_W, ROOM_H, ROOM_F, ROOM_F)
+    frame, res = render_checks(dev, objs + shell, settings, traj[0])
+
+    work = os.path.join(OUT, "room")
+    if os.path.isdir(work):
+        shutil.rmtree(work)
+    reset_counts()
+    summary = room_pipeline.main([
+        "--work", work, "--frames", str(ROOM_FRAMES), "--objects",
+        str(ROOM_OBJECTS), "--width", str(ROOM_W), "--height", str(ROOM_H),
+        "--focal", str(ROOM_F), "--grid_dim", "128", "--device", str(dev),
+        "--out", os.path.join(OUT, "room_summary.json")])
+    launches = read_counts()
+    want = 2 * 20 * ROOM_FRAMES
+    check_launches(launches, want, f"2 banks x 20 per frame x "
+                   f"{ROOM_FRAMES} frames")
+    if not launches["field_stage"] > 0:
+        raise AssertionError("mesh export launched no field_stage kernel")
+    if summary["px_block_bg"] != 1 or summary["device"] != str(dev):
+        raise AssertionError(f"pipeline ran with px_block_bg "
+                             f"{summary['px_block_bg']} on "
+                             f"{summary['device']}")
+    if not summary["invalid_depth_share"] < 0.15:
+        raise AssertionError(f"invalid-depth share "
+                             f"{summary['invalid_depth_share']}")
+    logdir = os.path.join(work, "run_default")
+    rows = [json.loads(line)
+            for line in open(os.path.join(logdir, "train_log.jsonl"))]
+    losses = [r["loss"] for r in rows]
+    if len(rows) != ROOM_FRAMES or not all(np.isfinite(losses)):
+        raise AssertionError(f"training losses {losses}")
+    res.update(dataset_checks(os.path.join(work, "data"), frame, os.path.join(
+        work, "room_config_default.json")))
+
+    gt_dir = os.path.join(work, "data", "habitat")
+    mesh_dir = os.path.join(logdir, "scene_mesh")
+    last = ROOM_FRAMES - 1
+    meshed = sorted(int(f[len(f"frame_{last}_obj"):-4])
+                    for f in os.listdir(mesh_dir)
+                    if f.startswith(f"frame_{last}_obj") and f.endswith(
+                        ".obj"))
+    with_gt = [o for o in meshed if o == 0 or os.path.exists(
+        os.path.join(gt_dir, f"mesh_semantic.ply_{o}.ply"))]
+    per = summary["per_object"]
+    missing = sorted(set(with_gt) - set(per))
+    if missing:
+        raise AssertionError(f"meshed objects with a GT submesh but no "
+                             f"metrics row: {missing}")
+    table = [summary["object_mean"], summary["bg"], summary["scene"],
+             *per.values()]
+    if not all(np.isfinite(row[m]) for row in table for m in METRICS):
+        raise AssertionError(f"a metric is not finite: {summary}")
+    fmt = lambda row: " | ".join(f"{row[m]:.4f}" for m in METRICS)  # noqa
+    log(f"[13] training: {ROOM_FRAMES} frames, losses "
+        f"{[round(x, 4) for x in losses]}; launches {launches}")
+    log(f"[13] {len(meshed)} meshes at frame {last}, {len(per)} rows "
+        f"(every meshed object with a GT submesh); Acc | Comp | Ratio@1cm "
+        f"| Ratio@5cm, {ROOM_FRAMES} frames (not the protocol's 1,000):")
+    log(f"[13] objects mean ({len(set(per) - {0})} objects): "
+        f"{fmt(summary['object_mean'])}")
+    log(f"[13] background: {fmt(summary['bg'])}")
+    log(f"[13] scene: {fmt(summary['scene'])}")
+    log("[13] host s per stage: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in summary["stage_s"].items())
+        + f" ({gpu})")
+    res.update({k: summary[k] for k in ("object_mean", "bg", "scene",
+                                        "stage_s", "invalid_depth_share",
+                                        "px_block_bg")})
+    res["rows"] = len(per)
+    return launches, res
+
+
 # --------------------------------------------------------------- phase 10
 def grads_from_m(bank_new, m0):
     """The gradient of a one-iteration frame, read from its first AdamW
@@ -2290,8 +2508,8 @@ def update_ab(trees: list) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", nargs="+", type=int,
-                    default=list(range(1, 13)),
-                    help="phases to run (default all: 1 2 ... 12)")
+                    default=list(range(1, 14)),
+                    help="phases to run (default all: 1 2 ... 13)")
     ap.add_argument("--sections", action="store_true",
                     help="in place of the phases: time train_grad's "
                     "sections under every policy (k1_sections)")
@@ -2406,6 +2624,10 @@ def main(argv=None) -> int:
             probe_entries, _ = probe_path(dev, gpu)
             with open(os.path.join(OUT, "probes.json"), "w") as f:
                 json.dump({"gpu": gpu, "probes": probe_entries}, f, indent=1)
+        elif phase == 13:
+            paths["room"], res = room_protocol(dev, gpu)
+            with open(os.path.join(OUT, "room.json"), "w") as f:
+                json.dump({"gpu": gpu, **res}, f, indent=1, default=float)
         else:
             raise SystemExit(f"no phase {phase}")
         log(f"[{phase}] phase {phase} took "
@@ -2444,6 +2666,8 @@ def main(argv=None) -> int:
          rows("field_stage"), None, lambda c: c["field_stage"]))
     must_launch = ((("train_grad", "train_adamw", "field_stage", "field_fwd",
                      "field_bwd") if {4, 8} <= phases else ())
+                   + (("train_grad", "train_adamw", "field_stage",
+                       "field_fwd") if 13 in phases else ())
                    + (("train_grad_q8", "train_quant_w")
                       if 11 in phases else ()))
     kernels = []

@@ -13,6 +13,9 @@ Behavioural parity with the reference loader (dataset.py:63-148):
   * depth scaled to metres and filtered beyond max_depth (dataset.py:69-71);
   * iMAP mode collapses the instance map to a single id 0 (dataset.py:95-96);
   * background bbox covers the full frame (dataset.py:133).
+
+Every image is a PNG, read through the port's own codec
+(``utils/png.py``): the loader needs no OpenCV.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import numpy as np
 
 from vmap_tpu_torch.data.transforms import (bbox_from_mask_batch, depth_filter,
                                       depth_scale, enlarge_bbox)
+from vmap_tpu_torch.utils.png import read_png
 
 # Replica background semantic classes (dataset.py:74)
 BACKGROUND_CLASSES = frozenset({5, 12, 30, 31, 40, 60, 92, 93, 95, 97, 98, 79})
@@ -30,12 +34,16 @@ MIN_INSTANCE_SIDE = 10
 BBOX_SCALE = 0.2
 
 
-def _imread(path: str, flags=None):
-    import cv2
-    img = cv2.imread(path, cv2.IMREAD_UNCHANGED if flags is None else flags)
-    if img is None:
-        raise FileNotFoundError(path)
-    return img
+def _read_rgb(path: str) -> np.ndarray:
+    """An 8-bit colour PNG -> uint8 [H, W, 3] RGB: greyscale repeated,
+    alpha dropped, as OpenCV's ``IMREAD_COLOR`` reads them."""
+    img = read_png(path)
+    if img.dtype != np.uint8:
+        raise ValueError(f"{path}: colour image must be 8-bit, not "
+                         f"{img.dtype}")
+    if img.ndim == 2:
+        return np.repeat(img[..., None], 3, axis=2)
+    return img[..., :1].repeat(3, axis=2) if img.shape[2] == 2 else img[..., :3]
 
 
 class ReplicaDataset:
@@ -52,16 +60,14 @@ class ReplicaDataset:
         return self.n
 
     def __getitem__(self, idx: int) -> dict:
-        import cv2
-        rgb = _imread(os.path.join(self.root, "rgb", f"rgb_{idx}.png"),
-                      cv2.IMREAD_COLOR)
-        rgb = cv2.cvtColor(rgb, cv2.COLOR_BGR2RGB).transpose(1, 0, 2)
-        depth_raw = _imread(os.path.join(self.root, "depth", f"depth_{idx}.png"))
+        rgb = _read_rgb(os.path.join(self.root, "rgb", f"rgb_{idx}.png"))
+        rgb = rgb.transpose(1, 0, 2)
+        depth_raw = read_png(os.path.join(self.root, "depth", f"depth_{idx}.png"))
         depth = depth_raw.astype(np.float32).T
-        inst = _imread(os.path.join(
+        inst = read_png(os.path.join(
             self.root, "semantic_instance", f"semantic_instance_{idx}.png")
         ).astype(np.int32).T
-        sem = _imread(os.path.join(
+        sem = read_png(os.path.join(
             self.root, "semantic_class", f"semantic_class_{idx}.png")
         ).astype(np.int32).T
 

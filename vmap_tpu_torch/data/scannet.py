@@ -57,7 +57,13 @@ class ScanNetDataset:
         return len(self.color_paths)
 
     def __getitem__(self, idx: int) -> dict | None:
-        import cv2
+        try:
+            import cv2
+        except ImportError as e:
+            raise ImportError(
+                "the ScanNet loader reads JPEG colour and resizes through "
+                "OpenCV (cv2), which is not installed; the Replica layout "
+                "needs no cv2") from e
         T = np.loadtxt(self.pose_paths[idx]).reshape(4, 4)
         if not np.isfinite(T).all():
             # invalid-pose frames are skipped (dataset.py:220-225). Returning

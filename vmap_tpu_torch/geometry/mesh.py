@@ -173,21 +173,23 @@ class Mesh:
             raise ValueError(f"unsupported mesh format: {path}")
 
     def _export_obj(self, path: str) -> None:
+        """One %-format over every row (the text of a per-row f-string,
+        without the Python loop)."""
         cols = self.vertex_colors
+        rows = np.asarray(self.vertices, np.float64)[:, :3]
+        line = "v %.6f %.6f %.6f\n"
+        if cols is not None:
+            c = np.asarray(cols, np.float64)
+            if c.max() > 1.0:
+                c = c / 255.0
+            rows = np.concatenate([rows, c[:, :3]], axis=1)
+            line = "v %.6f %.6f %.6f %.4f %.4f %.4f\n"
+        faces = np.asarray(self.faces, np.int64)[:, :3] + 1
         with open(path, "w") as f:
             f.write("# vmap_tpu mesh\n")
-            if cols is not None:
-                c = np.asarray(cols, np.float64)
-                if c.max() > 1.0:
-                    c = c / 255.0
-                for v, cc in zip(self.vertices, c):
-                    f.write(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f} "
-                            f"{cc[0]:.4f} {cc[1]:.4f} {cc[2]:.4f}\n")
-            else:
-                for v in self.vertices:
-                    f.write(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n")
-            for face in self.faces + 1:
-                f.write(f"f {face[0]} {face[1]} {face[2]}\n")
+            f.write((line * len(rows)) % tuple(rows.ravel().tolist()))
+            f.write(("f %d %d %d\n" * len(faces))
+                    % tuple(faces.ravel().tolist()))
 
     def _export_ply(self, path: str) -> None:
         cols = self.vertex_colors
@@ -232,18 +234,39 @@ def load_ply_with_face_props(path: str) -> tuple[Mesh, dict]:
 
 
 def _load_obj(path: str) -> Mesh:
+    """Vertices (colours where every vertex has them) and faces, polygons
+    fan-triangulated. Where every ``v`` line holds one count of
+    single-spaced numbers and every ``f`` line three plain indices (the
+    files ``export`` writes), the numbers are parsed in C
+    (``np.fromstring``, correctly rounded as ``float``); other files go
+    token by token."""
+    with open(path, "rb") as f:
+        lines = f.read().split(b"\n")
+    v_lines = [ln for ln in lines if ln.startswith(b"v ")]
+    f_lines = [ln for ln in lines if ln.startswith(b"f ")]
+    spaces = {ln.count(b" ") for ln in v_lines}
+    if (v_lines and f_lines and len(spaces) == 1 and min(spaces) >= 3
+            and all(ln.count(b" ") == 3 and b"/" not in ln
+                    for ln in f_lines)):
+        width = spaces.pop()
+        vals = np.fromstring(b" ".join(ln[2:] for ln in v_lines), sep=" ")
+        faces = np.fromstring(b" ".join(ln[2:] for ln in f_lines),
+                              dtype=np.int64, sep=" ")
+        if (vals.size == width * len(v_lines)
+                and faces.size == 3 * len(f_lines)):
+            vals = vals.reshape(len(v_lines), width)
+            colors = vals[:, 3:6].copy() if width >= 6 else None
+            return Mesh(vals[:, :3].copy(), faces.reshape(-1, 3) - 1, colors)
     vs, fs, cs = [], [], []
-    with open(path) as f:
-        for line in f:
-            if line.startswith("v "):
-                parts = line.split()
-                vs.append([float(x) for x in parts[1:4]])
-                if len(parts) >= 7:
-                    cs.append([float(x) for x in parts[4:7]])
-            elif line.startswith("f "):
-                idx = [int(p.split("/")[0]) - 1 for p in line.split()[1:]]
-                for k in range(1, len(idx) - 1):  # fan for polygons
-                    fs.append([idx[0], idx[k], idx[k + 1]])
+    for line in v_lines:
+        parts = line.decode().split()
+        vs.append([float(x) for x in parts[1:4]])
+        if len(parts) >= 7:
+            cs.append([float(x) for x in parts[4:7]])
+    for line in f_lines:
+        idx = [int(p.split("/")[0]) - 1 for p in line.decode().split()[1:]]
+        for k in range(1, len(idx) - 1):  # fan for polygons
+            fs.append([idx[0], idx[k], idx[k + 1]])
     colors = np.asarray(cs) if len(cs) == len(vs) and cs else None
     return Mesh(np.asarray(vs), np.asarray(fs, np.int64), colors)
 

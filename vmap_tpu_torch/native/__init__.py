@@ -3,6 +3,8 @@
 Builds ``libvmapgeom.so`` on demand with g++ (no pybind/cmake needed) and
 exposes drop-in replacements for the hot host-side geometry ops. Falls back
 silently to the numpy implementations when no compiler is available.
+``png_unfilter`` (``png.cpp``) reconstructs PNG rows for
+``utils/png.py``, which calls it only for the Average and Paeth filters.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SO = os.path.join(_HERE, "libvmapgeom.so")
-_SRC = os.path.join(_HERE, "marching_cubes.cpp")
+_SRCS = [os.path.join(_HERE, f) for f in ("marching_cubes.cpp", "png.cpp")]
 _lock = threading.Lock()
 _lib = None
 _tried = False
@@ -29,7 +31,7 @@ def _build() -> bool:
     one that another compiler is still writing."""
     tmp = f"{_SO}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
-           "-o", tmp, _SRC]
+           "-o", tmp, *_SRCS]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
         os.replace(tmp, _SO)
@@ -48,9 +50,8 @@ def get_lib():
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_SO) or (
-                os.path.exists(_SRC)
-                and os.path.getmtime(_SRC) > os.path.getmtime(_SO)):
+        if not os.path.exists(_SO) or max(
+                os.path.getmtime(s) for s in _SRCS) > os.path.getmtime(_SO):
             if not _build():
                 return None
         try:
@@ -68,6 +69,10 @@ def get_lib():
             ctypes.POINTER(ctypes.c_int64),
         ]
         lib.mt_free.argtypes = [ctypes.c_void_p]
+        lib.png_unfilter.restype = ctypes.c_int64
+        lib.png_unfilter.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8),
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
         _lib = lib
         return _lib
 
@@ -98,6 +103,28 @@ def marching_cubes_native(volume: np.ndarray, level: float = 0.5):
         lib.mt_free(pv)
         lib.mt_free(pf)
     return verts, faces
+
+
+def png_unfilter(data: np.ndarray, bpp: int) -> np.ndarray:
+    """PNG rows ``data`` uint8 [H, 1 + stride] (filter type first) ->
+    the reconstructed bytes [H, stride]. Raises ValueError on a filter
+    type outside 0-4, RuntimeError if the library is missing."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("native geometry library unavailable")
+    data = np.ascontiguousarray(data, np.uint8)
+    h, stride = data.shape[0], data.shape[1] - 1
+    if stride % bpp:
+        raise ValueError(f"row of {stride} bytes is not whole {bpp}-byte "
+                         "pixels")
+    out = np.empty((h, stride), np.uint8)
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    bad = lib.png_unfilter(data.ctypes.data_as(u8), out.ctypes.data_as(u8),
+                           h, stride, bpp)
+    if bad:
+        raise ValueError(f"PNG row {bad - 1}: filter type "
+                         f"{int(data[bad - 1, 0])} is not 0-4")
+    return out
 
 
 def available() -> bool:

@@ -43,8 +43,10 @@ def main(argv=None, draw_source=None):
     return run(argv, draw_source)[0]
 
 
-def run(argv=None, draw_source=None):
-    """``main``, returning (Mapper, the dataset it was fed)."""
+def run(argv=None, draw_source=None, timings: dict | None = None):
+    """``main``, returning (Mapper, the dataset it was fed). ``timings``,
+    where given, gets the host seconds of the mesh exports (``export_s``)
+    and of the whole loop (``loop_s``)."""
     args = parse_args(argv)
 
     from vmap_tpu_torch.config import Config
@@ -69,6 +71,7 @@ def run(argv=None, draw_source=None):
     log_every = 25
     pending: list = []
     t_start = time.time()
+    export_s = 0.0
     it = iter(PrefetchIterator(dataset))
     with open(os.path.join(args.logdir, "train_log.jsonl"), "a") as log_f:
         for frame_idx in range(n_frames):
@@ -112,11 +115,12 @@ def run(argv=None, draw_source=None):
                 mesh_dir = os.path.join(args.logdir, "scene_mesh")
                 t_export = time.perf_counter()
                 paths = mapper.export_meshes(mesh_dir, frame_idx)
+                t_export = time.perf_counter() - t_export
+                export_s += t_export
                 stages = ", ".join(f"{k} {v:.3f}" for k, v in
                                    meshing.STAGE_S.items())
                 print(f"frame {frame_idx}: exported {len(paths)} meshes "
-                      f"-> {mesh_dir} in "
-                      f"{time.perf_counter() - t_export:.3f} s ({stages})")
+                      f"-> {mesh_dir} in {t_export:.3f} s ({stages})")
                 if args.save_ckpt:
                     ckpt_dir = os.path.join(args.logdir, "ckpt")
                     for obj_id in sorted(mapper.registry):
@@ -125,8 +129,11 @@ def run(argv=None, draw_source=None):
                             os.path.join(ckpt_dir, str(obj_id)), frame_idx)
                     ckpt_lib.save_full_checkpoint(
                         mapper, os.path.join(ckpt_dir, "state"), frame_idx)
+    loop_s = time.time() - t_start
+    if timings is not None:
+        timings.update(export_s=export_s, loop_s=loop_s)
     print(f"done: {mapper.n_objects} objects, {mapper.frames_ingested} "
-          f"frames, {time.time() - t_start:.1f}s")
+          f"frames, {loop_s:.1f}s")
     return mapper, dataset
 
 

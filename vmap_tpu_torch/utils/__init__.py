@@ -1,1 +1,2 @@
-"""Utilities: the HTML scene viewer snapshot."""
+"""Utilities: the HTML scene viewer snapshot, headless visualisation and
+the PNG codec of the Replica layout."""
