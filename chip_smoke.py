@@ -1551,19 +1551,32 @@ def render_checks(dev, objects, settings, pose) -> tuple:
     against the same function on the CPU (``inst`` / ``cls`` equal but on
     at most RENDER_TIE_SHARE of the rays, ``depth`` within
     RENDER_DEPTH_RTOL and ``rgb`` within 1 where the winners agree), and
-    the render's ms a frame (CUDA events, 3 frames). Returns the frame
-    (numpy, (W, H) layout) and the numbers."""
+    the render's ms a frame (CUDA events, 3 frames). The tile is the whole
+    tile of the frame with the most pixels on an instance boundary, where
+    the edge ties are. Returns the frame (numpy, (W, H) layout) and the
+    numbers."""
     import numpy as np
     from vmap_tpu_torch.data_generation.renderer import MeshRenderer
     gpu = MeshRenderer(objects, settings, device=dev)
     frame = gpu.render(pose)
+    inst = frame["inst"]
+    edge = np.zeros(inst.shape, bool)
+    edge[1:] |= inst[1:] != inst[:-1]
+    edge[:, 1:] |= inst[:, 1:] != inst[:, :-1]
+    n_tiles = inst.size // RENDER_TILE
+    per_tile = edge.reshape(-1)[:n_tiles * RENDER_TILE].reshape(
+        n_tiles, RENDER_TILE).sum(1)
+    best = int(per_tile.argmax())
+    tile = slice(best * RENDER_TILE, (best + 1) * RENDER_TILE)
     cpu = MeshRenderer(objects, settings, device="cpu")
     d, o = cpu.rays(pose)
     t0 = time.perf_counter()
-    want = [x.numpy() for x in cpu.trace(d[:RENDER_TILE], o)]
+    want = [x.numpy() for x in cpu.trace(d[tile], o)]
     cpu_s = time.perf_counter() - t0
-    got = [frame[k].reshape((-1,) + frame[k].shape[2:])[:RENDER_TILE]
+    got = [frame[k].reshape((-1,) + frame[k].shape[2:])[tile]
            for k in ("rgb", "depth", "inst", "cls")]
+    tile_inst = len(np.unique(got[2]))
+    tile_edges = int(per_tile[best])
     agree = got[2] == want[2]
     inst_share = 1.0 - float(agree.mean())
     cls_share = float((got[3] != want[3]).mean())
@@ -1580,7 +1593,9 @@ def render_checks(dev, objects, settings, pose) -> tuple:
         raise AssertionError(f"render: rgb differs by {rgb_err}")
     ms = time_cuda(lambda: gpu.render_tensors(pose), 3)
     res = {"render_ms": ms, "triangles": gpu.n_triangles,
-           "tile_rays": RENDER_TILE, "inst_mismatch": inst_share,
+           "tile_rays": RENDER_TILE, "tile_start": tile.start,
+           "tile_instances": tile_inst, "tile_edge_pixels": tile_edges,
+           "inst_mismatch": inst_share,
            "cls_mismatch": cls_share,
            "depth_max_rel": float(rel.max()) if rel.size else 0.0,
            "rgb_max_err": rgb_err, "cpu_tile_s": cpu_s,
@@ -1588,8 +1603,11 @@ def render_checks(dev, objects, settings, pose) -> tuple:
     log(f"[13] render: {gpu.n_triangles} triangles at {ROOM_W}x{ROOM_H}, "
         f"{ms:.1f} ms a frame on the card (CUDA events, 3 frames; "
         f"{res['ray_triangle_tests'] / ms / 1e6:.2f} G ray-triangle tests "
-        f"a s); one tile of {RENDER_TILE} rays against the CPU "
-        f"({cpu_s:.1f} s there): inst / cls mismatch {inst_share:.2e} / "
+        f"a s); the tile of {RENDER_TILE} rays from ray {tile.start} "
+        f"({tile_inst} instances, {tile_edges} pixels on an instance "
+        f"boundary, the most of the frame's {n_tiles} whole tiles) against "
+        f"the CPU ({cpu_s:.1f} s there): inst / cls mismatch "
+        f"{inst_share:.2e} / "
         f"{cls_share:.2e} (tier {RENDER_TIE_SHARE:g}), depth max rel "
         f"{res['depth_max_rel']:.2e} (tier {RENDER_DEPTH_RTOL:g}), rgb max "
         f"{rgb_err} (tier 1)")

@@ -6,6 +6,8 @@ originals on the same inputs:
     backends;
   * ``geometry.obb`` / ``geometry.pointcloud``: OBBs and depth
     unprojection;
+  * ``geometry.mesh``: the .obj writer's bytes and the reader's arrays
+    (``test_obj_io_matches``);
   * ``data``: the synthetic loader's first frames;
   * ``core.keyframe``: keyframe-table decisions over a frame sequence;
   * ``utils.viewer``: the HTML viewer snapshot;
@@ -25,9 +27,11 @@ originals on the same inputs:
     ``split_by_object_id``;
   * ``utils.vis`` (``vmap_tpu/utils/vis.py``): ``label_to_rgb``.
 
-The copies differ from the originals only in their imports (and
-``Config.fused_enabled``, which resolves against the device), so each
-must give exactly the original's result. ``eval.eval_3d``,
+The copies differ from the originals only in their imports, apart from
+``Config.fused_enabled``, which resolves against the device, and
+``geometry.mesh``'s .obj writer and reader, which format and parse whole
+arrays at once (the reader for the files the writer makes; other files
+still token by token). Each must give exactly the original's result. ``eval.eval_3d``,
 ``data_generation.writer`` and the renderer are held in
 tests/test_torch_eval.py and tests/test_torch_datagen.py."""
 

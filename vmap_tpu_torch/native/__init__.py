@@ -4,7 +4,7 @@ Builds ``libvmapgeom.so`` on demand with g++ (no pybind/cmake needed) and
 exposes drop-in replacements for the hot host-side geometry ops. Falls back
 silently to the numpy implementations when no compiler is available.
 ``png_unfilter`` (``png.cpp``) reconstructs PNG rows for
-``utils/png.py``, which calls it only for the Average and Paeth filters.
+``utils/png.py``, which reads every image through it.
 """
 
 from __future__ import annotations

@@ -3,13 +3,13 @@ with the standard library's ``zlib`` and numpy.
 
 Writes 8-bit RGB and 8- or 16-bit greyscale (16-bit samples big-endian,
 as PNG stores them), each row filtered by None, Sub or Up, whichever
-gives the smallest sum of absolute filtered bytes: all three decode
-without a loop over pixels; zlib at level 1 by default, as OpenCV
-writes. Reads 8- and 16-bit greyscale, grey + alpha, RGB and RGBA with
-all five filter types, so files that libpng (OpenCV) wrote read too:
-their Average and Paeth rows run along the row pixel by pixel, which the
-port's native library does (``native.png_unfilter``). Interlaced,
-palette and 1/2/4-bit images are refused.
+gives the smallest sum of absolute filtered bytes; zlib at level 1, as
+OpenCV writes. Reads 8- and 16-bit greyscale, grey + alpha, RGB and RGBA
+with all five filter types, so files that libpng (OpenCV) wrote read
+too. Every row is reconstructed by the port's native library
+(``native.png_unfilter``, built with g++ at first use), since Average and
+Paeth run along the row pixel by pixel; reading needs that library.
+Interlaced, palette and 1/2/4-bit images are refused.
 
 Arrays are image-major, as OpenCV's: [H, W] for greyscale, [H, W, C]
 otherwise, but colour stays in file order (RGB, not OpenCV's BGR).
@@ -24,7 +24,7 @@ import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}   # grey, RGB, grey + alpha, RGBA
-NONE, SUB, UP, AVERAGE, PAETH = range(5)
+NONE, SUB, UP = range(3)             # the filter types the encoder writes
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -48,7 +48,7 @@ def _filter_rows(raw: np.ndarray, bpp: int) -> np.ndarray:
     return np.concatenate([kind.astype(np.uint8)[:, None], rows], axis=1)
 
 
-def encode_png(img: np.ndarray, level: int = 1) -> bytes:
+def encode_png(img: np.ndarray) -> bytes:
     """uint8 [H, W] / [H, W, 3] (RGB) or uint16 [H, W] -> PNG bytes."""
     img = np.asarray(img)
     if img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3:
@@ -64,40 +64,22 @@ def encode_png(img: np.ndarray, level: int = 1) -> bytes:
     bpp = CHANNELS[color] * depth // 8
     raw = np.ascontiguousarray(data).view(np.uint8).reshape(h, w * bpp)
     ihdr = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 0)
-    idat = zlib.compress(_filter_rows(raw, bpp).tobytes(), level)
+    idat = zlib.compress(_filter_rows(raw, bpp).tobytes(), 1)
     return (SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", idat)
             + _chunk(b"IEND", b""))
 
 
-def write_png(path: str, img: np.ndarray, level: int = 1) -> None:
+def write_png(path: str, img: np.ndarray) -> None:
     with open(path, "wb") as f:
-        f.write(encode_png(img, level))
+        f.write(encode_png(img))
 
 
-def _unfilter_numpy(data: np.ndarray, bpp: int) -> np.ndarray:
-    """None / Sub / Up rows: Sub is a running sum along the row per byte
-    lane (uint8 sums wrap mod 256, as the filter does), Up the row above
-    added."""
-    kind, rows = data[:, 0], data[:, 1:]
-    h, stride = rows.shape
-    out = rows.copy()
-    sub = kind == SUB
-    if sub.any():
-        lanes = out[sub].reshape(-1, stride // bpp, bpp)
-        out[sub] = np.cumsum(lanes, axis=1, dtype=np.uint8).reshape(-1, stride)
-    for r in np.flatnonzero(kind == UP):
-        if r:
-            out[r] += out[r - 1]
-    return out
-
-
-def _unfilter_native(data: np.ndarray, bpp: int) -> np.ndarray:
+def _unfilter(data: np.ndarray, bpp: int) -> np.ndarray:
     from vmap_tpu_torch import native
     if native.get_lib() is None:
         raise RuntimeError(
-            "this PNG has Average or Paeth rows, which decode through the "
-            "port's native library (vmap_tpu_torch/native, built with g++); "
-            "it is not available")
+            "PNG rows decode through the port's native library "
+            "(vmap_tpu_torch/native, built with g++); it is not available")
     return native.png_unfilter(data, bpp)
 
 
@@ -137,12 +119,7 @@ def decode_png(buf: bytes) -> np.ndarray:
     if data.size != h * (1 + w * bpp):
         raise ValueError(f"PNG data holds {data.size} bytes, expected "
                          f"{h * (1 + w * bpp)}")
-    data = data.reshape(h, 1 + w * bpp)
-    kinds = data[:, 0]
-    if kinds.max(initial=0) > PAETH:
-        raise ValueError(f"PNG filter type {int(kinds.max())} is not 0-4")
-    rows = (_unfilter_numpy(data, bpp) if kinds.max(initial=0) <= UP
-            else _unfilter_native(data, bpp))
+    rows = _unfilter(data.reshape(h, 1 + w * bpp), bpp)
     img = rows.view(">u2").astype(np.uint16) if depth == 16 else rows
     return img.reshape((h, w) if ch == 1 else (h, w, ch))
 
