@@ -25,8 +25,8 @@ the CPU.
     so that frame 10 exports, 96 x 64, 6 objects, 2 iterations a frame,
     8 object slots): every metric finite, ``px_block_bg`` 1, and neither
     ``jax`` nor any ``vmap_tpu`` module imported (in a subprocess).
-  * the entry points raise without CUDA unless asked for the CPU, and the
-    ScanNet writer and loader raise without ``cv2``.
+  * the entry points raise without CUDA unless asked for the CPU (the
+    ScanNet layout without ``cv2`` is ``tests/test_torch_scannet.py``'s).
 """
 
 import importlib.util
@@ -433,16 +433,3 @@ def test_entry_points_raise_without_cuda(tmp_path):
         room_pipeline.main(["--work", str(tmp_path / "w"), "--frames", "1"])
     assert not os.path.exists(tmp_path / "g" / "rgb")
 
-
-def test_scannet_paths_raise_without_cv2(tmp_path, monkeypatch):
-    from vmap_tpu_torch.data.scannet import ScanNetDataset
-    from vmap_tpu_torch.data_generation import write_scannet_sequence
-    monkeypatch.setitem(sys.modules, "cv2", None)
-    frame = {"rgb": np.zeros((4, 3, 3), np.uint8),
-             "depth": np.ones((4, 3), np.float32),
-             "inst": np.zeros((4, 3), np.int32),
-             "cls": np.zeros((4, 3), np.int32)}
-    with pytest.raises(ImportError, match="JPEG"):
-        write_scannet_sequence(str(tmp_path), [frame], np.eye(4)[None])
-    with pytest.raises(ImportError, match="JPEG"):
-        ScanNetDataset.__new__(ScanNetDataset)[0]

@@ -16,8 +16,9 @@ The package stands alone: it imports nothing of ``vmap_tpu`` (nor
 ``data``, ``core.keyframe``, ``geometry``, ``native``, ``eval``,
 ``data_generation.{settings,room,writer}``, ``utils.viewer`` and
 ``utils.vis``), each the JAX package's module with its imports pointed
-here (``Config.fused_enabled`` resolves against the device; the Replica
-images through the port's own PNG codec, ``utils.png``, not OpenCV).
+here (``Config.fused_enabled`` resolves against the device; images go
+through the port's own PNG and JPEG codecs and resampling, ``utils.png``,
+``utils.jpeg`` and ``utils.image``: the port needs no OpenCV).
 """
 
 __version__ = "0.1.0"

@@ -4,7 +4,7 @@ Counterpart of dataset.init_loader (dataset.py:39-61): picks the dataset by
 ``cfg.dataset_format`` and wraps it in a prefetching iterator. Instead of
 torch DataLoader worker processes, a single background thread decodes the
 next frames while the device trains the current one (the per-frame decode is
-a few ms of cv2 work; one thread fully hides it behind the training step).
+a few ms of image decoding; one thread fully hides it behind the training step).
 """
 
 from __future__ import annotations

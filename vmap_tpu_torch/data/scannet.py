@@ -25,6 +25,9 @@ import numpy as np
 from vmap_tpu_torch.data.association import AssociationState, associate_frame
 from vmap_tpu_torch.data.transforms import (bbox_from_mask, depth_filter,
                                       depth_scale, enlarge_bbox)
+from vmap_tpu_torch.utils.image import resize_linear, resize_nearest
+from vmap_tpu_torch.utils.jpeg import read_jpeg
+from vmap_tpu_torch.utils.png import read_png
 
 # scannetv2-labels.combined.tsv background ids (dataset.py:187)
 BACKGROUND_CLASSES = frozenset({-1, 0, 1, 3, 16, 41, 232, 21, 161, 128})
@@ -57,13 +60,6 @@ class ScanNetDataset:
         return len(self.color_paths)
 
     def __getitem__(self, idx: int) -> dict | None:
-        try:
-            import cv2
-        except ImportError as e:
-            raise ImportError(
-                "the ScanNet loader reads JPEG colour and resizes through "
-                "OpenCV (cv2), which is not installed; the Replica layout "
-                "needs no cv2") from e
         T = np.loadtxt(self.pose_paths[idx]).reshape(4, 4)
         if not np.isfinite(T).all():
             # invalid-pose frames are skipped (dataset.py:220-225). Returning
@@ -72,12 +68,10 @@ class ScanNetDataset:
             # duplicate frame_id.
             return None
 
-        depth = cv2.imread(self.depth_paths[idx], cv2.IMREAD_UNCHANGED)
+        depth = read_png(self.depth_paths[idx])
         depth = np.nan_to_num(depth.astype(np.float32), nan=0.0)
         H, W = depth.shape
-        color = cv2.imread(self.color_paths[idx], cv2.IMREAD_COLOR)
-        color = cv2.cvtColor(color, cv2.COLOR_BGR2RGB)
-        color = cv2.resize(color, (W, H), interpolation=cv2.INTER_LINEAR)
+        color = resize_linear(read_jpeg(self.color_paths[idx]), W, H)
 
         e = self.edge
         if e:
@@ -89,11 +83,9 @@ class ScanNetDataset:
             inst = np.zeros_like(depth, np.int32)
             bbox_dict = {}
         else:
-            inst_img = cv2.imread(self.inst_paths[idx], cv2.IMREAD_UNCHANGED)
-            inst_img = cv2.resize(inst_img, (W, H),
-                                  interpolation=cv2.INTER_NEAREST).astype(np.int32)
-            sem_img = cv2.imread(self.sem_paths[idx], cv2.IMREAD_UNCHANGED)
-            sem_img = cv2.resize(sem_img, (W, H), interpolation=cv2.INTER_NEAREST)
+            inst_img = resize_nearest(read_png(self.inst_paths[idx]), W,
+                                      H).astype(np.int32)
+            sem_img = resize_nearest(read_png(self.sem_paths[idx]), W, H)
             if e:
                 inst_img = inst_img[e:-e, e:-e]
                 sem_img = sem_img[e:-e, e:-e]

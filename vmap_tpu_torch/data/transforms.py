@@ -29,14 +29,19 @@ def bgr_to_rgb(image: np.ndarray) -> np.ndarray:
 
 
 def make_undistorter(w, h, fx, fy, cx, cy, dist_coeffs, interpolation=None):
-    """cv2-based undistort map (image_transforms.py:35-61). Returns a
-    callable; requires cv2 (gated import so the core stays dependency-free)."""
-    import cv2
+    """Undistort map (image_transforms.py:35-61): returns a callable that
+    remaps a uint8 image as the JAX package's ``cv2.remap`` through
+    ``cv2.initUndistortRectifyMap`` does (``utils/image.py``, no OpenCV).
+    ``interpolation``: None or ``cv2.INTER_LINEAR`` (1) for linear,
+    ``cv2.INTER_NEAREST`` (0) for nearest."""
+    from vmap_tpu_torch.utils.image import remap, undistort_maps
+    if interpolation not in (None, 0, 1):
+        raise ValueError(f"interpolation {interpolation!r}: linear (None or "
+                         "1) or nearest (0)")
     K = np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]])
-    interpolation = cv2.INTER_LINEAR if interpolation is None else interpolation
-    map1x, map1y = cv2.initUndistortRectifyMap(
-        K, np.asarray(dist_coeffs, np.float64), np.eye(3), K, (w, h), cv2.CV_32FC1)
-    return lambda im: cv2.remap(im, map1x, map1y, interpolation)
+    map1x, map1y = undistort_maps(K, dist_coeffs, w, h)
+    nearest = interpolation == 0
+    return lambda im: remap(im, map1x, map1y, nearest)
 
 
 def bbox_from_mask(mask: np.ndarray) -> list | None:

@@ -5,10 +5,10 @@ which writes rgb/depth/semantic pngs + traj file from habitat
 observations). Layouts are documented in docs/data_generation.md and
 consumed by data/replica.py and data/scannet.py.
 
-The Replica layout is all PNG and goes through the port's own codec
-(``utils/png.py``), so it needs no OpenCV. The ScanNet layout's colour
-images are JPEG, written through OpenCV; without ``cv2`` that writer
-raises.
+Neither layout needs OpenCV: the PNGs go through the port's own codec
+(``utils/png.py``) and the ScanNet layout's JPEG colour through its JPEG
+encoder (``utils/jpeg.py``), which writes the bytes ``cv2.imwrite`` writes
+by default (quality 95, 4:2:0).
 """
 
 from __future__ import annotations
@@ -18,24 +18,8 @@ import os
 
 import numpy as np
 
+from vmap_tpu_torch.utils.jpeg import write_jpeg
 from vmap_tpu_torch.utils.png import write_png
-
-
-def _cv2():
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError(
-            "the ScanNet layout writes its colour images as JPEG through "
-            "OpenCV (cv2), which is not installed; the Replica layout "
-            "needs no cv2") from e
-    return cv2
-
-
-def _imwrite(path: str, img: np.ndarray) -> None:
-    ok = _cv2().imwrite(path, img)
-    if not ok:
-        raise IOError(f"failed to write {path}")
 
 
 def write_replica_sequence(out_dir: str, frames, traj: np.ndarray,
@@ -83,7 +67,6 @@ def write_scannet_sequence(out_dir: str, frames, traj: np.ndarray,
     from the dataset's intrinsic txt (reference cfg.py:41-46), so the
     generator must ship one for the config to load stand-alone.
     """
-    cv2 = _cv2()
     for sub in ("color", "depth", "instance-filt", "label-filt", "pose"):
         os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
     if intrinsics is not None:
@@ -95,16 +78,16 @@ def write_scannet_sequence(out_dir: str, frames, traj: np.ndarray,
                                 "intrinsic_depth.txt"), K)
     for i, f in enumerate(frames):
         rgb_hw = f["rgb"].transpose(1, 0, 2)
-        _imwrite(os.path.join(out_dir, "color", f"{i}.jpg"),
-                 cv2.cvtColor(rgb_hw, cv2.COLOR_RGB2BGR))
+        write_jpeg(os.path.join(out_dir, "color", f"{i}.jpg"),
+                   np.ascontiguousarray(rgb_hw))
         depth_u16 = np.clip(np.round(f["depth"].T * depth_scale),
                             0, 65535).astype(np.uint16)
-        _imwrite(os.path.join(out_dir, "depth", f"{i}.png"), depth_u16)
+        write_png(os.path.join(out_dir, "depth", f"{i}.png"), depth_u16)
         # ScanNet instance ids are raw (the loader shifts +1 itself)
-        _imwrite(os.path.join(out_dir, "instance-filt", f"{i}.png"),
-                 f["inst"].T.astype(np.uint16))
-        _imwrite(os.path.join(out_dir, "label-filt", f"{i}.png"),
-                 f["cls"].T.astype(np.uint16))
+        write_png(os.path.join(out_dir, "instance-filt", f"{i}.png"),
+                  f["inst"].T.astype(np.uint16))
+        write_png(os.path.join(out_dir, "label-filt", f"{i}.png"),
+                  f["cls"].T.astype(np.uint16))
         pose = np.asarray(traj[i], np.float64)
         if i in invalid_pose_frames:
             pose = np.full((4, 4), -np.inf)

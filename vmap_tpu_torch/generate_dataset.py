@@ -15,7 +15,8 @@ sequence is held in memory.
         [--device cuda|cpu]
 
 Renders on CUDA by default and raises without it; ``--device cpu`` asks
-for the CPU. The ScanNet layout writes JPEG colour through OpenCV.
+for the CPU. Neither layout needs OpenCV: the ScanNet layout's JPEG
+colour goes through the port's own encoder (``utils/jpeg.py``).
 """
 
 from __future__ import annotations
