@@ -141,6 +141,27 @@ Phases, in order (any failure raises and the script exits non-zero):
      submesh, the objects' mean, the background and the scene printed,
      and each stage's host seconds (no quality bar: 24 frames are not the
      protocol's 1,000).
+ 14. the runtime modes at full width: (a) the forloop ablation
+     (``step.forloop_frame``: a capacity-1 K1 frame per active slot, then
+     the background) against the vectorised frame on phase 5's workload,
+     the same draws cut per slot: n_iter=1 slots within phase 3's tier,
+     n_iter=20 finite, n_iter x 101 launches of train_grad a frame, both
+     strategies' frame times (CUDA events, 3 frames) and their ratio;
+     (b) ``run_live`` on phase 4's configuration, frames pushed by a
+     producer thread that then stops: every tick trains (2 x n_iter
+     launches a tick), one idle export through K2, finite losses; (c)
+     ``OccupancyField`` at h=32 and h=128: its 128^3 query through K2
+     against the plain query (phase 6's tiers) and ``extract_mesh``; (d)
+     the trainer's ``--profile`` and ``--trace`` on 3 frames of phase 4's
+     configuration: the stage times, and from the trace the device time by
+     kernel and the device's idle share of the frames' window;
+ 15. the ScanNet layout without OpenCV: the room generated at scene0000's
+     640 x 480 camera for 12 frames (frame 5's pose invalid) in the
+     ScanNet layout (JPEG colour through the port's encoder), trained by
+     ``vmap_tpu_torch.train`` on configs/ScanNet/scene0000_vmap.json
+     pointed at it: finite losses, the invalid frame skipped, 2 x n_iter
+     launches a trained frame, one export through K2; the loader's host
+     ms a frame and its JPEG decode (also at ScanNet's 1296 x 968).
 
 Every kernel's entry in the JSON line carries its bound (the larger of
 its bytes over 3.35 TB/s and its operations over the peak of their type:
@@ -156,7 +177,8 @@ passes, K3 six for its recomputed forward and 2 x 3 for its gradients),
 each beside its bound at the FP32 rate (``bound_fp32_ms``).
 Prints that JSON line of per-kernel results, the nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}; before them it checks that
-neither jax nor any module of the JAX package ``vmap_tpu`` was imported.
+neither jax, nor any module of the JAX package ``vmap_tpu``, nor OpenCV
+(``cv2``) was imported.
 Without CUDA it exits non-zero and prints no result. Scratch output goes
 to smoke_out/ (gitignored).
 
@@ -992,9 +1014,12 @@ def run_trainer(n_frames: int, n_resume: int = 2) -> tuple:
 
 
 # ---------------------------------------------------------------- phase 5
-def bench_workload(dev):
+def bench_workload(dev, unknown: float | None = None):
     """bench.py::build_workload's shapes on the port: 104 slots (100
-    active) at h=32, background h=128, a random 16-slot 1200x680 pool."""
+    active) at h=32, background h=128, a random 16-slot 1200x680 pool.
+    ``unknown``: the share of pixels whose instance is 0 ("unknown"),
+    the others drawn over the 100 objects; by default every id of
+    [0, 100] is equally likely."""
     import numpy as np
     import torch
     from vmap_tpu_torch.core import bank as B
@@ -1012,6 +1037,10 @@ def bench_workload(dev):
     rng = np.random.default_rng(0)
     depth_mm = rng.integers(500, 7500, (POOL, W, H)).astype(np.uint32)
     inst_b = (rng.integers(-1, cap, (POOL, W, H)) + 1).astype(np.uint32)
+    if unknown is not None:
+        inst_b = np.where(rng.random((POOL, W, H)) < unknown, 0,
+                          rng.integers(1, cap + 1, (POOL, W, H))
+                          ).astype(np.uint32)
     rgbw = rng.integers(0, 2 ** 24, (POOL, W, H)).astype(np.uint32)
     packed = np.stack([rgbw, depth_mm | (inst_b << 16)], -1).view(np.int32)
     pool = (torch.from_numpy(packed).to(dev),
@@ -1754,6 +1783,446 @@ def room_protocol(dev, gpu: str) -> tuple:
                                         "px_block_bg")})
     res["rows"] = len(per)
     return launches, res
+
+
+# --------------------------------------------------------------- phase 14
+def slot_draws(d, slot: int):
+    """One slot's capacity-1 cut of a bank's ``Draws``."""
+    from vmap_tpu_torch.core.step import Draws
+    return Draws(**{k: getattr(d, k)[slot:slot + 1].contiguous()
+                    for k in ("kf", "u", "v", "z")})
+
+
+def forloop_against_vmap(dev, gpu: str, frames: int = 3) -> tuple:
+    """(a) The forloop ablation (``step.forloop_frame``) against the
+    vectorised frame on phase 5's bench-shaped workload (104 slots, 100
+    active, h=32, 120 rays x 10 samples; the h=128 background): at
+    n_iter=1 each slot's parameters and moments, trained on its cut of the
+    bank's draws, within phase 3's tier of the vectorised frame's; at
+    n_iter=20 every slot finite and train_grad launched n_iter x (active +
+    1) times a frame; then both strategies' frame times (CUDA events
+    around a frame and its loss readback, ``frames`` frames after one
+    warm-up each) and their ratio, the vectorised speedup. Returns (the
+    timed forloop frames' launch counts, results).
+
+    The vectorised frame zeroes a loss term for every slot where any
+    active slot's mask for it is empty (the reference's cross-object
+    quirk, ``ops/losses.py``); a forloop slot trains alone. Phase 5's
+    pool draws each pixel's instance over [0, 100], so about 9% of the
+    slots see none of their own or unknown pixels in 120 rays and the
+    two strategies train different losses. The checks therefore run on
+    the same shapes with half the pool's pixels unknown (no slot's mask
+    empty); the timing runs on phase 5's pool itself."""
+    import dataclasses
+    import torch
+    from vmap_tpu_torch.core import step as ST
+
+    st0, bo, bb, pool, obj_tab, obj_ids, bg_tab = bench_workload(
+        dev, unknown=0.5)
+    n_active = int(bo.active.sum())
+    gen = torch.Generator(device=dev)
+
+    def draws(st, seed):
+        gen.manual_seed(seed)
+        d_o = ST.torch_draws(gen, ST.draw_shapes(
+            bo.capacity, st.n_iter * st.win, st.n_px, st.n_b2s, st.n_bins,
+            st.px_block, st.sample_reuse), dev)
+        d_b = ST.torch_draws(gen, ST.draw_shapes(
+            1, st.n_iter * st.win_bg, st.n_px_bg, st.n_b2s_bg, st.n_bins,
+            st.px_block_bg), dev)
+        return d_o, d_b
+
+    def source(d_o, d_bg1):
+        slots = iter(torch.nonzero(bo.active).flatten().tolist())
+        return lambda bank, shapes: (slot_draws(d_o, next(slots))
+                                     if bank == "obj" else d_bg1)
+
+    res = {}
+    for n_iter in (1, 20):
+        st = dataclasses.replace(st0, n_iter=n_iter, use_fused_frame=True)
+        d_o, d_b = draws(st, 7)
+        # the forloop's background call takes the object statics' shapes
+        d_bg1 = ST.torch_draws(gen, ST.draw_shapes(
+            1, st.n_iter * st.win, st.n_px, st.n_b2s, st.n_bins, st.px_block,
+            st.sample_reuse), dev)
+        vo, _, _ = ST.frame_step(st, bo, bb, *pool, obj_tab, obj_ids, bg_tab,
+                                 d_o, d_b)
+        reset_counts()
+        lo, lb, loss = ST.forloop_frame(st, bo, bb, *pool, obj_tab, obj_ids,
+                                        bg_tab, source(d_o, d_bg1))
+        torch.cuda.synchronize()
+        c = read_counts()
+        for k in ("train_grad", "train_adamw"):
+            if c[k] != n_iter * (n_active + 1):
+                raise AssertionError(f"forloop n_iter={n_iter}: {k} launched "
+                                     f"{c[k]} times, expected "
+                                     f"{n_iter * (n_active + 1)}")
+        act = bo.active
+        for f in ("flat", "m", "v"):
+            got = getattr(lo, f)
+            assert bool(torch.isfinite(got).all()), f"forloop {f} non-finite"
+            assert torch.equal(got[~act], getattr(bo, f)[~act]), \
+                f"forloop: inactive {f} changed"
+            if n_iter == 1:
+                want = getattr(vo, f)[act]
+                err = rel_close(got[act], want, RTOL_SEM,
+                                1e-3 * float(want.abs().max()),
+                                f"forloop vs vmap n_iter=1 {f}")
+                res[f"n_iter1_{f}_max_abs_err"] = err
+        assert math.isfinite(loss) and bool(torch.isfinite(lb.flat).all())
+        res[f"n_iter{n_iter}_loss"] = loss
+        log(f"[14] forloop vs vmap n_iter={n_iter}: {n_active} slot calls "
+            f"+ background, train_grad {c['train_grad']} launches, loss "
+            f"{loss:.4f}" + ("; slots within rtol 2e-3 + 1e-3 of scale "
+                             f"(flat {res['n_iter1_flat_max_abs_err']:.3e}, "
+                             f"m {res['n_iter1_m_max_abs_err']:.3e}, v "
+                             f"{res['n_iter1_v_max_abs_err']:.3e})"
+                             if n_iter == 1 else "; every slot finite"))
+
+    st0, bo, bb, pool, obj_tab, obj_ids, bg_tab = bench_workload(dev)
+    st = dataclasses.replace(st0, use_fused_frame=True)
+    times = {"vmap": [], "forloop": []}
+    counts = None
+    for label in ("vmap", "forloop"):
+        for f in range(frames + 1):      # frame 0 warms up
+            d_o, d_b = draws(st, 100 + f)
+            d_bg1 = ST.torch_draws(gen, ST.draw_shapes(
+                1, st.n_iter * st.win, st.n_px, st.n_b2s, st.n_bins,
+                st.px_block, st.sample_reuse), dev)
+            if label == "forloop" and f == 1:
+                reset_counts()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            if label == "vmap":
+                _, _, met = ST.frame_step(st, bo, bb, *pool, obj_tab, obj_ids,
+                                          bg_tab, d_o, d_b)
+                loss = float(met["loss"])
+            else:
+                _, _, loss = ST.forloop_frame(st, bo, bb, *pool, obj_tab,
+                                              obj_ids, bg_tab,
+                                              source(d_o, d_bg1))
+            t1.record()
+            torch.cuda.synchronize()
+            assert math.isfinite(loss)
+            if f:
+                times[label].append(t0.elapsed_time(t1))
+    counts = read_counts()
+    want = frames * st.n_iter * (n_active + 1)
+    if counts["train_grad"] != want:
+        raise AssertionError(f"timed forloop frames: train_grad "
+                             f"{counts['train_grad']} launches, expected "
+                             f"{want}")
+    for label in times:
+        ms = sorted(times[label])
+        res[f"{label}_frame_ms"] = times[label]
+        res[f"{label}_median_frame_ms"] = ms[len(ms) // 2]
+    res["speedup"] = (res["forloop_median_frame_ms"]
+                      / res["vmap_median_frame_ms"])
+    log(f"[14] forloop vs vmap frame on {gpu} (n_iter 20, {n_active} "
+        f"active slots): vmap median {res['vmap_median_frame_ms']:.3f} ms "
+        f"{[round(x, 3) for x in times['vmap']]}, forloop median "
+        f"{res['forloop_median_frame_ms']:.3f} ms "
+        f"{[round(x, 3) for x in times['forloop']]}; vectorised speedup "
+        f"{res['speedup']:.2f}x; forloop launches a frame "
+        f"{counts['train_grad'] // frames} train_grad, "
+        f"{counts['train_adamw'] // frames} train_adamw")
+    return counts, res
+
+
+def synthetic_room0(vis: dict | None = None):
+    """room0_vmap.json on the analytic scene (dataset.format Synthetic,
+    1200 x 680), its ``vis`` entries updated: (Config, raw dict)."""
+    from vmap_tpu_torch.config import Config
+    with open(os.path.join(REPO, "configs", "Replica",
+                           "room0_vmap.json")) as f:
+        raw = json.load(f)
+    raw["dataset"]["format"] = "Synthetic"
+    raw["vis"].update(vis or {})
+    return Config.from_dict(raw), raw
+
+
+def live_run(dev, gpu: str, n_frames: int = 6) -> tuple:
+    """(b) ``run_live`` on phase 4's configuration (no HTML viewer, the
+    idle export at RESUME_VIS's grid): frame 0 is queued before the loop,
+    a producer thread pushes frames 1..n_frames-1 about every 50 ms and
+    stops; keep_alive 0.5 s, and the loop stops after its first idle
+    export. Every tick trains (2 x n_iter launches of each update kernel
+    a tick), one export runs on idle through K2, the losses are finite.
+    Returns (launch counts, results)."""
+    import threading
+    import numpy as np
+    from vmap_tpu_torch.core.live import FrameQueue, run_live
+    from vmap_tpu_torch.core.mapper import FrameSample, Mapper
+    from vmap_tpu_torch.data.loader import make_dataset
+
+    cfg, raw = synthetic_room0(RESUME_VIS)
+    mapper = Mapper(cfg, device=dev)
+    dataset = make_dataset(cfg)
+
+    def sample(i):
+        s = dataset[i]
+        return FrameSample(image=s["image"], depth=s["depth"], inst=s["obj"],
+                           bbox_dict=s["bbox_dict"], t_wc=s["T"],
+                           frame_id=s["frame_id"])
+
+    frames = [sample(i) for i in range(n_frames)]
+    q = FrameQueue()
+    q.push(frames[0])
+
+    def produce():
+        for fs in frames[1:]:
+            time.sleep(0.05)
+            q.push(fs)
+
+    tick_end = []
+
+    def stop_after_export(stats):
+        tick_end.append((time.perf_counter(), stats.meshes_exported))
+        if stats.meshes_exported:
+            q.close()
+
+    mesh_dir = os.path.join(OUT, "live_mesh")
+    shutil.rmtree(mesh_dir, ignore_errors=True)
+    producer = threading.Thread(target=produce)
+    reset_counts()
+    t0 = time.perf_counter()
+    producer.start()
+    stats = run_live(mapper, q, keep_alive=0.5, mesh_dir=mesh_dir,
+                     max_ticks=400, on_tick=stop_after_export)
+    wall = time.perf_counter() - t0
+    producer.join()
+    c = read_counts()
+    n_iter = cfg.n_iter_per_frame
+    trained = len(stats.losses)
+    if trained != stats.ticks:
+        raise AssertionError(f"{stats.ticks} ticks, {trained} trained")
+    for k in ("train_grad", "train_adamw"):
+        if c[k] != 2 * n_iter * trained:
+            raise AssertionError(f"live: {k} {c[k]} launches, expected "
+                                 f"2 x {n_iter} x {trained}")
+    if stats.meshes_exported != 1 or not c["field_fwd"]:
+        raise AssertionError(f"live: {stats.meshes_exported} exports, "
+                             f"{c['field_fwd']} field_fwd launches")
+    if not np.isfinite(stats.losses).all():
+        raise AssertionError(f"live losses {stats.losses}")
+    meshes = sorted(os.listdir(mesh_dir))
+    # host ms of each tick (its train_frame and loss readback; the export
+    # tick also its export), from one on_tick call to the next
+    ms = [1000.0 * (b[0] - a[0]) for a, b in zip(tick_end, tick_end[1:])]
+    export_tick = next(i for i, (_, e) in enumerate(tick_end) if e) - 1
+    train_ms = sorted(m for i, m in enumerate(ms) if i != export_tick)
+    res = {"ticks": stats.ticks, "idle_ticks": stats.idle_ticks,
+           "frames_ingested": stats.frames_ingested, "wall_s": wall,
+           "tick_ms": ms, "median_tick_ms": train_ms[len(train_ms) // 2],
+           "export_tick_ms": ms[export_tick],
+           "losses": stats.losses[:3] + stats.losses[-3:]}
+    log(f"[14] run_live on {gpu}: {stats.ticks} ticks ({stats.idle_ticks} "
+        f"idle), {stats.frames_ingested} of {n_frames} frames ingested, "
+        f"every tick trained, one idle export ({len(meshes)} files); "
+        f"{wall:.1f} s, a tick {res['median_tick_ms']:.1f} ms (median, "
+        f"host clock), the export's tick {res['export_tick_ms']:.0f} ms; "
+        f"launches {c}; losses first/last "
+        f"{[round(x, 3) for x in res['losses']]}")
+    return c, res
+
+
+def occupancy_field_meshes(dev, gpu: str, grid: int = 128) -> tuple:
+    """(c) ``OccupancyField`` at h=32 and h=128: its ``eval_points`` over
+    the grid ``extract_mesh`` queries (grid^3 points, through K2) against
+    the plain query on the same points (phase 6's tiers: occupancy within
+    the sigmoid of alpha atol 3e-4, colour atol 2e-5), then
+    ``extract_mesh`` at that grid: a non-empty mesh with finite vertices
+    and coloured vertices. Returns (launch counts, results)."""
+    import numpy as np
+    import torch
+    from vmap_tpu_torch.geometry.obb import OrientedBox
+    from vmap_tpu_torch.kernels import ensemble as E
+    from vmap_tpu_torch.models import OccupancyField
+    from vmap_tpu_torch.ops.render import make_3d_grid
+
+    res = {}
+    reset_counts()
+    for hidden, scale in ((32, 2.0), (128, 5.0)):
+        field = OccupancyField.create(torch.Generator().manual_seed(hidden),
+                                      hidden=hidden, scale=scale, device=dev)
+        box = OrientedBox([0.1, -0.2, 0.05], np.eye(3), [1.0, 1.2, 0.8])
+        tr = np.eye(4, dtype=np.float32)
+        tr[:3, 3] = box.center
+        pts = make_3d_grid((-1.0, 1.0), grid, transform=tr,
+                           scale=np.asarray(box.extent / 1.8, np.float32),
+                           device=dev).reshape(-1, 3)
+        with torch.no_grad():   # the 0.5 level set through the box
+            field.mlp["b_alpha"] -= field.raw_alpha(pts).median() / 10.0
+        occ, col = field.eval_points(pts)
+        pe, mlp_p = field.params()
+        prepared = E.prepare_params({k: v.detach() for k, v in pe.items()},
+                                    {k: v.detach() for k, v in mlp_p.items()},
+                                    field.scale, hidden)
+        with torch.no_grad():
+            a_r, c_r = E.field_eval_reference(prepared, pts[None])
+        occ_r = torch.sigmoid(a_r[0]).cpu().numpy()
+        e_occ = float(np.abs(occ - occ_r).max())
+        e_col = float(np.abs(col - c_r[0].cpu().numpy()).max())
+        if not (e_occ <= 3e-4 * 0.25 + 1e-7 and e_col <= 2e-5):
+            raise AssertionError(f"OccupancyField h={hidden}: occupancy "
+                                 f"{e_occ}, colour {e_col} off plain")
+        t0 = time.perf_counter()
+        mesh = field.extract_mesh(box, grid_dim=grid)
+        mesh_s = time.perf_counter() - t0
+        if mesh is None or not len(mesh.faces) or \
+                not np.isfinite(mesh.vertices).all() or \
+                mesh.vertex_colors is None:
+            raise AssertionError(f"OccupancyField h={hidden}: no mesh")
+        res[f"h{hidden}"] = {"occ_max_abs_err": e_occ,
+                             "colour_max_abs_err": e_col,
+                             "faces": int(len(mesh.faces)),
+                             "mesh_s": mesh_s}
+        log(f"[14] OccupancyField h={hidden} on {gpu}: {grid}^3 query "
+            f"through K2 against plain: occupancy max abs err {e_occ:.3e} "
+            f"(tier 7.5e-5, the sigmoid of alpha atol 3e-4), colour "
+            f"{e_col:.3e} (tier 2e-5); extract_mesh {len(mesh.faces)} faces "
+            f"in {mesh_s:.2f} s")
+    c = read_counts()
+    if not c["field_fwd"]:
+        raise AssertionError("OccupancyField launched no field_fwd")
+    return c, res
+
+
+def profile_and_trace(gpu: str, n_frames: int = 3) -> tuple:
+    """(d) The trainer's ``--profile`` (stage times printed by the CLI)
+    and ``--trace`` (no --profile, so no stage syncs) on ``n_frames``
+    frames of phase 4's configuration; from the trace, the device time by
+    kernel name and the device's idle share of the frames' window
+    (``utils.profiling.trace_summary``). Returns (the traced run's launch
+    counts, results)."""
+    from vmap_tpu_torch import train
+    from vmap_tpu_torch.utils.profiling import TRACE_FILE, trace_summary
+
+    _, raw = synthetic_room0()
+    cfg_path = os.path.join(OUT, "room0_profile.json")
+    with open(cfg_path, "w") as f:
+        json.dump(raw, f, indent=1)
+    base = ["--config", cfg_path, "--max_frames", str(n_frames),
+            "--device", "cuda"]
+    log(f"[14] --profile, {n_frames} frames (each stage ends with a "
+        "cuda synchronize):")
+    train.main(base + ["--logdir", os.path.join(OUT, "train_profile"),
+                       "--profile"])
+    trace_dir = os.path.join(OUT, "trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    reset_counts()
+    train.main(base + ["--logdir", os.path.join(OUT, "train_trace"),
+                       "--trace", trace_dir])
+    c = read_counts()
+    s = trace_summary(os.path.join(trace_dir, TRACE_FILE), "frame")
+    if not s["kernels"]:
+        log("[14] the trace holds no device activity: device time and "
+            "idle share not measured")
+    else:
+        top = ", ".join(f"{k[:60]} {v:.3f} ms ({s['launches'][k]})"
+                        for k, v in list(s["kernels"].items())[:12])
+        log(f"[14] --trace on {gpu}: {n_frames} frames, window "
+            f"{s['window_ms']:.3f} ms, device busy {s['device_ms']:.3f} ms, "
+            f"idle share {s['idle_share']:.4f}; device ms by kernel "
+            f"(launches): {top}")
+    return c, s
+
+
+# --------------------------------------------------------------- phase 15
+SCANNET_CAM = (640, 480, 577.59, 578.73)   # scene0000's depth camera
+
+
+def scannet_layout(dev, gpu: str, n_frames: int = 12,
+                   invalid: int = 5) -> tuple:
+    """The ScanNet layout on the card, without OpenCV: the room (40
+    objects) ray-traced at scene0000's 640 x 480 camera for ``n_frames``
+    frames with frame ``invalid``'s pose -inf (``generate_dataset
+    --format ScanNet``), then ``vmap_tpu_torch.train`` on
+    configs/ScanNet/scene0000_vmap.json pointed at it (vis at RESUME_VIS:
+    one export, at the last frame): finite losses, 2 x n_iter launches of
+    each update kernel per trained frame, the invalid frame skipped, the
+    export through K2; the loader's host ms a frame and the JPEG decode
+    alone, at the layout's 640 x 480 and at ScanNet's 1296 x 968 colour
+    (its decode and resize). Returns (launch counts, results)."""
+    import numpy as np
+    from vmap_tpu_torch import generate_dataset, train
+    from vmap_tpu_torch.config import Config
+    from vmap_tpu_torch.data.scannet import ScanNetDataset
+    from vmap_tpu_torch.utils.image import resize_linear
+    from vmap_tpu_torch.utils.jpeg import read_jpeg, write_jpeg
+
+    w, h, fx, fy = SCANNET_CAM
+    data = os.path.join(OUT, "scannet_room")
+    shutil.rmtree(data, ignore_errors=True)
+    t0 = time.perf_counter()
+    generate_dataset.main([data, "--format", "ScanNet", "--scene", "room",
+                           "--frames", str(n_frames), "--width", str(w),
+                           "--height", str(h), "--fx", str(fx), "--fy",
+                           str(fy), "--invalid_pose_frames", str(invalid),
+                           "--device", "cuda"])
+    gen_s = time.perf_counter() - t0
+    with open(os.path.join(REPO, "configs", "ScanNet",
+                           "scene0000_vmap.json")) as f:
+        raw = json.load(f)
+    raw["dataset"]["path"] = data
+    raw["vis"].update(RESUME_VIS)
+    cfg_path = os.path.join(OUT, "scene0000_generated.json")
+    with open(cfg_path, "w") as f:
+        json.dump(raw, f, indent=1)
+    logdir = os.path.join(OUT, "train_scannet")
+    shutil.rmtree(logdir, ignore_errors=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    mapper = train.main(["--config", cfg_path, "--logdir", logdir,
+                         "--device", "cuda"])
+    train_s = time.perf_counter() - t0
+    c = read_counts()
+    rows = [json.loads(line) for line in
+            open(os.path.join(logdir, "train_log.jsonl"))]
+    frames = [r["frame"] for r in rows]
+    if frames != [i for i in range(n_frames) if i != invalid]:
+        raise AssertionError(f"trained frames {frames}")
+    losses = [r["loss"] for r in rows]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"losses {losses}")
+    n_iter = raw["render"]["iters_per_frame"]
+    check_launches(c, 2 * n_iter * len(rows),
+                   f"2 banks x {n_iter} x {len(rows)} trained frames")
+    meshes = os.listdir(os.path.join(logdir, "scene_mesh"))
+    # the loader alone: a frame, and the JPEG decode in it
+    ds = ScanNetDataset(Config.from_json(cfg_path))
+    t0 = time.perf_counter()
+    for i in (0, 1, 2):
+        ds[i]
+    loader_ms = (time.perf_counter() - t0) * 1000.0 / 3
+    t0 = time.perf_counter()
+    for i in (0, 1, 2):
+        rgb = read_jpeg(ds.color_paths[i])
+    jpeg_ms = (time.perf_counter() - t0) * 1000.0 / 3
+    big = os.path.join(OUT, "scannet_1296x968.jpg")
+    write_jpeg(big, resize_linear(rgb, 1296, 968))
+    t0 = time.perf_counter()
+    for _ in range(3):
+        big_rgb = read_jpeg(big)
+    big_ms = (time.perf_counter() - t0) * 1000.0 / 3
+    t0 = time.perf_counter()
+    for _ in range(3):
+        resize_linear(big_rgb, w, h)
+    resize_ms = (time.perf_counter() - t0) * 1000.0 / 3
+    res = {"generate_s": gen_s, "train_s": train_s, "frames": frames,
+           "losses": losses, "n_objects": mapper.n_objects,
+           "meshes": len(meshes), "loader_ms": loader_ms,
+           "jpeg_640x480_ms": jpeg_ms, "jpeg_1296x968_ms": big_ms,
+           "resize_1296x968_ms": resize_ms}
+    log(f"[15] ScanNet layout on {gpu}: {n_frames} frames generated in "
+        f"{gen_s:.1f} s (frame {invalid}'s pose -inf), trained frames "
+        f"{frames} in {train_s:.1f} s, {mapper.n_objects} objects, losses "
+        f"{[round(x, 3) for x in losses]}, launches {c}, {len(meshes)} "
+        f"mesh files; loader {loader_ms:.1f} ms a frame (host), its JPEG "
+        f"decode {jpeg_ms:.2f} ms at {w} x {h}; at 1296 x 968 the decode "
+        f"{big_ms:.2f} ms and the resize to {w} x {h} {resize_ms:.2f} ms")
+    return c, res
 
 
 # --------------------------------------------------------------- phase 10
@@ -2526,8 +2995,8 @@ def update_ab(trees: list) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", nargs="+", type=int,
-                    default=list(range(1, 14)),
-                    help="phases to run (default all: 1 2 ... 13)")
+                    default=list(range(1, 16)),
+                    help="phases to run (default all: 1 2 ... 15)")
     ap.add_argument("--sections", action="store_true",
                     help="in place of the phases: time train_grad's "
                     "sections under every policy (k1_sections)")
@@ -2646,6 +3115,19 @@ def main(argv=None) -> int:
             paths["room"], res = room_protocol(dev, gpu)
             with open(os.path.join(OUT, "room.json"), "w") as f:
                 json.dump({"gpu": gpu, **res}, f, indent=1, default=float)
+        elif phase == 14:
+            res = {}
+            paths["forloop"], res["forloop"] = forloop_against_vmap(dev, gpu)
+            paths["live"], res["live"] = live_run(dev, gpu)
+            paths["occupancy_field"], res["occupancy_field"] = \
+                occupancy_field_meshes(dev, gpu)
+            paths["traced_trainer"], res["trace"] = profile_and_trace(gpu)
+            with open(os.path.join(OUT, "runtime_modes.json"), "w") as f:
+                json.dump({"gpu": gpu, **res}, f, indent=1, default=float)
+        elif phase == 15:
+            paths["scannet"], res = scannet_layout(dev, gpu)
+            with open(os.path.join(OUT, "scannet.json"), "w") as f:
+                json.dump({"gpu": gpu, **res}, f, indent=1, default=float)
         else:
             raise SystemExit(f"no phase {phase}")
         log(f"[{phase}] phase {phase} took "
@@ -2687,7 +3169,9 @@ def main(argv=None) -> int:
                    + (("train_grad", "train_adamw", "field_stage",
                        "field_fwd") if 13 in phases else ())
                    + (("train_grad_q8", "train_quant_w")
-                      if 11 in phases else ()))
+                      if 11 in phases else ())
+                   + (("train_grad", "train_adamw", "field_stage",
+                       "field_fwd") if phases & {14, 15} else ()))
     kernels = []
     for name, src, replaces, per, top_policy, count in specs:
         by_path = {p: count(c) for p, c in paths.items()}
@@ -2739,10 +3223,11 @@ def main(argv=None) -> int:
                                  "paths")
     if 8 in phases and not any(c["field_bwd.256"] for c in paths.values()):
         raise AssertionError("no field_bwd launch at h=256 on the main paths")
-    bad = sorted(k for k in sys.modules if k in ("jax", "vmap_tpu")
-                 or k.startswith(("jax.", "jaxlib", "vmap_tpu.")))
+    bad = sorted(k for k in sys.modules if k in ("jax", "vmap_tpu", "cv2")
+                 or k.startswith(("jax.", "jaxlib", "vmap_tpu.", "cv2.")))
     if bad:
-        raise AssertionError(f"the JAX package or jax was imported: {bad}")
+        raise AssertionError(f"the JAX package, jax or cv2 was imported: "
+                             f"{bad}")
     log(f"[done] phases {sorted(phases)} in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -129,6 +129,40 @@ def jax_frame_draw_source(frame_key):
         k_obj if bank == "obj" else k_bg, shapes)
 
 
+class KeyedDraws:
+    """draw_source for the port's Mapper that replays the JAX Mapper's
+    draws for the keys its ``_next_key`` handed out to its step calls, in
+    order (not the keys ``ingest_frame`` takes to initialise new slots).
+
+    Key order. The JAX Mapper takes one key a step call:
+      * the vectorised strategy ("vmap") makes one call a frame: it splits
+        the frame's key into (obj, bg) and draws the object bank from the
+        first half and the background from the second. The port asks for
+        "obj", then "bg" of the same frame: "obj" takes the next key's
+        first half, "bg" the second half of that same key;
+      * the forloop (``forloop=True``) makes one call per active slot, in
+        slot order, then one for the background, each on a capacity-1
+        bank and each on a key of its own, whose first half draws it (the
+        step's do_bg is off). The port asks in the same order, so every
+        request takes the next key's first half.
+    ``keys`` is the list the test's ``_next_key`` hook appends the step
+    calls' keys to; it may grow after the source is made (the JAX Mapper
+    runs first)."""
+
+    def __init__(self, keys: list, forloop: bool = False):
+        self.keys, self.forloop, self.used = keys, forloop, 0
+
+    def __call__(self, bank: str, shapes: dict) -> Draws:
+        if self.forloop or bank == "obj":
+            key = self.keys[self.used]
+            self.used += 1
+            half = 0
+        else:
+            key, half = self.keys[self.used - 1], 1
+        return jax_bank_draws(jax.random.split(jnp.asarray(key))[half],
+                              shapes)
+
+
 def ref_frame(bank, batch, n_iter, n_per, lr=1e-3, wd=0.013, cs=5.0,
               osc=10.0):
     """XLA reference of the train-frame kernel (the scan of

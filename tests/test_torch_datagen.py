@@ -432,4 +432,3 @@ def test_entry_points_raise_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         room_pipeline.main(["--work", str(tmp_path / "w"), "--frames", "1"])
     assert not os.path.exists(tmp_path / "g" / "rgb")
-

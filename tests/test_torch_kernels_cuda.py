@@ -14,7 +14,9 @@ tiers with 5e-2 of scale; also at ragged shapes) and under sample_reuse
 4, bit-identical to the tiled batch; K2 at the meshing launch and at
 ragged point counts, K3 at the use_pallas_train tiles bit-equal across
 two launches and within the JAX bar across two tile_m, the field kernels'
-plan on the card's SM count; and the probe
+plan on the card's SM count; the forloop ablation against the vectorised
+frame at the bench shape and ``OccupancyField``'s query against its plain
+version (phase 14); and the probe
 kernels
 (``vmap_tpu_torch.probes``: K4 mm, K10 int8, K7 sections, K8 overlap,
 K9 vpu, K5 ops, K6 dma) in every variant and shape against their plain
@@ -344,3 +346,27 @@ def test_new_probe_entry_points_refuse_bad_input(cuda_device, probe):
         bad()
     with pytest.raises(ValueError, match="CUDA"):
         cpu()
+
+
+@pytest.mark.cuda
+def test_forloop_matches_the_vectorised_frame_on_card(cuda_device):
+    """Phase 14 (a): the forloop's slots at n_iter=1 within phase 3's tier
+    of the vectorised frame at the bench shape (104 slots, 100 active),
+    n_iter x 101 launches of train_grad a frame."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    counts, res = chip_smoke.forloop_against_vmap(cuda_device, "card",
+                                                  frames=1)
+    assert counts["train_grad"] == 20 * 101
+    assert res["speedup"] > 1.0
+
+
+@pytest.mark.cuda
+def test_occupancy_field_query_matches_plain_on_card(cuda_device):
+    """Phase 14 (c) at a 64^3 grid: eval_points through K2 against the
+    plain query, extract_mesh non-empty."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    counts, res = chip_smoke.occupancy_field_meshes(cuda_device, "card",
+                                                    grid=64)
+    assert counts["field_fwd"] > 0 and res["h32"]["faces"] > 0

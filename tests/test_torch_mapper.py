@@ -95,8 +95,8 @@ def test_mapper_matches_jax_frame_by_frame():
     ({"compute_dtype": "float16"}, "compute_dtype"),
     ({"compute_dtype": "int4"}, "compute_dtype"),
     ({"mesh_axes": {"obj": 2}}, "mesh_axes"),
-    ({"training_strategy": "forloop"}, "forloop"),
-    ({"live_mode": True}, "live"),
+    ({"training_strategy": "sequential"}, "forloop"),
+    ({"n_unidir_funcs": 4}, "n_unidir_funcs"),
     ({"compute_dtype": "int8_dynamic"}, "int8 policies"),
     ({"mesh_axes": {"obj": 4}}, "ROADMAP"),
 ])

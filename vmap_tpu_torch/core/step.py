@@ -37,7 +37,7 @@ hand in JAX's uniforms, drawn in the order of the JAX sampler).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -253,3 +253,48 @@ def frame_step(st: StepStatics, bank_obj, bank_bg, pool_packed, pool_twc,
         loss = loss + losses_b[:, -1].sum()
         loss_mean = loss_mean + losses_b.sum(0).mean()
     return bank_obj, bank_bg, {"loss": loss, "loss_mean": loss_mean}
+
+
+def forloop_frame(st: StepStatics, bank_obj, bank_bg, pool_packed, pool_twc,
+                  obj_tab, obj_ids, bg_tab, draw_source):
+    """The forloop ablation's frame (the JAX Mapper's
+    ``_train_frame_forloop``, the reference's train.py:278-290) -> (bank_obj',
+    bank_bg', the summed loss as a float).
+
+    Each active object slot, in slot order, runs ``frame_step`` on a
+    capacity-1 view of the object bank with ``do_bg`` False; then, if
+    ``st.do_bg`` and the background is active, the background bank runs in
+    a call of its own. As in JAX, that call takes the object statics too
+    (the objects' rays, window, bins, px_block and reuse), not the
+    background's. Every call draws its capacity-1 uniforms through
+    ``draw_source(bank, shapes)`` ("obj" for the slots, "bg" for the
+    background), and each call's loss is read back and summed on the host.
+    The banks that come in are not modified. On CUDA each call is one K1
+    frame at capacity 1: n_iter x (active + 1) launches of each update
+    kernel a frame where the bank pair takes 2 x n_iter."""
+    st1 = replace(st, do_bg=False)
+    shapes = draw_shapes(1, st1.n_iter * st1.win, st1.n_px, st1.n_b2s,
+                         st1.n_bins, st1.px_block, st1.sample_reuse)
+    bank = bank_obj
+    new = {f: getattr(bank, f).clone() for f in ("flat", "m", "v", "step")}
+    total = 0.0
+    for slot in torch.nonzero(bank.active).flatten().tolist():
+        sl = slice(slot, slot + 1)
+        one = bank.replace(flat=bank.flat[sl], m=bank.m[sl], v=bank.v[sl],
+                           step=bank.step[sl], active=bank.active[sl],
+                           scale=bank.scale[sl])
+        one, _, metrics = frame_step(
+            st1, one, None, pool_packed, pool_twc,
+            tuple(a[sl] for a in obj_tab), obj_ids[sl], None,
+            draw_source("obj", shapes), None)
+        for f, t in new.items():
+            t[sl] = getattr(one, f)
+        total += float(metrics["loss"])
+    bank_obj = bank.replace(**new)
+    if st.do_bg and bank_bg is not None and bool(bank_bg.active[0]):
+        bg_ids = torch.zeros(1, dtype=torch.int32, device=obj_ids.device)
+        bank_bg, _, metrics = frame_step(
+            st1, bank_bg, None, pool_packed, pool_twc, bg_tab, bg_ids, None,
+            draw_source("bg", shapes), None)
+        total += float(metrics["loss"])
+    return bank_obj, bank_bg, total

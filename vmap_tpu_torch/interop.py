@@ -1,9 +1,12 @@
-"""Bank state between the JAX package and the port, through numpy.
+"""Bank state and single fields between the JAX package and the port,
+through numpy.
 
 The JAX ``BankState`` (``vmap_tpu/core/bank.py``) and the port's hold the
 same six fields with the same flat parameter order, so a conversion is a
 copy of six arrays. The JAX side passes its fields as numpy arrays
-(``np.asarray(bank.flat)`` etc.): this module never imports JAX.
+(``np.asarray(bank.flat)`` etc.): this module never imports JAX. A JAX
+``OccupancyField``'s ``pe`` / ``mlp`` dicts, scale and widths make the
+port's (``field_from_numpy``).
 """
 
 from __future__ import annotations
@@ -44,3 +47,18 @@ def bank_to_numpy(bank: BankState) -> dict:
               "step": np.int32, "active": np.bool_, "scale": np.float32}
     return {f: getattr(bank, f).detach().cpu().numpy().astype(dtypes[f])
             for f in FIELDS}
+
+
+def field_from_numpy(pe: dict, mlp: dict, scale: float, hidden: int,
+                     max_deg: int = 5, device: torch.device | str = "cpu"):
+    """A JAX ``OccupancyField``'s parameters (``{k: np.asarray(v)}`` of its
+    ``pe`` and ``mlp``, ``float(field.scale)``, ``field.hidden``,
+    ``field.max_deg``) -> the port's ``OccupancyField`` on ``device``."""
+    from vmap_tpu_torch.models import OccupancyField
+
+    def t(d):
+        return {k: torch.tensor(np.asarray(v), dtype=torch.float32,
+                                device=device) for k, v in d.items()}
+
+    return OccupancyField(t(pe), t(mlp), scale, hidden=hidden,
+                          max_deg=max_deg)

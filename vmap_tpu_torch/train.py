@@ -11,6 +11,14 @@ frame 10 on): every object's mesh to ``<logdir>/scene_mesh`` and, with
 ``<logdir>/ckpt``. ``--resume`` takes a full-state checkpoint (a
 ``state_frame_<N>.pt`` file or its directory) and continues after frame N.
 Each export prints its host seconds per stage (``meshing.STAGE_S``).
+
+``--profile`` prints, every frame, the ms of each stage run since the last
+report (``data``, ``ingest``, ``train``, ``mesh``, ``ckpt``, as the JAX
+CLI names them; the last frame's export once more after the loop); on the card each stage ends with a
+``torch.cuda.synchronize``, so its time is the card's work and not only
+its launches. ``--trace DIR`` records the loop with ``torch.profiler``
+(CPU and CUDA activity, each frame a ``frame`` range) and writes a Chrome
+trace to ``DIR/trace.json`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +42,11 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (the default: train through the CUDA "
                         "kernels; raises without CUDA) or cpu")
+    p.add_argument("--profile", action="store_true",
+                   help="print per-stage timings each frame")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="record a torch.profiler trace of the loop to "
+                        "DIR/trace.json (Chrome trace format)")
     return p.parse_args(argv)
 
 
@@ -49,11 +62,16 @@ def run(argv=None, draw_source=None, timings: dict | None = None):
     (``export_s``)."""
     args = parse_args(argv)
 
+    import contextlib
+
+    import torch
+
     from vmap_tpu_torch.config import Config
     from vmap_tpu_torch.data.loader import PrefetchIterator, make_dataset
     from vmap_tpu_torch.core import checkpoint as ckpt_lib
     from vmap_tpu_torch.core import meshing
     from vmap_tpu_torch.core.mapper import FrameSample, Mapper
+    from vmap_tpu_torch.utils.profiling import StageTimer, device_trace
 
     cfg = Config.from_json(args.config)
     mapper = Mapper(cfg, device=args.device, draw_source=draw_source)
@@ -68,67 +86,87 @@ def run(argv=None, draw_source=None, timings: dict | None = None):
 
     os.makedirs(args.logdir, exist_ok=True)
     shutil.copy(args.config, args.logdir)
+    timer = StageTimer(enabled=args.profile,
+                       sync=(torch.cuda.synchronize
+                             if mapper.device.type == "cuda" else None))
+    trace = (device_trace(args.trace) if args.trace
+             else contextlib.nullcontext())
+    frame_range = ((lambda: torch.profiler.record_function("frame"))
+                   if args.trace else contextlib.nullcontext)
     log_every = 25
     pending: list = []
     t_start = time.time()
     export_s = 0.0
     it = iter(PrefetchIterator(dataset))
-    with open(os.path.join(args.logdir, "train_log.jsonl"), "a") as log_f:
+    with open(os.path.join(args.logdir, "train_log.jsonl"), "a") as log_f, \
+            trace:
         for frame_idx in range(n_frames):
-            try:
-                sample = next(it)
-            except StopIteration:
-                break
-            if sample is None or frame_idx < start_frame:
-                continue
-            mapper.ingest_frame(FrameSample(
-                image=sample["image"], depth=sample["depth"],
-                inst=sample["obj"], bbox_dict=sample["bbox_dict"],
-                t_wc=sample["T"], frame_id=sample["frame_id"]))
-            metrics = mapper.train_frame()
-            # keep the device scalar; read it at the logging cadence
-            pending.append((frame_idx, metrics))
-            if (frame_idx % log_every == log_every - 1
-                    or frame_idx == n_frames - 1):
-                loss = float("nan")
-                for fidx, met in pending:
-                    loss = float(met.get("loss", float("nan")))
-                    if loss > 1e5:
-                        print(f"WARNING: loss explosion at frame {fidx}: "
-                              f"{loss:.3e}")
-                    log_f.write(json.dumps({
-                        "frame": fidx, "loss": loss,
-                        "n_objects": mapper.n_objects,
-                        "pool_used": mapper.pool.n_used,
-                        "step_time_s": met.get("step_time_s"),
-                    }) + "\n")
-                pending.clear()
-                fps = ((frame_idx + 1 - start_frame)
-                       / max(time.time() - t_start, 1e-9))
-                print(f"frame {frame_idx}/{n_frames} loss={loss:.3f} "
-                      f"objs={mapper.n_objects} pool={mapper.pool.n_used} "
-                      f"fps={fps:.2f}")
-                log_f.flush()
-            is_vis = ((frame_idx % cfg.n_vis_iter == 0
-                       or frame_idx == n_frames - 1) and frame_idx >= 10)
-            if is_vis:
-                mesh_dir = os.path.join(args.logdir, "scene_mesh")
-                t_export = time.perf_counter()
-                paths = mapper.export_meshes(mesh_dir, frame_idx)
-                t_export = time.perf_counter() - t_export
-                export_s += t_export
-                stages = ", ".join(f"{k} {v:.3f}" for k, v in
-                                   meshing.STAGE_S.items())
-                print(f"frame {frame_idx}: exported {len(paths)} meshes "
-                      f"-> {mesh_dir} in {t_export:.3f} s ({stages})")
-                if args.save_ckpt:
-                    ckpt_dir = os.path.join(args.logdir, "ckpt")
-                    for obj_id in sorted(mapper.registry):
-                        ckpt_lib.save_object_checkpoint(
-                            mapper, obj_id,
-                            os.path.join(ckpt_dir, str(obj_id)), frame_idx)
-                    ckpt_lib.save_full_checkpoint(
-                        mapper, os.path.join(ckpt_dir, "state"), frame_idx)
+            with frame_range():
+                with timer("data"):
+                    try:
+                        sample = next(it)
+                    except StopIteration:
+                        break
+                if sample is None or frame_idx < start_frame:
+                    continue
+                with timer("ingest"):
+                    mapper.ingest_frame(FrameSample(
+                        image=sample["image"], depth=sample["depth"],
+                        inst=sample["obj"], bbox_dict=sample["bbox_dict"],
+                        t_wc=sample["T"], frame_id=sample["frame_id"]))
+                with timer("train"):
+                    metrics = mapper.train_frame()
+                # keep the device scalar; read it at the logging cadence
+                pending.append((frame_idx, metrics))
+                if (frame_idx % log_every == log_every - 1
+                        or frame_idx == n_frames - 1):
+                    loss = float("nan")
+                    for fidx, met in pending:
+                        loss = float(met.get("loss", float("nan")))
+                        if loss > 1e5:
+                            print(f"WARNING: loss explosion at frame "
+                                  f"{fidx}: {loss:.3e}")
+                        log_f.write(json.dumps({
+                            "frame": fidx, "loss": loss,
+                            "n_objects": mapper.n_objects,
+                            "pool_used": mapper.pool.n_used,
+                            "step_time_s": met.get("step_time_s"),
+                        }) + "\n")
+                    pending.clear()
+                    fps = ((frame_idx + 1 - start_frame)
+                           / max(time.time() - t_start, 1e-9))
+                    print(f"frame {frame_idx}/{n_frames} loss={loss:.3f} "
+                          f"objs={mapper.n_objects} "
+                          f"pool={mapper.pool.n_used} fps={fps:.2f}")
+                    log_f.flush()
+                timer.report()
+                is_vis = ((frame_idx % cfg.n_vis_iter == 0
+                           or frame_idx == n_frames - 1) and frame_idx >= 10)
+                if is_vis:
+                    mesh_dir = os.path.join(args.logdir, "scene_mesh")
+                    t_export = time.perf_counter()
+                    with timer("mesh"):
+                        paths = mapper.export_meshes(mesh_dir, frame_idx)
+                    t_export = time.perf_counter() - t_export
+                    export_s += t_export
+                    stages = ", ".join(f"{k} {v:.3f}" for k, v in
+                                       meshing.STAGE_S.items())
+                    print(f"frame {frame_idx}: exported {len(paths)} meshes "
+                          f"-> {mesh_dir} in {t_export:.3f} s ({stages})")
+                    if args.save_ckpt:
+                        with timer("ckpt"):
+                            ckpt_dir = os.path.join(args.logdir, "ckpt")
+                            for obj_id in sorted(mapper.registry):
+                                ckpt_lib.save_object_checkpoint(
+                                    mapper, obj_id,
+                                    os.path.join(ckpt_dir, str(obj_id)),
+                                    frame_idx)
+                            ckpt_lib.save_full_checkpoint(
+                                mapper, os.path.join(ckpt_dir, "state"),
+                                frame_idx)
+    timer.report()   # the last frame's mesh and ckpt stages
+    if args.trace:
+        print(f"device trace written to {args.trace}")
     if timings is not None:
         timings["export_s"] = export_s
     print(f"done: {mapper.n_objects} objects, {mapper.frames_ingested} "

@@ -39,7 +39,7 @@ def _linear_taps(n_out: int, n_in: int):
 
 def _round_short(x: np.ndarray) -> np.ndarray:
     """saturate_cast<short>(float): round half to even."""
-    return np.rint(x).astype(np.int64)
+    return np.rint(x).astype(np.int32)
 
 
 def resize_linear(img: np.ndarray, width: int, height: int) -> np.ndarray:
@@ -52,24 +52,28 @@ def resize_linear(img: np.ndarray, width: int, height: int) -> np.ndarray:
     if (w, h) == (width, height):
         return img.copy()
     one = 1 << RESIZE_BITS
-    src = img.astype(np.int64).reshape(h, w, -1)
+    src = img.reshape(h, w, -1)
     # horizontal: a source column outside the image clamps with weight 0
     sx, fx = _linear_taps(width, w)
     fx = np.where((sx < 0) | (sx >= w - 1), np.float32(0), fx)
     sx = np.clip(sx, 0, w - 1)
+    sx1 = np.minimum(sx + 1, w - 1)
     ax0 = _round_short((np.float32(1) - fx) * np.float32(one))
     ax1 = _round_short(fx * np.float32(one))
-    sx1 = np.minimum(sx + 1, w - 1)
-    rows = (src[:, sx] * ax0[None, :, None]
-            + src[:, sx1] * ax1[None, :, None])          # [h, width, C]
     # vertical: the rows are clamped, the weights kept
     sy, fy = _linear_taps(height, h)
     by0 = _round_short((np.float32(1) - fy) * np.float32(one))
     by1 = _round_short(fy * np.float32(one))
-    r0 = rows[np.clip(sy, 0, h - 1)]
-    r1 = rows[np.clip(sy + 1, 0, h - 1)]
-    out = ((((r0 >> 4) * by0[:, None, None]) >> 16)
-           + (((r1 >> 4) * by1[:, None, None]) >> 16) + 2) >> 2
+
+    def rows(ys):
+        """The horizontal pass's int sums of source rows ``ys``, >> 4."""
+        r = src[ys]
+        return (r[:, sx].astype(np.int32) * ax0[None, :, None]
+                + r[:, sx1].astype(np.int32) * ax1[None, :, None]) >> 4
+
+    out = ((((rows(np.clip(sy, 0, h - 1)) * by0[:, None, None]) >> 16)
+            + ((rows(np.clip(sy + 1, 0, h - 1)) * by1[:, None, None]) >> 16)
+            + 2) >> 2)
     out = np.clip(out, 0, 255).astype(np.uint8)
     return out.reshape((height, width) + img.shape[2:])
 
