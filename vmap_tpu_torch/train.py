@@ -14,11 +14,12 @@ Each export prints its host seconds per stage (``meshing.STAGE_S``).
 
 ``--profile`` prints, every frame, the ms of each stage run since the last
 report (``data``, ``ingest``, ``train``, ``mesh``, ``ckpt``, as the JAX
-CLI names them; the last frame's export once more after the loop); on the card each stage ends with a
-``torch.cuda.synchronize``, so its time is the card's work and not only
-its launches. ``--trace DIR`` records the loop with ``torch.profiler``
-(CPU and CUDA activity, each frame a ``frame`` range) and writes a Chrome
-trace to ``DIR/trace.json`` (``utils/profiling.py``).
+CLI names them; the last frame's export once more after the loop); on the
+card each stage ends with a ``torch.cuda.synchronize``, so its time is the
+card's work and not only its launches. ``--trace DIR`` records the loop
+with ``torch.profiler`` (CPU and CUDA activity, each frame a ``frame``
+range) and writes a Chrome trace to ``DIR/trace.json``
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -91,8 +92,6 @@ def run(argv=None, draw_source=None, timings: dict | None = None):
                              if mapper.device.type == "cuda" else None))
     trace = (device_trace(args.trace) if args.trace
              else contextlib.nullcontext())
-    frame_range = ((lambda: torch.profiler.record_function("frame"))
-                   if args.trace else contextlib.nullcontext)
     log_every = 25
     pending: list = []
     t_start = time.time()
@@ -101,7 +100,7 @@ def run(argv=None, draw_source=None, timings: dict | None = None):
     with open(os.path.join(args.logdir, "train_log.jsonl"), "a") as log_f, \
             trace:
         for frame_idx in range(n_frames):
-            with frame_range():
+            with torch.profiler.record_function("frame"):
                 with timer("data"):
                     try:
                         sample = next(it)
