@@ -1,9 +1,17 @@
 """Helpers shared by the tests that hold the PyTorch port against the JAX
 package on the CPU: JAX's own sampler draws handed to the port, the XLA
-reference frame of the train-frame kernel, and array conversions."""
+reference frame of the train-frame kernel, and array conversions.
+
+Importing it caps torch at one intra-op thread for the test process. The
+suite runs as several pytest-xdist workers on the host's cores, and
+torch's default of one thread per core in every worker oversubscribes
+them: its thread pool then runs the port's small CPU ops many times
+slower (the forloop's two-strategy test took 37.5 s with 8 threads and
+2.4 s with one, each beside 7 busy processes on 8 cores)."""
 
 from __future__ import annotations
 
+import contextlib
 import shutil
 import time
 
@@ -20,6 +28,8 @@ from vmap_tpu.ops.mlp import mlp_apply
 from vmap_tpu_torch import native as tnative
 from vmap_tpu_torch.core.step import Draws
 from vmap_tpu_torch.interop import FIELDS, bank_from_numpy
+
+torch.set_num_threads(1)
 
 
 def wait_for_jax_native(timeout_s: float = 60.0) -> bool:
@@ -129,6 +139,35 @@ def jax_frame_draw_source(frame_key):
         k_obj if bank == "obj" else k_bg, shapes)
 
 
+class StepKeys:
+    """Records the keys a JAX Mapper's ``_next_key`` hands out inside
+    ``with keys.recording():``, i.e. those of its step calls when only
+    ``train_frame`` / ``run_live`` run inside (``ingest_frame`` takes keys
+    too, to initialise new slots, and runs outside). ``keys`` is the list
+    ``KeyedDraws`` replays."""
+
+    def __init__(self, mapper):
+        self.keys: list = []
+        self._on = False
+        next_key = mapper._next_key
+
+        def hook():
+            key = next_key()
+            if self._on:
+                self.keys.append(key)
+            return key
+
+        mapper._next_key = hook
+
+    @contextlib.contextmanager
+    def recording(self):
+        self._on = True
+        try:
+            yield self
+        finally:
+            self._on = False
+
+
 class KeyedDraws:
     """draw_source for the port's Mapper that replays the JAX Mapper's
     draws for the keys its ``_next_key`` handed out to its step calls, in
@@ -145,9 +184,8 @@ class KeyedDraws:
         bank and each on a key of its own, whose first half draws it (the
         step's do_bg is off). The port asks in the same order, so every
         request takes the next key's first half.
-    ``keys`` is the list the test's ``_next_key`` hook appends the step
-    calls' keys to; it may grow after the source is made (the JAX Mapper
-    runs first)."""
+    ``keys`` is ``StepKeys.keys``; it may grow after the source is made
+    (the JAX Mapper runs first)."""
 
     def __init__(self, keys: list, forloop: bool = False):
         self.keys, self.forloop, self.used = keys, forloop, 0

@@ -26,7 +26,7 @@ from vmap_tpu_torch.core.step import Draws, draw_shapes
 from vmap_tpu_torch.data.synthetic import SyntheticScene
 from vmap_tpu_torch.interop import FIELDS, bank_from_numpy
 
-from _torch_parity import KeyedDraws
+from _torch_parity import KeyedDraws, StepKeys
 
 
 def _kw(strategy):
@@ -52,16 +52,8 @@ def _numpy_bank(bank):
 def test_forloop_matches_jax_frame_by_frame():
     cfg = _kw("forloop")
     jm = JMapper(JConfig(**cfg))
-    keys, training = [], [False]
-    next_key = jm._next_key
-
-    def hook():   # the step calls' keys (ingest takes keys too)
-        key = next_key()
-        if training[0]:
-            keys.append(key)
-        return key
-
-    jm._next_key = hook
+    rec = StepKeys(jm)
+    keys = rec.keys
     source = KeyedDraws(keys, forloop=True)
     pm = tmapper.Mapper(Config(**cfg), device="cpu", draw_source=source)
     scene = SyntheticScene(width=80, height=60)
@@ -71,9 +63,8 @@ def test_forloop_matches_jax_frame_by_frame():
         pm.bank_obj = bank_from_numpy(_numpy_bank(jm.bank_obj), 8)
         pm.bank_bg = bank_from_numpy(_numpy_bank(jm.bank_bg), 8)
         n_keys = len(keys)
-        training[0] = True
-        met_j = jm.train_frame()
-        training[0] = False
+        with rec.recording():
+            met_j = jm.train_frame()
         active = np.asarray(jm.bank_obj.active)
         assert len(keys) - n_keys == active.sum() + 1   # slots, then bg
         met_p = pm.train_frame()

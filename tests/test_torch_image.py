@@ -4,9 +4,10 @@ erosion (``data/association.py::_erode``) against ``cv2``:
   * ``resize_linear`` against ``cv2.resize(INTER_LINEAR)`` at ScanNet's
     1296 x 968 -> 640 x 480 and at an upscale, ``resize_nearest`` against
     ``INTER_NEAREST`` on uint8 and uint16 masks;
-  * ``undistort`` and the port's ``make_undistorter`` against the JAX
-    package's ``make_undistorter`` (``cv2.initUndistortRectifyMap`` +
-    ``cv2.remap``) with ScanNet-like coefficients (k1, k2, p1, p2, k3);
+  * ``remap`` through ``undistort_maps`` and the port's
+    ``make_undistorter`` against the JAX package's ``make_undistorter``
+    (``cv2.initUndistortRectifyMap`` + ``cv2.remap``) with ScanNet-like
+    coefficients (k1, k2, p1, p2, k3);
   * ``_erode`` against ``cv2.erode`` (5 x 5, three iterations) on seeded
     masks that touch the border.
 
@@ -94,7 +95,9 @@ def test_undistort_matches_the_jax_undistorter(interpolation, dist):
     got = t_undistorter(*args, interpolation=interpolation)(img)
     _within_one_level(got, want, f"undistort {interpolation}")
     if interpolation is None:
-        _within_one_level(image.undistort(img, K, dist), want, "undistort")
+        _within_one_level(image.remap(img, *image.undistort_maps(K, dist,
+                                                                 640, 480)),
+                          want, "undistort")
 
 
 def test_erode_matches_cv2_on_masks_at_the_border():

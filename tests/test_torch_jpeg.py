@@ -7,7 +7,10 @@
     three channels) and with a restart interval;
   * encode: ``write_jpeg`` at its defaults gives the bytes ``cv2.imwrite``
     writes without parameters;
-  * progressive files are refused.
+  * progressive files are refused, and so are corrupt headers: every
+    index the native decoder takes from a file (Huffman table selectors,
+    scan components, sampling factors, code counts) is checked before it
+    is used.
 """
 
 import cv2
@@ -94,3 +97,48 @@ def test_progressive_and_bad_input_raise():
         decode_jpeg(b"\x89PNG....")
     with pytest.raises(ValueError, match="uint8"):
         encode_jpeg(np.zeros((4, 4), np.uint8))
+
+
+def _patched(marker, values):
+    """A cv2-written 3-component 4:2:0 file with bytes of the first
+    ``marker`` segment's body (after its length) set: {offset: value}."""
+    buf = bytearray(_cv2_file(_image(40, 48)).tobytes())
+    at = buf.index(bytes([0xFF, marker])) + 4
+    for offset, value in values.items():
+        buf[at + offset] = value
+    return bytes(buf)
+
+
+# (marker, {byte of its body: value}, the refusal). cv2's SOS body is
+# ns, then (component, DC << 4 | AC table) per component; its SOF body
+# precision, height, width, nc, then (component, h << 4 | v, table); its
+# first DHT segment is the luma DC table: class << 4 | id, 16 code counts.
+CORRUPT = {
+    "dc-selector": (0xDA, {2: 0x40}, "selectors"),
+    "ac-selector": (0xDA, {2: 0x04}, "selectors"),
+    "no-components": (0xDA, {0: 0}, "scan of 0 components"),
+    "more-components-than-the-frame": (0xDA, {0: 4}, "scan of 4 components"),
+    "repeated-component": (0xDA, {3: 1}, "twice"),
+    "unknown-component": (0xDA, {1: 9}, "does not define"),
+    "zero-sampling-factor": (0xC0, {7: 0x02}, "sampling factors"),
+    "repeated-frame-component": (0xC0, {9: 1}, "defined twice"),
+    "values-past-the-segment": (0xC4, {1: 3}, "corrupt Huffman table"),
+    "table-class": (0xC4, {0: 0x20}, "corrupt Huffman table"),
+    # the same 12 codes, one of them 1 bit long: more 3-bit codes than
+    # are left (the native decoder refuses the table before filling it)
+    "codes-overflow": (0xC4, {1: 1, 2: 0}, "more codes than fit"),
+}
+
+
+@pytest.mark.parametrize("case", list(CORRUPT))
+def test_corrupt_headers_raise(case):
+    marker, values, match = CORRUPT[case]
+    with pytest.raises(ValueError, match=match):
+        decode_jpeg(_patched(marker, values))
+
+
+def test_truncated_file_raises():
+    buf = _cv2_file(_image(40, 48)).tobytes()
+    for cut in (3, 30, len(buf) // 2, len(buf) - 2):
+        with pytest.raises(ValueError):
+            decode_jpeg(buf[:cut])

@@ -9,10 +9,11 @@
     with JAX's draws for each tick's key injected (``tests/_torch_parity.py
     KeyedDraws``). The banks after the loop agree at rtol 2e-3 plus 1e-3
     of each tensor's scale (phase 3's tier: a pre-activation within
-    rounding of 0 falls on either side of the ReLU), the ticks' losses at rtol 0.15: the loss weight 1/(sqrt(var) + 1e-4)
-    turns the f32 rounding of a near-zero depth variance into up to 13% of
-    a tick's loss here (ROADMAP §3, "loss conditioning"), a factor that
-    AdamW normalises away;
+    rounding of 0 falls on either side of the ReLU), the ticks' losses at
+    rtol 0.15: the loss weight 1/(sqrt(var) + 1e-4) turns the f32 rounding
+    of a near-zero depth variance into up to 13% of a tick's loss here
+    (ROADMAP §3, "loss conditioning"), a factor that AdamW normalises
+    away;
   * a multi-process ``torch.distributed`` run is refused;
   * ``dataset.live`` configurations are accepted.
 """
@@ -33,7 +34,7 @@ from vmap_tpu_torch.core.mapper import FrameSample, Mapper
 from vmap_tpu_torch.data.synthetic import SyntheticScene
 from vmap_tpu_torch.interop import FIELDS, bank_from_numpy
 
-from _torch_parity import KeyedDraws
+from _torch_parity import KeyedDraws, StepKeys
 
 KW = dict(
     max_n_models=4, do_bg=True, hidden_feature_size=8,
@@ -109,17 +110,9 @@ def test_run_live_meshes_on_idle(scene, tmp_path):
 
 
 def test_run_live_losses_match_jax(scene):
-    keys, training = [], [False]
     jm = JMapper(JConfig(**KW))
-    next_key = jm._next_key
-
-    def hook():   # the step calls' keys (ingest takes keys too)
-        key = next_key()
-        if training[0]:
-            keys.append(key)
-        return key
-
-    jm._next_key = hook
+    rec = StepKeys(jm)
+    keys = rec.keys
     pm = Mapper(Config(**KW), device="cpu", draw_source=KeyedDraws(keys))
     jm.ingest_frame(_fs(scene, 0, JFrame))
     pm.ingest_frame(_fs(scene, 0))
@@ -130,9 +123,8 @@ def test_run_live_losses_match_jax(scene):
     jq, pq = jlive.FrameQueue(), FrameQueue()
     jq.push(_fs(scene, 1, JFrame))
     pq.push(_fs(scene, 1))
-    training[0] = True
-    want = jlive.run_live(jm, jq, keep_alive=1e9, max_ticks=4)
-    training[0] = False
+    with rec.recording():
+        want = jlive.run_live(jm, jq, keep_alive=1e9, max_ticks=4)
     got = run_live(pm, pq, keep_alive=1e9, max_ticks=4)
     assert set(pm.registry) == set(jm.registry)
     assert (got.ticks, got.frames_ingested, got.idle_ticks) == \

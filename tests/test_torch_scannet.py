@@ -28,6 +28,8 @@ from vmap_tpu_torch.data.scannet import ScanNetDataset as TScanNet
 from vmap_tpu_torch.utils.image import resize_linear
 from vmap_tpu_torch.utils.jpeg import read_jpeg, write_jpeg
 
+import _torch_parity  # noqa: F401  (one torch thread: the generator's)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H, F = 256, 192, 160.0
 GEN = ["--format", "ScanNet", "--frames", "3", "--invalid_pose_frames", "1",

@@ -267,6 +267,12 @@ void build_dec(const uint8_t* bits, const uint8_t* vals, DecTable* t) {
     for (int l = 1; l <= 16; ++l) {
         int n = bits[l - 1];
         t->valoffset[l] = k - code;
+        // more codes than fit in l bits, or more than 256 values: refused
+        // before any entry is written
+        if (code + n > (1 << l) || k + n > 256) {
+            t->ok = false;
+            return;
+        }
         if (n) {
             for (int i = 0; i < n; ++i, ++k, ++code) {
                 if (l <= 9) {
@@ -280,7 +286,6 @@ void build_dec(const uint8_t* bits, const uint8_t* vals, DecTable* t) {
         } else {
             t->maxcode[l] = -1;
         }
-        if (code > (1 << l)) t->ok = false;
         code <<= 1;
     }
     t->maxcode[17] = 0x7fffffff;   // sentinel: a bad code ends at 17 bits

@@ -100,7 +100,10 @@ def run(argv=None, draw_source=None, timings: dict | None = None):
     with open(os.path.join(args.logdir, "train_log.jsonl"), "a") as log_f, \
             trace:
         for frame_idx in range(n_frames):
-            with torch.profiler.record_function("frame"):
+            # the range the trace's idle share is read over; no dispatcher
+            # call when the loop is not traced
+            with (torch.profiler.record_function("frame") if args.trace
+                  else contextlib.nullcontext()):
                 with timer("data"):
                     try:
                         sample = next(it)

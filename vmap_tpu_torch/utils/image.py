@@ -180,11 +180,3 @@ def remap(img: np.ndarray, map_x: np.ndarray, map_y: np.ndarray,
     bottom = p10 + a * (p11 - p10)
     out = np.clip(np.rint(top + b * (bottom - top)), 0, 255).astype(np.uint8)
     return out.reshape(map_x.shape + img.shape[2:])
-
-
-def undistort(img: np.ndarray, K: np.ndarray, dist_coeffs,
-              nearest: bool = False) -> np.ndarray:
-    """``cv2.remap`` of ``img`` through ``undistort_maps`` at its size."""
-    h, w = np.asarray(img).shape[:2]
-    mx, my = undistort_maps(K, dist_coeffs, w, h)
-    return remap(img, mx, my, nearest)

@@ -29,8 +29,7 @@ NATURAL = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 
-# the JPEG standard's example tables (Annex K), in zigzag order, as
-# libjpeg's jpeg_set_quality scales them
+# the JPEG standard's example tables (Annex K), in zigzag order
 STD_LUMA_Q = [
     16, 11, 12, 14, 12, 10, 16, 14, 13, 14, 18, 17, 16, 19, 24, 40,
     26, 24, 22, 22, 24, 49, 35, 37, 29, 40, 58, 51, 61, 60, 57, 51,
@@ -90,17 +89,15 @@ def _table_slot(bits: bytes, vals: bytes) -> np.ndarray:
     return slot
 
 
-def quality_tables(quality: int) -> tuple[np.ndarray, np.ndarray]:
-    """libjpeg's jpeg_set_quality(quality, force_baseline=TRUE): the luma
-    and chroma tables, in zigzag order."""
-    if not 1 <= quality <= 100:
-        raise ValueError(f"JPEG quality {quality} is not in 1-100")
-    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
-    out = []
-    for base in (STD_LUMA_Q, STD_CHROMA_Q):
-        q = (np.asarray(base, np.int64) * scale + 50) // 100
-        out.append(np.clip(q, 1, 255).astype(np.uint16))
-    return out[0], out[1]
+def _q95(base: list[int]) -> np.ndarray:
+    """libjpeg's jpeg_set_quality(95, force_baseline=TRUE) of a standard
+    table: scale 200 - 2 * 95 = 10 percent, rounded, clipped to 1-255."""
+    q = (np.asarray(base, np.int64) * 10 + 50) // 100
+    return np.clip(q, 1, 255).astype(np.uint16)
+
+
+# the tables OpenCV's imwrite writes by default (quality 95), zigzag order
+Q95_LUMA, Q95_CHROMA = _q95(STD_LUMA_Q), _q95(STD_CHROMA_Q)
 
 
 def _natural(zigzag: np.ndarray) -> np.ndarray:
@@ -113,8 +110,9 @@ def _segment(marker: int, body: bytes) -> bytes:
     return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
 
 
-def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:
-    """uint8 [H, W, 3] RGB -> the bytes of a baseline 4:2:0 JPEG."""
+def encode_jpeg(rgb: np.ndarray) -> bytes:
+    """uint8 [H, W, 3] RGB -> the bytes of a baseline 4:2:0 JPEG at
+    quality 95, those OpenCV's ``imwrite`` writes without parameters."""
     rgb = np.asarray(rgb)
     if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
         raise ValueError(f"write_jpeg takes uint8 [H, W, 3] RGB; got "
@@ -122,7 +120,7 @@ def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:
     h, w = rgb.shape[:2]
     if not (0 < h < 65536 and 0 < w < 65536):
         raise ValueError(f"JPEG sizes are 1-65535; got {w}x{h}")
-    qy, qc = quality_tables(quality)
+    qy, qc = Q95_LUMA, Q95_CHROMA
     huff = np.stack([_table_slot(bits, vals)
                      for _, bits, vals in STD_HUFFMAN])
     scan = native.jpeg_encode_420(rgb, _natural(qy), _natural(qc), huff)
@@ -139,13 +137,15 @@ def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:
     return b"".join(parts)
 
 
-def write_jpeg(path: str, rgb: np.ndarray, quality: int = 95) -> None:
+def write_jpeg(path: str, rgb: np.ndarray) -> None:
     with open(path, "wb") as f:
-        f.write(encode_jpeg(rgb, quality))
+        f.write(encode_jpeg(rgb))
 
 
 class _Frame:
     def __init__(self, body: bytes):
+        if len(body) < 6:
+            raise ValueError("JPEG: a truncated SOF segment")
         prec, self.h, self.w, nc = struct.unpack(">BHHB", body[:6])
         if prec != 8:
             raise ValueError(f"JPEG: {prec}-bit samples are not supported "
@@ -156,9 +156,16 @@ class _Frame:
         if nc not in (1, 3):
             raise ValueError(f"JPEG: {nc} components are not supported "
                              "(greyscale or YCbCr / RGB only)")
+        if self.w == 0 or len(body) < 6 + 3 * nc:
+            raise ValueError("JPEG: a truncated SOF segment or a width of 0")
         self.ids, self.hs, self.vs, self.tq = [], [], [], []
         for i in range(nc):
             cid, hv, tq = body[6 + 3 * i: 9 + 3 * i]
+            if not (1 <= hv >> 4 <= 4 and 1 <= hv & 15 <= 4):
+                raise ValueError(f"JPEG: sampling factors {hv >> 4}x"
+                                 f"{hv & 15} are not 1-4")
+            if cid in self.ids:
+                raise ValueError(f"JPEG: component {cid} is defined twice")
             self.ids.append(cid)
             self.hs.append(hv >> 4)
             self.vs.append(hv & 15)
@@ -206,7 +213,12 @@ def decode_jpeg(buf: bytes) -> np.ndarray:
             break
         if 0xD0 <= marker <= 0xD7 or marker == 0x01:
             continue
+        if pos + 2 > data.size:
+            raise ValueError("JPEG: ends inside a marker segment")
         (length,) = struct.unpack(">H", buf[pos:pos + 2])
+        if length < 2 or pos + length > data.size:
+            raise ValueError(f"JPEG: segment 0x{marker:02X} runs past the "
+                             "end of the file")
         body = buf[pos + 2:pos + length]
         pos += length
         if marker in SOF_REFUSED:
@@ -221,13 +233,18 @@ def decode_jpeg(buf: bytes) -> np.ndarray:
                 tc = body[i]
                 bits = body[i + 1:i + 17]
                 n = sum(bits)
-                slot = (4 if tc >> 4 else 0) + (tc & 3)
+                if tc >> 4 > 1 or tc & 15 > 3 or len(bits) < 16 or \
+                        n > 256 or i + 17 + n > len(body):
+                    raise ValueError("JPEG: a corrupt Huffman table")
+                slot = 4 * (tc >> 4) + (tc & 15)
                 huff[slot] = _table_slot(bits, body[i + 17:i + 17 + n])
                 i += 17 + n
         elif marker == 0xDB:
             i = 0
             while i < len(body):
                 pq, tq = body[i] >> 4, body[i] & 15
+                if pq > 1 or tq > 3 or i + (129 if pq else 65) > len(body):
+                    raise ValueError("JPEG: a corrupt quantisation table")
                 if pq:
                     vals = np.frombuffer(body[i + 1:i + 129], ">u2")
                     i += 129
@@ -236,6 +253,8 @@ def decode_jpeg(buf: bytes) -> np.ndarray:
                     i += 65
                 qt[tq] = _natural(vals.astype(np.uint16))
         elif marker == 0xDD:
+            if len(body) < 2:
+                raise ValueError("JPEG: a truncated DRI segment")
             (restart,) = struct.unpack(">H", body[:2])
         elif marker == 0xE0 and body[:5] == b"JFIF\x00":
             jfif = True
@@ -244,11 +263,26 @@ def decode_jpeg(buf: bytes) -> np.ndarray:
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError("JPEG: SOS before SOF")
-            ns = body[0]
+            # every index the native decoder takes from the file is
+            # checked here: the tables it selects (0-3 each), the
+            # components it fills (each of the frame's, once)
+            ns = body[0] if body else 0
+            if not 1 <= ns <= len(frame.ids) or len(body) < 1 + 2 * ns:
+                raise ValueError(f"JPEG: a scan of {ns} components in a "
+                                 f"frame of {len(frame.ids)}")
             comps = []
             for k in range(ns):
                 cid, tbl = body[1 + 2 * k], body[2 + 2 * k]
+                if cid not in frame.ids:
+                    raise ValueError(f"JPEG: a scan names component {cid}, "
+                                     "which the frame does not define")
                 c = frame.ids.index(cid)
+                if any(c == c0 for c0, _, _ in comps):
+                    raise ValueError(f"JPEG: a scan names component {cid} "
+                                     "twice")
+                if tbl >> 4 > 3 or tbl & 15 > 3:
+                    raise ValueError(f"JPEG: Huffman table selectors "
+                                     f"{tbl >> 4} / {tbl & 15} are not 0-3")
                 if frame.q[c] is None:
                     if frame.tq[c] not in qt:
                         raise ValueError("JPEG: a quantisation table is "
