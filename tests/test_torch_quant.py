@@ -116,16 +116,18 @@ EX_H, EX_NPER, EX_S = 16, 128, 5
 
 
 def one_iteration_vs_jax(jbank, b: dict, n_per: int, policies,
-                         q8_tile_rays: int | None = None) -> dict:
+                         q8_tile_rays: int | None = None,
+                         f32: dict | None = None) -> dict:
     """n_iter=1 of one slot's numpy batch ``b`` through the JAX kernel in
     interpret mode and the port's plain frame, under float32 and each of
     ``policies``: {policy: gradients (from the first AdamW moment) and
-    losses of both sides}."""
+    losses of both sides}. ``f32``: float32's entry of an earlier call on
+    the same bank and batch, taken in place of running float32 again."""
     jbatch = {k: jnp.asarray(v) for k, v in b.items()}
     pbank = port_bank(jbank)
     m0 = np.asarray(jbank.m)
-    out = {}
-    for pol in ("float32",) + tuple(policies):
+    out = {} if f32 is None else {"float32": f32}
+    for pol in ("float32",) * (f32 is None) + tuple(policies):
         jb, jl = fused_bank_frame(jbank, jbatch, 1, n_per, 1, LR, WD, CS,
                                   OSC, bf16=JAX_POLICY[pol], interpret=True)
         pb, pl = K.fused_frame_reference(
@@ -177,13 +179,46 @@ def exact_frames():
     port's plain frame under float32 and each int8 policy."""
     jbank = conditioned_jax_bank(1, EX_H, 1)
     b = numpy_batch(np.random.default_rng(3), 1, EX_NPER, EX_S)
-    return {"bank": jbank, **one_iteration_vs_jax(
+    return {"bank": jbank, "batch": b, **one_iteration_vs_jax(
         jbank, b, EX_NPER, Q.INT8_POLICIES, q8_tile_rays=EX_NPER)}
 
 
 @pytest.mark.parametrize("policy", Q.INT8_POLICIES)
 def test_int8_reference_matches_jax_kernel_at_one_tile(exact_frames, policy):
     hold_by_ratio_rule(exact_frames, policy, exact_frames["bank"])
+
+
+# static maxima other than the defaults (8.0, 0.125, 0.02), each of a
+# size the one-tile frame's sites reach, so every one of them acts
+ENV_SCALES = {"VMAP_Q8_SACT": "5.0", "VMAP_Q8_SHEAD": "0.3",
+              "VMAP_Q8_SGRAD": "0.05"}
+
+
+def test_int8_static_env_scales_match_jax_kernel_at_one_tile(exact_frames,
+                                                             monkeypatch):
+    """``int8_static`` with ``VMAP_Q8_SACT`` / ``SHEAD`` / ``SGRAD`` set in
+    the environment, which the JAX kernel reads where it is built and the
+    port where a frame builds its static scales (``ops.quant
+    .static_scales``): the port's plain frame against JAX's kernel by the
+    ratio rule, as at the defaults; and the scales act, on both sides, so
+    a port that kept the defaults would miss JAX's frame."""
+    for k, v in ENV_SCALES.items():
+        monkeypatch.setenv(k, v)
+    assert Q.static_scales() == tuple(float(v) for v in ENV_SCALES.values())
+    fr = one_iteration_vs_jax(exact_frames["bank"], exact_frames["batch"],
+                              EX_NPER, ("int8_static",),
+                              q8_tile_rays=EX_NPER,
+                              f32=exact_frames["float32"])
+    hold_by_ratio_rule(fr, "int8_static", exact_frames["bank"])
+    default = exact_frames["int8_static"]
+    for side in ("port", "jax"):
+        moved = np.abs(fr["int8_static"][f"{side}_g"] - default[f"{side}_g"])
+        assert moved.max() > 1e-2 * np.abs(default[f"{side}_g"]).max(), side
+    # the port at the defaults is as far from JAX's env frame as the
+    # scales move it: the fault this test closes
+    miss = np.abs(default["port_g"] - fr["int8_static"]["jax_g"]).max()
+    assert miss > 10 * np.abs(fr["int8_static"]["port_g"]
+                              - fr["int8_static"]["jax_g"]).max()
 
 
 @pytest.mark.parametrize("dyn", ["int8", "int8_static"])

@@ -43,7 +43,7 @@ all ``n_iter``), as the JAX kernel's ``_prepare_batch(reuse=R)`` repeats
 its pixel operands along the iteration axis. Under an int8 policy the
 activation and gradient scales are per ray tile of ``tile_rays(h, S)``
 rays, the kernel's own tile (``kernels.MAX_POINTS``, ``ops.quant``), and
-the static policies' scales are the constant ``ops.quant.Q8_SCALES``.
+the static policies' scales are ``ops.quant.static_scales()``.
 
 ``LAUNCHES`` counts successful kernel launches by kernel name, and
 ``train_grad``'s also by policy (``train_grad.<policy>``); only
@@ -546,9 +546,9 @@ class FrameLaunch:
     (``ops.quant.QW_NAMES``), written by ``quant_weights``: here from the
     bank's parameters, then by each ``adamw`` but the frame's last; ``qs``
     the static policies' (scale, 127 / maximum) pairs of
-    ``ops.quant.Q8_SCALES``, None under the dynamic ones. So ``grad`` takes the
-    bank's parameters as they stand after the latest ``adamw`` of this
-    launch. ``lib``: the kernel library (default ``_build.load()``; the
+    ``ops.quant.static_scales()``, None under the dynamic ones. So
+    ``grad`` takes the bank's parameters as they stand after the latest
+    ``adamw`` of this launch. ``lib``: the kernel library (default ``_build.load()``; the
     section-timing build of ``chip_smoke.py --sections``)."""
 
     def __init__(self, bank: BankState, batch: dict, n_iter: int, n_per: int,
@@ -635,8 +635,8 @@ class FrameLaunch:
                                       dtype=torch.float32, device=dev)
             if Q.q8_static(policy):
                 self.qs = torch.tensor(
-                    [v for m in Q.Q8_SCALES for v in (m * (1.0 / 127.0),
-                                                    127.0 / m)],
+                    [v for m in Q.static_scales()
+                     for v in (m * (1.0 / 127.0), 127.0 / m)],
                     dtype=torch.float32, device=dev)
             self.quant_weights(bank.flat)
 

@@ -11,10 +11,12 @@ Policies (``INT8_POLICIES``, the config's ``tpu.compute_dtype`` names):
   * ``int8_fwd``: the forward as ``int8``; the backward in f32 on the f32
     weights and the f32 ReLU outputs of the quantised forward;
   * ``int8_static`` / ``int8_static_fwd``: as the two above, with fixed
-    activation and gradient scales (``Q8_SCALES``: activations 8.0, head
-    gradients 0.125, hidden gradients 0.02, JAX's defaults; one constant
-    here, never environment variables) in place of the abs-max;
-    values past them saturate.
+    activation and gradient scales in place of the abs-max (``static_scales``:
+    the environment's ``VMAP_Q8_SACT`` / ``VMAP_Q8_SHEAD`` /
+    ``VMAP_Q8_SGRAD``, as the JAX kernel reads them, else ``Q8_SCALES``,
+    JAX's defaults: activations 8.0, head gradients 0.125, hidden gradients
+    0.02); values past them saturate. ``python -m
+    vmap_tpu_torch.calibrate_int8_scales`` suggests values from a run.
 Dynamic scales: ``s = max|x| / 127 + 1e-30``, ``q = round(x * (1 / s))``
 (round half to even, as ``jnp.round`` and CUDA's ``rintf``). Static:
 ``q = round(clip(x * (127 / m), -127, 127))``, ``s = m / 127``. The
@@ -61,6 +63,8 @@ multiplies in the same order as there (``acc * (s_a * s_b)``).
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 
@@ -68,6 +72,7 @@ INT8_POLICIES = ("int8", "int8_fwd", "int8_static", "int8_static_fwd")
 # static (activation, head gradient, hidden gradient) maxima: JAX's
 # VMAP_Q8_SACT / SHEAD / SGRAD defaults
 Q8_SCALES = (8.0, 0.125, 0.02)
+Q8_SCALE_VARS = ("VMAP_Q8_SACT", "VMAP_Q8_SHEAD", "VMAP_Q8_SGRAD")
 # the band-0 xs pass-through rows of the embedding quantise x127 / XS_RANGE
 XS_RANGE = 4.0
 # the nine quantised weight tensors of a slot, in the order of the
@@ -84,6 +89,15 @@ def q8_backward(policy: str) -> bool:
 
 def q8_static(policy: str) -> bool:
     return policy in ("int8_static", "int8_static_fwd")
+
+
+def static_scales() -> tuple[float, float, float]:
+    """The static policies' (activation, head gradient, hidden gradient)
+    maxima: ``VMAP_Q8_SACT`` / ``VMAP_Q8_SHEAD`` / ``VMAP_Q8_SGRAD`` where
+    set, else ``Q8_SCALES`` (read where a frame builds its scales, as the
+    JAX kernel reads them where it is built)."""
+    return tuple(float(os.environ.get(k, str(d)))
+                 for k, d in zip(Q8_SCALE_VARS, Q8_SCALES))
 
 
 def emb_row_scales(emb1: int, device=None) -> torch.Tensor:
@@ -144,7 +158,7 @@ class Quantiser:
     def __init__(self, policy: str, pts: int):
         self.static = q8_static(policy)
         self.pts = pts
-        self.s_act, self.s_head, self.s_grad = Q8_SCALES
+        self.s_act, self.s_head, self.s_grad = static_scales()
 
     def __call__(self, x: torch.Tensor, m: float):
         """x [n, M, c] -> (q, per-tile scale [n, n_tiles]); ``m`` is the
