@@ -98,13 +98,17 @@ def test_mapper_matches_jax_frame_by_frame():
     ({"training_strategy": "sequential"}, "forloop"),
     ({"n_unidir_funcs": 4}, "n_unidir_funcs"),
     ({"compute_dtype": "int8_dynamic"}, "int8 policies"),
-    ({"mesh_axes": {"obj": 4}}, "ROADMAP"),
+    ({"mesh_axes": {"obj": 4}, "training_strategy": "forloop"},
+     "one process"),
 ])
 def test_features_outside_the_slice_raise(change, match):
+    """Each raises NotImplementedError, but a mesh larger than the world
+    (one process here), which raises the JAX package's ValueError."""
     cfg = _cfg()
     for k, v in change.items():
         setattr(cfg, k, v)
-    with pytest.raises(NotImplementedError, match=match):
+    exc = ValueError if match == "mesh_axes" else NotImplementedError
+    with pytest.raises(exc, match=match):
         tmapper.Mapper(cfg, device="cpu")
 
 

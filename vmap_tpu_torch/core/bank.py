@@ -22,6 +22,8 @@ import torch
 from vmap_tpu_torch.ops import embedding, mlp
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
+# the per-slot tensors of a BankState, in the JAX BankState's order
+FIELDS = ("flat", "m", "v", "step", "active", "scale")
 
 
 @dataclass(frozen=True)

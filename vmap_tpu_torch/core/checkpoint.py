@@ -13,6 +13,11 @@ Two layers:
     counters and pool accounting, as plain JSON) and a ``latest.json``
     pointer. A resumed run continues the uninterrupted run's random
     stream. The JAX package's orbax checkpoints do not load here.
+
+With several ranks (``parallel/``) every rank reaches the gathers of the
+sharded object bank (``Mapper.bank_obj``) before any returns, and only the
+primary writes; on resume every rank loads the whole state and keeps its
+rows.
 """
 
 from __future__ import annotations
@@ -27,16 +32,18 @@ import torch
 from vmap_tpu_torch.core.keyframe import KeyframeTable, ObjectKF
 from vmap_tpu_torch.geometry.obb import OrientedBox
 from vmap_tpu_torch.core import bank as bank_lib
-from vmap_tpu_torch.core.bank import BankSpec, BankState
-
-BANK_FIELDS = ("flat", "m", "v", "step", "active", "scale")
+from vmap_tpu_torch.core.bank import FIELDS, BankSpec, BankState
+from vmap_tpu_torch.parallel.distributed import is_primary
 
 
 # ---------------- per-object artifacts ---------------------------------- #
 def save_object_checkpoint(mapper, obj_id: int, path: str, epoch: int) -> str:
-    """``<path>/obj_<id>_frame_<epoch>.npz``."""
+    """``<path>/obj_<id>_frame_<epoch>.npz``; "" on a rank but the
+    primary, which reads the object (a collective) and writes nothing."""
     pe, mlp_p, scale = mapper.object_params(obj_id)
     bound = mapper.get_bound(obj_id)
+    if not is_primary():
+        return ""
     os.makedirs(path, exist_ok=True)
 
     def host(v):
@@ -77,6 +84,8 @@ def restore_object_into_mapper(mapper, ckpt: dict) -> None:
     bank = mapper.bank_bg if rec.is_bg else mapper.bank_obj
     bank_lib.set_slot_params(bank, rec.slot, ckpt["pe"], ckpt["mlp"])
     bank.scale[rec.slot] = ckpt["obj_scale"]
+    if not rec.is_bg:   # a sharded bank_obj is a gathered copy
+        mapper.bank_obj = bank
 
 
 # ---------------- full-state resume checkpoint -------------------------- #
@@ -128,7 +137,7 @@ def _table_from_plain(d: dict) -> KeyframeTable:
 
 def _bank_tensors(bank: BankState | None):
     return None if bank is None else {f: getattr(bank, f)
-                                      for f in BANK_FIELDS}
+                                      for f in FIELDS}
 
 
 def _bank_from(tensors: dict | None, hidden: int | None,
@@ -136,15 +145,19 @@ def _bank_from(tensors: dict | None, hidden: int | None,
     if tensors is None:
         return None
     return BankState(spec=BankSpec.create(hidden),
-                     **{f: tensors[f].to(device) for f in BANK_FIELDS})
+                     **{f: tensors[f].to(device) for f in FIELDS})
 
 
 def save_full_checkpoint(mapper, path: str, frame_id: int) -> str:
-    """Write the full mapper state for resume; returns the ``.pt`` path."""
-    os.makedirs(path, exist_ok=True)
+    """Write the full mapper state for resume; returns the ``.pt`` path
+    (the primary's, on every rank)."""
     stem = os.path.join(path, f"state_frame_{frame_id}")
+    bank_obj = mapper.bank_obj   # a collective with several ranks
+    if not is_primary():
+        return stem + ".pt"
+    os.makedirs(path, exist_ok=True)
     torch.save({
-        "bank_obj": _bank_tensors(mapper.bank_obj),
+        "bank_obj": _bank_tensors(bank_obj),
         "bank_bg": _bank_tensors(mapper.bank_bg),
         "pool_packed": mapper.pool.packed, "pool_twc": mapper.pool.twc,
         "init_gen": mapper.init_gen.get_state(),
@@ -165,7 +178,7 @@ def save_full_checkpoint(mapper, path: str, frame_id: int) -> str:
         "pool_frame_id": pool.frame_id.tolist(),
         "pool_write_seq": pool.write_seq.tolist(),
         "pool_seq": pool._seq,
-        "bank_obj_hidden": mapper.bank_obj.spec.hidden,
+        "bank_obj_hidden": bank_obj.spec.hidden,
         "bank_bg_hidden": (None if mapper.bank_bg is None
                            else mapper.bank_bg.spec.hidden),
     }
@@ -179,7 +192,8 @@ def save_full_checkpoint(mapper, path: str, frame_id: int) -> str:
 
 def load_full_checkpoint(mapper, file: str) -> int:
     """Restore a full-state checkpoint into ``mapper`` (a ``.pt`` file, or
-    a directory holding ``latest.json``); returns its frame id."""
+    a directory holding ``latest.json``); returns its frame id. A rank of
+    a sharded Mapper keeps its rows of the object bank."""
     from vmap_tpu_torch.core.mapper import ObjectRecord
     if os.path.isdir(file):
         with open(os.path.join(file, "latest.json")) as f:

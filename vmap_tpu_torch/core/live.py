@@ -29,14 +29,7 @@ import time
 from dataclasses import dataclass, field
 
 from vmap_tpu_torch.core.mapper import FrameSample, Mapper
-
-
-def is_multiprocess() -> bool:
-    """Whether this process is one of several (``torch.distributed``
-    initialised with a world size above 1)."""
-    import torch.distributed as dist
-    return (dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1)
+from vmap_tpu_torch.parallel.distributed import is_multiprocess
 
 
 class FrameQueue:

@@ -22,7 +22,20 @@ Differences from the JAX Mapper:
     draws come from ``draw_source`` (by default ``draw_gen``, a generator
     on the device seeded from ``cfg.seed``; the parity tests inject JAX's
     draws through it);
-  * one process, so mesh export has no primary-process check.
+  * ``tpu.mesh_axes`` runs as ranks, one a device of JAX's mesh
+    (``parallel/``): rank r holds the object slots [lo, hi) of its obj
+    index r // n_data (bank, Adam state, keyframe-table rows, object ids)
+    and the whole pool and background bank. Every rank makes every draw
+    and every slot's initial parameters, so ``init_gen`` and ``draw_gen``
+    stay in step across ranks, and keeps its rows of the object draws
+    (JAX's global per-slot keys sliced per shard). A frame's loss is the
+    object parts summed over the obj group plus the background part,
+    reduced when it is read (``ShardedLoss``); ``bank_obj`` is the whole
+    bank gathered over the obj group (meshing, evaluation, checkpoints),
+    and every rank meshes, while only the primary writes. The empty-mask
+    rule of the loss (``ops/losses.py``) acts per rank, over its own
+    slots, as in JAX's fused sharded step. The forloop strategy stays
+    one-process.
 """
 
 from __future__ import annotations
@@ -43,6 +56,7 @@ from vmap_tpu_torch.core.step import (Draws, StepStatics, draw_shapes,
 from vmap_tpu_torch.device import kernel_path_enabled, resolve_device
 from vmap_tpu_torch.kernels import KERNEL_HIDDEN, KERNEL_POLICIES
 from vmap_tpu_torch.ops.mlp import POLICIES
+from vmap_tpu_torch.parallel import distributed, sharding
 
 
 @dataclass
@@ -77,14 +91,14 @@ def check_supported(cfg: Config) -> None:
             f"compute_dtype {cfg.compute_dtype!r}: the port has "
             f"{', '.join(POLICIES[:3])} and the int8 policies "
             f"{', '.join(POLICIES[3:])}")
-    if cfg.mesh_axes:
-        raise NotImplementedError(
-            "tpu.mesh_axes: multi-device sharding is not ported (ROADMAP: "
-            "parallel/)")
     if cfg.training_strategy not in ("vmap", "forloop"):
         raise NotImplementedError(
             f"training_strategy {cfg.training_strategy!r}: 'vmap' or "
             "'forloop'")
+    if cfg.training_strategy == "forloop" and cfg.mesh_axes:
+        raise NotImplementedError(
+            "training_strategy 'forloop' with tpu.mesh_axes: the forloop "
+            "ablation runs in one process")
     if cfg.n_unidir_funcs != 5:
         raise NotImplementedError(
             f"model.n_unidir_funcs {cfg.n_unidir_funcs}: the port's PE and "
@@ -160,6 +174,38 @@ def step_statics(cfg: Config, use_fused: bool) -> StepStatics:
     )
 
 
+class ShardedLoss:
+    """A sharded frame's loss and loss_mean: the object parts summed over
+    the obj group, plus the background part, reduced at the first read of
+    either (one collective a frame, where the single-process frame's read
+    synchronises too). COLLECTIVE: every rank reads its frames' losses,
+    in frame order, as the trainer does at its logging cadence."""
+
+    def __init__(self, metrics: dict, group):
+        self._obj = (metrics["loss_obj"], metrics["loss_mean_obj"])
+        self._bg = (metrics["loss_bg"], metrics["loss_mean_bg"])
+        self._group = group
+        self._value = None
+
+    def value(self, i: int) -> float:
+        if self._value is None:
+            obj = distributed.sum_over(torch.stack(self._obj), self._group)
+            bg = torch.stack(self._bg).cpu().to(torch.float64)
+            self._value = (obj + bg).tolist()
+        return self._value[i]
+
+
+class _Metric:
+    """``float()``-able handle on entry ``i`` of a ``ShardedLoss``."""
+    __slots__ = ("_loss", "_i")
+
+    def __init__(self, loss: ShardedLoss, i: int):
+        self._loss, self._i = loss, i
+
+    def __float__(self) -> float:
+        return self._loss.value(self._i)
+
+
 class Mapper:
     def __init__(self, cfg: Config, device: str | torch.device = "cuda",
                  draw_source: DrawSource | None = None):
@@ -180,6 +226,21 @@ class Mapper:
         if self.use_fused and self.hidden <= 64:
             self.slots = -(-self.capacity // 8) * 8
 
+        # tpu.mesh_axes: this rank's object slots [lo, hi) and its obj group
+        self.mesh = (sharding.mesh_from_axes(cfg.mesh_axes)
+                     if cfg.mesh_axes else None)
+        self.rank = distributed.rank()
+        self.lo, self.hi = 0, self.slots
+        self._obj_group = None
+        self._gathered = None   # bank_obj's gathered view, while current
+        if self.mesh is not None:
+            if self.slots % self.mesh.n_obj:
+                raise ValueError(
+                    f"max_n_models={self.capacity} must divide evenly over "
+                    f"the obj mesh axis ({self.mesh.n_obj})")
+            self.lo, self.hi = self.mesh.slot_range(self.rank, self.slots)
+            self._obj_group = sharding.obj_group(self.mesh, self.rank)
+
         # both generators' states go into the full-state checkpoint, so a
         # resumed run continues the uninterrupted run's random stream
         self.init_gen = torch.Generator().manual_seed(cfg.seed)
@@ -190,6 +251,7 @@ class Mapper:
                 self.draw_gen, shapes, self.device)
         self.draw_source = draw_source
 
+        # every slot's initial parameters; the setter keeps this rank's
         self.bank_obj = bank_lib.init_bank(
             self.init_gen, self.slots, self.hidden,
             default_scale=cfg.obj_scale, device=self.device)
@@ -212,6 +274,27 @@ class Mapper:
         self.statics = step_statics(cfg, self.use_fused)
 
     # ------------------------------------------------------------------ #
+    @property
+    def bank_obj(self):
+        """The whole object bank. With a mesh, this rank's rows gathered
+        over its obj group (COLLECTIVE: every rank reads it at the same
+        points of the stream), kept until the rows change."""
+        if self.mesh is None:
+            return self._bank_obj
+        if self._gathered is None:
+            b = self._bank_obj
+            self._gathered = b.replace(**{
+                f: distributed.gather_rows(getattr(b, f), self._obj_group)
+                for f in bank_lib.FIELDS})
+        return self._gathered
+
+    @bank_obj.setter
+    def bank_obj(self, bank):
+        """Takes a whole object bank; a rank keeps its rows."""
+        self._gathered = None
+        self._bank_obj = (bank if self.mesh is None
+                          else sharding.place_bank(bank, self.lo, self.hi))
+
     def _register_object(self, obj_id: int,
                          frame_id: int) -> ObjectRecord | None:
         is_bg = self.cfg.do_bg and obj_id == 0
@@ -228,8 +311,12 @@ class Mapper:
             self._next_slot += 1
             rec = ObjectRecord(obj_id=obj_id, slot=slot, is_bg=False,
                                first_seen=frame_id, scale=self.cfg.obj_scale)
-            bank_lib.activate_slot(self.bank_obj, slot, self.init_gen,
-                                   self.cfg.obj_scale)
+            if self.lo <= slot < self.hi:
+                bank_lib.activate_slot(self._bank_obj, slot - self.lo,
+                                       self.init_gen, self.cfg.obj_scale)
+            else:   # another rank's slot: its draws keep init_gen in step
+                bank_lib.fresh_flat(self.init_gen, self._bank_obj.spec)
+            self._gathered = None
             self._slot_objid[slot] = obj_id
         self.registry[obj_id] = rec
         return rec
@@ -306,15 +393,17 @@ class Mapper:
             return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                          for a in arrays)
 
-        obj_tab = put(self.obj_table.as_arrays())
+        obj_tab = put(sharding.place_tables(self.obj_table.as_arrays(),
+                                            self.lo, self.hi))
         bg_tab = put(self.bg_table.as_arrays()) if self.cfg.do_bg else None
         return obj_tab, bg_tab
 
     def _draws(self) -> tuple[Draws, Draws | None]:
+        """Both banks' draws; every slot's are drawn, this rank's kept."""
         st = self.statics
-        obj = self.draw_source("obj", draw_shapes(
+        obj = sharding.place_draws(self.draw_source("obj", draw_shapes(
             self.slots, st.n_iter * st.win, st.n_px, st.n_b2s, st.n_bins,
-            st.px_block, st.sample_reuse))
+            st.px_block, st.sample_reuse)), self.lo, self.hi)
         bg = None
         if st.do_bg:
             bg = self.draw_source("bg", draw_shapes(
@@ -325,19 +414,27 @@ class Mapper:
     def train_frame(self) -> dict:
         """One full per-frame optimisation (n_iter_per_frame iterations over
         all active objects + background). Metrics are 0-dim tensors on the
-        device (read them with ``float()``) plus the host step time."""
+        device (read them with ``float()``) plus the host step time; with a
+        mesh, ``loss`` and ``loss_mean`` are handles that sum the ranks'
+        parts when read (``ShardedLoss``)."""
         if not self.registry:
             return {}
         if self.cfg.training_strategy == "forloop":
             return self._train_frame_forloop()
         obj_tab, bg_tab = self._device_tables()
-        obj_ids = torch.from_numpy(self._slot_objid).to(self.device)
+        obj_ids = torch.from_numpy(
+            self._slot_objid[self.lo:self.hi]).to(self.device)
         draws_obj, draws_bg = self._draws()
         t0 = time.perf_counter()
-        self.bank_obj, self.bank_bg, metrics = frame_step(
-            self.statics, self.bank_obj, self.bank_bg, *self.pool.arrays(),
+        self._bank_obj, self.bank_bg, metrics = frame_step(
+            self.statics, self._bank_obj, self.bank_bg, *self.pool.arrays(),
             obj_tab, obj_ids, bg_tab, draws_obj, draws_bg)
+        self._gathered = None
         metrics = dict(metrics)
+        if self.mesh is not None:
+            loss = ShardedLoss(metrics, self._obj_group)
+            metrics = {"loss": _Metric(loss, 0),
+                       "loss_mean": _Metric(loss, 1)}
         metrics["step_time_s"] = time.perf_counter() - t0
         return metrics
 
@@ -393,7 +490,9 @@ class Mapper:
         """Write every object's mesh as ``<out_dir>/frame_<f>_obj<id>.obj``
         (and the HTML viewer snapshot when ``cfg.html_viewer``). Objects
         mesh through the bank-vectorised path, the background alone.
-        ``meshing.STAGE_S`` gets the host seconds of each stage."""
+        ``meshing.STAGE_S`` gets the host seconds of each stage. With
+        several ranks every rank meshes (the bank's gather is collective)
+        and only the primary writes; the others return []."""
         import os
         from vmap_tpu_torch.core import meshing
         meshing.STAGE_S.clear()
@@ -401,6 +500,8 @@ class Mapper:
         for obj_id in sorted(self.registry):
             if self.registry[obj_id].is_bg:
                 meshes[obj_id] = self.mesh_object(obj_id)
+        if not distributed.is_primary():
+            return []
         os.makedirs(out_dir, exist_ok=True)
         paths = []
         for obj_id in sorted(meshes):

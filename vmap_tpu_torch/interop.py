@@ -14,9 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vmap_tpu_torch.core.bank import BankSpec, BankState
-
-FIELDS = ("flat", "m", "v", "step", "active", "scale")
+from vmap_tpu_torch.core.bank import FIELDS, BankSpec, BankState
 
 
 def bank_from_numpy(arrays: dict, hidden: int,

@@ -12,6 +12,13 @@ frame 10 on): every object's mesh to ``<logdir>/scene_mesh`` and, with
 ``state_frame_<N>.pt`` file or its directory) and continues after frame N.
 Each export prints its host seconds per stage (``meshing.STAGE_S``).
 
+With ``tpu.mesh_axes`` set, start one process a rank of the mesh, each
+with ``VMAP_COORDINATOR`` (host:port of rank 0), ``VMAP_NUM_PROCESSES``
+and ``VMAP_PROCESS_ID`` (``parallel/distributed.py``); every rank runs
+this loop on ``cuda:(rank % cards)`` (or the CPU with ``--device cpu``),
+and only rank 0 writes the log, meshes and checkpoints (the others log to
+``os.devnull``). ``--trace DIR`` then writes ``DIR_p<rank>``.
+
 ``--profile`` prints, every frame, the ms of each stage run since the last
 report (``data``, ``ingest``, ``train``, ``mesh``, ``ckpt``, as the JAX
 CLI names them; the last frame's export once more after the loop); on the
@@ -72,10 +79,17 @@ def run(argv=None, draw_source=None, timings: dict | None = None):
     from vmap_tpu_torch.core import checkpoint as ckpt_lib
     from vmap_tpu_torch.core import meshing
     from vmap_tpu_torch.core.mapper import FrameSample, Mapper
+    from vmap_tpu_torch.parallel.distributed import (init_from_env,
+                                                     rank_device)
     from vmap_tpu_torch.utils.profiling import StageTimer, device_trace
 
+    # several ranks: one process each, all on this loop over the same
+    # frame stream; no-op without VMAP_COORDINATOR
+    rank, world = init_from_env()
+    primary = rank == 0
     cfg = Config.from_json(args.config)
-    mapper = Mapper(cfg, device=args.device, draw_source=draw_source)
+    mapper = Mapper(cfg, device=rank_device(args.device),
+                    draw_source=draw_source)
     dataset = make_dataset(cfg)
     n_frames = len(dataset)
     if args.max_frames is not None:
@@ -83,10 +97,14 @@ def run(argv=None, draw_source=None, timings: dict | None = None):
     start_frame = 0
     if args.resume:
         start_frame = ckpt_lib.load_full_checkpoint(mapper, args.resume) + 1
-        print(f"resumed at frame {start_frame}")
+        if primary:
+            print(f"resumed at frame {start_frame}")
 
-    os.makedirs(args.logdir, exist_ok=True)
-    shutil.copy(args.config, args.logdir)
+    if primary:
+        os.makedirs(args.logdir, exist_ok=True)
+        shutil.copy(args.config, args.logdir)
+    if args.trace and world > 1:   # a trace directory a rank
+        args.trace = f"{args.trace}_p{rank}"
     timer = StageTimer(enabled=args.profile,
                        sync=(torch.cuda.synchronize
                              if mapper.device.type == "cuda" else None))
@@ -97,8 +115,9 @@ def run(argv=None, draw_source=None, timings: dict | None = None):
     t_start = time.time()
     export_s = 0.0
     it = iter(PrefetchIterator(dataset))
-    with open(os.path.join(args.logdir, "train_log.jsonl"), "a") as log_f, \
-            trace:
+    log_path = (os.path.join(args.logdir, "train_log.jsonl") if primary
+                else os.devnull)
+    with open(log_path, "a") as log_f, trace:
         for frame_idx in range(n_frames):
             # the range the trace's idle share is read over; no dispatcher
             # call when the loop is not traced
@@ -124,8 +143,9 @@ def run(argv=None, draw_source=None, timings: dict | None = None):
                         or frame_idx == n_frames - 1):
                     loss = float("nan")
                     for fidx, met in pending:
+                        # every rank reads: a sharded loss is a collective
                         loss = float(met.get("loss", float("nan")))
-                        if loss > 1e5:
+                        if loss > 1e5 and primary:
                             print(f"WARNING: loss explosion at frame "
                                   f"{fidx}: {loss:.3e}")
                         log_f.write(json.dumps({
@@ -137,9 +157,10 @@ def run(argv=None, draw_source=None, timings: dict | None = None):
                     pending.clear()
                     fps = ((frame_idx + 1 - start_frame)
                            / max(time.time() - t_start, 1e-9))
-                    print(f"frame {frame_idx}/{n_frames} loss={loss:.3f} "
-                          f"objs={mapper.n_objects} "
-                          f"pool={mapper.pool.n_used} fps={fps:.2f}")
+                    if primary:
+                        print(f"frame {frame_idx}/{n_frames} "
+                              f"loss={loss:.3f} objs={mapper.n_objects} "
+                              f"pool={mapper.pool.n_used} fps={fps:.2f}")
                     log_f.flush()
                 timer.report()
                 is_vis = ((frame_idx % cfg.n_vis_iter == 0
@@ -153,8 +174,10 @@ def run(argv=None, draw_source=None, timings: dict | None = None):
                     export_s += t_export
                     stages = ", ".join(f"{k} {v:.3f}" for k, v in
                                        meshing.STAGE_S.items())
-                    print(f"frame {frame_idx}: exported {len(paths)} meshes "
-                          f"-> {mesh_dir} in {t_export:.3f} s ({stages})")
+                    if primary:
+                        print(f"frame {frame_idx}: exported {len(paths)} "
+                              f"meshes -> {mesh_dir} in {t_export:.3f} s "
+                              f"({stages})")
                     if args.save_ckpt:
                         with timer("ckpt"):
                             ckpt_dir = os.path.join(args.logdir, "ckpt")
@@ -167,12 +190,13 @@ def run(argv=None, draw_source=None, timings: dict | None = None):
                                 mapper, os.path.join(ckpt_dir, "state"),
                                 frame_idx)
     timer.report()   # the last frame's mesh and ckpt stages
-    if args.trace:
+    if args.trace and primary:
         print(f"device trace written to {args.trace}")
     if timings is not None:
         timings["export_s"] = export_s
-    print(f"done: {mapper.n_objects} objects, {mapper.frames_ingested} "
-          f"frames, {time.time() - t_start:.1f}s")
+    if primary:
+        print(f"done: {mapper.n_objects} objects, {mapper.frames_ingested} "
+              f"frames, {time.time() - t_start:.1f}s")
     return mapper, dataset
 
 
