@@ -161,7 +161,26 @@ Phases, in order (any failure raises and the script exits non-zero):
      ``vmap_tpu_torch.train`` on configs/ScanNet/scene0000_vmap.json
      pointed at it: finite losses, the invalid frame skipped, 2 x n_iter
      launches a trained frame, one export through K2; the loader's host
-     ms a frame and its JPEG decode (also at ScanNet's 1296 x 968).
+     ms a frame and its JPEG decode (also at ScanNet's 1296 x 968);
+ 16. the sharded path (``tpu.mesh_axes``, ``vmap_tpu_torch/parallel/``),
+     ranks launched as processes of one gloo world on this one card
+     (time-slicing it): (a) phase 5's workload on phase 14 (a)'s
+     half-unknown pool at {"obj": 2, "data": 2}, 4 ranks, each running
+     its object rows and the background through K1 (``--rank-frames``):
+     at n_iter=1 every slot and the background, gathered, within phase
+     3's tier of the one-process kernel frame on the same draws, the loss
+     summed over the obj group within rtol 2e-3; at n_iter=20 finite, the
+     final loss within rtol 0.25; (b) ``vmap_tpu_torch.train`` as 2 ranks
+     {"obj": 2} on phase 4's configuration for 12 frames with
+     --save_ckpt, then --resume for 2: per-frame losses within rtol 2e-3
+     of phase 4's one-process run, meshes, log and checkpoints written by
+     rank 0 only; each rank's launch counts and frame time printed;
+ 17. int8 calibration: ``vmap_tpu_torch.calibrate_int8_scales`` on phase
+     13's room (24 frames) through room0_imap.json, probes at 3 frames;
+     then phase 11's iMAP frame (n_iter=1) under int8_static at the
+     defaults and at the suggested scales, each gradient's error against
+     float32 in norm and their ratio, and train_grad under int8_static at
+     the suggested scales against its plain version in phase 11's tiers.
 
 Every kernel's entry in the JSON line carries its bound (the larger of
 its bytes over 3.35 TB/s and its operations over the peak of their type:
@@ -2225,6 +2244,441 @@ def scannet_layout(dev, gpu: str, n_frames: int = 12,
     return c, res
 
 
+# --------------------------------------------------------------- phase 16
+SH_AXES = {"obj": 2, "data": 2}   # (a): 4 ranks
+SH_TRAINER_AXES = {"obj": 2}      # (b): 2 ranks
+SH_FRAMES = 12                    # (b): phase 4's frames
+
+
+def spawn_ranks(n: int, argv_of, env_extra: dict | None = None) -> list:
+    """``n`` processes of one gloo world on this machine (rank r runs
+    ``argv_of(r)``), with ``VMAP_COORDINATOR`` at a free local port."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, **(env_extra or {}),
+           "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                            ""),
+           "VMAP_COORDINATOR": f"127.0.0.1:{port}",
+           "VMAP_NUM_PROCESSES": str(n), "VMAP_DIST_TIMEOUT_S": "600"}
+    return [subprocess.Popen(argv_of(r), env={**env,
+                                              "VMAP_PROCESS_ID": str(r)},
+                             cwd=REPO, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+            for r in range(n)]
+
+
+def rank_results(procs, timeout: float) -> list:
+    """Each rank's last JSON line, in rank order; every rank is killed on
+    a failure or a timeout, so none outlives the phase."""
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            out, err = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise AssertionError(f"rank {r} exited {p.returncode}:\n"
+                                     f"{err[-4000:]}")
+            outs.append(json.loads([ln for ln in out.splitlines()
+                                    if ln.startswith("{")][-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def sh_draws(dev, st, cap: int):
+    """Phase 16 (a)'s draws for both banks (every rank makes all of
+    them, from the same seed, and keeps its rows)."""
+    import torch
+    from vmap_tpu_torch.core import step as ST
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    d_o = ST.torch_draws(gen, ST.draw_shapes(
+        cap, st.n_iter * st.win, st.n_px, st.n_b2s, st.n_bins, st.px_block,
+        st.sample_reuse), dev)
+    d_b = ST.torch_draws(gen, ST.draw_shapes(
+        1, st.n_iter * st.win_bg, st.n_px_bg, st.n_b2s_bg, st.n_bins,
+        st.px_block_bg), dev)
+    return d_o, d_b
+
+
+def rank_frames(spec_path: str) -> int:
+    """One rank of phase 16 (a): phase 14 (a)'s half-unknown workload,
+    this rank's object rows of it (``parallel.sharding``, as the Mapper
+    takes them) through ``step.frame_step`` on the kernel path, the loss
+    summed over the obj group (``mapper.ShardedLoss``); n_iter=1 once,
+    n_iter=20 three times (the last two timed, CUDA events around the
+    frame and its loss's read). The object rows gathered over the group
+    after each, written with the background by rank 0. Prints one JSON
+    line: its rows, launch counts and frame times."""
+    import dataclasses
+    import torch
+    from vmap_tpu_torch.core import step as ST
+    from vmap_tpu_torch.core.mapper import ShardedLoss
+    from vmap_tpu_torch.kernels import _build
+    from vmap_tpu_torch.parallel import distributed as D
+    from vmap_tpu_torch.parallel import sharding as SH
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank, _ = D.init_from_env()
+    dev = D.rank_device("cuda")
+    _build.load()          # the parent's build, from the cache
+    mesh = SH.mesh_from_axes(spec["axes"])
+    st0, bo, bb, pool, obj_tab, obj_ids, bg_tab = bench_workload(
+        dev, unknown=0.5)
+    lo, hi = mesh.slot_range(rank, bo.capacity)
+    group = SH.obj_group(mesh, rank)
+    out = {"rank": rank, "slots": [lo, hi], "frame_ms": [], "launches": {}}
+    for n_iter in (1, 20):
+        st = dataclasses.replace(st0, n_iter=n_iter, use_fused_frame=True)
+        d_o, d_b = sh_draws(dev, st, bo.capacity)
+        args = (SH.place_bank(bo, lo, hi), bb, *pool,
+                SH.place_tables(obj_tab, lo, hi), obj_ids[lo:hi], bg_tab,
+                SH.place_draws(d_o, lo, hi), d_b)
+        reset_counts()
+        for rep in range(1 if n_iter == 1 else 3):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            b_o, b_b, met = ST.frame_step(st, *args)
+            loss = ShardedLoss(met, group).value(0)   # a collective
+            t1.record()
+            torch.cuda.synchronize()
+            if rep:
+                out["frame_ms"].append(t0.elapsed_time(t1))
+        out["launches"][str(n_iter)] = read_counts()
+        gathered = {f: D.gather_rows(getattr(b_o, f), group)
+                    for f in ("flat", "m", "v")}
+        if rank == 0:
+            torch.save({"obj": gathered,
+                        "bg": {f: getattr(b_b, f) for f in ("flat", "m",
+                                                             "v")},
+                        "loss": loss}, spec["out"].format(n_iter=n_iter))
+    print(json.dumps(out), flush=True)
+    D.shutdown()
+    return 0
+
+
+def sharded_frames(dev, gpu: str) -> tuple:
+    """(a) Phase 5's workload on phase 14 (a)'s half-unknown pool (no
+    active slot's mask empty: the empty-mask rule acts per rank, ROADMAP
+    §3) at ``SH_AXES``, 4 ranks on this one card, against the one-process
+    kernel frame on the same draws: at n_iter=1 every slot's and the
+    background's parameters and moments within phase 3's tier, the loss
+    within rtol 2e-3; at n_iter=20 finite, the final loss within rtol
+    0.25; each rank launching train_grad and train_adamw twice an
+    iteration (its object rows and the background). Returns (the ranks'
+    summed launch counts, results)."""
+    import dataclasses
+    import torch
+    from vmap_tpu_torch.core import step as ST
+
+    st0, bo, bb, pool, obj_tab, obj_ids, bg_tab = bench_workload(
+        dev, unknown=0.5)
+    ref = {}
+    for n_iter in (1, 20):
+        st = dataclasses.replace(st0, n_iter=n_iter, use_fused_frame=True)
+        d_o, d_b = sh_draws(dev, st, bo.capacity)
+        ro, rb, met = ST.frame_step(st, bo, bb, *pool, obj_tab, obj_ids,
+                                    bg_tab, d_o, d_b)
+        ref[n_iter] = (ro, rb, float(met["loss"]))
+    spec = os.path.join(OUT, "sharded_frames.json")
+    with open(spec, "w") as f:
+        json.dump({"axes": SH_AXES, "out": os.path.join(
+            OUT, "sharded_frames_n{n_iter}.pt")}, f)
+    n_ranks = SH_AXES["obj"] * SH_AXES["data"]
+    t0 = time.perf_counter()
+    ranks = rank_results(spawn_ranks(n_ranks, lambda r: [
+        sys.executable, os.path.abspath(__file__), "--rank-frames", spec]),
+        timeout=600)
+    wall = time.perf_counter() - t0
+    res = {"ranks": ranks, "wall_s": wall}
+    for n_iter, (ro, rb, loss) in ref.items():
+        got = torch.load(os.path.join(OUT, f"sharded_frames_n{n_iter}.pt"),
+                         map_location=dev)
+        rel = abs(got["loss"] - loss) / abs(loss)
+        res[f"n_iter{n_iter}_loss"] = [got["loss"], loss]
+        for bank, want in (("obj", ro), ("bg", rb)):
+            for f in ("flat", "m", "v"):
+                g, w = got[bank][f], getattr(want, f)
+                assert bool(torch.isfinite(g).all()), f"{bank}.{f}"
+                if n_iter == 1:
+                    res[f"n_iter1_{bank}_{f}_max_abs_err"] = rel_close(
+                        g, w, RTOL_SEM, 1e-3 * float(w.abs().max()),
+                        f"sharded frame n_iter=1 {bank}.{f}")
+        if not rel < (RTOL_SEM if n_iter == 1 else RTOL_FULL):
+            raise AssertionError(f"sharded frame n_iter={n_iter}: loss "
+                                 f"{got['loss']} against {loss}")
+        log(f"[16] sharded frame n_iter={n_iter} ({SH_AXES}, {n_ranks} "
+            f"ranks): loss {got['loss']:.6f} against one process "
+            f"{loss:.6f} (rel {rel:.3e})" + (
+                "; every slot and the background within rtol 2e-3 + 1e-3 "
+                "of scale (obj flat "
+                f"{res['n_iter1_obj_flat_max_abs_err']:.3e}, m "
+                f"{res['n_iter1_obj_m_max_abs_err']:.3e}, v "
+                f"{res['n_iter1_obj_v_max_abs_err']:.3e})"
+                if n_iter == 1 else ""))
+    summed = {}
+    for r in ranks:
+        for n_iter, c in r["launches"].items():
+            frames = 1 if n_iter == "1" else 3
+            for k in ("train_grad", "train_adamw"):
+                if c[k] != 2 * int(n_iter) * frames:
+                    raise AssertionError(f"rank {r['rank']} n_iter={n_iter}"
+                                         f": {k} launched {c[k]} times")
+            for k, v in c.items():
+                summed[k] = summed.get(k, 0) + v
+        log(f"[16] rank {r['rank']} (slots {r['slots']}): train_grad / "
+            "train_adamw launches " + ", ".join(
+                f"n_iter={n} {c['train_grad']} / {c['train_adamw']}"
+                for n, c in r["launches"].items()) + "; n_iter=20 frame "
+            f"{[round(x, 3) for x in r['frame_ms']]} ms, {n_ranks} ranks "
+            f"time-slicing one {gpu}")
+    log(f"[16] sharded frames: {n_ranks} ranks in {wall:.1f} s (start-up "
+        "included)")
+    return summed, res
+
+
+def sharded_trainer(gpu: str, ran_phase4: bool) -> tuple:
+    """(b) ``vmap_tpu_torch.train`` as ``SH_TRAINER_AXES`` ranks on phase
+    4's configuration (its export at RESUME_VIS: the ranks' losses do not
+    depend on it) for SH_FRAMES frames with --save_ckpt, each rank with a
+    logdir of its own, then --resume from the primary's checkpoint for 2
+    more: the per-frame losses against phase 4's one-process run (its log
+    where phase 4 ran in this call, else a one-process run made here)
+    within rtol 2e-3; the meshes, log and checkpoints written by rank 0
+    only (rank 1's logdir never made); every rank launching train_grad
+    and train_adamw 2 x n_iter a frame and field_fwd in its export; no
+    rank importing jax. Returns (the first run's launch counts summed
+    over the ranks, results)."""
+    import numpy as np
+    from vmap_tpu_torch import train
+
+    _, raw = synthetic_room0(RESUME_VIS)
+    n_iter = raw["render"]["iters_per_frame"]
+    ref_log = os.path.join(OUT, "train_room0_synthetic", "train_log.jsonl")
+    if not ran_phase4:
+        cfg_ref = os.path.join(OUT, "sharded_reference.json")
+        with open(cfg_ref, "w") as f:
+            json.dump(raw, f, indent=1)
+        ref_dir = os.path.join(OUT, "train_sharded_reference")
+        shutil.rmtree(ref_dir, ignore_errors=True)
+        train.main(["--config", cfg_ref, "--logdir", ref_dir,
+                    "--max_frames", str(SH_FRAMES), "--device", "cuda"])
+        ref_log = os.path.join(ref_dir, "train_log.jsonl")
+    want = [json.loads(line)["loss"] for line in open(ref_log)][:SH_FRAMES]
+    raw["tpu"]["mesh_axes"] = SH_TRAINER_AXES
+    cfg = os.path.join(OUT, "sharded_room0.json")
+    with open(cfg, "w") as f:
+        json.dump(raw, f, indent=1)
+    base = os.path.join(OUT, "train_sharded")
+    for r in range(2):
+        shutil.rmtree(f"{base}_r{r}", ignore_errors=True)
+    state = os.path.join(f"{base}_r0", "ckpt", "state")
+
+    def argv(extra: list):
+        code = (
+            "import json, os, sys, time\n"
+            "from vmap_tpu_torch import train\n"
+            "from vmap_tpu_torch.kernels import ensemble as E\n"
+            "from vmap_tpu_torch.kernels import train_step as K\n"
+            "r = os.environ['VMAP_PROCESS_ID']\n"
+            "t0 = time.perf_counter()\n"
+            f"m = train.main(['--config', {cfg!r}, '--device', 'cuda',\n"
+            f"                '--logdir', {base!r} + '_r' + r] + {extra!r})\n"
+            "wall = time.perf_counter() - t0\n"
+            "bad = sorted(k for k in sys.modules if k in ('jax', 'vmap_tpu'"
+            ", 'cv2')\n"
+            "             or k.startswith(('jax.', 'jaxlib', 'vmap_tpu.',"
+            " 'cv2.')))\n"
+            "print(json.dumps({'rank': int(r), 'slots': [m.lo, m.hi],\n"
+            "                  'frames': m.frames_ingested, 'wall_s': wall,"
+            "\n                  'launches': {**K.LAUNCHES, **E.LAUNCHES},"
+            " 'bad': bad}))\n"
+            "from vmap_tpu_torch.parallel.distributed import shutdown\n"
+            "shutdown()\n")
+        return lambda r: [sys.executable, "-c", code]
+
+    n_ranks = SH_TRAINER_AXES["obj"]
+    first = rank_results(spawn_ranks(n_ranks, argv([
+        "--max_frames", str(SH_FRAMES), "--save_ckpt"])), timeout=900)
+    second = rank_results(spawn_ranks(n_ranks, argv([
+        "--max_frames", str(SH_FRAMES + 2), "--resume", state])),
+        timeout=600)
+    for o in first + second:
+        if o["bad"]:
+            raise AssertionError(f"rank {o['rank']} imported {o['bad']}")
+    if os.path.exists(f"{base}_r1"):
+        raise AssertionError("rank 1 wrote a logdir")
+    for o in first:
+        c = o["launches"]
+        check_launches(c, 2 * n_iter * SH_FRAMES,
+                       f"rank {o['rank']}: 2 banks x {n_iter} per frame")
+        log(f"[16] trainer rank {o['rank']} (slots {o['slots']}): "
+            f"{SH_FRAMES} frames in {o['wall_s']:.1f} s (start-up "
+            f"included; {n_ranks} ranks time-slicing one {gpu}), launches "
+            f"train_grad {c['train_grad']}, train_adamw {c['train_adamw']}"
+            f", field_stage {c['field_stage']}, field_fwd {c['field_fwd']}")
+    rows = [json.loads(line)
+            for line in open(os.path.join(f"{base}_r0", "train_log.jsonl"))]
+    if [r["frame"] for r in rows] != list(range(SH_FRAMES + 2)):
+        raise AssertionError(f"sharded log frames {[r['frame'] for r in rows]}")
+    got = [r["loss"] for r in rows]
+    if not all(np.isfinite(got)):
+        raise AssertionError(f"sharded losses {got}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    if not max(rel) < RTOL_SEM:
+        raise AssertionError(f"sharded trainer losses {got[:SH_FRAMES]} "
+                             f"against one process {want}")
+    meshes = sorted(os.listdir(os.path.join(f"{base}_r0", "scene_mesh")))
+    for f in (SH_FRAMES - 1, SH_FRAMES + 1):
+        for obj in (0, 1, 2):
+            p = os.path.join(f"{base}_r0", "scene_mesh",
+                             f"frame_{f}_obj{obj}.obj")
+            if not os.path.getsize(p) > 0:
+                raise AssertionError(f"{p} is empty")
+    log(f"[16] sharded trainer ({SH_TRAINER_AXES}): losses "
+        f"{[round(x, 4) for x in got]}, against one process rel "
+        f"{max(rel):.3e} at most; resumed for 2 frames; rank 0 wrote "
+        f"{len(meshes)} mesh files, rank 1 none")
+    summed = {}
+    for o in first:
+        for k, v in o["launches"].items():
+            summed[k] = summed.get(k, 0) + v
+    return summed, {"losses": got, "one_process": want, "max_rel": max(rel),
+                    "ranks": first, "resumed": second}
+
+
+# --------------------------------------------------------------- phase 17
+CAL_PROBES = (5, 12, 23)
+
+
+def room_data(dev) -> str:
+    """Phase 13's generated room (its Replica files), or the same room
+    generated here when phase 13 did not run in this call."""
+    data = os.path.join(OUT, "room", "data")
+    if os.path.isdir(data):
+        return data
+    from vmap_tpu_torch.generate_dataset import main as generate
+    data = os.path.join(OUT, "room17", "data")
+    shutil.rmtree(data, ignore_errors=True)
+    generate([data, "--scene", "room", "--objects", str(ROOM_OBJECTS),
+              "--frames", str(ROOM_FRAMES), "--width", str(ROOM_W),
+              "--height", str(ROOM_H), "--fx", str(ROOM_F), "--fy",
+              str(ROOM_F), "--device", str(dev)])
+    return data
+
+
+def calibration(dev, gpu: str) -> tuple:
+    """The port's int8 calibration (``vmap_tpu_torch.calibrate_int8_scales``)
+    on phase 13's room (ROOM_FRAMES frames at 1200 x 680) through
+    room0_imap.json (one h=256 scene field, the field phase 11's iMAP frame
+    trains), probes at CAL_PROBES; then that iMAP frame (``imap_workload``,
+    n_iter=1, one draw) through the kernel path under float32, under
+    int8_static at the default scales and under int8_static at the
+    suggested ones, each gradient's error against float32's in norm and
+    their ratio; and train_grad under int8_static at the suggested scales
+    against its plain version at phase 3's iMAP shape in phase 11's tiers
+    (``check_policy_tiers``), both reading the scales from the
+    environment. Returns (the calibration run's launch counts, results)."""
+    import dataclasses
+    import torch
+    from vmap_tpu_torch import calibrate_int8_scales as cal
+    from vmap_tpu_torch.core import step as ST
+    from vmap_tpu_torch.ops import quant as Q
+
+    data = room_data(dev)
+    with open(os.path.join(REPO, "configs", "Replica",
+                           "room0_imap.json")) as f:
+        raw = json.load(f)
+    raw["dataset"]["path"] = data
+    raw["camera"].update(w=ROOM_W, h=ROOM_H, fx=ROOM_F, fy=ROOM_F,
+                         cx=(ROOM_W - 1) / 2, cy=(ROOM_H - 1) / 2)
+    raw["tpu"]["frame_pool_size"] = 64
+    cfg = os.path.join(OUT, "calibration_imap.json")
+    with open(cfg, "w") as f:
+        json.dump(raw, f, indent=1)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = cal.main(["--config", cfg, "--max_frames", str(ROOM_FRAMES),
+                    "--probes", ",".join(map(str, CAL_PROBES)),
+                    "--device", str(dev), "--out",
+                    os.path.join(OUT, "calibration.json")])
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    n_iter = raw["render"]["iters_per_frame"]
+    for k in ("train_grad", "train_adamw"):
+        if launches[k] != n_iter * ROOM_FRAMES:
+            raise AssertionError(f"calibration run: {k} launched "
+                                 f"{launches[k]} times")
+    sug = out["suggested"]
+    if not all(math.isfinite(v) and v > 0 for v in sug.values()):
+        raise AssertionError(f"suggested scales {sug}")
+    log(f"[17] calibration of room0_imap on the room ({ROOM_FRAMES} "
+        f"frames, probes at {list(CAL_PROBES)}) in {wall:.1f} s on {gpu}: "
+        f"{json.dumps(out['summary'])}; suggested {json.dumps(sug)} "
+        f"(defaults {dict(zip(Q.Q8_SCALE_VARS, Q.Q8_SCALES))})")
+
+    st0, bank, pool, tab, obj_ids = imap_workload(dev)
+    st1 = dataclasses.replace(st0, n_iter=1, use_fused_frame=True)
+    gen = torch.Generator(device=dev)
+
+    def grad(policy: str):
+        gen.manual_seed(0)
+        d = ST.torch_draws(gen, ST.draw_shapes(
+            1, st1.win, st1.n_px, st1.n_b2s, st1.n_bins, st1.px_block), dev)
+        b, _, met = ST.frame_step(dataclasses.replace(
+            st1, compute_dtype=policy), bank, None, *pool, tab, obj_ids,
+            None, d, None)
+        return grads_from_m(b, bank.m), float(met["loss"])
+
+    saved = {k: os.environ.get(k) for k in Q.Q8_SCALE_VARS}
+    try:
+        for k in Q.Q8_SCALE_VARS:
+            os.environ.pop(k, None)
+        g32, l32 = grad("float32")
+        g_def, l_def = grad("int8_static")
+        os.environ.update({k: str(v) for k, v in sug.items()})
+        if Q.static_scales() != tuple(sug.values()):
+            raise AssertionError("the suggested scales did not reach "
+                                 "ops.quant.static_scales")
+        g_sug, l_sug = grad("int8_static")
+        failures: list = []
+        tiers = check_policy_tiers(
+            "imap", conditioned_bank(1, 1, 256, 5.0, 3, dev), 14, 4800, dev,
+            "int8_static", failures, phase="17")
+        if failures:
+            raise AssertionError("; ".join(failures))
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    e_def = float((g_def - g32).norm() / g32.norm())
+    e_sug = float((g_sug - g32).norm() / g32.norm())
+    if not float((g_sug - g_def).norm()) > 0:
+        raise AssertionError("the suggested scales left the frame as the "
+                             "defaults do")
+    res = {"summary": out["summary"], "suggested": sug, "wall_s": wall,
+           "imap_grad_err_default": e_def, "imap_grad_err_suggested": e_sug,
+           "ratio": e_sug / e_def,
+           "imap_loss": {"float32": l32, "default": l_def,
+                         "suggested": l_sug},
+           "kernel_vs_plain_suggested": tiers}
+    log(f"[17] iMAP frame (n_iter=1) on {gpu}: int8_static gradient error "
+        f"against float32, in norm over float32's: defaults {e_def:.4e}, "
+        f"suggested {e_sug:.4e}, ratio {e_sug / e_def:.4f}; loss float32 "
+        f"{l32:.6f}, defaults {l_def:.6f}, suggested {l_sug:.6f}; kernel "
+        f"against plain under the suggested scales: worst "
+        f"{tiers['max_abs_err']:.3e} of scale, error norm "
+        f"{tiers['err_over_policy_effect']:.3e} of the policy's effect")
+    return launches, res
+
+
 # --------------------------------------------------------------- phase 10
 def grads_from_m(bank_new, m0):
     """The gradient of a one-iteration frame, read from its first AdamW
@@ -2995,8 +3449,8 @@ def update_ab(trees: list) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", nargs="+", type=int,
-                    default=list(range(1, 16)),
-                    help="phases to run (default all: 1 2 ... 15)")
+                    default=list(range(1, 18)),
+                    help="phases to run (default all: 1 2 ... 17)")
     ap.add_argument("--sections", action="store_true",
                     help="in place of the phases: time train_grad's "
                     "sections under every policy (k1_sections)")
@@ -3006,6 +3460,7 @@ def main(argv=None) -> int:
     ap.add_argument("--update-times", action="store_true",
                     help=argparse.SUPPRESS)   # one run of --update-ab
     ap.add_argument("--tree", help=argparse.SUPPRESS)  # its checkout
+    ap.add_argument("--rank-frames", help=argparse.SUPPRESS)  # phase 16 a
     args = ap.parse_args(argv)
     phases = set(args.phases)
     if not os.path.isdir(os.path.join(REPO, "vmap_tpu_torch", "kernels",
@@ -3023,6 +3478,8 @@ def main(argv=None) -> int:
     if args.tree:
         sys.path.insert(0, os.path.abspath(args.tree))
     os.makedirs(OUT, exist_ok=True)
+    if args.rank_frames:
+        return rank_frames(args.rank_frames)
 
     # 1. device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3128,6 +3585,19 @@ def main(argv=None) -> int:
             paths["scannet"], res = scannet_layout(dev, gpu)
             with open(os.path.join(OUT, "scannet.json"), "w") as f:
                 json.dump({"gpu": gpu, **res}, f, indent=1, default=float)
+        elif phase == 16:
+            from vmap_tpu_torch import native
+            native.available()   # built once here, not by each rank
+            res = {}
+            paths["sharded_frames"], res["frames"] = sharded_frames(dev, gpu)
+            paths["sharded_trainer"], res["trainer"] = sharded_trainer(
+                gpu, ran_phase4=4 in phases)
+            with open(os.path.join(OUT, "sharded.json"), "w") as f:
+                json.dump({"gpu": gpu, **res}, f, indent=1, default=float)
+        elif phase == 17:
+            paths["calibration"], res = calibration(dev, gpu)
+            with open(os.path.join(OUT, "calibration_run.json"), "w") as f:
+                json.dump({"gpu": gpu, **res}, f, indent=1, default=float)
         else:
             raise SystemExit(f"no phase {phase}")
         log(f"[{phase}] phase {phase} took "
@@ -3171,7 +3641,9 @@ def main(argv=None) -> int:
                    + (("train_grad_q8", "train_quant_w")
                       if 11 in phases else ())
                    + (("train_grad", "train_adamw", "field_stage",
-                       "field_fwd") if phases & {14, 15} else ()))
+                       "field_fwd") if phases & {14, 15, 16} else ())
+                   + (("train_grad", "train_adamw") if 17 in phases
+                      else ()))
     kernels = []
     for name, src, replaces, per, top_policy, count in specs:
         by_path = {p: count(c) for p, c in paths.items()}

@@ -32,7 +32,8 @@ from vmap_tpu_torch.core.mapper import FrameSample, Mapper  # noqa: E402
 from vmap_tpu_torch.core.step import Draws  # noqa: E402
 from vmap_tpu_torch.data.synthetic import SyntheticScene  # noqa: E402
 from vmap_tpu_torch.interop import FIELDS, bank_from_numpy  # noqa: E402
-from vmap_tpu_torch.parallel.distributed import init_from_env  # noqa: E402
+from vmap_tpu_torch.parallel.distributed import (  # noqa: E402
+    init_from_env, shutdown)
 
 
 class Replay:
@@ -90,6 +91,7 @@ def main(spec_path: str) -> None:
     print(json.dumps({"rank": rank, "world": world,
                       "slots": [mapper.lo, mapper.hi], "losses": losses,
                       "loss_mean": means, "jax_modules": jax_modules()}))
+    shutdown()
 
 
 if __name__ == "__main__":

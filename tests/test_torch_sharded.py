@@ -262,8 +262,9 @@ def test_cli_on_two_ranks_writes_once_and_resumes(tmp_path):
             f"m = train.main(argv + {extra!r})\n"
             "bad = sorted(k for k in sys.modules if k in ('jax', 'vmap_tpu')"
             "\n             or k.startswith(('jax.', 'jaxlib', 'vmap_tpu.')))\n"
-            "print(json.dumps({'rank': distributed.rank(), 'slots': "
-            "[m.lo, m.hi], 'frames': m.frames_ingested, 'bad': bad}))\n")
+            "print(json.dumps({'rank': r, 'slots': [m.lo, m.hi],"
+            " 'frames': m.frames_ingested, 'bad': bad}))\n"
+            "distributed.shutdown()\n")
         return lambda r: [sys.executable, "-c", code]
 
     outs = results(spawn_ranks(2, argv(["--max_frames", "11",

@@ -59,6 +59,16 @@ def init_from_env() -> tuple[int, int]:
     return pid, nproc
 
 
+def shutdown() -> None:
+    """Leave the process group, where there is one: a barrier, so that no
+    rank exits while another still uses the group (rank 0 holds its
+    store), then the group's destruction. COLLECTIVE; the CLIs call it
+    last."""
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
 def rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 

@@ -202,3 +202,5 @@ def run(argv=None, draw_source=None, timings: dict | None = None):
 
 if __name__ == "__main__":
     main()
+    from vmap_tpu_torch.parallel.distributed import shutdown
+    shutdown()
