@@ -2526,7 +2526,8 @@ def sharded_trainer(gpu: str, ran_phase4: bool) -> tuple:
     rows = [json.loads(line)
             for line in open(os.path.join(f"{base}_r0", "train_log.jsonl"))]
     if [r["frame"] for r in rows] != list(range(SH_FRAMES + 2)):
-        raise AssertionError(f"sharded log frames {[r['frame'] for r in rows]}")
+        raise AssertionError(f"sharded log frames "
+                             f"{[r['frame'] for r in rows]}")
     got = [r["loss"] for r in rows]
     if not all(np.isfinite(got)):
         raise AssertionError(f"sharded losses {got}")

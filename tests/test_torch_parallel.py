@@ -40,7 +40,7 @@ def test_slot_rows_match_jax_named_sharding(axes, slots):
         lo, hi = mesh.slot_range(r, slots)
         np.testing.assert_array_equal(rows, np.arange(lo, hi))
         seen.add(r)
-    assert seen == set(range(mesh.size))
+    assert seen == set(range(mesh.n_obj * mesh.n_data))
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 6, 8])
@@ -49,7 +49,7 @@ def test_make_mesh_shapes(n, data_axis):
     got = sharding.make_mesh(n, data_axis=data_axis)
     want = jsh.make_mesh(n, data_axis=data_axis)
     assert got.shape == dict(want.shape)
-    assert got.size == n
+    assert got.n_obj * got.n_data == n
 
 
 @pytest.mark.parametrize("axes", [{}, {"obj": 1}, {"obj": 1, "data": 1},

@@ -261,7 +261,8 @@ def test_cli_on_two_ranks_writes_once_and_resumes(tmp_path):
             f"        '--logdir', {str(tmp_path)!r} + f'/logs_r{{r}}']\n"
             f"m = train.main(argv + {extra!r})\n"
             "bad = sorted(k for k in sys.modules if k in ('jax', 'vmap_tpu')"
-            "\n             or k.startswith(('jax.', 'jaxlib', 'vmap_tpu.')))\n"
+            "\n             or k.startswith(('jax.', 'jaxlib',"
+            " 'vmap_tpu.')))\n"
             "print(json.dumps({'rank': r, 'slots': [m.lo, m.hi],"
             " 'frames': m.frames_ingested, 'bad': bad}))\n"
             "distributed.shutdown()\n")

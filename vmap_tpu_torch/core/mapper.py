@@ -229,7 +229,6 @@ class Mapper:
         # tpu.mesh_axes: this rank's object slots [lo, hi) and its obj group
         self.mesh = (sharding.mesh_from_axes(cfg.mesh_axes)
                      if cfg.mesh_axes else None)
-        self.rank = distributed.rank()
         self.lo, self.hi = 0, self.slots
         self._obj_group = None
         self._gathered = None   # bank_obj's gathered view, while current
@@ -238,8 +237,9 @@ class Mapper:
                 raise ValueError(
                     f"max_n_models={self.capacity} must divide evenly over "
                     f"the obj mesh axis ({self.mesh.n_obj})")
-            self.lo, self.hi = self.mesh.slot_range(self.rank, self.slots)
-            self._obj_group = sharding.obj_group(self.mesh, self.rank)
+            rank = distributed.rank()
+            self.lo, self.hi = self.mesh.slot_range(rank, self.slots)
+            self._obj_group = sharding.obj_group(self.mesh, rank)
 
         # both generators' states go into the full-state checkpoint, so a
         # resumed run continues the uninterrupted run's random stream

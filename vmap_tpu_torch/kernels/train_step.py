@@ -548,8 +548,9 @@ class FrameLaunch:
     the static policies' (scale, 127 / maximum) pairs of
     ``ops.quant.static_scales()``, None under the dynamic ones. So
     ``grad`` takes the bank's parameters as they stand after the latest
-    ``adamw`` of this launch. ``lib``: the kernel library (default ``_build.load()``; the
-    section-timing build of ``chip_smoke.py --sections``)."""
+    ``adamw`` of this launch. ``lib``: the kernel library (default
+    ``_build.load()``; the section-timing build of ``chip_smoke.py
+    --sections``)."""
 
     def __init__(self, bank: BankState, batch: dict, n_iter: int, n_per: int,
                  color_scaling: float, opacity_scaling: float,

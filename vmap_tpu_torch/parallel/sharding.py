@@ -16,8 +16,6 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-import torch
-
 from vmap_tpu_torch.core.bank import FIELDS
 from vmap_tpu_torch.parallel import distributed
 
@@ -31,10 +29,6 @@ class Mesh:
     @property
     def shape(self) -> dict:
         return {"obj": self.n_obj, "data": self.n_data}
-
-    @property
-    def size(self) -> int:
-        return self.n_obj * self.n_data
 
     def index(self, rank: int) -> tuple[int, int]:
         """(obj index, data index) of ``rank``."""
@@ -94,15 +88,10 @@ def obj_group(mesh: Mesh, rank: int):
     return groups[mesh.index(rank)[1]]
 
 
-def rows(t: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
-    """Rows [lo, hi) of ``t`` as a tensor of their own."""
-    return t[lo:hi].clone()
-
-
 def place_bank(bank, lo: int, hi: int):
-    """The bank's slots [lo, hi): parameters, moments, steps, activity and
-    scales."""
-    return bank.replace(**{f: rows(getattr(bank, f), lo, hi)
+    """The bank's slots [lo, hi) (parameters, moments, steps, activity and
+    scales) as tensors of their own."""
+    return bank.replace(**{f: getattr(bank, f)[lo:hi].clone()
                            for f in FIELDS})
 
 
