@@ -2313,7 +2313,8 @@ def rank_frames(spec_path: str) -> int:
     n_iter=20 three times (the last two timed, CUDA events around the
     frame and its loss's read). The object rows gathered over the group
     after each, written with the background by rank 0. Prints one JSON
-    line: its rows, launch counts and frame times."""
+    line: its rows, launch counts, frame times and any jax / vmap_tpu
+    module it imported."""
     import dataclasses
     import torch
     from vmap_tpu_torch.core import step as ST
@@ -2358,6 +2359,8 @@ def rank_frames(spec_path: str) -> int:
                         "bg": {f: getattr(b_b, f) for f in ("flat", "m",
                                                              "v")},
                         "loss": loss}, spec["out"].format(n_iter=n_iter))
+    out["bad"] = sorted(k for k in sys.modules if k in ("jax", "vmap_tpu")
+                        or k.startswith(("jax.", "jaxlib", "vmap_tpu.")))
     print(json.dumps(out), flush=True)
     D.shutdown()
     return 0
@@ -2424,6 +2427,8 @@ def sharded_frames(dev, gpu: str) -> tuple:
                 if n_iter == 1 else ""))
     summed = {}
     for r in ranks:
+        if r["bad"]:
+            raise AssertionError(f"rank {r['rank']} imported {r['bad']}")
         for n_iter, c in r["launches"].items():
             frames = 1 if n_iter == "1" else 3
             for k in ("train_grad", "train_adamw"):
