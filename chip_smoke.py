@@ -172,9 +172,10 @@ Phases, in order (any failure raises and the script exits non-zero):
      summed over the obj group within rtol 2e-3; at n_iter=20 finite, the
      final loss within rtol 0.25; (b) ``vmap_tpu_torch.train`` as 2 ranks
      {"obj": 2} on phase 4's configuration for 12 frames with
-     --save_ckpt, then --resume for 2: per-frame losses within rtol 2e-3
-     of phase 4's one-process run, meshes, log and checkpoints written by
-     rank 0 only; each rank's launch counts and frame time printed;
+     --save_ckpt, then --resume for 2: all 14 per-frame losses within
+     rtol 2e-3 of an uninterrupted one-process run of 14 frames, meshes,
+     log and checkpoints written by rank 0 only; each rank's launch
+     counts and frame time printed;
  17. int8 calibration: ``vmap_tpu_torch.calibrate_int8_scales`` on phase
      13's room (24 frames) through room0_imap.json, probes at 3 frames;
      then phase 11's iMAP frame (n_iter=1) under int8_static at the
@@ -2247,46 +2248,7 @@ def scannet_layout(dev, gpu: str, n_frames: int = 12,
 # --------------------------------------------------------------- phase 16
 SH_AXES = {"obj": 2, "data": 2}   # (a): 4 ranks
 SH_TRAINER_AXES = {"obj": 2}      # (b): 2 ranks
-SH_FRAMES = 12                    # (b): phase 4's frames
-
-
-def spawn_ranks(n: int, argv_of, env_extra: dict | None = None) -> list:
-    """``n`` processes of one gloo world on this machine (rank r runs
-    ``argv_of(r)``), with ``VMAP_COORDINATOR`` at a free local port."""
-    import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    env = {**os.environ, **(env_extra or {}),
-           "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH",
-                                                            ""),
-           "VMAP_COORDINATOR": f"127.0.0.1:{port}",
-           "VMAP_NUM_PROCESSES": str(n), "VMAP_DIST_TIMEOUT_S": "600"}
-    return [subprocess.Popen(argv_of(r), env={**env,
-                                              "VMAP_PROCESS_ID": str(r)},
-                             cwd=REPO, stdout=subprocess.PIPE,
-                             stderr=subprocess.PIPE, text=True)
-            for r in range(n)]
-
-
-def rank_results(procs, timeout: float) -> list:
-    """Each rank's last JSON line, in rank order; every rank is killed on
-    a failure or a timeout, so none outlives the phase."""
-    outs = []
-    try:
-        for r, p in enumerate(procs):
-            out, err = p.communicate(timeout=timeout)
-            if p.returncode != 0:
-                raise AssertionError(f"rank {r} exited {p.returncode}:\n"
-                                     f"{err[-4000:]}")
-            outs.append(json.loads([ln for ln in out.splitlines()
-                                    if ln.startswith("{")][-1]))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    return outs
+SH_FRAMES = 12                    # (b): then 2 resumed
 
 
 def sh_draws(dev, st, cap: int):
@@ -2322,6 +2284,7 @@ def rank_frames(spec_path: str) -> int:
     from vmap_tpu_torch.kernels import _build
     from vmap_tpu_torch.parallel import distributed as D
     from vmap_tpu_torch.parallel import sharding as SH
+    from vmap_tpu_torch.parallel.launch import foreign_modules
 
     with open(spec_path) as f:
         spec = json.load(f)
@@ -2359,8 +2322,7 @@ def rank_frames(spec_path: str) -> int:
                         "bg": {f: getattr(b_b, f) for f in ("flat", "m",
                                                              "v")},
                         "loss": loss}, spec["out"].format(n_iter=n_iter))
-    out["bad"] = sorted(k for k in sys.modules if k in ("jax", "vmap_tpu")
-                        or k.startswith(("jax.", "jaxlib", "vmap_tpu.")))
+    out["foreign"] = foreign_modules()
     print(json.dumps(out), flush=True)
     D.shutdown()
     return 0
@@ -2379,6 +2341,7 @@ def sharded_frames(dev, gpu: str) -> tuple:
     import dataclasses
     import torch
     from vmap_tpu_torch.core import step as ST
+    from vmap_tpu_torch.parallel import launch
 
     st0, bo, bb, pool, obj_tab, obj_ids, bg_tab = bench_workload(
         dev, unknown=0.5)
@@ -2395,7 +2358,7 @@ def sharded_frames(dev, gpu: str) -> tuple:
             OUT, "sharded_frames_n{n_iter}.pt")}, f)
     n_ranks = SH_AXES["obj"] * SH_AXES["data"]
     t0 = time.perf_counter()
-    ranks = rank_results(spawn_ranks(n_ranks, lambda r: [
+    ranks = launch.collect(launch.spawn(n_ranks, lambda r: [
         sys.executable, os.path.abspath(__file__), "--rank-frames", spec]),
         timeout=600)
     wall = time.perf_counter() - t0
@@ -2427,8 +2390,9 @@ def sharded_frames(dev, gpu: str) -> tuple:
                 if n_iter == 1 else ""))
     summed = {}
     for r in ranks:
-        if r["bad"]:
-            raise AssertionError(f"rank {r['rank']} imported {r['bad']}")
+        if r["foreign"]:
+            raise AssertionError(f"rank {r['rank']} imported "
+                                 f"{r['foreign']}")
         for n_iter, c in r["launches"].items():
             frames = 1 if n_iter == "1" else 3
             for k in ("train_grad", "train_adamw"):
@@ -2448,34 +2412,37 @@ def sharded_frames(dev, gpu: str) -> tuple:
     return summed, res
 
 
-def sharded_trainer(gpu: str, ran_phase4: bool) -> tuple:
+def sharded_trainer(gpu: str) -> tuple:
     """(b) ``vmap_tpu_torch.train`` as ``SH_TRAINER_AXES`` ranks on phase
-    4's configuration (its export at RESUME_VIS: the ranks' losses do not
-    depend on it) for SH_FRAMES frames with --save_ckpt, each rank with a
-    logdir of its own, then --resume from the primary's checkpoint for 2
-    more: the per-frame losses against phase 4's one-process run (its log
-    where phase 4 ran in this call, else a one-process run made here)
-    within rtol 2e-3; the meshes, log and checkpoints written by rank 0
-    only (rank 1's logdir never made); every rank launching train_grad
-    and train_adamw 2 x n_iter a frame and field_fwd in its export; no
-    rank importing jax. Returns (the first run's launch counts summed
-    over the ranks, results)."""
+    4's configuration (its export at RESUME_VIS: the losses do not depend
+    on it) for SH_FRAMES frames with --save_ckpt, each rank with a logdir
+    of its own, then --resume from the primary's checkpoint for 2 more:
+    all SH_FRAMES + 2 per-frame losses against an uninterrupted
+    one-process run of as many frames, made here, within rtol 2e-3 (so
+    the resumed frames too: a resume that lost the bank, the Adam state
+    or a generator's state would part from it); the meshes, log and
+    checkpoints written by rank 0 only (rank 1's logdir never made);
+    every rank launching train_grad and train_adamw 2 x n_iter a frame
+    and field_fwd in its export; no rank importing jax. Returns (the
+    first run's launch counts summed over the ranks, results)."""
     import numpy as np
     from vmap_tpu_torch import train
+    from vmap_tpu_torch.parallel import launch
 
+    n_frames = SH_FRAMES + 2
     _, raw = synthetic_room0(RESUME_VIS)
     n_iter = raw["render"]["iters_per_frame"]
-    ref_log = os.path.join(OUT, "train_room0_synthetic", "train_log.jsonl")
-    if not ran_phase4:
-        cfg_ref = os.path.join(OUT, "sharded_reference.json")
-        with open(cfg_ref, "w") as f:
-            json.dump(raw, f, indent=1)
-        ref_dir = os.path.join(OUT, "train_sharded_reference")
-        shutil.rmtree(ref_dir, ignore_errors=True)
-        train.main(["--config", cfg_ref, "--logdir", ref_dir,
-                    "--max_frames", str(SH_FRAMES), "--device", "cuda"])
-        ref_log = os.path.join(ref_dir, "train_log.jsonl")
-    want = [json.loads(line)["loss"] for line in open(ref_log)][:SH_FRAMES]
+    cfg_ref = os.path.join(OUT, "sharded_reference.json")
+    with open(cfg_ref, "w") as f:
+        json.dump(raw, f, indent=1)
+    ref_dir = os.path.join(OUT, "train_sharded_reference")
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    train.main(["--config", cfg_ref, "--logdir", ref_dir, "--max_frames",
+                str(n_frames), "--device", "cuda"])
+    ref_s = time.perf_counter() - t0
+    want = [json.loads(line)["loss"]
+            for line in open(os.path.join(ref_dir, "train_log.jsonl"))]
     raw["tpu"]["mesh_axes"] = SH_TRAINER_AXES
     cfg = os.path.join(OUT, "sharded_room0.json")
     with open(cfg, "w") as f:
@@ -2486,37 +2453,19 @@ def sharded_trainer(gpu: str, ran_phase4: bool) -> tuple:
     state = os.path.join(f"{base}_r0", "ckpt", "state")
 
     def argv(extra: list):
-        code = (
-            "import json, os, sys, time\n"
-            "from vmap_tpu_torch import train\n"
-            "from vmap_tpu_torch.kernels import ensemble as E\n"
-            "from vmap_tpu_torch.kernels import train_step as K\n"
-            "r = os.environ['VMAP_PROCESS_ID']\n"
-            "t0 = time.perf_counter()\n"
-            f"m = train.main(['--config', {cfg!r}, '--device', 'cuda',\n"
-            f"                '--logdir', {base!r} + '_r' + r] + {extra!r})\n"
-            "wall = time.perf_counter() - t0\n"
-            "bad = sorted(k for k in sys.modules if k in ('jax', 'vmap_tpu'"
-            ", 'cv2')\n"
-            "             or k.startswith(('jax.', 'jaxlib', 'vmap_tpu.',"
-            " 'cv2.')))\n"
-            "print(json.dumps({'rank': int(r), 'slots': [m.lo, m.hi],\n"
-            "                  'frames': m.frames_ingested, 'wall_s': wall,"
-            "\n                  'launches': {**K.LAUNCHES, **E.LAUNCHES},"
-            " 'bad': bad}))\n"
-            "from vmap_tpu_torch.parallel.distributed import shutdown\n"
-            "shutdown()\n")
-        return lambda r: [sys.executable, "-c", code]
+        return lambda r: [sys.executable, "-m",
+                          "vmap_tpu_torch.parallel.launch", base, "--config",
+                          cfg, "--device", "cuda", *extra]
 
     n_ranks = SH_TRAINER_AXES["obj"]
-    first = rank_results(spawn_ranks(n_ranks, argv([
+    first = launch.collect(launch.spawn(n_ranks, argv([
         "--max_frames", str(SH_FRAMES), "--save_ckpt"])), timeout=900)
-    second = rank_results(spawn_ranks(n_ranks, argv([
-        "--max_frames", str(SH_FRAMES + 2), "--resume", state])),
-        timeout=600)
+    second = launch.collect(launch.spawn(n_ranks, argv([
+        "--max_frames", str(n_frames), "--resume", state])), timeout=600)
     for o in first + second:
-        if o["bad"]:
-            raise AssertionError(f"rank {o['rank']} imported {o['bad']}")
+        if o["foreign"]:
+            raise AssertionError(f"rank {o['rank']} imported "
+                                 f"{o['foreign']}")
     if os.path.exists(f"{base}_r1"):
         raise AssertionError("rank 1 wrote a logdir")
     for o in first:
@@ -2530,32 +2479,37 @@ def sharded_trainer(gpu: str, ran_phase4: bool) -> tuple:
             f", field_stage {c['field_stage']}, field_fwd {c['field_fwd']}")
     rows = [json.loads(line)
             for line in open(os.path.join(f"{base}_r0", "train_log.jsonl"))]
-    if [r["frame"] for r in rows] != list(range(SH_FRAMES + 2)):
+    if [r["frame"] for r in rows] != list(range(n_frames)):
         raise AssertionError(f"sharded log frames "
                              f"{[r['frame'] for r in rows]}")
+    if len(want) != n_frames:
+        raise AssertionError(f"one-process log of {len(want)} frames")
     got = [r["loss"] for r in rows]
     if not all(np.isfinite(got)):
         raise AssertionError(f"sharded losses {got}")
     rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
     if not max(rel) < RTOL_SEM:
-        raise AssertionError(f"sharded trainer losses {got[:SH_FRAMES]} "
-                             f"against one process {want}")
+        raise AssertionError(f"sharded trainer losses {got} against one "
+                             f"process {want}")
     meshes = sorted(os.listdir(os.path.join(f"{base}_r0", "scene_mesh")))
-    for f in (SH_FRAMES - 1, SH_FRAMES + 1):
+    for f in (SH_FRAMES - 1, n_frames - 1):
         for obj in (0, 1, 2):
             p = os.path.join(f"{base}_r0", "scene_mesh",
                              f"frame_{f}_obj{obj}.obj")
             if not os.path.getsize(p) > 0:
                 raise AssertionError(f"{p} is empty")
     log(f"[16] sharded trainer ({SH_TRAINER_AXES}): losses "
-        f"{[round(x, 4) for x in got]}, against one process rel "
-        f"{max(rel):.3e} at most; resumed for 2 frames; rank 0 wrote "
-        f"{len(meshes)} mesh files, rank 1 none")
+        f"{[round(x, 4) for x in got]}, {SH_FRAMES} frames and 2 resumed "
+        f"against an uninterrupted one-process run of {n_frames} frames "
+        f"({ref_s:.1f} s) rel {max(rel):.3e} at most (the resumed frames "
+        f"{max(rel[SH_FRAMES:]):.3e}); rank 0 wrote {len(meshes)} mesh "
+        "files, rank 1 none")
     summed = {}
     for o in first:
         for k, v in o["launches"].items():
             summed[k] = summed.get(k, 0) + v
     return summed, {"losses": got, "one_process": want, "max_rel": max(rel),
+                    "max_rel_resumed": max(rel[SH_FRAMES:]),
                     "ranks": first, "resumed": second}
 
 
@@ -3596,8 +3550,7 @@ def main(argv=None) -> int:
             native.available()   # built once here, not by each rank
             res = {}
             paths["sharded_frames"], res["frames"] = sharded_frames(dev, gpu)
-            paths["sharded_trainer"], res["trainer"] = sharded_trainer(
-                gpu, ran_phase4=4 in phases)
+            paths["sharded_trainer"], res["trainer"] = sharded_trainer(gpu)
             with open(os.path.join(OUT, "sharded.json"), "w") as f:
                 json.dump({"gpu": gpu, **res}, f, indent=1, default=float)
         elif phase == 17:
@@ -3701,8 +3654,8 @@ def main(argv=None) -> int:
                                  "paths")
     if 8 in phases and not any(c["field_bwd.256"] for c in paths.values()):
         raise AssertionError("no field_bwd launch at h=256 on the main paths")
-    bad = sorted(k for k in sys.modules if k in ("jax", "vmap_tpu", "cv2")
-                 or k.startswith(("jax.", "jaxlib", "vmap_tpu.", "cv2.")))
+    from vmap_tpu_torch.parallel.launch import foreign_modules
+    bad = foreign_modules()
     if bad:
         raise AssertionError(f"the JAX package, jax or cv2 was imported: "
                              f"{bad}")

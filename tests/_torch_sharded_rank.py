@@ -10,10 +10,10 @@ replay (an ``.npz`` of the ``Draws`` that a
 one-process run was handed, in request order) and the banks to load after
 the first frame's ingest (an ``.npz`` of the object and background banks'
 fields, ``obj_<field>`` / ``bg_<field>``). Every rank prints one JSON line
-(its slot range, each frame's loss and loss_mean, the jax modules it
-holds); rank 0 also writes the gathered banks to ``spec["out"]``. Imports
-only the port, so its ``sys.modules`` shows whether the port pulled in
-JAX.
+(its slot range, each frame's loss and loss_mean, the jax, vmap_tpu and
+cv2 modules it holds); rank 0 also writes the gathered banks to
+``spec["out"]``. Imports only the port, so its ``sys.modules`` shows
+whether the port pulled in JAX.
 """
 
 import json
@@ -34,6 +34,7 @@ from vmap_tpu_torch.data.synthetic import SyntheticScene  # noqa: E402
 from vmap_tpu_torch.interop import FIELDS, bank_from_numpy  # noqa: E402
 from vmap_tpu_torch.parallel.distributed import (  # noqa: E402
     init_from_env, shutdown)
+from vmap_tpu_torch.parallel.launch import foreign_modules  # noqa: E402
 
 
 class Replay:
@@ -50,11 +51,6 @@ class Replay:
         assert {k: tuple(v.shape) for k, v in vars(d).items()} == \
             {k: tuple(v) for k, v in shapes.items()}, (bank, i)
         return d
-
-
-def jax_modules() -> list:
-    return sorted(k for k in sys.modules if k in ("jax", "vmap_tpu")
-                  or k.startswith(("jax.", "jaxlib", "vmap_tpu.")))
 
 
 def main(spec_path: str) -> None:
@@ -90,7 +86,7 @@ def main(spec_path: str) -> None:
                     for f in FIELDS})
     print(json.dumps({"rank": rank, "world": world,
                       "slots": [mapper.lo, mapper.hi], "losses": losses,
-                      "loss_mean": means, "jax_modules": jax_modules()}))
+                      "loss_mean": means, "foreign": foreign_modules()}))
     shutdown()
 
 

@@ -2,8 +2,13 @@
 package's ``parallel/`` on the conftest's 8 virtual CPU devices: each
 rank's slot rows are the rows JAX's ``NamedSharding(mesh, P("obj"))``
 gives the device at that rank's place, ``make_mesh`` / ``mesh_from_axes``
-take JAX's shapes and raise JAX's errors, and ``init_from_env`` is a no-op
-without ``VMAP_COORDINATOR``."""
+take JAX's shapes and raise JAX's errors, ``init_from_env`` is a no-op
+without ``VMAP_COORDINATOR``, and ``launch`` starts a world's ranks and
+kills them all when one fails."""
+
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +20,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from vmap_tpu.parallel import sharding as jsh
 from vmap_tpu_torch.config import Config
 from vmap_tpu_torch.core.mapper import Mapper
-from vmap_tpu_torch.parallel import distributed, sharding
+from vmap_tpu_torch.parallel import distributed, launch, sharding
 
 import _torch_parity  # noqa: F401  (one torch thread)
 
@@ -26,7 +31,8 @@ import _torch_parity  # noqa: F401  (one torch thread)
 def test_slot_rows_match_jax_named_sharding(axes, slots):
     jmesh = jsh.mesh_from_axes(axes)
     mesh = sharding.mesh_from_axes(axes, world=jmesh.devices.size)
-    assert mesh.shape == dict(jmesh.shape)
+    assert (mesh.n_obj, mesh.n_data) == (jmesh.shape["obj"],
+                                         jmesh.shape["data"])
     order = list(jmesh.devices.flatten())     # rank r <-> device r
     arr = jax.device_put(jnp.arange(slots),
                          NamedSharding(jmesh, P("obj")))
@@ -43,12 +49,12 @@ def test_slot_rows_match_jax_named_sharding(axes, slots):
     assert seen == set(range(mesh.n_obj * mesh.n_data))
 
 
-@pytest.mark.parametrize("n", [1, 2, 3, 4, 6, 8])
-@pytest.mark.parametrize("data_axis", [True, False])
-def test_make_mesh_shapes(n, data_axis):
-    got = sharding.make_mesh(n, data_axis=data_axis)
-    want = jsh.make_mesh(n, data_axis=data_axis)
-    assert got.shape == dict(want.shape)
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_make_mesh_shapes(n):
+    got = sharding.make_mesh(n)
+    want = jsh.make_mesh(n)
+    assert (got.n_obj, got.n_data) == (want.shape["obj"],
+                                       want.shape["data"])
     assert got.n_obj * got.n_data == n
 
 
@@ -117,3 +123,46 @@ def test_place_takes_a_ranks_rows():
     tab = (np.arange(8).reshape(4, 2), np.arange(4))
     assert [t.tolist() for t in sharding.place_tables(tab, 0, 2)] == \
         [[[0, 1], [2, 3]], [0, 1]]
+
+
+def _script(code: str):
+    return lambda r: [sys.executable, "-c", code]
+
+
+def test_launch_gives_each_rank_its_place_in_one_world():
+    code = ("import json, os, sys\n"
+            "print('a line that is not JSON')\n"
+            "print(json.dumps({k: os.environ[k] for k in ("
+            "'VMAP_COORDINATOR', 'VMAP_NUM_PROCESSES', 'VMAP_PROCESS_ID')}"
+            " | {'path': sys.path}))\n")
+    outs = launch.collect(launch.spawn(3, _script(code)), timeout=60)
+    assert [o["VMAP_PROCESS_ID"] for o in outs] == ["0", "1", "2"]
+    assert {o["VMAP_NUM_PROCESSES"] for o in outs} == {"3"}
+    coord = {o["VMAP_COORDINATOR"] for o in outs}
+    assert len(coord) == 1 and coord.pop().startswith("127.0.0.1:")
+    assert all(launch.ROOT in o["path"] for o in outs)
+    assert os.path.isdir(os.path.join(launch.ROOT, "vmap_tpu_torch"))
+
+
+def test_launch_kills_every_rank_when_one_fails():
+    code = ("import os, sys, time\n"
+            "if os.environ['VMAP_PROCESS_ID'] == '0':\n"
+            "    sys.exit('rank 0 gives up')\n"
+            "time.sleep(120)\n")
+    procs = launch.spawn(2, _script(code))
+    with pytest.raises(RuntimeError, match="rank 0 exited 1"):
+        launch.collect(procs, timeout=60)
+    assert [p.returncode for p in procs][1] not in (None, 0)
+
+
+def test_launch_kills_every_rank_after_its_timeout():
+    procs = launch.spawn(2, _script("import time; time.sleep(120)"))
+    with pytest.raises(subprocess.TimeoutExpired):
+        launch.collect(procs, timeout=1)
+    assert all(p.returncode not in (None, 0) for p in procs)
+
+
+def test_foreign_modules_lists_jax():
+    # this test process holds JAX; the ranks of the sharded tests hold none
+    assert "jax" in launch.foreign_modules()
+    assert "vmap_tpu.parallel.sharding" in launch.foreign_modules()

@@ -24,13 +24,12 @@ parallel/``) as gloo ranks on the CPU:
     13 frames), and no rank imports jax;
   * the empty-mask rule acting per shard.
 
-Every rank is a process capped at one torch thread, with a collective
-timeout of 120 s; the test kills every rank on any failure."""
+Every rank is a process capped at one torch thread, started and
+collected by ``vmap_tpu_torch.parallel.launch``, which kills every rank
+on any failure or after 300 s."""
 
 import json
 import os
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -45,11 +44,12 @@ from vmap_tpu_torch.core import step as ts
 from vmap_tpu_torch.core.mapper import FrameSample, Mapper
 from vmap_tpu_torch.data.synthetic import SyntheticScene
 from vmap_tpu_torch.interop import FIELDS, bank_from_numpy
+from vmap_tpu_torch.parallel import launch
 
 from _torch_parity import KeyedDraws, StepKeys, small_synthetic_config
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-RANK = os.path.join(REPO, "tests", "_torch_sharded_rank.py")
+RANK = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                    "_torch_sharded_rank.py")
 FRAMES = 4
 KW = dict(
     max_n_models=2, do_bg=True, hidden_feature_size=8,
@@ -64,44 +64,16 @@ SLOTS = {"obj2": [[0, 1], [1, 2]],
          "obj2data2": [[0, 1], [0, 1], [1, 2], [1, 2]]}
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def spawn_ranks(n: int, argv_of, cwd=REPO) -> list:
-    """``n`` rank processes of one gloo world; ``argv_of(rank)`` is each
-    one's command line."""
+def spawn_ranks(n: int, argv_of) -> list:
+    """``n`` rank processes of one gloo world, each on one thread and
+    without the conftest's JAX settings."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
-    env.update(PYTHONPATH=REPO + os.pathsep + env.get("PYTHONPATH", ""),
-               OMP_NUM_THREADS="1", VMAP_DIST_TIMEOUT_S="120",
-               VMAP_COORDINATOR=f"127.0.0.1:{free_port()}",
-               VMAP_NUM_PROCESSES=str(n))
-    return [subprocess.Popen(argv_of(r), env={**env,
-                                              "VMAP_PROCESS_ID": str(r)},
-                             cwd=cwd, stdout=subprocess.PIPE,
-                             stderr=subprocess.PIPE, text=True)
-            for r in range(n)]
+    return launch.spawn(n, argv_of, env={**env, "OMP_NUM_THREADS": "1"})
 
 
-def results(procs, timeout: float = 300) -> list:
-    """Each process's last JSON line, in rank order; every process is
-    killed on a failure or a timeout, so no rank outlives the test."""
-    outs = []
-    try:
-        for p in procs:
-            out, err = p.communicate(timeout=timeout)
-            assert p.returncode == 0, f"rank failed:\n{err[-3000:]}"
-            outs.append(json.loads([ln for ln in out.splitlines()
-                                    if ln.startswith("{")][-1]))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    return outs
+def results(procs) -> list:
+    return launch.collect(procs, timeout=300)
 
 
 def _frame(scene, i, cls):
@@ -192,7 +164,7 @@ def test_ranks_match_the_one_process_run(runs, mesh):
     assert [r["slots"] for r in ranks] == SLOTS[mesh]
     assert [r["world"] for r in ranks] == [len(SLOTS[mesh])] * len(ranks)
     for r in ranks:
-        assert r["jax_modules"] == [], r["jax_modules"]
+        assert r["foreign"] == [], r["foreign"]
         # every rank reads the same reduced losses
         assert r["losses"] == ranks[0]["losses"]
         assert r["loss_mean"] == ranks[0]["loss_mean"]
@@ -252,21 +224,10 @@ def test_cli_on_two_ranks_writes_once_and_resumes(tmp_path):
     state = tmp_path / "logs_r0" / "ckpt" / "state"
 
     def argv(extra):
-        code = (
-            "import json, os, sys\n"
-            "from vmap_tpu_torch import train\n"
-            "from vmap_tpu_torch.parallel import distributed\n"
-            "r = int(os.environ['VMAP_PROCESS_ID'])\n"
-            f"argv = ['--config', {str(cfg)!r}, '--device', 'cpu',\n"
-            f"        '--logdir', {str(tmp_path)!r} + f'/logs_r{{r}}']\n"
-            f"m = train.main(argv + {extra!r})\n"
-            "bad = sorted(k for k in sys.modules if k in ('jax', 'vmap_tpu')"
-            "\n             or k.startswith(('jax.', 'jaxlib',"
-            " 'vmap_tpu.')))\n"
-            "print(json.dumps({'rank': r, 'slots': [m.lo, m.hi],"
-            " 'frames': m.frames_ingested, 'bad': bad}))\n"
-            "distributed.shutdown()\n")
-        return lambda r: [sys.executable, "-c", code]
+        return lambda r: [sys.executable, "-m",
+                          "vmap_tpu_torch.parallel.launch",
+                          str(tmp_path / "logs"), "--config", str(cfg),
+                          "--device", "cpu", *extra]
 
     outs = results(spawn_ranks(2, argv(["--max_frames", "11",
                                         "--save_ckpt"])))
@@ -274,7 +235,7 @@ def test_cli_on_two_ranks_writes_once_and_resumes(tmp_path):
                                          str(state)])))
     assert [o["slots"] for o in outs] == [[0, 1], [1, 2]] * 2
     assert [o["frames"] for o in outs] == [11, 11, 13, 13]
-    assert all(o["bad"] == [] for o in outs), outs
+    assert all(o["foreign"] == [] for o in outs), outs
     assert not (tmp_path / "logs_r1").exists()
     prim = tmp_path / "logs_r0"
     assert sorted(m for m in os.listdir(prim / "scene_mesh")

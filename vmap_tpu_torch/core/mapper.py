@@ -183,15 +183,17 @@ class ShardedLoss:
 
     def __init__(self, metrics: dict, group):
         self._obj = (metrics["loss_obj"], metrics["loss_mean_obj"])
-        self._bg = (metrics["loss_bg"], metrics["loss_mean_bg"])
+        self._bg = ((metrics["loss_bg"], metrics["loss_mean_bg"])
+                    if "loss_bg" in metrics else None)
         self._group = group
         self._value = None
 
     def value(self, i: int) -> float:
         if self._value is None:
-            obj = distributed.sum_over(torch.stack(self._obj), self._group)
-            bg = torch.stack(self._bg).cpu().to(torch.float64)
-            self._value = (obj + bg).tolist()
+            total = distributed.sum_over(torch.stack(self._obj), self._group)
+            if self._bg is not None:
+                total += torch.stack(self._bg).cpu().to(torch.float64)
+            self._value = total.tolist()
         return self._value[i]
 
 
@@ -292,8 +294,13 @@ class Mapper:
     def bank_obj(self, bank):
         """Takes a whole object bank; a rank keeps its rows."""
         self._gathered = None
-        self._bank_obj = (bank if self.mesh is None
-                          else sharding.place_bank(bank, self.lo, self.hi))
+        self._bank_obj = self._rows(sharding.place_bank, bank)
+
+    def _rows(self, place, whole):
+        """This rank's object rows of ``whole`` (``sharding.place_*``);
+        ``whole`` itself without a mesh."""
+        return whole if self.mesh is None else place(whole, self.lo,
+                                                     self.hi)
 
     def _register_object(self, obj_id: int,
                          frame_id: int) -> ObjectRecord | None:
@@ -393,17 +400,18 @@ class Mapper:
             return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                          for a in arrays)
 
-        obj_tab = put(sharding.place_tables(self.obj_table.as_arrays(),
-                                            self.lo, self.hi))
+        obj_tab = put(self._rows(sharding.place_tables,
+                                 self.obj_table.as_arrays()))
         bg_tab = put(self.bg_table.as_arrays()) if self.cfg.do_bg else None
         return obj_tab, bg_tab
 
     def _draws(self) -> tuple[Draws, Draws | None]:
         """Both banks' draws; every slot's are drawn, this rank's kept."""
         st = self.statics
-        obj = sharding.place_draws(self.draw_source("obj", draw_shapes(
-            self.slots, st.n_iter * st.win, st.n_px, st.n_b2s, st.n_bins,
-            st.px_block, st.sample_reuse)), self.lo, self.hi)
+        obj = self._rows(sharding.place_draws, self.draw_source(
+            "obj", draw_shapes(self.slots, st.n_iter * st.win, st.n_px,
+                               st.n_b2s, st.n_bins, st.px_block,
+                               st.sample_reuse)))
         bg = None
         if st.do_bg:
             bg = self.draw_source("bg", draw_shapes(

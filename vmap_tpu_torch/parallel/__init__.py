@@ -13,4 +13,6 @@ JAX package's fused sharded step does ("data" is replication there too).
 ``distributed``: the process group (``init_from_env``), the primary rank,
 the rank's device and the gathers of a sharded bank. ``sharding``: the
 mesh's shape, a rank's place in it and the row slicing of the state.
+``launch``: a world's ranks started as processes on one machine, and a
+trainer rank that reports itself.
 """

@@ -20,14 +20,11 @@ the gathers come at mesh and checkpoint cadence, where their consumers
 (marching cubes, ``.obj`` and checkpoint files) are on the host anyway.
 NCCL refuses two ranks on one device, and that layout is the only one a
 single card can check; gloo runs the same code in the CPU tests, on one
-card and across cards. ``VMAP_DIST_TIMEOUT_S`` (default 1800) bounds
-every collective, so a rank that stops reaching them fails the others
-instead of hanging them.
+card and across cards.
 """
 
 from __future__ import annotations
 
-import datetime
 import os
 
 import torch
@@ -52,10 +49,8 @@ def init_from_env() -> tuple[int, int]:
         # ranks of one machine: gloo's transport on the loopback device,
         # not on whatever interface the host name resolves to
         os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    timeout = float(os.environ.get("VMAP_DIST_TIMEOUT_S", "1800"))
-    dist.init_process_group(
-        backend="gloo", init_method=f"tcp://{coord}", world_size=nproc,
-        rank=pid, timeout=datetime.timedelta(seconds=timeout))
+    dist.init_process_group(backend="gloo", init_method=f"tcp://{coord}",
+                            world_size=nproc, rank=pid)
     return pid, nproc
 
 

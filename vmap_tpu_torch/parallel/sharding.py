@@ -26,10 +26,6 @@ class Mesh:
     n_obj: int
     n_data: int = 1
 
-    @property
-    def shape(self) -> dict:
-        return {"obj": self.n_obj, "data": self.n_data}
-
     def index(self, rank: int) -> tuple[int, int]:
         """(obj index, data index) of ``rank``."""
         return rank // self.n_data, rank % self.n_data
@@ -48,11 +44,10 @@ class Mesh:
         return o * per, (o + 1) * per
 
 
-def make_mesh(n_devices: int, data_axis: bool = True) -> Mesh:
-    """(n / 2, 2) for an even n of at least 4 (with ``data_axis``), else
-    (n, 1)."""
-    n = n_devices
-    if data_axis and n >= 4 and n % 2 == 0:
+def make_mesh(n: int) -> Mesh:
+    """The JAX package's default mesh of n devices: (n / 2, 2) for an even
+    n of at least 4, else (n, 1)."""
+    if n >= 4 and n % 2 == 0:
         return Mesh(n // 2, 2)
     return Mesh(n, 1)
 
