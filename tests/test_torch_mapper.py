@@ -41,7 +41,13 @@ def _numpy_bank(bank):
 
 
 def test_mapper_matches_jax_frame_by_frame():
-    cfg = _cfg()
+    _against_jax_frame_by_frame(_cfg())
+
+
+def _against_jax_frame_by_frame(cfg, n_frames: int | None = None):
+    """The port's CPU Mapper against JAX's on the fixture (its first
+    ``n_frames`` frames, default all): registry, tables, pool, and each
+    frame's losses from the same banks and draws."""
     ds = ReplicaDataset(cfg)
     jm = JMapper(cfg)
     keys = []
@@ -52,7 +58,7 @@ def test_mapper_matches_jax_frame_by_frame():
                         draw_source=lambda bank, shapes: jax_frame_draw_source(
                             frame_key["k"])(bank, shapes))
     assert pm.slots == jm.slots
-    for i in range(len(ds)):
+    for i in range(len(ds) if n_frames is None else n_frames):
         s = ds[i]
         if s is None:
             continue
@@ -86,6 +92,8 @@ def test_mapper_matches_jax_frame_by_frame():
         # the gradient scale away, and the last-iteration loss still agree
         np.testing.assert_allclose(float(met_p["loss_mean"]),
                                    float(met_j["loss_mean"]), rtol=0.1)
+    if n_frames is not None:
+        return
     assert pm.n_objects == jm.n_objects == 2
     pe, mlp_p, scale = pm.object_params(1)
     assert scale == cfg.obj_scale and pe["dirs"].shape == (21, 3)
@@ -169,13 +177,58 @@ def test_kernel_path_refuses_a_policy_without_a_kernel(monkeypatch):
 
 
 def test_kernel_path_refuses_widths_without_a_kernel(monkeypatch):
-    """On CUDA the fixture's h=16 objects have no kernel: the Mapper says
-    so before allocating anything on the device."""
+    """On CUDA a width without a kernel (h=48 objects beside the fixture's
+    h=32 background) is refused before anything is allocated on the
+    device; the fixture's own widths (16 / 32) have kernels."""
     import torch
+    from vmap_tpu_torch.kernels import KERNEL_HIDDEN
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
-    with pytest.raises(NotImplementedError, match="hidden sizes 16/32"):
-        tmapper.Mapper(_cfg(), device="cuda")
+    cfg = _cfg()
+    tmapper.check_kernel_widths(cfg)
+    assert {16, 32} <= set(KERNEL_HIDDEN["train_frame"])
+    cfg.hidden_feature_size = 48
+    with pytest.raises(NotImplementedError, match="hidden sizes 48/32"):
+        tmapper.Mapper(cfg, device="cuda")
+
+
+@pytest.mark.parametrize("setting", ["auto", True, False])
+def test_fused_setting_sets_the_path_slots_and_policy(setting):
+    """tpu.fused_train_step on the CPU: the plain frame always runs (K1
+    needs CUDA); the slots round to 8 where the setting resolves on (h <=
+    64), as JAX's Config.fused_enabled rounds them; an explicit false runs
+    JAX's XLA step's policy (f32 but under bfloat16), "auto" and true the
+    configured one. On the card the statics follow the same rule
+    (step_statics: K1 where set, frame_policy)."""
+    cfg = _cfg()
+    cfg.max_n_models, cfg.fused_train_step = 5, setting
+    cfg.compute_dtype = "int8"
+    pm = tmapper.Mapper(cfg, device="cpu")
+    from vmap_tpu_torch.config import Config as PConfig
+    assert PConfig.fused_enabled(cfg, "cpu") == (setting is True)
+    assert not pm.use_fused and not pm.statics.use_fused_frame
+    assert pm.slots == (8 if setting is True else 5)
+    jcfg = Config.from_json(CONFIG)
+    jcfg.fused_train_step = setting
+    assert bool(jcfg.fused_enabled()) == (setting is True)   # JAX on the CPU
+    assert pm.statics.compute_dtype == ("float32" if setting is False
+                                        else "int8")
+    for dtype, want in (("bfloat16", "bfloat16"), ("int8_fwd", "float32"),
+                        ("bwd_bf16", "float32")):
+        cfg.compute_dtype = dtype
+        assert tmapper.frame_policy(cfg, setting is True) == (
+            want if setting is False else dtype)
+        st = tmapper.step_statics(cfg, True, True)
+        assert st.use_fused_frame and st.compute_dtype == dtype
+
+
+def test_explicit_false_under_int8_matches_jax_xla_mapper():
+    """fused_train_step false under int8: the port's CPU frame is JAX's
+    XLA step, both in f32, at the Mapper tier (the first frames of the
+    fixture)."""
+    cfg = _cfg()
+    cfg.compute_dtype, cfg.fused_train_step = "int8", False
+    _against_jax_frame_by_frame(cfg, n_frames=4)
 
 
 def test_train_cli_meshes_checkpoints_and_resumes(tmp_path):

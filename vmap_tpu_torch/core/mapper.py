@@ -134,9 +134,26 @@ def check_kernel_widths(cfg: Config) -> None:
             "CUDA kernel " + "; ".join(missing))
 
 
-def step_statics(cfg: Config, use_fused: bool) -> StepStatics:
+def frame_policy(cfg: Config, fused: bool) -> str:
+    """The matmul policy of the frame under the resolved
+    ``tpu.fused_train_step`` (``fused``). Set (or "auto"): the configured
+    ``compute_dtype``, which K1 runs on the card and its plain version on
+    the CPU. An explicit false asks for JAX's XLA step
+    (``vmap_tpu/core/step.py`` ``_bank_forward``), which trains in f32
+    under every policy but ``bfloat16``. "auto" on the CPU keeps the
+    configured policy (the plain frame): JAX's CPU Mapper does not run
+    the policies there (ROADMAP.md, the "auto"-only deviation)."""
+    if fused or cfg.fused_train_step == "auto":
+        return cfg.compute_dtype
+    return "bfloat16" if cfg.compute_dtype == "bfloat16" else "float32"
+
+
+def step_statics(cfg: Config, use_fused: bool,
+                 fused: bool | None = None) -> StepStatics:
     """The frame step's static configuration of ``cfg``; ``use_fused``
-    runs each bank's frame through the CUDA train-frame kernel."""
+    runs each bank's frame through the CUDA train-frame kernel, ``fused``
+    is the resolved ``tpu.fused_train_step`` (default ``use_fused``),
+    which sets the frame's matmul policy (``frame_policy``)."""
     px_block = cfg.px_block
     if px_block > 1 and (cfg.H % px_block
                          or cfg.n_samples_per_frame % px_block):
@@ -170,7 +187,9 @@ def step_statics(cfg: Config, use_fused: bool) -> StepStatics:
         opacity_scaling=cfg.opacity_scaling,
         use_fused_frame=use_fused,
         px_block=px_block, px_block_bg=px_block_bg,
-        sample_reuse=sample_reuse, compute_dtype=cfg.compute_dtype,
+        sample_reuse=sample_reuse,
+        compute_dtype=frame_policy(
+            cfg, use_fused if fused is None else fused),
     )
 
 
@@ -217,15 +236,20 @@ class Mapper:
         self.capacity = cfg.max_n_models
         self.hidden = cfg.hidden_feature_size
         self.hidden_bg = cfg.hidden_feature_size_bg
-        self.use_fused = kernel_path_enabled(self.device)
+        # tpu.fused_train_step, resolved against the device as JAX's
+        # against its backend ("auto": on iff CUDA); K1 runs where it is
+        # set and the device is CUDA, the plain frame elsewhere (under an
+        # explicit false, JAX's XLA step: frame_policy)
+        fused = Config.fused_enabled(cfg, self.device)
+        self.use_fused = fused and kernel_path_enabled(self.device)
         if self.use_fused:
             check_kernel_widths(cfg)
-        # bank SLOTS round up to a multiple of 8 on the kernel path when
+        # bank SLOTS round up to a multiple of 8 when the setting is on and
         # h <= 64, as the JAX Mapper does on its fused path, so bank shapes
         # match; slots beyond `capacity` stay inactive (the "models full"
         # cap applies to `capacity`)
         self.slots = self.capacity
-        if self.use_fused and self.hidden <= 64:
+        if fused and self.hidden <= 64:
             self.slots = -(-self.capacity // 8) * 8
 
         # tpu.mesh_axes: this rank's object slots [lo, hi) and its obj group
@@ -273,7 +297,7 @@ class Mapper:
         self.models_full_events = 0
         self.pool_force_released = 0
 
-        self.statics = step_statics(cfg, self.use_fused)
+        self.statics = step_statics(cfg, self.use_fused, fused)
 
     # ------------------------------------------------------------------ #
     @property

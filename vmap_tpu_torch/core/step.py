@@ -10,7 +10,8 @@ Step 2 runs either through the plain PyTorch path
 (``kernels.train_step.fused_frame_reference``: autograd on the flat
 buffer) or through the hand-written CUDA train-frame kernel
 (``kernels.train_step.fused_frame``), chosen by ``StepStatics.use_fused_frame``
-(on iff the device is CUDA, ``device.kernel_path_enabled``). On the plain
+(on where ``tpu.fused_train_step`` resolves on and the device is CUDA,
+``core/mapper.py``). On the plain
 path, ``StepStatics.use_pallas_train`` evaluates the field through
 ``kernels.ensemble.FieldTrain`` (the field kernels K2 / K3 on CUDA).
 
