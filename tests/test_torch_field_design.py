@@ -5,7 +5,8 @@ plain versions of what they compute, and their geometry.
 * the field forward with every MLP product through three bf16 passes of
   two-piece operands (``mm_bf16_pieces``, the kernels' mma_pieces<2>)
   within chip_smoke.py phase 6's tiers of the f32 plain version (alpha
-  atol 3e-4, colour 2e-5) at h = 32 / 128 / 256, and one bf16 pass outside
+  atol 3e-4, colour 2e-5) at h = 16 / 32 / 64 / 128 / 256, and one bf16
+  pass outside
   them;
 * K3's route (the forward on three pieces, six passes; the input
   gradients W^T d and the weight gradients d x^T over the points on two,
@@ -50,13 +51,14 @@ sys.path.insert(0, os.path.join(REPO, "tests"))
 import chip_smoke as C  # noqa: E402
 from test_torch_k1_design import mm_bf16_pieces  # noqa: E402
 
-WIDTHS = (32, 128, 256)
+WIDTHS = (16, 32, 64, 128, 256)
 SMEM_LIMIT = 232448        # the most shared memory a block may use
 SM_SMEM = 233472           # an SM's, 1 KB of it taken by each block
 CSRC = os.path.join(REPO, "vmap_tpu_torch", "kernels", "csrc")
 EMB1, EMB2 = E.EMB1, E.EMB2
 # (objects, points) at each width: small, but wide enough for the errors
-SIZES = {32: (2, 2048), 128: (1, 4096), 256: (1, 4096)}
+SIZES = {16: (2, 2048), 32: (2, 2048), 64: (1, 4096), 128: (1, 4096),
+         256: (1, 4096)}
 
 
 def embed(p: dict, pts: torch.Tensor) -> tuple:
@@ -331,8 +333,9 @@ def test_shared_memory_plans_fit(plan_lib, kernel, h):
         assert plan[f"{key}_points"] % 16 == 0
     # every warp busy in field_bwd's products: its 16 warps' units
     assert plan["bwd_threads"] == 512
-    # h=32's K2 tile and weights leave room for two blocks an SM
-    assert plan["fwd_blocks_per_sm"] == (2 if h == 32 else 1)
+    # h=16's and h=32's K2 tiles and weights leave room for two blocks an
+    # SM
+    assert plan["fwd_blocks_per_sm"] == (2 if h <= 32 else 1)
 
 
 def test_grids_fill_the_card(plan_lib):
@@ -384,7 +387,7 @@ def test_grids_fill_the_card(plan_lib):
 
 
 @pytest.mark.parametrize("args", [
-    (64, 1, 1024, 512), (32, 0, 1024, 512), (32, 65536, 1024, 512),
+    (48, 1, 1024, 512), (32, 0, 1024, 512), (32, 65536, 1024, 512),
     (128, 1, 0, 512), (128, 1, 1024, 48), (256, 1, 1024, 16)])
 def test_plan_refuses_what_the_kernels_refuse(plan_lib, args):
     """A width without kernels, objects outside 1..65535, no points, or a

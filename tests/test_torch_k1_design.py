@@ -39,7 +39,7 @@ from vmap_tpu_torch.kernels import train_step as K
 from vmap_tpu_torch.ops.mlp import POLICIES, split_bf16
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WIDTHS = (32, 128, 256)
+WIDTHS = (16, 32, 64, 128, 256)
 SMEM_LIMIT = 232448
 
 
@@ -193,7 +193,12 @@ def test_staged_sizes_and_slabs():
     Tile<H> per policy (forward KF columns of h rows, input gradients KB
     rows of up16(h + 87) columns; a plane per piece, rows padded by 8
     bf16)."""
-    assert [K.staged_layout(h)[1] for h in WIDTHS] == [12800, 100352, 331776]
+    assert [K.staged_layout(h)[1] for h in WIDTHS] == [
+        5376, 12800, 33792, 100352, 331776]
+    assert K.slab_bytes(16, "float32") == 2 * 2 * 16 * 120
+    assert K.slab_bytes(16, "bwd_bf16") == 3 * 2 * 16 * 120
+    assert K.slab_bytes(64, "float32") == 2 * 2 * 16 * (160 + 8)
+    assert K.slab_bytes(64, "bwd_bf16") == 3 * 2 * 64 * 40
     assert K.slab_bytes(32, "float32") == 2 * 2 * 32 * 72
     assert K.slab_bytes(32, "bwd_bf16") == 3 * 2 * 32 * 56
     assert K.slab_bytes(128, "float32") == 2 * 2 * 128 * 40
@@ -237,7 +242,9 @@ def _shipped_banks():
 @pytest.mark.parametrize("policy", POLICIES)
 def test_shipped_geometry_fits(policy):
     banks = _shipped_banks()
-    assert {h for _, h, _, _, _ in banks} == set(WIDTHS)
+    # every shipped width has a kernel (h=64 is scripts/quality_study.py's
+    # background variant, no configuration file's)
+    assert {h for _, h, _, _, _ in banks} == set(WIDTHS) - {64}
     for name, h, S, n_per, cap in banks:
         g = K.frame_geometry(h, S, n_per, cap, policy)
         pts = g.rays_per_tile * S
@@ -282,10 +289,16 @@ def test_float_tile_fits_every_sample_count(h, policy):
 def test_max_points_stays_the_int8_tile():
     """The int8 tile and scale granularity is unchanged by the float tile,
     and the shipped shapes' float tiles are the rays of before."""
-    assert kernels.MAX_POINTS == {32: 64, 128: 56, 256: 38}
+    assert kernels.MAX_POINTS == {16: 64, 32: 64, 64: 56, 128: 56, 256: 38}
     assert set(kernels.FLOAT_POINTS) == set(kernels.MAX_POINTS)
     assert (kernels.tile_rays(32, 10), kernels.tile_rays(128, 14),
             kernels.tile_rays(256, 14)) == (6, 4, 2)
+    # h=16 and h=64 keep the tiles the plain version took for them before
+    # they had kernels (the next wider width's), and so their results
+    assert all(kernels.tile_rays(h, S) == kernels.tile_rays(w, S)
+               and kernels.float_tile_rays(h, S) ==
+               kernels.float_tile_rays(w, S)
+               for h, w in ((16, 32), (64, 128)) for S in range(1, 33))
     # the float tile keeps two hidden-activation buffers (h1..h3 go to
     # global scratch), so at h=256 it holds twice the int8 tile's rays
     assert (kernels.float_tile_rays(32, 10), kernels.float_tile_rays(128, 14),

@@ -6,7 +6,7 @@ shared-memory plan.
 * ``kernels.train_step.stage_q8`` / ``q8_layout``, the s8 weights
   ``train_quant_w`` writes: each QW tensor of ``ops.quant.quant_weights``
   value for value, its transpose, and their zero padding to whole 16 x 32
-  tiles, at h = 32 / 128 / 256;
+  tiles, at h = 16 / 32 / 64 / 128 / 256;
 * the exactness of the s8 products: torch int32 products of the operands
   padded with s8 zeros to whole k32 steps (and 8-point n tiles) equal the
   f32 products of the same integer values at K1's layer shapes, also at
@@ -31,7 +31,7 @@ from vmap_tpu_torch.core.bank import BankSpec
 from vmap_tpu_torch.kernels import train_step as K
 from vmap_tpu_torch.ops import quant as Q
 
-WIDTHS = (32, 128, 256)
+WIDTHS = (16, 32, 64, 128, 256)
 SMEM_LIMIT = 232448
 TWO_BLOCKS = 115712      # (228 KB - 1 KB reserved a block) / 2
 INT8 = Q.INT8_POLICIES
@@ -58,7 +58,8 @@ def test_q8_layout_holds_the_quantised_weights(h):
     qw = _quantised(h)
     layout, size = K.q8_layout(h)
     assert [name for name, *_ in layout] == list(Q.QW_NAMES)
-    assert size == {32: 27136, 128: 206848, 256: 675840}[h]
+    assert size == {16: 17920, 32: 27136, 64: 70656, 128: 206848,
+                    256: 675840}[h]
     staged = K.stage_q8(qw, h)
     assert staged.dtype == torch.int8 and staged.shape == (3, size)
     ends = [off for _, _, _, off, _ in layout[1:]] + [size]
@@ -146,12 +147,12 @@ def test_s8_products_are_exact_and_scaled_as_plain(h):
 def test_int8_tile_fits_every_sample_count(h, policy):
     """Every S the kernel takes (1..32) gives an int8 tile (tile_rays, the
     scale granularity) within the shared memory a block may use, two
-    blocks an SM at h=32; the widest tile too."""
+    blocks an SM at h=16 and h=32; the widest tile too."""
     for S in range(1, 33):
         rt = kernels.tile_rays(h, S)
         assert rt * S <= max(kernels.MAX_POINTS[h], S)
         smem = K.q8_smem_bytes(h, rt, S, policy)
-        assert smem <= (TWO_BLOCKS if h == 32 else SMEM_LIMIT), (h, S, smem)
+        assert smem <= (TWO_BLOCKS if h <= 32 else SMEM_LIMIT), (h, S, smem)
     assert K.q8_smem_bytes(h, kernels.MAX_POINTS[h], 1, policy) <= SMEM_LIMIT
 
 
@@ -167,9 +168,11 @@ def test_int8_tile_plan_at_the_shipped_shapes():
     for h in WIDTHS:
         ks = K.Q8_KS[h]
         # forward (rows h: depths 96, h, 64; heads 16 rows) and input
-        # gradients (rows h, 96, 48: depths h, 32)
-        products = [(h, 96), (h, h), (h, 64), (16, h), (h, 32), (96, h),
-                    (48, h)]
+        # gradients (rows h, 96, 48: depths h, 32), a hidden depth in
+        # whole k32 steps (h=16: 32)
+        kh = _up(h, 32)
+        products = [(h, 96), (h, kh), (h, 64), (16, kh), (h, 32), (96, kh),
+                    (48, kh)]
         need = max(r * (min(ks, k) + 16) for r, k in products)
         assert K.q8_slab_bytes(h, "int8") == need
         assert K.q8_slab_bytes(h, "int8_fwd") == max(
@@ -181,12 +184,12 @@ def test_int8_tile_plan_at_the_shipped_shapes():
                                   "mark_syncwarp", "checked",
                                   "checked_mark"])
 def test_profile_fault_variants_edit_the_int8_tile(name):
-    """kernels.q8_profile_fault's variants of csrc/train_step_q8.cu: the
+    """kernels.q8_profile_fault's variants of csrc/train_step_q8.cuh: the
     shipped source for the control (and the checked build), else its code
     right after bwd_layer's product in place of the section mark after the
     mask pass, and nothing else changed."""
     from vmap_tpu_torch.kernels import q8_profile_fault as F
-    src = (Path(K.__file__).parent / "csrc" / "train_step_q8.cu").read_text()
+    src = (Path(K.__file__).parent / "csrc" / "train_step_q8.cuh").read_text()
     out = F.variant_source(name, src)
     code, _ = {**F.VARIANTS, **F.CHECKED}[name]
     if code is None:

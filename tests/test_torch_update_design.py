@@ -43,7 +43,7 @@ sys.path.insert(0, os.path.join(REPO, "tests"))
 import chip_smoke as C  # noqa: E402
 from _torch_parity import n, t  # noqa: E402
 
-WIDTHS = (32, 128, 256)
+WIDTHS = (16, 32, 64, 128, 256)
 SMEM_LIMIT = 232448        # the most shared memory a block may use
 SM_SMEM = 233472           # an SM's, 1 KB of it taken by each block
 CSRC = os.path.join(REPO, "vmap_tpu_torch", "kernels", "csrc")
@@ -57,6 +57,11 @@ MATRICES = ("w_in", "w_mid1", "w_cat", "w_mid2", "w_alpha", "w_col",
 
 def _up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def _cluster(h: int) -> int:
+    """A matrix's bands: h / 32 of 32 rows, one below 32 (h=16)."""
+    return max(1, h // 32)
 
 
 @pytest.fixture(scope="module")
@@ -103,11 +108,12 @@ def plan_lib(tmp_path_factory):
 @pytest.mark.parametrize("h", WIDTHS)
 def test_plan_is_the_wrappers_layout(plan_lib, h):
     """The plan's row and s8 sizes are the wrapper's grad_row_size and
-    q8_layout; every width's band is 32 rows, its cluster h / 32."""
+    q8_layout; every width's band is 32 rows, its cluster h / 32 (one
+    block at h=16, whose band's rows 16 .. 31 are padding)."""
     p = plan_lib.plan(h, 1, 20)
     assert p["grad_row"] == K.grad_row_size(h)
     assert p["q8_size"] == K.q8_layout(h)[1]
-    assert p["quant_band_rows"] == 32 and p["quant_cluster"] == h // 32
+    assert p["quant_band_rows"] == 32 and p["quant_cluster"] == _cluster(h)
 
 
 @pytest.mark.parametrize("h", WIDTHS)
@@ -123,8 +129,8 @@ def test_bands_cover_each_tensor_once(plan_lib, h):
     seen = set()
     for m, mat in enumerate(MATRICES):
         n_out, ld = shapes[mat]
-        bands = [plan_lib.band(h, m, k) for k in range(h // 32)]
-        assert plan_lib.band(h, m, h // 32) == []   # none past the cluster
+        bands = [plan_lib.band(h, m, k) for k in range(_cluster(h))]
+        assert plan_lib.band(h, m, _cluster(h)) == []   # none past the cluster
         for i in range(len(bands[0])):
             b0 = bands[0][i]
             name, t_out, t_in, off, off_t = layout[b0["t"]]
@@ -193,7 +199,7 @@ def test_every_16_byte_store_is_aligned(plan_lib, h):
     p = plan_lib.plan(h, 1, 20)
     assert p["q8_size"] % 16 == 0
     for m in range(len(MATRICES)):
-        for k in range(h // 32):
+        for k in range(_cluster(h)):
             for b in plan_lib.band(h, m, k):
                 assert b["copy_off"] % 16 == 0 and b["copy_bytes"] % 16 == 0
                 if b["tr_off"] >= 0:
@@ -250,7 +256,7 @@ def test_grids_fill_the_card(plan_lib):
     assert big["quant_clusters"] == SMS * big["quant_blocks_per_sm"] // 4
 
 
-@pytest.mark.parametrize("args", [(64, 1, 20), (32, 0, 20), (128, 1, 0)])
+@pytest.mark.parametrize("args", [(48, 1, 20), (32, 0, 20), (128, 1, 0)])
 def test_plan_refuses_what_the_kernels_refuse(plan_lib, args):
     """A width without kernels, no slots or no rows: cudaErrorInvalidValue
     (1)."""

@@ -20,10 +20,15 @@ library's (``csrc/field_plan.cuh``; ``ensemble.field_plan``).
 from vmap_tpu_torch.ops.mlp import POLICIES
 
 KERNEL_HIDDEN = {
-    "train_frame": (32, 128, 256),   # K1, csrc/train_step.cu, train_step_q8.cu
-    "field_fwd": (32, 128, 256),     # K2, csrc/ensemble.cu field_fwd_kernel
-    "field_bwd": (32, 128, 256),     # K3, csrc/ensemble.cu field_bwd_kernel,
-                                     # field_wgrad_kernel
+    # K1, csrc/train_step.cu (train_grad.cuh; h=16 / 64 in
+    # train_step_h16.cu, train_step_h64.cu), train_step_q8.cu
+    # (train_step_q8.cuh; h=16 / 64 in train_step_q8_narrow.cu)
+    "train_frame": (16, 32, 64, 128, 256),
+    # K2, csrc/ensemble.cu field_fwd_kernel (ensemble.cuh; h=16 / 64 in
+    # ensemble_narrow.cu)
+    "field_fwd": (16, 32, 64, 128, 256),
+    # K3, csrc/ensemble.cu field_bwd_kernel, field_wgrad_kernel
+    "field_bwd": (16, 32, 64, 128, 256),
 }
 KERNEL_POLICIES = {
     "train_frame": POLICIES,
@@ -42,12 +47,15 @@ KERNEL_POLICIES = {
 # points in s32, exactly; the scaled sums equal ops.quant's f32 ones while
 # points * 127^2 < 2^24: 64 points give 1.03 M, and a tile of more than
 # 1040 points would break it.
-MAX_POINTS = {32: 64, 128: 56, 256: 38}
+# h=16 and h=64 keep the tiles the plain version gave them before they
+# had kernels (h=32's and h=128's), so their scales' granularity is as it
+# was.
+MAX_POINTS = {16: 64, 32: 64, 64: 56, 128: 56, 256: 38}
 # the float policies' tile (csrc/train_step.cu Tile<H>::FP): its f32
 # activations beside the slabs of staged weights (kernels/train_step.py
 # float_smem_bytes) within the 227 KB a block may use at every S <= 32;
 # the products pad it to whole 16-point steps
-FLOAT_POINTS = {32: 64, 128: 56, 256: 56}
+FLOAT_POINTS = {16: 64, 32: 64, 64: 56, 128: 56, 256: 56}
 
 
 def _rays(table: dict, hidden: int, n_samples: int) -> int:
@@ -58,7 +66,7 @@ def _rays(table: dict, hidden: int, n_samples: int) -> int:
 
 def tile_rays(hidden: int, n_samples: int) -> int:
     """Whole rays per train_grad tile under the int8 policies. A width
-    without a kernel (the plain version at a test's width) takes the tile
+    without a kernel (the plain version at a test's width, as h=8) takes the tile
     of the next wider kernel width, or of the widest."""
     return _rays(MAX_POINTS, hidden, n_samples)
 

@@ -48,6 +48,12 @@ __host__ __device__ constexpr int staged_size(int H) {
 }
 constexpr int STAGED_PIECES = 3;
 
+// the hidden widths every kernel of this directory is built for
+// (kernels/__init__.py KERNEL_HIDDEN)
+__host__ __device__ constexpr bool kernel_width(int H) {
+  return H == 16 || H == 32 || H == 64 || H == 128 || H == 256;
+}
+
 constexpr size_t SMEM_MAX = 232448;   // the most a block may use
 // The shared memory of one SM, and what each resident block takes of it
 // beyond its dynamic shared memory

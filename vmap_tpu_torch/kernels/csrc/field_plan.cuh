@@ -24,9 +24,36 @@ constexpr int EBROWS = 48;     // emb_b's rows in it (up16(h + 42) - h)
 // the weights resident in shared memory, else KF columns a forward slab and
 // KB rows an input-gradient slab; (FWM, FWN, FMU) the forward's warp tile
 // (16-row x 8-point mma tiles) and the most units a warp holds, (DWM, DWN,
-// DMU) the input gradients'.
+// DMU) the input gradients'. h=16 and h=64 take the plan of the width next
+// to them: h=16 h=32's (weights resident), K2's tile 128 points so that its
+// one 16-row tile gives the 8 warps a unit each; h=64 h=128's (two slabs),
+// K2's 8 units and K3's forward 8 of its 16 warps.
 template <int H, bool BWD>
 struct FTile;
+template <>
+struct FTile<16, false> {
+  static constexpr bool RES = true;
+  static constexpr int NF = 2, NT = 256, MINB = 2, P = 128, KF = 0, KB = 0;
+  static constexpr int FWM = 1, FWN = 2, FMU = 1, DWM = 1, DWN = 2, DMU = 1;
+};
+template <>
+struct FTile<64, false> {
+  static constexpr bool RES = false;
+  static constexpr int NF = 2, NT = 256, MINB = 1, P = 128, KF = 64, KB = 0;
+  static constexpr int FWM = 2, FWN = 4, FMU = 1, DWM = 1, DWN = 2, DMU = 1;
+};
+template <>
+struct FTile<16, true> {
+  static constexpr bool RES = true;
+  static constexpr int NF = 3, NT = 512, MINB = 1, P = 128, KF = 0, KB = 0;
+  static constexpr int FWM = 1, FWN = 2, FMU = 1, DWM = 2, DWN = 2, DMU = 2;
+};
+template <>
+struct FTile<64, true> {
+  static constexpr bool RES = false;
+  static constexpr int NF = 3, NT = 512, MINB = 1, P = 64, KF = 32, KB = 16;
+  static constexpr int FWM = 2, FWN = 2, FMU = 1, DWM = 2, DWN = 2, DMU = 2;
+};
 template <>
 struct FTile<32, false> {   // two blocks an SM: one hides the other's barriers
   static constexpr bool RES = true;
@@ -175,11 +202,13 @@ template <int P>
 __host__ __device__ constexpr int band_ld() { return P + 4; }
 
 // ---- K3's weight-gradient kernel: 256 threads, output tiles of TI rows
-// (32 at h=32, else 128) x 128 columns, 32 points a step, 4 stages; its
-// launch bound and ring allow wg_minb blocks an SM
+// (32 at h=16 and h=32, 64 at h=64, else 128) x 128 columns, 32 points a
+// step, 4 stages; its launch bound and ring allow wg_minb blocks an SM
 constexpr int WG_NT = 256, WG_TK = 128, WG_KP = 32, WG_ST = 4,
               WG_LD = WG_KP + 8;
-__host__ __device__ constexpr int wg_ti(int H) { return H == 32 ? 32 : 128; }
+__host__ __device__ constexpr int wg_ti(int H) {
+  return H <= 32 ? 32 : H == 64 ? 64 : 128;
+}
 __host__ __device__ constexpr int wg_tiles(int H, int m) {
   return (mat_rows(H, m) + wg_ti(H) - 1) / wg_ti(H) *
          ((mat_cols(H, m) + WG_TK - 1) / WG_TK);
@@ -195,7 +224,7 @@ __host__ __device__ constexpr size_t wg_smem(int H) {
   return (size_t)WG_ST * NB * (wg_ti(H) + WG_TK) * WG_LD * 2 +
          (size_t)8 * (wg_ti(H) + WG_TK);
 }
-__host__ __device__ constexpr int wg_minb(int H) { return H == 32 ? 2 : 1; }
+__host__ __device__ constexpr int wg_minb(int H) { return H <= 32 ? 2 : 1; }
 
 // Every plan within a block's shared memory, the blocks an SM each launch
 // bound asks for within the SM's, the tiles whole 16-point mma steps, and
@@ -212,7 +241,8 @@ constexpr bool plans_fit() {
          F::P % 16 == 0 && B::P % 16 == 0 &&
          4 * 4 * NDIR * band_ld<B::P>() <= 2 * B::NF * EROWS * (B::P + 8);
 }
-static_assert(plans_fit<32>() && plans_fit<128>() && plans_fit<256>(),
+static_assert(plans_fit<16>() && plans_fit<32>() && plans_fit<64>() &&
+                  plans_fit<128>() && plans_fit<256>(),
               "a field kernel's plan exceeds the shared memory it counts on");
 
 // ---- the grids of a launch on O objects x M points on an SM count `sms`
@@ -308,8 +338,12 @@ void plan_at(int sms, int O, int M, int tile_m, int* out) {
 // without kernels or arguments the kernels refuse
 inline int field_plan(int H, int sms, int O, int M, int tile_m, int* out) {
   if (!plan_args_ok(sms, O, M, tile_m)) return PLAN_INVALID;
-  if (H == 32)
+  if (H == 16)
+    plan_at<16>(sms, O, M, tile_m, out);
+  else if (H == 32)
     plan_at<32>(sms, O, M, tile_m, out);
+  else if (H == 64)
+    plan_at<64>(sms, O, M, tile_m, out);
   else if (H == 128)
     plan_at<128>(sms, O, M, tile_m, out);
   else if (H == 256)

@@ -127,14 +127,32 @@ inline bool rest_fits(const Offsets& o, int H) {
 // (FWM, FWN, FMU) the forward's warp tile (16-row x 8-column mma tiles)
 // and the most such units a warp holds at once, (DWM, DWN, DMU) the input
 // gradients'. FMU / DMU cover the largest product at FP points: units =
-// ceil(rows / 16 WM) * (P16 / 8 WN).
+// ceil(rows / 16 WM) * (P16 / 8 WN). h=16 and h=64 take the plan of the
+// width next to them (h=32's threads and blocks an SM, h=128's): at h=16 a
+// layer's rows are one 16-row mma tile and its hidden depth one k16 step,
+// so a warp takes one 8-point column (FWN = DWN = 1: every warp of the
+// block has a unit in every product) and KF covers the widest product
+// (up16(16 + 87) = 112 columns) in one slab; at h=64 the forward's 8
+// units are the 8 warps' and the input gradients' at most 20 (C = 160).
 template <int H>
 struct Tile;
+template <>
+struct Tile<16> {
+  static constexpr bool RA = false;
+  static constexpr int NT = 256, MINB = 2, FP = 64, KF = 112, KB = 16;
+  static constexpr int FWM = 1, FWN = 1, FMU = 1, DWM = 1, DWN = 1, DMU = 7;
+};
 template <>
 struct Tile<32> {
   static constexpr bool RA = false;
   static constexpr int NT = 256, MINB = 2, FP = 64, KF = 64, KB = 16;
   static constexpr int FWM = 1, FWN = 2, FMU = 1, DWM = 1, DWN = 2, DMU = 4;
+};
+template <>
+struct Tile<64> {
+  static constexpr bool RA = false;
+  static constexpr int NT = 256, MINB = 1, FP = 56, KF = 32, KB = 16;
+  static constexpr int FWM = 2, FWN = 2, FMU = 1, DWM = 2, DWN = 2, DMU = 3;
 };
 template <>
 struct Tile<128> {
@@ -163,7 +181,8 @@ template <int POL>
 __host__ __device__ constexpr int bwd_pieces() { return POL == F32 ? 2 : 1; }
 
 // the forward slab's columns: Tile<H>::KF, less where three pieces would
-// not fit a ring of two beside the tile (h=128), or two blocks an SM (h=32)
+// not fit a ring of two beside the tile (h=128), or two blocks an SM (h=32;
+// h=16's whole 112 columns fit)
 template <int H, int NP>
 __host__ __device__ constexpr int fwd_kf() {
   return NP < 3 ? Tile<H>::KF : H == 128 ? 16 : H == 32 ? 48 : Tile<H>::KF;

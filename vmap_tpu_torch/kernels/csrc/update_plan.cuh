@@ -131,10 +131,11 @@ inline int adam_blocks(int sms, int cap, int H) {
 // matrix is cut into bands of QBAND rows: band k holds its rows 32k ..
 // 32k + 31 (the 1-row w_alpha and 3-row w_col_out one band, at k = 0). A
 // matrix's bands form one thread-block cluster of q_cluster(H) blocks,
-// block k of the cluster band k: at h=32 a block alone (the matrix is one
-// band; launched as no cluster: a launch of the object bank's 728 blocks
-// as clusters of one took longer on the card), at h=128 a cluster of 4
-// and at h=256 of 8 (portable sizes), so every width runs the same 32-row
+// block k of the cluster band k: at h=16 and h=32 a block alone (the
+// matrix is one band, h=16's rows 16 .. 31 zero padding; launched as no
+// cluster: a launch of the object bank's 728 blocks as clusters of one
+// took longer on the card), at h=64 a cluster of 2, at h=128 of 4 and at
+// h=256 of 8 (portable sizes), so every width runs the same 32-row
 // band, the background's one slot at h=128 gets 28 blocks, not 7, and
 // h=256's w_cat band (32 x 343 floats) is 44 KB of a block's shared
 // memory. A cluster takes the units (slot,
@@ -165,16 +166,19 @@ inline int adam_blocks(int sms, int cap, int H) {
 // bytes of each copy row, one 4-byte word of each transpose row, on 32
 // distinct banks (QTRS / 4 = 9 is odd). No integer division per element.
 // Threads (q_threads): h=32's 700 blocks of the object bank in one wave
-// of 128-thread blocks; the few blocks of h=128 and h=256 (28 and 56 for
+// of 128-thread blocks (h=16's and h=64's, whose bands are no more than a
+// third longer, the same); the few blocks of h=128 and h=256 (28 and 56 for
 // one slot) 256 and 512 (128 was slower on the card, and 1024 too: the
 // band's steps are latency, not work).
 constexpr int QBAND = 32, NQM = 7;
 constexpr int QTRS = 36;   // the transpose band's row stride in shared memory
 enum QMat : int { QM_IN, QM_MID1, QM_CAT, QM_MID2, QM_ALPHA, QM_COL, QM_OUT };
 
-__host__ __device__ constexpr int q_cluster(int H) { return H / QBAND; }
+__host__ __device__ constexpr int q_cluster(int H) {
+  return H < QBAND ? 1 : H / QBAND;
+}
 __host__ __device__ constexpr int q_threads(int H) {
-  return H == 32 ? 128 : H == 128 ? 256 : 512;
+  return H <= 64 ? 128 : H == 128 ? 256 : 512;
 }
 __host__ __device__ constexpr int qm_rows(int H, int m) {
   return m == QM_ALPHA ? 1 : m == QM_OUT ? 3 : H;
@@ -279,9 +283,10 @@ constexpr bool update_plans_fit() {
          ADAM_RUN % 16 == 0 && grad_row(H) % 16 == 0 &&
          staged_size(H) % ADAM_V == 0 && q_smem(H) <= SMEM_MAX &&
          q_bps(H) >= 1 && q_cluster(H) >= 1 && q_cluster(H) <= 8 &&
-         H % QBAND == 0 && q8_size(H) % 16 == 0;
+         (H < QBAND || H % QBAND == 0) && q8_size(H) % 16 == 0;
 }
-static_assert(update_plans_fit<32>() && update_plans_fit<128>() &&
+static_assert(update_plans_fit<16>() && update_plans_fit<32>() &&
+                  update_plans_fit<64>() && update_plans_fit<128>() &&
                   update_plans_fit<256>(),
               "an update kernel's plan exceeds what it counts on");
 
@@ -300,8 +305,7 @@ constexpr int UPDATE_INVALID = 1;   // cudaErrorInvalidValue
 // slot on `sms` SMs into out[UP_N]; UPDATE_INVALID for a width without
 // kernels or arguments the kernels refuse
 inline int update_plan(int H, int sms, int cap, int n_rows, int* out) {
-  if ((H != 32 && H != 128 && H != 256) || sms < 1 || cap < 1 ||
-      n_rows < 1)
+  if (!kernel_width(H) || sms < 1 || cap < 1 || n_rows < 1)
     return UPDATE_INVALID;
   out[UP_ADAM_THREADS] = ADAM_NT;
   out[UP_ADAM_RUN] = ADAM_RUN;
@@ -337,8 +341,7 @@ enum BandField : int {
   QB_COPY_OFF, QB_COPY_BYTES, QB_TR_OFF, QB_TR_STRIDE, QB_TR_ROWS, QB_N
 };
 inline int quant_band(int H, int m, int k, int* out) {
-  if ((H != 32 && H != 128 && H != 256) || m < 0 || m >= NQM || k < 0 ||
-      k >= q_cluster(H))
+  if (!kernel_width(H) || m < 0 || m >= NQM || k < 0 || k >= q_cluster(H))
     return 0;
   for (int i = 0; i < qm_count(m); ++i) {
     const int t = qm_first(m) + i;

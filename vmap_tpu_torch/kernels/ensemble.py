@@ -15,9 +15,9 @@ Two versions of each function:
   * ``field_eval_reference`` / ``field_grad_reference``: plain PyTorch
     (``torch.matmul`` and autograd);
   * ``field_eval`` (K2, ``csrc/ensemble.cu`` ``field_fwd_kernel``, hidden
-    32 / 128 / 256) and the backward of ``FieldTrain`` (K3,
-    ``field_bwd_kernel`` then ``field_wgrad_kernel``, hidden 32 / 128 /
-    256): on CPU tensors they run the plain version, on CUDA tensors they
+    16 / 32 / 64 / 128 / 256) and the backward of ``FieldTrain`` (K3,
+    ``field_bwd_kernel`` then ``field_wgrad_kernel``, the same widths): on
+    CPU tensors they run the plain version, on CUDA tensors they
     launch the kernel or raise (``kernels.KERNEL_HIDDEN``).
 The kernels' products run on bf16 tensor cores, float32 as three passes of
 two-piece operands (K3's recomputed forward six passes of three), from the

@@ -22,7 +22,8 @@ Two versions of one function:
     same grid and rows with every MLP product on s8 tensor cores, and
     ``quant_weights_kernel``, the weights' s8 copy and its transpose once
     per iteration, ``q8_layout``, by clusters of 32-row bands), built for
-    hidden 32, 128 and 256; ``csrc/update_plan.cuh`` states the two update
+    hidden 16, 32, 64, 128 and 256; ``csrc/update_plan.cuh`` states the
+    two update
     kernels' plan (``update_plan``). The
     loop over iterations runs on the host, two launches per iteration
     (int8: three). On CPU tensors it runs the plain version; on
@@ -260,12 +261,13 @@ def stage_weights(flat: torch.Tensor, spec: BankSpec) -> torch.Tensor:
 
 def slab_bytes(hidden: int, policy: str) -> int:
     """One slab buffer of a float-policy train_grad block
-    (csrc/train_step.cu slab_bytes): the forward's (its pieces' planes of
-    [hidden rows][KF + 8] bf16; KF 64 at h=32, 32 at h=128, 16 at h=256,
-    and with three pieces 48, 16, 16) or the input gradients' (16 rows of
-    up16(h + 87) + 8), the larger."""
+    (csrc/train_step.cuh slab_bytes): the forward's (its pieces' planes of
+    [hidden rows][KF + 8] bf16; KF 112 at h=16, 64 at h=32, 32 at h=64 and
+    h=128, 16 at h=256, and with three pieces 112, 48, 32, 16, 16) or the
+    input gradients' (16 rows of up16(h + 87) + 8), the larger."""
     npf, npb = PIECES[policy]
-    kf = {32: (64, 48), 128: (32, 16), 256: (16, 16)}[hidden][npf == 3]
+    kf = {16: (112, 112), 32: (64, 48), 64: (32, 32), 128: (32, 16),
+          256: (16, 16)}[hidden][npf == 3]
     return max(2 * npf * hidden * (kf + 8),
                2 * npb * 16 * (_up(hidden + 87, 16) + 8))
 
@@ -366,8 +368,8 @@ def update_plan(hidden: int, cap: int, n_rows: int, lib=None) -> dict:
 
 # the int8 tile's shape per width (csrc/train_step_q8.cu Q8Tile): the n
 # tiles of a warp's product unit and the slab's columns
-Q8_WN = {32: 2, 128: 7, 256: 5}
-Q8_KS = {32: 96, 128: 128, 256: 64}
+Q8_WN = {16: 1, 32: 2, 64: 4, 128: 7, 256: 5}
+Q8_KS = {16: 96, 32: 96, 64: 96, 128: 128, 256: 64}
 
 
 def q8_layout(hidden: int) -> tuple[list, int]:
@@ -445,9 +447,11 @@ def q8_slab_bytes(hidden: int, policy: str = "int8") -> int:
     q8_slab): the largest product's rows x (its columns, at most
     ``Q8_KS``, + 16) bytes, the forward's h rows over up to max(96, h)
     columns or the input gradients' up to 96 rows (the embedding's) over
-    h; under a _fwd half at least the float backward's ``slab_bytes``."""
+    up32(h) (a hidden depth in whole k32 steps); under a _fwd half at
+    least the float backward's ``slab_bytes``."""
     h, ks = hidden, Q8_KS[hidden]
-    slab = max(h * (min(ks, max(96, h)) + 16), 96 * (min(ks, h) + 16))
+    slab = max(h * (min(ks, max(96, h)) + 16),
+               96 * (min(ks, _up(h, 32)) + 16))
     if not Q.q8_backward(policy):
         slab = max(slab, slab_bytes(h, "float32"))
     return slab
