@@ -181,7 +181,27 @@ Phases, in order (any failure raises and the script exits non-zero):
      then phase 11's iMAP frame (n_iter=1) under int8_static at the
      defaults and at the suggested scales, each gradient's error against
      float32 in norm and their ratio, and train_grad under int8_static at
-     the suggested scales against its plain version in phase 11's tiers.
+     the suggested scales against its plain version in phase 11's tiers;
+ 18. the widths K1, K2 and K3 gained (h=16, h=64) and the port's script
+     entry points: (a) K1 at h=16 (phase 3's object shape) and h=64 (its
+     background shape) under the seven policies in the tiers of phases
+     3, 10 and 11, train_adamw and train_quant_w against their plain
+     versions, each timed beside its bound, sample_reuse 4 bit-identical
+     to the tiled batch; (b) K2 and K3 at h=16 (8 x 65,573 points) and
+     h=64 (1 x 131,072) in phase 6's tiers, timed, their plans printed;
+     (c) ``vmap_tpu_torch.train`` on configs/Replica/fixture_room_vmap.json
+     and its committed data (objects h=16, background h=32) for 8 frames:
+     finite losses, 2 objects, n_iter train_grad launches a frame at each
+     width, an export through K2 at both; (d) phase 4's configuration
+     with ``tpu.fused_train_step`` false at n_iter=1: no train_grad
+     launch, the slots unrounded (100, where "auto" rounds to 104), the
+     frame within phase 3's tier of the kernel frame on the same banks and
+     draws; (e) ``vmap_tpu_torch.remesh`` on phase 4's checkpoint at its
+     grid cap: the meshes byte-equal to phase 4's export of that frame;
+     (f) ``vmap_tpu_torch.quality_study`` at its default sizes, its five
+     variants side by side on the card: finite metrics, bg_rays320_h64
+     launching K1 and K2 at h=64, the table printed beside
+     docs/quality_study.json's JAX rows (no bar).
 
 Every kernel's entry in the JSON line carries its bound (the larger of
 its bytes over 3.35 TB/s and its operations over the peak of their type:
@@ -480,7 +500,7 @@ def rel_close(a, b, rtol, atol, what):
     return err
 
 
-def check_kernels(dev, stats: dict, shapes=SHAPES) -> None:
+def check_kernels(dev, stats: dict, shapes=SHAPES, phase: str = "3") -> None:
     import torch
     from vmap_tpu_torch.core.bank import apply_adamw
     from vmap_tpu_torch.kernels import train_step as K
@@ -546,8 +566,8 @@ def check_kernels(dev, stats: dict, shapes=SHAPES) -> None:
             **grad_bound(bank, n_per, S)}
         stats.setdefault("train_adamw", {})[name] = {
             "max_abs_err": err_b, **adamw_bound(bank, rows)}
-        log(f"[3] {name}: the update kernels' plan {fl.plan}")
-        log(f"[3] {name}: train_grad geometry {geom.rays_per_tile} rays per "
+        log(f"[{phase}] {name}: the update kernels' plan {fl.plan}")
+        log(f"[{phase}] {name}: train_grad geometry {geom.rays_per_tile} rays per "
             f"tile ({geom.rays_per_tile * S} points), {geom.n_tiles} tiles "
             f"over {geom.blocks} blocks per slot; partial-gradient scratch "
             f"{geom.rows} rows, {geom.scratch_bytes} bytes "
@@ -557,7 +577,7 @@ def check_kernels(dev, stats: dict, shapes=SHAPES) -> None:
         # them): the same tile, their own slabs
         for pol in BF16_POLICIES:
             g = K.frame_geometry(h, S, n_per, cap, pol)
-            log(f"[3] {name}/{pol}: {g.rays_per_tile * S} points a tile, "
+            log(f"[{phase}] {name}/{pol}: {g.rays_per_tile * S} points a tile, "
                 f"{g.blocks} blocks per slot, scratch {g.scratch_bytes} "
                 f"bytes, dynamic shared memory "
                 f"{K.float_smem_bytes(h, g.rays_per_tile, S, pol)} bytes")
@@ -578,7 +598,7 @@ def check_kernels(dev, stats: dict, shapes=SHAPES) -> None:
         # a reference point, not the function: one library call reading
         # the same rows
         ad["torch_sum_ms"] = time_cuda(lambda: fl.grad_part.sum(dim=1), 50)
-        log(f"[3] {name}: train_grad max_abs_err {err_g:.3e} "
+        log(f"[{phase}] {name}: train_grad max_abs_err {err_g:.3e} "
             f"(grad scale {gscale:.3e}), train_adamw max_abs_err "
             f"{err_b:.3e}; ms kernel/plain/bound: grad "
             f"{stats['train_grad'][key]['ms']:.4f}/"
@@ -589,7 +609,7 @@ def check_kernels(dev, stats: dict, shapes=SHAPES) -> None:
             f"{ad['torch_sum_ms']:.4f} ms")
 
         # whole frames, two tiers
-        frame_tiers("3", name, bank, S, n_per, dev,
+        frame_tiers(phase, name, bank, S, n_per, dev,
                     lambda bank, batch, n_iter: K.fused_frame(
                         bank, batch, n_iter, n_per, LR, WD, CS, OSC))
 
@@ -757,7 +777,8 @@ def field_grad_error(g_k, g_r, g_d, gmax: float) -> tuple:
     return err, "f64" if ok else None
 
 
-def check_field_kernels(dev, stats: dict, shapes=FIELD_SHAPES) -> None:
+def check_field_kernels(dev, stats: dict, shapes=FIELD_SHAPES,
+                        phase: str = "6") -> None:
     """K2 and K3 against their plain versions (JAX bar,
     tests/test_pallas_kernel.py:55-56 and :103-108; K3 by
     ``field_grad_error``); K3 at the widths it is built for, twice (bit
@@ -786,7 +807,7 @@ def check_field_kernels(dev, stats: dict, shapes=FIELD_SHAPES) -> None:
                                  "their plain version")
         n_w = sum(v.numel() for v in prepared.values())
         plan = E.field_plan(h, O, M)
-        log(f"[6] {name} field_fwd plan: {plan['fwd_points']} points a "
+        log(f"[{phase}] {name} field_fwd plan: {plan['fwd_points']} points a "
             f"tile, {plan['fwd_blocks']} blocks of {plan['fwd_threads']} "
             f"threads ({plan['fwd_blocks_per_sm']} an SM), "
             f"{plan['fwd_smem_bytes']} B dynamic shared memory")
@@ -809,7 +830,7 @@ def check_field_kernels(dev, stats: dict, shapes=FIELD_SHAPES) -> None:
             "plain_ms": time_cuda(
                 lambda: E.field_eval_reference(prepared, pts), 10),
             "plan": plan}
-        msg = (f"[6] {name} ({O} x {M} points, h={h}): field_fwd alpha err "
+        msg = (f"[{phase}] {name} ({O} x {M} points, h={h}): field_fwd alpha err "
                f"{err_a:.3e} colour err {err_c:.3e}, ms kernel/plain/bound "
                f"{fwd['ms']:.4f}/{fwd['plain_ms']:.4f}/{fwd['bound_ms']:.4f} "
                f"(bound at the FP32 rate {fwd['bound_fp32_ms']:.4f}), with "
@@ -845,12 +866,12 @@ def check_field_kernels(dev, stats: dict, shapes=FIELD_SHAPES) -> None:
                 if e / max(1.0, gmax) >= err_g:
                     err_g, worst = e / max(1.0, gmax), n + tag
         if to_f64:
-            log(f"[6] {name} field_bwd: d{', d'.join(to_f64)} held to the "
+            log(f"[{phase}] {name} field_bwd: d{', d'.join(to_f64)} held to the "
                 "f64 plain version (the f32 plain version misses the bar "
                 "there too)")
         scratch_mib = (O * 2 * plan["scratch_pieces"] * plan["scratch_rows"]
                        * plan["Mp"] / 2**20)
-        log(f"[6] {name} field_bwd plan: {plan['bwd_points']} points a "
+        log(f"[{phase}] {name} field_bwd plan: {plan['bwd_points']} points a "
             f"tile, {plan['bwd_blocks']} blocks of {plan['bwd_threads']} "
             f"threads, {plan['bwd_smem_bytes']} B; field_wgrad "
             f"{plan['wgrad_blocks']} blocks ({plan['wgrad_tiles']} tiles x "
@@ -2906,14 +2927,14 @@ def check_policies(dev, stats: dict, shapes=SHAPES,
         raise AssertionError("policy tiers: " + "; ".join(failures))
 
 
-def check_reuse_bit_identity(dev) -> None:
+def check_reuse_bit_identity(dev, shape=SHAPES[0], phase: str = "10") -> None:
     """The kernel frame under sample_reuse 4 on the untiled batch (pixels
     for 5 of 20 iterations, z for all 20) against the kernel frame on the
     same batch tiled: losses, parameters and moments bit-identical, at
-    the object shape, f32 and bwd_bf16."""
+    ``shape`` (the object shape), f32 and bwd_bf16."""
     import torch
     from vmap_tpu_torch.kernels import train_step as K
-    name, cap, n_act, h, n_per, S, scale = SHAPES[0]
+    name, cap, n_act, h, n_per, S, scale = shape
     bank = conditioned_bank(cap, n_act, h, scale, 0, dev)
     n_iter, R = 20, 4
     full = random_batch(cap, n_iter * n_per, S, 6, dev)
@@ -2934,7 +2955,7 @@ def check_reuse_bit_identity(dev) -> None:
             if not torch.equal(a, b):
                 raise AssertionError(f"reuse {R} {policy}: {what} differ "
                                      "from the tiled batch's")
-        log(f"[10] {name}/{policy}: sample_reuse {R} frame bit-identical "
+        log(f"[{phase}] {name}/{policy}: sample_reuse {R} frame bit-identical "
             f"to the tiled batch's ({n_iter} iterations, final loss "
             f"{float(ul[:, -1].sum()):.6f})")
 
@@ -3406,11 +3427,292 @@ def update_ab(trees: list) -> list:
     return runs
 
 
+# ---------------------------------------------------------------- phase 18
+# K1 at the widths it gained, at phase 3's shapes: h=16 as the object bank
+# (the fixture room's objects), h=64 as the background bank
+# (quality_study's bg_rays320_h64); K2 / K3 at phase 6's object and
+# background shapes at those widths
+WIDTH_SHAPES = (("w16", 104, 100, 16, 120, 10, 2.0),
+                ("w64", 1, 1, 64, 1200, 14, 5.0))
+WIDTH_FIELD_SHAPES = (("w16", 8, 16, 65536 + 37, 2.0),
+                      ("w64", 1, 64, 131072, 5.0))
+FIXTURE_CONFIG = os.path.join("configs", "Replica", "fixture_room_vmap.json")
+FIXTURE_FRAMES = 8
+# the JAX package's table of the same study (docs/quality_study.json)
+QUALITY_JAX = os.path.join(REPO, "docs", "quality_study.json")
+
+
+def width_kernels(dev, stats: dict) -> None:
+    """(a) and (b): K1 at h=16 and h=64 under the seven policies against
+    the plain frame in the tiers of phases 3, 10 and 11 (train_adamw and
+    train_quant_w against theirs, each timed beside its bound), REUSE
+    bit-identical to the tiled batch; K2 and K3 in phase 6's tiers, timed,
+    their plans printed."""
+    check_kernels(dev, stats, WIDTH_SHAPES, phase="18")
+    check_policies(dev, stats, WIDTH_SHAPES, BF16_POLICIES, phase="18")
+    check_policies(dev, stats, WIDTH_SHAPES, INT8_POLICIES, phase="18")
+    for shape in WIDTH_SHAPES:
+        check_reuse_bit_identity(dev, shape, phase="18")
+    check_field_kernels(dev, stats, WIDTH_FIELD_SHAPES, phase="18")
+
+
+def fixture_run(gpu: str) -> tuple:
+    """(c) ``vmap_tpu_torch.train`` on configs/Replica/fixture_room_vmap.json
+    and its committed data (objects h=16, background h=32) for
+    FIXTURE_FRAMES frames on the card: finite losses, 2 objects at the
+    end, n_iter train_grad launches a trained frame at each width, then an
+    export through K2 at both widths. Returns (launch counts, results)."""
+    import numpy as np
+    from vmap_tpu_torch import train
+    with open(os.path.join(REPO, FIXTURE_CONFIG)) as f:
+        raw = json.load(f)
+    raw["dataset"]["path"] = os.path.join(REPO, raw["dataset"]["path"])
+    cfg_path = os.path.join(OUT, "fixture_room.json")
+    with open(cfg_path, "w") as f:
+        json.dump(raw, f, indent=1)
+    logdir = os.path.join(OUT, "train_fixture_room")
+    shutil.rmtree(logdir, ignore_errors=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    mapper, _ = train.run(["--config", cfg_path, "--logdir", logdir,
+                           "--max_frames", str(FIXTURE_FRAMES), "--device",
+                           "cuda"])
+    wall = time.perf_counter() - t0
+    rows = [json.loads(line) for line in
+            open(os.path.join(logdir, "train_log.jsonl"))]
+    losses = [r["loss"] for r in rows]
+    c = read_counts()
+    n_iter = mapper.cfg.n_iter_per_frame
+    if not (rows and np.isfinite(losses).all()):
+        raise AssertionError(f"fixture room losses {losses}")
+    if mapper.n_objects != 2:
+        raise AssertionError(f"fixture room: {mapper.n_objects} objects")
+    for h in (16, 32):
+        if c[f"train_grad.h{h}"] != n_iter * len(rows):
+            raise AssertionError(
+                f"fixture room: {c[f'train_grad.h{h}']} train_grad launches "
+                f"at h={h}, expected {n_iter} x {len(rows)} frames")
+    mesh_dir = os.path.join(logdir, "export")
+    paths = mapper.export_meshes(mesh_dir, rows[-1]["frame"])
+    e = read_counts()
+    for h in (16, 32):
+        if not e[f"field_fwd.{h}"]:
+            raise AssertionError(f"fixture room export: no field_fwd "
+                                 f"launch at h={h}")
+    res = {"frames": len(rows), "wall_s": wall, "losses": losses,
+           "meshes": len(paths),
+           "launches": {k: v for k, v in e.items() if v}}
+    log(f"[18] (c) fixture room on {gpu}: {len(rows)} frames in {wall:.1f} "
+        f"s, {mapper.n_objects} objects, losses "
+        f"{[round(x, 4) for x in losses]}; train_grad launches h=16 "
+        f"{c['train_grad.h16']}, h=32 {c['train_grad.h32']}; export "
+        f"{len(paths)} meshes, field_fwd h=16 {e['field_fwd.16']}, h=32 "
+        f"{e['field_fwd.32']}")
+    return e, res
+
+
+def fused_off(dev, gpu: str) -> tuple:
+    """(d) ``tpu.fused_train_step: false`` on phase 4's configuration at
+    n_iter=1: the Mapper on the card runs the plain frame (JAX's XLA step:
+    no train_grad launch), keeps the configured slots unrounded (JAX's
+    rule, round to 8 only where the setting is on), and from the same
+    banks (conditioned as phase 3's) and draws lands within phase 3's
+    tier of the kernel frame (the setting "auto"), every slot of the plain
+    bank and the background.
+    Returns (the plain frame's launch counts, results)."""
+    import dataclasses
+    import torch
+    from vmap_tpu_torch.core import bank as B
+    from vmap_tpu_torch.core.mapper import FrameSample, Mapper
+    from vmap_tpu_torch.core.step import torch_draws
+    from vmap_tpu_torch.data.loader import make_dataset
+
+    cfg, _ = synthetic_room0()
+    cfg.n_iter_per_frame = 1
+    off = dataclasses.replace(cfg, fused_train_step=False)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    draws = {}
+
+    def record(bank, shapes):
+        draws[bank] = torch_draws(gen, shapes, dev)
+        return draws[bank]
+
+    def replay(bank, shapes):
+        d = draws[bank]
+        n = shapes["kf"][0]
+        return type(d)(**{k: getattr(d, k)[:n].contiguous()
+                          for k in ("kf", "u", "v", "z")})
+
+    mk = Mapper(cfg, device=dev, draw_source=record)
+    mo = Mapper(off, device=dev, draw_source=replay)
+    if not (mk.use_fused and not mo.use_fused):
+        raise AssertionError("fused_train_step false still runs K1")
+    want_k = -(-cfg.max_n_models // 8) * 8 if cfg.hidden_feature_size <= 64 \
+        else cfg.max_n_models
+    if (mk.slots, mo.slots) != (want_k, cfg.max_n_models):
+        raise AssertionError(f"slots {mk.slots} / {mo.slots}, expected "
+                             f"{want_k} / {cfg.max_n_models}")
+    if mo.statics.compute_dtype != "float32":
+        raise AssertionError(f"the XLA step's policy: "
+                             f"{mo.statics.compute_dtype}")
+    s = make_dataset(cfg)[0]
+    for m in (mk, mo):
+        m.ingest_frame(FrameSample(image=s["image"], depth=s["depth"],
+                                   inst=s["obj"], bbox_dict=s["bbox_dict"],
+                                   t_wc=s["T"], frame_id=s["frame_id"]))
+    # both banks conditioned as phase 3's (conditioned_bank: weights x0.3,
+    # small moments, step 3), whose tier this holds: on a fresh bank's
+    # first AdamW step a parameter moves by lr sign(g), and a gradient
+    # within f32 noise of 0 moves it 2 lr apart in the two frames
+    g = torch.Generator().manual_seed(4)
+    for name in ("bank_obj", "bank_bg"):
+        b = getattr(mk, name)
+        setattr(mk, name, b.replace(
+            flat=b.flat * 0.3,
+            m=(torch.randn(b.m.shape, generator=g) * 1e-4).to(dev),
+            v=(torch.rand(b.v.shape, generator=g) * 1e-6).to(dev),
+            step=torch.where(b.active, 3, 0).to(torch.int32)))
+    n = mo.slots
+    mo.bank_obj = mk.bank_obj.replace(**{
+        f: getattr(mk.bank_obj, f)[:n].clone() for f in B.FIELDS})
+    mo.bank_bg = mk.bank_bg.replace(**{
+        f: getattr(mk.bank_bg, f).clone() for f in B.FIELDS})
+    reset_counts()
+    t0 = time.perf_counter()
+    met_k = mk.train_frame()
+    loss_k = float(met_k["loss"])
+    ms_k = 1e3 * (time.perf_counter() - t0)
+    ck = read_counts()
+    reset_counts()
+    t0 = time.perf_counter()
+    met_o = mo.train_frame()
+    loss_o = float(met_o["loss"])
+    ms_o = 1e3 * (time.perf_counter() - t0)
+    co = read_counts()
+    if co["train_grad"] or co["train_adamw"] or not ck["train_grad"]:
+        raise AssertionError(f"launches: fused off {co}, auto {ck}")
+    errs = {}
+    for tag, got, want in (("obj", mo.bank_obj, mk.bank_obj),
+                           ("bg", mo.bank_bg, mk.bank_bg)):
+        for f in ("flat", "m", "v"):
+            w = getattr(want, f)[:getattr(got, f).shape[0]]
+            errs[f"{tag}.{f}"] = rel_close(
+                getattr(got, f), w, RTOL_SEM, 1e-3 * float(w.abs().max()),
+                f"fused off {tag} {f}")
+    rel_close(torch.tensor(loss_o), torch.tensor(loss_k), RTOL_SEM, 1e-6,
+              "fused off loss")
+    res = {"slots_auto": mk.slots, "slots_off": mo.slots,
+           "loss_auto": loss_k, "loss_off": loss_o,
+           "frame_ms_auto": ms_k, "frame_ms_off": ms_o,
+           "max_abs_err": errs, "launches_off": co}
+    log(f"[18] (d) fused_train_step false on {gpu}: slots {mo.slots} "
+        f"(auto {mk.slots}), no train_grad launch, loss {loss_o:.6f} "
+        f"against the kernel frame's {loss_k:.6f}; max abs err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; host ms a frame plain {ms_o:.1f}, kernel {ms_k:.1f} (first "
+        "frame, one each)")
+    return co, res
+
+
+def remesh_check(gpu: str) -> dict:
+    """(e) ``python -m vmap_tpu_torch.remesh`` on phase 4's full-state
+    checkpoint at phase 4's grid cap (without the HTML viewer): the same
+    files as phase 4's export of that frame, their bytes equal (vertices,
+    faces and colours). Runs phase 4's trainer (no resume) first where
+    this call ran no phase 4."""
+    from vmap_tpu_torch import remesh
+    logdir = os.path.join(OUT, "train_room0_synthetic")
+    state = os.path.join(logdir, "ckpt", "state")
+    if not os.path.isdir(state):
+        run_trainer(12, n_resume=0)
+    with open(os.path.join(OUT, "room0_synthetic.json")) as f:
+        raw = json.load(f)
+    raw["vis"]["html_viewer"] = False
+    cfg_path = os.path.join(OUT, "room0_remesh.json")
+    with open(cfg_path, "w") as f:
+        json.dump(raw, f, indent=1)
+    with open(os.path.join(state, "latest.json")) as f:
+        frame = json.load(f)["frame_id"]
+    out = os.path.join(OUT, "remesh")
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    paths = remesh.main(["--config", cfg_path, "--ckpt", state, "--out", out,
+                         "--grid_dim", str(raw["vis"]["grid_dim"])])
+    wall = time.perf_counter() - t0
+    got = sorted(os.path.basename(p) for p in paths)
+    want = sorted(f for f in os.listdir(os.path.join(logdir, "scene_mesh"))
+                  if f.startswith(f"frame_{frame}_") and f.endswith(".obj"))
+    if not got or got != want:
+        raise AssertionError(f"remesh wrote {got}, phase 4 {want}")
+    differ = [f for f in got
+              if open(os.path.join(out, f), "rb").read()
+              != open(os.path.join(logdir, "scene_mesh", f), "rb").read()]
+    if differ:
+        raise AssertionError(f"remesh: {differ} differ from phase 4's")
+    log(f"[18] (e) remesh on {gpu}: frame {frame}'s {len(got)} meshes at "
+        f"grid cap {raw['vis']['grid_dim']} in {wall:.1f} s, byte-equal to "
+        "phase 4's export")
+    return {"frame": frame, "meshes": got, "wall_s": wall}
+
+
+def quality_run(gpu: str, quick: bool = False) -> tuple:
+    """(f) ``vmap_tpu_torch.quality_study`` at its default sizes (128 x
+    96, 16 frames x 3 passes, grid 64), its five variants' processes side
+    by side on the card: every variant's metrics finite, bg_rays320_h64
+    launching K1 and K2 at h=64; the table printed beside
+    docs/quality_study.json's JAX rows (a quality comparison, no bar).
+    Returns (bg_rays320_h64's launch counts, results)."""
+    import numpy as np
+    from vmap_tpu_torch import quality_study as QS
+    out = os.path.join(OUT, "quality_study.json")
+    QS.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    table = QS.main(["--out", out, "--jobs", str(len(QS.VARIANTS))]
+                    + (["--quick"] if quick else []))
+    wall = time.perf_counter() - t0
+    for tag, rows in table.items():
+        vals = [v for met in rows.values() for v in met.values()]
+        if not vals or not np.isfinite(vals).all():
+            raise AssertionError(f"quality study {tag}: {rows}")
+    # the variant's process's counts, as read_counts' keys
+    h64 = {**{k: 0 for k in read_counts()},
+           **QS.LAUNCHES["bg_rays320_h64"]}
+    if not (h64["train_grad.h64"] and h64["field_fwd.64"]):
+        raise AssertionError(f"bg_rays320_h64 launches {h64}")
+    with open(QUALITY_JAX) as f:
+        jax_table = json.load(f)
+    log(f"[18] (f) quality study on {gpu} in {wall:.1f} s "
+        f"({'--quick' if quick else 'default sizes'}); port / JAX "
+        "(docs/quality_study.json) per variant and object, acc comp "
+        "r@1cm r@5cm:")
+    keys = ("accuracy", "completion", "completion_ratio_1cm",
+            "completion_ratio_5cm")
+    for tag, rows in table.items():
+        for obj, met in rows.items():
+            j = jax_table.get(tag, {}).get(obj, {})
+            log(f"[18]   {tag:>15} {obj:>10}: port "
+                + " ".join(f"{met[k]:.4f}" for k in keys) + " | JAX "
+                + " ".join(f"{j[k]:.4f}" if k in j else "-" for k in keys))
+    return h64, {"table": table, "jax": jax_table, "wall_s": wall,
+                 "launches": dict(QS.LAUNCHES), "quick": quick}
+
+
+def widths_phase(dev, gpu: str, stats: dict, paths: dict) -> dict:
+    """Phase 18, (a) to (f); each path's launch counts into ``paths``."""
+    width_kernels(dev, stats)
+    res = {}
+    paths["fixture_room"], res["fixture_room"] = fixture_run(gpu)
+    paths["fused_off"], res["fused_off"] = fused_off(dev, gpu)
+    res["remesh"] = remesh_check(gpu)
+    paths["quality_h64"], res["quality_study"] = quality_run(gpu)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", nargs="+", type=int,
-                    default=list(range(1, 18)),
-                    help="phases to run (default all: 1 2 ... 17)")
+                    default=list(range(1, 19)),
+                    help="phases to run (default all: 1 2 ... 18)")
     ap.add_argument("--sections", action="store_true",
                     help="in place of the phases: time train_grad's "
                     "sections under every policy (k1_sections)")
@@ -3557,6 +3859,10 @@ def main(argv=None) -> int:
             paths["calibration"], res = calibration(dev, gpu)
             with open(os.path.join(OUT, "calibration_run.json"), "w") as f:
                 json.dump({"gpu": gpu, **res}, f, indent=1, default=float)
+        elif phase == 18:
+            res = widths_phase(dev, gpu, stats, paths)
+            with open(os.path.join(OUT, "widths.json"), "w") as f:
+                json.dump({"gpu": gpu, **res}, f, indent=1, default=float)
         else:
             raise SystemExit(f"no phase {phase}")
         log(f"[{phase}] phase {phase} took "
@@ -3566,6 +3872,10 @@ def main(argv=None) -> int:
         per = stats.get(kernel, {})
         return per if policies is None else {
             k: v for k, v in per.items() if k.split("/")[1] in policies}
+
+    # the top-level numbers of a kernel's entry sum phase 3 / 6 / 11's
+    # shapes; phase 18's widths are rows of by_shape beside them
+    main_shapes = {s[0] for s in SHAPES + FIELD_SHAPES}
 
     def policy_launches(policies):
         return lambda c: sum(c[f"train_grad.{p}"] for p in policies)
@@ -3602,7 +3912,9 @@ def main(argv=None) -> int:
                    + (("train_grad", "train_adamw", "field_stage",
                        "field_fwd") if phases & {14, 15, 16} else ())
                    + (("train_grad", "train_adamw") if 17 in phases
-                      else ()))
+                      else ())
+                   + (("train_grad", "train_adamw", "field_stage",
+                       "field_fwd") if 18 in phases else ()))
     kernels = []
     for name, src, replaces, per, top_policy, count in specs:
         by_path = {p: count(c) for p, c in paths.items()}
@@ -3613,7 +3925,8 @@ def main(argv=None) -> int:
         # (vMAP object and background banks, the iMAP field); the other
         # policies are the by_shape keys <shape>/<policy>
         top = {k: v for k, v in per.items()
-               if top_policy is None or k.endswith(f"/{top_policy}")}
+               if (top_policy is None or k.endswith(f"/{top_policy}"))
+               and k.split("/")[0] in main_shapes}
         worst = max(top.values(), key=lambda v: v["bound_ms"], default={})
         kernels.append({
             "name": name, "route": "cuda",
@@ -3639,10 +3952,16 @@ def main(argv=None) -> int:
         for p, c in paths.items()}
     kernels[0]["launches_by_policy"] = kernels[1]["launches_by_policy"] = \
         launches_by_policy
+    from vmap_tpu_torch.kernels import KERNEL_HIDDEN
+    kernels[0]["launches_by_width"] = kernels[1]["launches_by_width"] = {
+        p: {h: c[f"train_grad.h{h}"] for h in KERNEL_HIDDEN["train_frame"]}
+        for p, c in paths.items() if "train_grad.h16" in c}
+    for name in ("field_fwd", "field_bwd"):
+        entry = next(k for k in kernels if k["name"] == name)
+        entry["launches_by_width"] = {
+            p: {h: c[f"{name}.{h}"] for h in KERNEL_HIDDEN[name]}
+            for p, c in paths.items() if f"{name}.16" in c}
     field_bwd = next(k for k in kernels if k["name"] == "field_bwd")
-    field_bwd["launches_by_width"] = {
-        p: {h: c[f"field_bwd.{h}"] for h in (32, 128, 256)}
-        for p, c in paths.items()}
     field_bwd["at_use_pallas_train_tiles"] = path_tiles
     kernels += [{**{k: v for k, v in e.items() if k != "checks"},
                  "launches_by_path": {"probes": e["launches"]}}
@@ -3654,6 +3973,11 @@ def main(argv=None) -> int:
                                  "paths")
     if 8 in phases and not any(c["field_bwd.256"] for c in paths.values()):
         raise AssertionError("no field_bwd launch at h=256 on the main paths")
+    if 18 in phases:
+        for key in ("train_grad.h16", "train_grad.h64", "field_fwd.16",
+                    "field_fwd.64"):
+            if not any(c.get(key) for c in paths.values()):
+                raise AssertionError(f"no {key} launch on the main paths")
     from vmap_tpu_torch.parallel.launch import foreign_modules
     bad = foreign_modules()
     if bad:

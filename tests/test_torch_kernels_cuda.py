@@ -16,7 +16,9 @@ ragged point counts, K3 at the use_pallas_train tiles bit-equal across
 two launches and within the JAX bar across two tile_m, the field kernels'
 plan on the card's SM count; the forloop ablation against the vectorised
 frame at the bench shape and ``OccupancyField``'s query against its plain
-version (phase 14); and the probe
+version (phase 14); K1, K2 and K3 at h=16 and h=64 in the same tiers, and
+the Mapper under ``tpu.fused_train_step`` false launching no K1 (phase
+18); and the probe
 kernels
 (``vmap_tpu_torch.probes``: K4 mm, K10 int8, K7 sections, K8 overlap,
 K9 vpu, K5 ops, K6 dma) in every variant and shape against their plain
@@ -143,6 +145,83 @@ def test_int8_tile_ragged_matches_plain_on_card(cuda_device, policy):
         bad = chip_smoke.quantised_copy_errors(bank, fl, bank.flat)
         assert not bad, f"{name}/{policy}: train_quant_w differs in {bad}"
     assert not failures, failures
+
+
+# the widths K1, K2 and K3 gained (chip_smoke.py phase 18): ragged shapes
+# at h=16 and h=64 beside phase 18's own (the last tile 1 ray, tiles of
+# 63 and 52 points, the last slots inactive)
+WIDTH_RAGGED = (("ragged16", 5, 3, 16, 121, 9, 2.0),
+                ("ragged64", 3, 2, 64, 53, 13, 5.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["w16", "w64"])
+def test_width_kernels_match_plain_on_card(cuda_device, shape):
+    """K1 at h=16 (the object shape) and h=64 (the background shape):
+    float32 in phase 3's tiers with train_adamw, the bf16 and int8
+    policies in phase 10's and 11's with train_quant_w, sample_reuse 4
+    bit-identical to the tiled batch."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    shapes = [s for s in chip_smoke.WIDTH_SHAPES if s[0] == shape]
+    stats = {}
+    chip_smoke.check_kernels(cuda_device, stats, shapes, phase="18")
+    chip_smoke.check_policies(cuda_device, stats, shapes,
+                              chip_smoke.BF16_POLICIES, "18")
+    chip_smoke.check_policies(cuda_device, stats, shapes,
+                              chip_smoke.INT8_POLICIES, "18")
+    chip_smoke.check_reuse_bit_identity(cuda_device, shapes[0], "18")
+    for policy in chip_smoke.POLICIES:
+        assert stats["train_grad"][f"{shape}/{policy}"]["ms"] > 0
+    assert stats["train_quant_w"][shape]["ms"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["float32", "bwd_bf16", "int8",
+                                    "int8_static_fwd"])
+def test_width_tiles_ragged_match_plain_on_card(cuda_device, policy):
+    """K1 at h=16 and h=64 at ragged shapes: float32 in phase 3's tiers,
+    the other policies in phase 10's and 11's."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    if policy == "float32":
+        stats = {}
+        chip_smoke.check_kernels(cuda_device, stats, WIDTH_RAGGED, "18")
+        assert all(v["ms"] > 0 for v in stats["train_grad"].values())
+        return
+    failures = []
+    for name, cap, n_act, h, n_per, S, scale in WIDTH_RAGGED:
+        bank = chip_smoke.conditioned_bank(cap, n_act, h, scale, 0,
+                                           cuda_device)
+        chip_smoke.check_policy_tiers(name, bank, S, n_per, cuda_device,
+                                      policy, failures, "18")
+    assert not failures, failures
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["w16", "w64"])
+def test_width_field_kernels_match_plain_on_card(cuda_device, shape):
+    """K2 and K3 at h=16 and h=64, in phase 6's tiers."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    shapes = [s for s in chip_smoke.WIDTH_FIELD_SHAPES if s[0] == shape]
+    stats = {}
+    chip_smoke.check_field_kernels(cuda_device, stats, shapes, "18")
+    assert stats["field_fwd"][shape]["ms"] > 0
+    assert stats["field_bwd"][shape]["ms"] > 0
+
+
+@pytest.mark.cuda
+def test_fused_train_step_false_launches_no_k1_on_card(cuda_device):
+    """Under tpu.fused_train_step false the Mapper on the card runs the
+    plain frame: no train_grad launch, the slots unrounded, within phase
+    3's tier of the kernel frame at n_iter=1 (chip_smoke.py phase 18 d)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    os.makedirs(chip_smoke.OUT, exist_ok=True)
+    counts, res = chip_smoke.fused_off(cuda_device, "")
+    assert counts["train_grad"] == 0
+    assert res["slots_off"] < res["slots_auto"]
 
 
 @pytest.mark.cuda

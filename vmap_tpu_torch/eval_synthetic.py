@@ -24,7 +24,10 @@ for 16 / 32 / 64 / 128 / 256), ``--fused`` ``tpu.fused_train_step``
 ("auto", or 0 / 1 for false / true: under 0 the card runs the plain
 frame, JAX's XLA step). The card is the default device; ``--device cpu``
 runs the plain versions (the JAX script's ``--cpu``). Prints one line per
-object and returns (and with ``--out`` writes) {object: metrics}.
+object, then ``kernel launches {...}``, the run's nonzero CUDA kernel
+launch counts (``kernels.train_step.LAUNCHES``,
+``kernels.ensemble.LAUNCHES``: none on the CPU), and returns (and with
+``--out`` writes) {object: metrics}.
 """
 
 from __future__ import annotations
@@ -129,6 +132,10 @@ def main(argv=None) -> dict:
     total_steps = int(m.bank_obj.step.max())
     print(f"trained: {m.n_objects} objects, {total_steps} steps each")
     results = evaluate(m, scene, args)
+    from vmap_tpu_torch.kernels import ensemble, train_step
+    counts = {k: v for k, v in {**train_step.LAUNCHES,
+                                **ensemble.LAUNCHES}.items() if v}
+    print(f"kernel launches {json.dumps(counts)}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=2)

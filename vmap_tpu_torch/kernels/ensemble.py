@@ -26,8 +26,9 @@ while the weights do not change); their tiles and grids are the
 library's (``csrc/field_plan.cuh``, ``field_plan``).
 
 ``LAUNCHES`` counts successful kernel launches by kernel name, and
-``field_bwd``'s also by width (``field_bwd.<hidden>``); only ``stage``,
-``_launch_fwd`` and ``_launch_bwd`` change it.
+``field_fwd``'s and ``field_bwd``'s also by width (``field_fwd.<hidden>``,
+``field_bwd.<hidden>``); only ``stage``, ``_launch_fwd`` and
+``_launch_bwd`` change it.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import torch.nn.functional as F
 from vmap_tpu_torch.kernels import KERNEL_HIDDEN, _build, check_width
 
 LAUNCHES = {"field_stage": 0, "field_fwd": 0, "field_bwd": 0,
+            **{f"field_fwd.{h}": 0 for h in KERNEL_HIDDEN["field_fwd"]},
             **{f"field_bwd.{h}": 0 for h in KERNEL_HIDDEN["field_bwd"]}}
 
 EMB_PAD = 128                # emb_a (87) and emb_b (42) pad to 128 columns
@@ -337,6 +339,7 @@ def _launch_fwd(prepared: dict, pts: torch.Tensor):
         _ptr(alpha), _ptr(color), L.stream())
     _build.check(L.lib, code, "field_fwd kernel launch")
     LAUNCHES["field_fwd"] += 1
+    LAUNCHES[f"field_fwd.{L.h}"] += 1
     return alpha, color
 
 

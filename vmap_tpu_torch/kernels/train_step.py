@@ -47,7 +47,8 @@ rays, the kernel's own tile (``kernels.MAX_POINTS``, ``ops.quant``), and
 the static policies' scales are ``ops.quant.static_scales()``.
 
 ``LAUNCHES`` counts successful kernel launches by kernel name, and
-``train_grad``'s also by policy (``train_grad.<policy>``); only
+``train_grad``'s also by policy (``train_grad.<policy>``) and by width
+(``train_grad.h<hidden>``); only
 ``FrameLaunch.grad`` / ``adamw`` / ``quant_weights`` change it.
 """
 
@@ -62,7 +63,8 @@ from vmap_tpu_torch.core.bank import (BankSpec, BankState,
                                      adam_bias_corrections, apply_adamw)
 # MAX_POINTS is re-exported: callers read it as train_step.MAX_POINTS
 from vmap_tpu_torch.kernels import (MAX_POINTS, _build,  # noqa: F401
-                                    check_width, float_tile_rays, tile_rays)
+                                    KERNEL_HIDDEN, check_width,
+                                    float_tile_rays, tile_rays)
 from vmap_tpu_torch.kernels import ensemble as E
 from vmap_tpu_torch.ops import losses as L
 from vmap_tpu_torch.ops import quant as Q
@@ -70,7 +72,8 @@ from vmap_tpu_torch.ops.embedding import embed
 from vmap_tpu_torch.ops.mlp import POLICIES, mlp_apply, split_bf16
 
 LAUNCHES = {"train_grad": 0, "train_adamw": 0, "train_quant_w": 0,
-            **{f"train_grad.{p}": 0 for p in POLICIES}}
+            **{f"train_grad.{p}": 0 for p in POLICIES},
+            **{f"train_grad.h{h}": 0 for h in KERNEL_HIDDEN["train_frame"]}}
 # train_grad writes one partial gradient row per (slot, block). While one
 # block per ray tile keeps that scratch within SCRATCH_BUDGET bytes, each
 # block takes one tile; past it the grid is bounded to GRID_SMS blocks over
@@ -680,6 +683,7 @@ class FrameLaunch:
         _build.check(self.lib, code, "train_grad kernel launch")
         LAUNCHES["train_grad"] += 1
         LAUNCHES[f"train_grad.{self.policy}"] += 1
+        LAUNCHES[f"train_grad.h{self.h}"] += 1
 
     def adamw(self, params, m, v, losses, it: int, lr: float,
               wd: float) -> None:

@@ -63,9 +63,15 @@ SCRIPT_NB = 8
 TOL = {"f32": 1e-5, "f32_3xbf16": 1e-5, "bf16": 2e-3}   # rtol, see tol()
 
 
+# the widths of K1's per-block products the probe times: the main path's
+# (the vMAP objects and background, the iMAP field)
+K1_WIDTHS = (32, 128, 256)
+
+
 def k1_shapes() -> tuple:
     """K1's per-block products: (h, h, 132 P, P) for h = 32 / 128 / 256."""
-    return tuple((h, h, N_SMS * p, p) for h, p in sorted(MAX_POINTS.items()))
+    return tuple((h, h, N_SMS * MAX_POINTS[h], MAX_POINTS[h])
+                 for h in K1_WIDTHS)
 
 
 def base_reps(m: int, k: int, n: int) -> int:

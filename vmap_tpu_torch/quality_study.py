@@ -2,7 +2,7 @@
 ``scripts/quality_study.py``).
 
     python -m vmap_tpu_torch.quality_study [--quick] [--out table.json]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--jobs N]
 
 Five variants of ``vmap_tpu_torch.eval_synthetic``, each in a process of
 its own, at the JAX script's sizes (128 x 96 frames, 16 frames x 3
@@ -19,7 +19,11 @@ The table ({variant: {object: metrics, rounded to 4 places}}, or
 {"error": ...} for a variant whose process failed) is printed as JSON and
 written to ``--out`` (default ``quality_study.json`` in the working
 directory; the JAX package's table, ``docs/quality_study.json``, is never
-written). Exits 1 if a variant failed.
+written). ``--jobs N`` runs up to N variants' processes at once (default
+1, one after another as the JAX script runs them; on one card they then
+share it, which changes no result). ``LAUNCHES`` keeps each variant's CUDA kernel launch counts,
+from the ``kernel launches`` line its process printed (empty on the
+CPU). Exits 1 if a variant failed.
 """
 
 from __future__ import annotations
@@ -30,12 +34,14 @@ import os
 import subprocess
 import sys
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VARIANTS = (("f32", []), ("bf16", ["--dtype", "bfloat16"]),
             ("px_block8", ["--px_block", "8"]),
             ("bg_rays160", ["--bg_rays", "160"]),
             ("bg_rays320_h64", ["--bg_rays", "320", "--bg_hidden", "64"]))
+LAUNCHES: dict = {}
 SIZES = {False: ["--frames", "16", "--passes", "3", "--grid", "64",
                  "--height", "96", "--width", "128"],
          True: ["--frames", "12", "--passes", "2", "--grid", "48",
@@ -48,6 +54,8 @@ def parse_args(argv=None):
     p.add_argument("--out", default="quality_study.json")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu")
+    p.add_argument("--jobs", type=int, default=1,
+                   help="variants run at once (default 1)")
     return p.parse_args(argv)
 
 
@@ -68,6 +76,9 @@ def run(tag: str, extra: list, base: list, tmp: str) -> dict:
               flush=True)
         return {"error": f"exit {r.returncode}"}
     print(r.stdout.strip(), file=sys.stderr, flush=True)
+    tail = [ln for ln in r.stdout.splitlines()
+            if ln.startswith("kernel launches ")]
+    LAUNCHES[tag] = json.loads(tail[-1][len("kernel launches "):])
     with open(out) as f:
         return {k: {m: round(v, 4) for m, v in met.items()}
                 for k, met in json.load(f).items()}
@@ -76,8 +87,11 @@ def run(tag: str, extra: list, base: list, tmp: str) -> dict:
 def main(argv=None) -> dict:
     args = parse_args(argv)
     base = SIZES[args.quick] + ["--device", args.device]
-    with tempfile.TemporaryDirectory() as tmp:
-        table = {tag: run(tag, extra, base, tmp) for tag, extra in VARIANTS}
+    with tempfile.TemporaryDirectory() as tmp, \
+            ThreadPoolExecutor(max(1, args.jobs)) as pool:
+        runs = [pool.submit(run, tag, extra, base, tmp)
+                for tag, extra in VARIANTS]
+        table = {tag: r.result() for (tag, _), r in zip(VARIANTS, runs)}
     with open(args.out, "w") as f:
         json.dump(table, f, indent=2)
     print(json.dumps(table))
