@@ -66,8 +66,8 @@ def _rays(table: dict, hidden: int, n_samples: int) -> int:
 
 def tile_rays(hidden: int, n_samples: int) -> int:
     """Whole rays per train_grad tile under the int8 policies. A width
-    without a kernel (the plain version at a test's width, as h=8) takes the tile
-    of the next wider kernel width, or of the widest."""
+    without a kernel (the plain version at a test's width, as h=8) takes
+    the tile of the next wider kernel width, or of the widest."""
     return _rays(MAX_POINTS, hidden, n_samples)
 
 

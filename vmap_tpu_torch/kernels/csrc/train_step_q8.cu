@@ -71,8 +71,8 @@
 // two slabs in shared memory (16-byte cp.async copies, L2 evict_last; the
 // next slab in flight while one computes), slabs of Q8Tile<H>::KS columns
 // across all rows: at h=16, 32, 64 and 128 every weight of a product is
-// one slab, at h=256 slabs of 64 columns (the nine tensors and their transposes are
-// 690 KB a slot).
+// one slab, at h=256 slabs of 64 columns (the nine tensors and their
+// transposes are 690 KB a slot).
 //
 // Policies: INT8 (int8, int8_static) runs the backward above. INT8_FWD
 // (int8_fwd, int8_static_fwd) runs the same s8 forward, keeping each

@@ -2,7 +2,7 @@
 ``scripts/quality_study.py``).
 
     python -m vmap_tpu_torch.quality_study [--quick] [--out table.json]
-        [--device cuda|cpu] [--jobs N]
+        [--device cuda|cpu]
 
 Five variants of ``vmap_tpu_torch.eval_synthetic``, each in a process of
 its own, at the JAX script's sizes (128 x 96 frames, 16 frames x 3
@@ -19,9 +19,10 @@ The table ({variant: {object: metrics, rounded to 4 places}}, or
 {"error": ...} for a variant whose process failed) is printed as JSON and
 written to ``--out`` (default ``quality_study.json`` in the working
 directory; the JAX package's table, ``docs/quality_study.json``, is never
-written). ``--jobs N`` runs up to N variants' processes at once (default
-1, one after another as the JAX script runs them; on one card they then
-share it, which changes no result). ``LAUNCHES`` keeps each variant's CUDA kernel launch counts,
+written). On the card the five processes run at once, sharing it (which
+changes no result, only the study's wall time); on the CPU one after
+another, as the JAX script runs them, so that they do not compete for the
+cores. ``LAUNCHES`` keeps each variant's CUDA kernel launch counts,
 from the ``kernel launches`` line its process printed (empty on the
 CPU). Exits 1 if a variant failed.
 """
@@ -54,8 +55,6 @@ def parse_args(argv=None):
     p.add_argument("--out", default="quality_study.json")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu")
-    p.add_argument("--jobs", type=int, default=1,
-                   help="variants run at once (default 1)")
     return p.parse_args(argv)
 
 
@@ -88,7 +87,8 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     base = SIZES[args.quick] + ["--device", args.device]
     with tempfile.TemporaryDirectory() as tmp, \
-            ThreadPoolExecutor(max(1, args.jobs)) as pool:
+            ThreadPoolExecutor(1 if args.device == "cpu"
+                               else len(VARIANTS)) as pool:
         runs = [pool.submit(run, tag, extra, base, tmp)
                 for tag, extra in VARIANTS]
         table = {tag: r.result() for (tag, _), r in zip(VARIANTS, runs)}
