@@ -155,12 +155,13 @@ WIDTH_RAGGED = (("ragged16", 5, 3, 16, 121, 9, 2.0),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["w16", "w64"])
+@pytest.mark.parametrize("shape", ["obj16", "bg64"])
 def test_width_kernels_match_plain_on_card(cuda_device, shape):
     """K1 at h=16 (the object shape) and h=64 (the background shape):
     float32 in phase 3's tiers with train_adamw, the bf16 and int8
     policies in phase 10's and 11's with train_quant_w, sample_reuse 4
-    bit-identical to the tiled batch."""
+    bit-identical to the tiled batch (chip_smoke.py phase 18 runs every
+    shape at both widths)."""
     sys.path.insert(0, REPO)
     import chip_smoke
     shapes = [s for s in chip_smoke.WIDTH_SHAPES if s[0] == shape]
@@ -199,7 +200,7 @@ def test_width_tiles_ragged_match_plain_on_card(cuda_device, policy):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["w16", "w64"])
+@pytest.mark.parametrize("shape", ["obj16", "bg64"])
 def test_width_field_kernels_match_plain_on_card(cuda_device, shape):
     """K2 and K3 at h=16 and h=64, in phase 6's tiers."""
     sys.path.insert(0, REPO)
