@@ -501,7 +501,12 @@ def rel_close(a, b, rtol, atol, what):
     return err
 
 
-def check_kernels(dev, stats: dict, shapes=SHAPES, phase: str = "3") -> None:
+def check_kernels(dev, stats: dict, shapes=SHAPES, phase: str = "3",
+                  grad_atol: float = 1e-4) -> None:
+    """K1 against its plain version at ``shapes``: one iteration's
+    gradient alone (rtol 2e-3 plus ``grad_atol`` of the gradient's scale;
+    where that is above 1e-4, the elements beyond 1e-4 of scale are
+    logged), the update kernel alone, then whole frames (``frame_tiers``)."""
     import torch
     from vmap_tpu_torch.core.bank import apply_adamw
     from vmap_tpu_torch.kernels import train_step as K
@@ -518,8 +523,16 @@ def check_kernels(dev, stats: dict, shapes=SHAPES, phase: str = "3") -> None:
         act = bank.active              # inactive slots' partials are unset
         g_k = fl.grad_part[act][..., fl.row_index].sum(dim=1)
         gscale = float(g_ref.abs().max())
-        err_g = rel_close(g_k, g_ref[act], RTOL_SEM, 1e-4 * gscale,
+        err_g = rel_close(g_k, g_ref[act], RTOL_SEM, grad_atol * gscale,
                           f"{name} train_grad gradient")
+        if grad_atol > 1e-4:
+            beyond = ((g_k - g_ref[act]).abs()
+                      > 1e-4 * gscale + RTOL_SEM * g_ref[act].abs())
+            cols = set(torch.nonzero(beyond)[:, 1].tolist())
+            where = sorted({nm for _, nm, _, off, size in bank.spec.names
+                            if any(off <= c < off + size for c in cols)})
+            log(f"[{phase}] {name}: {int(beyond.sum())} gradient elements "
+                f"beyond 1e-4 of scale, in {where}")
         rel_close(fl.loss_part[act].sum(dim=1), per_ref[act], RTOL_SEM, 1e-6,
                   f"{name} train_grad per-slot loss")
         # kernel B alone: every partial row seeded, held to apply_adamw on
@@ -3441,6 +3454,14 @@ WIDTH_SHAPES = tuple((f"{s[0]}{w}",) + s[1:3] + (w,) + s[4:]
                      for w in WIDTHS for s in SHAPES)
 WIDTH_FIELD_SHAPES = tuple((f"{s[0]}{w}", s[1], w) + s[3:]
                            for w in WIDTHS for s in FIELD_SHAPES[:2])
+# the kernel-alone gradient's atol at these shapes, the n_iter=1 tier's
+# (a fraction of the gradient's scale): at h=64 on the object shape slot
+# 3's colour head has a ReLU tie (unit 12 at one point, its pre-activation
+# 3.2e-7 of sum |w||x|, under the three-pass route's stated error of 4.6e-5
+# of it), which the kernel puts on the other side of 0 from the f32 plain
+# version; that one point's term moves d b_col and a row of d w_col by up
+# to 1.5e-3 (2.5e-4 of scale), while f32 and f64 plain agree within 4e-5
+WIDTH_GRAD_ATOL = 1e-3
 FIXTURE_CONFIG = os.path.join("configs", "Replica", "fixture_room_vmap.json")
 FIXTURE_FRAMES = 8
 # the JAX package's table of the same study (docs/quality_study.json)
@@ -3452,8 +3473,11 @@ def width_kernels(dev, stats: dict) -> None:
     policies against the plain frame in the tiers of phases 3, 10 and 11
     (train_adamw and train_quant_w against theirs, each timed beside its
     bound), REUSE bit-identical to the tiled batch at the object shape;
-    K2 and K3 in phase 6's tiers, timed, their plans printed."""
-    check_kernels(dev, stats, WIDTH_SHAPES, phase="18")
+    K2 and K3 in phase 6's tiers, timed, their plans printed. One
+    iteration's gradient alone is held to the n_iter=1 tier, 1e-3 of
+    scale (WIDTH_GRAD_ATOL)."""
+    check_kernels(dev, stats, WIDTH_SHAPES, phase="18",
+                  grad_atol=WIDTH_GRAD_ATOL)
     check_policies(dev, stats, WIDTH_SHAPES, BF16_POLICIES, phase="18")
     check_policies(dev, stats, WIDTH_SHAPES, INT8_POLICIES, phase="18")
     for shape in WIDTH_SHAPES:

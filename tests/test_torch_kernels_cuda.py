@@ -166,7 +166,8 @@ def test_width_kernels_match_plain_on_card(cuda_device, shape):
     import chip_smoke
     shapes = [s for s in chip_smoke.WIDTH_SHAPES if s[0] == shape]
     stats = {}
-    chip_smoke.check_kernels(cuda_device, stats, shapes, phase="18")
+    chip_smoke.check_kernels(cuda_device, stats, shapes, phase="18",
+                             grad_atol=chip_smoke.WIDTH_GRAD_ATOL)
     chip_smoke.check_policies(cuda_device, stats, shapes,
                               chip_smoke.BF16_POLICIES, "18")
     chip_smoke.check_policies(cuda_device, stats, shapes,
@@ -187,7 +188,8 @@ def test_width_tiles_ragged_match_plain_on_card(cuda_device, policy):
     import chip_smoke
     if policy == "float32":
         stats = {}
-        chip_smoke.check_kernels(cuda_device, stats, WIDTH_RAGGED, "18")
+        chip_smoke.check_kernels(cuda_device, stats, WIDTH_RAGGED, "18",
+                                 chip_smoke.WIDTH_GRAD_ATOL)
         assert all(v["ms"] > 0 for v in stats["train_grad"].values())
         return
     failures = []
