@@ -234,6 +234,11 @@ place of the phases (``k1_sections``).
 times the update kernels (train_adamw, train_quant_w) and the int8 vMAP
 frame of each checkout in turn on the same timers, each in a process of
 its own, in place of the phases (``update_ab``).
+
+    python3 chip_smoke.py --probe-ab dev/parent . . dev/parent
+
+does the same for the chain probes (K4's and K10's cases, K5's fwd_mm
+pair: each kernel's ns a step and its library call's; ``probe_ab``).
 """
 
 from __future__ import annotations
@@ -3276,6 +3281,9 @@ def probe_path(dev, gpu: str) -> tuple:
             log(f"[12] ptxas: {line.strip()}")
     mods = {name: importlib.import_module(f"vmap_tpu_torch.probes.{mod}")
             for name, mod, _, _ in PROBES}
+    for r in mods["probe_mm"].tile_check(dev):
+        log(f"[12] wgmma tile check {r['case']}: max abs err "
+            f"{r['max_abs_err']:.3e} (exact)")
     checks = {}
     for name, mod in mods.items():
         checks[name] = mod.compare(dev)
@@ -3304,7 +3312,7 @@ def probe_path(dev, gpu: str) -> tuple:
                    "plain_ms": mod.plain_ms(case, dev),
                    "library_ms": mod.library_ms(case, dev),
                    **mod.bound(case)}
-            for key in ("w_in_smem", "us_per_launch", "ns_per_op",
+            for key in ("plan", "us_per_launch", "ns_per_op",
                         "ns_per_op_runs", "blocks", "aggregate_ns_per_copy",
                         "gb_per_s"):
                 if key in case:
@@ -3337,11 +3345,89 @@ def probe_path(dev, gpu: str) -> tuple:
                 log(f"[12] {name} {key}: {row} ({gpu})")
                 continue
             lib = ("" if row["library_ms"] is None
-                   else f", library {row['library_ms'] * 1e6:.1f}")
+                   else f", library {row['library_ms'] * 1e6:.1f} "
+                   f"(kernel / library {row['ms'] / row['library_ms']:.3f})")
+            plan = f" [{row['plan']}]" if "plan" in row else ""
             log(f"[12] {name} {key}: ns a step kernel "
                 f"{row['ms'] * 1e6:.1f}, plain {row['plain_ms'] * 1e6:.1f}"
-                f"{lib}, bound {row['bound_ms'] * 1e6:.2f} ({gpu})")
+                f"{lib}, bound {row['bound_ms'] * 1e6:.2f}{plan} ({gpu})")
+        ratios = {key: row["ms"] / row["library_ms"]
+                  for key, row in by_case.items()
+                  if isinstance(row, dict) and row.get("library_ms")}
+        if ratios and name in ("probe_mm", "probe_int8", "probe_ops"):
+            worst = max(ratios, key=ratios.get)
+            log(f"[12] {name}: {sum(r <= 1 for r in ratios.values())} of "
+                f"{len(ratios)} cases with a library call at most its "
+                f"time; worst kernel / library {ratios[worst]:.3f} "
+                f"({worst}) ({gpu})")
     return entries, counts
+
+
+# ------------------------------------------------------------ --probe-ab
+def probe_times(dev) -> dict:
+    """The chain probes of the checkout this process imports (K4's and
+    K10's cases, K5's fwd_mm pair) on one timer: each kernel's ns a step
+    (the probe's own slope) and its library call's (None where there is
+    none)."""
+    from vmap_tpu_torch import probes
+    from vmap_tpu_torch.probes import int8, mm, ops
+    probes.LIBRARY.load()
+    res = {}
+    for name, mod in (("probe_mm", mm), ("probe_int8", int8)):
+        for case in mod.cases():
+            r = mod.measure(case, dev)
+            lib = mod.library_ms(r, dev)
+            res[f"{name} {' '.join(r['case'].split())}"] = {
+                "ns": r["step_ns"],
+                "library_ns": None if lib is None else lib * 1e6}
+    for case in ("fwd_mm", "fwd_mm_bf16"):
+        r = ops.measure(case, dev)
+        res[f"probe_ops {case}"] = {
+            "ns": r["step_ns"],
+            "library_ns": ops.library_ms(r, dev) * 1e6}
+    return res
+
+
+def probe_ab(trees: list) -> list:
+    """``--probe-ab``: the chain probes of each checkout in ``trees`` (as
+    ``--update-ab``: ``.`` this one, the parent's unpacked into a
+    gitignored directory; parent, change, change, parent compares two) on
+    the same timers. Each distinct checkout's probe library is built
+    first, all at once; then each entry runs ``probe_times`` in a process
+    of its own. Logs one line a case and run; smoke_out/probe_ab.json
+    keeps them."""
+    trees = [os.path.abspath(t) for t in trees]
+    build = ("import sys; sys.path.insert(0, '.'); "
+             "from vmap_tpu_torch import probes; probes.LIBRARY.build()")
+    procs = {t: subprocess.Popen([sys.executable, "-c", build], cwd=t,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+             for t in dict.fromkeys(trees)}
+    for t, proc in procs.items():
+        out = proc.communicate(timeout=900)[0]
+        if proc.returncode:
+            raise RuntimeError(f"probe build of {t} failed:\n{out[-4000:]}")
+    runs = []
+    for i, t in enumerate(trees):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--probe-times", "--tree", t],
+                              capture_output=True, text=True, timeout=900)
+        tag = "PROBE_TIMES "
+        lines = [x for x in proc.stdout.splitlines() if x.startswith(tag)]
+        if proc.returncode or not lines:
+            raise RuntimeError(f"probe_times in {t} failed "
+                               f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+        run = {"tree": os.path.relpath(t, REPO),
+               "cases": json.loads(lines[-1][len(tag):])}
+        runs.append(run)
+        for key, r in run["cases"].items():
+            lib = ("none" if r["library_ns"] is None
+                   else f"{r['library_ns']:.1f}")
+            log(f"[pab] {i} {run['tree']} {key}: ns a step kernel "
+                f"{r['ns']:.1f}, library {lib}")
+    with open(os.path.join(OUT, "probe_ab.json"), "w") as f:
+        json.dump(runs, f, indent=1)
+    return runs
 
 
 # ------------------------------------------------------------ --update-ab
@@ -3750,6 +3836,12 @@ def main(argv=None) -> int:
                     "of each checkout TREE in turn (update_ab)")
     ap.add_argument("--update-times", action="store_true",
                     help=argparse.SUPPRESS)   # one run of --update-ab
+    ap.add_argument("--probe-ab", nargs="+", metavar="TREE",
+                    help="in place of the phases: time the chain probes "
+                    "(K4, K10, K5's fwd_mm) of each checkout TREE in turn "
+                    "(probe_ab)")
+    ap.add_argument("--probe-times", action="store_true",
+                    help=argparse.SUPPRESS)   # one run of --probe-ab
     ap.add_argument("--tree", help=argparse.SUPPRESS)  # its checkout
     ap.add_argument("--rank-frames", help=argparse.SUPPRESS)  # phase 16 a
     args = ap.parse_args(argv)
@@ -3783,6 +3875,15 @@ def main(argv=None) -> int:
         return 0
     if args.update_ab:
         update_ab(args.update_ab)
+        return 0
+    if args.probe_ab:
+        probe_ab(args.probe_ab)
+        return 0
+    if args.probe_times:
+        import vmap_tpu_torch
+        assert vmap_tpu_torch.__file__.startswith(
+            os.path.abspath(args.tree) + os.sep), vmap_tpu_torch.__file__
+        print("PROBE_TIMES " + json.dumps(probe_times(dev)), flush=True)
         return 0
     if args.update_times:
         import vmap_tpu_torch

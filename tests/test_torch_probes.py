@@ -140,22 +140,158 @@ def test_mm_cases_and_operands():
 
 
 def test_w_goes_to_shared_memory_where_every_block_stays_resident():
-    """W's copy is staged where it fits beside the carry with the whole
-    grid resident: the script's [128, 128] (160 blocks, 72 KB each) and
-    K1's h=32 / 128 products; not [128, 384] in f32 (two blocks of 209 KB
-    an SM would be needed) nor K1's h=256 in f32 (W alone 256 KB), where
-    the kernel reads W from L2."""
-    assert mm.smem_bytes("f32", 128, 384, 8, 1, True) == 4 * (
-        384 * 8 + 128 * 8 + 384 * 128)
-    assert mm.smem_bytes("f32_3xbf16", 256, 256, 38, 1, False) == (
-        4 * 256 * 40 + 2 * 2 * 264 * 40)
-    assert mm.stages_w("f32", 128, 128, 1280, 8, 1)
-    assert not mm.stages_w("f32", 128, 384, 1280, 8, 1)
-    assert mm.stages_w("f32", 128, 128, 132 * 56, 56, 1)
-    assert not mm.stages_w("f32", 256, 256, 132 * 38, 38, 1)
-    assert mm.stages_w("bf16", 256, 256, 132 * 38, 38, 1)
-    assert int8.stages_w("i8_quant", 128, 128, 1280, 80)
-    assert not int8.stages_w("i8", 512, 512, 1280, 8)
+    """W stays in shared memory for the whole chain wherever it fits
+    beside the carry with every block of the plan resident: the script's
+    [128, 384] f32 on a block plan (W 192 KB beside a 16-column slab),
+    [512, 512] bf16 on a cluster plan (a 128 KB panel of 128 rows a block,
+    32 clusters of 4),
+    K1's h=32 / 128 products; streamed from L2 each step only where a
+    panel cannot fit (1280^2 f32 and 3xbf16: 320 KB; K1's h=256 in f32 and
+    3xbf16: 256 KB)."""
+    p = mm.plan("f32", 128, 384, 1280)
+    assert (p["grid"], p["w_resident"], p["slabs"]) == (0, 1, 80)
+    assert mm.smem_bytes(p, "f32") == 4 * (384 * 128 + 384 * 16) + 256
+    p = mm.plan("bf16", 512, 512, 1280)
+    assert (p["grid"], p["w_resident"], p["rows"], p["panels"],
+            p["slabs"]) == (2, 1, 128, 4, 32)
+    assert mm.plan("f32", 128, 128, 132 * 56, 56)["w_resident"]
+    assert mm.plan("bf16", 32, 32, 132 * 64, 64)["w_resident"]
+    for v in ("f32", "f32_3xbf16"):
+        assert not mm.plan(v, 1280, 1280, 1280)["w_resident"]
+        assert not mm.plan(v, 256, 256, 132 * 38, 38)["w_resident"]
+    assert mm.plan("bf16", 256, 256, 132 * 38, 38)["w_resident"]
+    assert mm.plan("i8_quant", 128, 128, 1280)["grid"]
+    assert not mm.plan("i8", 128, 128, 1280)["grid"]
+    assert mm.plan("i8", 128, 128, 1280, exchange=True)["grid"]
+
+
+def _all_chain_cases():
+    """(variant, m, k, n, nb, ind, exchange) of every case phase 12 runs:
+    K4's, K10's (f32 on K4's kernel) and K5's fwd_mm pair."""
+    out = [(v, m, k, n, nb, ind, False) for m, k, n, nb, v, ind in mm.cases()]
+    for m, k, n, nb, mode in int8.cases():
+        out.append((mode, m, k, n, nb if isinstance(nb, int)
+                    else mm.SCRIPT_NB, 1, nb == int8.GRID))
+    out += [(v, 128, 384, ops.T, mm.SCRIPT_NB, 1, False)
+            for v in ("f32", "bf16")]
+    return out
+
+
+@pytest.mark.parametrize("case", _all_chain_cases(),
+                         ids=lambda c: "-".join(map(str, c)))
+def test_chain_plan_fits_covers_and_stays_resident(case):
+    """Every case's plan (``mm.plan``, the mirror of csrc/chain.cuh's,
+    at 132 SMs): it fits a block's shared memory; a grid plan's blocks are
+    all resident (one an SM, 132 at most); a kernel is built for it; W's
+    panels cover each row once; the slabs cover n once; and it meets
+    chain.cuh's plan_ok limits."""
+    v, m, k, n, nb, ind, exchange = case
+    p = mm.plan(v, m, k, n, nb, ind, exchange=exchange)
+    assert mm.plan_checks(p, v) == {"fits": True, "resident": True,
+                                    "built": True, "rows_once": True,
+                                    "cols_once": True}
+    ring = p["grid"] == 1 or not p["w_resident"]
+    assert (not ring) or (p["k"] % p["kc"] == 0
+                          and p["kc"] % mm.kstep(v) == 0
+                          and 1 <= p["stages"] <= 8)
+    if v != "f32":
+        assert p["N"] in mm.TC_WIDTHS and p["rows"] % 64 == 0
+        assert p["ind"] == 1 and p["N"] <= 80 or v in ("bf16", "f32_3xbf16")
+        assert p["threads"] == 2 * p["rows"] * (max(1, p["N"] // 128)
+                                                 if p["grid"] == 1 else 1)
+    else:
+        tpr = p["threads"] // (p["rows"] // 4)
+        assert -(-(p["N"] // 4) // tpr) <= (1 if ind > 1 else 4)
+        assert p["threads"] % 32 == 0 and p["threads"] <= 512
+        assert p["grid"] != 2
+    if p["grid"]:
+        assert p["panels"] * p["slabs"] <= mm.N_SMS
+        assert p["kc"] == 64 and p["k"] % p["m"] == 0
+    if p["grid"] == 2:
+        assert v not in ("i8_quant", "f32") and not exchange
+        assert p["panels"] <= 8 and p["w_resident"] and p["stages"] == 0
+        assert p["rows"] in (64, 128) and p["N"] <= 128
+    if v == "i8_quant" and p["grid"]:
+        assert p["w_resident"] and p["grid"] == 1
+    if ind > 1:
+        assert p["w_resident"]
+    if nb != mm.SCRIPT_NB:
+        assert not p["grid"] and p["slabs"] == mm.N_SMS
+
+
+def _tc_off(r, d, depth, ck):
+    """csrc/chain.cuh tc_off."""
+    return (r // 8) * 8 * depth + (d // ck) * 8 * ck + (r % 8) * ck + d % ck
+
+
+@pytest.mark.parametrize("variant", ["f32", "bf16", "f32_3xbf16", "i8",
+                                     "i8_quant"])
+def test_chain_layouts_put_each_element_where_the_kernel_reads_it(variant):
+    """``w_layout`` and ``carry_layout`` against the offsets the kernels
+    read (chain.cuh's tc_off and chunk order; mm.cu's W^T and [kc][N]
+    chunks), on a grid plan with streamed chunks and a block plan, every
+    element."""
+    gen = torch.Generator().manual_seed(1)
+    m, k, n = 128, 128, 96
+    w = torch.rand(m, k, generator=gen)
+    c = torch.rand(k, n, generator=gen)
+    plans = [mm.plan(variant, m, k, n, 48), mm.plan(variant, m, k, n,
+                                                    exchange=True)]
+    if variant != "i8_quant":
+        plans[1] = {**plans[1], "w_resident": 0, "grid": 1}
+    if variant not in ("f32", "i8_quant"):
+        plans.append({**plans[1], "w_resident": 1, "grid": 2})
+    for p in plans:
+        if variant == "f32":
+            copies = [w[None]]
+        elif variant in ("i8", "i8_quant"):
+            copies = [int8.quantised_weights(w)]
+        else:
+            hi = w.to(torch.bfloat16)
+            copies = [hi] + ([(w - hi.float()).to(torch.bfloat16)]
+                             if variant == "f32_3xbf16" else [])
+        wl = mm.w_layout(copies, p).reshape(-1)
+        cl = mm.carry_layout(c, p, variant).reshape(-1)
+        rows, S, N, ncols = p["rows"], p["slabs"], p["N"], p["ncols"]
+        kw = k if p["w_resident"] else p["kc"]
+        kcc = p["kc"] if p["grid"] else k
+        rr, dd = torch.meshgrid(torch.arange(m), torch.arange(k),
+                                indexing="ij")
+        panel, r = rr // rows, rr % rows
+        if variant == "f32":
+            off = (panel * k + dd) * rows + r
+            assert torch.equal(wl[off.reshape(-1)], w.reshape(-1))
+        else:
+            ck = 16 // copies[0].element_size()
+            q, d = dd // kw, dd % kw
+            for i, x in enumerate(copies):
+                off = (((panel * (k // kw) + q) * len(copies) + i) * rows * kw
+                       + _tc_off(r, d, kw, ck))
+                assert torch.equal(wl[off.reshape(-1)], x.reshape(-1))
+        kk, cc = torch.meshgrid(torch.arange(k), torch.arange(n),
+                                indexing="ij")
+        s, col = cc // ncols, cc % ncols
+        q, d = kk // kcc, kk % kcc
+        if p["grid"] == 2:   # [slab][k-chunk]
+            chunk = s * (k // kcc) + q
+        else:
+            chunk = q * S + s
+        if variant in ("f32", "i8_quant"):
+            off = (chunk * kcc + d) * N + col
+            assert torch.equal(cl[off.reshape(-1)], c.reshape(-1))
+        elif variant == "i8":
+            off = chunk * N * kcc + _tc_off(col, d, kcc, 16)
+            want = torch.clamp(c * 100.0, -127, 127).to(torch.int8)
+            assert torch.equal(cl[off.reshape(-1)], want.reshape(-1))
+        else:
+            split = 2 if variant == "f32_3xbf16" else 1
+            hi = c.to(torch.bfloat16)
+            base = chunk * split * N * kcc + _tc_off(col, d, kcc, 8)
+            assert torch.equal(cl[base.reshape(-1)], hi.reshape(-1))
+            if split == 2:
+                lo = (c - hi.float()).to(torch.bfloat16)
+                assert torch.equal(cl[(base + N * kcc).reshape(-1)],
+                                   lo.reshape(-1))
 
 
 # ------------------------------------------------------------------ K10
@@ -194,9 +330,9 @@ def test_int8_quant_scale_spans_each_group():
                                            "i8_quant", 1)], 1)
     assert torch.equal(split, both)
     assert not torch.equal(whole[:, :8], split[:, :8])
-    assert int8.layout("i8_quant", 1280) == (80, 16)
-    assert int8.layout("i8", 1280) == (8, 1)
-    assert int8.layout("i8_quant", 132 * 56, 56) == (56, 1)
+    assert int8.groups(1280, None) == 1 and int8.groups(1280, int8.GRID) == 1
+    assert int8.groups(132 * 56, 56) == 132
+    assert int8.chain(w, c0, "i8_quant", 1, nb=8).equal(split)
 
 
 # ------------------------------------------------------------------- K7

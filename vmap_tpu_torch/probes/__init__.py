@@ -5,9 +5,10 @@ time per step (the two-point repetition slope of ``_timing``) is the cost
 of that computation at K1's shapes on the card, launch latency cancelled:
 
   * ``mm`` (K4, ``scripts/microbench_mm.py``): chained ``W @ c`` on FP32
-    FMA, bf16 ``mma.sync`` and 3xbf16 ``mma.sync``;
-  * ``int8`` (K10, ``scripts/microbench_int8.py``): chained s8 ``mma.sync``
-    with and without in-loop per-tensor quantisation;
+    FMA, bf16 ``wgmma`` and 3xbf16 ``wgmma``, on a plan cut from the card
+    (``mm.plan``, ``csrc/chain.cuh``);
+  * ``int8`` (K10, ``scripts/microbench_int8.py``): chained s8 ``wgmma``
+    with and without in-loop per-tensor quantisation, on the same plans;
   * ``sections`` (K7, ``scripts/microbench_sections.py``): K1's render,
     embedding products and sin/cos ladder, each alone;
   * ``overlap`` (K8, ``scripts/microbench_overlap.py``): whether FMA work
@@ -52,8 +53,9 @@ _HERE = Path(__file__).resolve().parent
 
 # C signatures of probes/csrc/*.cu
 SIGNATURES = {
-    "vmap_probe_mm": ((I,) + (P,) * 5 + (I,) * 6 + (F, I, P), I),
-    "vmap_probe_int8": ((I, P, P, P) + (I,) * 7 + (P,), I),
+    "vmap_probe_mm": ((I,) + (P,) * 6 + (F, P), I),
+    "vmap_probe_int8": ((I,) + (P,) * 7, I),
+    "vmap_probe_wgmma_tile": ((I, P, P, P, P, I, P), I),
     "vmap_probe_render": ((P, P, P, P, P, P, I, P), I),
     "vmap_probe_emb": ((I, P, P, P, P, I, I, I, P), I),
     "vmap_probe_ladder": ((I, P, P, I, I, P), I),

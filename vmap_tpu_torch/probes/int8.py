@@ -16,13 +16,14 @@ one of three modes:
     cost with the in-loop quantisation.
 
 ``i8_quant``'s scale spans the whole carry, which on the card spans
-blocks: its kernel makes the carry's blocks one thread-block cluster (16
-blocks of 80 columns at n = 1280) and reduces through distributed shared
-memory at every step (``csrc/int8.cu`` says what that costs). K1's shapes
-run one chain per block (n = 132 P, nb = P), whose scale is its own
-carry's, a cluster of one; the plain version takes the abs-max per group
-of ``n / groups`` columns to match. wq sits in shared memory where it fits
-beside the carry with every block resident (``stages_w``, as ``mm.py``).
+blocks: on the script's shapes its kernel runs ``mm.plan``'s grid plan
+over the whole card, each step's abs-max folded into a slot in global
+memory by the same grid barrier that publishes the fold (``csrc/int8.cu``
+says what that costs). K1's shapes run one chain per block (n = 132 P,
+nb = P), whose scale is its own carry's; the plain version takes the
+abs-max per group of ``n / groups`` columns to match. The cases also run
+i8 on i8_quant's plan (``nb`` = "grid"): i8_quant less that case is the
+quantisation's cost a step.
 
 Values decay (f32: by about k 0.05 1e-3 a step) or saturate, so the kernel
 is held against its plain version at a few steps (i8 bit-equal, i8_quant
@@ -44,9 +45,11 @@ MODES = ("f32", "i8", "i8_quant")
 MODE_CODE = {"i8": 1, "i8_quant": 2}
 # scripts/microbench_int8.py:109-111
 SCRIPT_SHAPES = ((128, 128, 1280), (128, 384, 1280), (512, 512, 1280))
-QUANT_CLUSTER = 16         # i8_quant at the script's shapes: one cluster
 BASE_REPS = 200
 F32_SCALE = 1e-3
+# a case's nb: None (the plan the card gives the script's shape), K1's
+# chain width, or GRID: i8_quant's grid plan for i8
+GRID = "grid"
 
 
 def tol(mode: str, reps: int) -> float:
@@ -54,24 +57,6 @@ def tol(mode: str, reps: int) -> float:
     i8_quant rtol 1e-6 (the script's op order: c (1/s), round half to even,
     acc s); f32 rtol 1e-5 a step."""
     return {"i8": 0.0, "i8_quant": 1e-6, "f32": 1e-5 * reps}[mode]
-
-
-def smem_bytes(mode: str, m: int, k: int, nb: int, stage_w: bool) -> int:
-    """One block's dynamic shared memory (``csrc/int8.cu`` smem_bytes):
-    i8 two s8 carries [nbp, k + 16]; i8_quant the f32 carry [k, nbp] and
-    its s8 copy; wq [m, k + 16] if staged."""
-    nbp = -(-nb // 8) * 8
-    q = nbp * (k + 16)
-    return ((2 * q if mode == "i8" else 4 * k * nbp + q)
-            + (m * (k + 16) if stage_w else 0))
-
-
-def stages_w(mode: str, m: int, k: int, n: int, nb: int) -> bool:
-    """W's copy in shared memory (wq, or W^T for the f32 mode): where it
-    fits beside the carry with every block of the grid resident."""
-    if mode == "f32":
-        return mm.stages_w("f32", m, k, n, nb, 1)
-    return mm.resident(smem_bytes(mode, m, k, nb, True), n // nb)
 
 
 def quantised_weights(w: torch.Tensor) -> torch.Tensor:
@@ -108,69 +93,52 @@ def chain_reference(w: torch.Tensor, c0: torch.Tensor, mode: str, reps: int,
     return c
 
 
-def layout(mode: str, n: int, nb: int | None = None) -> tuple:
-    """(columns a block, blocks a cluster) of a mode's launch: the script's
-    shapes take 8 columns a block (mm.py's layout), i8_quant one cluster of
-    16 over all n; with ``nb`` given (K1's shapes), nb and clusters of 1."""
-    if nb is not None:
-        return nb, 1
-    if mode == "i8_quant":
-        return n // QUANT_CLUSTER, QUANT_CLUSTER
-    return mm.SCRIPT_NB, 1
+def groups(n: int, nb) -> int:
+    """i8_quant's scale groups: one a chain at K1's shapes, else one."""
+    return n // nb if isinstance(nb, int) else 1
 
 
 def launch(w: torch.Tensor, c0: torch.Tensor, mode: str, reps: int,
-           nb: int, cluster: int, wq: torch.Tensor | None = None
-           ) -> torch.Tensor:
+           nb=None, wq: torch.Tensor | None = None) -> torch.Tensor:
     """The chain kernel on CUDA tensors (f32: csrc/mm.cu; i8 / i8_quant:
-    csrc/int8.cu): the last carry [k, n] f32."""
+    csrc/int8.cu) on ``mm.plan``'s plan for this card (``nb`` as in
+    ``cases``): the last carry [k, n] f32."""
+    k1 = nb if isinstance(nb, int) else mm.SCRIPT_NB
     if mode == "f32":
-        return mm.launch({"w": w[None], "wt": w.t().contiguous()[None]}, c0,
-                         "f32", reps, F32_SCALE, nb, counter="int8")
+        return mm.launch({"w": w[None]}, c0, "f32", reps, F32_SCALE, k1,
+                         counter="int8")
     wq = quantised_weights(w) if wq is None else wq
     m, k = wq.shape
-    n = c0.shape[1]
-    if (c0.shape[0] != k or m % 16 or k % 32 or n % nb or not 1 <= nb <= 128
-            or not 1 <= cluster <= 16 or (n // nb) % cluster):
+    if c0.shape[0] != k or m % 16 or k % 32:
         raise ValueError(f"int8 probe: m={m} (a multiple of 16), k={k} (of "
-                         f"32), carry {tuple(c0.shape)}, {nb} columns a block "
-                         f"(<= 128, dividing n), clusters of {cluster}")
-    dev = probes.check_cuda(wq, c0)
-    out = torch.empty_like(c0)
-    code = probes.LIBRARY.load().vmap_probe_int8(
-        MODE_CODE[mode], probes.ptr(wq), probes.ptr(c0), probes.ptr(out), m,
-        k, n, nb, cluster, reps, int(stages_w(mode, m, k, n, nb)),
-        probes.stream(dev))
-    probes.LIBRARY.check(code, f"int8 probe ({mode}) launch")
-    probes.LAUNCHES["int8"] += 1
-    return out
+                         f"32), carry {tuple(c0.shape)}")
+    return mm.launch_chain(mode, [wq], c0, reps, 1.0, k1, 1, "int8",
+                           exchange=nb == GRID)
 
 
 def chain(w: torch.Tensor, c0: torch.Tensor, mode: str, reps: int,
-          nb: int | None = None, wq: torch.Tensor | None = None
-          ) -> torch.Tensor:
+          nb=None, wq: torch.Tensor | None = None) -> torch.Tensor:
     """The chain: the plain version on a CPU tensor, the kernel on a CUDA
-    tensor (``nb`` as ``layout``)."""
-    nb, cl = layout(mode, c0.shape[1], nb)
+    tensor (``nb`` as in ``cases``)."""
     if c0.device.type == "cpu":
-        return chain_reference(w, c0, mode, reps, c0.shape[1] // (nb * cl))
-    return launch(w, c0, mode, reps, nb, cl, wq)
+        return chain_reference(w, c0, mode, reps, groups(c0.shape[1], nb))
+    return launch(w, c0, mode, reps, nb, wq)
 
 
 def cases() -> list:
     """(m, k, n, nb or None, mode) of the script's shapes and K1's."""
     return ([(m, k, n, None, mode) for (m, k, n) in SCRIPT_SHAPES
              for mode in MODES]
-            # i8 at i8_quant's layout (16 blocks of n / 16 columns, no
-            # cluster): i8_quant less this is the quantisation's cost a step
-            + [(m, k, n, n // QUANT_CLUSTER, "i8")
-               for (m, k, n) in SCRIPT_SHAPES]
+            # i8 on i8_quant's plan: i8_quant less this is the
+            # quantisation's cost a step
+            + [(m, k, n, GRID, "i8") for (m, k, n) in SCRIPT_SHAPES]
             + [(m, k, n, nb, mode) for (m, k, n, nb) in mm.k1_shapes()
                for mode in MODES])
 
 
 def label(m, k, n, nb, mode) -> str:
-    blocks = f" ({n // nb} chains of {nb} cols)" if nb else ""
+    blocks = (" (i8_quant's plan)" if nb == GRID
+              else f" ({n // nb} chains of {nb} cols)" if nb else "")
     return f"[{m:4d},{k:4d}]x[{k:4d},{n:5d}] {mode:9s}{blocks}"
 
 
@@ -183,7 +151,10 @@ def measure(case: tuple, dev: torch.device) -> dict:
     ns = sl["step_ns"]
     return {"case": label(*case), "m": m, "k": k, "n": n, "nb": nb,
             "mode": mode, "reps": (BASE_REPS, 4 * BASE_REPS),
-            "w_in_smem": stages_w(mode, m, k, n, layout(mode, n, nb)[0]),
+            "plan": mm.describe(mm.plan(
+                "f32" if mode == "f32" else mode, m, k, n,
+                nb if isinstance(nb, int) else mm.SCRIPT_NB, 1,
+                mm.sm_count(dev), exchange=nb == GRID)),
             **sl,
             "ns_per_product": ns, "tops": 2.0 * m * k * n / ns / 1e3}
 
@@ -201,10 +172,9 @@ def bound(case: dict) -> dict:
 
 def plain_ms(case: dict, dev: torch.device) -> float:
     w, c0 = mm.make_inputs(case["m"], case["k"], case["n"], dev)
-    nb, cl = layout(case["mode"], case["n"], case["nb"])
-    groups = case["n"] // (nb * cl)
+    g = groups(case["n"], case["nb"])
     return _timing.graph_step_ms(
-        lambda r: chain_reference(w, c0, case["mode"], r, groups), dev)
+        lambda r: chain_reference(w, c0, case["mode"], r, g), dev)
 
 
 def library_ms(case: dict, dev: torch.device) -> float | None:
@@ -235,9 +205,8 @@ def compare(dev: torch.device, reps: int = 3) -> list:
     for case in cases():
         m, k, n, nb, mode = case
         w, c0 = mm.make_inputs(m, k, n, dev)
-        bnb, cl = layout(mode, n, nb)
-        got = launch(w, c0, mode, reps, bnb, cl)
-        want = chain_reference(w, c0, mode, reps, n // (bnb * cl))
+        got = launch(w, c0, mode, reps, nb)
+        want = chain_reference(w, c0, mode, reps, groups(n, nb))
         res.append(probes.held(label(*case), got, want, tol(mode, reps)))
     return res
 
@@ -251,9 +220,8 @@ def main(argv=None) -> list:
     out = []
     for case in cases():
         r = measure(case, dev)
-        where = "W in smem" if r["w_in_smem"] else "W from L2"
         print(f"{r['case']} {r['ns_per_product']:9.0f} ns/op  "
-              f"{r['tops']:7.1f} TF/s(eff)  ({where})", flush=True)
+              f"{r['tops']:7.1f} TF/s(eff)  ({r['plan']})", flush=True)
         out.append(r)
     return out
 
