@@ -101,8 +101,10 @@ Phases, in order (any failure raises and the script exits non-zero):
      finite, falling losses, 2 x n_iter int8 train_grad launches and as
      many train_quant_w launches per frame;
  12. the probes (``vmap_tpu_torch.probes``, their own library built from
-     probes/csrc/*.cu, ptxas registers printed): K4 ``mm`` (f32 FMA, bf16
-     and 3xbf16 mma.sync, f32 ind4), K10 ``int8`` (f32, i8, i8_quant), K7
+     probes/csrc/*.cu, ptxas registers printed; one m64n16 wgmma tile,
+     bf16 and s8, held exactly to mma.sync and to the product): K4 ``mm``
+     (f32 FMA, bf16 and 3xbf16 wgmma, f32 ind4, on the plan the card's
+     SM count gives), K10 ``int8`` (f32, i8, i8_quant), K7
      ``sections`` (render, emb_cat, emb_split, ladder and the port's
      sinpif ladder), K8 ``overlap`` (vpu, mxu, both, and the balanced
      vpu_bal / both_bal), K9 ``vpu`` (mul / mixed in f32, per-op bf16 and

@@ -7,7 +7,7 @@
 // from the card (probes/mm.py `plan` computes it from the SM count and
 // passes it in; the launchers here check it): a block computes `rows` rows
 // of y (a panel of W) for one slab of `ncols` columns of the carry (padded
-// to N), in one of two regimes:
+// to N), in one of three regimes:
 //
 //   * block (grid = 0): a block owns its slab and every row of W (`rows`
 //     = m, or m padded to warpgroups of 64), so its chain needs nothing
@@ -17,10 +17,17 @@
 //   * grid (grid = 1): W is cut into `panels` of `rows` rows; a block owns
 //     (panel, slab) and keeps its W panel in shared memory for the whole
 //     chain where it fits (w_resident), else streams it from L2 every step.
-//     Each step's fold is written to global memory (L2) in the layout the
-//     next step's operand copies read, and one grid-wide barrier a step
-//     makes it visible; the launch is cooperative and the launcher refuses
-//     a plan whose blocks are not all resident (occupancy API).
+//     Each step's fold is staged in shared memory and bulk-copied to global
+//     memory (L2) in the layout the next step's operand copies read, and
+//     one grid-wide barrier a step makes it visible; the launch is
+//     cooperative and the launcher refuses a plan whose blocks are not all
+//     resident (occupancy API).
+//   * cluster (grid = 2): as grid, but the `panels` blocks of a slab are
+//     one thread-block cluster that keeps the slab's whole carry in each
+//     block's shared memory (two buffers): a block's fold goes into its own
+//     next buffer and, as bulk copies between shared memories, into every
+//     peer's, completing on the peer's barrier of that buffer; no grid
+//     barrier and no L2 round trip (W resident, 64- or 128-row panels).
 //
 // Streamed operands (the carry's k-chunks in the grid regime, W's where it
 // does not stay resident) come through a ring of `stages` slots, each
@@ -41,8 +48,9 @@
 // carry the B operand (its columns are B's rows); f32 accumulators.
 //
 // Proxies: the fold's stores are generic-proxy writes that the next step's
-// bulk copies (grid) or wgmma (block) read through the async proxy, so the
-// writers fence (fence.proxy.async) before the barrier that publishes them.
+// bulk copies (grid, cluster) or wgmma (block) read through the async
+// proxy, so the writers fence (fence.proxy.async) before the barrier that
+// publishes them.
 
 #pragma once
 
@@ -473,28 +481,6 @@ template <> struct Wgmma<128> {
   }
 };
 
-// ---- -DCHAIN_PROFILE: block 0's thread 0 adds the SM clocks of each part
-// of a step (the first chunk's wait, the products, the fold's stores, the
-// exchange) to four 64-bit counters after the ws words the chain uses
-// (probes/mm.py PROFILE_PARTS reads them)
-#ifdef CHAIN_PROFILE
-#define CHAIN_MARK(i) \
-  if (blockIdx.x == 0 && threadIdx.x == 0) prof_t[i] = clock64()
-#define CHAIN_PROFILE_STEP()                                                          \
-  if (blockIdx.x == 0 && threadIdx.x == 0)                                           \
-    for (int i = 0; i < 4; ++i) prof[i] += prof_t[i + 1] - prof_t[i]
-#define CHAIN_PROFILE_DECL long long prof[4] = {0, 0, 0, 0}, prof_t[5] = {0, 0, 0, 0, 0}
-#define CHAIN_PROFILE_WRITE(ws, reps)                                                 \
-  if (blockIdx.x == 0 && threadIdx.x == 0)                                           \
-    for (int i = 0; i < 4; ++i)                                                      \
-      reinterpret_cast<long long*>(ws + ((reps) + 3) / 2 * 2 + 2)[i] = prof[i]
-#else
-#define CHAIN_MARK(i)
-#define CHAIN_PROFILE_STEP()
-#define CHAIN_PROFILE_DECL
-#define CHAIN_PROFILE_WRITE(ws, reps)
-#endif
-
 // ---- the pipeline
 
 // Shared-memory regions of the running block.
@@ -730,10 +716,8 @@ __device__ __forceinline__ void wgmma_chain(const Plan& p, const unsigned char* 
   const int warp = t >> 5, lane = t & 31;
   const int row0 = panel * p.rows + wgr * 64 + warp * 16 + (lane >> 2), col0 = wgc * NW;
   long g = 0;
-  CHAIN_PROFILE_DECL;
   for (int step = 0; step < p.reps; ++step) {
     const bool last = step == p.reps - 1;
-    CHAIN_MARK(0);
     unsigned char* cur = R.c + (clus ? (step & 1) * cbuf : 0);
     unsigned char* nxt = R.c + (clus ? ((step + 1) & 1) * cbuf : 0);
     if (clus) {
@@ -772,7 +756,6 @@ __device__ __forceinline__ void wgmma_chain(const Plan& p, const unsigned char* 
 
     Acc acc[NACC];  // written by the step's first product (scale_d 0)
     if (!nq) {
-      CHAIN_MARK(1);
       fence_acc(acc);
       wgmma_fence();
       if constexpr (block) {
@@ -791,7 +774,6 @@ __device__ __forceinline__ void wgmma_chain(const Plan& p, const unsigned char* 
     }
     for (int q = 0; q < nq; ++q) {
       mbar_wait(R.bars + 2 + g % p.stages, (uint32_t)((g / p.stages) & 1));
-      if (q == 0) CHAIN_MARK(1);
       unsigned char* slot = R.ring + (g % p.stages) * R.slot;
       uint32_t a, sa, alo;
       if (p.w_resident) {
@@ -833,7 +815,6 @@ __device__ __forceinline__ void wgmma_chain(const Plan& p, const unsigned char* 
       ++g;
     }
 
-    CHAIN_MARK(2);
     if (block) __syncthreads();  // every warpgroup has read the carry
     float mx;
     unsigned char* dummy = reinterpret_cast<unsigned char*>(R.red + 16);  // after block_max's
@@ -842,7 +823,6 @@ __device__ __forceinline__ void wgmma_chain(const Plan& p, const unsigned char* 
     else
       mx = fold<V, NW, REG, false>(acc, p, row0, col0, slab, scale, s, grid ? R.ring : nxt,
                                    dummy, out);
-    CHAIN_MARK(3);
     if (!block && !last) {
       probe::fence_proxy_async();
       __syncthreads();
@@ -875,11 +855,8 @@ __device__ __forceinline__ void wgmma_chain(const Plan& p, const unsigned char* 
       probe::fence_proxy_async();
       __syncthreads();
     }
-    CHAIN_MARK(4);
-    CHAIN_PROFILE_STEP();
   }
   if (clus) cluster_sync();  // no block leaves while a peer may still copy to it
-  CHAIN_PROFILE_WRITE(ws, p.reps);
 }
 
 // ---- launching

@@ -85,10 +85,8 @@ mm_fma_kernel(Plan p, const float* __restrict__ w, float* __restrict__ cb0,
   const size_t wj = (size_t)k * rows;  // W_j's stride (resident)
   long g = 0;
   unsigned nbar = 0;
-  CHAIN_PROFILE_DECL;
   for (int step = 0; step < p.reps; ++step) {
     const bool last = step == p.reps - 1;
-    CHAIN_MARK(0);
     if (p.grid && tid == 0)
       for (int q = 0; q < p.stages && q < nq; ++q)
         chain::issue_chunk(p, chain::F32, R, g + q, nq, wb, c0b, c1b, panel, slab);
@@ -102,7 +100,6 @@ mm_fma_kernel(Plan p, const float* __restrict__ w, float* __restrict__ cb0,
     const int chunks = nq ? nq : 1;
     for (int q = 0; q < chunks; ++q) {
       if (nq) chain::mbar_wait(R.bars + 2 + g % p.stages, (uint32_t)((g / p.stages) & 1));
-      if (q == 0) CHAIN_MARK(1);
       const unsigned char* slot = R.ring + (g % p.stages) * R.slot;
       const float* W = p.w_resident ? reinterpret_cast<const float*>(R.w) + (size_t)q * kc * rows
                                     : reinterpret_cast<const float*>(slot);
@@ -147,7 +144,6 @@ mm_fma_kernel(Plan p, const float* __restrict__ w, float* __restrict__ cb0,
     // the fold: y's row i to the carry's rows i, i + m, ... < k (block
     // plan: in shared memory; grid plan: the panel's rows staged in slot 0
     // as [rows][N], then bulk-copied to each copy's place in L2)
-    CHAIN_MARK(2);
     __syncthreads();  // every thread is done with the carry (block) / slot 0 (grid)
     float* cF = reinterpret_cast<float*>(R.c);
     float* stage = reinterpret_cast<float*>(R.ring);
@@ -200,16 +196,12 @@ mm_fma_kernel(Plan p, const float* __restrict__ w, float* __restrict__ cb0,
         chain::bulk_s2g_wait();
       }
     }
-    CHAIN_MARK(3);
     if (p.grid) {
       if (!last) chain::grid_sync(ws, ++nbar);
     } else {
       __syncthreads();
     }
-    CHAIN_MARK(4);
-    CHAIN_PROFILE_STEP();
   }
-  CHAIN_PROFILE_WRITE(ws, p.reps);
 }
 
 // The (regime, warpgroup width) pairs built, the ones probes/mm.py plan

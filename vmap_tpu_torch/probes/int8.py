@@ -1,4 +1,4 @@
-"""K10: does s8 ``mma.sync`` pay at K1's shapes once quantisation is paid?
+"""K10: does s8 ``wgmma`` pay at K1's shapes once quantisation is paid?
 
 Counterpart of ``scripts/microbench_int8.py::_chain``. One launch runs
 ``reps`` dependent steps of a chained product y = W @ c, the carry folded

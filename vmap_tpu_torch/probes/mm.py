@@ -370,12 +370,6 @@ def carry_layout(c: torch.Tensor, p: dict, variant: str) -> torch.Tensor:
     return out.contiguous()
 
 
-# the parts of a step -DCHAIN_PROFILE times: the wait for the first
-# chunk, the products, the fold's stores, the exchange (grid barrier or
-# block barrier)
-PROFILE_PARTS = ("first_chunk", "products", "fold", "exchange")
-
-
 def sm_count(dev: torch.device) -> int:
     """The card's SMs (the CPU: the H100's 132, for the printout)."""
     if dev.type == "cuda":
@@ -386,9 +380,10 @@ def sm_count(dev: torch.device) -> int:
 _LAYOUTS: dict = {}
 
 
-def _cached(kind: str, tensors: list, p: dict, make):
-    """A layout of ``tensors`` for plan ``p``, made once while the tensors
-    are alive and unmodified (the cache keeps them, so their memory stays
+def cached(kind: str, tensors: list, p: dict, make):
+    """``make()``, a copy or layout of ``tensors`` for ``p`` (a plan, or any
+    dict of what else it depends on), made once while the tensors are
+    alive and unmodified (the cache keeps them, so their memory stays
     theirs): the loop-invariant copies are made outside the timed chain,
     as the script's are."""
     key = (kind, tuple((t.data_ptr(), tuple(t.shape), t.dtype, t._version)
@@ -402,14 +397,12 @@ def _cached(kind: str, tensors: list, p: dict, make):
 
 def launch_chain(variant: str, copies: list, c0: torch.Tensor, reps: int,
                  scale: float, nb: int, ind: int, counter: str,
-                 exchange: bool = False,
-                 profile: dict | None = None) -> torch.Tensor:
+                 exchange: bool = False) -> torch.Tensor:
     """The chain kernel of ``variant`` (csrc/mm.cu f32 / bf16 / 3xbf16,
     csrc/int8.cu i8 / i8_quant) on CUDA tensors, on the plan for this
     card: returns the last carry [k, n] f32. ``copies``: W's loop-invariant
     copies (``w_layout``); ``counter``: the probe whose launch count it
-    adds to. ``profile``: a dict to fill with block 0's SM clocks a step
-    by part (``PROFILE_PARTS``), from a build with -DCHAIN_PROFILE."""
+    adds to; ``exchange``: the grid plan even where another fits."""
     import ctypes
     dev = probes.check_cuda(c0, *copies)
     if reps < 1:
@@ -417,16 +410,15 @@ def launch_chain(variant: str, copies: list, c0: torch.Tensor, reps: int,
     m, k = copies[0].shape[-2:]
     n = c0.shape[1]
     p = plan(variant, m, k, n, nb, ind, sm_count(dev), exchange, reps)
-    w = _cached("w", copies, p, lambda: w_layout(copies, p))
-    cb0 = _cached("c", [c0], p, lambda: carry_layout(c0, p, variant))
+    w = cached("w", copies, p, lambda: w_layout(copies, p))
+    cb0 = cached("c", [c0], p, lambda: carry_layout(c0, p, variant))
     if p["grid"]:   # overwritten by the chain
         cb0 = cb0.clone()
     cb1 = torch.empty_like(cb0) if p["grid"] else cb0.new_empty(16)
     out = torch.empty_like(c0)
-    ws = torch.zeros(reps + 16, dtype=torch.int32, device=dev)
+    ws = torch.zeros(reps + 2, dtype=torch.int32, device=dev)
     ints = (ctypes.c_int * len(PLAN_FIELDS))(*(p[f] for f in PLAN_FIELDS))
-    lib = probes.LIBRARY.load(("CHAIN_PROFILE",) if profile is not None
-                              else ())
+    lib = probes.LIBRARY.load()
     ptrs = [probes.ptr(t) for t in (w, cb0, cb1, out, ws)]
     if variant in VARIANT_CODE:
         code = lib.vmap_probe_mm(VARIANT_CODE[variant], *ptrs,
@@ -439,11 +431,6 @@ def launch_chain(variant: str, copies: list, c0: torch.Tensor, reps: int,
     probes.LIBRARY.check(code, f"{counter} chain ({variant}, {describe(p)})"
                          " launch")
     probes.LAUNCHES[counter] += 1
-    if profile is not None:
-        at = (reps + 3) // 2 * 2 + 2
-        clocks = ws[at:at + 8].cpu().view(torch.int64).tolist()
-        profile.update({part: c / reps for part, c in zip(PROFILE_PARTS,
-                                                            clocks)})
     return out
 
 
