@@ -28,7 +28,9 @@ whose W fits beside a 16-column slab); a *grid* plan cuts W into panels
 (64 rows for the tensor cores, 32 or 64 for FMA) and n into slabs so
 that every SM has a (panel, slab) each step, keeps each block's W panel
 in shared memory for the whole chain where it fits, and exchanges the
-fold through L2 with one grid barrier a step. The loop-invariant operand
+fold through L2 with one grid barrier a step; a *cluster* plan (tensor
+cores, a slab's panels within one thread-block cluster) exchanges it
+through the cluster's shared memory instead. The loop-invariant operand
 copies (bf16 / hi / lo, the scaled W_j) are made in ``operands`` and laid
 out for the plan in ``launch``; the tensor-core variants take ind = 1.
 
@@ -94,8 +96,8 @@ def tol(variant: str, reps: int) -> float:
 # chain.cuh's Plan, in the order the launchers read it
 PLAN_FIELDS = ("grid", "rows", "panels", "slabs", "N", "ncols", "kc", "stages",
                "w_resident", "threads", "m", "k", "n", "ind", "reps")
-# wgmma widths the kernels are built for (s8: up to 80), the block
-# plan's slab at the script's shapes, the most ring slots
+# wgmma widths a plan may take (within BUILT), the block plan's slab at
+# the script's shapes, the most ring slots
 TC_WIDTHS = (16, 32, 40, 48, 64, 80, 256)   # 256: two warpgroups of 128
 BLOCK_SLAB = 16
 MAX_STAGES = 8
@@ -188,19 +190,24 @@ def plan(variant: str, m: int, k: int, n: int, nb: int = SCRIPT_NB,
          ind: int = 1, sms: int = N_SMS, exchange: bool = False,
          reps: int = 1) -> dict:
     """The chain kernels' plan (``csrc/chain.cuh`` Plan) for ``sms`` SMs
-    (cached: treat it as read-only):
-    K1's shapes (nb != SCRIPT_NB) a block a chain of nb columns; the
-    script's a block plan where W fits beside a 16-column slab (not
-    i8_quant, whose scale spans the carry, nor ``exchange``), else a grid
-    plan whose (panel, slab) blocks are the most that stay within one
-    block an SM (FMA: 32- or 64-row panels, whichever gives more). Raises
-    where none fits."""
+    (cached: treat it as read-only): K1's shapes (nb != SCRIPT_NB) a block
+    a chain of nb columns; the script's a block plan where W fits beside a
+    16-column slab (not i8_quant, whose scale spans the carry, nor
+    ``exchange``); else the (panel, slab) blocks, the most that stay
+    within one block an SM (FMA: 32- or 64-row panels, whichever gives
+    more), as a cluster plan where the tensor cores' slab fits one cluster
+    (not i8_quant nor ``exchange``), else a grid plan. The tensor cores
+    take only the widths ``BUILT`` names for the regime. Raises where
+    none fits."""
     tc = variant != "f32"
     if variant not in W_EL:
         raise ValueError(f"no chain plan for {variant!r}")
-    bf = variant in ("bf16", "f32_3xbf16")   # s8 takes no n40 nor two groups
-    widths = ([w for w in TC_WIDTHS if bf or (w <= 80 and w != 40)]
-              if tc else range(8, n + 1, 8))
+
+    def widths(regime):
+        if not tc:
+            return range(8, n + 1, 8)
+        return [w for w in TC_WIDTHS
+                if min(w, 128) in BUILT[variant].get(regime, ())]
 
     def base(grid, rows, N, ncols):
         # tensor cores: a warpgroup a 64-row panel (block plan) or a
@@ -214,10 +221,11 @@ def plan(variant: str, m: int, k: int, n: int, nb: int = SCRIPT_NB,
 
     rows_all = -(-m // 64) * 64 if tc else m
     if nb != SCRIPT_NB:
-        N = (next((w for w in widths if w >= nb and w != 40), None) if tc
+        N = (next((w for w in widths(0) if w >= nb), None) if tc
              else -(-nb // 8) * 8)
         if N is None or n % nb:
-            raise ValueError(f"K1's layout needs nb <= {widths[-1]} dividing n")
+            raise ValueError(f"K1's layout needs nb <= {widths(0)[-1]} "
+                             f"dividing n")
         return _fit(base(False, rows_all, N, nb), variant)
     if not exchange and variant != "i8_quant" and n % BLOCK_SLAB == 0:
         try:
@@ -233,10 +241,10 @@ def plan(variant: str, m: int, k: int, n: int, nb: int = SCRIPT_NB,
     for rows in ((64,) if tc else (32, 64)):
         if m % rows:
             continue
-        for N in widths:
+        for N in widths(1):
             blocks = (m // rows) * (n // N)
-            if (n % N or blocks > sms
-                    or (not tc and fma_items(rows, N) > (1 if ind > 1 else 4))):
+            items = 0 if tc else fma_items(rows, N)
+            if n % N or blocks > sms or items > (1 if ind > 1 else 4):
                 continue
             if best is None or blocks > best[0]:
                 best = (blocks, rows, N)
@@ -252,7 +260,7 @@ def plan(variant: str, m: int, k: int, n: int, nb: int = SCRIPT_NB,
         for crows in (64, 128):
             if m % crows or not 2 <= m // crows <= 8:
                 continue
-            for cN in widths:
+            for cN in widths(2):
                 blocks = (m // crows) * (n // cN)
                 if n % cN or cN > 128 or blocks > sms:
                     continue

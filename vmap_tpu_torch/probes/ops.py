@@ -177,11 +177,10 @@ def launch(case: str, ins: list, reps: int) -> tuple:
                              f"expected f32 {shape}")
     if case.startswith("fwd_mm"):
         key = {"case": case}
-        out = mm.launch(mm.cached("ops", [ins[1]], key,
-                                  lambda: mm_operands(case, ins)),
-                        mm.cached("c0", [ins[0]], key, lambda: ins[0] * 1.0001),
-                        _variant(case), reps, MM_SCALE, mm.SCRIPT_NB,
-                        counter="ops")
+        w_ops = mm.cached("ops", [ins[1]], key, lambda: mm_operands(case, ins))
+        c0 = mm.cached("c0", [ins[0]], key, lambda: ins[0] * 1.0001)
+        out = mm.launch(w_ops, c0, _variant(case), reps, MM_SCALE,
+                        mm.SCRIPT_NB, counter="ops")
         return out, None
     x = ins[0].contiguous()
     m = ins[1].contiguous() if case == "lanesum_dot" else None
