@@ -11,7 +11,7 @@
 //      chain's), cq = rint(c (1/s)), y = wq @ cq in s32, c <- f32(fold(y))
 //      s 1e-3 (the script's op order).
 //
-// int8_chain_kernel<MODE, N> is chain.cuh's wgmma_chain on m64nNk32 s8
+// int8_chain_kernel<V, N, REG> is chain.cuh's wgmma_chain on m64nNk32 s8
 // products with s32 accumulation (the sums exact, so i8 is bit-equal to
 // its plain version), on the plan probes/mm.py takes from the card. In the
 // grid regime i8_quant's scale comes in the same exchange as the fold:
@@ -19,9 +19,9 @@
 // atomicMax a block folds it into the step's slot in global memory, and
 // the grid barrier that publishes the carry publishes the slot; the next
 // step quantises each staged f32 chunk of the carry into wgmma's s8 layout
-// as it arrives. So the chain spreads over the whole card, where PR 6's
-// kernel ran it as one cluster of 16 blocks. In the block regime (K1's
-// shapes, a scale a chain) the block reduces its own carry.
+// as it arrives. So the chain spreads over the whole card, not over one
+// cluster of 16 blocks. In the block regime (K1's shapes, a scale a
+// chain) the block reduces its own carry.
 //
 // Bound on this card: 2 m k n operations a step at 1979 TOP/s (s8), plus
 // i8_quant's 5 FP32 operations a carry element.

@@ -4,16 +4,17 @@
 // (scripts/microbench_int8.py, scale 1e-3, one product a step) and K5's
 // fwd_mm / fwd_mm_bf16 (scripts/microbench_ops.py:149-157).
 //
-// The plan (chain.cuh: the block and grid regimes, the ring, the layouts)
-// is taken from the card by probes/mm.py `plan`; this file holds the two
-// product engines and the launcher.
+// The plan (chain.cuh: the block, grid and cluster regimes, the ring, the
+// layouts) is taken from the card by probes/mm.py `plan`; this file holds
+// the two product engines and the launcher.
 //
-//   mm_chain_kernel<V, N> (V 1 bf16, 2 3xbf16): chain.cuh's wgmma_chain,
-//     one warpgroup a 64-row panel of W, m64nNk16 bf16 products with f32
-//     accumulation, A (W) and B (the carry's bf16 copies, which the fold
-//     writes straight into wgmma's layout) from shared memory; 3xbf16 takes
-//     three products a k step (W lo carry hi, W hi carry lo, W hi carry
-//     hi: the small terms first) into one accumulator;
+//   mm_chain_kernel<V, NW, REG> (V 1 bf16, 2 3xbf16; REG the regime):
+//     chain.cuh's wgmma_chain, a warpgroup 64 rows of W by NW columns,
+//     m64nNk16 bf16 products with f32 accumulation, A (W) and B (the
+//     carry's bf16 copies, which the fold writes straight into wgmma's
+//     layout) from shared memory; 3xbf16 takes three products a k step (W
+//     lo carry hi, W hi carry lo, W hi carry hi: the small terms first)
+//     into one accumulator;
 //   mm_fma_kernel<ITEMS, IND> (f32): FP32 FMA, IEEE, never TF32. Up to
 //     512 threads (the plan's: enough for one or ITEMS 4 x 4 tiles a
 //     thread); a thread owns 4 rows x 4 ITEMS columns of y (one row group,
@@ -28,8 +29,9 @@
 // 989 (bf16; 3xbf16 three times the bf16 work). What the plans do about it:
 // every SM has work each step (the slabs and panels are cut from the SM
 // count), W stays in shared memory for the whole chain wherever it fits
-// (read from L2 once, not once a step), and a step's exchange is one
-// grid barrier (grid regime) or none (block regime).
+// (read from L2 once, not once a step), and a step's exchange is none
+// (block regime), shared-to-shared copies in a cluster (cluster regime) or
+// one grid barrier (grid regime).
 
 #include <algorithm>
 
