@@ -240,7 +240,9 @@ its own, in place of the phases (``update_ab``).
     python3 chip_smoke.py --probe-ab dev/parent . . dev/parent
 
 does the same for the chain probes (K4's and K10's cases, K5's fwd_mm
-pair: each kernel's ns a step and its library call's; ``probe_ab``).
+pair, K7's emb_cat / emb_split, K8's five modes with their overlap
+fractions: each kernel's ns a step and its library call's;
+``probe_ab``).
 """
 
 from __future__ import annotations
@@ -3368,11 +3370,12 @@ def probe_path(dev, gpu: str) -> tuple:
 # ------------------------------------------------------------ --probe-ab
 def probe_times(dev) -> dict:
     """The chain probes of the checkout this process imports (K4's and
-    K10's cases, K5's fwd_mm pair) on one timer: each kernel's ns a step
-    (the probe's own slope) and its library call's (None where there is
-    none)."""
+    K10's cases, K5's fwd_mm pair, K7's emb_cat / emb_split, K8's five
+    modes) on one timer: each kernel's ns a step (the probe's own slope)
+    and its library call's (None where there is none); K8's modes timed
+    ``overlap.RUNS`` times, each run's ns and overlap fractions kept."""
     from vmap_tpu_torch import probes
-    from vmap_tpu_torch.probes import int8, mm, ops
+    from vmap_tpu_torch.probes import int8, mm, ops, overlap, sections
     probes.LIBRARY.load()
     res = {}
     for name, mod in (("probe_mm", mm), ("probe_int8", int8)):
@@ -3387,6 +3390,21 @@ def probe_times(dev) -> dict:
         res[f"probe_ops {case}"] = {
             "ns": r["step_ns"],
             "library_ns": ops.library_ms(r, dev) * 1e6}
+    for case in ("emb_cat", "emb_split"):
+        r = sections.measure(case, dev)
+        lib = sections.library_ms(r, dev)
+        res[f"probe_sections {case}"] = {
+            "ns": r["step_ns"],
+            "library_ns": None if lib is None else lib * 1e6}
+    ov = overlap.main(["--device", "cuda"])
+    for mode, r in ov["modes"].items():
+        lib = overlap.library_ms({"case": mode}, dev)
+        res[f"probe_overlap {mode}"] = {
+            "ns": r["step_ns"], "ns_runs": r["step_ns_runs"],
+            "library_ns": None if lib is None else lib * 1e6}
+    for key in ("overlap", "overlap_bal"):
+        res[f"probe_overlap {key}"] = {"fraction": ov[key],
+                                       "fraction_runs": ov[key + "_runs"]}
     return res
 
 
@@ -3423,6 +3441,11 @@ def probe_ab(trees: list) -> list:
                "cases": json.loads(lines[-1][len(tag):])}
         runs.append(run)
         for key, r in run["cases"].items():
+            if "fraction" in r:
+                log(f"[pab] {i} {run['tree']} {key} fraction: median "
+                    f"{r['fraction']:.3f} of "
+                    f"{' '.join(f'{x:.3f}' for x in r['fraction_runs'])}")
+                continue
             lib = ("none" if r["library_ns"] is None
                    else f"{r['library_ns']:.1f}")
             log(f"[pab] {i} {run['tree']} {key}: ns a step kernel "
@@ -3840,8 +3863,8 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)   # one run of --update-ab
     ap.add_argument("--probe-ab", nargs="+", metavar="TREE",
                     help="in place of the phases: time the chain probes "
-                    "(K4, K10, K5's fwd_mm) of each checkout TREE in turn "
-                    "(probe_ab)")
+                    "(K4, K10, K5's fwd_mm, K7's emb, K8) of each checkout "
+                    "TREE in turn (probe_ab)")
     ap.add_argument("--probe-times", action="store_true",
                     help=argparse.SUPPRESS)   # one run of --probe-ab
     ap.add_argument("--tree", help=argparse.SUPPRESS)  # its checkout

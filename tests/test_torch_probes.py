@@ -755,6 +755,45 @@ def test_timed_library_columns_name_one_call_or_none():
     assert int8.library_ms({"mode": "i8_quant"}, CPU) is None
 
 
+class _Calls(torch.overrides.TorchFunctionMode):
+    """Counts the torch functions a chain calls, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = {}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        name = getattr(func, "__name__", str(func))
+        self.calls[name] = self.calls.get(name, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("case", ["emb_cat", "emb_split", "mxu"])
+def test_library_chains_are_one_matmul_a_product(case):
+    """K7's emb cases and K8's mxu name ``torch.matmul`` as their library
+    call (the docstring says so), and the chain ``library_ms`` times is
+    ``torch.matmul`` a product (two a step) computing the plain chain's
+    function within its tolerance, here on the CPU."""
+    reps = 2
+    mod = overlap if case == "mxu" else sections
+    assert "torch.matmul" in mod.library_ms.__doc__
+    if case == "mxu":
+        x = overlap.make_inputs(CPU)
+        run = overlap.library_chain(x)
+        want = overlap.chain_reference(x, "mxu", reps)[1]
+        rtol = overlap.tol(reps)
+    else:
+        ins = sections.make_inputs(case, CPU)
+        run = sections.library_chain(ins)
+        want = sections.chain_reference(case, ins, reps)
+        rtol = sections.tol(case, reps)
+    with _Calls() as rec:
+        got = run(reps)
+    assert rec.calls.get("matmul") == 2 * reps
+    assert not {"__matmul__", "mm", "bmm"} & set(rec.calls)
+    probes.held(case, got, want, rtol)
+
+
 # ------------------------------------------------------- entry points
 @pytest.mark.parametrize("name", ["mm", "int8", "sections", "overlap",
                                   "vpu", "ops", "dma"])

@@ -154,9 +154,25 @@ def plain_ms(case: dict, dev: torch.device) -> float:
         lambda r: chain_reference(x, case["case"], r), dev)
 
 
-def library_ms(case: dict, dev: torch.device) -> None:
-    """None: no single PyTorch call computes both chains."""
-    return None
+def library_chain(x: dict):
+    """mxu's chain as ``torch.matmul`` calls, a function of the steps: two
+    products a step, each times 1e-2 (f32, TF32 off)."""
+    def run(reps):
+        c = x["c"] * 1.0001
+        for _ in range(reps):
+            c = torch.matmul(x["w1"], c) * 1e-2
+            c = torch.matmul(x["w2"], c) * 1e-2
+        return c
+    return run
+
+
+def library_ms(case: dict, dev: torch.device) -> float | None:
+    """mxu: ``torch.matmul`` a product (``library_chain``). None for vpu,
+    vpu_bal (a chain of elementwise ops: no single call computes a round)
+    and both, both_bal (no single call computes both chains)."""
+    if case["case"] != "mxu":
+        return None
+    return _timing.graph_step_ms(library_chain(make_inputs(dev)), dev)
 
 
 def compare(dev: torch.device, reps: int = 3) -> list:

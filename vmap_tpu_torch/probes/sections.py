@@ -292,9 +292,31 @@ def plain_ms(case: dict, dev: torch.device) -> float:
         lambda r: chain_reference(case["case"], ins, r), dev)
 
 
-def library_ms(case: dict, dev: torch.device) -> None:
-    """None: no single PyTorch call computes a section."""
-    return None
+def library_chain(ins: list):
+    """The emb step as ``torch.matmul`` calls, a function of the steps:
+    W1 @ emb and W2 @ emb on the concatenated bands (f32, TF32 off), the
+    bands and the carry update in torch ops."""
+    w1, w2 = ins[1], ins[2]
+
+    def run(reps):
+        c = ins[0] * 1.0001
+        for _ in range(reps):
+            emb = torch.cat([c, c * 0.5, c * 0.25, c * 0.125], 0)
+            y = torch.matmul(w1, emb) + torch.matmul(w2, emb)
+            c = c * KEEP["emb_cat"] + y[:96] * SECTION_SCALE
+        return c
+    return run
+
+
+def library_ms(case: dict, dev: torch.device) -> float | None:
+    """emb_cat / emb_split: ``torch.matmul`` a product (``library_chain``;
+    both cases compute the same function, so they share it). None for
+    render and the ladders: no single PyTorch call computes their
+    sections (elementwise chains, row sums, sin / cos)."""
+    if not case["case"].startswith("emb"):
+        return None
+    return _timing.graph_step_ms(
+        library_chain(make_inputs(case["case"], dev)), dev)
 
 
 def compare(dev: torch.device, reps: int = 3) -> list:
