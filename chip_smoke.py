@@ -3199,6 +3199,20 @@ PROBES = (("probe_mm", "mm", "scripts/microbench_mm.py:27",
           ("probe_ops", "ops", "scripts/microbench_ops.py:41", "dep_fma"),
           ("probe_dma", "dma", "scripts/microbench_dma.py:28",
            "bulk_hbm_132"))
+# the kernel functions of each probe's source (the kernels line's
+# "functions")
+PROBE_FUNCTIONS = {
+    "probe_mm": ["mm_chain_kernel<V, NW, REG> (wgmma)",
+                 "mm_fma_kernel<ITEMS, IND>", "wgmma_tile_kernel<S8>"],
+    "probe_int8": ["int8_chain_kernel<V, N, REG> (s8 wgmma)"],
+    "probe_sections": ["render_kernel",
+                       "emb_kernel<SPLIT, 2> (FP32 FMA, W resident across "
+                       "a cluster of 2)", "ladder_kernel<SINPI>"],
+    "probe_overlap": ["overlap_kernel<MODE> (3xbf16 wgmma, the vpu ops "
+                      "between commit and wait)"],
+    "probe_vpu": ["vpu_f32_kernel<OP>", "vpu_bf16_kernel<OP, FMA>"],
+    "probe_ops": ["ew_kernel<K>", "lanesum_kernel", "tiles_kernel<SERIAL>"],
+    "probe_dma": ["dma_bulk_kernel", "dma_cp_async_kernel"]}
 
 def pool_gather(dev, gpu: str) -> dict:
     """The sampler's pool gather (``core/step.py`` ``_sample_bank``,
@@ -3281,7 +3295,8 @@ def probe_path(dev, gpu: str) -> tuple:
     log(f"[12] built {os.path.relpath(lib_path, REPO)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if ("registers" in line or "spill" in line or "Compiling" in line
+                or "ptxas warning" in line):
             log(f"[12] ptxas: {line.strip()}")
     mods = {name: importlib.import_module(f"vmap_tpu_torch.probes.{mod}")
             for name, mod, _, _ in PROBES}
@@ -3333,6 +3348,7 @@ def probe_path(dev, gpu: str) -> tuple:
         entries.append({
             "name": name, "route": "cuda",
             "source": f"vmap_tpu_torch/probes/csrc/{mod_name}.cu",
+            "functions": PROBE_FUNCTIONS[name],
             "replaces": replaces, "launches": counts[mod_name],
             "max_abs_err": max(r["max_abs_err"] for r in errs),
             "ms": top["ms"], "plain_ms": top["plain_ms"],

@@ -394,6 +394,66 @@ def test_ladder_sinpi_is_the_ladder_within_f32():
                                rtol=0, atol=5e-5)
 
 
+def test_emb_plan_fits_covers_and_stays_resident():
+    """K7's emb plan on a 132-SM card (``sections.emb_plan``, the mirror of
+    csrc/sections.cu emb_plan_ok): a cluster of 2 blocks a slab of 20
+    columns, each block keeping 64 rows of both W^T (192 KiB) beside the
+    slab's two carry buffers within a block's shared memory; its panels
+    cover y's 128 rows once (all of both products, rows 96-127 included)
+    and its slabs the 1280 columns once; its 128 blocks all resident, one
+    an SM. A card with too few SMs has no plan."""
+    p = sections.emb_plan(132)
+    assert p == {"cluster": 2, "rows": 64, "N": 20, "slabs": 64,
+                 "threads": 128}
+    assert all(sections.emb_plan_checks(p, 132).values())
+    assert sections.emb_smem_bytes(p) == (
+        4 * (384 * 2 * 64 + 2 * 96 * 20) + 24) <= mm.BLOCK_SMEM
+    assert p["cluster"] * p["slabs"] == 128
+    with pytest.raises(ValueError, match="no emb plan"):
+        sections.emb_plan(100)
+    assert not sections.emb_plan_checks({**p, "cluster": 4, "rows": 32},
+                                        132)["built"]
+
+
+def test_emb_w_layout_puts_each_element_where_the_kernel_reads_it():
+    """``emb_w_layout``: block ``panel`` reads W1^T[k][r] at (k 2 + 0) rows
+    + r and W2^T[k][r] at (k 2 + 1) rows + r of its panel (csrc/sections.cu
+    emb_kernel's Wb), every element."""
+    ins = sections.make_inputs("emb_cat", CPU)
+    p = sections.emb_plan(132)
+    rows = p["rows"]
+    wl = sections.emb_w_layout(ins[1], ins[2], p).reshape(-1)
+    rr, kk = torch.meshgrid(torch.arange(128), torch.arange(384),
+                            indexing="ij")
+    panel, r = rr // rows, rr % rows
+    for prod, w in enumerate(ins[1:3]):
+        off = ((panel * 384 + kk) * 2 + prod) * rows + r
+        assert torch.equal(wl[off.reshape(-1)], w.reshape(-1))
+
+
+@pytest.mark.parametrize("case", ["emb_cat", "emb_split"])
+def test_emb_side_output_is_the_last_steps_rows_96_to_127(case):
+    """The plain side output the kernel's rows 96-127 are held to: (w1 @
+    emb + w2 @ emb)[96:] at the last step's carry, from the script's
+    inputs, against numpy in f64 within the f32 rounding of a sum of 768
+    positive terms (768 2^-24)."""
+    reps = 3
+    ins = sections.make_inputs(case, CPU)
+    side = sections.side_reference(case, ins, reps)
+    assert tuple(side.shape) == (32, sections.T)
+    c = sections.chain_reference(case, ins, reps - 1).double().numpy()
+    emb = np.concatenate([c, c * 0.5, c * 0.25, c * 0.125], 0)
+    w1, w2 = (x.double().numpy() for x in ins[1:3])
+    want = (w1 @ emb + w2 @ emb)[96:]
+    np.testing.assert_allclose(side.double().numpy(), want,
+                               rtol=768 * 2.0 ** -24)
+    # and the carry the chain ends on is the step after it
+    last = sections.chain_reference(case, ins, reps)
+    torch.testing.assert_close(
+        last, sections.step_reference(case, ins, torch.from_numpy(c).float()),
+        rtol=0, atol=0)
+
+
 def test_render_layout_round_trip():
     """The render kernel's layout ([OG, R, S]) and back is the identity on
     the script's [OG, S R] arrays (what the wrapper does around it)."""
@@ -451,6 +511,34 @@ def test_overlap_balanced_plain_matches_jax_steps(mode):
                                rtol=overlap.tol(OV_REPS))
     np.testing.assert_allclose(np.asarray(c), pc.numpy(),
                                rtol=overlap.tol(OV_REPS))
+
+
+def test_overlap_layouts_put_each_element_where_the_kernel_reads_it():
+    """K8's operands as csrc/overlap.cu reads them (chain.cuh tc_off,
+    depth 128): W1 hi, W1 lo, W2 hi, W2 lo, element (r, d) of each at piece
+    i's tc_off(r, d); the initial carry's hi / lo, element (d, column) of
+    slab s at [s][hi, lo] tc_off(column - 16 s, d), where the fold writes
+    each product's carry. The slab is 16 columns on a 132-SM card."""
+    x = overlap.make_inputs(CPU)
+    nb = overlap.plan(132)
+    assert nb == 16 and overlap.plan(80) == 16 and overlap.plan(40) == 32
+    wl = overlap.w_layout(x)
+    assert tuple(wl.shape) == (4, 128 * 128)
+    rr, dd = torch.meshgrid(torch.arange(128), torch.arange(128),
+                            indexing="ij")
+    off = _tc_off(rr, dd, 128, 8).reshape(-1)
+    for i, name in enumerate(("w1_hi", "w1_lo", "w2_hi", "w2_lo")):
+        assert torch.equal(wl[i][off], x[name].reshape(-1))
+    c = x["c"] * 1.0001
+    cl = overlap.carry_layout(c, nb)
+    assert tuple(cl.shape) == (overlap.T // nb, 2, nb * 128)
+    hi = c.to(torch.bfloat16)
+    lo = (c - hi.float()).to(torch.bfloat16)
+    dd, cc = torch.meshgrid(torch.arange(128), torch.arange(overlap.T),
+                            indexing="ij")
+    at = _tc_off(cc % nb, dd, 128, 8)
+    assert torch.equal(cl[cc // nb, 0, at], hi)
+    assert torch.equal(cl[cc // nb, 1, at], lo)
 
 
 def test_overlap_fraction_is_the_scripts():

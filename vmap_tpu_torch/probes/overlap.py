@@ -8,27 +8,31 @@ chains, stepped ``reps`` times in one launch:
     v + 1e-3 a, four times), on the FMA pipe, each op rounded as the
     script's (no contraction into fused multiply-adds);
   * mxu: two dependent products c <- (W1 @ c) 1e-2, c <- (W2 @ c) 1e-2,
-    [128, 128] x [128, T], on the tensor cores: ``mma.sync`` bf16 with the
-    3xbf16 split of both operands, so it still computes the f32 product
-    (a chain of FP32 FMA products would share the FMA pipe with the vpu
-    chain and show no overlap by construction);
+    [128, 128] x [128, T], on the tensor cores: ``wgmma`` m64n16k16 bf16
+    with f32 accumulation and the 3xbf16 split of both operands, so it
+    still computes the f32 product (a chain of FP32 FMA products would
+    share the FMA pipe with the vpu chain and show no overlap by
+    construction). W1's and W2's hi / lo pieces stay in shared memory in
+    ``wgmma``'s K-major layout (``w_layout``); each product's fold writes
+    the carry's hi / lo pieces straight into that layout;
   * both: each step advances both chains in the same warps, emitted as the
     script's kernel emits them (3 vpu ops, product 1, the other 21 ops,
-    product 2), the vpu ops placed between a product's tensor-core
-    instructions and the first use of their results.
+    product 2), the vpu ops between a product's ``wgmma.commit_group`` and
+    its ``wgmma.wait_group``: they run while the products are in flight.
 
 Modes ``vpu``, ``mxu``, ``both``; overlap = (vpu + mxu - both) /
 min(vpu, mxu) from the slopes between 200 and 600 steps (1: the smaller
 chain hidden, 0: serial). On the H100 the script's vpu chain takes about
-1/27 of the mxu chain's step, so that fraction divides the slopes' noise
+1/10 of the mxu chain's step, so that fraction divides the slopes' noise
 by a small time. The balanced case, not in the script, runs the vpu
-chain for ``BAL_ROUNDS`` = 27 x 4 rounds a step (``vpu_bal``), about the
-mxu chain's time, and ``both_bal`` places half of them inside each
-product; its overlap is (vpu_bal + mxu - both_bal) / min(vpu_bal, mxu).
-Every mode is timed ``RUNS`` times, and each run's fractions are
-printed with their median. A block owns 16 columns of both chains (80
-blocks at T = 1280, one an SM). W's hi / lo copies are made here, outside
-the chain, and the kernel keeps them in shared memory.
+chain for ``BAL_ROUNDS`` = 27 x 4 rounds a step (``vpu_bal``), of the
+order of the mxu chain's time, and ``both_bal`` places half of them
+inside each product; its overlap is (vpu_bal + mxu - both_bal) /
+min(vpu_bal, mxu). Every mode is timed ``RUNS`` times, and each run's
+fractions are printed with their median. A block owns ``plan`` columns
+of both chains (16: 80 blocks at T = 1280, one an SM); W's and the first
+carry's pieces are laid out here, outside the chain.
+
 The mxu chain decays by about 0.004 a step (to 0 within tens of steps), so
 the kernel is held against its plain version at a few steps and timed at
 the script's.
@@ -44,7 +48,7 @@ import numpy as np
 import torch
 
 from vmap_tpu_torch import probes
-from vmap_tpu_torch.probes import _timing
+from vmap_tpu_torch.probes import _timing, mm
 
 T = 1280
 MODES = ("vpu", "mxu", "both", "vpu_bal", "both_bal")
@@ -104,21 +108,65 @@ def chain_reference(x: dict, mode: str, reps: int) -> tuple:
     return v, c
 
 
+def plan(sms: int = mm.N_SMS, n: int = T) -> int:
+    """The columns a block owns: the narrowest slab (a multiple of 8,
+    wgmma's n step) that keeps the blocks within one an SM. The kernel is
+    built for 16 (one element of v a thread, one warpgroup); its launcher
+    refuses another."""
+    for nb in range(8, n + 1, 8):
+        if n % nb == 0 and n // nb <= sms:
+            return nb
+    raise ValueError(f"no slab of {n} columns fits {sms} SMs")
+
+
+def _block_plan(nb: int) -> dict:
+    """mm's block plan for [128, 128] x [128, T] at ``nb`` columns a block:
+    W whole and resident, the slab's carry of depth 128."""
+    return {"grid": 0, "rows": 128, "panels": 1, "slabs": T // nb, "N": nb,
+            "ncols": nb, "k": 128, "w_resident": 1}
+
+
+def w_layout(x: dict) -> torch.Tensor:
+    """W1 hi, W1 lo, W2 hi, W2 lo, each [128, 128] bf16 as one piece in
+    wgmma's no-swizzle K-major layout (``mm.w_layout``: chain.cuh tc_off):
+    [4, 128 x 128]."""
+    p = _block_plan(16)
+    return torch.cat([mm.w_layout([x[f"{w}_hi"], x[f"{w}_lo"]], p)
+                      .reshape(2, -1) for w in ("w1", "w2")]).contiguous()
+
+
+def carry_layout(c: torch.Tensor, nb: int) -> torch.Tensor:
+    """The initial carry c [128, T] (f32) as the kernel's B operand: a
+    slab's hi and lo pieces [nb x 128] bf16 in the K-major layout
+    (``mm.carry_layout``), [T / nb, 2, nb x 128]."""
+    return mm.carry_layout(c, _block_plan(nb), "f32_3xbf16").reshape(
+        T // nb, 2, nb * 128)
+
+
 def launch(x: dict, mode: str, reps: int) -> tuple:
-    """The kernel (csrc/overlap.cu) on CUDA tensors: (v, c)."""
+    """The kernel (csrc/overlap.cu) on CUDA tensors, on the slab for this
+    card: (v, c)."""
     names = ("a", "b", "w1_hi", "w1_lo", "w2_hi", "w2_lo", "c")
     ops = [x[k].contiguous() for k in names]
     shapes = ((8, T), (8, T)) + ((128, 128),) * 4 + ((128, T),)
     if any(tuple(t.shape) != s for t, s in zip(ops, shapes)):
         raise ValueError("overlap probe: a, b [8, 1280], W hi / lo "
                          "[128, 128], c [128, 1280]")
+    if reps < 1:
+        raise ValueError("the overlap chains take at least one step")
     dev = probes.check_cuda(*ops)
+    nb = plan(mm.sm_count(dev))
+    w = mm.cached("overlap_w", ops[2:6], {}, lambda: w_layout(x))
+    cl = mm.cached("overlap_c", ops[6:], {"nb": nb},
+                   lambda: carry_layout(ops[6] * 1.0001, nb))
     v = torch.empty_like(x["a"])
     c = torch.empty_like(x["c"])
     code = probes.LIBRARY.load().vmap_probe_overlap(
-        MODE_CODE[mode], *(probes.ptr(t) for t in ops), probes.ptr(v),
-        probes.ptr(c), T, reps, probes.stream(dev))
-    probes.LIBRARY.check(code, f"overlap probe ({mode}) launch")
+        MODE_CODE[mode], *(probes.ptr(t) for t in (ops[0], ops[1], w, cl,
+                                                   ops[6], v, c)),
+        T, nb, reps, probes.stream(dev))
+    probes.LIBRARY.check(code, f"overlap probe ({mode}, {nb} columns a "
+                         "block) launch")
     probes.LAUNCHES["overlap"] += 1
     return v, c
 

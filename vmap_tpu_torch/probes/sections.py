@@ -10,8 +10,10 @@ rows), computing the function the script's body computes:
     the losses' row sums ``ld`` / ``lc`` / ``lo`` over each row's 128 rays,
     the gradient back to alpha), fed back as alpha;
   * ``emb_cat``: the embedding concatenated to [384, T], two [128, 384]
-    products; ``emb_split``: the same as 8 banded [128, 96] products
-    (both FP32 FMA, as K1's tile is today, ``train_step.cuh`` ``dense``);
+    products; ``emb_split``: the same as 8 banded [128, 96] products. The
+    case keeps the script's f32 products, on FP32 FMA (never TF32): it is
+    held at rtol 1e-5 a step, which a 3xbf16 tensor-core route's error
+    (3 2^-16 sum |a||b|, the route of K1's f32 products) does not meet;
   * ``ladder``: sin / cos and 5 double-angle levels on [96, T];
     ``ladder_sinpi``: the ``sinpif`` / ``cospif`` per band that the port's
     tile uses instead (``train_step.cuh``), on the same [96, T] (a
@@ -31,7 +33,14 @@ Layouts: the public functions take the script's [rows, T] arrays
 sample ([OG, R, S], as ``train_step.cuh`` holds a ray's samples), one
 block per row of 128 rays, so a row sum is a reduction inside one block;
 the wrapper transposes in and out. The other cases are separable by
-column: a block owns 8 columns of the carry.
+column. The emb kernel runs on a plan cut from the card (``emb_plan``):
+W1 and W2 (393 KB) do not fit one SM, so a slab of 20 columns is a
+thread-block cluster of 2 blocks, each keeping 64 rows of both W^T in
+shared memory for the whole chain and exchanging its new carry rows with
+the other by a copy between shared memories each step; all 128 rows of
+both products are computed, and the last step's rows 96-127, which no
+later step reads, go to a side output that ``compare`` holds too
+(``side_reference``).
 
     python -m vmap_tpu_torch.probes.sections [case ...] [--device cpu]
 """
@@ -45,7 +54,7 @@ import numpy as np
 import torch
 
 from vmap_tpu_torch import probes
-from vmap_tpu_torch.probes import _timing
+from vmap_tpu_torch.probes import _timing, mm
 
 S, R, T, OG = 10, 128, 1280, 8
 CASES = ("render", "emb_cat", "emb_split", "ladder", "ladder_sinpi")
@@ -54,7 +63,6 @@ SHAPES = {"render": ((OG, T), (OG, T), (OG, R), (3 * OG, R), (OG, R)),
           "emb_split": ((96, T), (128, 384), (128, 384)),
           "ladder": ((96, T),), "ladder_sinpi": ((96, T),)}
 BASE_REPS = 200
-EMB_NB = 8
 LADDER_LEVELS = 5
 # c <- KEEP c + SECTION_SCALE section(c): the carry's factor a step
 KEEP = {"emb_cat": 0.999, "emb_split": 0.999, "ladder": 0.9,
@@ -154,21 +162,26 @@ def render_step(ins, c):
             + dlogits[0:OG, 0:1].expand_as(c) * 1e-9)
 
 
-def emb_section(ins, c, split: bool):
-    """The emb_cat / emb_split sections: (W1 @ emb + W2 @ emb)[:96], emb the
-    4 bands c 2^-b."""
+def emb_y(ins, c, split: bool):
+    """The emb cases' products, all 128 rows: W1 @ emb + W2 @ emb, emb the
+    4 bands c 2^-b (emb_cat: each product over the concatenated bands;
+    emb_split: the bands' products added in band order)."""
     w1, w2 = ins[1], ins[2]
     bands = [c, c * 0.5, c * 0.25, c * 0.125]
     if not split:
         emb = torch.cat(bands, 0)
-        y = w1 @ emb + w2 @ emb
-    else:
-        y = None
-        for k, b in enumerate(bands):
-            sl = slice(k * 96, (k + 1) * 96)
-            yk = w1[:, sl] @ b + w2[:, sl] @ b
-            y = yk if y is None else y + yk
-    return y[:96]
+        return w1 @ emb + w2 @ emb
+    y = None
+    for k, b in enumerate(bands):
+        sl = slice(k * 96, (k + 1) * 96)
+        yk = w1[:, sl] @ b + w2[:, sl] @ b
+        y = yk if y is None else y + yk
+    return y
+
+
+def emb_section(ins, c, split: bool):
+    """The emb_cat / emb_split sections: (W1 @ emb + W2 @ emb)[:96]."""
+    return emb_y(ins, c, split)[:96]
 
 
 def ladder_section(c, sinpi: bool):
@@ -216,6 +229,85 @@ def chain_reference(case: str, ins: list, reps: int) -> torch.Tensor:
     return c
 
 
+def side_reference(case: str, ins: list, reps: int) -> torch.Tensor:
+    """An emb case's rows 96-127 of y at its last step (the kernel's side
+    output): the step's products that no later step reads."""
+    c = chain_reference(case, ins, reps - 1)
+    return emb_y(ins, c, case == "emb_split")[96:]
+
+
+# ----------------------------------------------------------- the emb plan
+# csrc/sections.cu EmbPlan, in the order the launcher reads it
+EMB_PLAN_FIELDS = ("cluster", "rows", "N", "slabs", "threads")
+EMB_ROWS, EMB_K, BAND = 128, 384, 96
+# a lane's tile (rows x columns of each product), the lanes of a band in
+# a warp, a block's threads; the cluster sizes the kernel is built for
+EMB_TILE, EMB_TILES, EMB_THREADS = (4, 10), 8, 128
+EMB_BUILT = (2,)
+
+
+def emb_smem_bytes(p: dict) -> int:
+    """One block's dynamic shared memory (csrc/sections.cu emb_smem): W1^T's
+    and W2^T's panel, the slab's carry twice, three mbarriers."""
+    return 4 * (EMB_K * 2 * p["rows"] + 2 * BAND * p["N"]) + 3 * 8
+
+
+def emb_plan(sms: int = mm.N_SMS, n: int = T) -> dict:
+    """The emb kernel's plan for ``sms`` SMs (csrc/sections.cu EmbPlan,
+    checked there by emb_plan_ok): the 393 KB of W1 and W2 do not fit one
+    SM, so a slab of N columns is one thread-block cluster whose blocks
+    each keep ``rows`` rows of both W^T in shared memory for the whole
+    chain, beside the slab's carry (two buffers: the new rows go to the
+    peer's next buffer). A block's 4 warps each own 16 rows x N, a lane a
+    band and a 4 x 10 tile of each product, so rows x N = 1280 and the
+    plan has 128 blocks, one an SM; the smallest cluster built whose panel
+    fits (2: 64 rows, 192 KiB of W) is taken. Raises where none fits."""
+    for cluster in EMB_BUILT:
+        rows = EMB_ROWS // cluster
+        N = 4 * EMB_TILES * EMB_TILE[0] * EMB_TILE[1] // rows
+        if n % N:
+            continue
+        p = {"cluster": cluster, "rows": rows, "N": N, "slabs": n // N,
+             "threads": EMB_THREADS}
+        if all(emb_plan_checks(p, sms, n).values()):
+            return p
+    raise ValueError(f"no emb plan fits {sms} SMs at n={n}")
+
+
+def emb_plan_checks(p: dict, sms: int = mm.N_SMS, n: int = T) -> dict:
+    """The limits an emb plan must meet: a block's shared memory, every
+    block resident at once (one an SM), W's panels covering y's 128 rows
+    once and the slabs n's columns once, the block's tiles (4 warps of 16
+    rows, 8 tiles of 4 x 10 a band), a cluster size built."""
+    rows = [0] * EMB_ROWS
+    for panel in range(p["cluster"]):
+        for r in range(p["rows"]):
+            if panel * p["rows"] + r < EMB_ROWS:
+                rows[panel * p["rows"] + r] += 1
+    cols = [0] * n
+    for s in range(p["slabs"]):
+        for c in range(p["N"]):
+            if s * p["N"] + c < n:
+                cols[s * p["N"] + c] += 1
+    tr, tc = EMB_TILE
+    return {"fits": emb_smem_bytes(p) <= mm.BLOCK_SMEM,
+            "resident": p["cluster"] * p["slabs"] <= sms,
+            "rows_once": rows == [1] * EMB_ROWS
+            and p["cluster"] * p["rows"] == EMB_ROWS,
+            "cols_once": cols == [1] * n and p["slabs"] * p["N"] == n,
+            "tiles": p["rows"] == 4 * 16 and (16 // tr) * (p["N"] // tc)
+            == EMB_TILES and p["threads"] == EMB_THREADS,
+            "built": p["cluster"] in EMB_BUILT}
+
+
+def emb_w_layout(w1: torch.Tensor, w2: torch.Tensor, p: dict) -> torch.Tensor:
+    """W1 and W2 [128, 384] as the plan's panels, [cluster][384][2][rows]:
+    block ``panel`` reads W1^T's and W2^T's rows panel * rows ... side by
+    side for each k."""
+    w = torch.stack([w1, w2], 0).reshape(2, p["cluster"], p["rows"], EMB_K)
+    return w.permute(1, 3, 0, 2).contiguous()
+
+
 # -------------------------------------------------------------- the kernels
 def launch(case: str, ins: list, reps: int) -> torch.Tensor:
     """The case's kernel (csrc/sections.cu) on CUDA tensors: the last carry
@@ -236,15 +328,7 @@ def launch(case: str, ins: list, reps: int) -> torch.Tensor:
                                      probes.ptr(out), reps, probes.stream(dev))
         result = out.transpose(1, 2).reshape(OG, T)
     elif case.startswith("emb"):
-        c0 = ins[0].contiguous()
-        w1t, w2t = (w.t().contiguous() for w in ins[1:])     # [384, 128]
-        dev = probes.check_cuda(c0, w1t, w2t)
-        out = torch.empty_like(c0)
-        code = lib.vmap_probe_emb(int(case == "emb_split"), probes.ptr(c0),
-                                  probes.ptr(w1t), probes.ptr(w2t),
-                                  probes.ptr(out), T, EMB_NB, reps,
-                                  probes.stream(dev))
-        result = out
+        return launch_emb(case, ins, reps)[0]
     else:
         c0 = ins[0].contiguous()
         dev = probes.check_cuda(c0)
@@ -256,6 +340,31 @@ def launch(case: str, ins: list, reps: int) -> torch.Tensor:
     probes.LIBRARY.check(code, f"sections probe ({case}) launch")
     probes.LAUNCHES["sections"] += 1
     return result
+
+
+def launch_emb(case: str, ins: list, reps: int) -> tuple:
+    """An emb case's kernel on CUDA tensors, on the plan for this card:
+    (the last carry [96, T], the last step's y rows 96-127 [32, T])."""
+    import ctypes
+    if reps < 1:
+        raise ValueError("an emb chain takes at least one step")
+    c0 = ins[0].contiguous()
+    dev = probes.check_cuda(c0, *ins[1:])
+    p = emb_plan(mm.sm_count(dev))
+    w = mm.cached("emb_w", list(ins[1:]), p,
+                  lambda: emb_w_layout(ins[1], ins[2], p))
+    out = torch.empty_like(c0)
+    side = torch.empty(EMB_ROWS - BAND, T, device=dev)
+    ints = (ctypes.c_int * len(EMB_PLAN_FIELDS))(
+        *(p[f] for f in EMB_PLAN_FIELDS))
+    code = probes.LIBRARY.load().vmap_probe_emb(
+        int(case == "emb_split"), probes.ptr(c0), probes.ptr(w),
+        probes.ptr(out), probes.ptr(side), ctypes.cast(ints, ctypes.c_void_p),
+        T, reps, probes.stream(dev))
+    probes.LIBRARY.check(code, f"sections probe ({case}, emb plan {p}) "
+                         "launch")
+    probes.LAUNCHES["sections"] += 1
+    return out, side
 
 
 def chain(case: str, ins: list, reps: int) -> torch.Tensor:
@@ -335,6 +444,11 @@ def compare(dev: torch.device, reps: int = 3) -> list:
             inc, atol = increment(case, c, launch(case, ins, 1))
             res.append(probes.held(f"{case} section", inc,
                                    section(case, ins, c), SECTION_RTOL, atol))
+        if case.startswith("emb"):
+            res.append(probes.held(f"{case} rows 96-127",
+                                   launch_emb(case, ins, reps)[1],
+                                   side_reference(case, ins, reps),
+                                   tol(case, reps)))
     return res
 
 
