@@ -309,13 +309,19 @@ def emb_w_layout(w1: torch.Tensor, w2: torch.Tensor, p: dict) -> torch.Tensor:
 
 
 # -------------------------------------------------------------- the kernels
-def launch(case: str, ins: list, reps: int) -> torch.Tensor:
-    """The case's kernel (csrc/sections.cu) on CUDA tensors: the last carry
-    in the script's layout."""
+def _check_inputs(case: str, ins: list) -> None:
     for x, shape in zip(ins, SHAPES[case]):
         if tuple(x.shape) != shape or x.dtype != torch.float32:
             raise ValueError(f"{case}: input {tuple(x.shape)} {x.dtype}, "
                              f"expected f32 {shape}")
+
+
+def launch(case: str, ins: list, reps: int) -> torch.Tensor:
+    """The case's kernel (csrc/sections.cu) on CUDA tensors: the last carry
+    in the script's layout."""
+    if case.startswith("emb"):
+        return launch_emb(case, ins, reps)[0]
+    _check_inputs(case, ins)
     lib = probes.LIBRARY.load()
     if case == "render":
         # [OG, S R] -> the port's layout [OG, R, S]
@@ -327,8 +333,6 @@ def launch(case: str, ins: list, reps: int) -> torch.Tensor:
         code = lib.vmap_probe_render(*(probes.ptr(x) for x in (x0, z, *rest)),
                                      probes.ptr(out), reps, probes.stream(dev))
         result = out.transpose(1, 2).reshape(OG, T)
-    elif case.startswith("emb"):
-        return launch_emb(case, ins, reps)[0]
     else:
         c0 = ins[0].contiguous()
         dev = probes.check_cuda(c0)
@@ -346,6 +350,7 @@ def launch_emb(case: str, ins: list, reps: int) -> tuple:
     """An emb case's kernel on CUDA tensors, on the plan for this card:
     (the last carry [96, T], the last step's y rows 96-127 [32, T])."""
     import ctypes
+    _check_inputs(case, ins)
     if reps < 1:
         raise ValueError("an emb chain takes at least one step")
     c0 = ins[0].contiguous()
