@@ -77,26 +77,29 @@ __device__ __forceinline__ float vpu_rounds(float v, float a, float b) {
   return v;
 }
 
-// c <- (W @ c) 1e-2 for this block's columns: W's hi piece at `w` (lo
-// W_PIECE past it), the carry's at `cur` (lo C_PIECE past it); the products
+// c <- (W @ c) 1e-2 for this block's columns: `w` the descriptor of W's hi
+// piece (lo W_PIECE past it), `cur` the carry's (lo C_PIECE past it); the
+// products
 // are committed as one group, v <- inside(v) runs while they are in flight,
 // then the fold writes the new carry's hi / lo into the buffer `nxt`
 // (LAST: the f32 carry to cout).
 template <bool LAST, typename F>
-__device__ __forceinline__ void product(uint32_t w, uint32_t cur, bf16* nxt, float& v, F inside,
+__device__ __forceinline__ void product(uint64_t w, uint64_t cur, bf16* nxt, float& v, F inside,
                                         float* __restrict__ cout, int T, int col0) {
   float acc[2][8];  // two m-tiles of 64 rows; written by the first product (scale_d 0)
   chain::fence_acc(acc[0]);
   chain::fence_acc(acc[1]);
   chain::wgmma_fence();
+  // descriptors: the start address (16-byte units) in the low bits, so an
+  // offset of `off` bytes adds off / 16
 #pragma unroll
   for (int ks = 0; ks < M / 16; ++ks)
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
-      const uint32_t a = w + mt * 64 * M * 2 + ks * 256, b = cur + ks * 256;
-      chain::Wgmma<16>::bf16(acc[mt], chain::desc(a + W_PIECE, SBO), chain::desc(b, SBO), ks > 0);
-      chain::Wgmma<16>::bf16(acc[mt], chain::desc(a, SBO), chain::desc(b + C_PIECE, SBO), 1);
-      chain::Wgmma<16>::bf16(acc[mt], chain::desc(a, SBO), chain::desc(b, SBO), 1);
+      const uint64_t a = w + (mt * 64 * M * 2 + ks * 256) / 16, b = cur + ks * 256 / 16;
+      chain::Wgmma<16>::bf16(acc[mt], a + W_PIECE / 16, b, ks > 0);
+      chain::Wgmma<16>::bf16(acc[mt], a, b + C_PIECE / 16, 1);
+      chain::Wgmma<16>::bf16(acc[mt], a, b, 1);
     }
   chain::wgmma_commit();
   v = inside(v);
@@ -166,13 +169,14 @@ overlap_kernel(const float* __restrict__ a, const float* __restrict__ b,
       probe::bulk_g2s(smem + W_BYTES, cl + (size_t)blockIdx.x * (C_BUF / 2), C_BUF, bar);
     }
     chain::mbar_wait(bar, 0);
-    const uint32_t w1 = probe::smem_u32(smem), w2 = w1 + 2 * W_PIECE;
-    const uint32_t cbuf = w1 + W_BYTES;
+    const uint32_t base = probe::smem_u32(smem);
+    const uint64_t w1 = chain::desc(base, SBO), w2 = chain::desc(base + 2 * W_PIECE, SBO);
+    const uint64_t c1 = chain::desc(base + W_BYTES, SBO), c2 = chain::desc(base + W_BYTES + C_BUF, SBO);
     bf16* cs = reinterpret_cast<bf16*>(smem + W_BYTES);
     for (int step = 0; step < reps; ++step) {
       // product 1 reads buffer 0 and writes buffer 1, product 2 the reverse
       if constexpr (MODE == 2) v = vpu_first3(v, av, bv);
-      product<false>(w1, cbuf, cs + C_BUF / 2, v, [&](float x) {
+      product<false>(w1, c1, cs + C_BUF / 2, v, [&](float x) {
         if constexpr (MODE == 2) x = vpu_rounds<ROUNDS - 1>(vpu_last3(x, av), av, bv);
         if constexpr (MODE == 4) x = vpu_rounds<BAL_ROUNDS / 2>(x, av, bv);
         return x;
@@ -182,9 +186,9 @@ overlap_kernel(const float* __restrict__ a, const float* __restrict__ b,
         return x;
       };
       if (step == reps - 1)
-        product<true>(w2, cbuf + C_BUF, cs, v, inside2, cout, T, col0);
+        product<true>(w2, c2, cs, v, inside2, cout, T, col0);
       else
-        product<false>(w2, cbuf + C_BUF, cs, v, inside2, cout, T, col0);
+        product<false>(w2, c2, cs, v, inside2, cout, T, col0);
     }
   }
   vout[vi] = v;
