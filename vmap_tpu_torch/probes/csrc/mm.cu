@@ -309,8 +309,7 @@ wgmma_tile_kernel(const void* a, const void* b, float* d_wg, float* d_mma, int K
         probe::mma_s8(d4, af, bf);
       }
     } else {
-      probe::mma_tile_bf16<false>(d4, ar, nullptr, K + PAD, br, nullptr, K + PAD, warp * 16,
-                                  8 * j, K, lane);
+      probe::mma_tile_bf16(d4, ar, K + PAD, br, K + PAD, warp * 16, 8 * j, K, lane);
     }
     for (int e = 0; e < 4; ++e)
       d_mma[(warp * 16 + probe::acc_row(e, lane)) * 16 + 8 * j + probe::acc_col(e, lane)] =
