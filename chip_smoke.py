@@ -240,9 +240,9 @@ its own, in place of the phases (``update_ab``).
     python3 chip_smoke.py --probe-ab dev/parent . . dev/parent
 
 does the same for the chain probes (K4's and K10's cases, K5's fwd_mm
-pair, K7's emb_cat / emb_split, K8's five modes with their overlap
-fractions: each kernel's ns a step and its library call's;
-``probe_ab``).
+pair and lanesum_dot, K7's render and emb_cat / emb_split, K8's five
+modes with their overlap fractions: each kernel's ns a step and its
+library call's; ``probe_ab``).
 """
 
 from __future__ import annotations
@@ -3386,10 +3386,11 @@ def probe_path(dev, gpu: str) -> tuple:
 # ------------------------------------------------------------ --probe-ab
 def probe_times(dev) -> dict:
     """The chain probes of the checkout this process imports (K4's and
-    K10's cases, K5's fwd_mm pair, K7's emb_cat / emb_split, K8's five
-    modes) on one timer: each kernel's ns a step (the probe's own slope)
-    and its library call's (None where there is none); K8's modes timed
-    ``overlap.RUNS`` times, each run's ns and overlap fractions kept."""
+    K10's cases, K5's fwd_mm pair and lanesum_dot, K7's render and
+    emb_cat / emb_split, K8's five modes) on one timer: each kernel's ns a
+    step (the probe's own slope) and its library call's (None where there
+    is none); K8's modes timed ``overlap.RUNS`` times, each run's ns and
+    overlap fractions kept."""
     from vmap_tpu_torch import probes
     from vmap_tpu_torch.probes import int8, mm, ops, overlap, sections
     probes.LIBRARY.load()
@@ -3401,12 +3402,12 @@ def probe_times(dev) -> dict:
             res[f"{name} {' '.join(r['case'].split())}"] = {
                 "ns": r["step_ns"],
                 "library_ns": None if lib is None else lib * 1e6}
-    for case in ("fwd_mm", "fwd_mm_bf16"):
+    for case in ("fwd_mm", "fwd_mm_bf16", "lanesum_dot"):
         r = ops.measure(case, dev)
         res[f"probe_ops {case}"] = {
             "ns": r["step_ns"],
             "library_ns": ops.library_ms(r, dev) * 1e6}
-    for case in ("emb_cat", "emb_split"):
+    for case in ("render", "emb_cat", "emb_split"):
         r = sections.measure(case, dev)
         lib = sections.library_ms(r, dev)
         res[f"probe_sections {case}"] = {
@@ -3879,7 +3880,8 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)   # one run of --update-ab
     ap.add_argument("--probe-ab", nargs="+", metavar="TREE",
                     help="in place of the phases: time the chain probes "
-                    "(K4, K10, K5's fwd_mm, K7's emb, K8) of each checkout "
+                    "(K4, K10, K5's fwd_mm and lanesum_dot, K7's render and "
+                    "emb, K8) of each checkout "
                     "TREE in turn (probe_ab)")
     ap.add_argument("--probe-times", action="store_true",
                     help=argparse.SUPPRESS)   # one run of --probe-ab
