@@ -114,7 +114,9 @@ Phases, in order (any failure raises and the script exits non-zero):
      version at 3 steps (rtol 1e-5 a step for f32 chains, 1e-6 a step for
      K9's f32, 2e-3 bf16 products, bit-equal i8 and K9's per-op bf16, one
      bf16 ulp a step for bf16_fma, 1e-6 i8_quant, 1e-5 render and ladder;
-     K6 at 4000 copies, checksum and 8 final slots bit-equal), each emb /
+     K6 at 4000 copies, checksum and 8 final slots bit-equal; the render's
+     branch-free reciprocal bit-equal to __frcp_rn on every float of its
+     range), each emb /
      ladder section and K5's strided_sum / serial_tiles work read from one
      kernel step (within that step's f32 roundings plus rtol 1e-5), K5's
      side outputs (lanesum_dot's whole product, the tile sums and running
@@ -3205,13 +3207,17 @@ PROBE_FUNCTIONS = {
     "probe_mm": ["mm_chain_kernel<V, NW, REG> (wgmma)",
                  "mm_fma_kernel<ITEMS, IND>", "wgmma_tile_kernel<S8>"],
     "probe_int8": ["int8_chain_kernel<V, N, REG> (s8 wgmma)"],
-    "probe_sections": ["render_kernel",
+    "probe_sections": ["render_kernel (a ray on two lanes, two-lane "
+                       "scans, branch-free reciprocals)",
                        "emb_kernel<SPLIT, 2> (FP32 FMA, W resident across "
                        "a cluster of 2)", "ladder_kernel<SINPI>"],
     "probe_overlap": ["overlap_kernel<MODE> (3xbf16 wgmma, the vpu ops "
                       "between commit and wait)"],
     "probe_vpu": ["vpu_f32_kernel<OP>", "vpu_bf16_kernel<OP, FMA>"],
-    "probe_ops": ["ew_kernel<K>", "lanesum_kernel", "tiles_kernel<SERIAL>"],
+    "probe_ops": ["ew_kernel<K>",
+                  "lanesum_kernel<CL> (FP32 FMA, m resident across a "
+                  "cluster of 8, partials exchanged by st.async)",
+                  "tiles_kernel<SERIAL>"],
     "probe_dma": ["dma_bulk_kernel", "dma_cp_async_kernel"]}
 
 def pool_gather(dev, gpu: str) -> dict:

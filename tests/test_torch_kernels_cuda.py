@@ -32,6 +32,7 @@ jax):
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
 
+import ctypes
 import os
 import sys
 
@@ -400,12 +401,15 @@ def test_new_probe_entry_points_refuse_bad_input(cuda_device, probe):
         bad = lambda: vpu.launch(x[:, :640].contiguous(), "mul", "f32", 1)
         cpu = lambda: vpu.launch(x.cpu(), "mul", "f32", 1)
     elif probe == "ops":
-        # lanesum_dot over 7 rows; strided_sum without its side output
-        codes = [lib.vmap_probe_ops(4, probes.ptr(x), probes.ptr(x),
-                                    probes.ptr(x), probes.ptr(x), 7, 1,
-                                    stream),
-                 lib.vmap_probe_ops(5, probes.ptr(x), None, probes.ptr(x),
-                                    None, 8, 1, stream)]
+        # lanesum_dot on a cluster of 2 (not built); strided_sum without
+        # its side output
+        plan = (ctypes.c_int * 3)(2, 640, 8)
+        codes = [lib.vmap_probe_lanesum(probes.ptr(x), probes.ptr(x),
+                                        probes.ptr(x), probes.ptr(x),
+                                        ctypes.cast(plan, ctypes.c_void_p),
+                                        1, stream),
+                 lib.vmap_probe_ops(5, probes.ptr(x), probes.ptr(x), None,
+                                    8, 1, stream)]
         bad = lambda: ops.launch("dep_fma", [x[:4].contiguous()], 1)
         cpu = lambda: ops.launch("dep_fma", [x.cpu()], 1)
     else:

@@ -465,6 +465,21 @@ def test_render_layout_round_trip():
                        x)
 
 
+def test_render_lane_order_stays_within_the_plain_chain():
+    """The render kernel's order (``render_step_lanes``: a ray on two
+    lanes, two-lane scans for the transmittance and the backward suffix,
+    the halves' sums added, the row sums by the warps' butterflies) against
+    the plain ``render_step`` over 3 steps, within ``tol("render", 3)``,
+    and not equal to it: the reorder is seen and fits."""
+    ins = sections.make_inputs("render", CPU)
+    c = lanes = ins[0] * 1.0001
+    for _ in range(3):
+        c = sections.render_step(ins, c)
+        lanes = sections.render_step_lanes(ins, lanes)
+    probes.held("render lanes", lanes, c, sections.tol("render", 3))
+    assert not torch.equal(lanes, c)
+
+
 # ------------------------------------------------------------------- K8
 OV_REPS = 2
 
@@ -724,6 +739,72 @@ def test_ops_cpu_run_reports_the_pair_spread(monkeypatch, capsys):
     assert [r["case"] for r in res] == list(ops.CASES)
     assert [len(r.get("ns_per_op_runs", ())) for r in res[:2]] == [
         ops.RUNS] * 2
+
+
+@pytest.mark.parametrize("sms", [132, 6])
+def test_lanesum_plan_fits_covers_and_stays_resident(sms):
+    """lanesum_dot's plan (``ops.lanesum_plan``, the mirror of csrc/ops.cu
+    ls_plan_ok): on 132 SMs a cluster of 8 blocks, each keeping 160 rows
+    of m (80 KB) beside c's slice, the warps' and the block's partials; on
+    6 SMs a cluster of 4 (320 rows, 160 KB). The panels cover m's 1280
+    rows once, every block's shared memory fits, the cluster is a size
+    the kernel is built for and no larger than the card, 8 warps a block.
+    Too few SMs: no plan."""
+    p = ops.lanesum_plan(sms)
+    cluster = 8 if sms >= 8 else 4
+    assert p == {"cluster": cluster, "rows": 1280 // cluster, "warps": 8}
+    assert all(ops.lanesum_plan_checks(p, sms).values())
+    assert ops.lanesum_smem_bytes(p) == 4 * (
+        p["rows"] * 128 + p["rows"] * 8 + 8 * 8 * 128 + 2 * 8 * 128
+        + 2 * cluster * 8) + 24
+    assert ops.lanesum_smem_bytes(p) <= 227 * 1024 == mm.BLOCK_SMEM
+    assert p["cluster"] in ops.LANESUM_BUILT and p["cluster"] <= sms
+    assert not ops.lanesum_plan_checks({**p, "cluster": 2, "rows": 640},
+                                       sms)["built"]
+    assert not ops.lanesum_plan_checks({**p, "rows": p["rows"] - 8},
+                                       sms)["rows_once"]
+    assert not ops.lanesum_plan_checks({**p, "warps": 4}, sms)["warps"]
+    with pytest.raises(ValueError, match="no lanesum_dot plan"):
+        ops.lanesum_plan(3)
+
+
+def test_lanesum_m_layout_puts_each_element_where_the_kernel_reads_it():
+    """``lanesum_m_layout``: block b reads m[b rows + k][n] at k 128 + n of
+    its panel (csrc/ops.cu lanesum_kernel's bulk copy of panel b, then lane
+    n // 4 of the warp owning k), every element, without a copy."""
+    m = ops.make_inputs("lanesum_dot", CPU)[1]
+    for sms in (132, 6):
+        p = ops.lanesum_plan(sms)
+        wl = ops.lanesum_m_layout(m, p)
+        assert tuple(wl.shape) == (p["cluster"], p["rows"], 128)
+        assert wl.data_ptr() == m.data_ptr()
+        b, k, n = torch.meshgrid(torch.arange(p["cluster"]),
+                                 torch.arange(p["rows"]), torch.arange(128),
+                                 indexing="ij")
+        flat = wl.reshape(-1)
+        off = (b * p["rows"] + k) * 128 + n
+        assert torch.equal(flat[off.reshape(-1)],
+                           m[(b * p["rows"] + k).reshape(-1),
+                             n.reshape(-1)])
+
+
+@pytest.mark.parametrize("sms", [132, 6])
+def test_lanesum_cluster_order_stays_within_the_plain_chain(sms):
+    """y in the kernel's order (``ops.lanesum_y_cluster``: each warp's rows
+    of m by FMA in order, the warps' partials in warp order, the blocks'
+    in block order), fed back as the kernel does (c <- y[:, 0]) for 3
+    steps, against ``ops.chain_reference``: the carry and the last step's
+    whole y within ``ops.tol``."""
+    ins = ops.make_inputs("lanesum_dot", CPU)
+    p = ops.lanesum_plan(sms)
+    c = ins[0] * 1.0001
+    for _ in range(3):
+        y = ops.lanesum_y_cluster(c, ins[1], p)
+        c = y[:, :1].expand_as(c).contiguous()
+    want, want_y = ops.chain_reference("lanesum_dot", ins, 3)
+    probes.held("lanesum carry", c, want, ops.tol("lanesum_dot", 3))
+    probes.held("lanesum y", y, want_y, ops.tol("lanesum_dot", 3))
+    assert not torch.equal(y, want_y)
 
 
 # ------------------------------------------------------------------- K6

@@ -57,11 +57,13 @@ SIGNATURES = {
     "vmap_probe_int8": ((I,) + (P,) * 7, I),
     "vmap_probe_wgmma_tile": ((I, P, P, P, P, I, P), I),
     "vmap_probe_render": ((P, P, P, P, P, P, I, P), I),
+    "vmap_probe_rcp_check": ((P, I, P), I),
     "vmap_probe_emb": ((I, P, P, P, P, P, I, I, P), I),
     "vmap_probe_ladder": ((I, P, P, I, I, P), I),
     "vmap_probe_overlap": ((I, P, P, P, P, P, P, P, I, I, I, P), I),
     "vmap_probe_vpu": ((I, I, P, P, I, I, P), I),
-    "vmap_probe_ops": ((I, P, P, P, P, I, I, P), I),
+    "vmap_probe_ops": ((I, P, P, P, I, I, P), I),
+    "vmap_probe_lanesum": ((P,) * 5 + (I, P), I),
     "vmap_probe_dma": ((I, P, I, I, I, I, P, P, P), I),
 }
 # probe_common.cuh includes the kernel library's mma.cuh

@@ -550,6 +550,33 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n"
                "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
+// Stores from registers into a peer's shared memory (addresses from
+// mapa), each completing its bytes on the peer's mbarrier `bar` (release
+// at cluster scope; the peer waits with mbar_wait_cluster).
+__device__ __forceinline__ void st_async(uint32_t dst, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+               :: "r"(dst), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void st_async(uint32_t dst, float4 v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
+               "[%0], {%1, %2, %3, %4}, [%5];\n"
+               :: "r"(dst), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
+                  "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(bar)
+               : "memory");
+}
+// mbar_wait with acquire at cluster scope: what peers' st_async wrote
+// before completing the phase is visible after it.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  long spins = 0;
+  do {
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(probe::smem_u32(bar)), "r"(parity) : "memory");
+    if (++spins > (1L << 28)) __trap();
+  } while (!done);
+}
 
 // Thread 0: chunk gi of the chain (step gi / nq, k-chunk gi % nq) into its
 // slot: W's piece of the chunk where W is streamed, the carry's where the

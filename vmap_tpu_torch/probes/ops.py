@@ -27,6 +27,13 @@ elementwise, the carry, the side output, and for strided_sum /
 serial_tiles the work read back from one kernel step as
 ``probes.increment`` reads it ((out - KEEP c) / 1e-6, KEEP = 1 and 0.999).
 
+lanesum_dot runs on one thread-block cluster whose blocks each keep a
+panel of m's rows in shared memory for the whole chain
+(``lanesum_plan``): a block's warps split its panel's rows and sum them by
+FMA in row order, the warps' partials are added in warp order, and the
+blocks' in block order (``lanesum_y_cluster`` mirrors that order on the
+CPU; the tests hold it to the plain chain). Every step computes all of y.
+
 Values leave f32 range in lanesum_dot (about 640x a step, within about 13
 steps) and fwd_mm (about 64x, within 21): at the script's 500 steps both
 time arithmetic on inf, as the TPU's kernel did. dep_fma and sigmoid tend
@@ -42,6 +49,7 @@ its spread printed beside the difference.
 from __future__ import annotations
 
 import argparse
+import ctypes
 
 import numpy as np
 import torch
@@ -62,10 +70,10 @@ SHAPES = {"dep_fma": ((8, T),), "ind_fma": ((8, T),),
 REPS = {"dep_fma": 4000, "ind_fma": 500, "sigmoid": 1000, "sincos": 500,
         "lanesum_dot": 500, "strided_sum": 1000, "fwd_mm": 500,
         "fwd_mm_bf16": 500, "serial_tiles": 1000}
-# the C kernel of each case of csrc/ops.cu (fwd_mm*: mm.cu)
-KASE = {c: i for i, c in enumerate(
-    ("dep_fma", "ind_fma", "sigmoid", "sincos", "lanesum_dot",
-     "strided_sum", "serial_tiles"))}
+# the case number of csrc/ops.cu vmap_probe_ops (lanesum_dot:
+# vmap_probe_lanesum; fwd_mm*: mm.cu)
+KASE = {"dep_fma": 0, "ind_fma": 1, "sigmoid": 2, "sincos": 3,
+        "strided_sum": 5, "serial_tiles": 6}
 # operations a step the script's ns/op divides by
 OPS_PER_STEP = {"ind_fma": 16}
 # c <- KEEP c + WORK_SCALE work
@@ -75,6 +83,14 @@ MM_SCALE = 0.33333
 RTOL = 1e-5           # a step, every f32 case (fwd_mm: mm.tol)
 RUNS = 5              # timings of the dep_fma / ind_fma pair
 PAIR = ("dep_fma", "ind_fma")
+ROWS = 8              # rows of the carry of lanesum_dot and the tile cases
+
+# lanesum_dot's plan: csrc/ops.cu LsPlan, in the order the launcher reads
+# it; the cluster sizes the kernel is built for (portable, largest first),
+# its warps a block, a lane's columns of all 8 rows
+LANESUM_PLAN_FIELDS = ("cluster", "rows", "warps")
+LANESUM_BUILT = (8, 4)
+LANESUM_WARPS, LANESUM_CG = 8, 4
 
 
 def make_inputs(case: str, dev) -> list:
@@ -149,6 +165,90 @@ def step_reference(case: str, ins: list, c: torch.Tensor,
                               MM_SCALE), None
 
 
+# ---------------------------------------------------------- lanesum_dot
+def lanesum_smem_bytes(p: dict) -> int:
+    """One block's dynamic shared memory (csrc/ops.cu ls_smem): m's panel,
+    c's K-slice of all 8 rows, the warps' partials of y, what the blocks
+    send it by step parity (its slice of y's columns and column 0 from
+    every block), three mbarriers."""
+    return 4 * (p["rows"] * TILE + p["rows"] * ROWS
+                + p["warps"] * ROWS * TILE + 2 * ROWS * TILE
+                + 2 * p["cluster"] * ROWS) + 3 * 8
+
+
+def lanesum_plan(sms: int = mm.N_SMS) -> dict:
+    """lanesum_dot's plan for ``sms`` SMs (csrc/ops.cu LsPlan, checked
+    there by ls_plan_ok): m's 640 KB fit no SM, so its T rows are cut into
+    ``cluster`` panels of ``rows``, one a block of one thread-block
+    cluster, each resident in its block's shared memory for the whole
+    chain; ``warps`` warps a block split a panel's rows. The largest built
+    cluster that the card's SMs hold and whose panel fits is taken (8: 160
+    rows, 80 KB of m). Raises where none fits."""
+    for cluster in LANESUM_BUILT:
+        p = {"cluster": cluster, "rows": T // cluster,
+             "warps": LANESUM_WARPS}
+        if all(lanesum_plan_checks(p, sms).values()):
+            return p
+    raise ValueError(f"no lanesum_dot plan fits {sms} SMs")
+
+
+def lanesum_plan_checks(p: dict, sms: int = mm.N_SMS) -> dict:
+    """The limits a lanesum_dot plan must meet: a block's shared memory,
+    the cluster's blocks all resident (one an SM), the panels covering m's
+    rows once, the panel split evenly over the block's 8 warps (whose
+    lanes, 4 columns each, span y's 128), enough threads for the block's
+    slice of y's columns (8 rows x 128 / cluster), a cluster size
+    built."""
+    rows = [0] * T
+    for b in range(p["cluster"]):
+        for k in range(p["rows"]):
+            if b * p["rows"] + k < T:
+                rows[b * p["rows"] + k] += 1
+    return {"fits": lanesum_smem_bytes(p) <= mm.BLOCK_SMEM,
+            "resident": p["cluster"] <= sms,
+            "rows_once": rows == [1] * T and p["cluster"] * p["rows"] == T,
+            "warps": p["warps"] == LANESUM_WARPS
+            and p["rows"] % p["warps"] == 0 and 32 * LANESUM_CG == TILE,
+            "slice": TILE % p["cluster"] == 0
+            and ROWS * (TILE // p["cluster"]) <= 32 * p["warps"],
+            "built": p["cluster"] in LANESUM_BUILT}
+
+
+def lanesum_m_layout(m: torch.Tensor, p: dict) -> torch.Tensor:
+    """m [T, 128] as the plan's panels, [cluster][rows][128]: block b
+    reads row k of its panel (m's row b rows + k) as 128 consecutive
+    floats, lane l its columns 4 l ... 4 l + 3, so the panels are m's own
+    rows in m's own order (a view)."""
+    return m.reshape(p["cluster"], p["rows"], TILE)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a b + c rounded once to f32 (in f64, where a b of two f32 is exact;
+    the sum's rounding to f64 first may differ from FMA's in the last bit)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def lanesum_y_cluster(c: torch.Tensor, m: torch.Tensor, p: dict) -> torch.Tensor:
+    """y = c @ m in csrc/ops.cu lanesum_kernel's order, for tests: warp w
+    of block b sums its rows k of m (b rows + w rows / warps ...) in k
+    order by FMA from 0; a block adds its warps' partials in warp order,
+    y is the blocks' partials added in block order."""
+    cl, w = p["cluster"], p["warps"]
+    kw = p["rows"] // w
+    cc = c.reshape(ROWS, cl, w, kw)
+    mw = m.reshape(cl, w, kw, TILE)
+    acc = torch.zeros(ROWS, cl, w, TILE)
+    for k in range(kw):
+        acc = _fma(cc[..., k, None], mw[None, :, :, k], acc)
+    blocks = acc[:, :, 0]
+    for i in range(1, w):
+        blocks = blocks + acc[:, :, i]
+    y = blocks[:, 0]
+    for b in range(1, cl):
+        y = y + blocks[:, b]
+    return y
+
+
 def increment_of(case: str, work: torch.Tensor) -> torch.Tensor:
     """The increment (over WORK_SCALE) a strided_sum / serial_tiles step
     adds to the carry, from the step's work."""
@@ -182,17 +282,38 @@ def launch(case: str, ins: list, reps: int) -> tuple:
         out = mm.launch(w_ops, c0, _variant(case), reps, MM_SCALE,
                         mm.SCRIPT_NB, counter="ops")
         return out, None
+    if case == "lanesum_dot":
+        return launch_lanesum(ins, reps)
     x = ins[0].contiguous()
-    m = ins[1].contiguous() if case == "lanesum_dot" else None
-    dev = probes.check_cuda(x, *([m] if m is not None else []))
+    dev = probes.check_cuda(x)
     out = torch.empty_like(x)
-    side = {"lanesum_dot": (8, TILE), "strided_sum": (8, TILE),
-            "serial_tiles": (8, T)}.get(case)
+    side = {"strided_sum": (ROWS, TILE), "serial_tiles": (ROWS, T)}.get(case)
     side = None if side is None else torch.empty(side, device=dev)
     code = probes.LIBRARY.load().vmap_probe_ops(
-        KASE[case], probes.ptr(x), probes.ptr(m), probes.ptr(out),
-        probes.ptr(side), x.shape[0], reps, probes.stream(dev))
+        KASE[case], probes.ptr(x), probes.ptr(out), probes.ptr(side),
+        x.shape[0], reps, probes.stream(dev))
     probes.LIBRARY.check(code, f"ops probe ({case}) launch")
+    probes.LAUNCHES["ops"] += 1
+    return out, side
+
+
+def launch_lanesum(ins: list, reps: int) -> tuple:
+    """lanesum_dot's kernel on CUDA tensors, on the plan for this card:
+    (the last carry [8, T], the last step's y [8, 128])."""
+    if reps < 1:
+        raise ValueError("a lanesum_dot chain takes at least one step")
+    x = ins[0].contiguous()
+    dev = probes.check_cuda(x, ins[1])
+    p = lanesum_plan(mm.sm_count(dev))
+    m = lanesum_m_layout(ins[1], p)
+    out = torch.empty_like(x)
+    side = torch.empty(ROWS, TILE, device=dev)
+    ints = (ctypes.c_int * len(LANESUM_PLAN_FIELDS))(
+        *(p[f] for f in LANESUM_PLAN_FIELDS))
+    code = probes.LIBRARY.load().vmap_probe_lanesum(
+        probes.ptr(x), probes.ptr(m), probes.ptr(out), probes.ptr(side),
+        ctypes.cast(ints, ctypes.c_void_p), reps, probes.stream(dev))
+    probes.LIBRARY.check(code, f"ops probe (lanesum_dot, plan {p}) launch")
     probes.LAUNCHES["ops"] += 1
     return out, side
 

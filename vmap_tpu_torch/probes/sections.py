@@ -32,7 +32,9 @@ Layouts: the public functions take the script's [rows, T] arrays
 (column s R + r). The render kernel keeps the port's layout, per ray x
 sample ([OG, R, S], as ``train_step.cuh`` holds a ray's samples), one
 block per row of 128 rays, so a row sum is a reduction inside one block;
-the wrapper transposes in and out. The other cases are separable by
+the wrapper transposes in and out. A ray runs on two lanes of five
+samples each, its transmittance and backward suffix as two-lane scans
+(``render_step_lanes`` mirrors that order on the CPU). The other cases are separable by
 column. The emb kernel runs on a plan cut from the card (``emb_plan``):
 W1 and W2 (393 KB) do not fit one SM, so a slab of 20 columns is a
 thread-block cluster of 2 blocks, each keeping 64 rows of both W^T in
@@ -160,6 +162,93 @@ def render_step(ins, c):
     dlogits = d_rc3_b * terms3 * color * (1.0 - color)
     return (dalpha * 1e-3 + c * 0.999 + (ld + lc + lo) * 1e-6
             + dlogits[0:OG, 0:1].expand_as(c) * 1e-9)
+
+
+RAY_LANES = 2        # the render kernel's lanes a ray (csrc/sections.cu)
+RENDER_WARPS = R * RAY_LANES // 32
+
+
+def _seq_sum(x, start=None):
+    """x's last axis summed in order (from ``start`` where given)."""
+    acc = x[..., 0] if start is None else start + x[..., 0]
+    for i in range(1, x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc
+
+
+def _row_sum_lanes(v):
+    """A row's per-ray values [OG, R] summed as the render kernel sums
+    them: each warp's 16 rays by a butterfly over the lanes of one parity
+    (lane l holds ray 16 w + l // 2; offsets 16, 8, 4, 2), then the warps'
+    lane 0 in warp order."""
+    lanes = torch.arange(32)
+    v = v.reshape(OG, RENDER_WARPS, 16)[:, :, lanes // 2]
+    for off in (16, 8, 4, 2):
+        v = v + v[:, :, lanes ^ off]
+    return _seq_sum(v[:, :, 0], torch.zeros(OG, dtype=v.dtype))
+
+
+def render_step_lanes(ins, c):
+    """``render_step`` in csrc/sections.cu render_kernel's order, for
+    tests: a ray on RAY_LANES lanes of S / RAY_LANES samples each; each
+    lane's transmittance prefix products, its sums and its backward suffix
+    in order, then the two-lane scans (the second lane's prefixes times
+    the first lane's total, the second lane's suffix total added to the
+    first lane's suffixes) and the halves' sums added; the losses' row sums
+    as ``_row_sum_lanes``."""
+    z, dep, gtc, mo = ins[1], ins[2], ins[3], ins[4]
+    sl = S // RAY_LANES
+
+    def rays(x):  # [OG, S R] -> [OG, R, lanes, samples a lane]
+        return x.reshape(OG, S, R).transpose(1, 2).reshape(OG, R, RAY_LANES,
+                                                           sl)
+    a, zz = rays(c), rays(z)
+    col = torch.sigmoid(a * 0.3)
+    occ = torch.sigmoid(a)
+    fr = torch.clamp(1.0 - occ + 1e-10, min=1e-10)
+    cps, cpv = [], torch.ones(OG, R, RAY_LANES, dtype=c.dtype)
+    for i in range(sl):
+        cps.append(cpv)
+        cpv = cpv * fr[..., i]
+    cp = torch.stack(cps, -1)
+    scale = torch.ones_like(cpv)
+    scale[..., 1:] = cpv[..., :1]
+    cp = cp * scale[..., None]
+    terms = occ * cp
+
+    def halves(x, start=None):
+        h = _seq_sum(x, start)
+        return h[..., 0] + h[..., 1]
+    rd, ro, rc = halves(terms * zz), halves(terms), halves(terms * col)
+    dz = zz - rd[..., None, None]
+    var = halves(terms * (dz * dz), torch.zeros(()))
+    info = 1.0 / (torch.sqrt(var) + 1e-4)
+    g0, g1, g2 = gtc[:OG], gtc[OG:2 * OG], gtc[2 * OG:]
+    res_d, res_o = rd - dep, ro - mo
+    rc0, rc1, rc2 = rc - g0, rc - g1, rc - g2
+    ld = _row_sum_lanes(res_d.abs() * info)
+    lc = _row_sum_lanes((rc0.abs() * mo + rc1.abs() * mo) + rc2.abs() * mo)
+    lo = _row_sum_lanes(res_o.abs())
+    loss = ((ld + lc) + lo) * 1e-6
+    drd, dro = torch.sign(res_d) * info, torch.sign(res_o)
+    dc0, dc1, dc2 = (torch.sign(x) * mo for x in (rc0, rc1, rc2))
+    first = (slice(None), 0, 0, 0)
+    dl = dc0[:, 0] * terms[first] * col[first] * (1.0 - col[first])
+    e = (..., None, None)
+    dterm = (drd[e] * zz + dro[e]) + ((dc0[e] * col + dc1[e] * col)
+                                      + dc2[e] * col)
+    sufs, sv = [None] * sl, torch.zeros(OG, R, RAY_LANES, dtype=c.dtype)
+    for i in range(sl - 1, -1, -1):
+        sufs[i] = sv
+        sv = sv + dterm[..., i] * terms[..., i]
+    carry = torch.zeros_like(sv)
+    carry[..., :1] = sv[..., 1:]
+    suf = torch.stack(sufs, -1) + carry[..., None]
+    docc = dterm * cp - suf / fr
+    dalpha = docc * occ * (1.0 - occ) * 10.0
+    new = ((dalpha * 1e-3 + a * 0.999) + loss[:, None, None, None]) \
+        + (dl * 1e-9)[:, None, None, None]
+    return new.reshape(OG, R, S).transpose(1, 2).reshape(OG, T)
 
 
 def emb_y(ins, c, split: bool):
@@ -372,6 +461,31 @@ def launch_emb(case: str, ins: list, reps: int) -> tuple:
     return out, side
 
 
+# the floats on which the render kernel takes its fast reciprocal: both
+# signs, exponent fields 1 ... 252 (csrc/sections.cu rcp_fast_ok)
+RCP_FAST_FLOATS = 2 * 252 * 2 ** 23
+
+
+def rcp_check(dev: torch.device) -> dict:
+    """The render kernel's branch-free reciprocal (csrc/sections.cu
+    rcp_fast, taken where a whole warp's operands lie in its range) against
+    ``__frcp_rn`` on every float of that range, bit for bit, on the card.
+    Raises on any mismatch; returns the check as ``compare`` reports its
+    cases."""
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    code = probes.LIBRARY.load().vmap_probe_rcp_check(
+        probes.ptr(bad), mm.sm_count(dev), probes.stream(dev))
+    probes.LIBRARY.check(code, "render reciprocal check launch")
+    n = int(bad)
+    res = {"case": "render reciprocal", "max_abs_err": 0.0,
+           "max_rel_err": 0.0, "rtol": 0.0, "used": 0.0,
+           "floats": RCP_FAST_FLOATS, "mismatches": n}
+    if n:
+        raise AssertionError(f"render reciprocal: {n} of {RCP_FAST_FLOATS} "
+                             "floats differ from __frcp_rn")
+    return res
+
+
 def chain(case: str, ins: list, reps: int) -> torch.Tensor:
     """The chain: the plain version on CPU tensors, the kernel on CUDA."""
     if ins[0].device.type == "cpu":
@@ -437,8 +551,9 @@ def compare(dev: torch.device, reps: int = 3) -> list:
     """Every case's kernel against its plain version at ``reps`` steps
     (within ``tol``), and each emb / ladder section, read from one step of
     the kernel, against the plain section (within ``increment``'s bound
-    plus SECTION_RTOL); raises if one is outside."""
-    res = []
+    plus SECTION_RTOL); first the render's reciprocal (``rcp_check``);
+    raises if one is outside."""
+    res = [rcp_check(dev)]
     for case in CASES:
         ins = make_inputs(case, dev)
         res.append(probes.held(case, launch(case, ins, reps),
