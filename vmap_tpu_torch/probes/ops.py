@@ -283,7 +283,7 @@ def launch(case: str, ins: list, reps: int) -> tuple:
                         mm.SCRIPT_NB, counter="ops")
         return out, None
     if case == "lanesum_dot":
-        return launch_lanesum(ins, reps)
+        return _launch_lanesum(ins, reps)
     x = ins[0].contiguous()
     dev = probes.check_cuda(x)
     out = torch.empty_like(x)
@@ -297,7 +297,7 @@ def launch(case: str, ins: list, reps: int) -> tuple:
     return out, side
 
 
-def launch_lanesum(ins: list, reps: int) -> tuple:
+def _launch_lanesum(ins: list, reps: int) -> tuple:
     """lanesum_dot's kernel on CUDA tensors, on the plan for this card:
     (the last carry [8, T], the last step's y [8, 128])."""
     if reps < 1:
