@@ -86,11 +86,11 @@ PAIR = ("dep_fma", "ind_fma")
 ROWS = 8              # rows of the carry of lanesum_dot and the tile cases
 
 # lanesum_dot's plan: csrc/ops.cu LsPlan, in the order the launcher reads
-# it; the cluster sizes the kernel is built for (portable, largest first),
-# its warps a block, a lane's columns of all 8 rows
+# it; the cluster sizes the kernel is built for (portable, largest first)
+# and its warps a block
 LANESUM_PLAN_FIELDS = ("cluster", "rows", "warps")
 LANESUM_BUILT = (8, 4)
-LANESUM_WARPS, LANESUM_CG = 8, 4
+LANESUM_WARPS = 8
 
 
 def make_inputs(case: str, dev) -> list:
@@ -208,7 +208,7 @@ def lanesum_plan_checks(p: dict, sms: int = mm.N_SMS) -> dict:
             "resident": p["cluster"] <= sms,
             "rows_once": rows == [1] * T and p["cluster"] * p["rows"] == T,
             "warps": p["warps"] == LANESUM_WARPS
-            and p["rows"] % p["warps"] == 0 and 32 * LANESUM_CG == TILE,
+            and p["rows"] % p["warps"] == 0,
             "slice": TILE % p["cluster"] == 0
             and ROWS * (TILE // p["cluster"]) <= 32 * p["warps"],
             "built": p["cluster"] in LANESUM_BUILT}

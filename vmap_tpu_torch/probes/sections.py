@@ -34,8 +34,8 @@ sample ([OG, R, S], as ``train_step.cuh`` holds a ray's samples), one
 block per row of 128 rays, so a row sum is a reduction inside one block;
 the wrapper transposes in and out. A ray runs on two lanes of five
 samples each, its transmittance and backward suffix as two-lane scans
-(``render_step_lanes`` mirrors that order on the CPU). The other cases are separable by
-column. The emb kernel runs on a plan cut from the card (``emb_plan``):
+(``render_step_lanes`` mirrors that order on the CPU). The other cases
+are separable by column. The emb kernel runs on a plan cut from the card (``emb_plan``):
 W1 and W2 (393 KB) do not fit one SM, so a slab of 20 columns is a
 thread-block cluster of 2 blocks, each keeping 64 rows of both W^T in
 shared memory for the whole chain and exchanging its new carry rows with
@@ -168,9 +168,9 @@ RAY_LANES = 2        # the render kernel's lanes a ray (csrc/sections.cu)
 RENDER_WARPS = R * RAY_LANES // 32
 
 
-def _seq_sum(x, start=None):
-    """x's last axis summed in order (from ``start`` where given)."""
-    acc = x[..., 0] if start is None else start + x[..., 0]
+def _seq_sum(x):
+    """x's last axis summed in order."""
+    acc = x[..., 0]
     for i in range(1, x.shape[-1]):
         acc = acc + x[..., i]
     return acc
@@ -185,7 +185,7 @@ def _row_sum_lanes(v):
     v = v.reshape(OG, RENDER_WARPS, 16)[:, :, lanes // 2]
     for off in (16, 8, 4, 2):
         v = v + v[:, :, lanes ^ off]
-    return _seq_sum(v[:, :, 0], torch.zeros(OG, dtype=v.dtype))
+    return _seq_sum(v[:, :, 0])
 
 
 def render_step_lanes(ins, c):
@@ -216,12 +216,12 @@ def render_step_lanes(ins, c):
     cp = cp * scale[..., None]
     terms = occ * cp
 
-    def halves(x, start=None):
-        h = _seq_sum(x, start)
+    def halves(x):
+        h = _seq_sum(x)
         return h[..., 0] + h[..., 1]
     rd, ro, rc = halves(terms * zz), halves(terms), halves(terms * col)
     dz = zz - rd[..., None, None]
-    var = halves(terms * (dz * dz), torch.zeros(()))
+    var = halves(terms * (dz * dz))
     info = 1.0 / (torch.sqrt(var) + 1e-4)
     g0, g1, g2 = gtc[:OG], gtc[OG:2 * OG], gtc[2 * OG:]
     res_d, res_o = rd - dep, ro - mo
