@@ -241,10 +241,11 @@ its own, in place of the phases (``update_ab``).
 
     python3 chip_smoke.py --probe-ab dev/parent . . dev/parent
 
-does the same for the chain probes (K4's and K10's cases, K5's fwd_mm
-pair and lanesum_dot, K7's render and emb_cat / emb_split, K8's five
-modes with their overlap fractions: each kernel's ns a step and its
-library call's; ``probe_ab``).
+does the same for the chain probes (K4's and K10's cases, K5's dep_fma /
+ind_fma pair, sigmoid, sincos, fwd_mm pair and lanesum_dot, K7's render,
+emb_cat / emb_split and ladder / ladder_sinpi, K8's five modes with their
+overlap fractions: each kernel's ns a step and its library call's;
+``probe_ab``).
 """
 
 from __future__ import annotations
@@ -3392,11 +3393,13 @@ def probe_path(dev, gpu: str) -> tuple:
 # ------------------------------------------------------------ --probe-ab
 def probe_times(dev) -> dict:
     """The chain probes of the checkout this process imports (K4's and
-    K10's cases, K5's fwd_mm pair and lanesum_dot, K7's render and
-    emb_cat / emb_split, K8's five modes) on one timer: each kernel's ns a
-    step (the probe's own slope) and its library call's (None where there
-    is none); K8's modes timed ``overlap.RUNS`` times, each run's ns and
-    overlap fractions kept."""
+    K10's cases, K5's dep_fma / ind_fma / sigmoid / sincos, fwd_mm pair
+    and lanesum_dot, K7's render, emb_cat / emb_split and ladder /
+    ladder_sinpi, K8's five modes) on one timer: each kernel's ns a step
+    (the probe's own slope) and its library call's (None where there is
+    none); K5's dep_fma / ind_fma pair timed ``ops.RUNS`` times and K8's
+    modes ``overlap.RUNS`` times, each run's ns (and K8's overlap
+    fractions) kept."""
     from vmap_tpu_torch import probes
     from vmap_tpu_torch.probes import int8, mm, ops, overlap, sections
     probes.LIBRARY.load()
@@ -3408,12 +3411,18 @@ def probe_times(dev) -> dict:
             res[f"{name} {' '.join(r['case'].split())}"] = {
                 "ns": r["step_ns"],
                 "library_ns": None if lib is None else lib * 1e6}
-    for case in ("fwd_mm", "fwd_mm_bf16", "lanesum_dot"):
-        r = ops.measure(case, dev)
+    for case in ("dep_fma", "ind_fma", "sigmoid", "sincos", "fwd_mm",
+                 "fwd_mm_bf16", "lanesum_dot"):
+        runs = [ops.measure(case, dev)
+                for _ in range(ops.RUNS if case in ops.PAIR else 1)]
+        ns = sorted(r["step_ns"] for r in runs)
+        lib = ops.library_ms(runs[0], dev)
         res[f"probe_ops {case}"] = {
-            "ns": r["step_ns"],
-            "library_ns": ops.library_ms(r, dev) * 1e6}
-    for case in ("render", "emb_cat", "emb_split"):
+            "ns": ns[len(ns) // 2],
+            "library_ns": None if lib is None else lib * 1e6,
+            **({"ns_runs": ns} if len(ns) > 1 else {})}
+    for case in ("render", "emb_cat", "emb_split", "ladder",
+                 "ladder_sinpi"):
         r = sections.measure(case, dev)
         lib = sections.library_ms(r, dev)
         res[f"probe_sections {case}"] = {
@@ -3471,8 +3480,10 @@ def probe_ab(trees: list) -> list:
                 continue
             lib = ("none" if r["library_ns"] is None
                    else f"{r['library_ns']:.1f}")
+            each = ("" if "ns_runs" not in r else " (runs "
+                    + " ".join(f"{x:.2f}" for x in r["ns_runs"]) + ")")
             log(f"[pab] {i} {run['tree']} {key}: ns a step kernel "
-                f"{r['ns']:.1f}, library {lib}")
+                f"{r['ns']:.2f}{each}, library {lib}")
     with open(os.path.join(OUT, "probe_ab.json"), "w") as f:
         json.dump(runs, f, indent=1)
     return runs
@@ -3886,9 +3897,9 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)   # one run of --update-ab
     ap.add_argument("--probe-ab", nargs="+", metavar="TREE",
                     help="in place of the phases: time the chain probes "
-                    "(K4, K10, K5's fwd_mm and lanesum_dot, K7's render and "
-                    "emb, K8) of each checkout "
-                    "TREE in turn (probe_ab)")
+                    "(K4, K10, K5's elementwise cases, fwd_mm and "
+                    "lanesum_dot, K7's render, emb and ladders, K8) of each "
+                    "checkout TREE in turn (probe_ab)")
     ap.add_argument("--probe-times", action="store_true",
                     help=argparse.SUPPRESS)   # one run of --probe-ab
     ap.add_argument("--tree", help=argparse.SUPPRESS)  # its checkout
