@@ -114,9 +114,12 @@ Phases, in order (any failure raises and the script exits non-zero):
      version at 3 steps (rtol 1e-5 a step for f32 chains, 1e-6 a step for
      K9's f32, 2e-3 bf16 products, bit-equal i8 and K9's per-op bf16, one
      bf16 ulp a step for bf16_fma, 1e-6 i8_quant, 1e-5 render and ladder;
-     K6 at 4000 copies, checksum and 8 final slots bit-equal; the render's
-     branch-free reciprocal bit-equal to __frcp_rn on every float of its
-     range), each emb /
+     K6 at 4000 copies, checksum and 8 final slots bit-equal; first the
+     probes' branch-free fast paths bit-equal to the library functions on
+     every float of their ranges, each check's floats and mismatches
+     printed: the reciprocal of the render and K5's sigmoid to __frcp_rn,
+     the sin / cos of K7's ladder and K5's sincos to sinf / cosf, the
+     sinpi / cospi of K7's ladder_sinpi to sinpif / cospif), each emb /
      ladder section and K5's strided_sum / serial_tiles work read from one
      kernel step (within that step's f32 roundings plus rtol 1e-5), K5's
      side outputs (lanesum_dot's whole product, the tile sums and running
@@ -3211,11 +3214,14 @@ PROBE_FUNCTIONS = {
     "probe_sections": ["render_kernel (a ray on two lanes, two-lane "
                        "scans, branch-free reciprocals)",
                        "emb_kernel<SPLIT, 2> (FP32 FMA, W resident across "
-                       "a cluster of 2)", "ladder_kernel<SINPI>"],
+                       "a cluster of 2)",
+                       "ladder_kernel<SINPI> (spread over the SMs, sin / "
+                       "cos on branch-free fast paths)"],
     "probe_overlap": ["overlap_kernel<MODE> (3xbf16 wgmma, the vpu ops "
                       "between commit and wait)"],
     "probe_vpu": ["vpu_f32_kernel<OP>", "vpu_bf16_kernel<OP, FMA>"],
-    "probe_ops": ["ew_kernel<K>",
+    "probe_ops": ["ew_kernel<K> (spread over the SMs, chains at their "
+                  "latency floor, branch-free reciprocal and sin / cos)",
                   "lanesum_kernel<CL> (FP32 FMA, m resident across a "
                   "cluster of 8, partials exchanged by st.async)",
                   "tiles_kernel<SERIAL>"],
@@ -3313,6 +3319,11 @@ def probe_path(dev, gpu: str) -> tuple:
     checks = {}
     for name, mod in mods.items():
         checks[name] = mod.compare(dev)
+        for r in checks[name]:
+            if "floats" in r:
+                log(f"[12] {name} {r['case']} fast path: {r['mismatches']} "
+                    f"of {r['floats']} floats differ from the library "
+                    f"function's bits")
         worst = max(checks[name], key=lambda r: r["used"])
         log(f"[12] {name}: {len(checks[name])} cases held to plain, worst "
             f"{worst['case'].strip()} rel err {worst['max_rel_err']:.3e} "
@@ -3446,8 +3457,9 @@ def probe_ab(trees: list) -> list:
     gitignored directory; parent, change, change, parent compares two) on
     the same timers. Each distinct checkout's probe library is built
     first, all at once; then each entry runs ``probe_times`` in a process
-    of its own. Logs one line a case and run; smoke_out/probe_ab.json
-    keeps them."""
+    of its own, the SM clock sampled through it (``nvidia-smi``). Logs one
+    line a case and run and the run's clock; smoke_out/probe_ab.json keeps
+    them."""
     trees = [os.path.abspath(t) for t in trees]
     build = ("import sys; sys.path.insert(0, '.'); "
              "from vmap_tpu_torch import probes; probes.LIBRARY.build()")
@@ -3461,17 +3473,30 @@ def probe_ab(trees: list) -> list:
             raise RuntimeError(f"probe build of {t} failed:\n{out[-4000:]}")
     runs = []
     for i, t in enumerate(trees):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--probe-times", "--tree", t],
-                              capture_output=True, text=True, timeout=900)
+        # the SM clock through the run, sampled every 250 ms
+        clock = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits", "-lms", "250"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        try:
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                   "--probe-times", "--tree", t],
+                                  capture_output=True, text=True, timeout=900)
+        finally:
+            clock.terminate()
+            mhz = sorted(float(x) for x in clock.communicate(timeout=60)[0]
+                         .split() if x.replace(".", "", 1).isdigit())
         tag = "PROBE_TIMES "
         lines = [x for x in proc.stdout.splitlines() if x.startswith(tag)]
         if proc.returncode or not lines:
             raise RuntimeError(f"probe_times in {t} failed "
                                f"({proc.returncode}):\n{proc.stderr[-4000:]}")
         run = {"tree": os.path.relpath(t, REPO),
+               "sm_mhz": mhz and [mhz[0], mhz[len(mhz) // 2], mhz[-1]],
                "cases": json.loads(lines[-1][len(tag):])}
         runs.append(run)
+        log(f"[pab] {i} {run['tree']} SM clock MHz min / median / max "
+            f"{run['sm_mhz']} ({len(mhz)} samples)")
         for key, r in run["cases"].items():
             if "fraction" in r:
                 log(f"[pab] {i} {run['tree']} {key} fraction: median "

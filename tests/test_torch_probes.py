@@ -807,6 +807,112 @@ def test_lanesum_cluster_order_stays_within_the_plain_chain(sms):
     assert not torch.equal(y, want_y)
 
 
+def test_ind_fma_tree_order_stays_within_the_plain_chain():
+    """ind_fma in the kernel's order (``ops.ind_fma_tree``: each term one
+    FMA, the 8 terms added as a 3-level tree, then / 8) for 3 steps against
+    ``ops.chain_reference`` (the terms rounded twice and added in order)
+    within ``ops.tol``, and not equal to it: the reorder is seen and
+    fits."""
+    ins = ops.make_inputs("ind_fma", CPU)
+    c = ins[0] * 1.0001
+    for _ in range(3):
+        c = ops.ind_fma_tree(ins, c)
+    want, _ = ops.chain_reference("ind_fma", ins, 3)
+    probes.held("ind_fma tree", c, want, ops.tol("ind_fma", 3))
+    assert not torch.equal(c, want)
+
+
+# ------------------------------------- K7's ladders and K5's elementwise
+SPREADS = {"ladder": lambda sms: sections.ladder_plan(sms),
+           "ew_8": lambda sms: ops.ew_plan("ind_fma", sms),
+           "sincos": lambda sms: ops.ew_plan("sincos", sms)}
+
+
+@pytest.mark.parametrize("sms", [132, 114, 66, 8])
+@pytest.mark.parametrize("which", sorted(SPREADS))
+def test_elementwise_spread_covers_once_in_whole_warps(which, sms):
+    """The ladders' and K5's elementwise cases' spread (``probes.
+    spread_plan``, the mirror of csrc/probe_common.cuh spread_ok /
+    spread_first): every one of the 122,880 / 10,240 elements once, each
+    warp holding whole units of 32 x items (so a vote over its lanes is
+    valid), a block within the kernels' 512 threads, the blocks within one
+    unit of each other and as many on every SM. On 132 SMs one block an
+    SM: 15 warps of two elements a lane for the [96, 1280] carries (14 or
+    15 of them holding elements, where the old grid's 480 blocks put 3 or
+    4 on an SM), 3 warps of one for the [8, 1280] ones (at most one a
+    scheduler, where the old grid ran them on 40 SMs)."""
+    p = SPREADS[which](sms)
+    n = 8 * 1280 if which == "ew_8" else 96 * 1280
+    assert all(probes.spread_plan_checks(p, n, sms).values())
+    per = [len(e) // (32 * p["items"]) for e in probes.spread_elements(p, n)]
+    units = n // (32 * p["items"])
+    if sms == 132:
+        assert p == ({"blocks": 132, "threads": 96, "items": 1}
+                     if which == "ew_8" else
+                     {"blocks": 132, "threads": 480, "items": 2})
+        assert max(per) == -(-units // 132) and min(per) == units // 132
+    assert sum(per) == units
+    # a lane's elements 32 apart: the first warp of block 0 holds unit 0
+    first = probes.spread_elements(p, n)[0][:32 * p["items"]]
+    assert first == list(range(32 * p["items"]))
+    assert not probes.spread_plan_checks({**p, "threads": 32}, n,
+                                         sms)["once"]
+    with pytest.raises(ValueError, match="whole units"):
+        probes.spread_plan(n + 32, p["items"], sms) if p["items"] == 2 \
+            else probes.spread_plan(n + 16, 1, sms)
+
+
+def test_fast_check_ranges_count_their_floats():
+    """``sections.FAST_CHECKS`` report the floats of each fast path's range
+    (csrc/probe_common.cuh rcp_fast_ok, trig_fast_ok, sincospi_fast_ok),
+    counted here from the bit patterns: exponent fields 1-252 of both
+    signs; |x| < 105615 of both signs; 0 < a < 2^21."""
+    def bits(x):
+        return int(np.float32(x).view(np.uint32))
+    got = {k: v[1] for k, v in sections.FAST_CHECKS.items()}
+    assert got["render reciprocal"] == 2 * (bits(2.0 ** 126) - bits(2.0 ** -126))
+    assert got["sin / cos"] == 2 * bits(105615.0)
+    assert got["sinpi / cospi"] == bits(2.0 ** 21) - 1
+    assert sorted(v[0] for v in sections.FAST_CHECKS.values()) == [0, 1, 2]
+
+
+SASS = """
+\t\tFunction : _Z3fooPf
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;        /* 0x00000a00ff017b82 */
+        /*0010*/              @!P0 EXIT ;                        /* 0x000000000000094d */
+        /*0020*/                   FFMA R2, R2, R3, R4 ;
+        /*0030*/                   BSSY B0, 0x60 ;
+        /*0040*/               @P1 CALL.REL.NOINC 0x90 ;
+        /*0050*/                   BSYNC B0 ;
+        /*0060*/               @P0 BRA 0x20 ;
+        /*0070*/                   EXIT ;
+        /*0080*/                   BRA 0x80;
+        /*0090*/                   RET.REL.NODEC R20 0x0 ;
+        /*00a0*/                   NOP;
+\t\tFunction : _Z3barv
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_sass_counts_kernels_loops_and_paths():
+    """``probes.sass`` on cuobjdump's layout: a function a ``Function :``
+    header; the step loop (0x20-0x60, a backward branch's span) with its
+    call and convergence region; the self-branch padding and NOPs left
+    out; ``path_count`` a span less another."""
+    from vmap_tpu_torch.probes import sass
+    funcs = sass.split_functions(SASS)
+    assert list(funcs) == ["_Z3fooPf", "_Z3barv"]
+    c = sass.count(funcs["_Z3fooPf"])
+    assert (c["instructions"], c["branches"], c["calls"], c["bssy"]) == \
+        (9, 1, 1, 1)
+    assert [(lp["start"], lp["end"], lp["instructions"]) for lp in
+            c["loops"]] == [("0020", "0060", 5)]
+    assert sass.path_count(funcs["_Z3fooPf"], (0x20, 0x60),
+                           ((0x40, 0x40),))["instructions"] == 4
+    assert sass.count(funcs["_Z3barv"])["instructions"] == 1
+
+
 # ------------------------------------------------------------------- K6
 DMA_N = 40
 

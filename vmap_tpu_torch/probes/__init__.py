@@ -57,11 +57,12 @@ SIGNATURES = {
     "vmap_probe_int8": ((I,) + (P,) * 7, I),
     "vmap_probe_wgmma_tile": ((I, P, P, P, P, I, P), I),
     "vmap_probe_render": ((P, P, P, P, P, P, I, P), I),
-    "vmap_probe_rcp_check": ((P, I, P), I),
+    "vmap_probe_fast_check": ((I, P, I, P), I),
     "vmap_probe_emb": ((I, P, P, P, P, P, I, I, P), I),
-    "vmap_probe_ladder": ((I, P, P, I, I, P), I),
+    "vmap_probe_ladder": ((I, P, P, P, I, I, P), I),
     "vmap_probe_overlap": ((I, P, P, P, P, P, P, P, I, I, I, P), I),
     "vmap_probe_vpu": ((I, I, P, P, I, I, P), I),
+    "vmap_probe_ew": ((I, P, P, P, I, I, P), I),
     "vmap_probe_ops": ((I, P, P, P, I, I, P), I),
     "vmap_probe_lanesum": ((P,) * 5 + (I, P), I),
     "vmap_probe_dma": ((I, P, I, I, I, I, P, P, P), I),
@@ -96,6 +97,67 @@ def bound(ops_s: float = 0.0, bytes_s: float = 0.0) -> dict:
     of a step's operations and its bytes, each over its peak (seconds)."""
     return {"bound_ms": max(ops_s, bytes_s) * 1e3,
             "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
+
+
+# the elementwise chains' spread (csrc/probe_common.cuh Spread, in the
+# order the launchers read it) and its largest block (SPREAD_MAX_THREADS,
+# the kernels' __launch_bounds__)
+SPREAD_FIELDS = ("blocks", "threads", "items")
+SPREAD_MAX_WARPS = 16
+
+
+def spread_plan(n: int, items: int, sms: int) -> dict:
+    """How an elementwise chain's ``n`` elements go over a card of ``sms``
+    SMs (csrc/probe_common.cuh Spread, checked there by spread_ok): in
+    units of one warp's 32 x ``items`` elements, unit u on warp u //
+    blocks of block u % blocks, so the units go round the blocks and the
+    blocks differ by one unit at most; one block an SM where
+    SPREAD_MAX_WARPS warps a block hold the units, else the fewest blocks
+    an SM that do (every SM the same number). Raises where ``n`` is not a
+    whole number of units."""
+    unit = 32 * items
+    if n <= 0 or n % unit:
+        raise ValueError(f"{n} elements are not whole units of {unit}")
+    units = n // unit
+    blocks = min(units, sms * -(-units // (SPREAD_MAX_WARPS * sms)))
+    return {"blocks": blocks, "threads": 32 * -(-units // blocks),
+            "items": items}
+
+
+def spread_elements(p: dict, n: int) -> list:
+    """Each block's elements under plan ``p`` (csrc/probe_common.cuh
+    spread_first: lane l of warp w of block b, unit u = w blocks + b,
+    holds u 32 items + 32 k + l for k < items, where u 32 items < n)."""
+    unit = 32 * p["items"]
+    out = []
+    for b in range(p["blocks"]):
+        got = []
+        for w in range(p["threads"] // 32):
+            u = w * p["blocks"] + b
+            if u * unit < n:
+                got.extend(u * unit + 32 * k + lane
+                           for k in range(p["items"]) for lane in range(32))
+        out.append(got)
+    return out
+
+
+def spread_plan_checks(p: dict, n: int, sms: int) -> dict:
+    """The limits a spread must meet: whole units (a warp holds all its
+    32 x items elements or none, so a vote over its lanes is valid), every
+    element once, a block within the kernels' SPREAD_MAX_WARPS warps, the
+    blocks' units within one of each other and the blocks as many on each
+    SM of a card of ``sms`` SMs (or one a unit)."""
+    unit = 32 * p["items"]
+    per = spread_elements(p, n)
+    units = [len(e) // unit for e in per]
+    seen = sorted(i for e in per for i in e)
+    return {"whole_units": n % unit == 0
+            and all(len(e) % unit == 0 for e in per),
+            "once": seen == list(range(n)),
+            "threads": p["threads"] % 32 == 0
+            and 32 <= p["threads"] <= 32 * SPREAD_MAX_WARPS,
+            "even": max(units) - min(units) <= 1
+            and (p["blocks"] % sms == 0 or p["blocks"] == n // unit)}
 
 
 def device_from_arg(name: str) -> torch.device:

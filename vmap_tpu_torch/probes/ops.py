@@ -34,6 +34,13 @@ FMA in row order, the warps' partials are added in warp order, and the
 blocks' in block order (``lanesum_y_cluster`` mirrors that order on the
 CPU; the tests hold it to the plain chain). Every step computes all of y.
 
+dep_fma, ind_fma, sigmoid and sincos go round one block an SM in whole
+warps (``ew_plan``, ``probes.spread_plan``). ind_fma adds its 8 terms as a
+3-level tree (``ind_fma_tree`` mirrors that order); sigmoid's reciprocal
+and sincos' sin / cos take the accurate functions' own fast paths without
+their slow-path branches (csrc/probe_common.cuh; ``sections.fast_check``
+holds them to the library functions bit for bit).
+
 Values leave f32 range in lanesum_dot (about 640x a step, within about 13
 steps) and fwd_mm (about 64x, within 21): at the script's 500 steps both
 time arithmetic on inf, as the TPU's kernel did. dep_fma and sigmoid tend
@@ -70,10 +77,12 @@ SHAPES = {"dep_fma": ((8, T),), "ind_fma": ((8, T),),
 REPS = {"dep_fma": 4000, "ind_fma": 500, "sigmoid": 1000, "sincos": 500,
         "lanesum_dot": 500, "strided_sum": 1000, "fwd_mm": 500,
         "fwd_mm_bf16": 500, "serial_tiles": 1000}
-# the case number of csrc/ops.cu vmap_probe_ops (lanesum_dot:
-# vmap_probe_lanesum; fwd_mm*: mm.cu)
+# the case number of csrc/ops.cu vmap_probe_ew (0-3) / vmap_probe_ops
+# (5, 6) (lanesum_dot: vmap_probe_lanesum; fwd_mm*: mm.cu)
 KASE = {"dep_fma": 0, "ind_fma": 1, "sigmoid": 2, "sincos": 3,
         "strided_sum": 5, "serial_tiles": 6}
+# the elementwise cases' elements a lane (csrc/ops.cu ew_items)
+EW_ITEMS = {"dep_fma": 1, "ind_fma": 1, "sigmoid": 1, "sincos": 2}
 # operations a step the script's ns/op divides by
 OPS_PER_STEP = {"ind_fma": 16}
 # c <- KEEP c + WORK_SCALE work
@@ -165,6 +174,14 @@ def step_reference(case: str, ins: list, c: torch.Tensor,
                               MM_SCALE), None
 
 
+def ew_plan(case: str, sms: int = mm.N_SMS) -> dict:
+    """An elementwise case's spread over ``sms`` SMs
+    (``probes.spread_plan`` of its carry, EW_ITEMS[case] a lane): on 132
+    SMs, one block an SM, of 3 warps (dep_fma, ind_fma, sigmoid: 320 warps
+    of one element a lane, at most one a scheduler) or 15 (sincos)."""
+    return probes.spread_plan(SHAPES[case][0][0] * T, EW_ITEMS[case], sms)
+
+
 # ---------------------------------------------------------- lanesum_dot
 def lanesum_smem_bytes(p: dict) -> int:
     """One block's dynamic shared memory (csrc/ops.cu ls_smem): m's panel,
@@ -228,6 +245,16 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
+def ind_fma_tree(ins: list, c: torch.Tensor) -> torch.Tensor:
+    """ind_fma's step in csrc/ops.cu ew_step<1>'s order, for tests: the 8
+    terms c (1 + 0.01 k) + x each one FMA (one rounding), added as the
+    tree ((t0 + t1) + (t2 + t3)) + ((t4 + t5) + (t6 + t7)), then / 8."""
+    t = [_fma(c, torch.full_like(c, float(np.float32(1.0 + 0.01 * k))),
+              ins[0]) for k in range(8)]
+    return (((t[0] + t[1]) + (t[2] + t[3]))
+            + ((t[4] + t[5]) + (t[6] + t[7]))) * 0.125
+
+
 def lanesum_y_cluster(c: torch.Tensor, m: torch.Tensor, p: dict) -> torch.Tensor:
     """y = c @ m in csrc/ops.cu lanesum_kernel's order, for tests: warp w
     of block b sums its rows k of m (b rows + w rows / warps ...) in k
@@ -287,11 +314,21 @@ def launch(case: str, ins: list, reps: int) -> tuple:
     x = ins[0].contiguous()
     dev = probes.check_cuda(x)
     out = torch.empty_like(x)
-    side = {"strided_sum": (ROWS, TILE), "serial_tiles": (ROWS, T)}.get(case)
-    side = None if side is None else torch.empty(side, device=dev)
-    code = probes.LIBRARY.load().vmap_probe_ops(
-        KASE[case], probes.ptr(x), probes.ptr(out), probes.ptr(side),
-        x.shape[0], reps, probes.stream(dev))
+    if case in EW_ITEMS:
+        p = ew_plan(case, mm.sm_count(dev))
+        ints = (ctypes.c_int * len(probes.SPREAD_FIELDS))(
+            *(p[f] for f in probes.SPREAD_FIELDS))
+        code = probes.LIBRARY.load().vmap_probe_ew(
+            KASE[case], probes.ptr(x), probes.ptr(out),
+            ctypes.cast(ints, ctypes.c_void_p), x.numel(), reps,
+            probes.stream(dev))
+        side = None
+    else:
+        side = torch.empty((ROWS, TILE) if case == "strided_sum"
+                           else (ROWS, T), device=dev)
+        code = probes.LIBRARY.load().vmap_probe_ops(
+            KASE[case], probes.ptr(x), probes.ptr(out), probes.ptr(side),
+            x.shape[0], reps, probes.stream(dev))
     probes.LIBRARY.check(code, f"ops probe ({case}) launch")
     probes.LAUNCHES["ops"] += 1
     return out, side

@@ -42,7 +42,11 @@ shared memory for the whole chain and exchanging its new carry rows with
 the other by a copy between shared memories each step; all 128 rows of
 both products are computed, and the last step's rows 96-127, which no
 later step reads, go to a side output that ``compare`` holds too
-(``side_reference``).
+(``side_reference``). The ladders' elements go round one block an SM in
+whole warps, two a lane (``ladder_plan``, ``probes.spread_plan``), their
+sin / cos on the accurate functions' own fast paths without the branch to
+the slow path (csrc/probe_common.cuh), which ``fast_check`` holds to the
+library functions bit for bit on every float of their ranges.
 
     python -m vmap_tpu_torch.probes.sections [case ...] [--device cpu]
 """
@@ -50,6 +54,7 @@ later step reads, go to a side output that ``compare`` holds too
 from __future__ import annotations
 
 import argparse
+import ctypes
 import math
 
 import numpy as np
@@ -426,8 +431,10 @@ def launch(case: str, ins: list, reps: int) -> torch.Tensor:
         c0 = ins[0].contiguous()
         dev = probes.check_cuda(c0)
         out = torch.empty_like(c0)
+        p = ladder_plan(mm.sm_count(dev))
         code = lib.vmap_probe_ladder(int(case == "ladder_sinpi"),
                                      probes.ptr(c0), probes.ptr(out),
+                                     _ints(p, probes.SPREAD_FIELDS),
                                      c0.numel(), reps, probes.stream(dev))
         result = out
     probes.LIBRARY.check(code, f"sections probe ({case}) launch")
@@ -435,10 +442,15 @@ def launch(case: str, ins: list, reps: int) -> torch.Tensor:
     return result
 
 
+def _ints(p: dict, fields: tuple) -> ctypes.c_void_p:
+    """A plan's fields as the C int array its launcher reads."""
+    return ctypes.cast((ctypes.c_int * len(fields))(*(p[f] for f in fields)),
+                       ctypes.c_void_p)
+
+
 def launch_emb(case: str, ins: list, reps: int) -> tuple:
     """An emb case's kernel on CUDA tensors, on the plan for this card:
     (the last carry [96, T], the last step's y rows 96-127 [32, T])."""
-    import ctypes
     _check_inputs(case, ins)
     if reps < 1:
         raise ValueError("an emb chain takes at least one step")
@@ -449,11 +461,9 @@ def launch_emb(case: str, ins: list, reps: int) -> tuple:
                   lambda: emb_w_layout(ins[1], ins[2], p))
     out = torch.empty_like(c0)
     side = torch.empty(EMB_ROWS - BAND, T, device=dev)
-    ints = (ctypes.c_int * len(EMB_PLAN_FIELDS))(
-        *(p[f] for f in EMB_PLAN_FIELDS))
     code = probes.LIBRARY.load().vmap_probe_emb(
         int(case == "emb_split"), probes.ptr(c0), probes.ptr(w),
-        probes.ptr(out), probes.ptr(side), ctypes.cast(ints, ctypes.c_void_p),
+        probes.ptr(out), probes.ptr(side), _ints(p, EMB_PLAN_FIELDS),
         T, reps, probes.stream(dev))
     probes.LIBRARY.check(code, f"sections probe ({case}, emb plan {p}) "
                          "launch")
@@ -461,28 +471,45 @@ def launch_emb(case: str, ins: list, reps: int) -> tuple:
     return out, side
 
 
-# the floats on which the render kernel takes its fast reciprocal: both
-# signs, exponent fields 1 ... 252 (csrc/sections.cu rcp_fast_ok)
-RCP_FAST_FLOATS = 2 * 252 * 2 ** 23
+# the ladders' elements a lane (csrc/sections.cu LADDER_ITEMS)
+LADDER_ITEMS = 2
 
 
-def rcp_check(dev: torch.device) -> dict:
-    """The render kernel's branch-free reciprocal (csrc/sections.cu
-    rcp_fast, taken where a whole warp's operands lie in its range) against
-    ``__frcp_rn`` on every float of that range, bit for bit, on the card.
-    Raises on any mismatch; returns the check as ``compare`` reports its
-    cases."""
+def ladder_plan(sms: int = mm.N_SMS) -> dict:
+    """The ladders' spread over ``sms`` SMs (``probes.spread_plan`` of the
+    [96, T] carry, LADDER_ITEMS a lane): on 132 SMs one block an SM of 15
+    warps (14 or 15 of them holding elements)."""
+    return probes.spread_plan(96 * T, LADDER_ITEMS, sms)
+
+
+# The fast paths of csrc/probe_common.cuh, each held bit for bit to its
+# library function on every float of its range (csrc/sections.cu
+# fast_check_kernel): (kind, the floats of the range, the functions)
+FAST_CHECKS = {
+    # both signs, exponent fields 1 ... 252 (rcp_fast_ok)
+    "render reciprocal": (0, 2 * 252 * 2 ** 23, "__frcp_rn"),
+    # both signs, |x| < 105615 (trig_fast_ok): 0x47CE4780 floats a sign
+    "sin / cos": (1, 2 * 0x47CE4780, "sinf / cosf"),
+    # 0 < a < 2^21 (sincospi_fast_ok): bit patterns 1 ... 0x4A000000 - 1
+    "sinpi / cospi": (2, 0x4A000000 - 1, "sinpif / cospif")}
+
+
+def fast_check(name: str, dev: torch.device) -> dict:
+    """One of FAST_CHECKS on the card: the fast path against its library
+    function on every float of its range, bit for bit. Raises on any
+    mismatch; returns the check as ``compare`` reports its cases, with the
+    floats it covered and its mismatches."""
+    kind, floats, lib = FAST_CHECKS[name]
     bad = torch.zeros(1, dtype=torch.int64, device=dev)
-    code = probes.LIBRARY.load().vmap_probe_rcp_check(
-        probes.ptr(bad), mm.sm_count(dev), probes.stream(dev))
-    probes.LIBRARY.check(code, "render reciprocal check launch")
+    code = probes.LIBRARY.load().vmap_probe_fast_check(
+        kind, probes.ptr(bad), mm.sm_count(dev), probes.stream(dev))
+    probes.LIBRARY.check(code, f"{name} check launch")
     n = int(bad)
-    res = {"case": "render reciprocal", "max_abs_err": 0.0,
-           "max_rel_err": 0.0, "rtol": 0.0, "used": 0.0,
-           "floats": RCP_FAST_FLOATS, "mismatches": n}
+    res = {"case": name, "max_abs_err": 0.0, "max_rel_err": 0.0,
+           "rtol": 0.0, "used": 0.0, "floats": floats, "mismatches": n}
     if n:
-        raise AssertionError(f"render reciprocal: {n} of {RCP_FAST_FLOATS} "
-                             "floats differ from __frcp_rn")
+        raise AssertionError(f"{name}: {n} of {floats} floats differ from "
+                             f"{lib}")
     return res
 
 
@@ -551,9 +578,10 @@ def compare(dev: torch.device, reps: int = 3) -> list:
     """Every case's kernel against its plain version at ``reps`` steps
     (within ``tol``), and each emb / ladder section, read from one step of
     the kernel, against the plain section (within ``increment``'s bound
-    plus SECTION_RTOL); first the render's reciprocal (``rcp_check``);
+    plus SECTION_RTOL); first the fast paths of the render's reciprocal
+    and of the ladders' (and K5's sincos') sin / cos (``fast_check``);
     raises if one is outside."""
-    res = [rcp_check(dev)]
+    res = [fast_check(name, dev) for name in FAST_CHECKS]
     for case in CASES:
         ins = make_inputs(case, dev)
         res.append(probes.held(case, launch(case, ins, reps),
