@@ -171,6 +171,13 @@ def device_from_arg(name: str) -> torch.device:
     return dev
 
 
+def plan_ints(p: dict, fields: tuple) -> ctypes.c_void_p:
+    """A plan's ``fields`` as the C int array its launcher reads (the
+    pointer keeps the array alive)."""
+    return ctypes.cast((ctypes.c_int * len(fields))(*(p[f] for f in fields)),
+                       ctypes.c_void_p)
+
+
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     """A tensor's device pointer for ctypes (None: NULL)."""
     return ctypes.c_void_p(None if t is None else t.data_ptr())

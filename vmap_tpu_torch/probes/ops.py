@@ -316,11 +316,9 @@ def launch(case: str, ins: list, reps: int) -> tuple:
     out = torch.empty_like(x)
     if case in EW_ITEMS:
         p = ew_plan(case, mm.sm_count(dev))
-        ints = (ctypes.c_int * len(probes.SPREAD_FIELDS))(
-            *(p[f] for f in probes.SPREAD_FIELDS))
         code = probes.LIBRARY.load().vmap_probe_ew(
             KASE[case], probes.ptr(x), probes.ptr(out),
-            ctypes.cast(ints, ctypes.c_void_p), x.numel(), reps,
+            probes.plan_ints(p, probes.SPREAD_FIELDS), x.numel(), reps,
             probes.stream(dev))
         side = None
     else:

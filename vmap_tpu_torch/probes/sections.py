@@ -54,7 +54,6 @@ library functions bit for bit on every float of their ranges.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import math
 
 import numpy as np
@@ -434,18 +433,12 @@ def launch(case: str, ins: list, reps: int) -> torch.Tensor:
         p = ladder_plan(mm.sm_count(dev))
         code = lib.vmap_probe_ladder(int(case == "ladder_sinpi"),
                                      probes.ptr(c0), probes.ptr(out),
-                                     _ints(p, probes.SPREAD_FIELDS),
+                                     probes.plan_ints(p, probes.SPREAD_FIELDS),
                                      c0.numel(), reps, probes.stream(dev))
         result = out
     probes.LIBRARY.check(code, f"sections probe ({case}) launch")
     probes.LAUNCHES["sections"] += 1
     return result
-
-
-def _ints(p: dict, fields: tuple) -> ctypes.c_void_p:
-    """A plan's fields as the C int array its launcher reads."""
-    return ctypes.cast((ctypes.c_int * len(fields))(*(p[f] for f in fields)),
-                       ctypes.c_void_p)
 
 
 def launch_emb(case: str, ins: list, reps: int) -> tuple:
@@ -463,7 +456,7 @@ def launch_emb(case: str, ins: list, reps: int) -> tuple:
     side = torch.empty(EMB_ROWS - BAND, T, device=dev)
     code = probes.LIBRARY.load().vmap_probe_emb(
         int(case == "emb_split"), probes.ptr(c0), probes.ptr(w),
-        probes.ptr(out), probes.ptr(side), _ints(p, EMB_PLAN_FIELDS),
+        probes.ptr(out), probes.ptr(side), probes.plan_ints(p, EMB_PLAN_FIELDS),
         T, reps, probes.stream(dev))
     probes.LIBRARY.check(code, f"sections probe ({case}, emb plan {p}) "
                          "launch")
