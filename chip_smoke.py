@@ -117,9 +117,10 @@ Phases, in order (any failure raises and the script exits non-zero):
      K6 at 4000 copies, checksum and 8 final slots bit-equal; first the
      probes' branch-free fast paths bit-equal to the library functions on
      every float of their ranges, each check's floats and mismatches
-     printed: the reciprocal of the render and K5's sigmoid to __frcp_rn,
-     the sin / cos of K7's ladder and K5's sincos to sinf / cosf, the
-     sinpi / cospi of K7's ladder_sinpi to sinpif / cospif), each emb /
+     printed: the reciprocals of the render and of K5's sigmoid to
+     __frcp_rn, the sin / cos of K7's ladder and K5's sincos to sinf /
+     cosf, the sinpi / cospi of K7's ladder_sinpi to sinpif / cospif),
+     each emb /
      ladder section and K5's strided_sum / serial_tiles work read from one
      kernel step (within that step's f32 roundings plus rtol 1e-5), K5's
      side outputs (lanesum_dot's whole product, the tile sums and running

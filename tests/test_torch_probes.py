@@ -864,16 +864,18 @@ def test_elementwise_spread_covers_once_in_whole_warps(which, sms):
 
 def test_fast_check_ranges_count_their_floats():
     """``sections.FAST_CHECKS`` report the floats of each fast path's range
-    (csrc/probe_common.cuh rcp_fast_ok, trig_fast_ok, sincospi_fast_ok),
-    counted here from the bit patterns: exponent fields 1-252 of both
-    signs; |x| < 105615 of both signs; 0 < a < 2^21."""
+    (csrc/probe_common.cuh rcp_fast_ok, trig_fast_ok, sincospi_fast_ok,
+    sigmoid_fast_ok), counted here from the bit patterns: exponent fields
+    1-252 of both signs; |x| < 105615 of both signs; 0 < a < 2^21; c > -87
+    (+0 to +inf, -0 to the float above -87)."""
     def bits(x):
         return int(np.float32(x).view(np.uint32))
     got = {k: v[1] for k, v in sections.FAST_CHECKS.items()}
     assert got["render reciprocal"] == 2 * (bits(2.0 ** 126) - bits(2.0 ** -126))
     assert got["sin / cos"] == 2 * bits(105615.0)
     assert got["sinpi / cospi"] == bits(2.0 ** 21) - 1
-    assert sorted(v[0] for v in sections.FAST_CHECKS.values()) == [0, 1, 2]
+    assert got["sigmoid reciprocal"] == bits(np.inf) + 1 + bits(87.0)
+    assert sorted(v[0] for v in sections.FAST_CHECKS.values()) == [0, 1, 2, 3]
 
 
 SASS = """

@@ -28,7 +28,6 @@ import argparse
 import collections
 import json
 import re
-import shutil
 import subprocess
 from pathlib import Path
 
@@ -36,10 +35,8 @@ from vmap_tpu_torch import probes
 from vmap_tpu_torch.kernels._build import _nvcc
 
 _FUNCTION = re.compile(r"^\s*Function\s*:\s*(.+?)\s*$")
-_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 _INSTR = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
-# a branch's target: a label (nvdisasm) or an address (cuobjdump)
-_TARGET = re.compile(r"`\((\.L_x_\d+)\)|0x([0-9a-f]+)\s*$")
+_TARGET = re.compile(r"0x([0-9a-f]+)\s*$")  # a branch's target address
 
 
 def split_functions(sass: str) -> dict:
@@ -70,29 +67,20 @@ def _summary(instrs: list) -> dict:
             "opcodes": dict(sorted(ops.items()))}
 
 
-def _instructions(lines: list) -> tuple:
-    """(address, opcode, text) of each instruction, {label: address}."""
-    instrs, labels, pending = [], {}, []
+def _instructions(lines: list) -> list:
+    """(address, opcode, text) of each instruction."""
+    out = []
     for line in lines:
-        m = _LABEL.match(line)
-        if m:
-            pending.append(m.group(1))
-            continue
         m = _INSTR.match(line)
-        if not m:
-            continue
-        addr = int(m.group(1), 16)
-        for label in pending:
-            labels[label] = addr
-        pending = []
-        instrs.append((addr, _opcode(m.group(2)), m.group(2)))
-    return instrs, labels
+        if m:
+            out.append((int(m.group(1), 16), _opcode(m.group(2)), m.group(2)))
+    return out
 
 
 def path_count(lines: list, span: tuple, skips: tuple = ()) -> dict:
     """The counts (``_summary``) of the instructions whose address lies in
     ``span`` (first, last) and in none of ``skips``."""
-    instrs, _ = _instructions(lines)
+    instrs = _instructions(lines)
     return _summary([i for i in instrs if span[0] <= i[0] <= span[1]
                      and not any(a <= i[0] <= b for a, b in skips)])
 
@@ -102,20 +90,16 @@ def count(lines: list) -> dict:
     for each backward branch the span [target, branch] with its counts,
     largest (outermost) first. A branch to itself, the padding after the
     last ``EXIT``, is no instruction of the kernel's."""
-    instrs, labels = _instructions(lines)
-
     def target(text):
         t = _TARGET.search(text)
-        if not t:
-            return None
-        return labels.get(t.group(1)) if t.group(1) else int(t.group(2), 16)
+        return int(t.group(1), 16) if t else None
 
-    instrs = [i for i in instrs if not (i[1] == "BRA"
-                                        and target(i[2]) == i[0])]
+    instrs = [i for i in _instructions(lines)
+              if not (i[1] == "BRA" and target(i[2]) == i[0])]
     loops = []
     for addr, op, text in instrs:
-        start = target(text)
-        if op == "BRA" and start is not None and start < addr:
+        start = target(text) if op == "BRA" else None
+        if start is not None and start < addr:
             body = [i for i in instrs if start <= i[0] <= addr]
             loops.append({"start": f"{start:04x}", "end": f"{addr:04x}",
                           **_summary(body)})
@@ -123,21 +107,11 @@ def count(lines: list) -> dict:
     return {**_summary(instrs), "loops": loops}
 
 
-def _tool(name: str) -> str | None:
-    path = Path(_nvcc()).parent / name
-    return str(path) if path.exists() else shutil.which(name)
-
-
-def demangle(names: list) -> dict:
-    """{mangled: demangled} through the toolkit's ``cu++filt`` (the
-    mangled name itself where there is none)."""
-    filt = _tool("cu++filt")
-    if not filt or not names:
-        return {n: n for n in names}
-    out = subprocess.run([filt], input="\n".join(names), text=True,
-                         capture_output=True, check=True).stdout.splitlines()
-    return dict(zip(names, out)) if len(out) == len(names) else \
-        {n: n for n in names}
+def _tool(name: str, *args: str, stdin: str = "") -> str:
+    """The output of the toolkit's ``name`` (beside nvcc) on ``args``."""
+    return subprocess.run([str(Path(_nvcc()).parent / name), *args],
+                          input=stdin, text=True, capture_output=True,
+                          check=True).stdout
 
 
 def kernels(patterns: list) -> tuple:
@@ -145,13 +119,9 @@ def kernels(patterns: list) -> tuple:
     ``patterns`` (all where none is given): ({demangled: counts}, {demangled:
     disassembly})."""
     lib, _ = probes.LIBRARY.build()
-    dump = _tool("cuobjdump")
-    if dump is None:
-        raise RuntimeError("cuobjdump not found beside nvcc")
-    sass = subprocess.run([dump, "-sass", str(lib)], text=True,
-                          capture_output=True, check=True).stdout
-    funcs = split_functions(sass)
-    names = demangle(list(funcs))
+    funcs = split_functions(_tool("cuobjdump", "-sass", str(lib)))
+    names = dict(zip(funcs, _tool("cu++filt", stdin="\n".join(funcs))
+                     .splitlines()))
     counts, text = {}, {}
     for mangled, lines in funcs.items():
         name = names[mangled]

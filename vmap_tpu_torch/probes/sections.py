@@ -484,7 +484,9 @@ FAST_CHECKS = {
     # both signs, |x| < 105615 (trig_fast_ok): 0x47CE4780 floats a sign
     "sin / cos": (1, 2 * 0x47CE4780, "sinf / cosf"),
     # 0 < a < 2^21 (sincospi_fast_ok): bit patterns 1 ... 0x4A000000 - 1
-    "sinpi / cospi": (2, 0x4A000000 - 1, "sinpif / cospif")}
+    "sinpi / cospi": (2, 0x4A000000 - 1, "sinpif / cospif"),
+    # c > -87 (sigmoid_fast_ok): +0 ... +inf and -0 ... the float above -87
+    "sigmoid reciprocal": (3, 0x7F800001 + 0x42AE0000, "__frcp_rn")}
 
 
 def fast_check(name: str, dev: torch.device) -> dict:
