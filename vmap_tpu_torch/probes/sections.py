@@ -573,8 +573,9 @@ def compare(dev: torch.device, reps: int = 3) -> list:
     """Every case's kernel against its plain version at ``reps`` steps
     (within ``tol``), and each emb / ladder section, read from one step of
     the kernel, against the plain section (within ``increment``'s bound
-    plus SECTION_RTOL); first the fast paths of the render's reciprocal
-    and of the ladders' (and K5's sincos') sin / cos (``fast_check``);
+    plus SECTION_RTOL); first every fast path of csrc/probe_common.cuh
+    (``FAST_CHECKS``: the reciprocals of the render and of K5's sigmoid,
+    the sin / cos of the ladders and of K5's sincos; ``fast_check``);
     raises if one is outside."""
     res = [fast_check(name, dev) for name in FAST_CHECKS]
     for case in CASES:
