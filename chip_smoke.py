@@ -180,10 +180,9 @@ Phases, in order (any failure raises and the script exits non-zero):
      3's tier of the one-process kernel frame on the same draws, the loss
      summed over the obj group within rtol 2e-3; at n_iter=20 finite, the
      final loss within rtol 0.25; (b) ``vmap_tpu_torch.train`` as 2 ranks
-     {"obj": 2} on phase 4's configuration for 8 frames (cut from 12 for
-     the time limit) with --save_ckpt, then --resume for 2: all 10
-     per-frame losses within rtol 2e-3 of an uninterrupted one-process run
-     of 10 frames, meshes,
+     {"obj": 2} on phase 4's configuration for 12 frames with
+     --save_ckpt, then --resume for 2: all 14 per-frame losses within
+     rtol 2e-3 of an uninterrupted one-process run of 14 frames, meshes,
      log and checkpoints written by rank 0 only; each rank's launch
      counts and frame time printed;
  17. int8 calibration: ``vmap_tpu_torch.calibrate_int8_scales`` on phase
@@ -2304,7 +2303,7 @@ def scannet_layout(dev, gpu: str, n_frames: int = 12,
 # --------------------------------------------------------------- phase 16
 SH_AXES = {"obj": 2, "data": 2}   # (a): 4 ranks
 SH_TRAINER_AXES = {"obj": 2}      # (b): 2 ranks
-SH_FRAMES = 8                     # (b): then 2 resumed
+SH_FRAMES = 12                    # (b): then 2 resumed
 
 
 def sh_draws(dev, st, cap: int):
