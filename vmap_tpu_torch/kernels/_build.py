@@ -28,8 +28,12 @@ from dataclasses import dataclass
 from pathlib import Path
 
 # No --use_fast_math: the kernels rely on accurate sinpif / cospif / expf.
+# --split-compile 0 spreads each source's optimisation passes over every
+# core, so the longest source (train_step.cu, 18 instances) no longer runs
+# on one core while the others idle.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile", "0")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
