@@ -29,6 +29,7 @@ output: a second run swaps the script's ``jnp.sum`` so that the kernel
 writes c[:8, :128] itself, held elementwise.
 """
 
+import ctypes
 import importlib.util
 import os
 import subprocess
@@ -915,6 +916,30 @@ def test_sass_counts_kernels_loops_and_paths():
     assert sass.count(funcs["_Z3barv"])["instructions"] == 1
 
 
+def test_sass_same_code_tells_split_builds_apart():
+    """``probes.sass.same_code``: two builds whose kernels have the same
+    instructions are the same, whatever the encodings; a changed
+    instruction or a kernel one build lacks is reported with both builds'
+    instruction counts. The build without the split flags hashes apart."""
+    from vmap_tpu_torch.kernels import _build
+    from vmap_tpu_torch.probes import sass
+    funcs = sass.split_functions(SASS)
+    split = {name: (name, lines) for name, lines in funcs.items()}
+    recoded = {name: (name, [ln.split("/* 0x")[0] for ln in lines])
+               for name, lines in funcs.items()}
+    assert sass.same_code(split, recoded) == {"kernels": [2, 2], "same": 2,
+                                              "differ": {}}
+    changed = dict(recoded, _Z3fooPf=("_Z3fooPf", [
+        ln.replace("FFMA", "FMUL") for ln in funcs["_Z3fooPf"]]))
+    del changed["_Z3barv"]
+    assert sass.same_code(split, changed) == {
+        "kernels": [2, 1], "same": 0,
+        "differ": {"_Z3barv": [1, None], "_Z3fooPf": [9, 9]}}
+    assert _build.NVCC_FLAGS[:len(_build.BASE_FLAGS)] == _build.BASE_FLAGS
+    assert probes.LIBRARY.source_hash() != probes.LIBRARY.source_hash(
+        flags=_build.BASE_FLAGS)
+
+
 # ------------------------------------------------------------------- K6
 DMA_N = 40
 
@@ -1069,6 +1094,62 @@ def test_library_chains_are_one_matmul_a_product(case):
     assert rec.calls.get("matmul") == 2 * reps
     assert not {"__matmul__", "mm", "bmm"} & set(rec.calls)
     probes.held(case, got, want, rtol)
+
+
+def test_dep_fma_library_chain_is_one_addcmul_a_step():
+    """K5's dep_fma names ``torch.addcmul`` as its library call (the
+    docstring says so), and the chain ``library_ms`` times is one
+    ``torch.addcmul`` a step computing the plain chain's function within
+    its tolerance, here on the CPU."""
+    reps = 3
+    assert "torch.addcmul" in ops.library_chain.__doc__
+    ins = ops.make_inputs("dep_fma", CPU)
+    with _Calls() as rec:
+        got = ops.library_chain("dep_fma", ins)(reps)
+    assert rec.calls.get("addcmul") == reps
+    probes.held("dep_fma", got, ops.chain_reference("dep_fma", ins, reps)[0],
+                ops.tol("dep_fma", reps))
+
+
+class _FastCheckLibrary:
+    """Stands in for the probe library: its fast check adds ``counts``
+    (mismatches, floats admitted) to the two counters it is given."""
+
+    def __init__(self, counts):
+        self.counts = counts
+
+    def load(self):
+        return self
+
+    def check(self, code, what):
+        assert code == 0, what
+
+    def vmap_probe_fast_check(self, kind, count, sms, stream):
+        arr = (ctypes.c_int64 * 2).from_address(count.value)
+        arr[0] += self.counts[0]
+        arr[1] += self.counts[1]
+        return 0
+
+
+@pytest.mark.parametrize("mismatches,short,raises", [
+    (0, 0, None), (0, 1, "admitted"), (2, 0, "2 of")])
+def test_fast_check_raises_unless_the_card_counts_the_range(
+        monkeypatch, mismatches, short, raises):
+    """``sections.fast_check`` takes the floats covered from the card's
+    count, not from FAST_CHECKS: it raises where the range test admitted
+    other floats than the range's, or where any float differs, and
+    reports the counted floats and mismatches."""
+    name = "sin / cos"
+    floats = sections.FAST_CHECKS[name][1]
+    monkeypatch.setattr(probes, "LIBRARY",
+                        _FastCheckLibrary((mismatches, floats - short)))
+    monkeypatch.setattr(probes, "stream", lambda dev: ctypes.c_void_p(None))
+    if raises:
+        with pytest.raises(AssertionError, match=raises):
+            sections.fast_check(name, CPU)
+    else:
+        r = sections.fast_check(name, CPU)
+        assert (r["floats"], r["mismatches"]) == (floats, 0)
 
 
 # ------------------------------------------------------- entry points

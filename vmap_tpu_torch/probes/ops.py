@@ -423,28 +423,37 @@ def plain_ms(case: dict, dev: torch.device) -> float:
         lambda r: chain_reference(case["case"], ins, r, exact=False)[0], dev)
 
 
-def library_ms(case: dict, dev: torch.device) -> float | None:
-    """One PyTorch call a step: ``torch.sigmoid`` (sigmoid) or
-    ``torch.matmul`` (lanesum_dot; fwd_mm on f32 or bf16 operands, TF32
-    off). None for the others: no single call computes their step."""
-    name = case["case"]
-    if name not in ("sigmoid", "lanesum_dot", "fwd_mm", "fwd_mm_bf16"):
+def library_chain(case: str, ins: list):
+    """The chain of one PyTorch call a step, a function of the steps:
+    ``torch.addcmul`` (dep_fma: x + c x, one FMA as the kernel's),
+    ``torch.sigmoid`` (sigmoid) or ``torch.matmul`` (lanesum_dot; fwd_mm
+    on f32 or bf16 operands, TF32 off). None for the others: no single
+    call computes their step."""
+    if case not in ("dep_fma", "sigmoid", "lanesum_dot", "fwd_mm",
+                    "fwd_mm_bf16"):
         return None
-    ins = make_inputs(name, dev)
-    dt = torch.bfloat16 if name == "fwd_mm_bf16" else torch.float32
-    w = ins[-1].to(dt)
+    dt = torch.bfloat16 if case == "fwd_mm_bf16" else torch.float32
+    x, w = ins[0], ins[-1].to(dt)
 
     def run(reps):
-        c = (ins[0] * 1.0001).to(dt)
+        c = (x * 1.0001).to(dt)
         for _ in range(reps):
-            if name == "sigmoid":
+            if case == "dep_fma":
+                c = torch.addcmul(x, c, x)
+            elif case == "sigmoid":
                 c = torch.sigmoid(c)
-            elif name == "lanesum_dot":
+            elif case == "lanesum_dot":
                 c = torch.matmul(c, w)[:, :1].expand(8, T)
             else:
                 c = mm.fold(torch.matmul(w, c), 384, MM_SCALE)
         return c
-    return _timing.graph_step_ms(run, dev)
+    return run
+
+
+def library_ms(case: dict, dev: torch.device) -> float | None:
+    """``library_chain``'s time a step, None where it has none."""
+    run = library_chain(case["case"], make_inputs(case["case"], dev))
+    return None if run is None else _timing.graph_step_ms(run, dev)
 
 
 def measure(case: str, dev: torch.device) -> dict:
