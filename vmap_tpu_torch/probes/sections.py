@@ -491,19 +491,23 @@ FAST_CHECKS = {
 
 def fast_check(name: str, dev: torch.device) -> dict:
     """One of FAST_CHECKS on the card: the fast path against its library
-    function on every float of its range, bit for bit. Raises on any
-    mismatch; returns the check as ``compare`` reports its cases, with the
-    floats it covered and its mismatches."""
+    function on every float, bit for bit, the card counting the floats
+    its range test admits and the mismatches. Raises unless that count is
+    the range's and no float differs; returns the check as ``compare``
+    reports its cases, with both counts."""
     kind, floats, lib = FAST_CHECKS[name]
-    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    count = torch.zeros(2, dtype=torch.int64, device=dev)
     code = probes.LIBRARY.load().vmap_probe_fast_check(
-        kind, probes.ptr(bad), mm.sm_count(dev), probes.stream(dev))
+        kind, probes.ptr(count), mm.sm_count(dev), probes.stream(dev))
     probes.LIBRARY.check(code, f"{name} check launch")
-    n = int(bad)
+    n, covered = count.tolist()
     res = {"case": name, "max_abs_err": 0.0, "max_rel_err": 0.0,
-           "rtol": 0.0, "used": 0.0, "floats": floats, "mismatches": n}
+           "rtol": 0.0, "used": 0.0, "floats": covered, "mismatches": n}
+    if covered != floats:
+        raise AssertionError(f"{name}: the range test admitted {covered} "
+                             f"floats, its range holds {floats}")
     if n:
-        raise AssertionError(f"{name}: {n} of {floats} floats differ from "
+        raise AssertionError(f"{name}: {n} of {covered} floats differ from "
                              f"{lib}")
     return res
 
