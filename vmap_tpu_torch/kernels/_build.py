@@ -28,12 +28,15 @@ from dataclasses import dataclass
 from pathlib import Path
 
 # No --use_fast_math: the kernels rely on accurate sinpif / cospif / expf.
-# --split-compile 0 spreads each source's optimisation passes over every
-# core, so the longest source (train_step.cu, 18 instances) no longer runs
-# on one core while the others idle.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              "--split-compile", "0")
+# ptxas's --split-compile 0 assembles a source's kernels on every core, so
+# the longest source (train_step.cu, 18 instances) no longer runs on one
+# core while the others idle. nvcc's own --split-compile, which splits the
+# optimiser's module, changes the kernels' code; ``python -m
+# vmap_tpu_torch.probes.sass --versus-unsplit`` compares a library built
+# with NVCC_FLAGS and with BASE_FLAGS kernel by kernel.
+BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+NVCC_FLAGS = BASE_FLAGS + ("-Xptxas", "--split-compile=0")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -88,19 +91,21 @@ class Library:
     def sources(self) -> list[Path]:
         return sorted(self.csrc.glob("*.cu"))
 
-    def source_hash(self, defines: tuple = ()) -> str:
-        h = hashlib.sha256(" ".join(NVCC_FLAGS + _macros(defines)).encode())
+    def source_hash(self, defines: tuple = (),
+                    flags: tuple = NVCC_FLAGS) -> str:
+        h = hashlib.sha256(" ".join(flags + _macros(defines)).encode())
         for src in (self.sources() + sorted(self.csrc.glob("*.cuh"))
                     + list(self.headers)):
             h.update(src.name.encode())
             h.update(src.read_bytes())
         return h.hexdigest()[:16]
 
-    def build(self, defines: tuple = ()) -> tuple[Path, str]:
-        """Compile the sources (with ``-D`` each of ``defines``) if needed.
-        Returns (library path, compiler log; empty when the cached build
-        was reused)."""
-        out_dir = self.build_root / self.source_hash(defines)
+    def build(self, defines: tuple = (),
+              flags: tuple = NVCC_FLAGS) -> tuple[Path, str]:
+        """Compile the sources (with ``-D`` each of ``defines``, nvcc's
+        ``flags``) if needed. Returns (library path, compiler log; empty
+        when the cached build was reused)."""
+        out_dir = self.build_root / self.source_hash(defines, flags)
         lib = out_dir / self.name
         if lib.exists():
             return lib, ""
@@ -123,7 +128,7 @@ class Library:
         srcs = self.sources()
         with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
             objs = [os.path.join(tmp, src.stem + ".o") for src in srcs]
-            logs = run([[nvcc, *NVCC_FLAGS, *_macros(defines), "-c",
+            logs = run([[nvcc, *flags, *_macros(defines), "-c",
                          str(src), "-o", obj]
                         for src, obj in zip(srcs, objs)])
             so = os.path.join(tmp, self.name)

@@ -1,22 +1,27 @@
-"""The probe kernels' machine code (SASS), counted by kernel and by loop.
+"""The kernels' machine code (SASS), counted by kernel and by loop.
 
-Builds the probe library (``probes.LIBRARY``), disassembles it with the
-toolkit's ``cuobjdump -sass`` and, for each kernel whose name (mangled or
-demangled) contains one of the given patterns, reports its instructions
-(``NOP`` left out), its branches (``BRA``), calls (``CALL``, the slow paths
-of the accurate math functions), convergence regions (``BSSY``) and its
-opcodes, for the whole function and for each loop, a loop being the span
-from a backward branch's target to that branch. A chain's step loop is
-the kernel's outermost one, so its instructions over the elements a thread
-holds and the steps an iteration runs are the instructions an element a
-step. ``--out`` also writes those kernels' whole disassembly. A step's
-path, where a loop holds code that runs only on rare inputs (the slow
-paths of the accurate functions), is counted by ``--path``: the
-instructions of the span START-END (addresses as the disassembly gives
-them) less those of the SKIP spans.
+Builds a kernel library (the probes', ``probes.LIBRARY``, or with
+``--library kernels`` the system's, ``kernels._build.KERNELS``),
+disassembles it with the toolkit's ``cuobjdump -sass`` and, for each
+kernel whose name (mangled or demangled) contains one of the given
+patterns, reports its instructions (``NOP`` left out), its branches
+(``BRA``), calls (``CALL``, the slow paths of the accurate math
+functions), convergence regions (``BSSY``) and its opcodes, for the whole
+function and for each loop, a loop being the span from a backward
+branch's target to that branch. A chain's step loop is the kernel's
+outermost one, so its instructions over the elements a thread holds and
+the steps an iteration runs are the instructions an element a step.
+``--out`` also writes those kernels' whole disassembly. A step's path,
+where a loop holds code that runs only on rare inputs (the slow paths of
+the accurate functions), is counted by ``--path``: the instructions of
+the span START-END (addresses as the disassembly gives them) less those
+of the SKIP spans. ``--versus-unsplit`` builds the library also without
+ptxas's ``--split-compile`` (``_build.BASE_FLAGS``) and reports, kernel
+by kernel, whether the two builds' instructions are the same.
 
     python -m vmap_tpu_torch.probes.sass [pattern ...] [--out FILE]
-        [--path START-END [SKIP-SKIP ...]]
+        [--path START-END [SKIP-SKIP ...]] [--library probes|kernels]
+        [--versus-unsplit]
 
 Needs the CUDA toolkit (``nvcc`` builds the library, ``cuobjdump`` reads
 it); no card.
@@ -29,10 +34,14 @@ import collections
 import json
 import re
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 from vmap_tpu_torch import probes
-from vmap_tpu_torch.kernels._build import _nvcc
+from vmap_tpu_torch.kernels._build import (BASE_FLAGS, KERNELS, NVCC_FLAGS,
+                                           _nvcc)
+
+LIBRARIES = {"probes": probes.LIBRARY, "kernels": KERNELS}
 
 _FUNCTION = re.compile(r"^\s*Function\s*:\s*(.+?)\s*$")
 _INSTR = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
@@ -114,22 +123,53 @@ def _tool(name: str, *args: str, stdin: str = "") -> str:
                           check=True).stdout
 
 
-def kernels(patterns: list) -> tuple:
-    """Build the probe library and count the kernels matching
-    ``patterns`` (all where none is given): ({demangled: counts}, {demangled:
-    disassembly})."""
-    lib, _ = probes.LIBRARY.build()
+def disassemble(lib: Path) -> dict:
+    """A built library's SASS: {demangled name: (mangled name, lines)}."""
     funcs = split_functions(_tool("cuobjdump", "-sass", str(lib)))
-    names = dict(zip(funcs, _tool("cu++filt", stdin="\n".join(funcs))
-                     .splitlines()))
+    names = _tool("cu++filt", stdin="\n".join(funcs)).splitlines()
+    return {name: (mangled, lines)
+            for name, (mangled, lines) in zip(names, funcs.items())}
+
+
+def kernels(patterns: list, library=probes.LIBRARY) -> tuple:
+    """Build ``library`` and count the kernels matching ``patterns`` (all
+    where none is given): ({demangled: counts}, {demangled:
+    disassembly})."""
+    lib, _ = library.build()
     counts, text = {}, {}
-    for mangled, lines in funcs.items():
-        name = names[mangled]
+    for name, (mangled, lines) in disassemble(lib).items():
         if patterns and not any(p in name or p in mangled for p in patterns):
             continue
         counts[name] = count(lines)
         text[name] = "\n".join(lines)
     return counts, text
+
+
+def same_code(split: dict, unsplit: dict) -> dict:
+    """Two disassemblies (``disassemble``) of one library's builds, with
+    and without the split flags: the kernels of each, how many have
+    the same instructions (address and text, encodings left out) in both,
+    and for each other kernel its instruction counts in both (None where a
+    build lacks it)."""
+    def code(d, name):
+        return ([(a, t) for a, _, t in _instructions(d[name][1])]
+                if name in d else None)
+    differ = {name: [count(d[name][1])["instructions"] if name in d else None
+                     for d in (split, unsplit)]
+              for name in sorted(set(split) | set(unsplit))
+              if code(split, name) != code(unsplit, name)}
+    return {"kernels": [len(split), len(unsplit)],
+            "same": len(set(split) | set(unsplit)) - len(differ),
+            "differ": differ}
+
+
+def versus_unsplit(library) -> dict:
+    """``library`` built with ``NVCC_FLAGS`` and with ``BASE_FLAGS``, both
+    builds at once: ``same_code`` of the two."""
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda fl: library.build(flags=fl)[0],
+                             (NVCC_FLAGS, BASE_FLAGS)))
+    return same_code(*map(disassemble, libs))
 
 
 def main(argv=None) -> dict:
@@ -140,8 +180,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--path", nargs="+", metavar="START-END",
                     help="count a span of each kernel, less the spans after "
                     "the first (hexadecimal addresses)")
+    ap.add_argument("--library", choices=sorted(LIBRARIES),
+                    default="probes")
+    ap.add_argument("--versus-unsplit", action="store_true",
+                    help="also build with BASE_FLAGS and compare")
     args = ap.parse_args(argv)
-    counts, text = kernels(args.patterns)
+    library = LIBRARIES[args.library]
+    if args.versus_unsplit:
+        print(json.dumps({"library": library.name,
+                          **versus_unsplit(library)}), flush=True)
+    counts, text = kernels(args.patterns, library)
     spans = [tuple(int(a, 16) for a in s.split("-")) for s in args.path or ()]
     for name, c in counts.items():
         loop = c["loops"][0] if c["loops"] else None
