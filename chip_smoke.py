@@ -116,7 +116,8 @@ Phases, in order (any failure raises and the script exits non-zero):
      bf16 ulp a step for bf16_fma, 1e-6 i8_quant, 1e-5 render and ladder;
      K6 at 4000 copies, checksum and 8 final slots bit-equal; first the
      probes' branch-free fast paths bit-equal to the library functions on
-     every float of their ranges, each check's floats and mismatches
+     every float of their ranges, each check's floats (counted on the
+     card, and raising unless the count is the range's) and mismatches
      printed: the reciprocals of the render and of K5's sigmoid to
      __frcp_rn, the sin / cos of K7's ladder and K5's sincos to sinf /
      cosf, the sinpi / cospi of K7's ladder_sinpi to sinpif / cospif),
@@ -3288,8 +3289,8 @@ def pool_gather(dev, gpu: str) -> dict:
     return res
 
 
-def probe_path(dev, gpu: str, build=None) -> tuple:
-    """Phase 12: build the probe library, or take ``build``'s (a future of
+def probe_path(dev, gpu: str, build) -> tuple:
+    """Phase 12: the probe library from ``build`` (a future of
     ``probes.LIBRARY.build()`` started in phase 2), ptxas registers
     printed; hold
     every probe's kernel, in every variant and at every case, against its
@@ -3305,14 +3306,12 @@ def probe_path(dev, gpu: str, build=None) -> tuple:
     import importlib
     from vmap_tpu_torch import probes
     t0 = time.perf_counter()
-    lib_path, build_log = (probes.LIBRARY.build() if build is None
-                           else build.result())
+    lib_path, build_log = build.result()
     probes.LIBRARY.load()
     with open(os.path.join(OUT, "nvcc_probes.log"), "w") as f:
         f.write(build_log)
-    log(f"[12] built {os.path.relpath(lib_path, REPO)}"
-        + (" in phase 2, beside the kernel library; waited" if build
-           else " in") + f" {time.perf_counter() - t0:.1f} s")
+    log(f"[12] built {os.path.relpath(lib_path, REPO)} in phase 2, beside "
+        f"the kernel library; waited {time.perf_counter() - t0:.1f} s")
     for line in build_log.splitlines():
         if ("registers" in line or "spill" in line or "Compiling" in line
                 or "ptxas warning" in line):
