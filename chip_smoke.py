@@ -110,11 +110,14 @@ Phases, in order (any failure raises and the script exits non-zero):
      vpu_bal / both_bal), K9 ``vpu`` (mul / mixed in f32, per-op bf16 and
      bf16_fma, sigmoid f32, at [8, 1280] and [96, 1280]), K5 ``ops`` (the
      script's nine cases) and K6 ``dma`` (bulk, cp_async, bulk_hbm,
-     bulk_hbm_132), every variant and shape held against its plain
+     bulk_hbm_132 with 8 copies in flight, and bulk, cp_async, bulk_hbm
+     with one: the script's ``n_live``), every variant and shape held
+     against its plain
      version at 3 steps (rtol 1e-5 a step for f32 chains, 1e-6 a step for
      K9's f32, 2e-3 bf16 products, bit-equal i8 and K9's per-op bf16, one
      bf16 ulp a step for bf16_fma, 1e-6 i8_quant, 1e-5 render and ladder;
-     K6 at 4000 copies, checksum and 8 final slots bit-equal; first the
+     K6 at 4000 copies with 8 and with 1 in flight, checksum and final
+     slots bit-equal; first the
      probes' branch-free fast paths bit-equal to the library functions on
      every float of their ranges, each check's floats (counted on the
      card, and raising unless the count is the range's) and mismatches
@@ -250,8 +253,10 @@ its own, in place of the phases (``update_ab``).
 does the same for the chain probes (K4's and K10's cases, K5's dep_fma /
 ind_fma pair, sigmoid, sincos, fwd_mm pair and lanesum_dot, K7's render,
 emb_cat / emb_split and ladder / ladder_sinpi, K8's five modes with their
-overlap fractions: each kernel's ns a step and its library call's;
-``probe_ab``).
+overlap fractions, K9's 14 cases, K6's bulk / cp_async / bulk_hbm /
+bulk_hbm_132 with 8 copies in flight and bulk / cp_async / bulk_hbm with
+one, the script's ``n_live``: each kernel's ns a step or a copy and its
+library call's; ``probe_ab``).
 """
 
 from __future__ import annotations
@@ -3355,8 +3360,8 @@ def probe_path(dev, gpu: str, build) -> tuple:
                    "library_ms": mod.library_ms(case, dev),
                    **mod.bound(case)}
             for key in ("plan", "us_per_launch", "ns_per_op",
-                        "ns_per_op_runs", "blocks", "aggregate_ns_per_copy",
-                        "gb_per_s"):
+                        "ns_per_op_runs", "blocks", "live",
+                        "aggregate_ns_per_copy", "gb_per_s"):
                 if key in case:
                     row[key] = case[key]
             by_case[case["case"].strip()] = row
@@ -3411,13 +3416,15 @@ def probe_times(dev) -> dict:
     """The chain probes of the checkout this process imports (K4's and
     K10's cases, K5's dep_fma / ind_fma / sigmoid / sincos, fwd_mm pair
     and lanesum_dot, K7's render, emb_cat / emb_split and ladder /
-    ladder_sinpi, K8's five modes) on one timer: each kernel's ns a step
-    (the probe's own slope) and its library call's (None where there is
-    none); K5's dep_fma / ind_fma pair timed ``ops.RUNS`` times and K8's
-    modes ``overlap.RUNS`` times, each run's ns (and K8's overlap
+    ladder_sinpi, K8's five modes, K9's 14 cases, K6's cases with 8
+    copies in flight and with one) on one timer: each kernel's ns a step
+    or a copy (the probe's own slope) and its library call's (None where
+    there is none); K5's dep_fma / ind_fma pair timed ``ops.RUNS`` times
+    and K8's modes ``overlap.RUNS`` times, each run's ns (and K8's overlap
     fractions) kept."""
     from vmap_tpu_torch import probes
-    from vmap_tpu_torch.probes import int8, mm, ops, overlap, sections
+    from vmap_tpu_torch.probes import (dma, int8, mm, ops, overlap,
+                                       sections, vpu)
     probes.LIBRARY.load()
     res = {}
     for name, mod in (("probe_mm", mm), ("probe_int8", int8)):
@@ -3453,6 +3460,19 @@ def probe_times(dev) -> dict:
     for key in ("overlap", "overlap_bal"):
         res[f"probe_overlap {key}"] = {"fraction": ov[key],
                                        "fraction_runs": ov[key + "_runs"]}
+    for case in vpu.cases():
+        r = vpu.measure(case, dev)
+        lib = vpu.library_ms(r, dev)
+        res[f"probe_vpu {r['case']}"] = {
+            "ns": r["step_ns"],
+            "library_ns": None if lib is None else lib * 1e6}
+    sources = {}
+    for case in dma.CASES:
+        r = dma.measure(case, dma.source(case, dev, sources), dev)
+        lib = dma.library_ms(r, dev)
+        res[f"probe_dma {case}"] = {
+            "ns": r["ns_per_copy"],
+            "library_ns": None if lib is None else lib * 1e6}
     return res
 
 
@@ -3928,8 +3948,8 @@ def main(argv=None) -> int:
     ap.add_argument("--probe-ab", nargs="+", metavar="TREE",
                     help="in place of the phases: time the chain probes "
                     "(K4, K10, K5's elementwise cases, fwd_mm and "
-                    "lanesum_dot, K7's render, emb and ladders, K8) of each "
-                    "checkout TREE in turn (probe_ab)")
+                    "lanesum_dot, K7's render, emb and ladders, K8, K9, K6) "
+                    "of each checkout TREE in turn (probe_ab)")
     ap.add_argument("--probe-times", action="store_true",
                     help=argparse.SUPPRESS)   # one run of --probe-ab
     ap.add_argument("--tree", help=argparse.SUPPRESS)  # its checkout

@@ -944,26 +944,31 @@ def test_sass_same_code_tells_split_builds_apart():
 DMA_N = 40
 
 
-def test_dma_plain_matches_jax_kernel_and_its_race():
+@pytest.mark.parametrize("n_live", [1, 8])
+def test_dma_plain_matches_jax_kernel_and_its_race(n_live):
     """The script's kernel checksums a race: it waits on copy i, starts
-    copy i + 8 into the same slot, then reads the slot. In interpret mode
-    a copy completes when it starts, so it sums word 0 of copy i + 8 for
-    i < n - 8 and of copy i for the last 8. That sum, computed from the
-    port's row sequence, is held equal to JAX's output (the port's
-    addressing against the script's); the port's defined checksum to the
-    same rows' own words; its 8 final slots to the last 8 copies' rows."""
+    copy i + n_live into the same slot, then reads the slot. In interpret
+    mode a copy completes when it starts, so it sums word 0 of copy i +
+    n_live for i < n - n_live and of copy i for the last n_live. That sum,
+    computed from the port's row sequence, is held equal to JAX's output
+    of ``build(n, n_live)`` (the port's addressing against the script's);
+    the port's defined checksum to the same rows' own words; its n_live
+    final slots to the last n_live copies' rows."""
     mod, outs = load_script("microbench_dma")
     src = dma.make_source(4096, CPU)
-    got = run_captured(outs, mod.build(DMA_N),
+    got = run_captured(outs, mod.build(DMA_N, n_live),
                        jnp.asarray(src.numpy().view(np.uint32).copy()))
-    plain = dma.run_case("bulk", src, DMA_N)
+    case = "bulk" if n_live == dma.LIVE else "bulk_live1"
+    assert dma.live_of(case) == n_live
+    plain = dma.run_case(case, src, DMA_N)
     rows = plain["rows"][0].tolist()
     words = [int(src[r, 0]) for r in rows]
-    racy = (sum(words[8:]) + sum(words[-8:])) & dma.MASK
+    racy = (sum(words[n_live:]) + sum(words[-n_live:])) & dma.MASK
     assert int(got[0, 0]) == racy
     assert int(plain["sums"][0]) == sum(words) & dma.MASK != racy
-    for i in range(DMA_N - 8, DMA_N):
-        assert torch.equal(plain["slots"][0, i % 8],
+    assert plain["slots"].shape == (1, n_live, 8, dma.COLS)
+    for i in range(DMA_N - n_live, DMA_N):
+        assert torch.equal(plain["slots"][0, i % n_live],
                            src[rows[i]:rows[i] + 8])
 
 

@@ -20,7 +20,8 @@ of that computation at K1's shapes on the card, launch latency cancelled:
     sum as a product against a strided sum, the forward product, a serial
     tile chain;
   * ``dma`` (K6, ``scripts/microbench_dma.py``): 4 KB row copies into
-    shared memory, 8 in flight (TMA bulk copies and ``cp.async``).
+    shared memory, 8 in flight or, as the script's ``n_live`` allows, 1
+    (TMA bulk copies and ``cp.async``).
 
 Run one as ``python -m vmap_tpu_torch.probes.<name>`` (the card;
 ``--device cpu`` times the plain PyTorch version). The kernels live in
@@ -65,7 +66,7 @@ SIGNATURES = {
     "vmap_probe_ew": ((I, P, P, P, I, I, P), I),
     "vmap_probe_ops": ((I, P, P, P, I, I, P), I),
     "vmap_probe_lanesum": ((P,) * 5 + (I, P), I),
-    "vmap_probe_dma": ((I, P, I, I, I, I, P, P, P), I),
+    "vmap_probe_dma": ((I, P, I, I, I, I, I, P, P, P), I),
 }
 # probe_common.cuh includes the kernel library's mma.cuh
 LIBRARY = Library(_HERE / "csrc", _HERE / "_build", "libvmap_probes.so",

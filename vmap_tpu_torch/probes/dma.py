@@ -1,4 +1,4 @@
-"""K6: the cost of small copies into shared memory, 8 in flight.
+"""K6: the cost of small copies into shared memory, 8 (or ``live``) in flight.
 
 Counterpart of ``scripts/microbench_dma.py::build``, the probe that asked
 whether K1 should fetch its sampled pixels itself instead of the
@@ -8,15 +8,16 @@ sampler's gather. A launch runs ``n`` copies of one [8, 128] u32 row block
     row_b(i) = g (((b n + i) 37) mod ((rows - 8) / g))
 
 (block b, grain g = 1 or 8; b = 0 and g = 1: the script's (i 37) mod
-(rows - 8)) into 8 rotating shared-memory slots, waiting on copy i
-before it issues copy i + 8 into the same slot, and returns a checksum of
-word 0 of every copy and the 8 slots after the last copy (csrc/dma.cu).
+(rows - 8)) into ``live`` rotating shared-memory slots (the script's
+``n_live``, 1 to 8, 8 by default), waiting on copy i before it issues copy
+i + live into the same slot, and returns a checksum of word 0 of every
+copy and the ``live`` slots after the last copy (csrc/dma.cu).
 
 **The script's checksum is a race.** Its loop (``microbench_dma.py:41-46``)
-waits on copy i, starts copy i + 8 into the same slot, and only then
+waits on copy i, starts copy i + live into the same slot, and only then
 reads the slot. On a TPU the value is undefined; in interpret mode, where
-a copy completes when it starts, it is word 0 of copy i + 8 for i < n - 8
-and of copy i for the last 8. This port reads the slot before it issues
+a copy completes when it starts, it is word 0 of copy i + live for i < n -
+live and of copy i for the last ``live``. This port reads the slot before it issues
 the next copy into it, so its checksum is defined:
 sum_i src[row(i), 0] mod 2^32. The words are kept as int32 (as
 ``core/pool.py`` keeps the pool's) and summed as int64.
@@ -37,7 +38,11 @@ copies a block, in ns a copy:
     each byte of what it copies once, from device memory (37 is prime to
     the window count). This is the aggregate rate K1's grid would see
     fetching its own pixels (ns a copy of one block; the aggregate is that
-    over 132).
+    over 132);
+  * ``bulk_live1``, ``cp_async_live1``, ``bulk_hbm_live1``: bulk, cp_async
+    and bulk_hbm with one copy in flight, so a copy's time is its round
+    trip. Over 8 it is the floor an 8-deep ring reaches if the copy unit
+    overlaps one SM's copies.
 
 ``bound`` counts the bytes a launch must move as the contract of the
 kernels line counts them, each input byte read once: the distinct rows a
@@ -59,9 +64,12 @@ import torch
 from vmap_tpu_torch import probes
 from vmap_tpu_torch.probes import _timing
 
-LIVE, SLOT_ROWS, COLS = 8, 8, 128
+LIVE, SLOT_ROWS, COLS = 8, 8, 128      # LIVE: the script's n_live default
+MAX_LIVE = 8
 COPY_BYTES = SLOT_ROWS * COLS * 4
-CASES = ("bulk", "cp_async", "bulk_hbm", "bulk_hbm_132")
+CASES = ("bulk", "cp_async", "bulk_hbm", "bulk_hbm_132", "bulk_live1",
+         "cp_async_live1", "bulk_hbm_live1")
+BASE_CASES = CASES[:4]
 ROUTE = {"bulk": 0, "cp_async": 1, "bulk_hbm": 0, "bulk_hbm_132": 0}
 N1, N2 = 4000, 16000                   # the script's n and 4 n
 BLOCKS = {"bulk_hbm_132": 132}
@@ -69,6 +77,17 @@ GRAIN = {"bulk_hbm_132": SLOT_ROWS}
 SRC_ROWS = {"bulk": 4096, "cp_async": 4096, "bulk_hbm": 524_288,
             "bulk_hbm_132": SLOT_ROWS * 132 * N2 + SLOT_ROWS}
 MASK = 0xFFFFFFFF
+
+
+def base(case: str) -> str:
+    """The case whose copies a live = 1 case makes ("bulk_live1" ->
+    "bulk")."""
+    return case.removesuffix("_live1")
+
+
+def live_of(case: str) -> int:
+    """A case's copies in flight."""
+    return 1 if case.endswith("_live1") else LIVE
 
 
 def make_source(rows: int, dev) -> torch.Tensor:
@@ -94,6 +113,7 @@ def copy_rows(src_rows: int, n: int, blocks: int = 1, grain: int = 1,
 def unique_bytes(case: str, n: int) -> int:
     """Bytes of the source that a launch of ``n`` copies a block reads,
     each distinct row counted once."""
+    case = base(case)
     rows = copy_rows(SRC_ROWS[case], n, BLOCKS.get(case, 1),
                      GRAIN.get(case, 1))
     touched = torch.zeros(SRC_ROWS[case], dtype=torch.bool)
@@ -102,38 +122,39 @@ def unique_bytes(case: str, n: int) -> int:
 
 
 def chain_reference(src: torch.Tensor, n: int, blocks: int = 1,
-                    grain: int = 1) -> dict:
+                    grain: int = 1, live: int = LIVE) -> dict:
     """Plain version: {"sums": the defined checksum of each block [blocks]
-    (int64 in [0, 2^32)), "slots": [blocks, 8, 8, 128] int32, slot s
-    holding the last copy i with i mod 8 = s, "rows": row_b(i)}."""
+    (int64 in [0, 2^32)), "slots": [blocks, live, 8, 128] int32, slot s
+    holding the last copy i with i mod live = s, "rows": row_b(i)}."""
     rows = copy_rows(src.shape[0], n, blocks, grain, src.device)
     sums = (src[rows, 0].long() & MASK).sum(1) & MASK
-    last = rows[:, n - LIVE:]                         # copies n-8 .. n-1
+    last = rows[:, n - live:]                   # copies n - live .. n - 1
     block = src[last[..., None] + torch.arange(SLOT_ROWS, device=src.device)]
-    # copy n - 8 + k sits in slot (n + k) mod 8
-    return {"sums": sums, "slots": torch.roll(block, n % LIVE, 1),
+    # copy n - live + k sits in slot (n + k) mod live
+    return {"sums": sums, "slots": torch.roll(block, n % live, 1),
             "rows": rows}
 
 
 def launch(src: torch.Tensor, n: int, route: int, blocks: int = 1,
-           grain: int = 1) -> dict:
+           grain: int = 1, live: int = LIVE) -> dict:
     """The copy kernel (csrc/dma.cu) on a CUDA source: {"sums", "slots"}
     as ``chain_reference``."""
     if (src.dim() != 2 or src.shape[1] != COLS or src.dtype != torch.int32
-            or src.shape[0] <= SLOT_ROWS or n < LIVE
-            or not 1 <= blocks <= 1024 or grain not in (1, SLOT_ROWS)):
+            or src.shape[0] <= SLOT_ROWS or not 1 <= live <= MAX_LIVE
+            or n < live or not 1 <= blocks <= 1024
+            or grain not in (1, SLOT_ROWS)):
         raise ValueError(f"dma probe takes an int32 [rows > 8, {COLS}] "
-                         f"source, n >= 8, 1..1024 blocks and grain 1 or "
-                         f"8; got {tuple(src.shape)} {src.dtype} n={n} "
+                         f"source, 1..{MAX_LIVE} copies in flight, n >= "
+                         f"live, 1..1024 blocks and grain 1 or 8; got "
+                         f"{tuple(src.shape)} {src.dtype} n={n} live={live} "
                          f"blocks={blocks} grain={grain}")
     dev = probes.check_cuda(src)
     sums = torch.empty(blocks, dtype=torch.int32, device=dev)
-    slots = torch.empty((blocks, LIVE, SLOT_ROWS, COLS), dtype=torch.int32,
+    slots = torch.empty((blocks, live, SLOT_ROWS, COLS), dtype=torch.int32,
                         device=dev)
     code = probes.LIBRARY.load().vmap_probe_dma(
-        route, probes.ptr(src), src.shape[0], n, blocks, grain,
-        probes.ptr(sums),
-        probes.ptr(slots), probes.stream(dev))
+        route, probes.ptr(src), src.shape[0], n, live, blocks, grain,
+        probes.ptr(sums), probes.ptr(slots), probes.stream(dev))
     probes.LIBRARY.check(code, f"dma probe (route {route}) launch")
     probes.LAUNCHES["dma"] += 1
     return {"sums": sums.long() & MASK, "slots": slots}
@@ -142,15 +163,16 @@ def launch(src: torch.Tensor, n: int, route: int, blocks: int = 1,
 def run_case(case: str, src: torch.Tensor, n: int) -> dict:
     """A case's copies: the plain version on a CPU source, the kernel on
     CUDA."""
-    blocks, grain = BLOCKS.get(case, 1), GRAIN.get(case, 1)
+    name, live = base(case), live_of(case)
+    blocks, grain = BLOCKS.get(name, 1), GRAIN.get(name, 1)
     if src.device.type == "cpu":
-        return chain_reference(src, n, blocks, grain)
-    return launch(src, n, ROUTE[case], blocks, grain)
+        return chain_reference(src, n, blocks, grain, live)
+    return launch(src, n, ROUTE[name], blocks, grain, live)
 
 
 def source(case: str, dev, cache: dict) -> torch.Tensor:
     """The case's source, made once per size into ``cache``."""
-    rows = SRC_ROWS[case]
+    rows = SRC_ROWS[base(case)]
     if rows not in cache:
         cache[rows] = make_source(rows, dev)
     return cache[rows]
@@ -158,26 +180,30 @@ def source(case: str, dev, cache: dict) -> torch.Tensor:
 
 def compare(dev: torch.device, reps: int = N1) -> list:
     """Every case's kernel against its plain version at ``reps`` copies a
-    block (by default the script's n): the checksums and the 8 final
-    slots bit-equal. Raises if one differs."""
+    block (by default the script's n), with 8 copies in flight and with
+    one: the checksums and the final slots bit-equal. Raises if one
+    differs."""
     res, sources = [], {}
-    for case in CASES:
+    for case in BASE_CASES:
         src = source(case, dev, sources)
         blocks, grain = BLOCKS.get(case, 1), GRAIN.get(case, 1)
-        got = launch(src, reps, ROUTE[case], blocks, grain)
-        want = chain_reference(src, reps, blocks, grain)
-        res.append(probes.held(f"{case} checksum", got["sums"],
-                               want["sums"], 0.0))
-        res.append(probes.held(f"{case} slots", got["slots"], want["slots"],
-                               0.0))
+        for live in (LIVE, 1):
+            got = launch(src, reps, ROUTE[case], blocks, grain, live)
+            want = chain_reference(src, reps, blocks, grain, live)
+            tag = case if live == LIVE else f"{case} live={live}"
+            res.append(probes.held(f"{tag} checksum", got["sums"],
+                                   want["sums"], 0.0))
+            res.append(probes.held(f"{tag} slots", got["slots"],
+                                   want["slots"], 0.0))
     return res
 
 
 def measure(case: str, src: torch.Tensor, dev: torch.device) -> dict:
-    blocks = BLOCKS.get(case, 1)
+    blocks = BLOCKS.get(base(case), 1)
     sl = _timing.slope(lambda n: run_case(case, src, n)["sums"], N1, N2,
                        dev)
-    return {"case": case, "blocks": blocks, "src_rows": src.shape[0],
+    return {"case": case, "blocks": blocks, "live": live_of(case),
+            "src_rows": src.shape[0],
             "reps": (N1, N2), **sl, "ns_per_copy": sl["step_ns"],
             "aggregate_ns_per_copy": sl["step_ns"] / blocks,
             "gb_per_s": blocks * COPY_BYTES / sl["step_ns"]}
@@ -188,7 +214,7 @@ def bound(case: dict) -> dict:
     of the distinct source bytes a copy adds to a launch (the slope of
     ``unique_bytes`` between N1 and N2, all blocks) over the HBM rate, and
     its 4 KB into one SM's shared memory."""
-    name = case["case"]
+    name = base(case["case"])
     new = (unique_bytes(name, N2) - unique_bytes(name, N1)) / (N2 - N1)
     return probes.bound(bytes_s=max(new / probes.PEAK_BYTES,
                                     COPY_BYTES / probes.SMEM_BYTES_PER_SM))
@@ -196,8 +222,9 @@ def bound(case: dict) -> dict:
 
 def plain_ms(case: dict, dev: torch.device) -> float:
     """The plain version (the checksums' gather and sum) a copy."""
-    src = make_source(SRC_ROWS[case["case"]], dev)
-    blocks, grain = BLOCKS.get(case["case"], 1), GRAIN.get(case["case"], 1)
+    name = base(case["case"])
+    src = make_source(SRC_ROWS[name], dev)
+    blocks, grain = BLOCKS.get(name, 1), GRAIN.get(name, 1)
     return _timing.graph_step_ms(
         lambda n: chain_reference(src, n, blocks, grain)["sums"], dev,
         (N1, N2))
@@ -205,7 +232,7 @@ def plain_ms(case: dict, dev: torch.device) -> float:
 
 def library_ms(case: dict, dev: torch.device) -> float:
     """``torch.index_select`` of the copies' rows (all blocks), a copy."""
-    name = case["case"]
+    name = base(case["case"])
     src = make_source(SRC_ROWS[name], dev)
     idx = {n: (copy_rows(src.shape[0], n, BLOCKS.get(name, 1),
                          GRAIN.get(name, 1), dev)[..., None]
@@ -227,7 +254,8 @@ def main(argv=None) -> list:
         rows = src.shape[0]
         r = measure(case, src, dev)
         where = "L2-resident" if rows * COLS * 4 < 50e6 else "device memory"
-        print(f"{case} ({r['blocks']} block(s), {rows} x {COLS} u32 source, "
+        print(f"{case} ({r['blocks']} block(s), {r['live']} in flight, "
+              f"{rows} x {COLS} u32 source, "
               f"{where}): {r['ns_per_copy']:.1f} ns a copy of {COPY_BYTES} "
               f"B, aggregate {r['aggregate_ns_per_copy']:.2f} ns a copy, "
               f"{r['gb_per_s']:.1f} GB/s", flush=True)
