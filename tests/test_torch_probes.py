@@ -824,33 +824,44 @@ def test_ind_fma_tree_order_stays_within_the_plain_chain():
 
 
 # ------------------------------------- K7's ladders and K5's elementwise
-SPREADS = {"ladder": lambda sms: sections.ladder_plan(sms),
-           "ew_8": lambda sms: ops.ew_plan("ind_fma", sms),
-           "sincos": lambda sms: ops.ew_plan("sincos", sms)}
+# name: (its plan on sms SMs, its items, its plan on 132 SMs)
+SPREADS = {
+    "ladder": (sections.ladder_plan, 96 * 1280, (132, 480, 2)),
+    "ew_8": (lambda sms: ops.ew_plan("ind_fma", sms), 8 * 1280, (132, 96, 1)),
+    "sincos": (lambda sms: ops.ew_plan("sincos", sms), 96 * 1280,
+               (132, 480, 2)),
+    "vpu_f32_8": (lambda sms: vpu.plan(8 * 1280, sms), 10_240, (132, 96, 1)),
+    "vpu_f32_96": (lambda sms: vpu.plan(96 * 1280, sms), 122_880,
+                   (132, 480, 2)),
+    "vpu_pairs_8": (lambda sms: vpu.plan(4 * 1280, sms), 5_120,
+                    (132, 64, 1)),
+    "vpu_pairs_96": (lambda sms: vpu.plan(48 * 1280, sms), 61_440,
+                     (132, 480, 1))}
 
 
 @pytest.mark.parametrize("sms", [132, 114, 66, 8])
 @pytest.mark.parametrize("which", sorted(SPREADS))
 def test_elementwise_spread_covers_once_in_whole_warps(which, sms):
-    """The ladders' and K5's elementwise cases' spread (``probes.
+    """The ladders', K5's elementwise cases' and K9's spread (``probes.
     spread_plan``, the mirror of csrc/probe_common.cuh spread_ok /
-    spread_first): every one of the 122,880 / 10,240 elements once, each
-    warp holding whole units of 32 x items (so a vote over its lanes is
-    valid), a block within the kernels' 512 threads, the blocks within one
-    unit of each other and as many on every SM. On 132 SMs one block an
-    SM: 15 warps of two elements a lane for the [96, 1280] carries (14 or
-    15 of them holding elements, where the old grid's 480 blocks put 3 or
-    4 on an SM), 3 warps of one for the [8, 1280] ones (at most one a
-    scheduler, where the old grid ran them on 40 SMs)."""
-    p = SPREADS[which](sms)
-    n = 8 * 1280 if which == "ew_8" else 96 * 1280
+    spread_first): every one of the items (122,880 / 10,240 elements of
+    the [96, 1280] / [8, 1280] carries; K9's bf16 pairs 61,440 / 5,120)
+    once, each warp holding whole units of 32 x items (so a vote over its
+    lanes is valid), a block within the kernels' 512 threads, the blocks
+    within one unit of each other and as many on every SM. On 132 SMs one
+    block an SM: 15 warps of two elements a lane for the [96, 1280]
+    carries (14 or 15 of them holding elements, where the old grid's 480
+    blocks put 3 or 4 on an SM), 15 of one pair for K9's [96, 1280]
+    pairs, 3 warps of one for the [8, 1280] ones (at most one a scheduler,
+    where the old grid ran them on 40 SMs), 2 for K9's [8, 1280] pairs
+    (on 20)."""
+    plan_of, n, at_132 = SPREADS[which]
+    p = plan_of(sms)
     assert all(probes.spread_plan_checks(p, n, sms).values())
     per = [len(e) // (32 * p["items"]) for e in probes.spread_elements(p, n)]
     units = n // (32 * p["items"])
     if sms == 132:
-        assert p == ({"blocks": 132, "threads": 96, "items": 1}
-                     if which == "ew_8" else
-                     {"blocks": 132, "threads": 480, "items": 2})
+        assert p == dict(zip(probes.SPREAD_FIELDS, at_132))
         assert max(per) == -(-units // 132) and min(per) == units // 132
     assert sum(per) == units
     # a lane's elements 32 apart: the first warp of block 0 holds unit 0
@@ -970,6 +981,31 @@ def test_dma_plain_matches_jax_kernel_and_its_race(n_live):
     for i in range(DMA_N - n_live, DMA_N):
         assert torch.equal(plain["slots"][0, i % n_live],
                            src[rows[i]:rows[i] + 8])
+
+
+@pytest.mark.parametrize("route", [0, 1])
+def test_dma_plans_write_every_byte_of_a_copy_once(route):
+    """Every plan of ``dma.VARIANTS`` (csrc/dma.cu Plan; ``copy_writes``
+    mirrors the kernels' addressing): its threads' writes, bulk pieces or
+    16-byte cp.async chunks, cover a copy's 4 KB once, each 16-byte
+    aligned, and word 0, the one the checksum reads, is thread 0's own
+    (so the reader's own wait and proxy fence order its read). The
+    shipped ``PLAN`` is one of them; another plan is refused."""
+    for p in dma.VARIANTS[route]:
+        writes = dma.copy_writes(route, p)
+        got = sorted(b for _, first, size in writes
+                     for b in range(first, first + size))
+        assert got == list(range(dma.COPY_BYTES))
+        assert all(first % 16 == 0 and size % 16 == 0
+                   for _, first, size in writes)
+        assert [t for t, first, _ in writes if first == 0] == [0]
+        assert len({t for t, _, _ in writes}) == (
+            p["pieces"] if route == 0 else 32 * p["warps"])
+    assert dma.plan_ok(route, dma.PLAN[route])
+    bad = {**dma.PLAN[route], "pieces": 3}
+    assert not dma.plan_ok(route, bad)
+    with pytest.raises(ValueError, match="plan"):
+        dma.launch(dma.make_source(4096, CPU), 8, route, plan=bad)
 
 
 def test_dma_blocks_take_their_own_stretch_of_the_rows():

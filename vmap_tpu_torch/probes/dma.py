@@ -77,6 +77,34 @@ GRAIN = {"bulk_hbm_132": SLOT_ROWS}
 SRC_ROWS = {"bulk": 4096, "cp_async": 4096, "bulk_hbm": 524_288,
             "bulk_hbm_132": SLOT_ROWS * 132 * N2 + SLOT_ROWS}
 MASK = 0xFFFFFFFF
+# how a copy is issued (csrc/dma.cu Plan, in this order): the bulk copies
+# one copy is issued as (bulk: 1, 2, 4, 8, by as many lanes of one warp onto
+# the slot's one mbarrier), the warps copying it (cp_async: 1 or 8), the
+# bulk wait's suspend-time hint (0 or 1)
+PLAN_FIELDS = ("pieces", "warps", "suspend")
+PLAN = {0: {"pieces": 1, "warps": 1, "suspend": 0},
+        1: {"pieces": 1, "warps": 8, "suspend": 0}}
+VARIANTS = {0: [{"pieces": k, "warps": 1, "suspend": h}
+                for h in (0, 1) for k in (1, 2, 4, 8)],
+            1: [{"pieces": 1, "warps": w, "suspend": 0} for w in (8, 1)]}
+
+
+def plan_ok(route: int, p: dict) -> bool:
+    """The plans the kernels take (csrc/dma.cu plan_ok)."""
+    return any(p == v for v in VARIANTS[route])
+
+
+def copy_writes(route: int, p: dict) -> list:
+    """Which thread writes which bytes of a copy's 4 KB slot under plan
+    ``p`` (csrc/dma.cu): [(thread, first byte, bytes)]. bulk: lane l <
+    pieces one piece of 4096 / pieces bytes; cp_async: thread t of 32 x
+    warps the 16-byte chunks t + 32 warps j, j < 8 / warps."""
+    if route == 0:
+        piece = COPY_BYTES // p["pieces"]
+        return [(lane, lane * piece, piece) for lane in range(p["pieces"])]
+    threads = 32 * p["warps"]
+    return [(t, 16 * (t + threads * j), 16) for t in range(threads)
+            for j in range(COPY_BYTES // 16 // threads)]
 
 
 def base(case: str) -> str:
@@ -136,38 +164,45 @@ def chain_reference(src: torch.Tensor, n: int, blocks: int = 1,
 
 
 def launch(src: torch.Tensor, n: int, route: int, blocks: int = 1,
-           grain: int = 1, live: int = LIVE) -> dict:
+           grain: int = 1, live: int = LIVE, plan: dict | None = None
+           ) -> dict:
     """The copy kernel (csrc/dma.cu) on a CUDA source: {"sums", "slots"}
-    as ``chain_reference``."""
+    as ``chain_reference``; ``plan`` how a copy is issued (by default the
+    route's ``PLAN``)."""
+    plan = PLAN[route] if plan is None else plan
     if (src.dim() != 2 or src.shape[1] != COLS or src.dtype != torch.int32
             or src.shape[0] <= SLOT_ROWS or not 1 <= live <= MAX_LIVE
             or n < live or not 1 <= blocks <= 1024
-            or grain not in (1, SLOT_ROWS)):
+            or grain not in (1, SLOT_ROWS) or route not in PLAN
+            or not plan_ok(route, plan)):
         raise ValueError(f"dma probe takes an int32 [rows > 8, {COLS}] "
                          f"source, 1..{MAX_LIVE} copies in flight, n >= "
-                         f"live, 1..1024 blocks and grain 1 or 8; got "
-                         f"{tuple(src.shape)} {src.dtype} n={n} live={live} "
-                         f"blocks={blocks} grain={grain}")
+                         f"live, 1..1024 blocks, grain 1 or 8 and a plan of "
+                         f"VARIANTS; got {tuple(src.shape)} {src.dtype} n={n} "
+                         f"live={live} blocks={blocks} grain={grain} route="
+                         f"{route} plan={plan}")
     dev = probes.check_cuda(src)
     sums = torch.empty(blocks, dtype=torch.int32, device=dev)
     slots = torch.empty((blocks, live, SLOT_ROWS, COLS), dtype=torch.int32,
                         device=dev)
     code = probes.LIBRARY.load().vmap_probe_dma(
         route, probes.ptr(src), src.shape[0], n, live, blocks, grain,
-        probes.ptr(sums), probes.ptr(slots), probes.stream(dev))
+        probes.plan_ints(plan, PLAN_FIELDS), probes.ptr(sums),
+        probes.ptr(slots), probes.stream(dev))
     probes.LIBRARY.check(code, f"dma probe (route {route}) launch")
     probes.LAUNCHES["dma"] += 1
     return {"sums": sums.long() & MASK, "slots": slots}
 
 
-def run_case(case: str, src: torch.Tensor, n: int) -> dict:
+def run_case(case: str, src: torch.Tensor, n: int,
+             plan: dict | None = None) -> dict:
     """A case's copies: the plain version on a CPU source, the kernel on
-    CUDA."""
+    CUDA (``plan``: ``launch``'s)."""
     name, live = base(case), live_of(case)
     blocks, grain = BLOCKS.get(name, 1), GRAIN.get(name, 1)
     if src.device.type == "cpu":
         return chain_reference(src, n, blocks, grain, live)
-    return launch(src, n, ROUTE[name], blocks, grain, live)
+    return launch(src, n, ROUTE[name], blocks, grain, live, plan)
 
 
 def source(case: str, dev, cache: dict) -> torch.Tensor:
@@ -198,11 +233,13 @@ def compare(dev: torch.device, reps: int = N1) -> list:
     return res
 
 
-def measure(case: str, src: torch.Tensor, dev: torch.device) -> dict:
+def measure(case: str, src: torch.Tensor, dev: torch.device,
+            plan: dict | None = None) -> dict:
     blocks = BLOCKS.get(base(case), 1)
-    sl = _timing.slope(lambda n: run_case(case, src, n)["sums"], N1, N2,
-                       dev)
+    sl = _timing.slope(lambda n: run_case(case, src, n, plan)["sums"], N1,
+                       N2, dev)
     return {"case": case, "blocks": blocks, "live": live_of(case),
+            "plan": plan or PLAN[ROUTE[base(case)]],
             "src_rows": src.shape[0],
             "reps": (N1, N2), **sl, "ns_per_copy": sl["step_ns"],
             "aggregate_ns_per_copy": sl["step_ns"] / blocks,
@@ -242,12 +279,39 @@ def library_ms(case: dict, dev: torch.device) -> float:
         lambda n: torch.index_select(src, 0, idx[n]), dev, (N1, N2))
 
 
+def variants(dev: torch.device) -> list:
+    """Every plan of ``VARIANTS`` on each one-block case with 8 copies in
+    flight and with one, and the bulk plans on bulk_hbm_132: first held
+    bit-equal to the plain version at N1 copies, then timed (ns a copy of
+    each block, as ``measure``)."""
+    out, sources = [], {}
+    for case in CASES:
+        name = base(case)
+        route, blocks, grain = ROUTE[name], BLOCKS.get(name, 1), GRAIN.get(
+            name, 1)
+        src = source(case, dev, sources)
+        want = chain_reference(src, N1, blocks, grain, live_of(case))
+        for plan in VARIANTS[route]:
+            got = run_case(case, src, N1, plan)
+            for key in ("sums", "slots"):
+                probes.held(f"{case} {plan} {key}", got[key], want[key], 0.0)
+            r = measure(case, src, dev, plan)
+            print(f"{case} {plan}: {r['ns_per_copy']:.2f} ns a copy",
+                  flush=True)
+            out.append(r)
+    return out
+
+
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--variants", action="store_true",
+                    help="time every plan of VARIANTS (the card only)")
     args = ap.parse_args(argv)
     dev = probes.device_from_arg(args.device)
     print(f"device: {_timing.device_label(dev)}", flush=True)
+    if args.variants:
+        return variants(dev)
     out, sources = [], {}
     for case in CASES:
         src = source(case, dev, sources)
