@@ -40,6 +40,7 @@ namespace {
 
 constexpr int MAX_LIVE = 8, SLOT_ROWS = 8, COLS = 128;
 constexpr uint32_t COPY_BYTES = SLOT_ROWS * COLS * 4;
+constexpr int CP_THREADS = COPY_BYTES / 16;          // 256: 16 B each
 
 struct Rows {  // row_b(i) in grains of g rows
   int grain, span, at;
@@ -63,48 +64,50 @@ __device__ void write_slots(const uint32_t (*slot)[SLOT_ROWS][COLS], int live,
     out[(size_t)blockIdx.x * words + k] = s[k];
 }
 
-// bulk: lanes 0 .. pieces - 1 of warp 0 issue a copy as `pieces` bulk
-// copies of 4096 / pieces bytes onto the slot's one mbarrier (lane 0
-// arrives on it expecting all 4096), the whole warp waits on it (SUSPEND:
-// with a suspend-time hint), lane 0 reads word 0 (in its own piece, so its
-// proxy fence alone orders the read before the next copy into the slot).
-// The next copy's row is taken before the wait.
-template <bool SUSPEND>
+// bulk, MODE 0: thread 0 waits on the slot's mbarrier, reads word 0, and
+// a proxy fence orders that read before the next copy into the slot,
+// which it then issues (arriving on the barrier expecting 4096 bytes);
+// MODE 1: the same without the fence (a measurement only: the PTX memory
+// model asks for it); MODE 2: thread 0 (the reader) waits on full[s],
+// reads word 0 and arrives on empty[s]; thread 32 (the issuer) waits on
+// empty[s] and issues the next copy into s, the barrier's release and
+// acquire ordering the read before the copy (as CUTLASS's TMA pipelines
+// rely on), with no proxy fence. The next copy's row is taken before the
+// wait.
+template <int MODE>
 __global__ void __launch_bounds__(128)
 dma_bulk_kernel(const uint32_t* __restrict__ src, int rows, int n, int live,
-                int grain, int pieces, uint32_t* __restrict__ sums,
+                int grain, uint32_t* __restrict__ sums,
                 uint32_t* __restrict__ slots) {
   __shared__ __align__(128) uint32_t slot[MAX_LIVE][SLOT_ROWS][COLS];
-  __shared__ __align__(8) uint64_t bar[MAX_LIVE];
-  const int lane = threadIdx.x;
-  if (threadIdx.x < 32) {
-    if (lane == 0) {
-      for (int s = 0; s < live; ++s) probe::mbar_init(&bar[s], 1);
-      probe::fence_proxy_async();
+  __shared__ __align__(8) uint64_t full[MAX_LIVE], empty[MAX_LIVE];
+  const int t = threadIdx.x;
+  if (t == 0) {
+    for (int s = 0; s < live; ++s) {
+      probe::mbar_init(&full[s], 1);
+      probe::mbar_init(&empty[s], 1);
     }
-    __syncwarp();
-    const uint32_t piece = COPY_BYTES / pieces;
-    const bool issues = lane < pieces;
-    auto issue = [&](int s, size_t row) {
-      if (lane == 0) probe::mbar_arrive_expect_tx(&bar[s], COPY_BYTES);
-      __syncwarp();
-      if (issues)
-        probe::bulk_g2s(reinterpret_cast<char*>(slot[s]) + lane * piece,
-                        reinterpret_cast<const char*>(src + row * COLS) + lane * piece,
-                        piece, &bar[s]);
-    };
-    Rows next((long long)blockIdx.x * n, rows, grain);
+    probe::fence_proxy_async();
+  }
+  __syncthreads();
+  auto issue = [&](int s, size_t row) {
+    probe::mbar_arrive_expect_tx(&full[s], COPY_BYTES);
+    probe::bulk_g2s(slot[s], src + row * COLS, COPY_BYTES, &full[s]);
+  };
+  const int issuer = MODE == 2 ? 32 : 0;
+  Rows next((long long)blockIdx.x * n, rows, grain);
+  if (t == issuer)
     for (int s = 0; s < live && s < n; ++s) issue(s, next.next());
+  if (t == 0) {
     size_t row = next.next();
     uint32_t acc = 0, parity = 0;
     for (int i = 0, s = 0; i < n; ++i) {
-      if constexpr (SUSPEND)
-        probe::mbar_wait_suspend(&bar[s], parity);
-      else
-        probe::mbar_wait(&bar[s], parity);
-      if (lane == 0) acc += *reinterpret_cast<volatile uint32_t*>(&slot[s][0][0]);
-      if (i + live < n) {
-        if (lane == 0) probe::fence_proxy_async();
+      probe::mbar_wait(&full[s], parity);
+      acc += *reinterpret_cast<volatile uint32_t*>(&slot[s][0][0]);
+      if (MODE == 2) {
+        probe::mbar_arrive(&empty[s]);
+      } else if (i + live < n) {
+        if (MODE == 0) probe::fence_proxy_async();
         issue(s, row);
         row = next.next();
       }
@@ -113,37 +116,41 @@ dma_bulk_kernel(const uint32_t* __restrict__ src, int rows, int n, int live,
         parity ^= 1u;
       }
     }
-    if (lane == 0) sums[blockIdx.x] = acc;
+    sums[blockIdx.x] = acc;
+  }
+  if (MODE == 2 && t == issuer) {
+    uint32_t parity = 0;
+    for (int i = live, s = 0; i < n; ++i) {
+      const size_t row = next.next();
+      probe::mbar_wait(&empty[s], parity);
+      issue(s, row);
+      if (++s == live) {
+        s = 0;
+        parity ^= 1u;
+      }
+    }
   }
   __syncthreads();
   write_slots(slot, live, slots);
 }
 
-// cp_async: W warps copy each copy, thread t the 16-byte chunks t + 32 W j
-// (j < 8 / W: words 4 (c % 32) .. + 3 of row c / 32 of chunk c), one
-// commit group a copy; each waits with wait_group<LIVE - 1> (its part of
-// the copy LIVE groups back), then the W warps meet (one warp: the warp's
-// own wait is the whole copy's) before thread 0 reads word 0, which it
-// copied itself.
-template <int LIVE, int W>
-__global__ void __launch_bounds__(32 * W)
+// cp_async: 256 threads copy each copy, thread t 16 bytes (words
+// 4 (t % 32) .. + 3 of row t / 32), one commit group a copy; each waits
+// with wait_group<LIVE - 1> (its part of the copy LIVE groups back), then
+// (MEET) the block meets before thread 0 reads word 0, which it copied
+// itself; without MEET (a measurement only) no thread waits on another's
+// part.
+template <int LIVE, bool MEET>
+__global__ void __launch_bounds__(CP_THREADS)
 dma_cp_async_kernel(const uint32_t* __restrict__ src, int rows, int n,
                     int grain, uint32_t* __restrict__ sums,
                     uint32_t* __restrict__ slots) {
-  constexpr int CHUNKS = COPY_BYTES / 16 / (32 * W);
   __shared__ __align__(128) uint32_t slot[LIVE][SLOT_ROWS][COLS];
-  const int t = threadIdx.x;
-  auto issue = [&](int s, size_t row) {
-#pragma unroll
-    for (int j = 0; j < CHUNKS; ++j) {
-      const int c = t + 32 * W * j, r = c / 32, w = (c % 32) * 4;
-      probe::cp_async16(&slot[s][r][w], src + (row + r) * COLS + w);
-    }
-  };
+  const int t = threadIdx.x, r = t / 32, w = (t % 32) * 4;
   Rows next((long long)blockIdx.x * n, rows, grain);
   for (int s = 0; s < LIVE; ++s) {
     const size_t row = next.next();
-    if (s < n) issue(s, row);
+    if (s < n) probe::cp_async16(&slot[s][r][w], src + (row + r) * COLS + w);
     probe::cp_async_commit();
   }
   uint32_t acc = 0;
@@ -151,12 +158,9 @@ dma_cp_async_kernel(const uint32_t* __restrict__ src, int rows, int n,
     const int s = i % LIVE;
     const size_t row = next.next();
     probe::cp_async_wait<LIVE - 1>();
-    if constexpr (W == 1)
-      __syncwarp();
-    else
-      __syncthreads();
+    if constexpr (MEET) __syncthreads();
     if (t == 0) acc += slot[s][0][0];
-    if (i + LIVE < n) issue(s, row);
+    if (i + LIVE < n) probe::cp_async16(&slot[s][r][w], src + (row + r) * COLS + w);
     probe::cp_async_commit();
   }
   probe::cp_async_wait<0>();
@@ -165,38 +169,33 @@ dma_cp_async_kernel(const uint32_t* __restrict__ src, int rows, int n,
   write_slots(slot, LIVE, slots);
 }
 
-// How a copy is issued (dma.py PLAN_FIELDS, in this order): pieces, the
-// bulk copies of one copy (bulk: 1, 2, 4 or 8); warps, the warps copying
-// it (cp_async: 1 or 8); suspend, the bulk wait's suspend-time hint (0 or
-// 1).
+// How a copy is waited on (dma.py PLAN_FIELDS): mode, bulk 0-2 (MODE of
+// dma_bulk_kernel), cp_async 0 (the block meets) or 1 (it does not).
 struct Plan {
-  int pieces, warps, suspend;
+  int mode;
 };
 __host__ inline bool plan_ok(int route, const Plan& p) {
-  if (route == 0)
-    return (p.pieces == 1 || p.pieces == 2 || p.pieces == 4 || p.pieces == 8) &&
-           p.warps == 1 && (p.suspend == 0 || p.suspend == 1);
-  return p.pieces == 1 && (p.warps == 1 || p.warps == 8) && p.suspend == 0;
+  return p.mode >= 0 && p.mode <= (route == 0 ? 2 : 1);
 }
 
-template <int LIVE, int W>
+template <int LIVE, bool MEET>
 void launch_cp_async(int blocks, cudaStream_t s, const uint32_t* in, int rows,
                      int n, int grain, uint32_t* sums, uint32_t* slots) {
-  dma_cp_async_kernel<LIVE, W><<<blocks, 32 * W, 0, s>>>(in, rows, n, grain,
-                                                         sums, slots);
+  dma_cp_async_kernel<LIVE, MEET><<<blocks, CP_THREADS, 0, s>>>(in, rows, n, grain,
+                                                                sums, slots);
 }
 
 }  // namespace
 
 // route 0 bulk / 1 cp_async; src [rows][128] u32 (rows > 8, 16-byte
 // aligned); live 1..8 copies in flight; n >= live copies a block; blocks
-// 1..1024; grain 1 or 8 rows; plan the 3 ints of Plan (dma.py PLAN); sums
+// 1..1024; grain 1 or 8 rows; plan the ints of Plan (dma.py PLAN); sums
 // [blocks] u32, slots [blocks][live][8][128] u32. Returns a CUDA error
 // code (cudaErrorInvalidValue for a plan outside plan_ok).
 extern "C" int vmap_probe_dma(int route, const void* src, int rows, int n,
                               int live, int blocks, int grain, const int* plan,
                               void* sums, void* slots, void* stream) {
-  const Plan p = {plan[0], plan[1], plan[2]};
+  const Plan p = {plan[0]};
   if (route < 0 || route > 1 || rows <= SLOT_ROWS || live < 1 ||
       live > MAX_LIVE || n < live || blocks < 1 ||
       blocks > 1024 || (grain != 1 && grain != SLOT_ROWS) ||
@@ -208,22 +207,24 @@ extern "C" int vmap_probe_dma(int route, const void* src, int rows, int n,
   auto sm = static_cast<uint32_t*>(sums);
   auto sl = static_cast<uint32_t*>(slots);
   if (route == 0) {
-    if (p.suspend)
-      dma_bulk_kernel<true><<<blocks, 128, 0, s>>>(in, rows, n, live, grain, p.pieces, sm, sl);
+    if (p.mode == 0)
+      dma_bulk_kernel<0><<<blocks, 128, 0, s>>>(in, rows, n, live, grain, sm, sl);
+    else if (p.mode == 1)
+      dma_bulk_kernel<1><<<blocks, 128, 0, s>>>(in, rows, n, live, grain, sm, sl);
     else
-      dma_bulk_kernel<false><<<blocks, 128, 0, s>>>(in, rows, n, live, grain, p.pieces, sm, sl);
+      dma_bulk_kernel<2><<<blocks, 128, 0, s>>>(in, rows, n, live, grain, sm, sl);
     return (int)cudaGetLastError();
   }
   using Launch = void (*)(int, cudaStream_t, const uint32_t*, int, int, int,
                           uint32_t*, uint32_t*);
-  constexpr Launch one_warp[MAX_LIVE] = {
-      launch_cp_async<1, 1>, launch_cp_async<2, 1>, launch_cp_async<3, 1>,
-      launch_cp_async<4, 1>, launch_cp_async<5, 1>, launch_cp_async<6, 1>,
-      launch_cp_async<7, 1>, launch_cp_async<8, 1>};
-  constexpr Launch eight_warps[MAX_LIVE] = {
-      launch_cp_async<1, 8>, launch_cp_async<2, 8>, launch_cp_async<3, 8>,
-      launch_cp_async<4, 8>, launch_cp_async<5, 8>, launch_cp_async<6, 8>,
-      launch_cp_async<7, 8>, launch_cp_async<8, 8>};
-  (p.warps == 1 ? one_warp : eight_warps)[live - 1](blocks, s, in, rows, n, grain, sm, sl);
+  constexpr Launch meet[MAX_LIVE] = {
+      launch_cp_async<1, true>, launch_cp_async<2, true>, launch_cp_async<3, true>,
+      launch_cp_async<4, true>, launch_cp_async<5, true>, launch_cp_async<6, true>,
+      launch_cp_async<7, true>, launch_cp_async<8, true>};
+  constexpr Launch apart[MAX_LIVE] = {
+      launch_cp_async<1, false>, launch_cp_async<2, false>, launch_cp_async<3, false>,
+      launch_cp_async<4, false>, launch_cp_async<5, false>, launch_cp_async<6, false>,
+      launch_cp_async<7, false>, launch_cp_async<8, false>};
+  (p.mode == 0 ? meet : apart)[live - 1](blocks, s, in, rows, n, grain, sm, sl);
   return (int)cudaGetLastError();
 }

@@ -77,16 +77,15 @@ GRAIN = {"bulk_hbm_132": SLOT_ROWS}
 SRC_ROWS = {"bulk": 4096, "cp_async": 4096, "bulk_hbm": 524_288,
             "bulk_hbm_132": SLOT_ROWS * 132 * N2 + SLOT_ROWS}
 MASK = 0xFFFFFFFF
-# how a copy is issued (csrc/dma.cu Plan, in this order): the bulk copies
-# one copy is issued as (bulk: 1, 2, 4, 8, by as many lanes of one warp onto
-# the slot's one mbarrier), the warps copying it (cp_async: 1 or 8), the
-# bulk wait's suspend-time hint (0 or 1)
-PLAN_FIELDS = ("pieces", "warps", "suspend")
-PLAN = {0: {"pieces": 1, "warps": 1, "suspend": 0},
-        1: {"pieces": 1, "warps": 8, "suspend": 0}}
-VARIANTS = {0: [{"pieces": k, "warps": 1, "suspend": h}
-                for h in (0, 1) for k in (1, 2, 4, 8)],
-            1: [{"pieces": 1, "warps": w, "suspend": 0} for w in (8, 1)]}
+# how a copy is waited on (csrc/dma.cu Plan): bulk mode 0, the reader
+# fences and issues the next copy; 1, the same without the fence (a
+# measurement only); 2, a second thread issues it after the reader's
+# arrival on the slot's "empty" barrier; cp_async mode 0, the block meets
+# a copy; 1, it does not (a measurement only)
+PLAN_FIELDS = ("mode",)
+PLAN = {0: {"mode": 0}, 1: {"mode": 0}}
+VARIANTS = {0: [{"mode": m} for m in (0, 1, 2)],
+            1: [{"mode": m} for m in (0, 1)]}
 
 
 def plan_ok(route: int, p: dict) -> bool:
@@ -95,16 +94,13 @@ def plan_ok(route: int, p: dict) -> bool:
 
 
 def copy_writes(route: int, p: dict) -> list:
-    """Which thread writes which bytes of a copy's 4 KB slot under plan
-    ``p`` (csrc/dma.cu): [(thread, first byte, bytes)]. bulk: lane l <
-    pieces one piece of 4096 / pieces bytes; cp_async: thread t of 32 x
-    warps the 16-byte chunks t + 32 warps j, j < 8 / warps."""
+    """Which thread issues which bytes of a copy's 4 KB slot under plan
+    ``p`` (csrc/dma.cu): [(thread, first byte, bytes)]. bulk: one bulk
+    copy, by thread 0 (mode 2: thread 32); cp_async: thread t of 256 the
+    16-byte chunk t."""
     if route == 0:
-        piece = COPY_BYTES // p["pieces"]
-        return [(lane, lane * piece, piece) for lane in range(p["pieces"])]
-    threads = 32 * p["warps"]
-    return [(t, 16 * (t + threads * j), 16) for t in range(threads)
-            for j in range(COPY_BYTES // 16 // threads)]
+        return [(32 if p["mode"] == 2 else 0, 0, COPY_BYTES)]
+    return [(t, 16 * t, 16) for t in range(COPY_BYTES // 16)]
 
 
 def base(case: str) -> str:
