@@ -986,20 +986,22 @@ def test_dma_plain_matches_jax_kernel_and_its_race(n_live):
 @pytest.mark.parametrize("route", [0, 1])
 def test_dma_plans_write_every_byte_of_a_copy_once(route):
     """Every plan of ``dma.VARIANTS`` (csrc/dma.cu Plan; ``copy_writes``
-    mirrors the kernels' addressing): its writes, one bulk copy or 256
-    16-byte cp.async chunks, cover a copy's 4 KB once, each 16-byte
-    aligned; a cp.async copy's word 0, the one the checksum reads, is
-    thread 0's own chunk. The shipped ``PLAN`` is one of them; another
-    plan is refused."""
+    mirrors the kernels' addressing): the writes of a copy into each slot,
+    one bulk copy or 16-byte cp.async chunks, cover its 4 KB once, each
+    16-byte aligned; a cp.async copy's word 0, the one the checksum reads,
+    is the reader's own chunk (thread 0, or the slot's warp's lane 0). The
+    shipped ``PLAN`` is one of them; another plan is refused."""
     for p in dma.VARIANTS[route]:
-        writes = dma.copy_writes(route, p)
-        got = sorted(b for _, first, size in writes
-                     for b in range(first, first + size))
-        assert got == list(range(dma.COPY_BYTES))
-        assert all(first % 16 == 0 and size % 16 == 0
-                   for _, first, size in writes)
-        if route == 1:
-            assert [t for t, first, _ in writes if first == 0] == [0]
+        for slot in range(dma.LIVE):
+            writes = dma.copy_writes(route, p, slot)
+            got = sorted(b for _, first, size in writes
+                         for b in range(first, first + size))
+            assert got == list(range(dma.COPY_BYTES))
+            assert all(first % 16 == 0 and size % 16 == 0
+                       for _, first, size in writes)
+            if route == 1:
+                assert [t for t, first, _ in writes if first == 0] == [
+                    32 * slot if p["mode"] == 1 else 0]
     assert dma.plan_ok(route, dma.PLAN[route])
     bad = {"mode": 3}
     assert not dma.plan_ok(route, bad)

@@ -42,14 +42,15 @@ constexpr int MAX_LIVE = 8, SLOT_ROWS = 8, COLS = 128;
 constexpr uint32_t COPY_BYTES = SLOT_ROWS * COLS * 4;
 constexpr int CP_THREADS = COPY_BYTES / 16;          // 256: 16 B each
 
-struct Rows {  // row_b(i) in grains of g rows
-  int grain, span, at;
-  __device__ Rows(long long first, int rows, int g)
+struct Rows {  // row_b(i) in grains of g rows, every stride-th copy
+  int grain, span, at, step;
+  __device__ Rows(long long first, int rows, int g, int stride = 1)
       : grain(g), span((rows - SLOT_ROWS) / g),
-        at((int)((first * 37) % ((rows - SLOT_ROWS) / g))) {}
+        at((int)((first * 37) % ((rows - SLOT_ROWS) / g))),
+        step((int)(37LL * stride % ((rows - SLOT_ROWS) / g))) {}
   __device__ size_t next() {
     const int r = at;
-    at += 37;
+    at += step;
     if (at >= span) at -= span;
     return (size_t)r * grain;
   }
@@ -64,21 +65,64 @@ __device__ void write_slots(const uint32_t (*slot)[SLOT_ROWS][COLS], int live,
     out[(size_t)blockIdx.x * words + k] = s[k];
 }
 
-// bulk, MODE 0: thread 0 waits on the slot's mbarrier, reads word 0, and
-// a proxy fence orders that read before the next copy into the slot,
-// which it then issues (arriving on the barrier expecting 4096 bytes);
-// MODE 1: the same without the fence (a measurement only: the PTX memory
-// model asks for it); MODE 2: thread 0 (the reader) waits on full[s],
-// reads word 0 and arrives on empty[s]; thread 32 (the issuer) waits on
-// empty[s] and issues the next copy into s, the barrier's release and
-// acquire ordering the read before the copy (as CUTLASS's TMA pipelines
-// rely on), with no proxy fence. The next copy's row is taken before the
-// wait.
-template <int MODE>
+// the slots' partial checksums added in slot order (u32, so any order
+// gives the same sum)
+__device__ void add_partials(const uint32_t* part, int live, uint32_t* sums) {
+  if (threadIdx.x == 0) {
+    uint32_t acc = 0;
+    for (int s = 0; s < live; ++s) acc += part[s];
+    sums[blockIdx.x] = acc;
+  }
+}
+
+// bulk, mode 0: thread 0 waits on copy i's mbarrier, reads word 0, a proxy
+// fence orders that read before the next copy into the slot, which it
+// then issues (arriving on the barrier expecting 4096 bytes).
 __global__ void __launch_bounds__(128)
 dma_bulk_kernel(const uint32_t* __restrict__ src, int rows, int n, int live,
                 int grain, uint32_t* __restrict__ sums,
                 uint32_t* __restrict__ slots) {
+  __shared__ __align__(128) uint32_t slot[MAX_LIVE][SLOT_ROWS][COLS];
+  __shared__ __align__(8) uint64_t bar[MAX_LIVE];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < live; ++s) probe::mbar_init(&bar[s], 1);
+    probe::fence_proxy_async();
+    Rows next((long long)blockIdx.x * n, rows, grain);
+    for (int s = 0; s < live && s < n; ++s) {
+      probe::mbar_arrive_expect_tx(&bar[s], COPY_BYTES);
+      probe::bulk_g2s(slot[s], src + next.next() * COLS, COPY_BYTES,
+                      &bar[s]);
+    }
+    uint32_t acc = 0, parity = 0;
+    for (int i = 0, s = 0; i < n; ++i) {
+      probe::mbar_wait(&bar[s], parity);
+      acc += *reinterpret_cast<volatile uint32_t*>(&slot[s][0][0]);
+      if (i + live < n) {
+        probe::fence_proxy_async();
+        probe::mbar_arrive_expect_tx(&bar[s], COPY_BYTES);
+        probe::bulk_g2s(slot[s], src + next.next() * COLS, COPY_BYTES,
+                        &bar[s]);
+      }
+      if (++s == live) {
+        s = 0;
+        parity ^= 1u;
+      }
+    }
+    sums[blockIdx.x] = acc;
+  }
+  __syncthreads();
+  write_slots(slot, live, slots);
+}
+
+// bulk, mode 1: thread 0 (the reader) waits on full[s], reads word 0 and
+// arrives on empty[s]; thread 32 (the issuer) waits on empty[s] and issues
+// the next copy into s, the barrier's release and acquire ordering the
+// read before the copy (as CUTLASS's TMA pipelines rely on; no proxy
+// fence).
+__global__ void __launch_bounds__(128)
+dma_bulk_split_kernel(const uint32_t* __restrict__ src, int rows, int n,
+                      int live, int grain, uint32_t* __restrict__ sums,
+                      uint32_t* __restrict__ slots) {
   __shared__ __align__(128) uint32_t slot[MAX_LIVE][SLOT_ROWS][COLS];
   __shared__ __align__(8) uint64_t full[MAX_LIVE], empty[MAX_LIVE];
   const int t = threadIdx.x;
@@ -90,40 +134,26 @@ dma_bulk_kernel(const uint32_t* __restrict__ src, int rows, int n, int live,
     probe::fence_proxy_async();
   }
   __syncthreads();
-  auto issue = [&](int s, size_t row) {
-    probe::mbar_arrive_expect_tx(&full[s], COPY_BYTES);
-    probe::bulk_g2s(slot[s], src + row * COLS, COPY_BYTES, &full[s]);
-  };
-  const int issuer = MODE == 2 ? 32 : 0;
-  Rows next((long long)blockIdx.x * n, rows, grain);
-  if (t == issuer)
-    for (int s = 0; s < live && s < n; ++s) issue(s, next.next());
   if (t == 0) {
-    size_t row = next.next();
     uint32_t acc = 0, parity = 0;
     for (int i = 0, s = 0; i < n; ++i) {
       probe::mbar_wait(&full[s], parity);
       acc += *reinterpret_cast<volatile uint32_t*>(&slot[s][0][0]);
-      if (MODE == 2) {
-        probe::mbar_arrive(&empty[s]);
-      } else if (i + live < n) {
-        if (MODE == 0) probe::fence_proxy_async();
-        issue(s, row);
-        row = next.next();
-      }
+      probe::mbar_arrive(&empty[s]);
       if (++s == live) {
         s = 0;
         parity ^= 1u;
       }
     }
     sums[blockIdx.x] = acc;
-  }
-  if (MODE == 2 && t == issuer) {
-    uint32_t parity = 0;
-    for (int i = live, s = 0; i < n; ++i) {
+  } else if (t == 32) {
+    Rows next((long long)blockIdx.x * n, rows, grain);
+    uint32_t parity = 1;  // the first `live` copies wait on no read
+    for (int i = 0, s = 0; i < n; ++i) {
       const size_t row = next.next();
-      probe::mbar_wait(&empty[s], parity);
-      issue(s, row);
+      if (i >= live) probe::mbar_wait(&empty[s], parity);
+      probe::mbar_arrive_expect_tx(&full[s], COPY_BYTES);
+      probe::bulk_g2s(slot[s], src + row * COLS, COPY_BYTES, &full[s]);
       if (++s == live) {
         s = 0;
         parity ^= 1u;
@@ -134,13 +164,50 @@ dma_bulk_kernel(const uint32_t* __restrict__ src, int rows, int n, int live,
   write_slots(slot, live, slots);
 }
 
-// cp_async: 256 threads copy each copy, thread t 16 bytes (words
+// bulk, mode 2: warp s owns slot s (its lane 0: copies s, s + live, ...),
+// waits on its copy, reads word 0 into its partial checksum, fences and
+// issues its next copy; the slots' chains run side by side.
+__global__ void __launch_bounds__(32 * MAX_LIVE)
+dma_bulk_owner_kernel(const uint32_t* __restrict__ src, int rows, int n,
+                      int live, int grain, uint32_t* __restrict__ sums,
+                      uint32_t* __restrict__ slots) {
+  __shared__ __align__(128) uint32_t slot[MAX_LIVE][SLOT_ROWS][COLS];
+  __shared__ __align__(8) uint64_t bar[MAX_LIVE];
+  __shared__ uint32_t part[MAX_LIVE];
+  const int t = threadIdx.x, s = t / 32;
+  if (t < live) probe::mbar_init(&bar[t], 1);
+  probe::fence_proxy_async();
+  __syncthreads();
+  if (t % 32 == 0 && s < live) {
+    Rows next((long long)blockIdx.x * n + s, rows, grain, live);
+    uint32_t acc = 0, parity = 0;
+    if (s < n) {
+      probe::mbar_arrive_expect_tx(&bar[s], COPY_BYTES);
+      probe::bulk_g2s(slot[s], src + next.next() * COLS, COPY_BYTES, &bar[s]);
+    }
+    for (int i = s; i < n; i += live) {
+      const size_t row = next.next();
+      probe::mbar_wait(&bar[s], parity);
+      acc += *reinterpret_cast<volatile uint32_t*>(&slot[s][0][0]);
+      if (i + live < n) {
+        probe::fence_proxy_async();
+        probe::mbar_arrive_expect_tx(&bar[s], COPY_BYTES);
+        probe::bulk_g2s(slot[s], src + row * COLS, COPY_BYTES, &bar[s]);
+      }
+      parity ^= 1u;
+    }
+    part[s] = acc;
+  }
+  __syncthreads();
+  add_partials(part, live, sums);
+  write_slots(slot, live, slots);
+}
+
+// cp_async, mode 0: 256 threads copy each copy, thread t 16 bytes (words
 // 4 (t % 32) .. + 3 of row t / 32), one commit group a copy; each waits
-// with wait_group<LIVE - 1> (its part of the copy LIVE groups back), then
-// (MEET) the block meets before thread 0 reads word 0, which it copied
-// itself; without MEET (a measurement only) no thread waits on another's
-// part.
-template <int LIVE, bool MEET>
+// with wait_group<LIVE - 1> (its part of the copy LIVE groups back), and
+// the block meets before thread 0 reads word 0.
+template <int LIVE>
 __global__ void __launch_bounds__(CP_THREADS)
 dma_cp_async_kernel(const uint32_t* __restrict__ src, int rows, int n,
                     int grain, uint32_t* __restrict__ sums,
@@ -156,11 +223,12 @@ dma_cp_async_kernel(const uint32_t* __restrict__ src, int rows, int n,
   uint32_t acc = 0;
   for (int i = 0; i < n; ++i) {
     const int s = i % LIVE;
-    const size_t row = next.next();
     probe::cp_async_wait<LIVE - 1>();
-    if constexpr (MEET) __syncthreads();
+    __syncthreads();
     if (t == 0) acc += slot[s][0][0];
-    if (i + LIVE < n) probe::cp_async16(&slot[s][r][w], src + (row + r) * COLS + w);
+    const size_t row = next.next();
+    if (i + LIVE < n)
+      probe::cp_async16(&slot[s][r][w], src + (row + r) * COLS + w);
     probe::cp_async_commit();
   }
   probe::cp_async_wait<0>();
@@ -169,8 +237,46 @@ dma_cp_async_kernel(const uint32_t* __restrict__ src, int rows, int n,
   write_slots(slot, LIVE, slots);
 }
 
-// How a copy is waited on (dma.py PLAN_FIELDS): mode, bulk 0-2 (MODE of
-// dma_bulk_kernel), cp_async 0 (the block meets) or 1 (it does not).
+// cp_async, mode 1: warp s owns slot s (copies s, s + live, ...); its lanes
+// copy all 4 KB of a copy (lane l the 16-byte chunks l + 32 j, j < 8: word
+// 4 l of row j), wait for it (wait_group 0, the warp's own: the whole copy),
+// and lane 0 reads word 0 into the warp's partial checksum before the warp
+// issues its next copy; the slots' chains run side by side.
+__global__ void __launch_bounds__(32 * MAX_LIVE)
+dma_cp_async_owner_kernel(const uint32_t* __restrict__ src, int rows, int n,
+                          int live, int grain, uint32_t* __restrict__ sums,
+                          uint32_t* __restrict__ slots) {
+  __shared__ __align__(128) uint32_t slot[MAX_LIVE][SLOT_ROWS][COLS];
+  __shared__ uint32_t part[MAX_LIVE];
+  const int s = threadIdx.x / 32, lane = threadIdx.x % 32, w = 4 * lane;
+  if (s < live) {
+    Rows next((long long)blockIdx.x * n + s, rows, grain, live);
+    uint32_t acc = 0;
+    auto issue = [&](size_t row) {
+#pragma unroll
+      for (int j = 0; j < SLOT_ROWS; ++j)
+        probe::cp_async16(&slot[s][j][w], src + (row + j) * COLS + w);
+      probe::cp_async_commit();
+    };
+    if (s < n) issue(next.next());
+    for (int i = s; i < n; i += live) {
+      const size_t row = next.next();
+      probe::cp_async_wait<0>();
+      __syncwarp();
+      if (lane == 0) acc += slot[s][0][0];
+      __syncwarp();
+      if (i + live < n) issue(row);
+    }
+    if (lane == 0) part[s] = acc;
+  }
+  __syncthreads();
+  add_partials(part, live, sums);
+  write_slots(slot, live, slots);
+}
+
+// How a copy is issued and waited on (dma.py PLAN_FIELDS): mode, bulk 0
+// (one thread), 1 (a reader and an issuer), 2 (a warp a slot); cp_async 0
+// (the block copies each copy), 1 (a warp a slot).
 struct Plan {
   int mode;
 };
@@ -178,11 +284,11 @@ __host__ inline bool plan_ok(int route, const Plan& p) {
   return p.mode >= 0 && p.mode <= (route == 0 ? 2 : 1);
 }
 
-template <int LIVE, bool MEET>
+template <int LIVE>
 void launch_cp_async(int blocks, cudaStream_t s, const uint32_t* in, int rows,
                      int n, int grain, uint32_t* sums, uint32_t* slots) {
-  dma_cp_async_kernel<LIVE, MEET><<<blocks, CP_THREADS, 0, s>>>(in, rows, n, grain,
-                                                                sums, slots);
+  dma_cp_async_kernel<LIVE><<<blocks, CP_THREADS, 0, s>>>(in, rows, n, grain,
+                                                          sums, slots);
 }
 
 }  // namespace
@@ -206,25 +312,23 @@ extern "C" int vmap_probe_dma(int route, const void* src, int rows, int n,
   auto in = static_cast<const uint32_t*>(src);
   auto sm = static_cast<uint32_t*>(sums);
   auto sl = static_cast<uint32_t*>(slots);
-  if (route == 0) {
-    if (p.mode == 0)
-      dma_bulk_kernel<0><<<blocks, 128, 0, s>>>(in, rows, n, live, grain, sm, sl);
-    else if (p.mode == 1)
-      dma_bulk_kernel<1><<<blocks, 128, 0, s>>>(in, rows, n, live, grain, sm, sl);
-    else
-      dma_bulk_kernel<2><<<blocks, 128, 0, s>>>(in, rows, n, live, grain, sm, sl);
-    return (int)cudaGetLastError();
+  if (route == 0 && p.mode == 0)
+    dma_bulk_kernel<<<blocks, 128, 0, s>>>(in, rows, n, live, grain, sm, sl);
+  else if (route == 0 && p.mode == 1)
+    dma_bulk_split_kernel<<<blocks, 128, 0, s>>>(in, rows, n, live, grain, sm, sl);
+  else if (route == 0)
+    dma_bulk_owner_kernel<<<blocks, 32 * MAX_LIVE, 0, s>>>(in, rows, n, live, grain, sm, sl);
+  else if (p.mode == 1)
+    dma_cp_async_owner_kernel<<<blocks, 32 * MAX_LIVE, 0, s>>>(in, rows, n, live, grain, sm,
+                                                               sl);
+  else {
+    using Launch = void (*)(int, cudaStream_t, const uint32_t*, int, int, int,
+                            uint32_t*, uint32_t*);
+    constexpr Launch cp_async[MAX_LIVE] = {
+        launch_cp_async<1>, launch_cp_async<2>, launch_cp_async<3>,
+        launch_cp_async<4>, launch_cp_async<5>, launch_cp_async<6>,
+        launch_cp_async<7>, launch_cp_async<8>};
+    cp_async[live - 1](blocks, s, in, rows, n, grain, sm, sl);
   }
-  using Launch = void (*)(int, cudaStream_t, const uint32_t*, int, int, int,
-                          uint32_t*, uint32_t*);
-  constexpr Launch meet[MAX_LIVE] = {
-      launch_cp_async<1, true>, launch_cp_async<2, true>, launch_cp_async<3, true>,
-      launch_cp_async<4, true>, launch_cp_async<5, true>, launch_cp_async<6, true>,
-      launch_cp_async<7, true>, launch_cp_async<8, true>};
-  constexpr Launch apart[MAX_LIVE] = {
-      launch_cp_async<1, false>, launch_cp_async<2, false>, launch_cp_async<3, false>,
-      launch_cp_async<4, false>, launch_cp_async<5, false>, launch_cp_async<6, false>,
-      launch_cp_async<7, false>, launch_cp_async<8, false>};
-  (p.mode == 0 ? meet : apart)[live - 1](blocks, s, in, rows, n, grain, sm, sl);
   return (int)cudaGetLastError();
 }

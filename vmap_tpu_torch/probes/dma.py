@@ -77,11 +77,11 @@ GRAIN = {"bulk_hbm_132": SLOT_ROWS}
 SRC_ROWS = {"bulk": 4096, "cp_async": 4096, "bulk_hbm": 524_288,
             "bulk_hbm_132": SLOT_ROWS * 132 * N2 + SLOT_ROWS}
 MASK = 0xFFFFFFFF
-# how a copy is waited on (csrc/dma.cu Plan): bulk mode 0, the reader
-# fences and issues the next copy; 1, the same without the fence (a
-# measurement only); 2, a second thread issues it after the reader's
-# arrival on the slot's "empty" barrier; cp_async mode 0, the block meets
-# a copy; 1, it does not (a measurement only)
+# how a copy is issued and waited on (csrc/dma.cu Plan): bulk mode 0, one
+# thread waits, reads, fences and issues the next copy; 1, a reader and an
+# issuer apart, on "empty" barriers; 2, a warp a slot, each its own
+# copies; cp_async mode 0, the block copies each copy and meets; 1, a warp
+# a slot
 PLAN_FIELDS = ("mode",)
 PLAN = {0: {"mode": 0}, 1: {"mode": 0}}
 VARIANTS = {0: [{"mode": m} for m in (0, 1, 2)],
@@ -93,14 +93,18 @@ def plan_ok(route: int, p: dict) -> bool:
     return any(p == v for v in VARIANTS[route])
 
 
-def copy_writes(route: int, p: dict) -> list:
-    """Which thread issues which bytes of a copy's 4 KB slot under plan
+def copy_writes(route: int, p: dict, slot: int = 0) -> list:
+    """Which thread issues which bytes of a copy into ``slot`` under plan
     ``p`` (csrc/dma.cu): [(thread, first byte, bytes)]. bulk: one bulk
-    copy, by thread 0 (mode 2: thread 32); cp_async: thread t of 256 the
-    16-byte chunk t."""
+    copy, by thread 0 (mode 1: the issuer, thread 32; mode 2: the slot's
+    warp's lane 0); cp_async: mode 0, thread t of 256 the 16-byte chunk
+    t; mode 1, lane l of the slot's warp the chunks l + 32 j, j < 8."""
     if route == 0:
-        return [(32 if p["mode"] == 2 else 0, 0, COPY_BYTES)]
-    return [(t, 16 * t, 16) for t in range(COPY_BYTES // 16)]
+        return [({0: 0, 1: 32, 2: 32 * slot}[p["mode"]], 0, COPY_BYTES)]
+    if p["mode"] == 0:
+        return [(t, 16 * t, 16) for t in range(COPY_BYTES // 16)]
+    return [(32 * slot + lane, 16 * (lane + 32 * j), 16)
+            for lane in range(32) for j in range(SLOT_ROWS)]
 
 
 def base(case: str) -> str:
