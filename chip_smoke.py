@@ -3227,13 +3227,17 @@ PROBE_FUNCTIONS = {
                        "cos on branch-free fast paths)"],
     "probe_overlap": ["overlap_kernel<MODE> (3xbf16 wgmma, the vpu ops "
                       "between commit and wait)"],
-    "probe_vpu": ["vpu_f32_kernel<OP>", "vpu_bf16_kernel<OP, FMA>"],
+    "probe_vpu": ["vpu_f32_kernel<OP, E> (spread over the SMs, mul / "
+                  "mixed unrolled 64 deep, the sigmoid on sigmoid_rn)",
+                  "vpu_bf16_kernel<OP, FMA, E> (spread over the SMs, "
+                  "unrolled 64 deep)"],
     "probe_ops": ["ew_kernel<K> (spread over the SMs, chains at their "
                   "latency floor, branch-free reciprocal and sin / cos)",
                   "lanesum_kernel<CL> (FP32 FMA, m resident across a "
                   "cluster of 8, partials exchanged by st.async)",
                   "tiles_kernel<SERIAL>"],
-    "probe_dma": ["dma_bulk_kernel", "dma_cp_async_kernel"]}
+    "probe_dma": ["dma_bulk_kernel (a warp a slot)",
+                  "dma_cp_async_kernel<W> (8 / live warps a slot)"]}
 
 def pool_gather(dev, gpu: str) -> dict:
     """The sampler's pool gather (``core/step.py`` ``_sample_bank``,

@@ -983,30 +983,35 @@ def test_dma_plain_matches_jax_kernel_and_its_race(n_live):
                            src[rows[i]:rows[i] + 8])
 
 
-@pytest.mark.parametrize("route", [0, 1])
-def test_dma_plans_write_every_byte_of_a_copy_once(route):
-    """Every plan of ``dma.VARIANTS`` (csrc/dma.cu Plan; ``copy_writes``
-    mirrors the kernels' addressing): the writes of a copy into each slot,
-    one bulk copy or 16-byte cp.async chunks, cover its 4 KB once, each
-    16-byte aligned; a cp.async copy's word 0, the one the checksum reads,
-    is the reader's own chunk (thread 0, or the slot's warp's lane 0). The
-    shipped ``PLAN`` is one of them; another plan is refused."""
-    for p in dma.VARIANTS[route]:
-        for slot in range(dma.LIVE):
-            writes = dma.copy_writes(route, p, slot)
-            got = sorted(b for _, first, size in writes
-                         for b in range(first, first + size))
-            assert got == list(range(dma.COPY_BYTES))
-            assert all(first % 16 == 0 and size % 16 == 0
-                       for _, first, size in writes)
-            if route == 1:
-                assert [t for t, first, _ in writes if first == 0] == [
-                    32 * slot if p["mode"] == 1 else 0]
-    assert dma.plan_ok(route, dma.PLAN[route])
-    bad = {"mode": 3}
-    assert not dma.plan_ok(route, bad)
-    with pytest.raises(ValueError, match="plan"):
-        dma.launch(dma.make_source(4096, CPU), 8, route, plan=bad)
+@pytest.mark.parametrize("live", [1, 3, 8])
+def test_dma_warps_take_every_copy_and_byte_once(live):
+    """The kernels' layout (csrc/dma.cu: a warp a slot): the slots' warps
+    make every copy once, warp s the copies i with i mod live = s in
+    order, so each slot ends with the last such copy, as the plain
+    version's slots say; the cp_async route's 16-byte chunks, spread over
+    the slot's warps (8 / live of them, rounded down to a power of two, at
+    most 8 in a block), cover a copy's 4 KB once, word 0, the one the
+    checksum reads, in the reader's (the group's thread 0) own chunk;
+    and the warps' partial checksums added in slot order are the plain
+    checksum."""
+    per = dma.slot_copies(DMA_N, live)
+    assert sorted(i for copies in per for i in copies) == list(range(DMA_N))
+    assert all(c == sorted(c) and all(i % live == s for i in c)
+               for s, c in enumerate(per))
+    chunks = dma.chunk_writes(live)
+    got = sorted(b for _, first in chunks for b in range(first, first + 16))
+    assert got == list(range(dma.COPY_BYTES))
+    assert [t for t, first in chunks if first == 0] == [0]
+    assert live * dma.group_warps(live) <= 8
+    assert len({t for t, _ in chunks}) == 32 * dma.group_warps(live)
+    src = dma.make_source(4096, CPU)
+    plain = dma.chain_reference(src, DMA_N, live=live)
+    words = src[plain["rows"][0], 0].long()
+    parts = [int(words[c].sum()) & dma.MASK for c in per]
+    assert sum(parts) & dma.MASK == int(plain["sums"][0])
+    for s, c in enumerate(per):
+        last = int(plain["rows"][0, c[-1]])
+        assert torch.equal(plain["slots"][0, s], src[last:last + 8])
 
 
 def test_dma_blocks_take_their_own_stretch_of_the_rows():

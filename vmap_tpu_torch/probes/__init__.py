@@ -66,7 +66,7 @@ SIGNATURES = {
     "vmap_probe_ew": ((I, P, P, P, I, I, P), I),
     "vmap_probe_ops": ((I, P, P, P, I, I, P), I),
     "vmap_probe_lanesum": ((P,) * 5 + (I, P), I),
-    "vmap_probe_dma": ((I, P, I, I, I, I, I, P, P, P, P), I),
+    "vmap_probe_dma": ((I, P, I, I, I, I, I, P, P, P), I),
 }
 # probe_common.cuh includes the kernel library's mma.cuh
 LIBRARY = Library(_HERE / "csrc", _HERE / "_build", "libvmap_probes.so",

@@ -8,28 +8,44 @@
 //   row_b(i) = g (((b n + i) 37) mod ((rows - 8) / g))
 // (grain g = 1 or 8; b = 0 and g = 1: the script's (i 37) mod (rows - 8);
 // g = 8 on a source of 8 blocks n + 8 rows reads every byte once), into
-// `live` rotating slots of shared memory, `live` copies in flight. For each
-// i in order it waits for copy i, adds word 0 of its slot to a u32
-// checksum, and only then issues copy i + live into that slot. The
-// script's kernel issues copy i + live before it reads the slot, so its
-// checksum is a race (on the TPU undefined; in interpret mode, where a
-// copy completes when it starts, word 0 of copy i + live); this one is
-// defined: sum_i src[row_b(i)][0] mod 2^32. After the last copy the `live`
-// slots go to a side output, so a copy that moved only word 0 would show.
-// Routes:
-//   0 bulk: thread 0 of the block issues each copy as one TMA bulk copy
-//     (cp.async.bulk, the counterpart of make_async_copy) completing on
-//     the slot's mbarrier (the counterpart of the DMA semaphore) and waits
-//     on the barrier's phase; a proxy fence orders its read of the slot
-//     before the next copy into it;
-//   1 cp_async: 256 threads, each copies 16 B of every copy with cp.async
-//     (one commit group a copy), waits with wait_group<LIVE - 1> (the copy
-//     LIVE groups back), and the block meets at one barrier a copy before
-//     thread 0 reads the slot.
-// One block (the script's) or 132 (one an SM: the aggregate rate K1's
-// grid would see fetching its own pixels). The row of the next copy is
-// kept incrementally (+37 grains, wrapped), so no 64-bit division sits
-// between copies.
+// `live` rotating slots of shared memory, copy i into slot i mod live, so
+// `live` copies are in flight. Each copy is waited on before word 0 of
+// its slot is added to a u32 checksum, and only then is copy i + live
+// issued into that slot. The script's kernel issues copy i + live before
+// it reads the slot, so its checksum is a race (on the TPU undefined; in
+// interpret mode, where a copy completes when it starts, word 0 of copy
+// i + live); this one is defined: sum_i src[row_b(i)][0] mod 2^32. After
+// the last copy the `live` slots go to a side output, so a copy that moved
+// only word 0 would show.
+//
+// Each slot has warps of its own (slot s: copies s, s + live, s + 2 live,
+// ...): they wait on their copy, read word 0 into the slot's partial
+// checksum, and issue its next copy; the partials are added in slot order
+// at the end (u32: the same sum in any order). So the slots' chains of
+// wait, read and issue run side by side, and a copy's time is its round
+// trip over `live` where the copy unit overlaps them. One thread issuing every copy
+// in turn (the script's loop as written) took 126 ns a copy with 8 in
+// flight against a 282 ns round trip with one (bulk, L2, on an H100 80GB
+// HBM3 at 700 W): the chain of that thread's wait, read, proxy fence,
+// barrier arrival and issue, about 250 clocks, set the pace, not the
+// copies. Routes:
+//   0 bulk: a warp a slot; its lane 0 issues each copy as one TMA bulk
+//     copy (cp.async.bulk, the counterpart of make_async_copy) completing
+//     on the slot's mbarrier (the counterpart of the DMA semaphore), waits
+//     on the barrier's phase, and a proxy fence orders its read of word 0
+//     before its next copy into the slot;
+//   1 cp_async: W = group_warps(live) warps a slot (8 / live rounded down
+//     to a power of two: a warp a slot at 8 in flight, the whole block at
+//     1) copy each copy with 16-byte cp.async, one commit group a copy,
+//     wait for it with wait_group 0 and meet (a warp: __syncwarp; else a
+//     named barrier of the slot's warps), so the slot's wait is the whole
+//     copy's; its thread 0 reads word 0, which it copied itself.
+// Every shared-memory address the loops use is taken once, before them
+// (mbarriers, slots, word 0), so no loop trip recomputes the shared
+// window's base. One block (the script's) or 132 (one an SM: the
+// aggregate rate K1's grid would see fetching its own pixels). The row of
+// a warp's next copy is kept incrementally (+37 live grains, wrapped), so
+// no 64-bit division sits between copies.
 //
 // A source of 2 MiB lives in the 50 MB L2, so the cases on it time L2, not
 // HBM (dma.py's bound says what each case must move).
@@ -40,11 +56,11 @@ namespace {
 
 constexpr int MAX_LIVE = 8, SLOT_ROWS = 8, COLS = 128;
 constexpr uint32_t COPY_BYTES = SLOT_ROWS * COLS * 4;
-constexpr int CP_THREADS = COPY_BYTES / 16;          // 256: 16 B each
+constexpr uint32_t ROW_BYTES = COLS * 4;
 
-struct Rows {  // row_b(i) in grains of g rows, every stride-th copy
+struct Rows {  // row_b(i) in grains of g rows, for every stride-th copy
   int grain, span, at, step;
-  __device__ Rows(long long first, int rows, int g, int stride = 1)
+  __device__ Rows(long long first, int rows, int g, int stride)
       : grain(g), span((rows - SLOT_ROWS) / g),
         at((int)((first * 37) % ((rows - SLOT_ROWS) / g))),
         step((int)(37LL * stride % ((rows - SLOT_ROWS) / g))) {}
@@ -56,279 +72,127 @@ struct Rows {  // row_b(i) in grains of g rows, every stride-th copy
   }
 };
 
-// the first `live` slots to this block's [live][8][128] of out
-__device__ void write_slots(const uint32_t (*slot)[SLOT_ROWS][COLS], int live,
-                            uint32_t* out) {
-  const uint32_t* s = &slot[0][0][0];
-  const int words = live * SLOT_ROWS * COLS;
-  for (int k = threadIdx.x; k < words; k += blockDim.x)
-    out[(size_t)blockIdx.x * words + k] = s[k];
-}
-
-// the slots' partial checksums added in slot order (u32, so any order
-// gives the same sum)
-__device__ void add_partials(const uint32_t* part, int live, uint32_t* sums) {
+// The end of a launch: the warps' partial checksums added in slot order,
+// and the `live` slots to this block's [live][8][128] of out.
+__device__ void finish(const uint32_t* part, const uint32_t (*slot)[SLOT_ROWS][COLS],
+                       int live, uint32_t* sums, uint32_t* out) {
+  __syncthreads();
   if (threadIdx.x == 0) {
     uint32_t acc = 0;
     for (int s = 0; s < live; ++s) acc += part[s];
     sums[blockIdx.x] = acc;
   }
+  const uint32_t* w = &slot[0][0][0];
+  const int words = live * SLOT_ROWS * COLS;
+  for (int k = threadIdx.x; k < words; k += blockDim.x)
+    out[(size_t)blockIdx.x * words + k] = w[k];
 }
 
-// bulk, mode 0: thread 0 waits on copy i's mbarrier, reads word 0, a proxy
-// fence orders that read before the next copy into the slot, which it
-// then issues (arriving on the barrier expecting 4096 bytes).
-__global__ void __launch_bounds__(128)
+// 32 live threads: warp s < live owns slot s.
+__global__ void __launch_bounds__(32 * MAX_LIVE)
 dma_bulk_kernel(const uint32_t* __restrict__ src, int rows, int n, int live,
                 int grain, uint32_t* __restrict__ sums,
                 uint32_t* __restrict__ slots) {
   __shared__ __align__(128) uint32_t slot[MAX_LIVE][SLOT_ROWS][COLS];
-  __shared__ __align__(8) uint64_t bar[MAX_LIVE];
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < live; ++s) probe::mbar_init(&bar[s], 1);
-    probe::fence_proxy_async();
-    Rows next((long long)blockIdx.x * n, rows, grain);
-    for (int s = 0; s < live && s < n; ++s) {
-      probe::mbar_arrive_expect_tx(&bar[s], COPY_BYTES);
-      probe::bulk_g2s(slot[s], src + next.next() * COLS, COPY_BYTES,
-                      &bar[s]);
-    }
-    uint32_t acc = 0, parity = 0;
-    for (int i = 0, s = 0; i < n; ++i) {
-      probe::mbar_wait(&bar[s], parity);
-      acc += *reinterpret_cast<volatile uint32_t*>(&slot[s][0][0]);
-      if (i + live < n) {
-        probe::fence_proxy_async();
-        probe::mbar_arrive_expect_tx(&bar[s], COPY_BYTES);
-        probe::bulk_g2s(slot[s], src + next.next() * COLS, COPY_BYTES,
-                        &bar[s]);
-      }
-      if (++s == live) {
-        s = 0;
-        parity ^= 1u;
-      }
-    }
-    sums[blockIdx.x] = acc;
-  }
-  __syncthreads();
-  write_slots(slot, live, slots);
-}
-
-// bulk, mode 1: thread 0 (the reader) waits on full[s], reads word 0 and
-// arrives on empty[s]; thread 32 (the issuer) waits on empty[s] and issues
-// the next copy into s, the barrier's release and acquire ordering the
-// read before the copy (as CUTLASS's TMA pipelines rely on; no proxy
-// fence).
-__global__ void __launch_bounds__(128)
-dma_bulk_split_kernel(const uint32_t* __restrict__ src, int rows, int n,
-                      int live, int grain, uint32_t* __restrict__ sums,
-                      uint32_t* __restrict__ slots) {
-  __shared__ __align__(128) uint32_t slot[MAX_LIVE][SLOT_ROWS][COLS];
-  __shared__ __align__(8) uint64_t full[MAX_LIVE], empty[MAX_LIVE];
-  const int t = threadIdx.x;
-  if (t == 0) {
-    for (int s = 0; s < live; ++s) {
-      probe::mbar_init(&full[s], 1);
-      probe::mbar_init(&empty[s], 1);
-    }
-    probe::fence_proxy_async();
-  }
-  __syncthreads();
-  if (t == 0) {
-    uint32_t acc = 0, parity = 0;
-    for (int i = 0, s = 0; i < n; ++i) {
-      probe::mbar_wait(&full[s], parity);
-      acc += *reinterpret_cast<volatile uint32_t*>(&slot[s][0][0]);
-      probe::mbar_arrive(&empty[s]);
-      if (++s == live) {
-        s = 0;
-        parity ^= 1u;
-      }
-    }
-    sums[blockIdx.x] = acc;
-  } else if (t == 32) {
-    Rows next((long long)blockIdx.x * n, rows, grain);
-    uint32_t parity = 1;  // the first `live` copies wait on no read
-    for (int i = 0, s = 0; i < n; ++i) {
-      const size_t row = next.next();
-      if (i >= live) probe::mbar_wait(&empty[s], parity);
-      probe::mbar_arrive_expect_tx(&full[s], COPY_BYTES);
-      probe::bulk_g2s(slot[s], src + row * COLS, COPY_BYTES, &full[s]);
-      if (++s == live) {
-        s = 0;
-        parity ^= 1u;
-      }
-    }
-  }
-  __syncthreads();
-  write_slots(slot, live, slots);
-}
-
-// bulk, mode 2: warp s owns slot s (its lane 0: copies s, s + live, ...),
-// waits on its copy, reads word 0 into its partial checksum, fences and
-// issues its next copy; the slots' chains run side by side.
-__global__ void __launch_bounds__(32 * MAX_LIVE)
-dma_bulk_owner_kernel(const uint32_t* __restrict__ src, int rows, int n,
-                      int live, int grain, uint32_t* __restrict__ sums,
-                      uint32_t* __restrict__ slots) {
-  __shared__ __align__(128) uint32_t slot[MAX_LIVE][SLOT_ROWS][COLS];
-  __shared__ __align__(8) uint64_t bar[MAX_LIVE];
+  __shared__ __align__(8) uint64_t bars[MAX_LIVE];
   __shared__ uint32_t part[MAX_LIVE];
-  const int t = threadIdx.x, s = t / 32;
-  if (t < live) probe::mbar_init(&bar[t], 1);
-  probe::fence_proxy_async();
-  __syncthreads();
-  if (t % 32 == 0 && s < live) {
+  const int s = threadIdx.x / 32;
+  if (threadIdx.x % 32 == 0) {
+    probe::mbar_init(&bars[s], 1);
+    probe::fence_proxy_async();
+    const uint32_t bar = probe::smem_u32(&bars[s]), dst = probe::smem_u32(slot[s]);
     Rows next((long long)blockIdx.x * n + s, rows, grain, live);
+    probe::mbar_arrive_expect_tx(bar, COPY_BYTES);
+    probe::bulk_g2s(dst, src + next.next() * COLS, COPY_BYTES, bar);
     uint32_t acc = 0, parity = 0;
-    if (s < n) {
-      probe::mbar_arrive_expect_tx(&bar[s], COPY_BYTES);
-      probe::bulk_g2s(slot[s], src + next.next() * COLS, COPY_BYTES, &bar[s]);
-    }
     for (int i = s; i < n; i += live) {
-      const size_t row = next.next();
-      probe::mbar_wait(&bar[s], parity);
-      acc += *reinterpret_cast<volatile uint32_t*>(&slot[s][0][0]);
+      const uint32_t* from = src + next.next() * COLS;
+      probe::mbar_wait(bar, parity);
+      acc += probe::ld_shared_volatile(dst);
       if (i + live < n) {
         probe::fence_proxy_async();
-        probe::mbar_arrive_expect_tx(&bar[s], COPY_BYTES);
-        probe::bulk_g2s(slot[s], src + row * COLS, COPY_BYTES, &bar[s]);
+        probe::mbar_arrive_expect_tx(bar, COPY_BYTES);
+        probe::bulk_g2s(dst, from, COPY_BYTES, bar);
       }
       parity ^= 1u;
     }
     part[s] = acc;
   }
-  __syncthreads();
-  add_partials(part, live, sums);
-  write_slots(slot, live, slots);
+  finish(part, slot, live, sums, slots);
 }
 
-// cp_async, mode 0: 256 threads copy each copy, thread t 16 bytes (words
-// 4 (t % 32) .. + 3 of row t / 32), one commit group a copy; each waits
-// with wait_group<LIVE - 1> (its part of the copy LIVE groups back), and
-// the block meets before thread 0 reads word 0.
-template <int LIVE>
-__global__ void __launch_bounds__(CP_THREADS)
-dma_cp_async_kernel(const uint32_t* __restrict__ src, int rows, int n,
+// The warps copying one slot's copies on the cp_async route: 8 / live,
+// rounded down to a power of two (8, 4, 2, 2, 1, 1, 1, 1), so a launch
+// has at most 8 warps and a warp's lanes 8 / W chunks of a copy.
+__host__ __device__ constexpr int group_warps(int live) {
+  return live == 1 ? 8 : live == 2 ? 4 : live <= 4 ? 2 : 1;
+}
+
+// 32 W live threads: warps W s .. W s + W - 1 own slot s; thread t of the
+// group copies the 16-byte chunks t + 32 W j of a copy (j < 8 / W: words
+// 4 (c % 32) .. + 3 of row c / 32 of chunk c).
+template <int W>
+__global__ void __launch_bounds__(32 * MAX_LIVE)
+dma_cp_async_kernel(const uint32_t* __restrict__ src, int rows, int n, int live,
                     int grain, uint32_t* __restrict__ sums,
                     uint32_t* __restrict__ slots) {
-  __shared__ __align__(128) uint32_t slot[LIVE][SLOT_ROWS][COLS];
-  const int t = threadIdx.x, r = t / 32, w = (t % 32) * 4;
-  Rows next((long long)blockIdx.x * n, rows, grain);
-  for (int s = 0; s < LIVE; ++s) {
-    const size_t row = next.next();
-    if (s < n) probe::cp_async16(&slot[s][r][w], src + (row + r) * COLS + w);
-    probe::cp_async_commit();
-  }
-  uint32_t acc = 0;
-  for (int i = 0; i < n; ++i) {
-    const int s = i % LIVE;
-    probe::cp_async_wait<LIVE - 1>();
-    __syncthreads();
-    if (t == 0) acc += slot[s][0][0];
-    const size_t row = next.next();
-    if (i + LIVE < n)
-      probe::cp_async16(&slot[s][r][w], src + (row + r) * COLS + w);
-    probe::cp_async_commit();
-  }
-  probe::cp_async_wait<0>();
-  __syncthreads();
-  if (t == 0) sums[blockIdx.x] = acc;
-  write_slots(slot, LIVE, slots);
-}
-
-// cp_async, mode 1: warp s owns slot s (copies s, s + live, ...); its lanes
-// copy all 4 KB of a copy (lane l the 16-byte chunks l + 32 j, j < 8: word
-// 4 l of row j), wait for it (wait_group 0, the warp's own: the whole copy),
-// and lane 0 reads word 0 into the warp's partial checksum before the warp
-// issues its next copy; the slots' chains run side by side.
-__global__ void __launch_bounds__(32 * MAX_LIVE)
-dma_cp_async_owner_kernel(const uint32_t* __restrict__ src, int rows, int n,
-                          int live, int grain, uint32_t* __restrict__ sums,
-                          uint32_t* __restrict__ slots) {
+  constexpr int CHUNKS = SLOT_ROWS / W;
   __shared__ __align__(128) uint32_t slot[MAX_LIVE][SLOT_ROWS][COLS];
   __shared__ uint32_t part[MAX_LIVE];
-  const int s = threadIdx.x / 32, lane = threadIdx.x % 32, w = 4 * lane;
-  if (s < live) {
-    Rows next((long long)blockIdx.x * n + s, rows, grain, live);
-    uint32_t acc = 0;
-    auto issue = [&](size_t row) {
+  const int s = threadIdx.x / (32 * W), t = threadIdx.x % (32 * W);
+  // this thread's first chunk (row r0, words w0 ..) in the slot and a copy
+  const int r0 = t / 32, w0 = 4 * (t % 32);
+  const uint32_t dst = probe::smem_u32(&slot[s][r0][w0]), word0 = probe::smem_u32(slot[s]);
+  Rows next((long long)blockIdx.x * n + s, rows, grain, live);
+  auto issue = [&](size_t row) {
+    const uint32_t* from = src + (row + r0) * COLS + w0;
 #pragma unroll
-      for (int j = 0; j < SLOT_ROWS; ++j)
-        probe::cp_async16(&slot[s][j][w], src + (row + j) * COLS + w);
-      probe::cp_async_commit();
-    };
-    if (s < n) issue(next.next());
-    for (int i = s; i < n; i += live) {
-      const size_t row = next.next();
-      probe::cp_async_wait<0>();
+    for (int j = 0; j < CHUNKS; ++j)
+      probe::cp_async16(dst + j * W * ROW_BYTES, from + j * W * COLS);
+    probe::cp_async_commit();
+  };
+  issue(next.next());
+  uint32_t acc = 0;
+  for (int i = s; i < n; i += live) {
+    const size_t row = next.next();
+    probe::cp_async_wait<0>();
+    if constexpr (W == 1)
       __syncwarp();
-      if (lane == 0) acc += slot[s][0][0];
-      __syncwarp();
-      if (i + live < n) issue(row);
-    }
-    if (lane == 0) part[s] = acc;
+    else
+      asm volatile("bar.sync %0, %1;\n" :: "r"(1 + s), "r"(32 * W) : "memory");
+    if (t == 0) acc += probe::ld_shared_volatile(word0);
+    if (i + live < n) issue(row);
   }
-  __syncthreads();
-  add_partials(part, live, sums);
-  write_slots(slot, live, slots);
-}
-
-// How a copy is issued and waited on (dma.py PLAN_FIELDS): mode, bulk 0
-// (one thread), 1 (a reader and an issuer), 2 (a warp a slot); cp_async 0
-// (the block copies each copy), 1 (a warp a slot).
-struct Plan {
-  int mode;
-};
-__host__ inline bool plan_ok(int route, const Plan& p) {
-  return p.mode >= 0 && p.mode <= (route == 0 ? 2 : 1);
-}
-
-template <int LIVE>
-void launch_cp_async(int blocks, cudaStream_t s, const uint32_t* in, int rows,
-                     int n, int grain, uint32_t* sums, uint32_t* slots) {
-  dma_cp_async_kernel<LIVE><<<blocks, CP_THREADS, 0, s>>>(in, rows, n, grain,
-                                                          sums, slots);
+  if (t == 0) part[s] = acc;
+  finish(part, slot, live, sums, slots);
 }
 
 }  // namespace
 
 // route 0 bulk / 1 cp_async; src [rows][128] u32 (rows > 8, 16-byte
 // aligned); live 1..8 copies in flight; n >= live copies a block; blocks
-// 1..1024; grain 1 or 8 rows; plan the ints of Plan (dma.py PLAN); sums
-// [blocks] u32, slots [blocks][live][8][128] u32. Returns a CUDA error
-// code (cudaErrorInvalidValue for a plan outside plan_ok).
+// 1..1024; grain 1 or 8 rows; sums [blocks] u32, slots
+// [blocks][live][8][128] u32. Returns a CUDA error code.
 extern "C" int vmap_probe_dma(int route, const void* src, int rows, int n,
-                              int live, int blocks, int grain, const int* plan,
-                              void* sums, void* slots, void* stream) {
-  const Plan p = {plan[0]};
+                              int live, int blocks, int grain, void* sums,
+                              void* slots, void* stream) {
   if (route < 0 || route > 1 || rows <= SLOT_ROWS || live < 1 ||
       live > MAX_LIVE || n < live || blocks < 1 ||
       blocks > 1024 || (grain != 1 && grain != SLOT_ROWS) ||
-      (rows - SLOT_ROWS) / grain < 1 || !plan_ok(route, p) ||
+      (rows - SLOT_ROWS) / grain < 1 ||
       reinterpret_cast<uintptr_t>(src) % 16)
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto in = static_cast<const uint32_t*>(src);
   auto sm = static_cast<uint32_t*>(sums);
   auto sl = static_cast<uint32_t*>(slots);
-  if (route == 0 && p.mode == 0)
-    dma_bulk_kernel<<<blocks, 128, 0, s>>>(in, rows, n, live, grain, sm, sl);
-  else if (route == 0 && p.mode == 1)
-    dma_bulk_split_kernel<<<blocks, 128, 0, s>>>(in, rows, n, live, grain, sm, sl);
-  else if (route == 0)
-    dma_bulk_owner_kernel<<<blocks, 32 * MAX_LIVE, 0, s>>>(in, rows, n, live, grain, sm, sl);
-  else if (p.mode == 1)
-    dma_cp_async_owner_kernel<<<blocks, 32 * MAX_LIVE, 0, s>>>(in, rows, n, live, grain, sm,
-                                                               sl);
-  else {
-    using Launch = void (*)(int, cudaStream_t, const uint32_t*, int, int, int,
-                            uint32_t*, uint32_t*);
-    constexpr Launch cp_async[MAX_LIVE] = {
-        launch_cp_async<1>, launch_cp_async<2>, launch_cp_async<3>,
-        launch_cp_async<4>, launch_cp_async<5>, launch_cp_async<6>,
-        launch_cp_async<7>, launch_cp_async<8>};
-    cp_async[live - 1](blocks, s, in, rows, n, grain, sm, sl);
+  const int threads = 32 * live * (route == 0 ? 1 : group_warps(live));
+  switch (route == 0 ? 0 : group_warps(live)) {
+    case 0: dma_bulk_kernel<<<blocks, threads, 0, s>>>(in, rows, n, live, grain, sm, sl); break;
+    case 1: dma_cp_async_kernel<1><<<blocks, threads, 0, s>>>(in, rows, n, live, grain, sm, sl); break;
+    case 2: dma_cp_async_kernel<2><<<blocks, threads, 0, s>>>(in, rows, n, live, grain, sm, sl); break;
+    case 4: dma_cp_async_kernel<4><<<blocks, threads, 0, s>>>(in, rows, n, live, grain, sm, sl); break;
+    default: dma_cp_async_kernel<8><<<blocks, threads, 0, s>>>(in, rows, n, live, grain, sm, sl); break;
   }
   return (int)cudaGetLastError();
 }

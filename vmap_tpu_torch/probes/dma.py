@@ -17,19 +17,29 @@ copy and the ``live`` slots after the last copy (csrc/dma.cu).
 waits on copy i, starts copy i + live into the same slot, and only then
 reads the slot. On a TPU the value is undefined; in interpret mode, where
 a copy completes when it starts, it is word 0 of copy i + live for i < n -
-live and of copy i for the last ``live``. This port reads the slot before it issues
-the next copy into it, so its checksum is defined:
+live and of copy i for the last ``live``. This port reads the slot before
+it issues the next copy into it, so its checksum is defined:
 sum_i src[row(i), 0] mod 2^32. The words are kept as int32 (as
 ``core/pool.py`` keeps the pool's) and summed as int64.
+
+**A warp a slot.** Warp s of a block owns slot s and makes copies s, s +
+live, ... (``slot_copies``): it waits on its copy, adds word 0 to its own
+partial checksum and issues its next copy, so the slots' chains run side
+by side; the partials are added in slot order (u32: the same sum). One
+thread issuing every copy in turn, the script's loop as written, was held
+to about 250 clocks a copy by its own chain of wait, read, fence and
+issue, whatever the copies' round trip.
 
 Cases (``CASES``), each timed by the script's slope, n = 4000 and 16000
 copies a block, in ns a copy:
 
-  * ``bulk``: TMA bulk copies issued by one thread, the script's 2 MiB
-    source, one block. The source lives in the 50 MB L2: this times L2,
-    not device memory as on the TPU;
-  * ``cp_async``: the same copies as 16 B ``cp.async`` by 256 threads, a
-    commit group and a block barrier a copy (L2, one block);
+  * ``bulk``: TMA bulk copies, each issued by lane 0 of its slot's warp,
+    the script's 2 MiB source, one block. The source lives in the 50 MB
+    L2: this times L2, not device memory as on the TPU;
+  * ``cp_async``: the same copies as 16 B ``cp.async`` by the slot's
+    warps (``group_warps``: one at 8 in flight, the block's 8 at one), a
+    commit group a copy (``chunk_writes``), the slot's warps meeting after
+    their wait (L2, one block);
   * ``bulk_hbm``: a 256 MiB source (524,288 rows: the row formula spans
     it), one block; its 16000 copies read distinct rows;
   * ``bulk_hbm_132``: 132 blocks (one an SM), each its own stretch of the
@@ -77,34 +87,27 @@ GRAIN = {"bulk_hbm_132": SLOT_ROWS}
 SRC_ROWS = {"bulk": 4096, "cp_async": 4096, "bulk_hbm": 524_288,
             "bulk_hbm_132": SLOT_ROWS * 132 * N2 + SLOT_ROWS}
 MASK = 0xFFFFFFFF
-# how a copy is issued and waited on (csrc/dma.cu Plan): bulk mode 0, one
-# thread waits, reads, fences and issues the next copy; 1, a reader and an
-# issuer apart, on "empty" barriers; 2, a warp a slot, each its own
-# copies; cp_async mode 0, the block copies each copy and meets; 1, a warp
-# a slot
-PLAN_FIELDS = ("mode",)
-PLAN = {0: {"mode": 0}, 1: {"mode": 0}}
-VARIANTS = {0: [{"mode": m} for m in (0, 1, 2)],
-            1: [{"mode": m} for m in (0, 1)]}
 
 
-def plan_ok(route: int, p: dict) -> bool:
-    """The plans the kernels take (csrc/dma.cu plan_ok)."""
-    return any(p == v for v in VARIANTS[route])
+def slot_copies(n: int, live: int = LIVE) -> list:
+    """The copies each slot's warp makes, in its order (csrc/dma.cu: warp
+    s copies s, s + live, ...; copy i lands in slot i mod live)."""
+    return [list(range(s, n, live)) for s in range(live)]
 
 
-def copy_writes(route: int, p: dict, slot: int = 0) -> list:
-    """Which thread issues which bytes of a copy into ``slot`` under plan
-    ``p`` (csrc/dma.cu): [(thread, first byte, bytes)]. bulk: one bulk
-    copy, by thread 0 (mode 1: the issuer, thread 32; mode 2: the slot's
-    warp's lane 0); cp_async: mode 0, thread t of 256 the 16-byte chunk
-    t; mode 1, lane l of the slot's warp the chunks l + 32 j, j < 8."""
-    if route == 0:
-        return [({0: 0, 1: 32, 2: 32 * slot}[p["mode"]], 0, COPY_BYTES)]
-    if p["mode"] == 0:
-        return [(t, 16 * t, 16) for t in range(COPY_BYTES // 16)]
-    return [(32 * slot + lane, 16 * (lane + 32 * j), 16)
-            for lane in range(32) for j in range(SLOT_ROWS)]
+def group_warps(live: int) -> int:
+    """The warps copying one slot's copies on the cp_async route
+    (csrc/dma.cu group_warps): 8 / live rounded down to a power of two."""
+    return 8 if live == 1 else 4 if live == 2 else 2 if live <= 4 else 1
+
+
+def chunk_writes(live: int = LIVE) -> list:
+    """The cp_async route's 16-byte chunks of one 4 KB copy (csrc/dma.cu):
+    [(thread of the slot's group, first byte)], thread t of W =
+    ``group_warps(live)`` warps the chunks t + 32 W j, j < 8 / W."""
+    w = group_warps(live)
+    return [(t, 16 * (t + 32 * w * j)) for t in range(32 * w)
+            for j in range(SLOT_ROWS // w)]
 
 
 def base(case: str) -> str:
@@ -164,45 +167,38 @@ def chain_reference(src: torch.Tensor, n: int, blocks: int = 1,
 
 
 def launch(src: torch.Tensor, n: int, route: int, blocks: int = 1,
-           grain: int = 1, live: int = LIVE, plan: dict | None = None
-           ) -> dict:
+           grain: int = 1, live: int = LIVE) -> dict:
     """The copy kernel (csrc/dma.cu) on a CUDA source: {"sums", "slots"}
-    as ``chain_reference``; ``plan`` how a copy is issued (by default the
-    route's ``PLAN``)."""
-    plan = PLAN[route] if plan is None else plan
+    as ``chain_reference``."""
     if (src.dim() != 2 or src.shape[1] != COLS or src.dtype != torch.int32
             or src.shape[0] <= SLOT_ROWS or not 1 <= live <= MAX_LIVE
             or n < live or not 1 <= blocks <= 1024
-            or grain not in (1, SLOT_ROWS) or route not in PLAN
-            or not plan_ok(route, plan)):
+            or grain not in (1, SLOT_ROWS)):
         raise ValueError(f"dma probe takes an int32 [rows > 8, {COLS}] "
                          f"source, 1..{MAX_LIVE} copies in flight, n >= "
-                         f"live, 1..1024 blocks, grain 1 or 8 and a plan of "
-                         f"VARIANTS; got {tuple(src.shape)} {src.dtype} n={n} "
-                         f"live={live} blocks={blocks} grain={grain} route="
-                         f"{route} plan={plan}")
+                         f"live, 1..1024 blocks and grain 1 or 8; got "
+                         f"{tuple(src.shape)} {src.dtype} n={n} live={live} "
+                         f"blocks={blocks} grain={grain}")
     dev = probes.check_cuda(src)
     sums = torch.empty(blocks, dtype=torch.int32, device=dev)
     slots = torch.empty((blocks, live, SLOT_ROWS, COLS), dtype=torch.int32,
                         device=dev)
     code = probes.LIBRARY.load().vmap_probe_dma(
         route, probes.ptr(src), src.shape[0], n, live, blocks, grain,
-        probes.plan_ints(plan, PLAN_FIELDS), probes.ptr(sums),
-        probes.ptr(slots), probes.stream(dev))
+        probes.ptr(sums), probes.ptr(slots), probes.stream(dev))
     probes.LIBRARY.check(code, f"dma probe (route {route}) launch")
     probes.LAUNCHES["dma"] += 1
     return {"sums": sums.long() & MASK, "slots": slots}
 
 
-def run_case(case: str, src: torch.Tensor, n: int,
-             plan: dict | None = None) -> dict:
+def run_case(case: str, src: torch.Tensor, n: int) -> dict:
     """A case's copies: the plain version on a CPU source, the kernel on
-    CUDA (``plan``: ``launch``'s)."""
+    CUDA."""
     name, live = base(case), live_of(case)
     blocks, grain = BLOCKS.get(name, 1), GRAIN.get(name, 1)
     if src.device.type == "cpu":
         return chain_reference(src, n, blocks, grain, live)
-    return launch(src, n, ROUTE[name], blocks, grain, live, plan)
+    return launch(src, n, ROUTE[name], blocks, grain, live)
 
 
 def source(case: str, dev, cache: dict) -> torch.Tensor:
@@ -233,13 +229,11 @@ def compare(dev: torch.device, reps: int = N1) -> list:
     return res
 
 
-def measure(case: str, src: torch.Tensor, dev: torch.device,
-            plan: dict | None = None) -> dict:
+def measure(case: str, src: torch.Tensor, dev: torch.device) -> dict:
     blocks = BLOCKS.get(base(case), 1)
-    sl = _timing.slope(lambda n: run_case(case, src, n, plan)["sums"], N1,
-                       N2, dev)
+    sl = _timing.slope(lambda n: run_case(case, src, n)["sums"], N1, N2,
+                       dev)
     return {"case": case, "blocks": blocks, "live": live_of(case),
-            "plan": plan or PLAN[ROUTE[base(case)]],
             "src_rows": src.shape[0],
             "reps": (N1, N2), **sl, "ns_per_copy": sl["step_ns"],
             "aggregate_ns_per_copy": sl["step_ns"] / blocks,
@@ -279,39 +273,12 @@ def library_ms(case: dict, dev: torch.device) -> float:
         lambda n: torch.index_select(src, 0, idx[n]), dev, (N1, N2))
 
 
-def variants(dev: torch.device) -> list:
-    """Every plan of ``VARIANTS`` on each one-block case with 8 copies in
-    flight and with one, and the bulk plans on bulk_hbm_132: first held
-    bit-equal to the plain version at N1 copies, then timed (ns a copy of
-    each block, as ``measure``)."""
-    out, sources = [], {}
-    for case in CASES:
-        name = base(case)
-        route, blocks, grain = ROUTE[name], BLOCKS.get(name, 1), GRAIN.get(
-            name, 1)
-        src = source(case, dev, sources)
-        want = chain_reference(src, N1, blocks, grain, live_of(case))
-        for plan in VARIANTS[route]:
-            got = run_case(case, src, N1, plan)
-            for key in ("sums", "slots"):
-                probes.held(f"{case} {plan} {key}", got[key], want[key], 0.0)
-            r = measure(case, src, dev, plan)
-            print(f"{case} {plan}: {r['ns_per_copy']:.2f} ns a copy",
-                  flush=True)
-            out.append(r)
-    return out
-
-
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--variants", action="store_true",
-                    help="time every plan of VARIANTS (the card only)")
     args = ap.parse_args(argv)
     dev = probes.device_from_arg(args.device)
     print(f"device: {_timing.device_label(dev)}", flush=True)
-    if args.variants:
-        return variants(dev)
     out, sources = [], {}
     for case in CASES:
         src = source(case, dev, sources)
