@@ -140,28 +140,29 @@ dma_cp_async_kernel(const uint32_t* __restrict__ src, int rows, int n, int live,
   __shared__ __align__(128) uint32_t slot[MAX_LIVE][SLOT_ROWS][COLS];
   __shared__ uint32_t part[MAX_LIVE];
   const int s = threadIdx.x / (32 * W), t = threadIdx.x % (32 * W);
-  // this thread's first chunk (row r0, words w0 ..) in the slot and a copy
+  // this thread's first chunk (row r0, words w0 ..) in the slot
   const int r0 = t / 32, w0 = 4 * (t % 32);
   const uint32_t dst = probe::smem_u32(&slot[s][r0][w0]), word0 = probe::smem_u32(slot[s]);
   Rows next((long long)blockIdx.x * n + s, rows, grain, live);
-  auto issue = [&](size_t row) {
-    const uint32_t* from = src + (row + r0) * COLS + w0;
+  // this thread's first chunk of the copy of the next row
+  auto chunk = [&]() { return src + (next.next() + r0) * COLS + w0; };
+  auto issue = [&](const uint32_t* from) {
 #pragma unroll
     for (int j = 0; j < CHUNKS; ++j)
       probe::cp_async16(dst + j * W * ROW_BYTES, from + j * W * COLS);
     probe::cp_async_commit();
   };
-  issue(next.next());
+  issue(chunk());
   uint32_t acc = 0;
   for (int i = s; i < n; i += live) {
-    const size_t row = next.next();
+    const uint32_t* from = chunk();
     probe::cp_async_wait<0>();
     if constexpr (W == 1)
       __syncwarp();
     else
       asm volatile("bar.sync %0, %1;\n" :: "r"(1 + s), "r"(32 * W) : "memory");
     if (t == 0) acc += probe::ld_shared_volatile(word0);
-    if (i + live < n) issue(row);
+    if (i + live < n) issue(from);
   }
   if (t == 0) part[s] = acc;
   finish(part, slot, live, sums, slots);
