@@ -830,13 +830,16 @@ SPREADS = {
     "ew_8": (lambda sms: ops.ew_plan("ind_fma", sms), 8 * 1280, (132, 96, 1)),
     "sincos": (lambda sms: ops.ew_plan("sincos", sms), 96 * 1280,
                (132, 480, 2)),
-    "vpu_f32_8": (lambda sms: vpu.plan(8 * 1280, sms), 10_240, (132, 96, 1)),
-    "vpu_f32_96": (lambda sms: vpu.plan(96 * 1280, sms), 122_880,
-                   (132, 480, 2)),
-    "vpu_pairs_8": (lambda sms: vpu.plan(4 * 1280, sms), 5_120,
-                    (132, 64, 1)),
-    "vpu_pairs_96": (lambda sms: vpu.plan(48 * 1280, sms), 61_440,
-                     (132, 256, 2))}
+    "vpu_f32_8": (lambda sms: vpu.plan((8, "mul", "f32"), sms), 10_240,
+                  (132, 96, 1)),
+    "vpu_f32_96": (lambda sms: vpu.plan((96, "sigmoid", "f32"), sms),
+                   122_880, (132, 480, 2)),
+    "vpu_pairs_8": (lambda sms: vpu.plan((8, "mul", "bf16_fma"), sms),
+                    5_120, (132, 64, 1)),
+    "vpu_pairs_96": (lambda sms: vpu.plan((96, "mixed", "bf16"), sms),
+                     61_440, (132, 480, 1)),
+    "vpu_fma_96": (lambda sms: vpu.plan((96, "mul", "bf16_fma"), sms),
+                   61_440, (132, 256, 2))}
 
 
 @pytest.mark.parametrize("sms", [132, 114, 66, 8])
@@ -851,8 +854,9 @@ def test_elementwise_spread_covers_once_in_whole_warps(which, sms):
     within one unit of each other and as many on every SM. On 132 SMs one
     block an SM: 15 warps of two elements a lane for the [96, 1280]
     carries (14 or 15 of them holding elements, where the old grid's 480
-    blocks put 3 or 4 on an SM), 8 of two pairs for K9's [96, 1280]
-    pairs, 3 warps of one for the [8, 1280] ones (at most one a scheduler,
+    blocks put 3 or 4 on an SM), 15 of one pair for K9's [96, 1280]
+    pairs (8 of two for bf16_fma's mul), 3 warps of one for the [8, 1280]
+    ones (at most one a scheduler,
     where the old grid ran them on 40 SMs), 2 for K9's [8, 1280] pairs
     (on 20)."""
     plan_of, n, at_132 = SPREADS[which]

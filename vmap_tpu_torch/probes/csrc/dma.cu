@@ -72,6 +72,10 @@ struct Rows {  // row_b(i) in grains of g rows, for every stride-th copy
   }
 };
 
+// Keep a value computed here: ptxas would otherwise sink the next copy's
+// address past the wait, onto the copy's round trip.
+__device__ __forceinline__ void settle(const uint32_t*& p) { asm volatile("" : "+l"(p)); }
+
 // The end of a launch: the warps' partial checksums added in slot order,
 // and the `live` slots to this block's [live][8][128] of out.
 __device__ void finish(const uint32_t* part, const uint32_t (*slot)[SLOT_ROWS][COLS],
@@ -107,6 +111,7 @@ dma_bulk_kernel(const uint32_t* __restrict__ src, int rows, int n, int live,
     uint32_t acc = 0, parity = 0;
     for (int i = s; i < n; i += live) {
       const uint32_t* from = src + next.next() * COLS;
+      settle(from);
       probe::mbar_wait(bar, parity);
       acc += probe::ld_shared_volatile(dst);
       if (i + live < n) {
@@ -156,6 +161,7 @@ dma_cp_async_kernel(const uint32_t* __restrict__ src, int rows, int n, int live,
   uint32_t acc = 0;
   for (int i = s; i < n; i += live) {
     const uint32_t* from = chunk();
+    settle(from);
     probe::cp_async_wait<0>();
     if constexpr (W == 1)
       __syncwarp();
