@@ -72,10 +72,6 @@ struct Rows {  // row_b(i) in grains of g rows, for every stride-th copy
   }
 };
 
-// Keep a value computed here: ptxas would otherwise sink the next copy's
-// address past the wait, onto the copy's round trip.
-__device__ __forceinline__ void settle(const uint32_t*& p) { asm volatile("" : "+l"(p)); }
-
 // The end of a launch: the warps' partial checksums added in slot order,
 // and the `live` slots to this block's [live][8][128] of out.
 __device__ void finish(const uint32_t* part, const uint32_t (*slot)[SLOT_ROWS][COLS],
@@ -108,10 +104,10 @@ dma_bulk_kernel(const uint32_t* __restrict__ src, int rows, int n, int live,
     Rows next((long long)blockIdx.x * n + s, rows, grain, live);
     probe::mbar_arrive_expect_tx(bar, COPY_BYTES);
     probe::bulk_g2s(dst, src + next.next() * COLS, COPY_BYTES, bar);
+    // the next copy's source, taken at the end of the trip before
+    const uint32_t* from = src + next.next() * COLS;
     uint32_t acc = 0, parity = 0;
     for (int i = s; i < n; i += live) {
-      const uint32_t* from = src + next.next() * COLS;
-      settle(from);
       probe::mbar_wait(bar, parity);
       acc += probe::ld_shared_volatile(dst);
       if (i + live < n) {
@@ -119,6 +115,7 @@ dma_bulk_kernel(const uint32_t* __restrict__ src, int rows, int n, int live,
         probe::mbar_arrive_expect_tx(bar, COPY_BYTES);
         probe::bulk_g2s(dst, from, COPY_BYTES, bar);
       }
+      from = src + next.next() * COLS;
       parity ^= 1u;
     }
     part[s] = acc;
@@ -158,10 +155,11 @@ dma_cp_async_kernel(const uint32_t* __restrict__ src, int rows, int n, int live,
     probe::cp_async_commit();
   };
   issue(chunk());
+  // the next copy's chunk, taken at the end of the trip before (ptxas
+  // would sink it past the barrier, onto the copy's round trip)
+  const uint32_t* from = chunk();
   uint32_t acc = 0;
   for (int i = s; i < n; i += live) {
-    const uint32_t* from = chunk();
-    settle(from);
     probe::cp_async_wait<0>();
     if constexpr (W == 1)
       __syncwarp();
@@ -169,6 +167,7 @@ dma_cp_async_kernel(const uint32_t* __restrict__ src, int rows, int n, int live,
       asm volatile("bar.sync %0, %1;\n" :: "r"(1 + s), "r"(32 * W) : "memory");
     if (t == 0) acc += probe::ld_shared_volatile(word0);
     if (i + live < n) issue(from);
+    from = chunk();
   }
   if (t == 0) part[s] = acc;
   finish(part, slot, live, sums, slots);
