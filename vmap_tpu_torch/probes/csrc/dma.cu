@@ -37,15 +37,16 @@
 //   1 cp_async: W = group_warps(live) warps a slot (8 / live rounded down
 //     to a power of two: a warp a slot at 8 in flight, the whole block at
 //     1) copy each copy with 16-byte cp.async, one commit group a copy,
-//     wait for it with wait_group 0 and meet (a warp: __syncwarp; else a
-//     named barrier of the slot's warps), so the slot's wait is the whole
-//     copy's; its thread 0 reads word 0, which it copied itself.
+//     wait for it with wait_group 0 and meet (a warp: __syncwarp; the
+//     block: __syncthreads; else a named barrier of the slot's warps), so
+//     the slot's wait is the whole copy's; its thread 0 reads word 0,
+//     which it copied itself.
 // Every shared-memory address the loops use is taken once, before them
 // (mbarriers, slots, word 0), so no loop trip recomputes the shared
 // window's base. One block (the script's) or 132 (one an SM: the
-// aggregate rate K1's grid would see fetching its own pixels). The row of
-// a warp's next copy is kept incrementally (+37 live grains, wrapped), so
-// no 64-bit division sits between copies.
+// aggregate rate K1's grid would see fetching its own pixels). The source
+// of a warp's next copy is a pointer stepped by 37 live grains and wrapped
+// (Copies), taken at the end of the trip before.
 //
 // A source of 2 MiB lives in the 50 MB L2, so the cases on it time L2, not
 // HBM (dma.py's bound says what each case must move).
@@ -58,17 +59,25 @@ constexpr int MAX_LIVE = 8, SLOT_ROWS = 8, COLS = 128;
 constexpr uint32_t COPY_BYTES = SLOT_ROWS * COLS * 4;
 constexpr uint32_t ROW_BYTES = COLS * 4;
 
-struct Rows {  // row_b(i) in grains of g rows, for every stride-th copy
-  int grain, span, at, step;
-  __device__ Rows(long long first, int rows, int g, int stride)
-      : grain(g), span((rows - SLOT_ROWS) / g),
-        at((int)((first * 37) % ((rows - SLOT_ROWS) / g))),
-        step((int)(37LL * stride % ((rows - SLOT_ROWS) / g))) {}
-  __device__ size_t next() {
-    const int r = at;
+// The sources of a warp's copies, row_b(i) of src for i = first, first +
+// stride, ..., kept as a pointer stepped by 37 stride grains and wrapped
+// (no 64-bit product or division between copies, and nothing ptxas would
+// recompute from an index after a wait).
+struct Copies {
+  const uint32_t *at, *end;
+  size_t step, span;  // words
+  __device__ Copies(const uint32_t* src, long long first, int rows, int g, int stride) {
+    const int grains = (rows - SLOT_ROWS) / g;
+    span = (size_t)grains * g * COLS;
+    end = src + span;
+    at = src + (size_t)((first * 37) % grains) * g * COLS;
+    step = (size_t)(37LL * stride % grains) * g * COLS;
+  }
+  __device__ const uint32_t* next() {
+    const uint32_t* r = at;
     at += step;
-    if (at >= span) at -= span;
-    return (size_t)r * grain;
+    if (at >= end) at -= span;
+    return r;
   }
 };
 
@@ -101,11 +110,11 @@ dma_bulk_kernel(const uint32_t* __restrict__ src, int rows, int n, int live,
     probe::mbar_init(&bars[s], 1);
     probe::fence_proxy_async();
     const uint32_t bar = probe::smem_u32(&bars[s]), dst = probe::smem_u32(slot[s]);
-    Rows next((long long)blockIdx.x * n + s, rows, grain, live);
+    Copies copies(src, (long long)blockIdx.x * n + s, rows, grain, live);
     probe::mbar_arrive_expect_tx(bar, COPY_BYTES);
-    probe::bulk_g2s(dst, src + next.next() * COLS, COPY_BYTES, bar);
+    probe::bulk_g2s(dst, copies.next(), COPY_BYTES, bar);
     // the next copy's source, taken at the end of the trip before
-    const uint32_t* from = src + next.next() * COLS;
+    const uint32_t* from = copies.next();
     uint32_t acc = 0, parity = 0;
     for (int i = s; i < n; i += live) {
       probe::mbar_wait(bar, parity);
@@ -115,7 +124,7 @@ dma_bulk_kernel(const uint32_t* __restrict__ src, int rows, int n, int live,
         probe::mbar_arrive_expect_tx(bar, COPY_BYTES);
         probe::bulk_g2s(dst, from, COPY_BYTES, bar);
       }
-      from = src + next.next() * COLS;
+      from = copies.next();
       parity ^= 1u;
     }
     part[s] = acc;
@@ -145,16 +154,16 @@ dma_cp_async_kernel(const uint32_t* __restrict__ src, int rows, int n, int live,
   // this thread's first chunk (row r0, words w0 ..) in the slot
   const int r0 = t / 32, w0 = 4 * (t % 32);
   const uint32_t dst = probe::smem_u32(&slot[s][r0][w0]), word0 = probe::smem_u32(slot[s]);
-  Rows next((long long)blockIdx.x * n + s, rows, grain, live);
-  // this thread's first chunk of the copy of the next row
-  auto chunk = [&]() { return src + (next.next() + r0) * COLS + w0; };
+  Copies copies(src, (long long)blockIdx.x * n + s, rows, grain, live);
+  // this thread's first chunk of the next copy
+  auto chunk = [&]() { return copies.next() + r0 * COLS + w0; };
   auto issue = [&](const uint32_t* from) {
 #pragma unroll
     for (int j = 0; j < CHUNKS; ++j)
       probe::cp_async16(dst + j * W * ROW_BYTES, from + j * W * COLS);
-    probe::cp_async_commit();
   };
   issue(chunk());
+  probe::cp_async_commit();
   // the next copy's chunk, taken at the end of the trip before (ptxas
   // would sink it past the barrier, onto the copy's round trip)
   const uint32_t* from = chunk();
@@ -163,10 +172,13 @@ dma_cp_async_kernel(const uint32_t* __restrict__ src, int rows, int n, int live,
     probe::cp_async_wait<0>();
     if constexpr (W == 1)
       __syncwarp();
+    else if constexpr (W == 8)
+      __syncthreads();
     else
       asm volatile("bar.sync %0, %1;\n" :: "r"(1 + s), "r"(32 * W) : "memory");
     if (t == 0) acc += probe::ld_shared_volatile(word0);
     if (i + live < n) issue(from);
+    probe::cp_async_commit();  // an empty group after the last copy
     from = chunk();
   }
   if (t == 0) part[s] = acc;
