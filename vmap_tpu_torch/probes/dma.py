@@ -74,8 +74,9 @@ import torch
 from vmap_tpu_torch import probes
 from vmap_tpu_torch.probes import _timing
 
-LIVE, SLOT_ROWS, COLS = 8, 8, 128      # LIVE: the script's n_live default
-MAX_LIVE = 8
+# LIVE: the script's n_live default, and the most copies the kernels keep
+# in flight
+LIVE, SLOT_ROWS, COLS = 8, 8, 128
 COPY_BYTES = SLOT_ROWS * COLS * 4
 CASES = ("bulk", "cp_async", "bulk_hbm", "bulk_hbm_132", "bulk_live1",
          "cp_async_live1", "bulk_hbm_live1")
@@ -171,11 +172,11 @@ def launch(src: torch.Tensor, n: int, route: int, blocks: int = 1,
     """The copy kernel (csrc/dma.cu) on a CUDA source: {"sums", "slots"}
     as ``chain_reference``."""
     if (src.dim() != 2 or src.shape[1] != COLS or src.dtype != torch.int32
-            or src.shape[0] <= SLOT_ROWS or not 1 <= live <= MAX_LIVE
+            or src.shape[0] <= SLOT_ROWS or not 1 <= live <= LIVE
             or n < live or not 1 <= blocks <= 1024
             or grain not in (1, SLOT_ROWS)):
         raise ValueError(f"dma probe takes an int32 [rows > 8, {COLS}] "
-                         f"source, 1..{MAX_LIVE} copies in flight, n >= "
+                         f"source, 1..{LIVE} copies in flight, n >= "
                          f"live, 1..1024 blocks and grain 1 or 8; got "
                          f"{tuple(src.shape)} {src.dtype} n={n} live={live} "
                          f"blocks={blocks} grain={grain}")
