@@ -3237,7 +3237,8 @@ PROBE_FUNCTIONS = {
                   "cluster of 8, partials exchanged by st.async)",
                   "tiles_kernel<SERIAL>"],
     "probe_dma": ["dma_bulk_kernel (a warp a slot)",
-                  "dma_cp_async_kernel<W> (8 / live warps a slot)"]}
+                  "dma_cp_async_kernel<W> (a warp a slot, the block at "
+                  "one in flight)"]}
 
 def pool_gather(dev, gpu: str) -> dict:
     """The sampler's pool gather (``core/step.py`` ``_sample_bank``,

@@ -393,11 +393,21 @@ def test_new_probe_entry_points_refuse_bad_input(cuda_device, probe):
     stream = probes.stream(cuda_device)
     x = torch.zeros(8, 1280, device=cuda_device)
     if probe == "vpu":
-        # an odd element count for the packed bf16 route; bf16 sigmoid
-        codes = [lib.vmap_probe_vpu(0, 1, probes.ptr(x), probes.ptr(x), 1279,
-                                    1, stream),
+        # an odd element count for the packed bf16 route; bf16 sigmoid; 3
+        # items a lane; a plan of too few warps for its elements
+        fields = probes.SPREAD_FIELDS
+        pairs = probes.plan_ints(vpu.plan((8, "mul", "bf16")), fields)
+        f32 = vpu.plan((8, "mul", "f32"))
+        three = probes.plan_ints({**f32, "items": 3}, fields)
+        short = probes.plan_ints({**f32, "blocks": 1}, fields)
+        codes = [lib.vmap_probe_vpu(0, 1, probes.ptr(x), probes.ptr(x),
+                                    pairs, 1279, 1, stream),
                  lib.vmap_probe_vpu(2, 1, probes.ptr(x), probes.ptr(x),
-                                    x.numel(), 1, stream)]
+                                    pairs, x.numel(), 1, stream),
+                 lib.vmap_probe_vpu(0, 0, probes.ptr(x), probes.ptr(x),
+                                    three, x.numel(), 1, stream),
+                 lib.vmap_probe_vpu(0, 0, probes.ptr(x), probes.ptr(x),
+                                    short, x.numel(), 1, stream)]
         bad = lambda: vpu.launch(x[:, :640].contiguous(), "mul", "f32", 1)
         cpu = lambda: vpu.launch(x.cpu(), "mul", "f32", 1)
     elif probe == "ops":
@@ -415,12 +425,17 @@ def test_new_probe_entry_points_refuse_bad_input(cuda_device, probe):
     else:
         src = torch.zeros(64, 128, dtype=torch.int32, device=cuda_device)
         sums = torch.zeros(1, dtype=torch.int32, device=cuda_device)
-        # fewer than 8 copies; a source of 8 rows; a grain of 4 rows
-        codes = [lib.vmap_probe_dma(0, probes.ptr(src), 64, 4, 1, 1,
+        # fewer copies than live; live 0 and 9; a source of 8 rows; a
+        # grain of 4 rows
+        codes = [lib.vmap_probe_dma(0, probes.ptr(src), 64, 4, 8, 1, 1,
                                     probes.ptr(sums), probes.ptr(x), stream),
-                 lib.vmap_probe_dma(1, probes.ptr(src), 8, 16, 1, 1,
+                 lib.vmap_probe_dma(1, probes.ptr(src), 64, 16, 0, 1, 1,
                                     probes.ptr(sums), probes.ptr(x), stream),
-                 lib.vmap_probe_dma(0, probes.ptr(src), 64, 16, 1, 4,
+                 lib.vmap_probe_dma(0, probes.ptr(src), 64, 16, 9, 1, 1,
+                                    probes.ptr(sums), probes.ptr(x), stream),
+                 lib.vmap_probe_dma(1, probes.ptr(src), 8, 16, 8, 1, 1,
+                                    probes.ptr(sums), probes.ptr(x), stream),
+                 lib.vmap_probe_dma(0, probes.ptr(src), 64, 16, 8, 1, 4,
                                     probes.ptr(sums), probes.ptr(x), stream)]
         bad = lambda: dma.launch(src.float(), 16, 0)
         cpu = lambda: dma.launch(src.cpu(), 16, 0)

@@ -974,7 +974,7 @@ def test_dma_plain_matches_jax_kernel_and_its_race(n_live):
     got = run_captured(outs, mod.build(DMA_N, n_live),
                        jnp.asarray(src.numpy().view(np.uint32).copy()))
     case = "bulk" if n_live == dma.LIVE else "bulk_live1"
-    assert dma.live_of(case) == n_live
+    assert dma.LIVE_OF.get(case, dma.LIVE) == n_live
     plain = dma.run_case(case, src, DMA_N)
     rows = plain["rows"][0].tolist()
     words = [int(src[r, 0]) for r in rows]
@@ -993,8 +993,8 @@ def test_dma_warps_take_every_copy_and_byte_once(live):
     make every copy once, warp s the copies i with i mod live = s in
     order, so each slot ends with the last such copy, as the plain
     version's slots say; the cp_async route's 16-byte chunks, spread over
-    the slot's warps (8 / live of them, rounded down to a power of two, at
-    most 8 in a block), cover a copy's 4 KB once, word 0, the one the
+    the slot's warps (the block's 8 at one in flight, else one, at most 8
+    in a block), cover a copy's 4 KB once, word 0, the one the
     checksum reads, in the reader's (the group's thread 0) own chunk;
     and the warps' partial checksums added in slot order are the plain
     checksum."""

@@ -34,13 +34,12 @@
 //     on the slot's mbarrier (the counterpart of the DMA semaphore), waits
 //     on the barrier's phase, and a proxy fence orders its read of word 0
 //     before its next copy into the slot;
-//   1 cp_async: W = group_warps(live) warps a slot (8 / live rounded down
-//     to a power of two: a warp a slot at 8 in flight, the whole block at
-//     1) copy each copy with 16-byte cp.async, one commit group a copy,
-//     wait for it with wait_group 0 and meet (a warp: __syncwarp; the
-//     block: __syncthreads; else a named barrier of the slot's warps), so
-//     the slot's wait is the whole copy's; its thread 0 reads word 0,
-//     which it copied itself.
+//   1 cp_async: W = group_warps(live) warps a slot (a warp a slot where
+//     2 or more are in flight, the block's 8 at one) copy each copy with
+//     16-byte cp.async, one commit group a copy, wait for it with
+//     wait_group 0 and meet (a warp: __syncwarp; the block:
+//     __syncthreads), so the slot's wait is the whole copy's; its thread 0
+//     reads word 0, which it copied itself.
 // Every shared-memory address the loops use is taken once, before them
 // (mbarriers, slots, word 0), so no loop trip recomputes the shared
 // window's base. One block (the script's) or 132 (one an SM: the
@@ -132,12 +131,10 @@ dma_bulk_kernel(const uint32_t* __restrict__ src, int rows, int n, int live,
   finish(part, slot, live, sums, slots);
 }
 
-// The warps copying one slot's copies on the cp_async route: 8 / live,
-// rounded down to a power of two (8, 4, 2, 2, 1, 1, 1, 1), so a launch
-// has at most 8 warps and a warp's lanes 8 / W chunks of a copy.
-__host__ __device__ constexpr int group_warps(int live) {
-  return live == 1 ? 8 : live == 2 ? 4 : live <= 4 ? 2 : 1;
-}
+// The warps copying one slot's copies on the cp_async route: the block's
+// 8 at one in flight, else one, so a launch has at most 8 warps and a
+// warp's lanes 8 / W chunks of a copy.
+__host__ __device__ constexpr int group_warps(int live) { return live == 1 ? 8 : 1; }
 
 // 32 W live threads: warps W s .. W s + W - 1 own slot s; thread t of the
 // group copies the 16-byte chunks t + 32 W j of a copy (j < 8 / W: words
@@ -172,10 +169,8 @@ dma_cp_async_kernel(const uint32_t* __restrict__ src, int rows, int n, int live,
     probe::cp_async_wait<0>();
     if constexpr (W == 1)
       __syncwarp();
-    else if constexpr (W == 8)
-      __syncthreads();
     else
-      asm volatile("bar.sync %0, %1;\n" :: "r"(1 + s), "r"(32 * W) : "memory");
+      __syncthreads();
     if (t == 0) acc += probe::ld_shared_volatile(word0);
     if (i + live < n) issue(from);
     probe::cp_async_commit();  // an empty group after the last copy
@@ -208,8 +203,6 @@ extern "C" int vmap_probe_dma(int route, const void* src, int rows, int n,
   switch (route == 0 ? 0 : group_warps(live)) {
     case 0: dma_bulk_kernel<<<blocks, threads, 0, s>>>(in, rows, n, live, grain, sm, sl); break;
     case 1: dma_cp_async_kernel<1><<<blocks, threads, 0, s>>>(in, rows, n, live, grain, sm, sl); break;
-    case 2: dma_cp_async_kernel<2><<<blocks, threads, 0, s>>>(in, rows, n, live, grain, sm, sl); break;
-    case 4: dma_cp_async_kernel<4><<<blocks, threads, 0, s>>>(in, rows, n, live, grain, sm, sl); break;
     default: dma_cp_async_kernel<8><<<blocks, threads, 0, s>>>(in, rows, n, live, grain, sm, sl); break;
   }
   return (int)cudaGetLastError();

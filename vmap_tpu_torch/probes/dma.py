@@ -37,7 +37,8 @@ copies a block, in ns a copy:
     the script's 2 MiB source, one block. The source lives in the 50 MB
     L2: this times L2, not device memory as on the TPU;
   * ``cp_async``: the same copies as 16 B ``cp.async`` by the slot's
-    warps (``group_warps``: one at 8 in flight, the block's 8 at one), a
+    warps (``group_warps``: one where 2 or more are in flight, the
+    block's 8 at one), a
     commit group a copy (``chunk_writes``), the slot's warps meeting after
     their wait (L2, one block);
   * ``bulk_hbm``: a 256 MiB source (524,288 rows: the row formula spans
@@ -80,13 +81,16 @@ LIVE, SLOT_ROWS, COLS = 8, 8, 128
 COPY_BYTES = SLOT_ROWS * COLS * 4
 CASES = ("bulk", "cp_async", "bulk_hbm", "bulk_hbm_132", "bulk_live1",
          "cp_async_live1", "bulk_hbm_live1")
-BASE_CASES = CASES[:4]
-ROUTE = {"bulk": 0, "cp_async": 1, "bulk_hbm": 0, "bulk_hbm_132": 0}
+ROUTE = {"bulk": 0, "cp_async": 1, "bulk_hbm": 0, "bulk_hbm_132": 0,
+         "bulk_live1": 0, "cp_async_live1": 1, "bulk_hbm_live1": 0}
 N1, N2 = 4000, 16000                   # the script's n and 4 n
 BLOCKS = {"bulk_hbm_132": 132}
 GRAIN = {"bulk_hbm_132": SLOT_ROWS}
+LIVE_OF = {"bulk_live1": 1, "cp_async_live1": 1, "bulk_hbm_live1": 1}
 SRC_ROWS = {"bulk": 4096, "cp_async": 4096, "bulk_hbm": 524_288,
-            "bulk_hbm_132": SLOT_ROWS * 132 * N2 + SLOT_ROWS}
+            "bulk_hbm_132": SLOT_ROWS * 132 * N2 + SLOT_ROWS,
+            "bulk_live1": 4096, "cp_async_live1": 4096,
+            "bulk_hbm_live1": 524_288}
 MASK = 0xFFFFFFFF
 
 
@@ -98,8 +102,8 @@ def slot_copies(n: int, live: int = LIVE) -> list:
 
 def group_warps(live: int) -> int:
     """The warps copying one slot's copies on the cp_async route
-    (csrc/dma.cu group_warps): 8 / live rounded down to a power of two."""
-    return 8 if live == 1 else 4 if live == 2 else 2 if live <= 4 else 1
+    (csrc/dma.cu group_warps): the block's 8 at one in flight, else one."""
+    return 8 if live == 1 else 1
 
 
 def chunk_writes(live: int = LIVE) -> list:
@@ -109,17 +113,6 @@ def chunk_writes(live: int = LIVE) -> list:
     w = group_warps(live)
     return [(t, 16 * (t + 32 * w * j)) for t in range(32 * w)
             for j in range(SLOT_ROWS // w)]
-
-
-def base(case: str) -> str:
-    """The case whose copies a live = 1 case makes ("bulk_live1" ->
-    "bulk")."""
-    return case.removesuffix("_live1")
-
-
-def live_of(case: str) -> int:
-    """A case's copies in flight."""
-    return 1 if case.endswith("_live1") else LIVE
 
 
 def make_source(rows: int, dev) -> torch.Tensor:
@@ -145,7 +138,6 @@ def copy_rows(src_rows: int, n: int, blocks: int = 1, grain: int = 1,
 def unique_bytes(case: str, n: int) -> int:
     """Bytes of the source that a launch of ``n`` copies a block reads,
     each distinct row counted once."""
-    case = base(case)
     rows = copy_rows(SRC_ROWS[case], n, BLOCKS.get(case, 1),
                      GRAIN.get(case, 1))
     touched = torch.zeros(SRC_ROWS[case], dtype=torch.bool)
@@ -195,16 +187,16 @@ def launch(src: torch.Tensor, n: int, route: int, blocks: int = 1,
 def run_case(case: str, src: torch.Tensor, n: int) -> dict:
     """A case's copies: the plain version on a CPU source, the kernel on
     CUDA."""
-    name, live = base(case), live_of(case)
-    blocks, grain = BLOCKS.get(name, 1), GRAIN.get(name, 1)
+    blocks, grain = BLOCKS.get(case, 1), GRAIN.get(case, 1)
+    live = LIVE_OF.get(case, LIVE)
     if src.device.type == "cpu":
         return chain_reference(src, n, blocks, grain, live)
-    return launch(src, n, ROUTE[name], blocks, grain, live)
+    return launch(src, n, ROUTE[case], blocks, grain, live)
 
 
 def source(case: str, dev, cache: dict) -> torch.Tensor:
     """The case's source, made once per size into ``cache``."""
-    rows = SRC_ROWS[base(case)]
+    rows = SRC_ROWS[case]
     if rows not in cache:
         cache[rows] = make_source(rows, dev)
     return cache[rows]
@@ -212,29 +204,28 @@ def source(case: str, dev, cache: dict) -> torch.Tensor:
 
 def compare(dev: torch.device, reps: int = N1) -> list:
     """Every case's kernel against its plain version at ``reps`` copies a
-    block (by default the script's n), with 8 copies in flight and with
-    one: the checksums and the final slots bit-equal. Raises if one
+    block (by default the script's n), 8 copies in flight or one as the
+    case says: the checksums and the final slots bit-equal. Raises if one
     differs."""
     res, sources = [], {}
-    for case in BASE_CASES:
+    for case in CASES:
         src = source(case, dev, sources)
         blocks, grain = BLOCKS.get(case, 1), GRAIN.get(case, 1)
-        for live in (LIVE, 1):
-            got = launch(src, reps, ROUTE[case], blocks, grain, live)
-            want = chain_reference(src, reps, blocks, grain, live)
-            tag = case if live == LIVE else f"{case} live={live}"
-            res.append(probes.held(f"{tag} checksum", got["sums"],
-                                   want["sums"], 0.0))
-            res.append(probes.held(f"{tag} slots", got["slots"],
-                                   want["slots"], 0.0))
+        live = LIVE_OF.get(case, LIVE)
+        got = launch(src, reps, ROUTE[case], blocks, grain, live)
+        want = chain_reference(src, reps, blocks, grain, live)
+        res.append(probes.held(f"{case} checksum", got["sums"],
+                               want["sums"], 0.0))
+        res.append(probes.held(f"{case} slots", got["slots"],
+                               want["slots"], 0.0))
     return res
 
 
 def measure(case: str, src: torch.Tensor, dev: torch.device) -> dict:
-    blocks = BLOCKS.get(base(case), 1)
+    blocks = BLOCKS.get(case, 1)
     sl = _timing.slope(lambda n: run_case(case, src, n)["sums"], N1, N2,
                        dev)
-    return {"case": case, "blocks": blocks, "live": live_of(case),
+    return {"case": case, "blocks": blocks, "live": LIVE_OF.get(case, LIVE),
             "src_rows": src.shape[0],
             "reps": (N1, N2), **sl, "ns_per_copy": sl["step_ns"],
             "aggregate_ns_per_copy": sl["step_ns"] / blocks,
@@ -246,7 +237,7 @@ def bound(case: dict) -> dict:
     of the distinct source bytes a copy adds to a launch (the slope of
     ``unique_bytes`` between N1 and N2, all blocks) over the HBM rate, and
     its 4 KB into one SM's shared memory."""
-    name = base(case["case"])
+    name = case["case"]
     new = (unique_bytes(name, N2) - unique_bytes(name, N1)) / (N2 - N1)
     return probes.bound(bytes_s=max(new / probes.PEAK_BYTES,
                                     COPY_BYTES / probes.SMEM_BYTES_PER_SM))
@@ -254,7 +245,7 @@ def bound(case: dict) -> dict:
 
 def plain_ms(case: dict, dev: torch.device) -> float:
     """The plain version (the checksums' gather and sum) a copy."""
-    name = base(case["case"])
+    name = case["case"]
     src = make_source(SRC_ROWS[name], dev)
     blocks, grain = BLOCKS.get(name, 1), GRAIN.get(name, 1)
     return _timing.graph_step_ms(
@@ -264,7 +255,7 @@ def plain_ms(case: dict, dev: torch.device) -> float:
 
 def library_ms(case: dict, dev: torch.device) -> float:
     """``torch.index_select`` of the copies' rows (all blocks), a copy."""
-    name = base(case["case"])
+    name = case["case"]
     src = make_source(SRC_ROWS[name], dev)
     idx = {n: (copy_rows(src.shape[0], n, BLOCKS.get(name, 1),
                          GRAIN.get(name, 1), dev)[..., None]
