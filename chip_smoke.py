@@ -257,6 +257,26 @@ overlap fractions, K9's 14 cases, K6's bulk / cp_async / bulk_hbm /
 bulk_hbm_132 with 8 copies in flight and bulk / cp_async / bulk_hbm with
 one, the script's ``n_live``: each kernel's ns a step or a copy and its
 library call's; ``probe_ab``).
+
+    python3 chip_smoke.py --acceptance [RUN ...] [--acceptance-budget S]
+        [--acceptance-out DIR] [room_pipeline flags]
+
+runs the room protocol at its full scale in place of the phases
+(``acceptance``): the room of 1,000 frames and 40 objects at 1200 x 680
+generated once through ``vmap_tpu_torch.room_pipeline`` (seed 0; on the
+card frame 0 held against the CPU and read back through the loader, as
+phase 13 does), then each RUN of ACCEPT_RUNS trained, exported at grid
+128 and scored on it (``--skip_generate``, a tag and a record each,
+``DIR/<tag>.json``); default ``control control_seed1``, the shipped
+room0_vmap.json as the pipeline rewrites it (px_block 1, px_block_bg 1,
+pool 512, float32 through K1) at training seeds 0 and 1, held to
+ACCEPT_LIMITS. Each run prints its objects registered, peak pool_used,
+loss explosion warnings, train_grad launches by bank, the trainer's ms
+a frame and each stage's host seconds, then its record as one JSON line.
+It exits non-zero if a run raises, yields a non-finite metric, misses a
+limit or is not started because ``--acceptance-budget`` would not hold
+it. Further flags go to the pipeline (``--device cpu --frames 11 ...``
+on the CPU).
 """
 
 from __future__ import annotations
@@ -3937,6 +3957,335 @@ def widths_phase(dev, gpu: str, stats: dict, paths: dict) -> dict:
     return res
 
 
+# ----------------------------------------------------------- --acceptance
+# The room protocol at its full scale (ROADMAP §1 item 10), held to the
+# JAX package's rows of ``python scripts/room_pipeline.py --frames 1000
+# --objects 40`` (docs/room_study/*.json, read only). One generation serves
+# every run that shares its frames and camera.
+JAX_ROWS = os.path.join(REPO, "docs", "room_study")
+ACCEPT_FRAMES, ACCEPT_OBJECTS = 1000, 40
+# the control's limits, (direction, value): JAX's two px1 training seeds
+# (run4_px1.json, run4_px1_seed1.json) spread by about 0.2 pt, and the
+# limits leave about twice that spread, since the port's Philox draws are
+# in effect another seed
+ACCEPT_LIMITS = {
+    "objects_ratio_5cm": (">=", 0.935),   # JAX 0.9394 / 0.9375
+    "objects_accuracy": ("<=", 0.028),    # JAX 0.02512 / 0.02506 m
+    "bg_ratio_5cm": (">=", 0.998),        # JAX 0.99927 / 0.99916
+    "scene_ratio_5cm": (">=", 0.980),     # JAX 0.98607 / 0.98536
+}
+# name: (tag, room_pipeline flags, the JAX row beside it, held to the
+# limits); int8_static's scales come from calibrate_int8_scales on the
+# control's configuration (JAX has no such row). control_plain is the
+# control on the plain frame (no K1), control_bf16 under one bf16 pass a
+# product: JAX's TPU rows ran every f32 product at the MXU's default
+# precision, one bf16 pass (docs/round_notes.md: round 2's kernel
+# experiments, round 3's roofline)
+ACCEPT_RUNS = {
+    "control": ("px1", ["--train_seed", "0"], "run4_px1.json", True),
+    "control_seed1": ("px1_seed1", ["--train_seed", "1"],
+                      "run4_px1_seed1.json", True),
+    "control_plain": ("px1_plain", ["--train_seed", "0", "--set",
+                                    "tpu.fused_train_step=false"],
+                      "run4_px1.json", False),
+    "control_bf16": ("px1_bfloat16", ["--train_seed", "0",
+                                      "--compute_dtype", "bfloat16"],
+                     "run4_px1.json", False),
+    "reuse4": ("px1_reuse4", ["--sample_reuse", "4"],
+               "run5_px1_reuse4.json", False),
+    "px4": ("px4", ["--px_block", "4"], "run4_px4.json", False),
+    "px4_int8": ("px4_int8", ["--px_block", "4", "--compute_dtype",
+                              "int8"], "run4_px4_int8.json", False),
+    "int8_static": ("px1_int8_static", ["--compute_dtype", "int8_static"],
+                    None, False),
+    "imap600": ("imap600", ["--config", os.path.join(
+        REPO, "configs", "Replica", "room0_imap.json"), "--scene_only",
+        "--frames", "600", "--grid_dim", "256"], "run4_imap600.json",
+        False),
+}
+ACCEPT_DEFAULT = ["control", "control_seed1"]
+# the budget's guesses until a generation or a run has been timed: the
+# generation's seconds a frame, a run's seconds (train, export, evaluate)
+GEN_S_A_FRAME, RUN_S = 1.2, 600.0
+CALIBRATION_PROBES = (10, 50, 150, 399)    # calibrate_int8_scales' default
+
+
+def accept_metrics(summary: dict) -> dict:
+    """The metrics the limits name, of one run's summary (the scene's
+    alone for a scene-only run)."""
+    m = {"scene_ratio_5cm": summary["scene"]["completion_ratio_5cm"]}
+    if summary.get("object_mean"):
+        m.update(objects_ratio_5cm=summary["object_mean"][
+                     "completion_ratio_5cm"],
+                 objects_accuracy=summary["object_mean"]["accuracy"],
+                 bg_ratio_5cm=(summary["bg"] or {}).get(
+                     "completion_ratio_5cm"))
+    return m
+
+
+def missed_limits(metrics: dict, limits: dict) -> list:
+    """Each limit that ``metrics`` misses (a missing metric misses), as
+    text."""
+    missed = []
+    for name, (op, bar) in limits.items():
+        v = metrics.get(name)
+        if v is None or not (v >= bar if op == ">=" else v <= bar):
+            missed.append(f"{name} {v} (limit {op} {bar})")
+    return missed
+
+
+def dataset_key(a) -> str:
+    """The generation a pipeline's arguments ``a`` train on."""
+    return (f"{a.format}_{a.frames}f_{a.objects}o_seed{a.seed}_"
+            f"{a.width}x{a.height}_f{a.focal:g}"
+            + ("_ply" if a.ply_furniture else ""))
+
+
+def acceptance_data(a, work: str, dev) -> dict:
+    """The room of the pipeline's arguments ``a`` in ``work``/data, made
+    through ``room_pipeline.generate``, its invalid-depth share, and on
+    the card frame 0 held against the CPU and read back through the
+    port's loader (phase 13's checks)."""
+    from vmap_tpu_torch import room_pipeline as rp
+    key, data_dir = dataset_key(a), os.path.join(work, "data")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    done = {"key": key, "generate_s": rp.generate(a, data_dir, dev)}
+    done["invalid_depth_share"], _ = rp.invalid_depth_share(data_dir)
+    if dev.type == "cuda" and a.format == "Replica":
+        from vmap_tpu_torch.data_generation.room import (make_room_scene,
+                                                         room_trajectory)
+        from vmap_tpu_torch.generate_dataset import room_settings
+        objs, shell, meta = make_room_scene(a.objects, seed=a.seed)
+        traj = room_trajectory(a.frames, size=meta["size"], seed=a.seed)
+        settings = room_settings(a.width, a.height, a.focal, a.focal)
+        frame, done["render"] = render_checks(dev, objs + shell, settings,
+                                              traj[0])
+        cfg_path = os.path.join(work, "room_config_check.json")
+        with open(cfg_path, "w") as f:
+            json.dump(rp.room_config(a, data_dir, a.frames), f)
+        done["render"].update(dataset_checks(data_dir, frame, cfg_path))
+    log(f"[acc] generated {key} in {done['generate_s']:.1f} s "
+        f"({done['generate_s'] / a.frames * 1e3:.1f} ms a frame), "
+        f"invalid-depth share {done['invalid_depth_share']:.4f}")
+    return done
+
+
+def int8_scales(a, work: str, dev) -> dict:
+    """``VMAP_Q8_*`` for an int8_static run: calibrate_int8_scales on the
+    control's configuration (float32) of the generation in ``work``."""
+    import argparse as ap_
+    from vmap_tpu_torch import calibrate_int8_scales as cal
+    from vmap_tpu_torch import room_pipeline as rp
+    ctl = ap_.Namespace(**{**vars(a), "compute_dtype": None})
+    cfg_path = os.path.join(work, "room_config_calibration.json")
+    with open(cfg_path, "w") as f:
+        json.dump(rp.room_config(ctl, os.path.join(work, "data"), a.frames),
+                  f, indent=1)
+    n = min(a.frames, CALIBRATION_PROBES[-1] + 1)
+    probes = [p for p in CALIBRATION_PROBES if p < n] or [n - 1]
+    t0 = time.perf_counter()
+    sug = cal.main(["--config", cfg_path, "--max_frames", str(n),
+                    "--probes", ",".join(map(str, probes)), "--device",
+                    str(dev)])["suggested"]
+    log(f"[acc] int8_static scales from calibrate_int8_scales over {n} "
+        f"frames (probes {probes}), {time.perf_counter() - t0:.1f} s: "
+        f"{sug}")
+    return sug
+
+
+def acceptance_run(name: str, a, argv: list, work: str, dev, gpu: str,
+                   limits: dict, out_dir: str, generation: dict) -> dict:
+    """One training of the protocol on the ``generation`` in ``work``
+    through ``room_pipeline.main`` (``--skip_generate``); its record (the
+    summary, per_object included, and the run's counts), also written to
+    ``out_dir``/<tag>.json. Raises if the run does."""
+    import numpy as np
+    from vmap_tpu_torch import room_pipeline as rp
+    from vmap_tpu_torch.train import EXPLOSION_LOSS
+    tag, _, jax_row, held = ACCEPT_RUNS[name]
+    shutil.rmtree(os.path.join(work, f"run_{tag}"), ignore_errors=True)
+    scales = int8_scales(a, work, dev) if name == "int8_static" else {}
+    saved = {k: os.environ.get(k) for k in scales}
+    os.environ.update({k: str(v) for k, v in scales.items()})
+    reset_counts()
+    try:
+        summary = rp.main(argv + ["--work", work, "--tag", tag,
+                                  "--skip_generate"])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    launches = read_counts()
+    with open(os.path.join(work, f"room_config_{tag}.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(work, f"run_{tag}", "train_log.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = np.array([r["loss"] for r in rows])
+    frames = summary["frames"]
+    model, n_iter = cfg["model"], cfg["render"]["iters_per_frame"]
+    banks = ({"scene": model["hidden_feature_size"]}
+             if cfg["trainer"]["imap_mode"] else
+             {"objects": model["hidden_feature_size"],
+              "background": model["hidden_feature_size_bg"]})
+    by_bank = {b: launches[f"train_grad.h{h}"] for b, h in banks.items()}
+    rec = {"run": name, "tag": tag, "gpu": gpu,
+           "jax_row": jax_row and f"docs/room_study/{jax_row}",
+           "objects_registered": max(r["n_objects"] for r in rows),
+           "pool_peak": max(r["pool_used"] for r in rows),
+           "pool_size": cfg["tpu"]["frame_pool_size"],
+           "explosions": int((losses > EXPLOSION_LOSS).sum()),
+           "train_grad_by_bank": by_bank,
+           "train_ms_a_frame": summary["stage_s"]["train"] * 1e3 / frames,
+           "q8_scales": scales or None, "generation": generation,
+           **summary, "config": os.path.relpath(summary["config"], REPO)}
+    faults = []
+    if len(rows) != frames or not np.isfinite(losses).all():
+        faults.append(f"{len(rows)} logged frames of {frames}, "
+                      f"{int((~np.isfinite(losses)).sum())} non-finite "
+                      f"losses")
+    table = [summary["scene"]] + ([summary["object_mean"],
+                                   *summary["per_object"].values()]
+                                  if summary["object_mean"] else [])
+    if not all(np.isfinite(row[m]) for row in table for m in METRICS):
+        faults.append("a metric is not finite")
+    if summary["object_mean"] and summary["bg"] is None:
+        faults.append("no background row: its mesh held no surface")
+    if dev.type == "cuda":
+        want = (0 if cfg["tpu"].get("fused_train_step") is False
+                else n_iter * frames)
+        faults += [f"train_grad launched {n} times for the {b} bank, not "
+                   f"{want}" for b, n in by_bank.items() if n != want]
+        if not launches["field_fwd"] > 0:
+            faults.append("the export launched no field_fwd")
+    metrics = accept_metrics(summary)
+    if held:
+        rec["limits"] = limits
+        faults += missed_limits(metrics, limits)
+    rec.update(metrics=metrics, faults=faults, ok=not faults)
+    log(f"[acc] {tag}: {rec['objects_registered']} objects registered, "
+        f"peak pool_used {rec['pool_peak']} of {rec['pool_size']}, "
+        f"{rec['explosions']} loss explosion warnings "
+        f"(loss > {EXPLOSION_LOSS:g})")
+    log(f"[acc] {tag}: train_grad launches by bank {by_bank} "
+        f"({n_iter} a frame a bank over {frames} frames); by policy "
+        + str({p: launches[f"train_grad.{p}"] for p in POLICIES
+               if launches[f"train_grad.{p}"]}))
+    log(f"[acc] {tag}: the trainer {rec['train_ms_a_frame']:.1f} ms a "
+        f"frame over {frames} frames (the train stage's host seconds, "
+        f"set-up included, over the frames; {gpu})")
+    log(f"[acc] {tag}: host s per stage: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in summary["stage_s"].items()))
+    jax = {}
+    if jax_row:
+        with open(os.path.join(JAX_ROWS, jax_row)) as f:
+            jax = accept_metrics(json.load(f))
+    log(f"[acc] {tag}: " + ", ".join(
+        f"{k} {'-' if v is None else f'{v:.4f}'}"
+        + (f" (JAX {jax[k]:.4f})" if k in jax else "")
+        for k, v in metrics.items())
+        + (f"; {'ok' if not faults else 'FAILED: ' + '; '.join(faults)}"))
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"{tag}.json"), "w") as f:
+        json.dump(rec, f, indent=1, default=float)
+    print(json.dumps(rec, default=float), flush=True)
+    return rec
+
+
+def acceptance(names: list, extra: list, limit_over: list,
+               budget_s: float | None, work_root: str, out_dir: str) -> int:
+    """``--acceptance``: the room generated once (ACCEPT_FRAMES frames,
+    ACCEPT_OBJECTS objects, 1200 x 680, seed 0, through
+    ``vmap_tpu_torch.room_pipeline``; ``extra`` are further pipeline
+    flags, e.g. ``--device cpu`` and a smaller size), then each run of
+    ``names`` (ACCEPT_RUNS) trained and scored on it, the control's held to
+    ACCEPT_LIMITS (``limit_over``: NAME=VALUE in place of one). A run not
+    started because the budget would not hold it counts as failed. Returns
+    0 if every run ran and met its limits."""
+    import traceback
+
+    import torch
+    from vmap_tpu_torch import room_pipeline as rp
+    from vmap_tpu_torch.device import resolve_device
+    from vmap_tpu_torch.parallel.launch import foreign_modules
+
+    t_start = time.perf_counter()
+    names = names or ACCEPT_DEFAULT
+    limits = dict(ACCEPT_LIMITS)
+    for item in limit_over:
+        key, _, val = item.partition("=")
+        if key not in limits:
+            raise SystemExit(f"--acceptance-limit: no limit {key!r}")
+        limits[key] = (limits[key][0], float(val))
+    base = ["--frames", str(ACCEPT_FRAMES), "--objects",
+            str(ACCEPT_OBJECTS)]
+    dev = resolve_device(rp.parse_args(base + extra).device)
+    if dev.type == "cuda":
+        from vmap_tpu_torch.kernels import _build
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        gpu = gpu_line()
+        _build.build()
+        _build.load()
+        log(f"[acc] {gpu}; kernel library built and loaded in "
+            f"{time.perf_counter() - t_start:.1f} s")
+    else:
+        gpu = "cpu"
+    data, records, run_s = {}, {}, []
+    for name in names:
+        tag, flags = ACCEPT_RUNS[name][:2]
+        argv = base + flags + extra
+        a = rp.parse_args(argv)
+        key = dataset_key(a)
+        work = os.path.join(work_root, key)
+        est = max(run_s, default=RUN_S) + (0.0 if key in data else
+                                           a.frames * GEN_S_A_FRAME)
+        elapsed = time.perf_counter() - t_start
+        if budget_s is not None and elapsed + est > budget_s:
+            log(f"[acc] {tag}: not run, {elapsed:.0f} s + about {est:.0f} "
+                f"s would pass the budget of {budget_s:.0f} s")
+            records[tag] = {"run": name, "ok": False, "faults": ["not run"]}
+            continue
+        try:
+            if key not in data:
+                data[key] = acceptance_data(a, work, dev)
+            t_run = time.perf_counter()
+            records[tag] = acceptance_run(name, a, argv, work, dev, gpu,
+                                          limits, out_dir, data[key])
+            run_s.append(time.perf_counter() - t_run)
+        except Exception:
+            traceback.print_exc()
+            log(f"[acc] {tag}: FAILED (raised)")
+            records[tag] = {"run": name, "ok": False, "faults": ["raised"]}
+    log("[acc] run | objects r@5cm | objects acc | bg r@5cm | scene r@5cm "
+        "| JAX row | verdict")
+    for tag, rec in records.items():
+        m = rec.get("metrics", {})
+        cells = " | ".join(
+            "-" if m.get(k) is None else f"{m[k]:.4f}"
+            for k in ("objects_ratio_5cm", "objects_accuracy",
+                      "bg_ratio_5cm", "scene_ratio_5cm"))
+        log(f"[acc] {tag} | {cells} | {rec.get('jax_row') or '-'} | "
+            + ("ok" if rec["ok"] else "; ".join(rec["faults"])))
+    foreign = foreign_modules()
+    if foreign:
+        raise AssertionError(f"the JAX package, jax or cv2 was imported: "
+                             f"{foreign}")
+    ok = all(r["ok"] for r in records.values())
+    log(f"[acc] {len(records)} runs in {time.perf_counter() - t_start:.1f} "
+        f"s")
+    print(gpu)
+    print(json.dumps({"ok": ok, "device": {
+        "platform": "gpu" if dev.type == "cuda" else "cpu",
+        "kind": torch.cuda.get_device_name(0) if dev.type == "cuda"
+        else "cpu",
+        "count": torch.cuda.device_count() if dev.type == "cuda" else 0},
+        "runs": {t: r["ok"] for t, r in records.items()}}))
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", nargs="+", type=int,
@@ -3959,13 +4308,39 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)   # one run of --probe-ab
     ap.add_argument("--tree", help=argparse.SUPPRESS)  # its checkout
     ap.add_argument("--rank-frames", help=argparse.SUPPRESS)  # phase 16 a
-    args = ap.parse_args(argv)
+    ap.add_argument("--acceptance", nargs="*", metavar="RUN",
+                    choices=sorted(ACCEPT_RUNS),
+                    help="in place of the phases: the room protocol at "
+                    "full scale, one generation, then each RUN (default: "
+                    "control control_seed1); further flags go to "
+                    "vmap_tpu_torch.room_pipeline (acceptance)")
+    ap.add_argument("--acceptance-limit", action="append", default=[],
+                    metavar="NAME=VALUE",
+                    help="a control limit's value in place of "
+                    "ACCEPT_LIMITS' (repeatable)")
+    ap.add_argument("--acceptance-budget", type=float, default=None,
+                    metavar="SECONDS",
+                    help="start no run that would end after SECONDS")
+    ap.add_argument("--acceptance-work",
+                    default=os.path.join(OUT, "acceptance_work"),
+                    help="the generations and the runs' logdirs")
+    ap.add_argument("--acceptance-out",
+                    default=os.path.join(OUT, "acceptance"),
+                    help="each run's record, <tag>.json")
+    args, extra = ap.parse_known_args(argv)
+    if extra and args.acceptance is None:
+        ap.error(f"unrecognized arguments: {' '.join(extra)}")
     phases = set(args.phases)
     if not os.path.isdir(os.path.join(REPO, "vmap_tpu_torch", "kernels",
                                       "csrc")):
         print("chip_smoke.py: the vmap_tpu_torch package is not beside "
               "this script", file=sys.stderr)
         return 2
+    if args.acceptance is not None:
+        sys.path.insert(0, REPO)
+        return acceptance(args.acceptance, extra, args.acceptance_limit,
+                          args.acceptance_budget, args.acceptance_work,
+                          args.acceptance_out)
     t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():

@@ -124,6 +124,26 @@ def invalid_depth_share(data_dir: str) -> tuple[float, int]:
     return (float(np.mean(fracs)) if fracs else 0.0), len(fracs)
 
 
+def generate(args, data_dir: str, device) -> float:
+    """Ray-trace the room of ``args`` (frames, objects, seed, camera,
+    layout) into ``data_dir`` on ``device``; returns the host seconds."""
+    print(f"[1/3] generating {args.frames}-frame room "
+          f"({args.objects} objects, {args.width}x{args.height}) ...",
+          flush=True)
+    from vmap_tpu_torch.generate_dataset import main as gen_main
+    t0 = time.time()
+    gen_main([data_dir, "--format", args.format, "--scene", "room",
+              "--objects", str(args.objects), "--seed", str(args.seed),
+              "--frames", str(args.frames),
+              "--width", str(args.width), "--height", str(args.height),
+              "--fx", str(args.focal), "--fy", str(args.focal),
+              "--device", str(device)]
+             + (["--ply_furniture"] if args.ply_furniture else []))
+    seconds = time.time() - t0
+    print(f"  generated in {seconds:.1f}s", flush=True)
+    return seconds
+
+
 def room_config(args, data_dir: str, n_frames: int) -> dict:
     """The shipped config with the dataset path, camera, pool size, export
     cadence and the named overrides repointed at the generated sequence."""
@@ -181,19 +201,7 @@ def main(argv=None) -> dict:
 
     t0 = time.time()
     if not args.skip_generate:
-        print(f"[1/3] generating {args.frames}-frame room "
-              f"({args.objects} objects, {args.width}x{args.height}) ...",
-              flush=True)
-        from vmap_tpu_torch.generate_dataset import main as gen_main
-        gen_main([data_dir, "--format", args.format, "--scene", "room",
-                  "--objects", str(args.objects), "--seed", str(args.seed),
-                  "--frames", str(args.frames),
-                  "--width", str(args.width), "--height", str(args.height),
-                  "--fx", str(args.focal), "--fy", str(args.focal),
-                  "--device", str(device)]
-                 + (["--ply_furniture"] if args.ply_furniture else []))
-        stage_s["generate"] = time.time() - t0
-        print(f"  generated in {stage_s['generate']:.1f}s", flush=True)
+        stage_s["generate"] = generate(args, data_dir, device)
 
     share, probed = invalid_depth_share(data_dir)
     if share > MAX_INVALID_DEPTH:

@@ -37,6 +37,9 @@ import os
 import shutil
 import time
 
+# a logged frame loss above this warns as a loss explosion
+EXPLOSION_LOSS = 1e5
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
@@ -145,7 +148,7 @@ def run(argv=None, draw_source=None, timings: dict | None = None):
                     for fidx, met in pending:
                         # every rank reads: a sharded loss is a collective
                         loss = float(met.get("loss", float("nan")))
-                        if loss > 1e5 and primary:
+                        if loss > EXPLOSION_LOSS and primary:
                             print(f"WARNING: loss explosion at frame "
                                   f"{fidx}: {loss:.3e}")
                         log_f.write(json.dumps({
