@@ -258,8 +258,8 @@ bulk_hbm_132 with 8 copies in flight and bulk / cp_async / bulk_hbm with
 one, the script's ``n_live``: each kernel's ns a step or a copy and its
 library call's; ``probe_ab``).
 
-    python3 chip_smoke.py --acceptance [RUN ...] [--acceptance-budget S]
-        [--acceptance-out DIR] [room_pipeline flags]
+    python3 chip_smoke.py --acceptance [RUN ...] [--acceptance-out DIR]
+        [room_pipeline flags]
 
 runs the room protocol at its full scale in place of the phases
 (``acceptance``): the room of 1,000 frames and 40 objects at 1200 x 680
@@ -273,9 +273,8 @@ pool 512, float32 through K1) at training seeds 0 and 1, held to
 ACCEPT_LIMITS. Each run prints its objects registered, peak pool_used,
 loss explosion warnings, train_grad launches by bank, the trainer's ms
 a frame and each stage's host seconds, then its record as one JSON line.
-It exits non-zero if a run raises, yields a non-finite metric, misses a
-limit or is not started because ``--acceptance-budget`` would not hold
-it. Further flags go to the pipeline (``--device cpu --frames 11 ...``
+It exits non-zero if a run raises, yields a non-finite metric or misses
+a limit. Further flags go to the pipeline (``--device cpu --frames 11 ...``
 on the CPU).
 """
 
@@ -4004,9 +4003,6 @@ ACCEPT_RUNS = {
         False),
 }
 ACCEPT_DEFAULT = ["control", "control_seed1"]
-# the budget's guesses until a generation or a run has been timed: the
-# generation's seconds a frame, a run's seconds (train, export, evaluate)
-GEN_S_A_FRAME, RUN_S = 1.2, 600.0
 CALIBRATION_PROBES = (10, 50, 150, 399)    # calibrate_int8_scales' default
 
 
@@ -4194,16 +4190,14 @@ def acceptance_run(name: str, a, argv: list, work: str, dev, gpu: str,
     return rec
 
 
-def acceptance(names: list, extra: list, limit_over: list,
-               budget_s: float | None, work_root: str, out_dir: str) -> int:
+def acceptance(names: list, extra: list, work_root: str,
+               out_dir: str) -> int:
     """``--acceptance``: the room generated once (ACCEPT_FRAMES frames,
     ACCEPT_OBJECTS objects, 1200 x 680, seed 0, through
     ``vmap_tpu_torch.room_pipeline``; ``extra`` are further pipeline
     flags, e.g. ``--device cpu`` and a smaller size), then each run of
     ``names`` (ACCEPT_RUNS) trained and scored on it, the control's held to
-    ACCEPT_LIMITS (``limit_over``: NAME=VALUE in place of one). A run not
-    started because the budget would not hold it counts as failed. Returns
-    0 if every run ran and met its limits."""
+    ACCEPT_LIMITS. Returns 0 if every run ran and met its limits."""
     import traceback
 
     import torch
@@ -4214,11 +4208,6 @@ def acceptance(names: list, extra: list, limit_over: list,
     t_start = time.perf_counter()
     names = names or ACCEPT_DEFAULT
     limits = dict(ACCEPT_LIMITS)
-    for item in limit_over:
-        key, _, val = item.partition("=")
-        if key not in limits:
-            raise SystemExit(f"--acceptance-limit: no limit {key!r}")
-        limits[key] = (limits[key][0], float(val))
     base = ["--frames", str(ACCEPT_FRAMES), "--objects",
             str(ACCEPT_OBJECTS)]
     dev = resolve_device(rp.parse_args(base + extra).device)
@@ -4233,28 +4222,18 @@ def acceptance(names: list, extra: list, limit_over: list,
             f"{time.perf_counter() - t_start:.1f} s")
     else:
         gpu = "cpu"
-    data, records, run_s = {}, {}, []
+    data, records = {}, {}
     for name in names:
         tag, flags = ACCEPT_RUNS[name][:2]
         argv = base + flags + extra
         a = rp.parse_args(argv)
         key = dataset_key(a)
         work = os.path.join(work_root, key)
-        est = max(run_s, default=RUN_S) + (0.0 if key in data else
-                                           a.frames * GEN_S_A_FRAME)
-        elapsed = time.perf_counter() - t_start
-        if budget_s is not None and elapsed + est > budget_s:
-            log(f"[acc] {tag}: not run, {elapsed:.0f} s + about {est:.0f} "
-                f"s would pass the budget of {budget_s:.0f} s")
-            records[tag] = {"run": name, "ok": False, "faults": ["not run"]}
-            continue
         try:
             if key not in data:
                 data[key] = acceptance_data(a, work, dev)
-            t_run = time.perf_counter()
             records[tag] = acceptance_run(name, a, argv, work, dev, gpu,
                                           limits, out_dir, data[key])
-            run_s.append(time.perf_counter() - t_run)
         except Exception:
             traceback.print_exc()
             log(f"[acc] {tag}: FAILED (raised)")
@@ -4314,13 +4293,6 @@ def main(argv=None) -> int:
                     "full scale, one generation, then each RUN (default: "
                     "control control_seed1); further flags go to "
                     "vmap_tpu_torch.room_pipeline (acceptance)")
-    ap.add_argument("--acceptance-limit", action="append", default=[],
-                    metavar="NAME=VALUE",
-                    help="a control limit's value in place of "
-                    "ACCEPT_LIMITS' (repeatable)")
-    ap.add_argument("--acceptance-budget", type=float, default=None,
-                    metavar="SECONDS",
-                    help="start no run that would end after SECONDS")
     ap.add_argument("--acceptance-work",
                     default=os.path.join(OUT, "acceptance_work"),
                     help="the generations and the runs' logdirs")
@@ -4338,8 +4310,7 @@ def main(argv=None) -> int:
         return 2
     if args.acceptance is not None:
         sys.path.insert(0, REPO)
-        return acceptance(args.acceptance, extra, args.acceptance_limit,
-                          args.acceptance_budget, args.acceptance_work,
+        return acceptance(args.acceptance, extra, args.acceptance_work,
                           args.acceptance_out)
     t_start = time.perf_counter()
     import torch

@@ -27,19 +27,21 @@ REACHABLE = {"objects_ratio_5cm": 0.0, "objects_accuracy": 100.0,
 
 
 def run_mode(tmp, runs: list, limits: dict) -> tuple:
-    """The mode in a subprocess that then reports whether ``jax`` or a
-    ``vmap_tpu`` module was imported -> (completed process, records
-    directory)."""
+    """The mode in a subprocess, the control held to ``limits`` (each
+    ACCEPT_LIMITS' direction with its value here), that then reports
+    whether ``jax`` or a ``vmap_tpu`` module was imported -> (completed
+    process, records directory)."""
     out = str(tmp / "records")
     argv = (["--acceptance", *runs, "--acceptance-work", str(tmp / "work"),
-             "--acceptance-out", out]
-            + [x for k, v in limits.items()
-               for x in ("--acceptance-limit", f"{k}={v}")] + QUICK)
+             "--acceptance-out", out] + QUICK)
+    held = {k: (op, limits[k]) for k, (op, _)
+            in chip_smoke.ACCEPT_LIMITS.items()}
     code = (
         "import sys\n"
         "import torch\n"
         "torch.set_num_threads(1)   # as _torch_parity caps the workers\n"
         "import chip_smoke\n"
+        f"chip_smoke.ACCEPT_LIMITS = {held!r}\n"
         f"rc = chip_smoke.main({argv!r})\n"
         "bad = sorted(k for k in sys.modules if k in ('jax', 'vmap_tpu')\n"
         "             or k.startswith(('jax.', 'jaxlib', 'vmap_tpu.')))\n"
