@@ -37,8 +37,9 @@ import json
 import os
 import subprocess
 import sys
-import time
 from pathlib import Path
+
+import numpy as np
 
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parents[1]
@@ -60,6 +61,9 @@ RUNS = [("exact", "port", 0, None), ("exact", "jax", 0, None),
         ("tpu2", "port", 0, None), ("tpu2", "jax", 0, None),
         ("tpu7", "port", 0, None), ("tpu7", "jax", 0, None)]
 JAX_ENV = {"JAX_PLATFORMS": "cpu"}
+# one torch thread a port run: several runs side by side, each with a
+# thread a core, slowed every one more than tenfold
+PORT_ENV = {"OMP_NUM_THREADS": "1"}
 
 
 def run_name(room, package, seed, dtype):
@@ -67,24 +71,23 @@ def run_name(room, package, seed, dtype):
 
 
 def call(cmd, cwd, log, env=None):
-    t0 = time.time()
     with open(log, "w") as f:
         subprocess.run(cmd, cwd=cwd, stdout=f, stderr=subprocess.STDOUT,
                        env={**os.environ, **(env or {})}, check=True)
-    return time.time() - t0
 
 
-def generate(work: Path, room: str) -> float:
-    """Draw ``room`` into ``work/rooms/<room>/data``; return its seconds."""
+def generate(work: Path, room: str) -> None:
+    """Draw ``room`` into ``work/rooms/<room>/data``."""
     base = work / "rooms" / room
     data = base / "data"
     if (data / "traj_w_c.txt").exists():
-        return 0.0
+        return
     base.mkdir(parents=True, exist_ok=True)
     if room == "exact":
-        return call([sys.executable, "-m", "vmap_tpu_torch.generate_dataset",
-                     str(data), *GENERATE, "--device", "cpu"], REPO,
-                    base / "generate.log")
+        call([sys.executable, "-m", "vmap_tpu_torch.generate_dataset",
+              str(data), *GENERATE, "--device", "cpu"], REPO,
+             base / "generate.log")
+        return
     src = base / "src"
     src.mkdir(exist_ok=True)
     archive = subprocess.run(
@@ -93,15 +96,48 @@ def generate(work: Path, room: str) -> float:
     subprocess.run(["tar", "-x", "-C", str(src)], input=archive, check=True)
     subprocess.run(["patch", "-p1", "-i", str(HERE / PATCHES[room])],
                    cwd=src, check=True, capture_output=True)
-    return call([sys.executable, "scripts/generate_dataset.py", str(data),
-                 *GENERATE], src, base / "generate.log", JAX_ENV)
+    call([sys.executable, "scripts/generate_dataset.py", str(data),
+          *GENERATE], src, base / "generate.log", JAX_ENV)
+
+
+def room_differences(work: Path, room: str) -> dict:
+    """How far ``room``'s frames lie from the exact room's, over all
+    frames: depth (mm, as written) where both hit, and the pixels whose
+    hit or instance differs."""
+    sys.path.insert(0, str(REPO))
+    from vmap_tpu_torch.utils.png import read_png
+    rooms = work / "rooms"
+    frames = len((rooms / "exact" / "data" / "traj_w_c.txt").read_text()
+                 .splitlines())
+    d_abs, n_both, n_hit, n_inst, n_px = [], 0, 0, 0, 0
+    for i in range(frames):
+        da, db = (read_png(str(rooms / r / "data" / "depth" /
+                               f"depth_{i}.png")).astype(np.int64)
+                  for r in ("exact", room))
+        ia, ib = (read_png(str(rooms / r / "data" / "semantic_instance" /
+                               f"semantic_instance_{i}.png"))
+                  for r in ("exact", room))
+        both = (da > 0) & (db > 0)
+        d_abs.append(np.abs(da - db)[both])
+        n_both += int(both.sum())
+        n_hit += int(((da > 0) != (db > 0)).sum())
+        n_inst += int((ia != ib).sum())
+        n_px += da.size
+    d = np.concatenate(d_abs)
+    return {"frames": frames,
+            "depth_abs_mm": {"mean": float(d.mean()),
+                             "p50": float(np.percentile(d, 50)),
+                             "p99": float(np.percentile(d, 99)),
+                             "max": int(d.max())},
+            "depth_off_5mm_share": float((d > 5).sum() / n_both),
+            "hit_differs_share": n_hit / n_px,
+            "instance_differs_share": n_inst / n_px}
 
 
 def train(work: Path, room, package, seed, dtype) -> dict:
     name = run_name(room, package, seed, dtype)
     wd = work / "runs" / name
     summary = wd / f"room_study_{name}.json"
-    seconds = None
     if not summary.exists():
         wd.mkdir(parents=True, exist_ok=True)
         if not (wd / "data").exists():
@@ -113,19 +149,21 @@ def train(work: Path, room, package, seed, dtype) -> dict:
         if package == "port":
             cmd = [sys.executable, "-m", "vmap_tpu_torch.room_pipeline",
                    *flags, "--device", "cpu"]
-            env = None
+            env = PORT_ENV
         else:
             cmd = [sys.executable, "scripts/room_pipeline.py", *flags,
                    "--px_block_bg", "1"]
             env = JAX_ENV
-        seconds = call(cmd, REPO, wd / "pipeline.log", env)
+        call(cmd, REPO, wd / "pipeline.log", env)
     s = json.loads(summary.read_text())
+    per_object = json.loads(
+        (wd / f"metrics_obj_{name}.json").read_text())["per_object"]
     log = [json.loads(line) for line in
            (wd / f"run_{name}" / "train_log.jsonl").read_text().splitlines()]
     return {"room": room, "package": package, "train_seed": seed,
-            "compute_dtype": dtype or "float32", "seconds": seconds,
+            "compute_dtype": dtype or "float32", "total_s": s["total_s"],
             "object_mean": s["object_mean"], "bg": s["bg"],
-            "scene": s["scene"], "per_object": s["per_object"],
+            "scene": s["scene"], "per_object": per_object,
             "trace": {"n_objects": [r["n_objects"] for r in log],
                       "pool_used": [r["pool_used"] for r in log]}}
 
@@ -140,8 +178,7 @@ def main(argv=None):
     work = args.work.resolve()
     rooms = sorted({r[0] for r in RUNS})
     with concurrent.futures.ThreadPoolExecutor(args.jobs) as pool:
-        gen_s = dict(zip(rooms, pool.map(lambda r: generate(work, r),
-                                         rooms)))
+        list(pool.map(lambda r: generate(work, r), rooms))
         runs = dict(zip([run_name(*r) for r in RUNS],
                         pool.map(lambda r: train(work, *r), RUNS)))
     traces = {}
@@ -151,8 +188,9 @@ def main(argv=None):
             "runs": sum(1 for r in runs.values() if r["room"] == room),
             "equal_frame_by_frame": all(t == on_room[0] for t in on_room),
             "pool_peak": max(on_room[0]["pool_used"]),
-            "objects_last_frame": on_room[0]["n_objects"][-1],
-            "generate_s": gen_s[room] or None}
+            "objects_last_frame": on_room[0]["n_objects"][-1]}
+        if room != "exact":
+            traces[room]["against_exact"] = room_differences(work, room)
     study = {
         "what": __doc__.split("\n\n")[0].replace("\n", " "),
         "commands": {
